@@ -1,0 +1,184 @@
+"""Serving launcher: naive lock-step batch or continuous batching.
+
+Runs on CUDA unless ``--device cpu`` is given, and raises when CUDA is
+asked for and absent:
+
+  # naive fixed-batch greedy loop
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt-base \
+      --batch 4 --prompt-len 128 --gen 32
+
+  # continuous batching over a dense slot pool
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt-base \
+      --engine continuous --batch 16 --capacity 8 --max-len 1024
+
+  # the same on the CPU at a small size
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt-micro \
+      --engine continuous --batch 4 --gen 8 --device cpu
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.data import lm_batch
+from repro_torch.models import get_family, serve_supported
+from repro_torch.serve import POLICIES, ContinuousBatchingEngine, Request
+from repro_torch.train.steps import make_decode_step, make_prefill_step
+from repro_torch.utils.device import resolve_device
+
+# reference-package flags this slice does not port yet: name -> what it is
+UNPORTED_FLAGS = {
+    "--grow": "serve-time growth", "--grow-method": "serve-time growth",
+    "--grow-rank": "serve-time growth", "--grow-steps": "serve-time growth",
+    "--grow-cfg": "live upgrade", "--upgrade-at": "live upgrade",
+    "--upgrade-sync": "live upgrade", "--speculate": "speculative decoding",
+    "--draft": "speculative decoding", "--spec-d": "speculative decoding",
+    "--temperature": "sampling", "--top-k": "sampling", "--top-p": "sampling",
+    "--sample-seed": "sampling", "--kernel": "the kernel switch (the device "
+    "picks kernel or plain version)", "--pool": "the paged pool",
+    "--pages": "the paged pool", "--mesh": "sharded serving",
+    "--deadline": "deadlines", "--journal": "the request journal",
+    "--resume": "the request journal", "--snapshot": "engine snapshots",
+    "--faults": "fault injection",
+}
+
+
+def generate(cfg, params, prompt_tokens, *, max_new_tokens=16,
+             max_len=None, eos_id=None):
+    """prompt_tokens: (B, P) int tensor -> (B, <=max_new_tokens) greedy
+    tokens, on the prompt's device.
+
+    ``eos_id`` enables per-row early stopping: a row that emits eos is
+    frozen (later entries clamp to eos) and the loop exits as soon as
+    every row has fired.
+    """
+    fam = get_family(cfg)
+    B, P = prompt_tokens.shape
+    max_len = max_len or (P + max_new_tokens)
+    cache = fam.init_cache(cfg, B, max_len, device=prompt_tokens.device)
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+
+    logits, cache = prefill(params, {"tokens": prompt_tokens}, cache)
+    tok = logits.argmax(-1).to(torch.int32)
+    out = [tok]
+    done = None if eos_id is None else (tok == eos_id)
+    for t in range(max_new_tokens - 1):
+        if done is not None and bool(done.all()):
+            break
+        tok, cache = decode(params, tok, P + t, cache)
+        if done is not None:
+            tok = torch.where(done, eos_id, tok)  # freeze finished rows
+            done = done | (tok == eos_id)
+        out.append(tok)
+    return torch.stack(out, dim=1)
+
+
+def build_params(cfg, *, seed=0, device="cuda"):
+    """Random params for ``cfg`` on ``device``, drawn from a
+    ``torch.Generator`` seeded with ``seed``."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return get_family(cfg).init(gen, cfg)
+
+
+def require_servable(cfg):
+    ok, why = serve_supported(cfg)
+    if not ok:
+        raise SystemExit(
+            f"error: --engine continuous cannot serve {cfg.name!r}: {why}")
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
+    for arg in argv:
+        flag = arg.split("=", 1)[0]
+        if flag in UNPORTED_FLAGS:
+            raise SystemExit(f"error: {flag} ({UNPORTED_FLAGS[flag]}) is not "
+                             "ported to repro_torch yet (see ROADMAP.md)")
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--engine", default="naive",
+                    choices=["naive", "continuous"])
+    ap.add_argument("--batch", type=int, default=4,
+                    help="naive: batch size; continuous: request count")
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--capacity", type=int, default=4,
+                    help="continuous: decode slot-pool size")
+    ap.add_argument("--max-len", type=int, default=0,
+                    help="continuous: per-slot cache length (0 = auto)")
+    ap.add_argument("--k", type=int, default=8,
+                    help="continuous: macro-step length (decode tokens per "
+                         "dispatch; the host syncs once per dispatch)")
+    ap.add_argument("--policy", default="fifo", choices=list(POLICIES),
+                    help="admission policy: fifo, or spf (length-bucketed "
+                         "shortest-prefill-first)")
+    ap.add_argument("--eos-id", type=int, default=None,
+                    help="stop a sequence early when it emits this token")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="where to run (default cuda; raises without CUDA)")
+    args = ap.parse_args(argv)
+
+    dev = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.engine == "continuous":
+        require_servable(cfg)
+    elif args.policy != "fifo":
+        raise SystemExit("error: --policy requires --engine continuous")
+    params = build_params(cfg, device=dev)
+
+    if args.engine == "naive":
+        prompts = torch.from_numpy(
+            lm_batch(cfg.vocab_size, args.batch, args.prompt_len)).to(dev)
+        t0 = time.time()
+        toks = generate(cfg, params, prompts, max_new_tokens=args.gen,
+                        eos_id=args.eos_id).cpu().numpy()
+        dt = time.time() - t0
+        if args.eos_id is None:
+            n_tok = toks.size
+        else:
+            fired = toks == args.eos_id
+            n_tok = sum(int(np.argmax(r)) + 1 if r.any() else len(r)
+                        for r in fired)
+        print(f"[naive] generated {n_tok} tokens ({args.batch}x<="
+              f"{toks.shape[1]}) on {dev} in {dt:.2f}s "
+              f"({n_tok / dt:.1f} tok/s)")
+        print(toks[:2])
+        return
+
+    max_len = args.max_len or (args.prompt_len + args.gen)
+    engine = ContinuousBatchingEngine(cfg, params, capacity=args.capacity,
+                                      max_len=max_len, k=args.k,
+                                      policy=args.policy)
+    rng = np.random.default_rng(0)
+    reqs = []
+    for uid in range(args.batch):
+        plen = int(rng.integers(max(1, args.prompt_len // 2),
+                                args.prompt_len + 1))
+        prompt = lm_batch(cfg.vocab_size, 1, plen, seed=uid)[0]
+        reqs.append(Request(uid=uid, prompt=prompt,
+                            max_new_tokens=args.gen, eos_id=args.eos_id))
+    t0 = time.time()
+    out = engine.run(reqs)
+    dt = time.time() - t0
+    n_tok = sum(len(v) for v in out.values())
+    print(f"[continuous] {cfg.family}/{engine.cache_layout} (dense pool) on "
+          f"{dev} served {len(reqs)} requests / {n_tok} tokens in {dt:.2f}s "
+          f"({n_tok / dt:.1f} tok/s, {engine.n_decode_dispatches} "
+          f"macro-steps of K={args.k}, {engine.n_prefills} prefill batches, "
+          f"{engine.n_host_syncs / max(n_tok, 1):.2f} host syncs/token)")
+    if engine.rejected:
+        print(f"[continuous] rejected {len(engine.rejected)} request(s):")
+        for uid, why in sorted(engine.rejected.items()):
+            print(f"  uid {uid}: {why}")
+    for uid in sorted(out)[:2]:
+        print(uid, out[uid])
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,47 @@
+"""Model zoo: family registry.
+
+A family module exposes the same functional interface as in the reference
+package:
+  init(gen, cfg) -> params          (random, drawn from a torch.Generator)
+  forward(params, batch, cfg) -> (logits, aux)
+  init_cache / prefill / decode_step                    (decoders)
+and, to serve through ``ContinuousBatchingEngine``, the slot-state
+protocol:
+  prefill_full(params, batch, cfg, cache) -> (logits (B, S, V), cache)
+  prefill_last(params, tokens, plens, cfg, cache) -> (logits (B, V), cache)
+  decode_step_slots(params, tokens, positions, cache, cfg, done=None)
+  serve_supported(cfg) -> (ok, detail)
+Only the transformer family is ported so far.
+"""
+from __future__ import annotations
+
+import importlib
+
+_FAMILIES = {
+    "transformer": "repro_torch.models.transformer",
+}
+
+
+def get_family(cfg_or_name):
+    name = getattr(cfg_or_name, "family", cfg_or_name)
+    if name not in _FAMILIES:
+        raise NotImplementedError(
+            f"family {name!r} is not ported to repro_torch yet (see "
+            "ROADMAP.md)")
+    return importlib.import_module(_FAMILIES[name])
+
+
+def serve_supported(cfg):
+    """Capability probe: can ``ContinuousBatchingEngine`` serve this
+    config?  Returns (ok, detail)."""
+    if cfg.family not in _FAMILIES:
+        return False, (f"family {cfg.family!r} is not ported to "
+                       "repro_torch yet (see ROADMAP.md)")
+    return get_family(cfg).serve_supported(cfg)
+
+
+def slot_cache_layout(cfg):
+    """Short layout tag for telemetry: how a serve slot stores its state."""
+    if cfg.family not in _FAMILIES:
+        return "unsupported"
+    return get_family(cfg).slot_cache_layout(cfg)

@@ -1,0 +1,344 @@
+"""Transformer family, ported for dense decoder LMs with learned positions.
+
+Covers the paper's GPT/BERT/DeiT configs: LayerNorm or RMSNorm, GELU or
+gated MLPs, learned absolute positions, MHA or GQA attention, separate or
+tied LM head.  Params are nested dicts stacked over a leading layer axis,
+as in the reference package.  Configs with MLA, MoE, a sliding window,
+RoPE or an MTP head raise ``NotImplementedError`` (ROADMAP.md lists the
+slices that bring them).
+
+Two call sites reach the hand-written kernels through ``kernels.ops``,
+which picks kernel or plain version by the tensor's device:
+  * causal cached prefill at ``q_offset == 0`` -> ``ops.flash_attention``
+    (the kernel masks ragged tiles, so every prefill length takes it);
+  * continuous-batching slot decode -> ``ops.slot_decode_attention``.
+Caches are updated in place (the reference package returns new buffers,
+which XLA aliases through donation); the returned cache is the same dict.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.models import attention as attn_lib
+from repro_torch.models import ffn as ffn_lib
+from repro_torch.models.common import (
+    apply_norm,
+    init_norm,
+    pad_cache_len,
+    rms_norm,
+    take_layer,
+    trunc_normal,
+)
+
+
+def _unported(cfg):
+    """The reason this config is outside the ported slice, or None."""
+    if cfg.family != "transformer":
+        return f"family {cfg.family!r}"
+    for flag, what in ((cfg.mla, "MLA attention"), (cfg.moe, "MoE layers"),
+                       (cfg.window, "sliding-window attention"),
+                       (cfg.mtp, "the MTP head"),
+                       (cfg.rope != "none", f"RoPE ({cfg.rope})")):
+        if flag:
+            return what
+    return None
+
+
+def _require_ported(cfg):
+    why = _unported(cfg)
+    if why is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: {why} is not ported to repro_torch yet (see "
+            "ROADMAP.md, queue 1, for the slice that brings it)")
+
+
+# =============================================================== param init
+def _attn_init(gen, cfg, layers, dtype, std):
+    D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    zeros = dict(dtype=dtype, device=gen.device)
+    p = {
+        "wq": trunc_normal(gen, (layers, D, H * hd), std, dtype),
+        "wk": trunc_normal(gen, (layers, D, KV * hd), std, dtype),
+        "wv": trunc_normal(gen, (layers, D, KV * hd), std, dtype),
+        "wo": trunc_normal(gen, (layers, H * hd, D), std, dtype),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((layers, H * hd), **zeros)
+        p["bk"] = torch.zeros((layers, KV * hd), **zeros)
+        p["bv"] = torch.zeros((layers, KV * hd), **zeros)
+    if cfg.attn_out_bias:
+        p["bo"] = torch.zeros((layers, D), **zeros)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((layers, hd), **zeros)
+        p["k_norm"] = torch.ones((layers, hd), **zeros)
+    return p
+
+
+def init(gen: torch.Generator, cfg) -> dict:
+    """Random params on ``gen``'s device, drawn from ``gen``."""
+    _require_ported(cfg)
+    dtype = getattr(torch, cfg.param_dtype)
+    std = 0.02
+    D = cfg.d_model
+    params = {}
+    if cfg.continuous_inputs:
+        params["in_proj"] = trunc_normal(gen, (cfg.continuous_inputs, D),
+                                         std, dtype)
+    else:
+        params["embed"] = trunc_normal(gen, (cfg.vocab_size, D), std, dtype)
+    if cfg.learned_pos:
+        params["pos_embed"] = trunc_normal(gen, (cfg.learned_pos, D), std,
+                                           dtype)
+    L = cfg.n_layers
+    params["dense_blocks"] = {
+        "ln1": init_norm(cfg.norm, D, L, dtype, gen.device),
+        "ln2": init_norm(cfg.norm, D, L, dtype, gen.device),
+        "attn": _attn_init(gen, cfg, L, dtype, std),
+        "mlp": ffn_lib.init_mlp(gen, D, cfg.d_ff, layers=L, act=cfg.act,
+                                bias=cfg.mlp_bias, dtype=dtype, std=std),
+    }
+    params["final_norm"] = init_norm(cfg.norm, D, None, dtype, gen.device)
+    if cfg.head == "lm" and not cfg.tie_embeddings:
+        params["head"] = trunc_normal(gen, (D, cfg.vocab_size), std, dtype)
+    elif cfg.head == "cls":
+        params["cls_token"] = trunc_normal(gen, (D,), std, dtype)
+        params["head"] = trunc_normal(gen, (D, cfg.n_classes), std, dtype)
+    return params
+
+
+# ============================================================ forward pieces
+def _slot_kv_len(slot_positions, slot_done):
+    """Per-row valid cache length for the slot-decode path; finished or
+    idle rows (``slot_done``) get 0, so the kernel skips their reads."""
+    kv = slot_positions + 1
+    if slot_done is None:
+        return kv
+    return torch.where(slot_done, 0, kv)
+
+
+def _attn_forward(x, p, cfg, *, cache=None, q_offset=0, slot_positions=None,
+                  slot_kv_len=None):
+    """Returns (out, cache). x: (B,S,D).
+
+    ``slot_positions`` (B,) switches to the continuous-batching decode
+    path: S is 1, each row is an independent cache slot at its own length;
+    the new K/V is written to ``cache[b, slot_positions[b]]`` and attention
+    reads each row up to ``slot_kv_len[b]`` (0 for finished/idle rows).
+    Finished rows write too: their position is past their last valid
+    entry, so the write is never read before the slot is evicted.
+    """
+    B, S, D = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    cdt = x.dtype
+    q = x @ p["wq"].to(cdt)
+    k = x @ p["wk"].to(cdt)
+    v = x @ p["wv"].to(cdt)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(cdt)
+        k = k + p["bk"].to(cdt)
+        v = v + p["bv"].to(cdt)
+    q = q.reshape(B, S, H, hd)
+    k = k.reshape(B, S, KV, hd)
+    v = v.reshape(B, S, KV, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"])
+        k = rms_norm(k, p["k_norm"])
+
+    if slot_positions is not None:
+        ck, cv = cache["k"], cache["v"]
+        rows = torch.arange(B, device=x.device)
+        ck[rows, slot_positions] = k[:, 0].to(ck.dtype)
+        cv[rows, slot_positions] = v[:, 0].to(cv.dtype)
+        out = ops.slot_decode_attention(q[:, 0], ck.to(cdt), cv.to(cdt),
+                                        slot_kv_len)[:, None]
+        return _attn_out(out, p, cfg, cdt), cache
+    kv_len = None
+    if cache is not None:
+        ck, cv = cache["k"], cache["v"]
+        ck[:, q_offset:q_offset + S] = k.to(ck.dtype)
+        cv[:, q_offset:q_offset + S] = v.to(cv.dtype)
+        k, v = ck.to(cdt), cv.to(cdt)
+        kv_len = q_offset + S
+        if S > 1 and cfg.causal and q_offset == 0:
+            # Cached prefill from position 0: causal flash attention over
+            # exactly the S in-flight positions (kv_len == S masks nothing
+            # beyond the causal band).  K/V are read back from the cache
+            # so cache-dtype rounding matches the plain route.  Admission
+            # rows padded past their prompt compute too, but stay unread.
+            of = ops.flash_attention(q.transpose(1, 2),
+                                     k[:, :S].transpose(1, 2),
+                                     v[:, :S].transpose(1, 2), causal=True)
+            return _attn_out(of.transpose(1, 2), p, cfg, cdt), cache
+    out = attn_lib.attention(q, k, v, causal=cfg.causal, q_offset=q_offset,
+                             kv_len=kv_len, chunk_q=cfg.attn_chunk)
+    return _attn_out(out, p, cfg, cdt), cache
+
+
+def _attn_out(out, p, cfg, cdt):
+    B, S = out.shape[:2]
+    y = out.reshape(B, S, -1) @ p["wo"].to(cdt)
+    if cfg.attn_out_bias:
+        y = y + p["bo"].to(cdt)
+    return y
+
+
+def _block(x, bp, cfg, **attn_kw):
+    h, cache = _attn_forward(apply_norm(x, bp["ln1"], cfg.norm), bp["attn"],
+                             cfg, **attn_kw)
+    x = x + h
+    x = x + ffn_lib.mlp(apply_norm(x, bp["ln2"], cfg.norm), bp["mlp"],
+                        cfg.act)
+    return x, cache
+
+
+def _run_layers(x, params, cfg, cache=None, **attn_kw):
+    """The block stack as a Python loop over the stacked layer axis; layer
+    ``i`` reads and writes ``cache[...][i]`` views in place."""
+    group = params["dense_blocks"]
+    for i in range(cfg.n_layers):
+        layer_cache = None if cache is None else {
+            "k": cache["dense"]["k"][i], "v": cache["dense"]["v"][i]}
+        x, _ = _block(x, take_layer(group, i), cfg, cache=layer_cache,
+                      **attn_kw)
+    return apply_norm(x, params["final_norm"], cfg.norm)
+
+
+# ================================================================== forward
+def embed_inputs(params, batch, cfg):
+    cdt = getattr(torch, cfg.compute_dtype)
+    if cfg.continuous_inputs:
+        x = batch["inputs"].to(cdt) @ params["in_proj"].to(cdt)
+    else:
+        x = params["embed"].to(cdt)[batch["tokens"].long()]
+    if cfg.scale_embeddings:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cdt)
+    if cfg.head == "cls":
+        cls = params["cls_token"].to(cdt).expand(x.shape[0], 1, x.shape[-1])
+        x = torch.cat([cls, x], dim=1)
+    S = x.shape[1]
+    if cfg.learned_pos:
+        pos = batch.get("positions")
+        if pos is None or pos.dim() != 2:
+            pos = torch.arange(S, device=x.device)[None, :]
+        # out-of-range positions clamp, as the reference's gather does
+        pos = pos.long().clamp(0, cfg.learned_pos - 1)
+        x = x + params["pos_embed"].to(cdt)[pos]
+    return x
+
+
+def forward(params, batch, cfg):
+    """Full forward, plain attention throughout.
+    batch: {"tokens": (B,S)} or {"inputs": (B,S,Din)}.
+    Returns (logits, aux) with aux = {"moe_aux": 0.0}."""
+    _require_ported(cfg)
+    x = _run_layers(embed_inputs(params, batch, cfg), params, cfg)
+    return _head(params, x, cfg), {"moe_aux": 0.0}
+
+
+def _head(params, x, cfg):
+    cdt = x.dtype
+    if cfg.head == "none":
+        return x
+    if cfg.head == "cls":
+        return x[:, 0] @ params["head"].to(cdt)
+    w = params["embed"].T if cfg.tie_embeddings else params["head"]
+    return x @ w.to(cdt)
+
+
+# ============================================================== serve (KV)
+def init_cache(cfg, batch_size, max_len, dtype=None, device="cpu"):
+    """{"dense": {"k", "v": (L, B, pad_cache_len(max_len), KV, hd)}} zeros.
+    The cache axis keeps the reference pool's padding; the padded tail is
+    masked by each row's valid length."""
+    _require_ported(cfg)
+    dtype = dtype or getattr(torch, cfg.compute_dtype)
+    shape = (cfg.n_layers, batch_size, pad_cache_len(max_len),
+             cfg.n_kv_heads, cfg.head_dim)
+    return {"dense": {"k": torch.zeros(shape, dtype=dtype, device=device),
+                      "v": torch.zeros(shape, dtype=dtype, device=device)}}
+
+
+def _forward_cached(params, batch, cfg, cache, q_offset, at=None):
+    """Cached forward from ``q_offset``.  ``at`` (B,) picks one position
+    per row whose logits are returned as (B, V); None returns (B, S, V)."""
+    _require_ported(cfg)
+    x = _run_layers(embed_inputs(params, batch, cfg), params, cfg,
+                    cache=cache, q_offset=q_offset)
+    if at is not None:
+        x = x[torch.arange(x.shape[0], device=x.device), at]
+    return _head(params, x, cfg), cache
+
+
+def prefill(params, batch, cfg, cache):
+    """Run the prompt through the model, filling the cache in place.
+    Returns (last-position logits (B, V), cache)."""
+    B, S = batch["tokens"].shape
+    last = torch.full((B,), S - 1, dtype=torch.long,
+                      device=batch["tokens"].device)
+    return _forward_cached(params, batch, cfg, cache, 0, at=last)
+
+
+def decode_step(params, tokens, pos, cache, cfg):
+    """One decode step. tokens: (B,) int; pos: int (current length).
+    Returns (logits (B, V), cache)."""
+    batch = {"tokens": tokens[:, None]}
+    if cfg.learned_pos:
+        # absolute learned positions track the decode offset
+        batch["positions"] = torch.full((tokens.shape[0], 1), pos,
+                                        dtype=torch.long,
+                                        device=tokens.device)
+    logits, cache = _forward_cached(params, batch, cfg, cache, pos)
+    return logits[:, -1], cache
+
+
+def prefill_full(params, batch, cfg, cache):
+    """Prefill returning logits at EVERY prompt position: (B, S, V).
+    ``batch["plens"]`` (true prompt lengths of bucket-padded rows) is
+    accepted and ignored: full caches hide the pad tail behind each row's
+    valid length."""
+    batch = {k: v for k, v in batch.items() if k != "plens"}
+    return _forward_cached(params, batch, cfg, cache, 0)
+
+
+def prefill_last(params, tokens, plens, cfg, cache):
+    """Admission prefill: logits only at each row's true last prompt
+    position, (B, V) -- the rows ``prefill_full`` would be gathered at,
+    without the (B, S, V) logits tensor."""
+    return _forward_cached(params, {"tokens": tokens}, cfg, cache, 0,
+                           at=plens.long() - 1)
+
+
+def decode_step_slots(params, tokens, positions, cache, cfg, done=None):
+    """Continuous-batching decode: one token per slot at per-slot lengths.
+
+    tokens: (B,) -- each slot's last token; positions: (B,) -- each slot's
+    current length (this step's write position); done: optional (B,) bool
+    -- finished/idle rows attend with kv_len == 0 (exact-zero attention).
+    Returns (logits (B, V), cache) with the cache updated in place.
+    """
+    _require_ported(cfg)
+    batch = {"tokens": tokens[:, None], "positions": positions[:, None]}
+    x = _run_layers(embed_inputs(params, batch, cfg), params, cfg,
+                    cache=cache, slot_positions=positions.long(),
+                    slot_kv_len=_slot_kv_len(positions, done).to(torch.int32))
+    return _head(params, x, cfg)[:, -1], cache
+
+
+def serve_supported(cfg):
+    """Capability probe for the continuous-batching slot protocol.
+    Returns (ok, detail): the slot cache layout, or why not."""
+    if not cfg.causal or cfg.continuous_inputs:
+        return False, ("requires a causal token LM "
+                       f"(causal={cfg.causal}, "
+                       f"continuous_inputs={cfg.continuous_inputs})")
+    why = _unported(cfg)
+    if why is not None:
+        return False, (f"{why} is not ported to repro_torch yet (see "
+                       "ROADMAP.md)")
+    return True, "full KV cache (O(max_len) per slot)"
+
+
+def slot_cache_layout(cfg):
+    """Slot-pool layout tag for telemetry."""
+    return "full" if serve_supported(cfg)[0] else "unsupported"

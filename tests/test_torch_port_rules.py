@@ -1,0 +1,122 @@
+"""Rules the port keeps: it imports neither JAX nor the JAX package, and
+its entry points run on CUDA unless asked for the CPU, raising when CUDA
+is missing instead of quietly running elsewhere."""
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import jax  # noqa: F401  (both frameworks in one process, JAX on the CPU)
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.launch import serve as launch_serve
+from repro_torch.utils.device import resolve_device
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_modules(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield node.args[0].value
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_port_imports_neither_jax_nor_repro(path):
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_port_tree_is_what_the_rule_walks():
+    assert len(PORT_FILES) > 15
+    assert ROOT / "src/repro_torch/serve/engine.py" in PORT_FILES
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_device_choice_raises_without_cuda(no_cuda):
+    with pytest.raises(RuntimeError, match="CUDA was requested"):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="CUDA was requested"):
+        resolve_device()  # the default is CUDA
+    assert resolve_device("cpu").type == "cpu"
+    with pytest.raises(ValueError, match="unsupported device"):
+        resolve_device("meta")
+
+
+def test_entry_points_need_cuda_unless_asked_for_cpu(no_cuda, capsys):
+    cfg = get_config("gpt-micro")
+    with pytest.raises(RuntimeError, match="CUDA was requested"):
+        launch_serve.build_params(cfg)
+    with pytest.raises(RuntimeError, match="CUDA was requested"):
+        launch_serve.main(["--arch", "gpt-micro"])
+    params = launch_serve.build_params(cfg, device="cpu")
+    assert params["embed"].device.type == "cpu"
+    launch_serve.main(["--arch", "gpt-micro", "--engine", "continuous",
+                       "--batch", "3", "--prompt-len", "8", "--gen", "3",
+                       "--capacity", "2", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "served 3 requests / 9 tokens" in out and "on cpu" in out
+
+
+@pytest.mark.parametrize("argv,flag", [
+    (["--grow", "gpt-micro"], "--grow"), (["--speculate"], "--speculate"),
+    (["--temperature=0.7"], "--temperature"), (["--pool", "paged"], "--pool"),
+    (["--journal", "j.jsonl"], "--journal"), (["--mesh", "1x2"], "--mesh"),
+])
+def test_unported_flags_exit_with_a_named_error(argv, flag):
+    with pytest.raises(SystemExit, match=f"error: {flag} .*not ported"):
+        launch_serve.main(["--arch", "gpt-micro", "--engine", "continuous",
+                           "--device", "cpu", *argv])
+
+
+def test_naive_engine_runs_on_cpu(capsys):
+    launch_serve.main(["--arch", "gpt-micro", "--batch", "2",
+                       "--prompt-len", "5", "--gen", "3", "--device", "cpu"])
+    assert "[naive] generated 6 tokens" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("where", ["checkout", "alone"])
+def test_chip_smoke_fails_without_cuda_and_prints_no_result(where, tmp_path):
+    """Without a card (``CUDA_VISIBLE_DEVICES`` empty), or with nothing of
+    the repo beside it, ``chip_smoke.py`` exits non-zero before any result
+    line."""
+    script = ROOT / "chip_smoke.py"
+    if where == "alone":
+        script = Path(shutil.copy(script, tmp_path / "chip_smoke.py"))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    r = subprocess.run([sys.executable, str(script)], cwd=script.parent,
+                       env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout and '"kernels"' not in r.stdout
+    assert "CUDA" in r.stderr
+
+
+def test_generate_returns_the_prompt_device_and_int32():
+    cfg = get_config("gpt-micro")
+    params = launch_serve.build_params(cfg, seed=1, device="cpu")
+    prompts = torch.from_numpy(np.arange(12, dtype=np.int32).reshape(2, 6))
+    toks = launch_serve.generate(cfg, params, prompts, max_new_tokens=4)
+    assert toks.shape == (2, 4) and toks.dtype == torch.int32
+    assert toks.device.type == "cpu"
