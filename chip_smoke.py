@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""GPU smoke run of the PyTorch/CUDA port's serving path (``repro_torch``).
+"""GPU smoke run of the PyTorch/CUDA port (``repro_torch``): serving, and
+the paper's growth and training loop.
 
     python3 chip_smoke.py [--out report.json]
 
@@ -11,9 +12,11 @@ printed as it goes; a failed phase raises, so the exit code is not 0:
   2. build   -- compile every CUDA kernel of the path from ``src/`` (one
                 nvcc per source, all started together);
   3. kernels -- each kernel against its plain PyTorch version on the card
-                at gpt-base's serving shapes plus GQA and bfloat16 cases,
-                then CUDA-event times of kernel, plain version and one
-                PyTorch library call beside the kernel's bound;
+                at the main paths' shapes (gpt-base serving, gpt-small ->
+                gpt-base growth) plus GQA, bfloat16 and ragged cases (the
+                sandwich's gradients too), then CUDA-event times of kernel,
+                plain version and one PyTorch library call beside the
+                kernel's bound;
   4. serve   -- full-width gpt-base (12 x 768, vocab 50257, random weights
                 from a seeded generator) through the continuous-batching
                 engine: capacity 8, max_len 1024, K 8, 16 requests of
@@ -23,8 +26,17 @@ printed as it goes; a failed phase raises, so the exit code is not 0:
                 route's (a full forward per step, which runs no kernel of
                 the port) except where its top-2 logit gap is below 1e-4
                 (an f32 near tie, reported).
+  5. grow    -- the paper's loop at full width: pretrain gpt-small (12 x
+                512), train the rank-1 Mango operator into gpt-base (Eq. 7;
+                the sandwich kernel must launch every step), grow and hold
+                the contraction against its one-einsum reference, check
+                that the grown gpt-base's loss is below a scratch one's,
+                train it a few steps, serve it (tokens == the plain route),
+                and run the train launcher once with ``--grow-from``.
 
-The line before the last is the kernels JSON; the last line is
+Each path's launch counters are set to 0 just before it runs and read just
+after; a kernel of the path that was never launched fails the run.  The
+line before the last is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
 beside this file, it exits non-zero and prints no result.
 """
@@ -148,6 +160,57 @@ def slot_cases(gen):
     return out
 
 
+def sandwich_cases(gen):
+    """(label, x, a_i, a_o) at the growth path's shape first (gpt-small ->
+    gpt-base: 12 slots x 12 layers, 512 -> 768).  x ~ N(0, 1) and the
+    operators are scaled by 1/sqrt(fan-in), so |Y| ~ 1."""
+    import torch
+
+    out = []
+    for label, N, d1i, d1o, d2i, d2o, dt in (
+            ("gpt-small->gpt-base f32", 144, 512, 512, 768, 768,
+             torch.float32),
+            ("gpt-small->gpt-base bf16", 144, 512, 512, 768, 768,
+             torch.bfloat16),
+            ("ragged f32", 3, 50, 70, 100, 36, torch.float32),
+            ("non-square bf16", 7, 256, 384, 640, 96, torch.bfloat16)):
+        def rnd(*s, scale=1.0):
+            return (scale * torch.randn(*s, generator=gen,
+                                        device="cuda")).to(dt)
+        out.append((label, rnd(N, d1i, d1o), rnd(d1i, d2i, scale=d1i ** -0.5),
+                    rnd(d1o, d2o, scale=d1o ** -0.5)))
+    return out
+
+
+def check_sandwich_grads(label, x, a_i, a_o, dname):
+    """``ops.TrSandwich``'s gradients (forward and dX through the kernel)
+    against autograd of the plain version, relative to each gradient's
+    largest entry: 1e-5 in f32 (summation order), 1e-2 in bf16 (one
+    rounding of the output and of dX)."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    dy = torch.randn(x.shape[0], a_i.shape[1], a_o.shape[1], device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(2)
+                     ).to(x.dtype)
+
+    def grads(fn):
+        ins = [t.detach().clone().requires_grad_(True) for t in (x, a_i, a_o)]
+        return torch.autograd.grad(fn(*ins), ins, dy)
+
+    got, want = grads(ops.tr_sandwich), grads(ref.tr_sandwich_ref)
+    torch.cuda.synchronize()
+    rel = max(float((g.float() - w.float()).abs().max()
+                    / w.float().abs().max()) for g, w in zip(got, want))
+    limit = 1e-5 if dname == "float32" else 1e-2
+    if not rel <= limit:
+        raise AssertionError(f"tr_sandwich [{label}]: gradients disagree "
+                             f"with autograd of the plain version (max "
+                             f"relative err {rel:.3g} > {limit})")
+    return rel
+
+
 def run_kernels():
     """Phase 3: every kernel against its plain version, then timings at
     the main-path shape (the first case of each kernel)."""
@@ -241,6 +304,40 @@ def run_kernels():
             library_ms=time_ms(cycled(lib), 10 * L),
             shape=(f"q{tuple(q.shape)} pool{tuple(kp.shape[1:])} {dname} "
                    f"kv_len {kvl.tolist()}"))
+    from repro_torch.kernels import tr_sandwich
+
+    sw = tr_sandwich.tr_sandwich
+    for i, (label, x, a_i, a_o) in enumerate(sandwich_cases(gen)):
+        dname = str(x.dtype).split(".")[1]
+        got = sw(x, a_i, a_o)
+        torch.cuda.synchronize()
+        err = check_close(f"tr_sandwich [{label}]", got,
+                          ref.tr_sandwich_ref(x, a_i, a_o), dname)
+        grad_rel = check_sandwich_grads(label, x, a_i, a_o, dname)
+        print(f"tr_sandwich [{label}] x{tuple(x.shape)} a_i"
+              f"{tuple(a_i.shape)} a_o{tuple(a_o.shape)}: max abs err "
+              f"{err:.3g}; grads max relative err {grad_rel:.3g}",
+              flush=True)
+        if i:
+            continue
+        N, d1i, d1o = x.shape
+        d2i, d2o = a_i.shape[1], a_o.shape[1]
+        b_ms, b_by = bound_ms(
+            (N * d1i * d1o + d1i * d2i + d1o * d2o + N * d2i * d2o)
+            * x.element_size(),
+            2 * N * (d1i * d1o * d2o + d1i * d2i * d2o), dname)
+        rows["tr_sandwich"] = dict(
+            name="tr_sandwich", route="cuda",
+            source="src/repro_torch/kernels/csrc/tr_sandwich.cu",
+            replaces="src/repro/kernels/tr_sandwich.py:41",
+            max_abs_err=err, grad_max_rel_err=grad_rel,
+            ms=time_ms(lambda: sw(x, a_i, a_o), 10),
+            plain_ms=time_ms(lambda: ref.tr_sandwich_ref(x, a_i, a_o), 5),
+            bound_ms=b_ms, bound_by=b_by,
+            # yardstick only: two cuBLAS products, T to device memory
+            library_ms=time_ms(
+                lambda: torch.matmul(a_i.mT, torch.matmul(x, a_o)), 10),
+            shape=f"x{tuple(x.shape)} -> ({N}, {d2i}, {d2o}) {dname}")
     for r in rows.values():
         print(f"time {r['name']} [{r['shape']}]: kernel {r['ms']:.4f} ms, "
               f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} "
@@ -324,6 +421,7 @@ def run_serve(kernel_rows):
     # of the measured run
     engine().run([Request(uid=0, prompt=reqs[0].prompt, max_new_tokens=9)])
     kern = ops.kernels()
+    path = ("flash_attention", "slot_decode_attention")
     eng = engine()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -335,17 +433,19 @@ def run_serve(kernel_rows):
     launches = {name: fn.launches for name, fn in kern.items()}
     peak = torch.cuda.max_memory_allocated()
     n_tok = sum(len(v) for v in out.values())
+    if launches["tr_sandwich"]:
+        raise AssertionError("serving launched the growth kernel")
     print(f"served {len(out)} requests / {n_tok} tokens in {dt:.3f} s: "
           f"{n_tok / dt:.1f} tok/s, {eng.n_host_syncs / n_tok:.4f} host "
           f"syncs/token ({eng.n_host_syncs} syncs, "
           f"{eng.n_decode_dispatches} macro-steps, {eng.n_prefills} "
           f"prefill batches), peak memory {peak / 2**20:.1f} MiB; "
           f"kernel launches {launches}", flush=True)
-    for name, n in launches.items():
-        if n == 0:
-            raise AssertionError(f"{name} was never launched on the main "
+    for name in path:
+        if launches[name] == 0:
+            raise AssertionError(f"{name} was never launched on the serving "
                                  "path")
-        kernel_rows[name]["launches"] = n
+        kernel_rows[name]["launches"] = launches[name]
     if set(out) != {r.uid for r in reqs} or eng.rejected:
         raise AssertionError(f"requests missing or rejected: {eng.rejected}")
     # the reference is the plain route alone: no kernel of the port runs
@@ -380,6 +480,53 @@ def run_serve(kernel_rows):
     return report
 
 
+def device_busy_and_top(dev, n_top):
+    """Device busy time (us; the union of the device events' intervals)
+    and the ``n_top`` device ops by summed time: [(name, (calls, us))]."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
+    busy, end = 0.0, float("-inf")
+    for s0, s1 in spans:
+        busy += max(0.0, s1 - max(s0, end))
+        end = max(end, s1)
+    by_name = {}
+    for e in dev:
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
+    return busy, sorted(by_name.items(), key=lambda kv: -kv[1][1])[:n_top]
+
+
+def profile_step(label, fn):
+    """One call of ``fn`` under torch.profiler: device busy time, idle
+    share of the traced wall time, and the 8 device ops that take most of
+    it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy, top = device_busy_and_top(dev, 8)
+    report = dict(traced_wall_ms=wall * 1e3, device_busy_ms=busy / 1e3,
+                  device_idle_share_traced=1 - busy / 1e6 / wall,
+                  device_ops=len(dev),
+                  top_device_ops=[dict(name=n[:90], calls=c, ms=t / 1e3)
+                                  for n, (c, t) in top])
+    print(f"profile {label}: device busy {busy / 1e3:.1f} ms of the traced "
+          f"{wall * 1e3:.1f} ms (idle share "
+          f"{report['device_idle_share_traced']:.3f}), {len(dev)} device "
+          "ops", flush=True)
+    for r in report["top_device_ops"]:
+        print(f"profile {label} device op {r['ms']:8.3f} ms {r['calls']:5d}x "
+              f"{r['name']}", flush=True)
+    return out, report
+
+
 def profile_serve(make_engine, reqs, untraced_wall):
     """A second, traced run of the same requests under torch.profiler:
     device busy time, host time per engine stage, and the kernels that
@@ -412,16 +559,7 @@ def profile_serve(make_engine, reqs, untraced_wall):
     dev = [e for e in events if e.device_type == DeviceType.CUDA
            and not getattr(e, "is_user_annotation", False)
            and e.name not in tags]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
-    busy, end = 0.0, float("-inf")
-    for s0, s1 in spans:  # length of the union of device intervals (us)
-        busy += max(0.0, s1 - max(s0, end))
-        end = max(end, s1)
-    by_name = {}
-    for e in dev:
-        n, t = by_name.get(e.name, (0, 0.0))
-        by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    busy, top = device_busy_and_top(dev, 12)
     stage_rows = {t: dict(calls=0, host_ms=0.0, device_span_ms=0.0)
                   for t in sorted(tags)}
     for e in events:
@@ -452,6 +590,208 @@ def profile_serve(make_engine, reqs, untraced_wall):
     for r in report["top_device_ops"]:
         print(f"profile device op {r['ms']:9.3f} ms {r['calls']:6d}x "
               f"{r['name']}", flush=True)
+    return report
+
+
+GROW_DATA_VOCAB = 1024  # phase 5's chain runs over the first 1024 token ids
+GROW_BATCH, GROW_SEQ = 8, 256
+
+
+def _synced_ms(t0):
+    import torch
+
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def run_grow(kernel_rows):
+    """Phase 5: the paper's loop at full width, gpt-small -> gpt-base.
+
+    The synthetic chain draws its tokens from the first 1024 ids of the
+    50257-word vocabulary, so that a few tens of pretraining steps teach
+    gpt-small something growth can carry over (over the full vocabulary
+    each id would be seen about once)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import grow as growlib
+    from repro_torch.core import mango, packing
+    from repro_torch.data import lm_batch, lm_data_iter
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.serve import build_params
+    from repro_torch.models import get_family
+    from repro_torch.optim import OptimizerConfig, make_optimizer
+    from repro_torch.serve import ContinuousBatchingEngine, Request
+    from repro_torch.train.steps import (
+        make_eval_step,
+        make_grow_step,
+        make_train_step,
+    )
+
+    cfg_s, cfg_t = get_config("gpt-small"), get_config("gpt-base")
+    tokens_per_step = GROW_BATCH * GROW_SEQ
+
+    def data(seed):
+        for b in lm_data_iter(GROW_DATA_VOCAB, GROW_BATCH, GROW_SEQ,
+                              seed=seed):
+            yield {k: torch.from_numpy(v).cuda() for k, v in b.items()}
+
+    kern = ops.kernels()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kern.values():
+        fn.launches = 0
+    report = {}
+
+    # 1. pretrain the source
+    small = build_params(cfg_s, seed=0, device="cuda")
+    opt = OptimizerConfig(lr=1e-3)
+    init_fn, _ = make_optimizer(opt)
+    state, step = init_fn(small), make_train_step(cfg_s, opt)
+    it = data(seed=0)
+    n_pre = 40
+    small, state, m = step(small, state, next(it), 1)  # first-use costs
+    t0 = time.perf_counter()
+    for s_ in range(1, n_pre):
+        small, state, m = step(small, state, next(it), s_ + 1)
+    report["pretrain_ms_per_step"] = _synced_ms(t0) / (n_pre - 1)
+    report["pretrain_final_loss"] = float(m["loss"])
+    print(f"pretrain gpt-small: {n_pre} steps of {GROW_BATCH}x{GROW_SEQ} "
+          f"tokens, loss {report['pretrain_final_loss']:.4f}, "
+          f"{report['pretrain_ms_per_step']:.1f} ms/step", flush=True)
+
+    # 2. operator training (Eq. 7), the sandwich launching every step
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    gop, op_params = growlib.build("mango", cfg_s, cfg_t, rank=1, gen=gen)
+    dims = gop.op.dims("dense_blocks")
+    gstep = make_grow_step(gop, cfg_t, OptimizerConfig(lr=1e-3))
+    ostate = make_optimizer(OptimizerConfig(lr=1e-3))[0](op_params)
+    it = data(seed=3)
+    n_op, losses, step_ms = 10, [], []
+    for s_ in range(n_op):
+        before = kern["tr_sandwich"].launches
+        t0 = time.perf_counter()
+        op_params, ostate, m = gstep(op_params, ostate, small, next(it),
+                                     s_ + 1)
+        step_ms.append(_synced_ms(t0))
+        if kern["tr_sandwich"].launches == before:
+            raise AssertionError(f"operator step {s_} did not launch the "
+                                 "tr_sandwich kernel")
+        losses.append(float(m["loss"]))
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"operator training loss not finite: {losses}")
+    report["operator_ms_per_step"] = float(np.mean(step_ms[1:]))
+    report["operator_losses"] = losses
+    print(f"operator training (rank-1 Mango, {dims}): {n_op} steps, loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}, "
+          f"{report['operator_ms_per_step']:.1f} ms/step after the first "
+          f"({step_ms[0]:.1f} ms)", flush=True)
+    (op_params, ostate, _), report["operator_step_profile"] = profile_step(
+        "operator step", lambda: gstep(op_params, ostate, small, next(it),
+                                       n_op + 1))
+
+    # 3. grow, and hold the contraction against the one-einsum reference
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        big = growlib.grow_params(gop, op_params, small)
+        report["grow_params_ms"] = _synced_ms(t0)
+        g = gop.op.plan_src.groups[0]
+        M1 = packing.pack_group(g, small[g.name], cfg_s.d_model)
+        cores = op_params["groups"][g.name]
+        got = mango.contract(M1, cores)
+        want = mango.contract_reference(M1, cores)
+        rel = float((got - want).abs().max() / want.abs().max())
+    # f32 on both sides, the same products summed in other orders: within
+    # 1e-5 of the largest entry
+    if not rel <= 1e-5:
+        raise AssertionError(f"contract (sandwich route) disagrees with "
+                             f"contract_reference: max err {rel:.3g} of "
+                             "the largest entry > 1e-5")
+    report["contract_max_rel_err"] = rel
+    print(f"grow_params {report['grow_params_ms']:.1f} ms; contract vs "
+          f"contract_reference on M2{tuple(got.shape)}: max err {rel:.3g} "
+          "of the largest entry (limit 1e-5)", flush=True)
+    del got, want, M1
+
+    # 4. grown vs scratch on a held-out batch
+    ev = make_eval_step(cfg_t)
+    held = next(data(seed=50))
+    scratch = build_params(cfg_t, seed=99, device="cuda")
+    l_grown, l_scratch = (float(ev(p, held)["loss"]) for p in (big, scratch))
+    del scratch
+    report.update(grown_loss=l_grown, scratch_loss=l_scratch,
+                  margin=l_scratch - l_grown)
+    print(f"held-out loss of gpt-base: grown {l_grown:.4f}, scratch "
+          f"{l_scratch:.4f}, margin {l_scratch - l_grown:.4f}", flush=True)
+    if not l_grown < l_scratch:
+        raise AssertionError("the grown gpt-base does not start below the "
+                             "scratch one")
+
+    # 5. train the grown model
+    tstate, tstep = init_fn(big), make_train_step(cfg_t, opt)
+    it = data(seed=1)
+    big, tstate, m = tstep(big, tstate, next(it), 1)
+    n_tr, tr_losses = 5, [float(m["loss"])]
+    t0 = time.perf_counter()
+    for s_ in range(1, n_tr + 1):
+        big, tstate, m = tstep(big, tstate, next(it), s_ + 1)
+        tr_losses.append(float(m["loss"]))
+    ms = _synced_ms(t0) / n_tr
+    if not all(np.isfinite(tr_losses)):
+        raise AssertionError(f"grown-model training loss not finite: "
+                             f"{tr_losses}")
+    report.update(train_ms_per_step=ms, train_tok_per_s=tokens_per_step
+                  / ms * 1e3, train_losses=tr_losses)
+    print(f"train grown gpt-base: {n_tr + 1} steps, loss {tr_losses[0]:.4f} "
+          f"-> {tr_losses[-1]:.4f}, {ms:.1f} ms/step, "
+          f"{report['train_tok_per_s']:.0f} tokens/s", flush=True)
+    (big, tstate, _), report["train_step_profile"] = profile_step(
+        "train step", lambda: tstep(big, tstate, next(it), n_tr + 2))
+
+    # 6. serve the grown model
+    reqs = [Request(uid=i, prompt=lm_batch(GROW_DATA_VOCAB, 1, 24 + 8 * i,
+                                           seed=200 + i)[0],
+                    max_new_tokens=32) for i in range(4)]
+    out = ContinuousBatchingEngine(cfg_t, big, capacity=4, max_len=128,
+                                   k=8).run(reqs)
+    ties = []
+    for r in reqs:
+        toks, gaps = plain_greedy(cfg_t, big, r.prompt, 32)
+        tie = check_against_plain("engine", r.uid, out[r.uid], toks, gaps)
+        if tie is not None:
+            ties.append(tie)
+    report["serve_near_ties"] = ties
+    print(f"served 4 requests x 32 tokens of the grown gpt-base: "
+          f"{4 - len(ties)}/4 equal to the plain route, near ties {ties}",
+          flush=True)
+
+    # 7. the train launcher, grown from gpt-small
+    hist_path = ROOT / "build" / "grow_train_history.json"
+    hist_path.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    launch_train.main(["--arch", "gpt-base", "--grow-from", "gpt-small",
+                       "--grow-steps", "2", "--steps", "3",
+                       "--history-out", str(hist_path)])
+    report["launcher_s"] = _synced_ms(t0) / 1e3
+    hist = json.loads(hist_path.read_text())
+    if not hist or not all(np.isfinite(h["loss"]) for h in hist):
+        raise AssertionError(f"launcher losses not finite: {hist}")
+    print(f"launch.train --arch gpt-base --grow-from gpt-small: "
+          f"{report['launcher_s']:.1f} s, losses "
+          f"{[round(h['loss'], 4) for h in hist]}", flush=True)
+
+    launches = {name: fn.launches for name, fn in kern.items()}
+    report.update(launches=launches,
+                  peak_mib=torch.cuda.max_memory_allocated() / 2**20)
+    print(f"grow path: kernel launches {launches}, peak memory "
+          f"{report['peak_mib']:.1f} MiB", flush=True)
+    for name in kern:
+        if launches[name] == 0:
+            raise AssertionError(f"{name} was never launched on the growth "
+                                 "path")
+    kernel_rows["tr_sandwich"]["launches"] = launches["tr_sandwich"]
     return report
 
 
@@ -512,6 +852,11 @@ def main(argv=None):
     phase("serve gpt-base")
     serve = run_serve(rows)
 
+    phase("grow gpt-small -> gpt-base")
+    t0 = time.perf_counter()
+    grow = run_grow(rows)
+    print(f"phase 5 took {time.perf_counter() - t0:.1f} s", flush=True)
+
     kernels = [{key: r[key] for key in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
@@ -520,7 +865,7 @@ def main(argv=None):
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
             {"device": kind, "nvidia_smi": smi, "kernels": list(rows.values()),
-             "serve": serve, "build_seconds": secs}, indent=1))
+             "serve": serve, "grow": grow, "build_seconds": secs}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}))

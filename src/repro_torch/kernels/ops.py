@@ -1,4 +1,4 @@
-"""Public entry points of the attention kernels, dispatched on the device.
+"""Public entry points of the kernels, dispatched on the device.
 
 A CPU tensor goes to the plain PyTorch version in ``ref.py``; a CUDA
 tensor goes to the hand-written kernel, which raises on anything it does
@@ -11,6 +11,7 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import slot_decode_attention as _slot
 from repro_torch.kernels.flash_attention import flash_attention as _flash
+from repro_torch.kernels.tr_sandwich import tr_sandwich as _sandwich
 
 
 def flash_attention(q, k, v, *, causal=True):
@@ -33,7 +34,47 @@ def slot_decode_attention(q, k, v, kv_len, *, done=None):
     return _slot(q, k, v, kv_len.contiguous())
 
 
+def _sandwich_on_device(x, a_i, a_o):
+    if x.device.type == "cpu":
+        return ref.tr_sandwich_ref(x, a_i, a_o)
+    return _sandwich(x, a_i, a_o)
+
+
+class TrSandwich(torch.autograd.Function):
+    """Y[n] = A_I^T X[n] A_O with its gradient.  Forward and dX run the
+    sandwich (kernel on CUDA, plain version on the CPU); dA_I and dA_O are
+    plain large products in f32."""
+
+    @staticmethod
+    def forward(ctx, x, a_i, a_o):
+        ctx.save_for_backward(x, a_i, a_o)
+        return _sandwich_on_device(x, a_i, a_o)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, a_i, a_o = ctx.saved_tensors
+        dy32 = dy.float()
+        dx = da_i = da_o = None
+        if ctx.needs_input_grad[0]:  # dX[n] = A_I dY[n] A_O^T, a sandwich
+            dx = _sandwich_on_device(dy.contiguous().to(x.dtype),
+                                     a_i.mT.contiguous(), a_o.mT.contiguous())
+        if ctx.needs_input_grad[1]:  # dA_I = sum_n X[n] A_O dY[n]^T
+            t = torch.matmul(x.float(), a_o.float())
+            da_i = torch.einsum("nio,njo->ij", t, dy32).to(a_i.dtype)
+        if ctx.needs_input_grad[2]:  # dA_O = sum_n X[n]^T A_I dY[n]
+            u = torch.matmul(a_i.float(), dy32)
+            da_o = torch.einsum("nik,nio->ko", x.float(), u).to(a_o.dtype)
+        return dx, da_i, da_o
+
+
+def tr_sandwich(x, a_i, a_o):
+    """x: (N, D1i, D1o); a_i: (D1i, D2i); a_o: (D1o, D2o) ->
+    (N, D2i, D2o) = a_i^T @ x[n] @ a_o in x's dtype, differentiable."""
+    return TrSandwich.apply(x, a_i, a_o)
+
+
 def kernels():
-    """The CUDA kernel wrappers of the serving path, by name (their
-    ``launches`` counters are what a run reads)."""
-    return {"flash_attention": _flash, "slot_decode_attention": _slot}
+    """The CUDA kernel wrappers, by name (their ``launches`` counters are
+    what a run reads)."""
+    return {"flash_attention": _flash, "slot_decode_attention": _slot,
+            "tr_sandwich": _sandwich}

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the attention kernels (the allclose targets).
+"""Plain PyTorch versions of the kernels (the allclose targets).
 
 ``ops`` routes CPU tensors here; ``chip_smoke.py`` holds each CUDA kernel
 against these on the card.  All math runs in float32 and the result is cast
@@ -42,3 +42,10 @@ def slot_decode_attention_ref(q, k, v, kv_len):
     out = torch.einsum("bkgs,bskh->bkgh", p, v.float())
     out = out * (kvl > 0).to(out.dtype)[:, None, None, None]
     return out.reshape(B, H, hd).to(q.dtype)
+
+
+def tr_sandwich_ref(x, a_i, a_o):
+    """x: (N, D1i, D1o); a_i: (D1i, D2i); a_o: (D1o, D2o) ->
+    Y[n] = a_i^T @ x[n] @ a_o, (N, D2i, D2o) in x's dtype (f32 math)."""
+    y = torch.einsum("nio,ij,om->njm", x.float(), a_i.float(), a_o.float())
+    return y.to(x.dtype)

@@ -14,6 +14,10 @@ asked for and absent:
   # the same on the CPU at a small size
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt-micro \
       --engine continuous --batch 4 --gen 8 --device cpu
+
+  # serve a model grown from a source arch by the paper's operator
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt-base \
+      --engine continuous --grow gpt-small --grow-method mango --grow-steps 3
 """
 from __future__ import annotations
 
@@ -33,8 +37,6 @@ from repro_torch.utils.device import resolve_device
 
 # reference-package flags this slice does not port yet: name -> what it is
 UNPORTED_FLAGS = {
-    "--grow": "serve-time growth", "--grow-method": "serve-time growth",
-    "--grow-rank": "serve-time growth", "--grow-steps": "serve-time growth",
     "--grow-cfg": "live upgrade", "--upgrade-at": "live upgrade",
     "--upgrade-sync": "live upgrade", "--speculate": "speculative decoding",
     "--draft": "speculative decoding", "--spec-d": "speculative decoding",
@@ -78,12 +80,25 @@ def generate(cfg, params, prompt_tokens, *, max_new_tokens=16,
     return torch.stack(out, dim=1)
 
 
-def build_params(cfg, *, seed=0, device="cuda"):
-    """Random params for ``cfg`` on ``device``, drawn from a
-    ``torch.Generator`` seeded with ``seed``."""
+def build_params(cfg, *, grow_from=None, grow_method="mango", grow_rank=1,
+                 grow_steps=0, seed=0, device="cuda", log_fn=print):
+    """Params for ``cfg`` on ``device``: random, drawn from a
+    ``torch.Generator`` seeded with ``seed``, or grown from the source arch
+    ``grow_from`` through the paper's operator (``core/grow.py``), whose
+    training (``grow_steps`` > 0) runs on synthetic 4 x 32 token batches."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    return get_family(cfg).init(gen, cfg)
+    if not grow_from:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return get_family(cfg).init(gen, cfg)
+
+    from repro_torch.core import grow as growlib
+    from repro_torch.data import lm_data_iter
+
+    return growlib.grow_from_source(
+        get_config(grow_from), cfg, method=grow_method, rank=grow_rank,
+        steps=grow_steps,
+        data_iter=lm_data_iter(cfg.vocab_size, 4, 32, seed=seed + 1),
+        seed=seed, device=dev, log_fn=log_fn)
 
 
 def require_servable(cfg):
@@ -120,6 +135,13 @@ def main(argv=None):
                          "shortest-prefill-first)")
     ap.add_argument("--eos-id", type=int, default=None,
                     help="stop a sequence early when it emits this token")
+    ap.add_argument("--grow", default=None, metavar="SRC_ARCH",
+                    help="grow params from this source arch before serving")
+    ap.add_argument("--grow-method", default="mango",
+                    choices=["mango", "ligo", "bert2bert", "stackbert",
+                             "net2net"])
+    ap.add_argument("--grow-rank", type=int, default=1)
+    ap.add_argument("--grow-steps", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where to run (default cuda; raises without CUDA)")
     args = ap.parse_args(argv)
@@ -130,7 +152,10 @@ def main(argv=None):
         require_servable(cfg)
     elif args.policy != "fifo":
         raise SystemExit("error: --policy requires --engine continuous")
-    params = build_params(cfg, device=dev)
+    params = build_params(cfg, grow_from=args.grow,
+                          grow_method=args.grow_method,
+                          grow_rank=args.grow_rank,
+                          grow_steps=args.grow_steps, device=dev)
 
     if args.engine == "naive":
         prompts = torch.from_numpy(

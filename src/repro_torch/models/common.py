@@ -10,10 +10,11 @@ import torch
 import torch.nn.functional as F
 
 
-def trunc_normal(gen: torch.Generator, shape, std=0.02, dtype=torch.float32):
-    """``std`` times a standard normal truncated to [-2, 2], drawn on the
-    generator's device."""
-    t = torch.empty(shape, dtype=torch.float32, device=gen.device)
+def trunc_normal(gen: torch.Generator, shape, std=0.02, dtype=torch.float32,
+                 device=None):
+    """``std`` times a standard normal truncated to [-2, 2], drawn on
+    ``device`` (default: the generator's; on ``meta`` nothing is drawn)."""
+    t = torch.empty(shape, dtype=torch.float32, device=device or gen.device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return (std * t).to(dtype)
 

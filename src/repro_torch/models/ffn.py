@@ -28,18 +28,21 @@ def mlp(x, p, act="swiglu"):
 
 
 def init_mlp(gen, d_model, d_ff, *, layers=None, act="swiglu", bias=False,
-             dtype=torch.float32, std=0.02):
+             dtype=torch.float32, std=0.02, device=None):
+    device = device or gen.device
+
     def shp(*s):
         return s if layers is None else (layers, *s)
 
     p = {
-        "w_up": trunc_normal(gen, shp(d_model, d_ff), std, dtype),
-        "w_down": trunc_normal(gen, shp(d_ff, d_model), std, dtype),
+        "w_up": trunc_normal(gen, shp(d_model, d_ff), std, dtype, device),
+        "w_down": trunc_normal(gen, shp(d_ff, d_model), std, dtype, device),
     }
     if act in ("swiglu", "geglu"):
-        p["w_gate"] = trunc_normal(gen, shp(d_model, d_ff), std, dtype)
+        p["w_gate"] = trunc_normal(gen, shp(d_model, d_ff), std, dtype,
+                                   device)
     if bias:
-        zeros = dict(dtype=dtype, device=gen.device)
+        zeros = dict(dtype=dtype, device=device)
         p["b_up"] = torch.zeros(shp(d_ff), **zeros)
         p["b_down"] = torch.zeros(shp(d_model), **zeros)
         if act in ("swiglu", "geglu"):

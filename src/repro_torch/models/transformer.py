@@ -30,6 +30,7 @@ from repro_torch.models.common import (
     take_layer,
     trunc_normal,
 )
+from repro_torch.utils.pytree import tree_map
 
 
 def _unported(cfg):
@@ -54,15 +55,15 @@ def _require_ported(cfg):
 
 
 # =============================================================== param init
-def _attn_init(gen, cfg, layers, dtype, std):
+def _attn_init(gen, cfg, layers, dtype, std, device):
     D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    zeros = dict(dtype=dtype, device=gen.device)
-    p = {
-        "wq": trunc_normal(gen, (layers, D, H * hd), std, dtype),
-        "wk": trunc_normal(gen, (layers, D, KV * hd), std, dtype),
-        "wv": trunc_normal(gen, (layers, D, KV * hd), std, dtype),
-        "wo": trunc_normal(gen, (layers, H * hd, D), std, dtype),
-    }
+    zeros = dict(dtype=dtype, device=device)
+
+    def w(*shape):
+        return trunc_normal(gen, shape, std, dtype, device)
+
+    p = {"wq": w(layers, D, H * hd), "wk": w(layers, D, KV * hd),
+         "wv": w(layers, D, KV * hd), "wo": w(layers, H * hd, D)}
     if cfg.qkv_bias:
         p["bq"] = torch.zeros((layers, H * hd), **zeros)
         p["bk"] = torch.zeros((layers, KV * hd), **zeros)
@@ -75,36 +76,49 @@ def _attn_init(gen, cfg, layers, dtype, std):
     return p
 
 
-def init(gen: torch.Generator, cfg) -> dict:
-    """Random params on ``gen``'s device, drawn from ``gen``."""
+def init(gen: torch.Generator, cfg, device=None) -> dict:
+    """Random params drawn from ``gen``, on ``device`` (default: the
+    generator's device)."""
     _require_ported(cfg)
+    device = device or gen.device
     dtype = getattr(torch, cfg.param_dtype)
     std = 0.02
     D = cfg.d_model
+
+    def w(*shape):
+        return trunc_normal(gen, shape, std, dtype, device)
+
     params = {}
     if cfg.continuous_inputs:
-        params["in_proj"] = trunc_normal(gen, (cfg.continuous_inputs, D),
-                                         std, dtype)
+        params["in_proj"] = w(cfg.continuous_inputs, D)
     else:
-        params["embed"] = trunc_normal(gen, (cfg.vocab_size, D), std, dtype)
+        params["embed"] = w(cfg.vocab_size, D)
     if cfg.learned_pos:
-        params["pos_embed"] = trunc_normal(gen, (cfg.learned_pos, D), std,
-                                           dtype)
+        params["pos_embed"] = w(cfg.learned_pos, D)
     L = cfg.n_layers
     params["dense_blocks"] = {
-        "ln1": init_norm(cfg.norm, D, L, dtype, gen.device),
-        "ln2": init_norm(cfg.norm, D, L, dtype, gen.device),
-        "attn": _attn_init(gen, cfg, L, dtype, std),
+        "ln1": init_norm(cfg.norm, D, L, dtype, device),
+        "ln2": init_norm(cfg.norm, D, L, dtype, device),
+        "attn": _attn_init(gen, cfg, L, dtype, std, device),
         "mlp": ffn_lib.init_mlp(gen, D, cfg.d_ff, layers=L, act=cfg.act,
-                                bias=cfg.mlp_bias, dtype=dtype, std=std),
+                                bias=cfg.mlp_bias, dtype=dtype, std=std,
+                                device=device),
     }
-    params["final_norm"] = init_norm(cfg.norm, D, None, dtype, gen.device)
+    params["final_norm"] = init_norm(cfg.norm, D, None, dtype, device)
     if cfg.head == "lm" and not cfg.tie_embeddings:
-        params["head"] = trunc_normal(gen, (D, cfg.vocab_size), std, dtype)
+        params["head"] = w(D, cfg.vocab_size)
     elif cfg.head == "cls":
-        params["cls_token"] = trunc_normal(gen, (D,), std, dtype)
-        params["head"] = trunc_normal(gen, (D, cfg.n_classes), std, dtype)
+        params["cls_token"] = w(D)
+        params["head"] = w(D, cfg.n_classes)
     return params
+
+
+def param_shapes(cfg) -> dict:
+    """``init``'s tree with a ``torch.Size`` at every leaf, computed on the
+    meta device: nothing is drawn or allocated (the reference package's
+    ``jax.eval_shape`` of ``init``)."""
+    params = init(torch.Generator(), cfg, device="meta")
+    return tree_map(lambda t: t.shape, params)
 
 
 # ============================================================ forward pieces

@@ -8,6 +8,7 @@ import dataclasses
 
 import jax
 import numpy as np
+import torch
 
 from repro.configs.base import ModelConfig as JaxConfig
 from repro.models import get_family as jax_family
@@ -15,6 +16,12 @@ from repro_torch.configs.base import ModelConfig as TorchConfig
 from repro_torch.convert import from_jax
 
 F32_ATOL = 2e-5  # f32: the frameworks sum in different orders
+
+# One intra-op thread per test process: the suite runs in several worker
+# processes at once, and PyTorch's default of one thread per core
+# oversubscribes the CPU many times over (small ops then wait on spinning
+# threads).
+torch.set_num_threads(1)
 
 
 def port_config(jcfg):

@@ -1,5 +1,6 @@
 """Card-only tests of the port (``-m gpu``): each CUDA kernel against its
-plain version, the wrappers' refusals, and the engine on the card.
+plain version, the wrappers' refusals, the engine and the growth
+contraction on the card.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 GPU machine without JAX:
@@ -14,13 +15,17 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import grow as growlib
+from repro_torch.core import mango, packing
 from repro_torch.data import lm_batch
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.decode_attention import (
     slot_decode_attention as cuda_slot,
 )
 from repro_torch.kernels.flash_attention import flash_attention as cuda_flash
+from repro_torch.kernels.tr_sandwich import tr_sandwich as cuda_sandwich
 from repro_torch.launch.serve import build_params, generate
 from repro_torch.models import transformer
 from repro_torch.serve import ContinuousBatchingEngine, Request
@@ -149,7 +154,8 @@ def test_cuda_engine_launches_both_kernels_and_matches_generate(
                                            seed=50 + i)[0],
                     max_new_tokens=g)
             for i, (p, g) in enumerate([(16, 8), (32, 6), (9, 5)])]
-    kern = ops.kernels()
+    kern = {n: ops.kernels()[n]
+            for n in ("flash_attention", "slot_decode_attention")}
     before = {n: f.launches for n, f in kern.items()}
     eng = ContinuousBatchingEngine(cfg, params, capacity=2, max_len=64, k=4)
     got = eng.run(reqs)
@@ -185,3 +191,85 @@ def test_cuda_engine_syncs_only_where_it_counts(cuda_device):
              if "called a synchronizing CUDA operation" in str(w.message)]
     assert len(syncs) == eng.n_prefills - n_prefills, [
         str(w.message) for w in syncs]
+
+
+def _sandwich_inputs(dev, dtype, N, d1i, d1o, d2i, d2o):
+    """x ~ N(0, 1) and operators scaled by 1/sqrt(fan-in), so |Y| ~ 1."""
+    x = _cuda_rand(dev, torch.float32, N, d1i, d1o)
+    a_i = _cuda_rand(dev, torch.float32, d1i, d2i + 1)[:, :d2i] * d1i ** -0.5
+    a_o = _cuda_rand(dev, torch.float32, d1o, d2o) * d1o ** -0.5
+    return x.to(dtype), a_i.contiguous().to(dtype), a_o.to(dtype)
+
+
+@pytest.mark.parametrize("N,d1i,d1o,d2i,d2o,dtype", [
+    (144, 512, 512, 768, 768, torch.float32),  # gpt-small -> gpt-base
+    (144, 512, 512, 768, 768, torch.bfloat16),
+    (3, 64, 64, 128, 128, torch.float32),      # gpt-micro -> gpt-micro-big
+    (3, 50, 70, 100, 36, torch.float32),       # ragged on every axis
+    (5, 64, 48, 130, 96, torch.bfloat16),
+])
+def test_cuda_tr_sandwich_matches_plain(cuda_device, N, d1i, d1o, d2i, d2o,
+                                        dtype):
+    x, a_i, a_o = _sandwich_inputs(cuda_device, dtype, N, d1i, d1o, d2i, d2o)
+    n0 = cuda_sandwich.launches
+    got = ops.tr_sandwich(x, a_i, a_o)
+    torch.cuda.synchronize()
+    assert cuda_sandwich.launches == n0 + 1
+    assert got.shape == (N, d2i, d2o) and got.dtype == dtype
+    want = ref.tr_sandwich_ref(x, a_i, a_o)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+def test_cuda_tr_sandwich_grads_match_autograd(cuda_device):
+    """Forward and dX run the kernel (two launches); all three grads match
+    autograd of the plain einsum (f32, relative to the largest entry)."""
+    x, a_i, a_o = _sandwich_inputs(cuda_device, torch.float32, 6, 64, 96,
+                                   130, 80)
+    dy = _cuda_rand(cuda_device, torch.float32, 6, 130, 80)
+    ins = [t.clone().requires_grad_(True) for t in (x, a_i, a_o)]
+    n0 = cuda_sandwich.launches
+    got = torch.autograd.grad(ops.tr_sandwich(*ins), ins, dy)
+    torch.cuda.synchronize()
+    assert cuda_sandwich.launches == n0 + 2
+    ref_ins = [t.clone().requires_grad_(True) for t in (x, a_i, a_o)]
+    want = torch.autograd.grad(
+        torch.einsum("nio,ij,om->njm", *ref_ins), ref_ins, dy)
+    for g, w in zip(got, want):
+        assert (g - w).abs().max() <= 1e-5 * w.abs().max()
+
+
+def test_cuda_tr_sandwich_refuses_what_it_does_not_take(cuda_device):
+    x, a_i, a_o = _sandwich_inputs(cuda_device, torch.float32, 2, 32, 32,
+                                   48, 48)
+    with pytest.raises(TypeError, match="dtype"):
+        cuda_sandwich(x.half(), a_i.half(), a_o.half())
+    with pytest.raises(TypeError, match="dtype"):
+        cuda_sandwich(x, a_i.bfloat16(), a_o)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_sandwich(x.transpose(1, 2), a_i, a_o)
+    with pytest.raises(ValueError, match="rows"):
+        cuda_sandwich(x, a_i[:16].contiguous(), a_o)
+    big = torch.zeros(1, 2048, 8, device=cuda_device)
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_sandwich(big, torch.zeros(2048, 8, device=cuda_device),
+                      torch.zeros(8, 8, device=cuda_device))
+
+
+@pytest.mark.parametrize("rank", [1, 2])
+def test_cuda_contract_takes_the_kernel_at_rank_one(cuda_device, rank):
+    """A rank-1 contraction launches the sandwich once per group; rank 2
+    takes the einsum chain.  Both match the single-einsum reference."""
+    cfg_s, cfg_t = get_config("gpt-micro"), get_config("gpt-micro-big")
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    gop, op_params = growlib.build("mango", cfg_s, cfg_t, rank=rank,
+                                   gen=gen, noise=0.05)
+    src = build_params(cfg_s, seed=1, device=cuda_device)
+    for g in gop.op.plan_src.groups:
+        M1 = packing.pack_group(g, src[g.name], cfg_s.d_model)
+        cores = op_params["groups"][g.name]
+        n0 = cuda_sandwich.launches
+        got = mango.contract(M1, cores)
+        torch.cuda.synchronize()
+        assert cuda_sandwich.launches == n0 + (rank == 1)
+        want = mango.contract_reference(M1, cores)
+        assert (got - want).abs().max() <= 1e-5 * want.abs().max()

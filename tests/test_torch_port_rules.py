@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.launch import serve as launch_serve
+from repro_torch.launch import train as launch_train
 from repro_torch.utils.device import resolve_device
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -80,7 +81,8 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(no_cuda, capsys):
 
 
 @pytest.mark.parametrize("argv,flag", [
-    (["--grow", "gpt-micro"], "--grow"), (["--speculate"], "--speculate"),
+    (["--grow-cfg", "gpt-micro-big"], "--grow-cfg"),
+    (["--speculate"], "--speculate"),
     (["--temperature=0.7"], "--temperature"), (["--pool", "paged"], "--pool"),
     (["--journal", "j.jsonl"], "--journal"), (["--mesh", "1x2"], "--mesh"),
 ])
@@ -88,6 +90,40 @@ def test_unported_flags_exit_with_a_named_error(argv, flag):
     with pytest.raises(SystemExit, match=f"error: {flag} .*not ported"):
         launch_serve.main(["--arch", "gpt-micro", "--engine", "continuous",
                            "--device", "cpu", *argv])
+
+
+def test_serve_grow_serves_a_grown_model_on_cpu(capsys):
+    """``--grow`` builds the served params through the growth operator
+    (with two operator-training steps) and serves them."""
+    launch_serve.main(["--arch", "gpt-micro-big", "--engine", "continuous",
+                       "--grow", "gpt-micro", "--grow-steps", "2",
+                       "--batch", "2", "--prompt-len", "8", "--gen", "3",
+                       "--capacity", "2", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "[grow] mango operator trained 2 steps" in out
+    assert "served 2 requests / 6 tokens" in out and "on cpu" in out
+
+
+def test_train_launcher_needs_cuda_unless_asked_for_cpu(no_cuda, tmp_path):
+    with pytest.raises(RuntimeError, match="CUDA was requested"):
+        launch_train.main(["--arch", "gpt-micro", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA was requested"):
+        launch_train.train("gpt-micro", steps=1)
+    hist = tmp_path / "hist.json"
+    launch_train.main(["--arch", "gpt-micro-big", "--grow-from", "gpt-micro",
+                       "--grow-steps", "1", "--steps", "2", "--batch", "2",
+                       "--seq", "16", "--device", "cpu",
+                       "--history-out", str(hist)])
+    assert '"loss"' in hist.read_text()
+
+
+@pytest.mark.parametrize("argv,flag", [
+    (["--ckpt-dir", "ckpt"], "--ckpt-dir"), (["--resume"], "--resume"),
+    (["--grow-src-ckpt=src"], "--grow-src-ckpt"),
+])
+def test_train_checkpoint_flags_exit_with_a_named_error(argv, flag):
+    with pytest.raises(SystemExit, match=f"error: {flag} .*not ported"):
+        launch_train.main(["--arch", "gpt-micro", "--device", "cpu", *argv])
 
 
 def test_naive_engine_runs_on_cpu(capsys):
