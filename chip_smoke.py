@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""GPU smoke run of the PyTorch/CUDA port (``repro_torch``): serving, and
-the paper's growth and training loop.
+"""GPU smoke run of the PyTorch/CUDA port (``repro_torch``): serving, the
+paper's growth and training loop, and speculative serving of the grown
+model with its source drafting.
 
     python3 chip_smoke.py [--out report.json]
 
@@ -13,10 +14,11 @@ printed as it goes; a failed phase raises, so the exit code is not 0:
                 nvcc per source, all started together);
   3. kernels -- each kernel against its plain PyTorch version on the card
                 at the main paths' shapes (gpt-base serving, gpt-small ->
-                gpt-base growth) plus GQA, bfloat16 and ragged cases (the
-                sandwich's gradients too), then CUDA-event times of kernel,
-                plain version and one PyTorch library call beside the
-                kernel's bound;
+                gpt-base growth, gpt-base's speculative verify and
+                gpt-small's catch-up) plus GQA, bfloat16, ragged, ring and
+                window cases (the sandwich's gradients too), then
+                CUDA-event times of kernel, plain version and one PyTorch
+                library call beside the kernel's bound;
   4. serve   -- full-width gpt-base (12 x 768, vocab 50257, random weights
                 from a seeded generator) through the continuous-batching
                 engine: capacity 8, max_len 1024, K 8, 16 requests of
@@ -32,7 +34,15 @@ printed as it goes; a failed phase raises, so the exit code is not 0:
                 the contraction against its one-einsum reference, check
                 that the grown gpt-base's loss is below a scratch one's,
                 train it a few steps, serve it (tokens == the plain route),
-                and run the train launcher once with ``--grow-from``.
+                and run the train launcher once with ``--grow-from``;
+  6. speculate -- phase 5's grown gpt-base served with its pretrained
+                gpt-small drafting (d 4, K 2, capacity 8, max_len 1024, 16
+                requests of 64..448 prompt tokens from the 1024-id chain, 64
+                new tokens): tokens == the plain route (near ties
+                reported), exact launch counts of the chunk-verify, slot
+                and flash kernels, tok/s beside the non-speculative engine
+                on the same requests; then gpt-base drafting for itself,
+                where a rejection must sit at a near tie.
 
 Each path's launch counters are set to 0 just before it runs and read just
 after; a kernel of the path that was never launched fails the run.  The
@@ -338,12 +348,141 @@ def run_kernels():
             library_ms=time_ms(
                 lambda: torch.matmul(a_i.mT, torch.matmul(x, a_o)), 10),
             shape=f"x{tuple(x.shape)} -> ({N}, {d2i}, {d2o}) {dname}")
+    rows["chunk_verify_attention"] = run_chunk_cases(gen)
     for r in rows.values():
         print(f"time {r['name']} [{r['shape']}]: kernel {r['ms']:.4f} ms, "
               f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} "
               f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})",
               flush=True)
     return rows
+
+
+def chunk_cases():
+    """(label, L, B, S, H, KV, Sc, hd, dtype, ring, window, offsets): the
+    speculative path's two shapes first -- gpt-base's verify and gpt-small's
+    catch-up, d 4 at capacity 8 over max_len 1024, one done row -- then
+    ring, window, GQA and bfloat16 cases (cache lengths that divide
+    nothing, wrapped ring offsets, S*G = 128 across 16 query tiles)."""
+    import torch
+
+    spread = [-1, 64, 137, 210, 283, 356, 430, 576]
+    f32, bf16 = torch.float32, torch.bfloat16
+    return [
+        ("gpt-base verify f32", 12, 8, 5, 12, 12, 1024, 64, f32, False, None,
+         spread),
+        ("gpt-small catch-up f32", 12, 8, 5, 8, 8, 1024, 64, f32, False,
+         None, spread),
+        ("gpt-base verify bf16", 2, 8, 5, 12, 12, 1024, 64, bf16, False,
+         None, spread),
+        ("ring window GQA f32", 2, 6, 5, 8, 2, 300, 128, f32, True, 128,
+         [-1, 0, 1, 150, 300, 1234]),
+        ("ring GQA bf16", 2, 6, 5, 16, 4, 300, 64, bf16, True, None,
+         [-1, 0, 7, 299, 301, 901]),
+        ("window full G8 f32", 2, 4, 16, 16, 2, 500, 128, f32, False, 64,
+         [-1, 3, 250, 500]),
+    ]
+
+
+def run_chunk_cases(gen):
+    """Phase 3 for ``chunk_verify_attention``: every case against the plain
+    version (f32 within 1e-5 of the largest entry, bfloat16 within
+    5e-3 + 1e-2 relative) and timed beside its bound, the plain version
+    and masked SDPA over K/V concatenated ahead of the timing.  The first
+    case (gpt-base's verify) is the kernels-line row."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention, ref
+
+    cv_fn = decode_attention.chunk_verify_attention
+    cases = []
+    for (label, L, B, S, H, KV, Sc, hd, dt, ring, window,
+         offs) in chunk_cases():
+        def rnd(*s):
+            return torch.randn(*s, generator=gen, device="cuda").to(dt)
+        q, kc, vc = rnd(B, S, H, hd), rnd(B, S, KV, hd), rnd(B, S, KV, hd)
+        ckp, cvp = rnd(L, B, Sc, KV, hd), rnd(L, B, Sc, KV, hd)
+        off = torch.tensor(offs, dtype=torch.int32, device="cuda")
+        kw = dict(ring=ring, window=window)
+        dname = str(dt).split(".")[1]
+        got = cv_fn(q, ckp[0], cvp[0], kc, vc, off, **kw)
+        torch.cuda.synchronize()
+        want = ref.chunk_verify_attention_ref(q, ckp[0], cvp[0], kc, vc, off,
+                                              **kw)
+        err = (got.float() - want.float()).abs().max().item()
+        if dname == "float32":
+            if not err <= 1e-5 * want.abs().max().item():
+                raise AssertionError(
+                    f"chunk_verify_attention [{label}]: max abs err "
+                    f"{err:.3g} exceeds 1e-5 of the largest entry")
+        else:
+            check_close(f"chunk_verify_attention [{label}]", got, want,
+                        dname)
+        if not bool((got[off < 0] == 0).all()):
+            raise AssertionError(f"chunk_verify_attention [{label}]: done "
+                                 "rows are not exact zeros")
+        # the bound: each row's attended cache positions and its S chunk
+        # keys once, q and out, the offsets
+        n_keys = 0
+        for o in offs:
+            if o < 0:
+                continue
+            lo = max(0, o - Sc) if ring else 0
+            if window:
+                lo = max(lo, o - window + 1)
+            n_keys += max((o if ring else min(o, Sc)) - lo, 0) + S
+        item = q.element_size()
+        b_ms, b_by = bound_ms(
+            n_keys * KV * hd * 2 * item + 2 * B * S * H * hd * item + 4 * B,
+            4 * n_keys * S * H * hd, dname)
+        # library yardstick: SDPA with a boolean mask over [cache ‖ chunk]
+        # concatenated per layer ahead of the timing
+        steps = torch.arange(S, device="cuda")[None]
+        if ring:
+            kpos_c = ref._ring_kpos(off, Sc)
+        else:
+            pos = torch.arange(Sc, device="cuda")[None]
+            kpos_c = torch.where(pos < off[:, None], pos, -1)
+        kpos = torch.cat([kpos_c, off[:, None] + steps], 1)
+        qpos = off[:, None] + steps
+        mask = (kpos[:, None] >= 0) & (kpos[:, None] <= qpos[:, :, None])
+        if window:
+            mask &= kpos[:, None] > qpos[:, :, None] - window
+        k_all = [torch.cat([ckp[j], kc], 1).transpose(1, 2) for j in range(L)]
+        v_all = [torch.cat([cvp[j], vc], 1).transpose(1, 2) for j in range(L)]
+        qt = q.transpose(1, 2)
+        layers = iter(range(10 ** 9))
+
+        def cycled(fn):
+            def call():
+                return fn(next(layers) % L)
+            return call
+
+        case = dict(
+            label=label, max_abs_err=err,
+            ms=time_ms(cycled(lambda j: cv_fn(q, ckp[j], cvp[j], kc, vc, off,
+                                              **kw)), 10 * L),
+            plain_ms=time_ms(cycled(lambda j: ref.chunk_verify_attention_ref(
+                q, ckp[j], cvp[j], kc, vc, off, **kw)), 2 * L),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=time_ms(cycled(lambda j: F.scaled_dot_product_attention(
+                qt, k_all[j], v_all[j], attn_mask=mask[:, None],
+                enable_gqa=H != KV)), 10 * L),
+            shape=(f"q{tuple(q.shape)} cache{tuple(ckp.shape[1:])} {dname} "
+                   f"ring {ring} window {window} offsets {offs}"))
+        cases.append(case)
+        print(f"chunk_verify_attention [{label}] {case['shape']}: max abs "
+              f"err {err:.3g}; kernel {case['ms']:.4f} ms, plain "
+              f"{case['plain_ms']:.4f} ms, library {case['library_ms']:.4f} "
+              f"ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
+        del k_all, v_all, ckp, cvp
+    main = cases[0]
+    return dict(name="chunk_verify_attention", route="cuda",
+                source="src/repro_torch/kernels/csrc/chunk_verify_attention.cu",
+                replaces="src/repro/kernels/decode_attention.py:595",
+                cases=cases, **{key: main[key] for key in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "shape")})
 
 
 def plain_greedy(cfg, params, prompt, n):
@@ -531,7 +670,9 @@ def profile_serve(make_engine, reqs, untraced_wall):
     """A second, traced run of the same requests under torch.profiler:
     device busy time, host time per engine stage, and the kernels that
     take the device time.  Tracing slows the host, so the idle share is
-    given against both the traced wall time and the untraced run's."""
+    given against both the traced wall time and the untraced run's.
+    ``decode_steps`` counts K per dispatch: decode steps, or speculative
+    blocks."""
     import dataclasses
 
     import torch
@@ -787,11 +928,162 @@ def run_grow(kernel_rows):
                   peak_mib=torch.cuda.max_memory_allocated() / 2**20)
     print(f"grow path: kernel launches {launches}, peak memory "
           f"{report['peak_mib']:.1f} MiB", flush=True)
-    for name in kern:
+    for name in ("flash_attention", "slot_decode_attention", "tr_sandwich"):
         if launches[name] == 0:
             raise AssertionError(f"{name} was never launched on the growth "
                                  "path")
     kernel_rows["tr_sandwich"]["launches"] = launches["tr_sandwich"]
+    return report, small, big
+
+
+SPEC_D, SPEC_K = 4, 2
+
+
+def run_speculative(kernel_rows, small, big):
+    """Phase 6: the grown gpt-base (phase 5's ``big``) served by the
+    speculative engine with the pretrained gpt-small (``small``) drafting,
+    beside the plain engine on the same requests (plain, speculative,
+    speculative, plain); then gpt-base drafting for itself."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import lm_batch
+    from repro_torch.kernels import ops
+    from repro_torch.serve import (
+        ContinuousBatchingEngine,
+        Request,
+        SpeculativeConfig,
+    )
+
+    cfg_s, cfg_t = get_config("gpt-small"), get_config("gpt-base")
+    rng = np.random.default_rng(6)
+    reqs = [Request(uid=i, prompt=lm_batch(GROW_DATA_VOCAB, 1,
+                                           int(rng.integers(64, 449)),
+                                           seed=300 + i)[0],
+                    max_new_tokens=64) for i in range(16)]
+
+    def engine(draft_cfg=None, draft=None):
+        spec = None if draft is None else SpeculativeConfig(
+            draft_cfg, draft, d=SPEC_D)
+        k = 8 if spec is None else SPEC_K
+        return ContinuousBatchingEngine(cfg_t, big, capacity=8, max_len=1024,
+                                        k=k, speculative=spec)
+
+    def timed(eng):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng.run([dataclasses.replace(r) for r in reqs])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        return out, dt, sum(len(v) for v in out.values()) / dt
+
+    for warm in (engine(), engine(cfg_s, small)):  # first-use costs
+        warm.run([Request(uid=0, prompt=reqs[0].prompt, max_new_tokens=9)])
+    kern = ops.kernels()
+    plain_a, _, tps_plain_a = timed(engine())
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kern.values():
+        fn.launches = 0
+    eng = engine(cfg_s, small)
+    out, dt, tps_spec = timed(eng)
+    launches = {name: fn.launches for name, fn in kern.items()}
+    peak = torch.cuda.max_memory_allocated()
+    _, _, tps_spec_b = timed(engine(cfg_s, small))
+    _, _, tps_plain_b = timed(engine())
+    n_tok = sum(len(v) for v in out.values())
+    if set(out) != {r.uid for r in reqs} or eng.rejected:
+        raise AssertionError(f"requests missing or rejected: {eng.rejected}")
+    blocks = SPEC_K * eng.n_decode_dispatches
+    want = {
+        "chunk_verify_attention": (cfg_t.n_layers + cfg_s.n_layers) * blocks,
+        "slot_decode_attention": cfg_s.n_layers * SPEC_D * blocks,
+        "flash_attention": (cfg_t.n_layers + cfg_s.n_layers) * eng.n_prefills,
+        "tr_sandwich": 0}
+    if launches != want or eng.n_spec_fallbacks:
+        raise AssertionError(f"speculative path launched {launches}, "
+                             f"expected {want} ({eng.n_decode_dispatches} "
+                             f"dispatches of {SPEC_K} blocks, "
+                             f"{eng.n_prefills} admission groups, "
+                             f"{eng.n_spec_fallbacks} fallbacks)")
+    kernel_rows["chunk_verify_attention"]["launches"] = launches[
+        "chunk_verify_attention"]
+    decode_tokens = n_tok - len(reqs)  # the first token comes from prefill
+    report = dict(
+        tok_per_s=tps_spec, tok_per_s_second_run=tps_spec_b,
+        plain_engine_tok_per_s=[tps_plain_a, tps_plain_b], seconds=dt,
+        tokens=n_tok, acceptance_rate=eng.acceptance_rate,
+        n_spec_proposed=eng.n_spec_proposed,
+        n_spec_accepted=eng.n_spec_accepted,
+        tokens_per_target_verify=decode_tokens / blocks,
+        host_syncs_per_token=eng.n_host_syncs / n_tok,
+        peak_mib=peak / 2**20, launches=launches)
+    print(f"speculative: {len(out)} requests / {n_tok} tokens in {dt:.3f} s: "
+          f"{tps_spec:.1f} tok/s (second run {tps_spec_b:.1f}); plain engine "
+          f"(K 8) {tps_plain_a:.1f} and {tps_plain_b:.1f} tok/s; acceptance "
+          f"{eng.acceptance_rate:.4f} ({eng.n_spec_accepted}/"
+          f"{eng.n_spec_proposed}), {report['tokens_per_target_verify']:.2f} "
+          f"tokens per target verify ({blocks} verifies of 8 slots), "
+          f"{report['host_syncs_per_token']:.4f} host syncs/token, peak "
+          f"memory {peak / 2**20:.1f} MiB; kernel launches {launches}",
+          flush=True)
+
+    # the reference is the plain route alone (no kernel of the port)
+    before = {name: fn.launches for name, fn in kern.items()}
+    plain = {r.uid: plain_greedy(cfg_t, big, r.prompt, 64) for r in reqs}
+    if {name: fn.launches for name, fn in kern.items()} != before:
+        raise AssertionError("the plain reference launched a CUDA kernel")
+    ties = {"speculative": [], "plain engine": []}
+    for r in reqs:
+        for what, toks in (("speculative", out[r.uid]),
+                           ("plain engine", plain_a[r.uid])):
+            if toks.shape != (64,):
+                raise AssertionError(f"uid {r.uid}: bad {what} output {toks}")
+            tie = check_against_plain(what, r.uid, toks, *plain[r.uid])
+            if tie is not None:
+                ties[what].append(tie)
+    report["near_ties"] = ties
+    # how peaked the target's next-token choice is: the draft can only
+    # agree with a top-1 that stands out from the rest
+    gaps = np.concatenate([plain[r.uid][1] for r in reqs])
+    report["plain_top2_gap"] = dict(
+        median=float(np.median(gaps)), p10=float(np.quantile(gaps, 0.1)),
+        p90=float(np.quantile(gaps, 0.9)))
+    print(f"plain route top-2 logit gap over {gaps.size} steps: median "
+          f"{np.median(gaps):.4g}, 10th percentile "
+          f"{np.quantile(gaps, 0.1):.4g}, 90th {np.quantile(gaps, 0.9):.4g}",
+          flush=True)
+    print(f"tokens == plain route for "
+          f"{len(reqs) - len(ties['speculative'])}/{len(reqs)} requests "
+          f"(speculative) and {len(reqs) - len(ties['plain engine'])}/"
+          f"{len(reqs)} (plain engine); near ties {ties}", flush=True)
+
+    report["profile"] = profile_serve(lambda: engine(cfg_s, small), reqs,
+                                      dt)
+
+    # the grown gpt-base drafting for itself: every proposal is the
+    # target's own argmax up to the two kernels' arithmetic, so each
+    # rejection (at most one per step) must sit at a near tie
+    self_reqs = reqs[:4]
+    self_eng = engine(cfg_t, big)
+    self_out = self_eng.run([dataclasses.replace(r) for r in self_reqs])
+    rejected = self_eng.n_spec_proposed - self_eng.n_spec_accepted
+    n_ties = sum(int((plain[r.uid][1] < NEAR_TIE).sum()) for r in self_reqs)
+    for r in self_reqs:
+        check_against_plain("self-draft", r.uid, self_out[r.uid],
+                            *plain[r.uid])
+    report["self_draft"] = dict(acceptance_rate=self_eng.acceptance_rate,
+                                rejected=rejected, near_tie_steps=n_ties)
+    print(f"self-draft (gpt-base drafts for itself, 4 requests): acceptance "
+          f"{self_eng.acceptance_rate:.4f} ({self_eng.n_spec_accepted}/"
+          f"{self_eng.n_spec_proposed}), {rejected} rejections, {n_ties} "
+          f"plain near-tie steps", flush=True)
+    if rejected > n_ties:
+        raise AssertionError(f"self-draft rejected {rejected} proposals but "
+                             f"the plain route has only {n_ties} near-tie "
+                             "steps: a rejection away from a near tie")
     return report
 
 
@@ -854,8 +1146,14 @@ def main(argv=None):
 
     phase("grow gpt-small -> gpt-base")
     t0 = time.perf_counter()
-    grow = run_grow(rows)
+    grow, small, big = run_grow(rows)
     print(f"phase 5 took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    phase("speculative serving: gpt-small drafts for the grown gpt-base")
+    t0 = time.perf_counter()
+    spec = run_speculative(rows, small, big)
+    del small, big
+    print(f"phase 6 took {time.perf_counter() - t0:.1f} s", flush=True)
 
     kernels = [{key: r[key] for key in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -865,7 +1163,8 @@ def main(argv=None):
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
             {"device": kind, "nvidia_smi": smi, "kernels": list(rows.values()),
-             "serve": serve, "grow": grow, "build_seconds": secs}, indent=1))
+             "serve": serve, "grow": grow, "speculative": spec,
+             "build_seconds": secs}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}))

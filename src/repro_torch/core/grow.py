@@ -8,7 +8,8 @@ Procedure (paper §3.2 "Procedures of Applying Mango"):
  (iv)  split M2 into M(L2,D2) initial weights and continue normal training.
 
 Operator params live on the device of the generator they are built from
-(``build``'s ``gen``); growth runs wherever its inputs are.
+(``build``'s ``gen``, or a generator on ``device``: CUDA unless asked for
+the CPU); growth runs wherever its inputs are.
 """
 from __future__ import annotations
 
@@ -31,9 +32,11 @@ class GrowthOperator:
     trainable: bool
 
 
-def build(method: str, cfg_src, cfg_tgt, rank=1, gen=None, noise=None):
-    """-> (GrowthOperator, op_params) on ``gen``'s device (default: a CPU
-    generator seeded with 0).
+def build(method: str, cfg_src, cfg_tgt, rank=1, gen=None, noise=None,
+          device="cuda"):
+    """-> (GrowthOperator, op_params) on ``gen``'s device (default: a
+    generator on ``device`` seeded with 0; ``device`` is CUDA unless asked
+    for the CPU, and a ``gen`` that is passed decides the device).
 
     ``noise`` scales the random component of the trainable methods'
     structured init (default 0.01).  ``noise=0`` makes an UNTRAINED mango
@@ -42,7 +45,8 @@ def build(method: str, cfg_src, cfg_tgt, rank=1, gen=None, noise=None):
     if method not in METHODS:
         raise ValueError(f"unknown growth method {method!r}; one of "
                          f"{METHODS}")
-    gen = gen if gen is not None else torch.Generator().manual_seed(0)
+    if gen is None:
+        gen = torch.Generator(device=resolve_device(device)).manual_seed(0)
     dev = gen.device
     op = mango.build_operator(cfg_src, cfg_tgt, rank=rank)
     kw = {} if noise is None else {"noise": noise}
@@ -80,14 +84,15 @@ def operator_param_count(gop: GrowthOperator, op_params) -> int:
 
 def grow_from_source(cfg_src, cfg_tgt, *, method="mango", rank=1, steps=0,
                      data_iter=None, params_src=None, seed=0, noise=None,
-                     device="cuda", log_fn=print):
+                     device="cuda", log_fn=print, return_source=False):
     """Full grow bootstrap: source init -> operator -> (optional Eq. 7
     operator training on ``data_iter``) -> grown target params.
 
     Shared by the train and serve launchers; pass ``params_src`` to grow
     from pretrained weights instead of a fresh init.  Everything is built
     on ``device`` (CUDA unless asked for the CPU) from a generator seeded
-    with ``seed``.
+    with ``seed``.  ``return_source=True`` returns ``(grown, params_src)``
+    (the source is a speculative server's draft).
     """
     from repro_torch.train.loss import loss_for
 
@@ -112,7 +117,8 @@ def grow_from_source(cfg_src, cfg_tgt, *, method="mango", rank=1, steps=0,
             log_fn(f"[grow] {method} operator trained {len(losses)} "
                    f"steps: {losses[0]:.4f} -> {losses[-1]:.4f}")
     with torch.no_grad():
-        return grow_params(gop, op_params, params_src)
+        grown = grow_params(gop, op_params, params_src)
+    return (grown, params_src) if return_source else grown
 
 
 def train_operator(gop: GrowthOperator, op_params, params_src, loss_fn,

@@ -1,9 +1,11 @@
-"""Wrapper of the CUDA slot-decode kernel (``csrc/slot_decode_attention.cu``).
+"""Wrappers of the CUDA decode-side attention kernels:
+``csrc/slot_decode_attention.cu`` (one query per slot) and
+``csrc/chunk_verify_attention.cu`` (a speculative verify chunk per slot).
 
-Checks what the kernel takes, allocates the output, launches on the
-current stream and counts launches in ``slot_decode_attention.launches``.
-``ops.slot_decode_attention`` routes CPU tensors to the plain version and
-folds ``done`` rows into ``kv_len = 0`` before calling this.
+Each checks what its kernel takes, allocates the output, launches on the
+current stream and counts launches in ``<wrapper>.launches``.  ``ops``
+routes CPU tensors to the plain versions and folds ``done`` rows into
+``kv_len = 0`` / ``offsets = -1`` before calling these.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from repro_torch.kernels import build
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128)
 GROUPS = (1, 2, 4, 8)
+CHUNK_MAX = 16  # verify-chunk length (d + 1) the chunk kernel takes
 
 
 def _entry():
@@ -27,22 +30,32 @@ def _entry():
     return fn
 
 
-def _check(q, k, v, kv_len):
-    for name, t in (("q", q), ("k", k), ("v", v), ("kv_len", kv_len)):
-        if t.device.type != "cuda" or t.device != q.device:
-            raise ValueError(f"slot_decode_attention: {name} must be a CUDA "
-                             f"tensor on {q.device} (got {t.device})")
+def _check_tensors(what, floats, lens):
+    """Device, layout and dtype rules both kernels share: every tensor on
+    the first one's CUDA device and contiguous; the float tensors
+    (``floats``, (name, tensor) pairs) share float32 or bfloat16 and are
+    16-byte aligned; ``lens`` is the per-row int tensor, checked by the
+    caller for its dtype and shape."""
+    first = floats[0][1]
+    for name, t in (*floats, lens):
+        if t.device.type != "cuda" or t.device != first.device:
+            raise ValueError(f"{what}: {name} must be a CUDA tensor on "
+                             f"{first.device} (got {t.device})")
         if not t.is_contiguous():
-            raise ValueError(f"slot_decode_attention: {name} must be "
-                             "contiguous")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != q.dtype or t.dtype not in DTYPES:
-            raise TypeError(f"slot_decode_attention: {name} has dtype "
-                            f"{t.dtype}; q, k, v must share float32 or "
-                            "bfloat16")
+            raise ValueError(f"{what}: {name} must be contiguous")
+    names = ", ".join(name for name, _ in floats)
+    for name, t in floats:
+        if t.dtype != first.dtype or t.dtype not in DTYPES:
+            raise TypeError(f"{what}: {name} has dtype {t.dtype}; {names} "
+                            "must share float32 or bfloat16")
         if t.data_ptr() % 16:
-            raise ValueError(f"slot_decode_attention: {name} must be 16-byte "
-                             "aligned (vector loads)")
+            raise ValueError(f"{what}: {name} must be 16-byte aligned "
+                             "(vector loads)")
+
+
+def _check(q, k, v, kv_len):
+    _check_tensors("slot_decode_attention", (("q", q), ("k", k), ("v", v)),
+                   ("kv_len", kv_len))
     if q.dim() != 3 or k.dim() != 4:
         raise ValueError("slot_decode_attention: q must be (B, H, hd) and "
                          "k, v (B, S, KV, hd)")
@@ -82,3 +95,71 @@ def slot_decode_attention(q, k, v, kv_len):
 
 
 slot_decode_attention.launches = 0
+
+
+
+def _chunk_entry():
+    fn = build.load("chunk_verify_attention").chunk_verify_attention_fwd
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_chunk(q, ck, cv, k, v, offsets, window):
+    what = "chunk_verify_attention"
+    _check_tensors(what, (("q", q), ("ck", ck), ("cv", cv), ("k", k),
+                          ("v", v)), ("offsets", offsets))
+    if q.dim() != 4 or ck.dim() != 4:
+        raise ValueError(f"{what}: q must be (B, S, H, hd) and ck, cv "
+                         "(B, Sc, KV, hd)")
+    B, S, H, hd = q.shape
+    Sc, KV = ck.shape[1], ck.shape[2]
+    if ck.shape != (B, Sc, KV, hd) or cv.shape != ck.shape:
+        raise ValueError(f"{what}: q {tuple(q.shape)} needs ck, cv of shape "
+                         f"(B, Sc, KV, hd); got {tuple(ck.shape)}, "
+                         f"{tuple(cv.shape)}")
+    if k.shape != (B, S, KV, hd) or v.shape != k.shape:
+        raise ValueError(f"{what}: q {tuple(q.shape)} needs the chunk's k, v "
+                         f"of shape (B, S, KV, hd); got {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if offsets.dtype != torch.int32 or offsets.shape != (B,):
+        raise ValueError(f"{what}: offsets must be ({B},) int32 (got "
+                         f"{tuple(offsets.shape)} {offsets.dtype})")
+    if KV < 1 or H % KV or H // KV not in GROUPS:
+        raise ValueError(f"{what}: H/KV = {H}/{KV} must be one of {GROUPS}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"{what}: head_dim {hd} not in {HEAD_DIMS}")
+    if not 1 <= S <= CHUNK_MAX:
+        raise ValueError(f"{what}: chunk length S = {S} must be in "
+                         f"1..{CHUNK_MAX}")
+    if Sc < 1:
+        raise ValueError(f"{what}: the cache needs at least one slot")
+    if window is not None and window < 1:
+        raise ValueError(f"{what}: window must be >= 1 (got {window})")
+
+
+def chunk_verify_attention(q, ck, cv, k, v, offsets, *, ring, window=None):
+    """q: (B, S, H, hd); ck, cv: (B, Sc, KV, hd) read-only cache, full
+    (``ring`` False) or ring-buffer layout; k, v: (B, S, KV, hd) the chunk's
+    own K/V; offsets: (B,) int32 committed lengths -> (B, S, H, hd).
+    Offsets < 0 give exact zeros; the cache is never written."""
+    _check_chunk(q, ck, cv, k, v, offsets, window)
+    B, S, H, hd = q.shape
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        rc = _chunk_entry()(
+            q.data_ptr(), ck.data_ptr(), cv.data_ptr(), k.data_ptr(),
+            v.data_ptr(), offsets.data_ptr(), out.data_ptr(),
+            DTYPES[q.dtype], B, S, ck.shape[1], ck.shape[2], H, hd,
+            int(ring), window or 0, hd ** -0.5,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"chunk_verify_attention kernel launch failed: "
+                           f"CUDA error {rc}")
+    chunk_verify_attention.launches += 1
+    return out
+
+
+chunk_verify_attention.launches = 0

@@ -9,6 +9,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.decode_attention import (
+    chunk_verify_attention as _chunk,
+)
 from repro_torch.kernels.decode_attention import slot_decode_attention as _slot
 from repro_torch.kernels.flash_attention import flash_attention as _flash
 from repro_torch.kernels.tr_sandwich import tr_sandwich as _sandwich
@@ -32,6 +35,24 @@ def slot_decode_attention(q, k, v, kv_len, *, done=None):
     if q.device.type == "cpu":
         return ref.slot_decode_attention_ref(q, k, v, kv_len)
     return _slot(q, k, v, kv_len.contiguous())
+
+
+def chunk_verify_attention(q, ck, cv, k, v, offsets, *, ring, window=None,
+                           done=None):
+    """Speculative chunk-verify attention over the pool layout: S queries
+    per row at ``offsets[b] + i`` over the read-only cache ``ck, cv``
+    (B, Sc, KV, hd) and the chunk's own ``k, v`` (B, S, KV, hd).  ``done``
+    rows are folded into ``offsets = -1`` (exact-zero output)."""
+    B = q.shape[0]
+    offsets = torch.as_tensor(offsets, dtype=torch.int32,
+                              device=q.device).reshape(-1).expand(B)
+    if done is not None:
+        offsets = torch.where(done, -1, offsets)
+    if q.device.type == "cpu":
+        return ref.chunk_verify_attention_ref(q, ck, cv, k, v, offsets,
+                                              ring=ring, window=window)
+    return _chunk(q, ck, cv, k, v, offsets.contiguous(), ring=ring,
+                  window=window)
 
 
 def _sandwich_on_device(x, a_i, a_o):
@@ -77,4 +98,4 @@ def kernels():
     """The CUDA kernel wrappers, by name (their ``launches`` counters are
     what a run reads)."""
     return {"flash_attention": _flash, "slot_decode_attention": _slot,
-            "tr_sandwich": _sandwich}
+            "tr_sandwich": _sandwich, "chunk_verify_attention": _chunk}

@@ -49,3 +49,55 @@ def tr_sandwich_ref(x, a_i, a_o):
     Y[n] = a_i^T @ x[n] @ a_o, (N, D2i, D2o) in x's dtype (f32 math)."""
     y = torch.einsum("nio,ij,om->njm", x.float(), a_i.float(), a_o.float())
     return y.to(x.dtype)
+
+
+def _ring_kpos(cur_len, ring):
+    """Absolute position held by each ring slot at per-row lengths.
+
+    cur_len: (B,) -> (B, ring) int32, -1 where never written.  Slot s holds
+    the largest p < cur_len with p % ring == s.  (Re-derived here rather
+    than shared with the model code, so the oracle can catch a fault in
+    either.)  ``//`` on tensors floors, as the reference's does, so a row
+    with cur_len 0 wraps to -1 and every slot reads as never written.
+    """
+    slot = torch.arange(ring, dtype=torch.int32, device=cur_len.device)[None]
+    cur = cur_len.to(torch.int32)[:, None]
+    base = torch.div(cur - 1, ring, rounding_mode="floor") * ring + slot
+    pos = torch.where(base < cur, base, base - ring)
+    return torch.where(pos >= 0, pos, -1)
+
+
+def chunk_verify_attention_ref(q, ck, cv, k, v, offsets, *, ring,
+                               window=None):
+    """q: (B, S, H, hd); ck, cv: (B, Sc, KV, hd) read-only cache; k, v:
+    (B, S, KV, hd) the chunk's own K/V; offsets: (B,) committed lengths
+    (-1: done -> exact zeros).  Query i of row b sits at offsets[b] + i and
+    attends [cache ‖ chunk] by absolute position: causal, and within
+    ``(qpos - window, qpos]`` when a window is given.  ``ring`` picks the
+    ring-buffer reconstruction of the cache's key positions."""
+    B, S, H, hd = q.shape
+    Sc, KV = ck.shape[1], ck.shape[2]
+    G = H // KV
+    dev = q.device
+    off = offsets.reshape(-1).to(torch.int32).expand(B)
+    if ring:
+        kpos_cache = _ring_kpos(off, Sc)
+    else:
+        pos = torch.arange(Sc, dtype=torch.int32, device=dev)[None]
+        kpos_cache = torch.where(pos < off[:, None], pos, -1)
+    steps = torch.arange(S, dtype=torch.int32, device=dev)[None]
+    kpos = torch.cat([kpos_cache, off[:, None] + steps], 1)  # (B, Sc + S)
+    qpos = off[:, None] + steps  # (B, S)
+    mask = ((kpos[:, None] >= 0) & (kpos[:, None] <= qpos[:, :, None])
+            & (off >= 0)[:, None, None])
+    if window is not None:
+        mask &= kpos[:, None] > qpos[:, :, None] - window
+    k_all = torch.cat([ck.float(), k.float()], 1)  # (B, Sc + S, KV, hd)
+    v_all = torch.cat([cv.float(), v.float()], 1)
+    qg = q.reshape(B, S, KV, G, hd).float()
+    logits = torch.einsum("bqkgh,bskh->bkgqs", qg, k_all) * hd ** -0.5
+    logits = torch.where(mask[:, None, None], logits, NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgqs,bskh->bqkgh", p, v_all)
+    out = out * (off >= 0).to(out.dtype)[:, None, None, None, None]
+    return out.reshape(B, S, H, hd).to(q.dtype)

@@ -18,6 +18,12 @@ asked for and absent:
   # serve a model grown from a source arch by the paper's operator
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt-base \
       --engine continuous --grow gpt-small --grow-method mango --grow-steps 3
+
+  # speculative serving: the pretrained SOURCE drafts for its grown target
+  # (with --grow the source is the draft; --draft picks another config of
+  # the same vocabulary, freshly initialised)
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt-base \
+      --engine continuous --grow gpt-small --speculate --spec-d 4
 """
 from __future__ import annotations
 
@@ -31,16 +37,20 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.data import lm_batch
 from repro_torch.models import get_family, serve_supported
-from repro_torch.serve import POLICIES, ContinuousBatchingEngine, Request
+from repro_torch.serve import (
+    POLICIES,
+    ContinuousBatchingEngine,
+    Request,
+    SpeculativeConfig,
+    spec_pair_supported,
+)
 from repro_torch.train.steps import make_decode_step, make_prefill_step
 from repro_torch.utils.device import resolve_device
 
 # reference-package flags this slice does not port yet: name -> what it is
 UNPORTED_FLAGS = {
     "--grow-cfg": "live upgrade", "--upgrade-at": "live upgrade",
-    "--upgrade-sync": "live upgrade", "--speculate": "speculative decoding",
-    "--draft": "speculative decoding", "--spec-d": "speculative decoding",
-    "--temperature": "sampling", "--top-k": "sampling", "--top-p": "sampling",
+    "--upgrade-sync": "live upgrade", "--temperature": "sampling", "--top-k": "sampling", "--top-p": "sampling",
     "--sample-seed": "sampling", "--kernel": "the kernel switch (the device "
     "picks kernel or plain version)", "--pool": "the paged pool",
     "--pages": "the paged pool", "--mesh": "sharded serving",
@@ -81,24 +91,32 @@ def generate(cfg, params, prompt_tokens, *, max_new_tokens=16,
 
 
 def build_params(cfg, *, grow_from=None, grow_method="mango", grow_rank=1,
-                 grow_steps=0, seed=0, device="cuda", log_fn=print):
+                 grow_steps=0, seed=0, device="cuda", log_fn=print,
+                 return_source=False):
     """Params for ``cfg`` on ``device``: random, drawn from a
     ``torch.Generator`` seeded with ``seed``, or grown from the source arch
     ``grow_from`` through the paper's operator (``core/grow.py``), whose
-    training (``grow_steps`` > 0) runs on synthetic 4 x 32 token batches."""
+    training (``grow_steps`` > 0) runs on synthetic 4 x 32 token batches.
+
+    ``return_source=True`` returns ``(params, cfg_src, params_src)``: the
+    source the target was grown from, which is the draft speculative
+    serving wants (``cfg_src`` / ``params_src`` are None without
+    ``grow_from``)."""
     dev = resolve_device(device)
     if not grow_from:
         gen = torch.Generator(device=dev).manual_seed(seed)
-        return get_family(cfg).init(gen, cfg)
+        params = get_family(cfg).init(gen, cfg)
+        return (params, None, None) if return_source else params
 
     from repro_torch.core import grow as growlib
     from repro_torch.data import lm_data_iter
 
-    return growlib.grow_from_source(
-        get_config(grow_from), cfg, method=grow_method, rank=grow_rank,
-        steps=grow_steps,
+    cfg_src = get_config(grow_from)
+    params, params_src = growlib.grow_from_source(
+        cfg_src, cfg, method=grow_method, rank=grow_rank, steps=grow_steps,
         data_iter=lm_data_iter(cfg.vocab_size, 4, 32, seed=seed + 1),
-        seed=seed, device=dev, log_fn=log_fn)
+        seed=seed, device=dev, log_fn=log_fn, return_source=True)
+    return (params, cfg_src, params_src) if return_source else params
 
 
 def require_servable(cfg):
@@ -106,6 +124,18 @@ def require_servable(cfg):
     if not ok:
         raise SystemExit(
             f"error: --engine continuous cannot serve {cfg.name!r}: {why}")
+
+
+def require_spec_servable(cfg_tgt, cfg_draft, d, max_len):
+    """Gate ``--speculate`` behind the PAIR probe: both models must serve
+    through the chunk-verify slot protocol and share a vocabulary.  The
+    probe's detail names the failing side."""
+    ok, why = spec_pair_supported(cfg_tgt, cfg_draft, d, max_len)
+    if ok:
+        print(f"[serve] speculative pair: {why}")
+        return
+    raise SystemExit(
+        f"error: --speculate cannot serve this draft/target pair: {why}")
 
 
 def main(argv=None):
@@ -142,6 +172,15 @@ def main(argv=None):
                              "net2net"])
     ap.add_argument("--grow-rank", type=int, default=1)
     ap.add_argument("--grow-steps", type=int, default=0)
+    ap.add_argument("--speculate", action="store_true",
+                    help="greedy speculative decode: a draft model proposes, "
+                         "the target verifies (needs --draft, or --grow whose "
+                         "source then drafts)")
+    ap.add_argument("--draft", default=None, metavar="DRAFT_ARCH",
+                    help="draft config for --speculate (default: the --grow "
+                         "source)")
+    ap.add_argument("--spec-d", type=int, default=4,
+                    help="speculation depth: draft proposals per block")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where to run (default cuda; raises without CUDA)")
     args = ap.parse_args(argv)
@@ -152,10 +191,34 @@ def main(argv=None):
         require_servable(cfg)
     elif args.policy != "fifo":
         raise SystemExit("error: --policy requires --engine continuous")
-    params = build_params(cfg, grow_from=args.grow,
-                          grow_method=args.grow_method,
-                          grow_rank=args.grow_rank,
-                          grow_steps=args.grow_steps, device=dev)
+    max_len = args.max_len or (args.prompt_len + args.gen)
+    if args.speculate:
+        if args.engine != "continuous":
+            raise SystemExit("error: --speculate requires --engine "
+                             "continuous")
+        draft_name = args.draft or args.grow
+        if draft_name is None:
+            raise SystemExit("error: --speculate needs a draft model — "
+                             "pass --draft ARCH, or --grow SRC (the "
+                             "pretrained source then drafts for its grown "
+                             "target)")
+        # probe the PAIR before any param init or growth
+        require_spec_servable(cfg, get_config(draft_name), args.spec_d,
+                              max_len)
+    params, cfg_src, params_src = build_params(
+        cfg, grow_from=args.grow, grow_method=args.grow_method,
+        grow_rank=args.grow_rank, grow_steps=args.grow_steps, device=dev,
+        return_source=True)
+    speculative = None
+    if args.speculate:
+        if args.draft and (cfg_src is None or args.draft != cfg_src.name):
+            cfg_d = get_config(args.draft)
+            params_d = get_family(cfg_d).init(
+                torch.Generator(device=dev).manual_seed(0), cfg_d)
+        else:
+            # the paper's pair: the source the target was grown from drafts
+            cfg_d, params_d = cfg_src, params_src
+        speculative = SpeculativeConfig(cfg_d, params_d, d=args.spec_d)
 
     if args.engine == "naive":
         prompts = torch.from_numpy(
@@ -176,10 +239,10 @@ def main(argv=None):
         print(toks[:2])
         return
 
-    max_len = args.max_len or (args.prompt_len + args.gen)
     engine = ContinuousBatchingEngine(cfg, params, capacity=args.capacity,
                                       max_len=max_len, k=args.k,
-                                      policy=args.policy)
+                                      policy=args.policy,
+                                      speculative=speculative)
     rng = np.random.default_rng(0)
     reqs = []
     for uid in range(args.batch):
@@ -192,11 +255,18 @@ def main(argv=None):
     out = engine.run(reqs)
     dt = time.time() - t0
     n_tok = sum(len(v) for v in out.values())
-    print(f"[continuous] {cfg.family}/{engine.cache_layout} (dense pool) on "
+    mode = "speculative" if speculative is not None else "continuous"
+    spec_note = "" if speculative is None else (
+        f", draft={speculative.cfg.name} d={speculative.d} acceptance "
+        f"{engine.acceptance_rate:.3f} ({engine.n_spec_accepted}/"
+        f"{engine.n_spec_proposed}), {engine.n_spec_fallbacks} spec "
+        "fallback(s)")
+    print(f"[{mode}] {cfg.family}/{engine.cache_layout} (dense pool) on "
           f"{dev} served {len(reqs)} requests / {n_tok} tokens in {dt:.2f}s "
           f"({n_tok / dt:.1f} tok/s, {engine.n_decode_dispatches} "
           f"macro-steps of K={args.k}, {engine.n_prefills} prefill batches, "
-          f"{engine.n_host_syncs / max(n_tok, 1):.2f} host syncs/token)")
+          f"{engine.n_host_syncs / max(n_tok, 1):.2f} host syncs/token"
+          f"{spec_note})")
     if engine.rejected:
         print(f"[continuous] rejected {len(engine.rejected)} request(s):")
         for uid, why in sorted(engine.rejected.items()):

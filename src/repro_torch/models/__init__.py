@@ -11,6 +11,12 @@ protocol:
   prefill_last(params, tokens, plens, cfg, cache) -> (logits (B, V), cache)
   decode_step_slots(params, tokens, positions, cache, cfg, done=None)
   serve_supported(cfg) -> (ok, detail)
+and, to run as a speculative draft or target, the chunk-verify hooks
+(plus a head-less admission prefill for the draft pool):
+  verify_step_slots(params, tokens, positions, cache, cfg, done=None)
+  commit_slots(params, tokens, positions, n_feed, cache, pending, cfg,
+               done=None)
+  prefill_cache(params, tokens, cfg, cache) -> cache
 Only the transformer family is ported so far.
 """
 from __future__ import annotations
@@ -45,3 +51,18 @@ def slot_cache_layout(cfg):
     if cfg.family not in _FAMILIES:
         return "unsupported"
     return get_family(cfg).slot_cache_layout(cfg)
+
+
+def spec_decode_supported(cfg):
+    """Capability probe: can this config run as a speculative draft or
+    target?  Requires the slot-state protocol plus the chunk-verify hooks
+    (``verify_step_slots`` / ``commit_slots``)."""
+    ok, detail = serve_supported(cfg)
+    if not ok:
+        return ok, detail
+    fam = get_family(cfg)
+    if not (hasattr(fam, "verify_step_slots")
+            and hasattr(fam, "commit_slots")):
+        return False, (f"family {cfg.family!r} does not implement the "
+                       "chunk-verify (speculative) slot hooks")
+    return True, detail

@@ -7,11 +7,14 @@ as in the reference package.  Configs with MLA, MoE, a sliding window,
 RoPE or an MTP head raise ``NotImplementedError`` (ROADMAP.md lists the
 slices that bring them).
 
-Two call sites reach the hand-written kernels through ``kernels.ops``,
+Three call sites reach the hand-written kernels through ``kernels.ops``,
 which picks kernel or plain version by the tensor's device:
   * causal cached prefill at ``q_offset == 0`` -> ``ops.flash_attention``
     (the kernel masks ragged tiles, so every prefill length takes it);
-  * continuous-batching slot decode -> ``ops.slot_decode_attention``.
+  * continuous-batching slot decode -> ``ops.slot_decode_attention``;
+  * speculative verify of a chunk per slot -> ``ops.chunk_verify_attention``
+    (``verify_step_slots``; ``commit_slots`` then writes the accepted
+    prefix).
 Caches are updated in place (the reference package returns new buffers,
 which XLA aliases through donation); the returned cache is the same dict.
 """
@@ -132,7 +135,7 @@ def _slot_kv_len(slot_positions, slot_done):
 
 
 def _attn_forward(x, p, cfg, *, cache=None, q_offset=0, slot_positions=None,
-                  slot_kv_len=None):
+                  slot_kv_len=None, chunk_offsets=None, slot_done=None):
     """Returns (out, cache). x: (B,S,D).
 
     ``slot_positions`` (B,) switches to the continuous-batching decode
@@ -140,7 +143,17 @@ def _attn_forward(x, p, cfg, *, cache=None, q_offset=0, slot_positions=None,
     the new K/V is written to ``cache[b, slot_positions[b]]`` and attention
     reads each row up to ``slot_kv_len[b]`` (0 for finished/idle rows).
     Finished rows write too: their position is past their last valid
-    entry, so the write is never read before the slot is evicted.
+    entry, so the write is never read before the slot is evicted.  A write
+    position past the cache (a speculative draft's proposals beyond a
+    row's budget) lands on the cache's last slot instead, which no row
+    has committed (a row's length stays below ``max_len``) and which only
+    such beyond-budget steps read.
+
+    ``chunk_offsets`` (B,) switches to speculative verify: the S-token
+    chunk of row b sits at ``chunk_offsets[b]`` and attends the read-only
+    cache and itself (``slot_done`` rows give zeros).  The cache is not
+    written; the second return value is the pending ``{"k", "v"}`` of the
+    chunk, which ``commit_slots`` writes for the accepted prefix.
     """
     B, S, D = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -159,11 +172,19 @@ def _attn_forward(x, p, cfg, *, cache=None, q_offset=0, slot_positions=None,
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
 
+    if chunk_offsets is not None:
+        # the pool leaves as they are: no [cache ‖ chunk] copy
+        out = ops.chunk_verify_attention(q, cache["k"].to(cdt),
+                                         cache["v"].to(cdt), k, v,
+                                         chunk_offsets, ring=False,
+                                         done=slot_done)
+        return _attn_out(out, p, cfg, cdt), {"k": k, "v": v}
     if slot_positions is not None:
         ck, cv = cache["k"], cache["v"]
         rows = torch.arange(B, device=x.device)
-        ck[rows, slot_positions] = k[:, 0].to(ck.dtype)
-        cv[rows, slot_positions] = v[:, 0].to(cv.dtype)
+        wpos = slot_positions.clamp(max=ck.shape[1] - 1)
+        ck[rows, wpos] = k[:, 0].to(ck.dtype)
+        cv[rows, wpos] = v[:, 0].to(cv.dtype)
         out = ops.slot_decode_attention(q[:, 0], ck.to(cdt), cv.to(cdt),
                                         slot_kv_len)[:, None]
         return _attn_out(out, p, cfg, cdt), cache
@@ -206,15 +227,24 @@ def _block(x, bp, cfg, **attn_kw):
     return x, cache
 
 
-def _run_layers(x, params, cfg, cache=None, **attn_kw):
+def _layer_stack(x, params, cfg, cache=None, **attn_kw):
     """The block stack as a Python loop over the stacked layer axis; layer
-    ``i`` reads and writes ``cache[...][i]`` views in place."""
+    ``i`` reads and writes ``cache[...][i]`` views in place.  Returns the
+    residual stream before the final norm and each layer's second output
+    of ``_attn_forward`` (its cache, or its pending chunk K/V)."""
     group = params["dense_blocks"]
+    per_layer = []
     for i in range(cfg.n_layers):
         layer_cache = None if cache is None else {
             "k": cache["dense"]["k"][i], "v": cache["dense"]["v"][i]}
-        x, _ = _block(x, take_layer(group, i), cfg, cache=layer_cache,
-                      **attn_kw)
+        x, second = _block(x, take_layer(group, i), cfg, cache=layer_cache,
+                           **attn_kw)
+        per_layer.append(second)
+    return x, per_layer
+
+
+def _run_layers(x, params, cfg, cache=None, **attn_kw):
+    x, _ = _layer_stack(x, params, cfg, cache=cache, **attn_kw)
     return apply_norm(x, params["final_norm"], cfg.norm)
 
 
@@ -337,6 +367,88 @@ def decode_step_slots(params, tokens, positions, cache, cfg, done=None):
                     cache=cache, slot_positions=positions.long(),
                     slot_kv_len=_slot_kv_len(positions, done).to(torch.int32))
     return _head(params, x, cfg)[:, -1], cache
+
+
+def prefill_cache(params, tokens, cfg, cache):
+    """Admission prefill that only fills the cache (no final norm, no
+    head): a speculative draft's admission, whose logits nobody reads.
+    Returns the cache, updated in place."""
+    _require_ported(cfg)
+    _layer_stack(embed_inputs(params, {"tokens": tokens}, cfg), params, cfg,
+                 cache=cache, q_offset=0)
+    return cache
+
+
+def verify_step_slots(params, tokens, positions, cache, cfg, done=None,
+                      logits=True):
+    """Speculative verify: feed an (B, S) token chunk per slot, each row
+    starting at its own committed length ``positions[b]``, in ONE batched
+    forward.
+
+    Returns (logits (B, S, V), pending): ``logits[:, j]`` is the
+    distribution after each row consumed its chunk prefix ``[:j + 1]``.
+    The slot cache is READ-ONLY here; ``pending`` = {"dense": {"k", "v":
+    (L, B, S, KV, hd)}} carries the chunk's per-layer K/V so that
+    ``commit_slots`` writes exactly the accepted prefix afterwards
+    (rollback is "never wrote it").  ``done`` rows attend nothing and
+    return garbage logits the caller must mask.  ``logits=False`` skips
+    the final norm and the head and returns (None, pending): a draft's
+    catch-up needs only its pending K/V.
+    """
+    _require_ported(cfg)
+    B, S = tokens.shape
+    # learned positions past the table clamp in ``embed_inputs``; such
+    # overshot positions are never committed (budget-masked)
+    pos2d = positions[:, None] + torch.arange(
+        S, dtype=positions.dtype, device=positions.device)[None]
+    x = embed_inputs(params, {"tokens": tokens, "positions": pos2d}, cfg)
+    x, per_layer = _layer_stack(x, params, cfg, cache=cache,
+                                chunk_offsets=positions, slot_done=done)
+    pending = {"dense": {name: torch.stack([pl[name] for pl in per_layer])
+                         for name in ("k", "v")}}
+    if not logits:
+        return None, pending
+    return _head(params, apply_norm(x, params["final_norm"], cfg.norm),
+                 cfg), pending
+
+
+def commit_slots(params, tokens, positions, n_feed, cache, pending, cfg,
+                 done=None):
+    """Commit each row's accepted chunk prefix: the pending K/V of chunk
+    indices ``j < n_feed[b]`` go to ``positions[b] + j``; the rest is
+    dropped, so rejected speculative positions never reach the cache.
+    Rows with ``n_feed == 0`` (or ``done``) keep their pool rows
+    bit-for-bit.  Full layouts only; committed positions must lie inside
+    the cache (the engine's ``max_len`` bound keeps them below it).
+
+    The reference scatters uncommitted entries to the out-of-range index
+    ``Sc`` and lets the scatter drop them; PyTorch refuses such an index
+    (on the card, a device-side assert).  Here every chunk entry j writes
+    the committed entry ``min(j, n_feed - 1)`` again -- the same value at
+    the same place -- and a row with nothing to commit writes back the
+    old value of its position ``positions[b]`` (clamped into the cache).
+    No boolean-mask indexing and no host sync.
+    """
+    del params, tokens
+    if any(isinstance(g, dict) and "bt" in g for g in cache.values()):
+        raise NotImplementedError(
+            "commit_slots on a paged pool is not ported to repro_torch yet "
+            "(the paged slice, ROADMAP.md)")
+    if done is not None:
+        n_feed = torch.where(done, 0, n_feed)
+    n_feed = n_feed.long()
+    for name, cl in cache["dense"].items():
+        pl = pending["dense"][name]  # (L, B, S, KV, hd)
+        B, Sc = cl.shape[1], cl.shape[2]
+        S = pl.shape[2]
+        steps = torch.arange(S, device=cl.device)[None]
+        src = torch.minimum(steps, (n_feed - 1).clamp(min=0)[:, None])
+        idx = (positions.long()[:, None] + src).clamp(max=Sc - 1)
+        rows = torch.arange(B, device=cl.device)[:, None]
+        new = torch.where((n_feed > 0)[None, :, None, None, None],
+                          pl[:, rows, src].to(cl.dtype), cl[:, rows, idx])
+        cl[:, rows, idx] = new
+    return cache
 
 
 def serve_supported(cfg):

@@ -22,7 +22,19 @@ pool, greedy, on the dense pool layout of the reference package:
                          block N: each block is copied to pinned host
                          memory with ``non_blocking=True`` behind a CUDA
                          event, so the readback overlaps the next block
-                         (``step()`` is the synchronous single iteration).
+                         (``step()`` is the synchronous single iteration);
+  * speculative mode  -- a ``SpeculativeConfig`` swaps the macro loop for
+                         ``make_speculative_loop``: a small DRAFT model
+                         proposes d tokens per slot and the target
+                         verifies them in one chunk forward, so a dispatch
+                         of K blocks emits up to K*(d+1) tokens per slot
+                         with the same single host sync.  The engine then
+                         runs TWO slot pools (target + draft), admits and
+                         evicts rows in both, and reads the acceptance
+                         telemetry back with the token block.  A draft
+                         whose logits go non-finite drops the engine to
+                         the plain macro loop on the target pool
+                         (degradation ladder, ``n_spec_fallbacks``).
 
 Everything runs on the device the params live on.  Buffers the reference
 package donates to XLA are updated in place here (``index_copy_`` /
@@ -32,9 +44,10 @@ out-of-range index ``capacity``, which XLA drops and PyTorch indexing
 would refuse, so only the first ``n`` rows are copied.
 
 Greedy tokens are the sequential ``generate()`` tokens for every request,
-for any interleaving and any K, up to float near-ties between the two
-routes' arithmetic.  Paged pools, speculation, sampling, deadlines,
-faults, the journal, live upgrade and meshes are not ported yet.
+for any interleaving, any K and any speculation depth, up to float
+near-ties between the routes' arithmetic.  Paged pools, sampling,
+deadlines, faults, the journal, live upgrade and meshes are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -46,6 +59,12 @@ import numpy as np
 import torch
 
 from repro_torch.models import get_family, serve_supported, slot_cache_layout
+from repro_torch.serve.speculative import (
+    SpeculativeConfig,
+    make_draft_prefill,
+    make_speculative_loop,
+    spec_pair_supported,
+)
 from repro_torch.train.steps import (
     make_prefill_admit_step,
     make_slot_decode_loop,
@@ -90,24 +109,27 @@ def _device_of(params) -> torch.device:
 class ContinuousBatchingEngine:
     """Slot-pool continuous batching over a family's slot-state protocol.
 
-    ``k`` is the macro-step length: decode tokens per dispatch.  Larger K
-    amortizes host work and syncs over more tokens; admission happens only
-    at block boundaries, so K trades admission latency against decode
-    throughput.  ``policy`` is ``"fifo"`` (arrival order) or ``"spf"``
-    (length-bucketed shortest-prefill-first, ties by arrival).
+    ``k`` is the macro-step length: decode tokens per dispatch (whole
+    speculative blocks in speculative mode).  Larger K amortizes host work
+    and syncs over more tokens; admission happens only at block
+    boundaries, so K trades admission latency against decode throughput.
+    ``policy`` is ``"fifo"`` (arrival order) or ``"spf"`` (length-bucketed
+    shortest-prefill-first, ties by arrival).  ``speculative`` -- a
+    ``SpeculativeConfig`` (draft cfg, draft params, depth d) -- turns on
+    greedy speculative decoding.
     """
 
     def __init__(self, cfg, params, *, capacity: int = 8,
                  max_len: int = 256, prefill_bucket: int = 16, k: int = 8,
                  policy: str = "fifo", pool: str = "dense", sampling=None,
-                 speculative=None, deadline=None, shed_age=None,
-                 journal=None, faults=None, mesh=None):
+                 speculative: Optional[SpeculativeConfig] = None,
+                 deadline=None, shed_age=None, journal=None, faults=None,
+                 mesh=None):
         if pool not in ("dense", "paged"):
             raise ValueError(f"unknown pool kind {pool!r} "
                              "(choose 'dense' or 'paged')")
         unported = {"pool='paged'": pool == "paged",
                     "sampling": sampling is not None,
-                    "speculative": speculative is not None,
                     "deadline": deadline is not None,
                     "shed_age": shed_age is not None,
                     "journal": journal is not None,
@@ -134,6 +156,21 @@ class ContinuousBatchingEngine:
             raise ValueError(
                 f"max_len {max_len} exceeds the model's position range "
                 f"{limit}")
+        if speculative is not None:
+            ok, why = spec_pair_supported(cfg, speculative.cfg,
+                                          speculative.d, max_len)
+            if not ok:
+                raise NotImplementedError(
+                    f"speculative serving cannot run this pair: {why}")
+            if speculative.cfg.compute_dtype != cfg.compute_dtype:
+                # one working type per engine: the draft's catch-up verify
+                # reads chunks the target's commit writes, and a silent
+                # cast would change what the draft computes
+                raise ValueError(
+                    f"speculative draft {speculative.cfg.name!r} computes "
+                    f"in {speculative.cfg.compute_dtype} but the target "
+                    f"{cfg.name!r} in {cfg.compute_dtype}; give both the "
+                    "same compute_dtype")
         self.cfg = cfg
         self.params = params
         self.fam = get_family(cfg)
@@ -156,13 +193,21 @@ class ContinuousBatchingEngine:
         # of dispatched-but-unread macro steps
         self._inflight: collections.deque = collections.deque()
         self.n_decode_dispatches = 0
-        self.n_prefills = 0  # admission-batch prefill dispatches
+        # admission groups prefilled (both pools in speculative mode; the
+        # reference counts the draft's prefill as a second one)
+        self.n_prefills = 0
         self.n_host_syncs = 0  # blocking device->host reads
         self.n_tokens = 0  # generated tokens (incl. prefill first tokens)
         self.n_quarantined = 0  # NaN/Inf-poisoned slots evicted
+        self.speculative = speculative
+        self.n_spec_proposed = 0  # draft tokens offered to the target
+        self.n_spec_accepted = 0  # draft tokens the target kept
+        self.n_spec_fallbacks = 0  # draft faults that tripped plain decode
+        self._spec_fallback = False  # draft faulted: plain macro decode
 
         dev = self.device
         self.pool = self.fam.init_cache(cfg, capacity, max_len, device=dev)
+        self.pool_d = None  # the draft's slot pool, in speculative mode
         # persistent device-resident decode state: (tokens, positions,
         # remaining, eos_ids, done) -- idle slots are done
         self._state = (torch.zeros(capacity, dtype=torch.int32, device=dev),
@@ -174,6 +219,20 @@ class ContinuousBatchingEngine:
         self.free = list(range(capacity))[::-1]  # pop -> slot 0..
         self._loop = make_slot_decode_loop(cfg, k)
         self._prefill = make_prefill_admit_step(cfg)
+        if speculative is not None:
+            cfg_d = speculative.cfg
+            self.pool_d = get_family(cfg_d).init_cache(cfg_d, capacity,
+                                                       max_len, device=dev)
+            # the plain loop above stays as the degradation ladder's target
+            self._spec_loop = make_speculative_loop(cfg, cfg_d,
+                                                    speculative.d, k)
+            self._draft_prefill = make_draft_prefill(cfg_d)
+
+    @property
+    def acceptance_rate(self) -> float:
+        """Fraction of draft proposals the target accepted (speculative
+        mode; 0.0 before any speculative block was read back)."""
+        return self.n_spec_accepted / max(self.n_spec_proposed, 1)
 
     # ------------------------------------------------------------- admission
     def _reject(self, uid: int, why: str):
@@ -284,13 +343,23 @@ class ContinuousBatchingEngine:
         # prefill attends over the same cache length as the pool
         rows = self.fam.init_cache(self.cfg, npad, self.max_len, device=dev)
         plens_d = self._to_device(plens)
-        first, rows = self._prefill(self.params, self._to_device(padded),
-                                    plens_d, rows)
+        padded_d = self._to_device(padded)
+        first, rows = self._prefill(self.params, padded_d, plens_d, rows)
         # copy the n real rows into their slots in place; padding rows
         # (n..npad) target no slot and are simply not copied
         idx = self._to_device(slots)
         for name, leaf in self.pool["dense"].items():
             leaf.index_copy_(1, idx, rows["dense"][name][:, :n])
+        if self.speculative is not None:
+            # the draft pool admits the SAME prompt rows: its per-row state
+            # after the real prompt; the first token is the target's
+            cfg_d = self.speculative.cfg
+            rows_d = get_family(cfg_d).init_cache(cfg_d, npad, self.max_len,
+                                                  device=dev)
+            rows_d = self._draft_prefill(self.speculative.params, padded_d,
+                                         plens_d, rows_d)
+            for name, leaf in self.pool_d["dense"].items():
+                leaf.index_copy_(1, idx, rows_d["dense"][name][:, :n])
         first_n = first[:n]
         rem0_d = self._to_device(rem0[:n])
         eos_d = self._to_device(eos_new[:n])
@@ -337,8 +406,9 @@ class ContinuousBatchingEngine:
         if not self._evict_pending:
             return
         idx = self._to_device(np.asarray(self._evict_pending, np.int64))
-        for leaf in self.pool["dense"].values():
-            leaf.index_fill_(1, idx, 0)
+        for pool in filter(None, (self.pool, self.pool_d)):  # both pools
+            for leaf in pool["dense"].values():
+                leaf.index_fill_(1, idx, 0)
         tokens, positions, remaining, eos, done = self._state
         tokens.index_fill_(0, idx, 0)
         positions.index_fill_(0, idx, 0)
@@ -350,34 +420,53 @@ class ContinuousBatchingEngine:
 
     # ------------------------------------------------------------- step loop
     def _dispatch(self):
-        """Enqueue one macro step (K decode steps) and its readback, with
-        no host sync."""
+        """Enqueue one macro step (K decode steps, or K whole speculative
+        draft→verify→commit blocks) and its readback, with no host sync."""
         tokens, positions, remaining, eos_ids, done = self._state
-        (block, valid, poison, tokens, positions, remaining, done,
-         self.pool) = self._loop(self.params, tokens, positions, remaining,
-                                 eos_ids, done, self.pool)
+        if self.speculative is not None and not self._spec_fallback:
+            (block, valid, poison, dbad, tokens, positions, remaining, done,
+             self.pool, self.pool_d, n_prop, n_acc) = self._spec_loop(
+                self.params, self.speculative.params, tokens, positions,
+                remaining, eos_ids, done, self.pool, self.pool_d)
+            # acceptance telemetry and the draft-fault flag in one tensor
+            stats = torch.stack([n_prop, n_acc, dbad.long()])
+        else:
+            # a speculative engine whose draft misbehaved keeps serving
+            # through the plain macro loop on its TARGET pool
+            (block, valid, poison, tokens, positions, remaining, done,
+             self.pool) = self._loop(self.params, tokens, positions,
+                                     remaining, eos_ids, done, self.pool)
+            stats = None
         self._state = (tokens, positions, remaining, eos_ids, done)
+        host, ready = (block, valid, poison, stats), None
         if self.device.type == "cuda":
-            host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                         for t in (block, valid, poison))
-            for h, t in zip(host, (block, valid, poison)):
-                h.copy_(t, non_blocking=True)
+            host = tuple(None if t is None else torch.empty(
+                t.shape, dtype=t.dtype, pin_memory=True).copy_(
+                    t, non_blocking=True) for t in host)
             ready = torch.cuda.Event()
             ready.record()
-        else:
-            host, ready = (block, valid, poison), None
         self.n_decode_dispatches += 1
         live = [(slot, seq.req.uid) for slot, seq in self.active.items()]
         self._inflight.append((*host, ready, live))
 
     def _process(self, item):
         """Wait for one macro step's token block (the single host sync per
-        dispatch) and advance the host-side sequence records."""
-        block, valid, poison, ready, live = item
+        dispatch) and advance the host-side sequence records; the
+        speculative telemetry rides the same readback."""
+        block, valid, poison, stats, ready, live = item
         if ready is not None:
             ready.synchronize()
         block, valid, poison = block.numpy(), valid.numpy(), poison.numpy()
         self.n_host_syncs += 1
+        if stats is not None:
+            n_prop, n_acc, dbad = (int(x) for x in stats.numpy())
+            self.n_spec_proposed += n_prop
+            self.n_spec_accepted += n_acc
+            if dbad and not self._spec_fallback:
+                # degradation ladder: draft logits went non-finite; every
+                # request keeps being served by the plain target-only loop
+                self._spec_fallback = True
+                self.n_spec_fallbacks += 1
         for slot, uid in live:
             seq = self.active.get(slot)
             if seq is None or seq.req.uid != uid:

@@ -16,7 +16,12 @@ from repro.launch.serve import generate as jax_generate
 from repro.serve import ContinuousBatchingEngine as JaxEngine
 from repro.serve import Request as JaxRequest
 from repro_torch.launch.serve import generate
-from repro_torch.serve import ContinuousBatchingEngine, Request
+from repro_torch.configs import get_config
+from repro_torch.serve import (
+    ContinuousBatchingEngine,
+    Request,
+    SpeculativeConfig,
+)
 
 MAX_LEN = 32
 SPECS = [(3, 6), (9, 2), (5, 8), (12, 4), (4, 7), (7, 1), (6, 5)]
@@ -140,10 +145,13 @@ def test_rejections_are_recorded_and_serving_continues(gpt):
         eng.submit(Request(uid=7, prompt=np.zeros(4, np.int32)))
 
 
-@pytest.mark.parametrize("kw", [dict(pool="paged"), dict(sampling=object()),
-                                dict(speculative=object()),
-                                dict(deadline=1.0), dict(journal=object()),
-                                dict(faults=object()), dict(mesh="1x1")])
+@pytest.mark.parametrize("kw", [
+    dict(pool="paged"), dict(sampling=object()),
+    # speculation is ported, sampled speculation is not
+    dict(speculative=SpeculativeConfig(get_config("gpt-micro"), {}, d=2),
+         sampling=object()),
+    dict(deadline=1.0), dict(journal=object()), dict(faults=object()),
+    dict(mesh="1x1")])
 def test_unported_engine_modes_raise(gpt, kw):
     _, tcfg, _, tp = gpt
     with pytest.raises(NotImplementedError, match="not ported"):

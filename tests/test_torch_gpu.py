@@ -1,6 +1,6 @@
 """Card-only tests of the port (``-m gpu``): each CUDA kernel against its
-plain version, the wrappers' refusals, the engine and the growth
-contraction on the card.
+plain version, the wrappers' refusals, the engine (plain and speculative)
+and the growth contraction on the card.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 GPU machine without JAX:
@@ -22,13 +22,20 @@ from repro_torch.core import mango, packing
 from repro_torch.data import lm_batch
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.decode_attention import (
+    chunk_verify_attention as cuda_chunk,
+)
+from repro_torch.kernels.decode_attention import (
     slot_decode_attention as cuda_slot,
 )
 from repro_torch.kernels.flash_attention import flash_attention as cuda_flash
 from repro_torch.kernels.tr_sandwich import tr_sandwich as cuda_sandwich
 from repro_torch.launch.serve import build_params, generate
 from repro_torch.models import transformer
-from repro_torch.serve import ContinuousBatchingEngine, Request
+from repro_torch.serve import (
+    ContinuousBatchingEngine,
+    Request,
+    SpeculativeConfig,
+)
 
 F32_ATOL = 2e-5  # f32: kernel and plain version sum in different orders
 # bf16 outputs carry 8 mantissa bits: one rounding step is ~4e-3 at |out|
@@ -273,3 +280,138 @@ def test_cuda_contract_takes_the_kernel_at_rank_one(cuda_device, rank):
         assert cuda_sandwich.launches == n0 + (rank == 1)
         want = mango.contract_reference(M1, cores)
         assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+def _chunk_case(dev, dtype, B, S, H, KV, Sc, hd, offsets):
+    q = _cuda_rand(dev, dtype, B, S, H, hd)
+    ck = _cuda_rand(dev, dtype, B, Sc, KV, hd)
+    cv = _cuda_rand(dev, dtype, B, Sc + 1, KV, hd)[:, :Sc].contiguous()
+    k = _cuda_rand(dev, dtype, B, S + 1, KV, hd)[:, :S].contiguous()
+    v = _cuda_rand(dev, dtype, B, S, KV, hd)
+    return q, ck, cv, k, v, torch.tensor(offsets, dtype=torch.int32,
+                                         device=dev)
+
+
+CHUNK_GRID = [(ring, window, G, dtype) for ring in (False, True)
+              for window in (None, 8) for G in (1, 2, 4)
+              for dtype in (torch.float32, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("ring,window,G,dtype", CHUNK_GRID)
+def test_cuda_chunk_verify_matches_plain(cuda_device, ring, window, G,
+                                         dtype):
+    """Offsets -1, 0, 1, mid, Sc and (ring) wrapped ones, over a cache
+    length that divides nothing (100)."""
+    Sc = 100
+    offsets = ([-1, 0, 1, 37, Sc, Sc + 5, 3 * Sc + 41] if ring
+               else [-1, 0, 1, 37, Sc, Sc - 1, 63])
+    q, ck, cv, k, v, off = _chunk_case(cuda_device, dtype, 7, 5, 2 * G, 2,
+                                       Sc, 64, offsets)
+    n0 = cuda_chunk.launches
+    got = ops.chunk_verify_attention(q, ck, cv, k, v, off, ring=ring,
+                                     window=window)
+    torch.cuda.synchronize()
+    assert cuda_chunk.launches == n0 + 1
+    want = ref.chunk_verify_attention_ref(q, ck, cv, k, v, off, ring=ring,
+                                          window=window)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+    assert (got[0] == 0).all()
+
+
+@pytest.mark.parametrize("B,S,H,KV,Sc,hd,dtype", [
+    (8, 5, 12, 12, 1024, 64, torch.float32),   # gpt-base verify
+    (8, 5, 8, 8, 1024, 64, torch.float32),     # gpt-small catch-up
+    (8, 5, 12, 12, 1024, 64, torch.bfloat16),
+    (3, 16, 16, 2, 300, 128, torch.float32),   # S*G = 128: 16 query tiles
+    (2, 1, 8, 8, 64, 128, torch.bfloat16),     # S = 1
+])
+def test_cuda_chunk_verify_main_shapes_match_plain(cuda_device, B, S, H, KV,
+                                                   Sc, hd, dtype):
+    offsets = np.linspace(64, min(576, Sc - S), B).astype(int).tolist()
+    offsets[-1] = -1
+    q, ck, cv, k, v, off = _chunk_case(cuda_device, dtype, B, S, H, KV, Sc,
+                                       hd, offsets)
+    done = torch.zeros(B, dtype=torch.bool, device=cuda_device)
+    done[0] = True
+    got = ops.chunk_verify_attention(q, ck, cv, k, v, off, ring=False,
+                                     done=done)
+    torch.cuda.synchronize()
+    want = ref.chunk_verify_attention_ref(
+        q, ck, cv, k, v, torch.where(done, -1, off), ring=False)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+    assert (got[0] == 0).all() and (got[-1] == 0).all()
+
+
+def test_cuda_chunk_verify_refuses_what_it_does_not_take(cuda_device):
+    q, ck, cv, k, v, off = _chunk_case(cuda_device, torch.float32, 2, 5, 4,
+                                       2, 32, 64, [3, 9])
+    kw = dict(ring=False)
+    with pytest.raises(ValueError, match="head_dim"):
+        cuda_chunk(q[..., :32].contiguous(), ck[..., :32].contiguous(),
+                   cv[..., :32].contiguous(), k[..., :32].contiguous(),
+                   v[..., :32].contiguous(), off, **kw)
+    with pytest.raises(TypeError, match="dtype"):
+        cuda_chunk(q, ck.bfloat16(), cv, k, v, off, **kw)
+    with pytest.raises(ValueError, match="H/KV"):
+        cuda_chunk(q[:, :, :3].contiguous(), ck, cv, k, v, off, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_chunk(q, ck.transpose(1, 2), cv, k, v, off, **kw)
+    with pytest.raises(ValueError, match="int32"):
+        cuda_chunk(q, ck, cv, k, v, off.long(), **kw)
+    with pytest.raises(ValueError, match="chunk length"):
+        big = _chunk_case(cuda_device, torch.float32, 2, 17, 4, 2, 32, 64,
+                          [3, 9])
+        cuda_chunk(*big, **kw)
+    with pytest.raises(ValueError, match="window"):
+        cuda_chunk(q, ck, cv, k, v, off, ring=True, window=0)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cuda_chunk(q, ck, cv, k, v, off.cpu(), **kw)
+
+
+def _hd64_pair(dev):
+    """A grown pair whose kernels take their head_dim (gpt-micro's is 16):
+    a 2 x 128 source (2 heads of 64) grown by rank-1 Mango into a 4 x 256
+    target (4 heads of 64), the source drafting."""
+    base = dict(vocab_size=997, rope="none", learned_pos=128, norm="ln",
+                act="gelu", max_seq_len=128)
+    cfg_s = ModelConfig(name="hd64-src", n_layers=2, d_model=128,
+                        n_heads=2, n_kv_heads=2, d_ff=256, **base)
+    cfg_t = ModelConfig(name="hd64-tgt", n_layers=4, d_model=256,
+                        n_heads=4, n_kv_heads=4, d_ff=512, **base)
+    params_t, params_s = growlib.grow_from_source(
+        cfg_s, cfg_t, device=dev, log_fn=lambda *_: None,
+        return_source=True)
+    return cfg_t, params_t, cfg_s, params_s
+
+
+def test_cuda_spec_engine_launches_chunk_verify_and_matches_generate(
+        cuda_device):
+    """Speculative serving on the card: tokens equal ``generate``; every
+    block launches the chunk kernel once per layer of both models (the
+    target's verify and the draft's catch-up), the draft's proposals the
+    slot kernel, and admission the flash kernel."""
+    cfg_t, p_t, cfg_s, p_s = _hd64_pair(cuda_device)
+    d, k = 4, 2
+    reqs = [Request(uid=i, prompt=lm_batch(cfg_t.vocab_size, 1, p,
+                                           seed=70 + i)[0], max_new_tokens=g)
+            for i, (p, g) in enumerate([(16, 12), (33, 7), (9, 20),
+                                        (20, 5)])]
+    kern = ops.kernels()
+    for fn in kern.values():
+        fn.launches = 0
+    eng = ContinuousBatchingEngine(
+        cfg_t, p_t, capacity=2, max_len=64, k=k,
+        speculative=SpeculativeConfig(cfg_s, p_s, d=d))
+    got = eng.run(reqs)
+    torch.cuda.synchronize()
+    assert kern["chunk_verify_attention"].launches == (
+        (cfg_t.n_layers + cfg_s.n_layers) * k * eng.n_decode_dispatches)
+    assert kern["slot_decode_attention"].launches == (
+        cfg_s.n_layers * d * k * eng.n_decode_dispatches)
+    assert kern["flash_attention"].launches > 0
+    assert eng.n_host_syncs == eng.n_prefills + eng.n_decode_dispatches
+    assert eng.n_spec_proposed > 0 and eng.n_spec_fallbacks == 0
+    for r in reqs:
+        want = generate(cfg_t, p_t, torch.from_numpy(r.prompt)[None].to(
+            cuda_device), max_new_tokens=r.max_new_tokens, max_len=64)
+        np.testing.assert_array_equal(got[r.uid], want[0].cpu().numpy())

@@ -33,7 +33,7 @@ from repro_torch.optim import OptimizerConfig, make_optimizer
 from repro_torch.train.loss import loss_for
 from repro_torch.train.steps import make_eval_step, make_grow_step, \
     make_train_step
-from repro_torch.utils.pytree import tree_flatten_with_paths
+from repro_torch.utils.pytree import tree_flatten_with_paths, tree_leaves
 
 SRC, TGT = "gpt-micro", "gpt-micro-big"
 
@@ -210,7 +210,7 @@ def test_grow_params_equals_jax(method):
     src = jax_params(js, seed=1)
     jgop, jop = jgrow.build(method, js, jt, rank=1)
     want = jgrow.grow_params(jgop, jop, src)
-    gop, _ = grow.build(method, ts, tt, rank=1)
+    gop, _ = grow.build(method, ts, tt, rank=1, device="cpu")
     op_params = from_jax(_np_tree(jop))
     got = grow.grow_params(gop, op_params, from_jax(src))
     _assert_trees_close(got, want)
@@ -224,7 +224,7 @@ def test_port_operator_init_matches_reference_structure():
     shapes and, at noise 0, JAX's values."""
     js, jt, ts, tt = _cfgs()
     _, jop = jgrow.build("mango", js, jt, rank=2, noise=0.0)
-    _, op = grow.build("mango", ts, tt, rank=2, noise=0.0)
+    _, op = grow.build("mango", ts, tt, rank=2, noise=0.0, device="cpu")
     _assert_trees_close(op, jop, atol=0.0)
     _, op_noisy = grow.build("mango", ts, tt, rank=2,
                              gen=torch.Generator().manual_seed(5))
@@ -252,7 +252,7 @@ def test_grow_step_follows_jax():
     jinit, _ = jax_make_optimizer(jopt)
     jstep = jax.jit(jax_make_grow_step(jgop, jt, jopt),
                     static_argnums=())
-    gop, _ = grow.build("mango", ts, tt, rank=1)
+    gop, _ = grow.build("mango", ts, tt, rank=1, device="cpu")
     opt = OptimizerConfig(lr=1e-3)
     init_fn, _ = make_optimizer(opt)
     step = make_grow_step(gop, tt, opt)
@@ -276,7 +276,7 @@ def test_grow_step_follows_jax():
 def test_grow_step_microbatches_match_one_batch():
     """Two microbatches average to the one-batch grads (f32, 1e-5)."""
     _, _, ts, tt = _cfgs()
-    gop, op0 = grow.build("mango", ts, tt, rank=1)
+    gop, op0 = grow.build("mango", ts, tt, rank=1, device="cpu")
     src = from_jax(jax_params(jax_get_config(SRC), seed=3))
     b = {"tokens": torch.from_numpy(_small_batches(tt.vocab_size, 8, 1)[0]
                                     ["tokens"])}
@@ -307,7 +307,7 @@ def test_train_operator_follows_jax(method):
         jgop, jop, src, jax_op_loss,
         iter({"tokens": jnp.asarray(b["tokens"])} for b in batches), steps=5)
 
-    gop, _ = grow.build(method, ts, tt, rank=1)
+    gop, _ = grow.build(method, ts, tt, rank=1, device="cpu")
     fam, loss = get_family(tt), loss_for(tt)
 
     def op_loss(big, b):
@@ -323,9 +323,21 @@ def test_train_operator_follows_jax(method):
 
 def test_frozen_methods_do_not_train():
     _, _, ts, tt = _cfgs()
-    gop, op = grow.build("bert2bert", ts, tt)
+    gop, op = grow.build("bert2bert", ts, tt, device="cpu")
     out, losses = grow.train_operator(gop, op, None, None, iter(()), steps=3)
     assert out is op and losses == []
+
+
+def test_build_runs_on_cuda_unless_asked_for_cpu(monkeypatch):
+    """``grow.build`` without a generator builds on CUDA by default, and so
+    raises ``resolve_device``'s error where there is none; ``device="cpu"``
+    builds on the CPU."""
+    _, _, ts, tt = _cfgs()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA was requested"):
+        grow.build("mango", ts, tt)
+    _, op = grow.build("mango", ts, tt, device="cpu")
+    assert {t.device.type for t in tree_leaves(op)} == {"cpu"}
 
 
 def test_quickstart_grown_beats_scratch():
@@ -345,7 +357,7 @@ def test_quickstart_grown_beats_scratch():
         b = {k: torch.from_numpy(v) for k, v in next(data).items()}
         small, state, _ = step(small, state, b, s + 1)
 
-    gop, op_params = grow.build("mango", cfg_s, cfg_t, rank=1)
+    gop, op_params = grow.build("mango", cfg_s, cfg_t, rank=1, device="cpu")
     fam, loss = get_family(cfg_t), loss_for(cfg_t)
 
     def op_loss(big, b):

@@ -47,7 +47,9 @@ def test_port_imports_neither_jax_nor_repro(path):
 
 def test_port_tree_is_what_the_rule_walks():
     assert len(PORT_FILES) > 15
-    assert ROOT / "src/repro_torch/serve/engine.py" in PORT_FILES
+    for module in ("serve/engine.py", "serve/speculative.py",
+                   "kernels/decode_attention.py", "models/transformer.py"):
+        assert ROOT / "src/repro_torch" / module in PORT_FILES
 
 
 @pytest.fixture
@@ -82,7 +84,7 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(no_cuda, capsys):
 
 @pytest.mark.parametrize("argv,flag", [
     (["--grow-cfg", "gpt-micro-big"], "--grow-cfg"),
-    (["--speculate"], "--speculate"),
+    (["--upgrade-at", "5"], "--upgrade-at"),
     (["--temperature=0.7"], "--temperature"), (["--pool", "paged"], "--pool"),
     (["--journal", "j.jsonl"], "--journal"), (["--mesh", "1x2"], "--mesh"),
 ])
