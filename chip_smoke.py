@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch/CUDA port (``repro_torch``): serving, the
-paper's growth and training loop, and speculative serving of the grown
-model with its source drafting.
+paper's growth and training loop, speculative serving of the grown model
+with its source drafting, and both served from a paged pool.
 
     python3 chip_smoke.py [--out report.json]
 
@@ -15,8 +15,10 @@ printed as it goes; a failed phase raises, so the exit code is not 0:
   3. kernels -- each kernel against its plain PyTorch version on the card
                 at the main paths' shapes (gpt-base serving, gpt-small ->
                 gpt-base growth, gpt-base's speculative verify and
-                gpt-small's catch-up) plus GQA, bfloat16, ragged, ring and
-                window cases (the sandwich's gradients too), then
+                gpt-small's catch-up, and the paged kernels over a 128-page
+                arena through permuted block tables with a sentinel block)
+                plus GQA, bfloat16, ragged, ring and window cases (the
+                sandwich's gradients too), then
                 CUDA-event times of kernel, plain version and one PyTorch
                 library call beside the kernel's bound;
   4. serve   -- full-width gpt-base (12 x 768, vocab 50257, random weights
@@ -42,7 +44,21 @@ printed as it goes; a failed phase raises, so the exit code is not 0:
                 reported), exact launch counts of the chunk-verify, slot
                 and flash kernels, tok/s beside the non-speculative engine
                 on the same requests; then gpt-base drafting for itself,
-                where a rejection must sit at a near tie.
+                where a rejection must sit at a near tie;
+  7. paged   -- phase 4's gpt-base from a paged pool of 48 pages (3/8 of
+                the dense pool's 128), capacity 8, max_len 1024 (page 64),
+                K 8: 16 requests of 64 new tokens, 12 opening with one
+                256-token prefix, beside the dense pool (dense, paged,
+                paged, dense): tokens == the plain route and the dense
+                engine (near ties reported), prefix hits, admissions that
+                waited for pages, exact launches of the paged slot kernel
+                (one per layer per decode step, the dense one never), no
+                page left in use; a traced run for the idle share;
+  8. paged speculate -- phase 6's pair and requests with both pools on
+                one arena of 64 pages, beside the dense speculative engine:
+                tokens == phase 6's plain route, exact launches of the
+                paged chunk-verify and paged slot kernels (the dense ones
+                never).
 
 Each path's launch counters are set to 0 just before it runs and read just
 after; a kernel of the path that was never launched fails the run.  The
@@ -53,6 +69,7 @@ beside this file, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import subprocess
 import sys
@@ -349,6 +366,7 @@ def run_kernels():
                 lambda: torch.matmul(a_i.mT, torch.matmul(x, a_o)), 10),
             shape=f"x{tuple(x.shape)} -> ({N}, {d2i}, {d2o}) {dname}")
     rows["chunk_verify_attention"] = run_chunk_cases(gen)
+    rows.update(run_paged_cases(gen))
     for r in rows.values():
         print(f"time {r['name']} [{r['shape']}]: kernel {r['ms']:.4f} ms, "
               f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} "
@@ -483,6 +501,155 @@ def run_chunk_cases(gen):
                 cases=cases, **{key: main[key] for key in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms", "shape")})
+
+
+def paged_cases(gen):
+    """Phase 3's paged cases: (kernel, label, L, B, S, H, KV, hd, n_pages,
+    page, nblk, dtype, lens), gpt-base's shapes first.  Tables are a seeded
+    permutation of the arena's pages (not contiguous), and one block
+    inside a row's attended range holds the sentinel (a draft past its
+    budget reads through it)."""
+    import torch
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    kv_lens = [0, 97, 200, 333, 451, 576, 800, 1024]
+    spread = [-1, 64, 137, 210, 283, 356, 430, 576]
+    return [
+        ("slot", "gpt-base paged f32", 12, 8, 1, 12, 12, 64, 128, 64, 16,
+         f32, kv_lens),
+        ("slot", "gpt-small paged f32", 12, 8, 1, 8, 8, 64, 128, 64, 16, f32,
+         kv_lens),
+        ("slot", "gpt-base paged bf16", 2, 8, 1, 12, 12, 64, 128, 64, 16,
+         bf16, kv_lens),
+        ("chunk", "gpt-base verify paged f32", 12, 8, 5, 12, 12, 64, 128, 64,
+         16, f32, spread),
+        ("chunk", "gpt-small catch-up paged f32", 12, 8, 5, 8, 8, 64, 128, 64,
+         16, f32, spread),
+        ("chunk", "gpt-base verify paged bf16", 2, 8, 5, 12, 12, 64, 128, 64,
+         16, bf16, spread),
+    ]
+
+
+def run_paged_cases(gen):
+    """Phase 3 for the two paged kernels: every case against its plain
+    version (``check_close``), then timed beside its bound, the plain
+    version and SDPA over K/V gathered from the arena ahead of the timing.
+    The first case of each kernel is its kernels-line row."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention, ref
+
+    fns = {"slot": decode_attention.paged_slot_decode_attention,
+           "chunk": decode_attention.paged_chunk_verify_attention}
+    rows = {}
+    for (kind, label, L, B, S, H, KV, hd, n_pages, page, nblk, dt,
+         lens) in paged_cases(gen):
+        def rnd(*s):
+            return torch.randn(*s, generator=gen, device="cuda").to(dt)
+        perm = torch.randperm(n_pages, generator=torch.Generator().manual_seed(
+            n_pages + B), dtype=torch.int32)
+        bt = perm[:B * nblk].reshape(B, nblk) if B * nblk <= n_pages else \
+            perm[torch.arange(B * nblk) % n_pages].reshape(B, nblk)
+        bt[7, 6] = n_pages  # row 7 attends blocks 0..9 or all 16
+        bt = bt.contiguous().cuda()
+        ka, va = rnd(L, n_pages, page, KV, hd), rnd(L, n_pages, page, KV, hd)
+        ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        dname = str(dt).split(".")[1]
+        name = f"paged_{kind}_" + ("decode_attention" if kind == "slot"
+                                   else "verify_attention")
+        fn = fns[kind]
+        item = ka.element_size()
+        cap = nblk * page
+        if kind == "slot":
+            q = rnd(B, H, hd)
+
+            def kern(j):
+                return fn(q, ka[j], va[j], bt, ln)
+
+            def plain(j):
+                return ref.paged_slot_decode_attention_ref(q, ka[j], va[j],
+                                                           bt, ln)
+            n_keys = int(ln.clamp(0, cap).sum())
+            qkv = 2 * B * H * hd * item
+            mask = (torch.arange(cap, device="cuda")[None] < ln[:, None])[
+                :, None, None]
+            qt = q[:, :, None]
+        else:
+            q, kc, vc = rnd(B, S, H, hd), rnd(B, S, KV, hd), rnd(B, S, KV, hd)
+
+            def kern(j):
+                return fn(q, ka[j], va[j], bt, kc, vc, ln, ring=False)
+
+            def plain(j):
+                return ref.paged_chunk_verify_attention_ref(
+                    q, ka[j], va[j], bt, kc, vc, ln, ring=False)
+            n_keys = sum(min(o, cap) + S for o in lens if o >= 0)
+            qkv = 2 * B * S * H * hd * item
+            steps = torch.arange(S, device="cuda")[None]
+            pos = torch.arange(cap, device="cuda")[None]
+            kpos = torch.cat([torch.where(pos < ln[:, None], pos, -1),
+                              ln[:, None] + steps], 1)
+            qpos = ln[:, None] + steps
+            mask = ((kpos[:, None] >= 0) & (kpos[:, None] <= qpos[:, :, None])
+                    )[:, None]
+            qt = q.transpose(1, 2)
+        got = kern(0)
+        torch.cuda.synchronize()
+        err = check_close(f"{name} [{label}]", got, plain(0), dname)
+        done_rows = (ln == 0) if kind == "slot" else (ln < 0)
+        if not bool((got[done_rows] == 0).all()):
+            raise AssertionError(f"{name} [{label}]: rows with kv_len 0 / "
+                                 "offset -1 are not exact zeros")
+        b_ms, b_by = bound_ms(
+            n_keys * KV * hd * 2 * item + qkv + 4 * B * nblk + 4 * B,
+            4 * n_keys * H * hd * (S if kind == "chunk" else 1), dname)
+        # library yardstick: SDPA over each layer's K/V gathered from the
+        # arena (and, for a verify, the chunk appended) ahead of the timing
+        k_all, v_all = [], []
+        for j in range(L):
+            kd = ref._paged_gather_ref(ka[j], bt)
+            vd = ref._paged_gather_ref(va[j], bt)
+            if kind == "chunk":
+                kd, vd = torch.cat([kd, kc], 1), torch.cat([vd, vc], 1)
+            k_all.append(kd.transpose(1, 2).contiguous())
+            v_all.append(vd.transpose(1, 2).contiguous())
+        layers = iter(range(10 ** 9))
+
+        def cycled(f):
+            def call():
+                return f(next(layers) % L)
+            return call
+
+        case = dict(
+            label=label, max_abs_err=err,
+            ms=time_ms(cycled(kern), 10 * L),
+            plain_ms=time_ms(cycled(plain), 2 * L),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=time_ms(cycled(
+                lambda j: F.scaled_dot_product_attention(
+                    qt, k_all[j], v_all[j], attn_mask=mask,
+                    enable_gqa=H != KV)), 10 * L),
+            shape=(f"q{tuple(q.shape)} arena{tuple(ka.shape[1:])} bt"
+                   f"{tuple(bt.shape)} {dname} "
+                   f"{'kv_len' if kind == 'slot' else 'offsets'} {lens}"))
+        print(f"{name} [{label}] {case['shape']}: max abs err {err:.3g}; "
+              f"kernel {case['ms']:.4f} ms, plain {case['plain_ms']:.4f} "
+              f"ms, library {case['library_ms']:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by})", flush=True)
+        del k_all, v_all, ka, va
+        if name not in rows:
+            rows[name] = dict(
+                name=name, route="cuda",
+                source=f"src/repro_torch/kernels/csrc/{name}.cu",
+                replaces=("src/repro/kernels/decode_attention.py:366"
+                          if kind == "slot" else
+                          "src/repro/kernels/decode_attention.py:451"),
+                cases=[], **{key: case[key] for key in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "shape")})
+        rows[name]["cases"].append(case)
+    return rows
 
 
 def plain_greedy(cfg, params, prompt, n):
@@ -666,13 +833,14 @@ def profile_step(label, fn):
     return out, report
 
 
-def profile_serve(make_engine, reqs, untraced_wall):
+def profile_serve(make_engine, reqs, untraced_wall,
+                  stages=("_admit_group", "_dispatch", "_process")):
     """A second, traced run of the same requests under torch.profiler:
-    device busy time, host time per engine stage, and the kernels that
-    take the device time.  Tracing slows the host, so the idle share is
-    given against both the traced wall time and the untraced run's.
-    ``decode_steps`` counts K per dispatch: decode steps, or speculative
-    blocks."""
+    device busy time, host time per engine stage (``stages``, engine
+    methods), and the kernels that take the device time.  Tracing slows
+    the host, so the idle share is given against both the traced wall
+    time and the untraced run's.  ``decode_steps`` counts K per dispatch:
+    decode steps, or speculative blocks."""
     import dataclasses
 
     import torch
@@ -680,7 +848,6 @@ def profile_serve(make_engine, reqs, untraced_wall):
     from torch.profiler import ProfilerActivity, profile, record_function
 
     eng = make_engine()
-    stages = ("_admit_group", "_dispatch", "_process")
     for name in stages:
         def ranged(*a, _fn=getattr(eng, name), _tag=f"engine{name}", **kw):
             with record_function(_tag):
@@ -1001,7 +1168,8 @@ def run_speculative(kernel_rows, small, big):
         "chunk_verify_attention": (cfg_t.n_layers + cfg_s.n_layers) * blocks,
         "slot_decode_attention": cfg_s.n_layers * SPEC_D * blocks,
         "flash_attention": (cfg_t.n_layers + cfg_s.n_layers) * eng.n_prefills,
-        "tr_sandwich": 0}
+        "tr_sandwich": 0, "paged_slot_decode_attention": 0,
+        "paged_chunk_verify_attention": 0}
     if launches != want or eng.n_spec_fallbacks:
         raise AssertionError(f"speculative path launched {launches}, "
                              f"expected {want} ({eng.n_decode_dispatches} "
@@ -1084,6 +1252,304 @@ def run_speculative(kernel_rows, small, big):
         raise AssertionError(f"self-draft rejected {rejected} proposals but "
                              f"the plain route has only {n_ties} near-tie "
                              "steps: a rejection away from a near tie")
+    return report, reqs, plain
+
+
+PAGED_PAGES = 48  # phase 7's arena: 3/8 of the dense pool's 128 pages
+SPEC_PAGES = 64  # phase 8's arena, shared by target and draft
+
+
+def paged_requests(vocab):
+    """Phase 7's 16 requests, 64 new tokens each: 12 open with the same
+    256-token prefix (4 full pages of 64) and add 16..192 tokens of their
+    own, 4 have prompts of their own (64..448 tokens).  A prefix hit needs
+    every full page before the prompt's last token resident, so only the
+    four with at most 64 own tokens can hit; they come last, after the
+    first waves have registered the prefix."""
+    import numpy as np
+
+    from repro_torch.data import lm_batch
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng(7)
+    prefix = lm_batch(vocab, 1, 256, seed=500)[0]
+    own = [int(n) for n in np.linspace(16, 192, 12)]
+    shared = [np.concatenate([prefix, lm_batch(vocab, 1, n, seed=510 + i)[0]])
+              for i, n in enumerate(own)]
+    solo = [lm_batch(vocab, 1, int(rng.integers(64, 449)), seed=530 + i)[0]
+            for i in range(4)]
+    long_first = shared[4:] + solo
+    order = [long_first[i] for i in rng.permutation(len(long_first))]
+    return [Request(uid=i, prompt=p, max_new_tokens=64)
+            for i, p in enumerate(order + shared[:4])]
+
+
+def _pool_bytes(pool):
+    return sum(t.numel() * t.element_size() for t in _leaves(pool))
+
+
+def check_same_tokens(what, uid, got, want, gaps):
+    """Two routes' tokens must be equal, except from a step where the
+    plain route's top-2 gap is a near tie (reported)."""
+    import numpy as np
+
+    diff = np.nonzero(got != want)[0]
+    if diff.size == 0:
+        return None
+    t = int(diff[0])
+    if gaps[t] >= NEAR_TIE:
+        raise AssertionError(f"uid {uid}: {what} diverge at step {t} where "
+                             f"the plain top-2 gap is {gaps[t]:.3g}")
+    print(f"near tie: uid {uid} {what} diverge at step {t}", flush=True)
+    return (uid, t, float(gaps[t]))
+
+
+def run_paged_serve(kernel_rows):
+    """Phase 7: phase 4's gpt-base served from a paged pool of
+    PAGED_PAGES pages (prefix sharing, page backpressure) beside the dense
+    pool on the same requests (dense, paged, paged, dense)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import build_params
+    from repro_torch.serve import ContinuousBatchingEngine, Request
+
+    cfg = get_config("gpt-base")
+    params = build_params(cfg, seed=0, device="cuda")
+    reqs = paged_requests(cfg.vocab_size)
+
+    def engine(pool):
+        return ContinuousBatchingEngine(
+            cfg, params, capacity=8, max_len=1024, k=8, pool=pool,
+            pages=PAGED_PAGES if pool == "paged" else None)
+
+    def timed(eng):
+        waits = []  # admissions refused for want of pages (backpressure)
+        alloc = eng._alloc_request
+
+        def counted(req):
+            info = alloc(req)
+            waits.append(info is None)
+            return info
+        eng._alloc_request = counted
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            out = eng.run([dataclasses.replace(r) for r in reqs])
+            torch.cuda.synchronize()
+        finally:
+            # the wrapper holds the engine: drop it, so the engine (and
+            # its pool) is freed on return, not at some later collection
+            del eng._alloc_request
+        dt = time.perf_counter() - t0
+        return out, dt, sum(len(v) for v in out.values()) / dt, sum(waits)
+
+    for pool in ("dense", "paged"):  # first-use costs
+        engine(pool).run([Request(uid=0, prompt=reqs[0].prompt,
+                                  max_new_tokens=9)])
+    kern = ops.kernels()
+    gc.collect()  # no earlier phase's garbage in the peaks below
+    held = torch.cuda.memory_allocated()  # params of phases 5 and 7
+    torch.cuda.reset_peak_memory_stats()
+    dense_a, _, tps_dense_a, _ = timed(engine("dense"))
+    peak_dense = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kern.values():
+        fn.launches = 0
+    eng = engine("paged")
+    out, dt, tps_paged, waits = timed(eng)
+    launches = {name: fn.launches for name, fn in kern.items()}
+    peak = torch.cuda.max_memory_allocated()
+    _, _, tps_paged_b, _ = timed(engine("paged"))
+    _, _, tps_dense_b, _ = timed(engine("dense"))
+    n_tok = sum(len(v) for v in out.values())
+    if set(out) != {r.uid for r in reqs} or eng.rejected:
+        raise AssertionError(f"requests missing or rejected: {eng.rejected}")
+    steps = eng.k * eng.n_decode_dispatches + eng.n_prefix_tail_steps
+    want = {name: 0 for name in kern}
+    want.update(paged_slot_decode_attention=cfg.n_layers * steps,
+                flash_attention=cfg.n_layers * eng.n_prefills)
+    if launches != want:
+        raise AssertionError(f"paged path launched {launches}, expected "
+                             f"{want} ({steps} decode steps, "
+                             f"{eng.n_prefills} admission groups)")
+    if eng.n_prefix_hits == 0 or eng.pages_in_use != 0 or not waits:
+        raise AssertionError(
+            f"prefix hits {eng.n_prefix_hits}, pages in use at the end "
+            f"{eng.pages_in_use}, admissions refused for pages {waits}")
+    kernel_rows["paged_slot_decode_attention"]["launches"] = launches[
+        "paged_slot_decode_attention"]
+    dense_eng = engine("dense")
+    report = dict(
+        tok_per_s=[tps_paged, tps_paged_b],
+        dense_tok_per_s=[tps_dense_a, tps_dense_b], seconds=dt,
+        tokens=n_tok, pages_budget=eng.pages_budget,
+        pages_highwater=eng.pages_highwater,
+        n_prefix_hits=eng.n_prefix_hits, n_prefix_misses=eng.n_prefix_misses,
+        n_prefix_stalls=eng.n_prefix_stalls,
+        prefix_hit_rate=eng.prefix_hit_rate,
+        n_pages_allocated=eng.n_pages_allocated,
+        admissions_refused_for_pages=waits,
+        prefix_tail_steps=eng.n_prefix_tail_steps,
+        decode_steps=eng.k * eng.n_decode_dispatches,
+        n_prefills=eng.n_prefills,
+        pool_bytes=_pool_bytes(eng.pool),
+        dense_pool_bytes=_pool_bytes(dense_eng.pool),
+        host_syncs_per_token=eng.n_host_syncs / n_tok,
+        peak_mib=peak / 2**20, dense_peak_mib=peak_dense / 2**20,
+        held_before_mib=held / 2**20, launches=launches)
+    del dense_eng
+    print(f"paged: {len(out)} requests / {n_tok} tokens in {dt:.3f} s: "
+          f"{tps_paged:.1f} tok/s (second run {tps_paged_b:.1f}); dense "
+          f"pool {tps_dense_a:.1f} and {tps_dense_b:.1f} tok/s; prefix hits "
+          f"{eng.n_prefix_hits}, misses {eng.n_prefix_misses}, stalls "
+          f"{eng.n_prefix_stalls} (hit rate {eng.prefix_hit_rate:.3f}); "
+          f"admissions refused for pages {waits}; pages {eng.pages_budget} "
+          f"budget, {eng.pages_highwater} high-water, "
+          f"{eng.n_pages_allocated} allocated; pool "
+          f"{report['pool_bytes'] / 2**20:.1f} MiB paged vs "
+          f"{report['dense_pool_bytes'] / 2**20:.1f} MiB dense; "
+          f"{eng.n_host_syncs / n_tok:.4f} host syncs/token "
+          f"({eng.n_host_syncs} syncs, {eng.n_decode_dispatches} "
+          f"macro-steps, {eng.n_prefills} prefill groups); "
+          f"{eng.n_prefix_tail_steps} hit tail steps beside "
+          f"{report['decode_steps']} macro decode steps; peak memory "
+          f"{peak / 2**20:.1f} MiB paged vs {peak_dense / 2**20:.1f} MiB "
+          f"dense ({held / 2**20:.1f} MiB held before either run); kernel "
+          f"launches {launches}", flush=True)
+
+    before = {name: fn.launches for name, fn in kern.items()}
+    plain = {r.uid: plain_greedy(cfg, params, r.prompt, 64) for r in reqs}
+    if {name: fn.launches for name, fn in kern.items()} != before:
+        raise AssertionError("the plain reference launched a CUDA kernel")
+    ties = {"paged": [], "dense": [], "paged vs dense": []}
+    for r in reqs:
+        for what, toks in (("paged", out[r.uid]), ("dense", dense_a[r.uid])):
+            if toks.shape != (64,):
+                raise AssertionError(f"uid {r.uid}: bad {what} output {toks}")
+            tie = check_against_plain(what, r.uid, toks, *plain[r.uid])
+            if tie is not None:
+                ties[what].append(tie)
+        tie = check_same_tokens("paged and dense engines", r.uid, out[r.uid],
+                                dense_a[r.uid], plain[r.uid][1])
+        if tie is not None:
+            ties["paged vs dense"].append(tie)
+    report["near_ties"] = ties
+    print(f"tokens == plain route for {len(reqs) - len(ties['paged'])}/"
+          f"{len(reqs)} requests (paged), "
+          f"{len(reqs) - len(ties['dense'])}/{len(reqs)} (dense); paged == "
+          f"dense for {len(reqs) - len(ties['paged vs dense'])}/{len(reqs)}; "
+          f"near ties {ties}", flush=True)
+    report["profile"] = profile_serve(
+        lambda: engine("paged"), reqs, dt,
+        stages=("_admit_group", "_admit_hits", "_dispatch", "_process"))
+    return report
+
+
+def run_paged_speculative(kernel_rows, small, big, reqs, plain):
+    """Phase 8: phase 6's pair and requests, both pools on ONE arena of
+    SPEC_PAGES pages, beside the dense speculative engine (dense, paged,
+    paged, dense); tokens against phase 6's plain route."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.serve import (
+        ContinuousBatchingEngine,
+        Request,
+        SpeculativeConfig,
+    )
+
+    cfg_s, cfg_t = get_config("gpt-small"), get_config("gpt-base")
+
+    def engine(pool):
+        return ContinuousBatchingEngine(
+            cfg_t, big, capacity=8, max_len=1024, k=SPEC_K, pool=pool,
+            pages=SPEC_PAGES if pool == "paged" else None,
+            speculative=SpeculativeConfig(cfg_s, small, d=SPEC_D))
+
+    def timed(eng):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng.run([dataclasses.replace(r) for r in reqs])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        return out, dt, sum(len(v) for v in out.values()) / dt, eng
+
+    engine("paged").run([Request(uid=0, prompt=reqs[0].prompt,
+                                 max_new_tokens=9)])  # first-use costs
+    kern = ops.kernels()
+    gc.collect()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _, _, tps_dense_a, dense_eng = timed(engine("dense"))
+    peak_dense = torch.cuda.max_memory_allocated()
+    dense_acceptance = dense_eng.acceptance_rate
+    del dense_eng  # its pools must not count in the paged run's peak
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kern.values():
+        fn.launches = 0
+    out, dt, tps_paged, eng = timed(engine("paged"))
+    launches = {name: fn.launches for name, fn in kern.items()}
+    peak = torch.cuda.max_memory_allocated()
+    _, _, tps_paged_b, _ = timed(engine("paged"))
+    _, _, tps_dense_b, _ = timed(engine("dense"))
+    n_tok = sum(len(v) for v in out.values())
+    if set(out) != {r.uid for r in reqs} or eng.rejected:
+        raise AssertionError(f"requests missing or rejected: {eng.rejected}")
+    blocks = SPEC_K * eng.n_decode_dispatches
+    want = {name: 0 for name in kern}
+    want.update(
+        paged_chunk_verify_attention=(cfg_t.n_layers + cfg_s.n_layers)
+        * blocks,
+        paged_slot_decode_attention=cfg_s.n_layers * SPEC_D * blocks,
+        flash_attention=(cfg_t.n_layers + cfg_s.n_layers) * eng.n_prefills)
+    if launches != want or eng.n_spec_fallbacks or eng.pages_in_use:
+        raise AssertionError(f"paged speculative path launched {launches}, "
+                             f"expected {want} ({eng.n_decode_dispatches} "
+                             f"dispatches of {SPEC_K} blocks, "
+                             f"{eng.n_prefills} admission groups, "
+                             f"{eng.n_spec_fallbacks} fallbacks, "
+                             f"{eng.pages_in_use} pages left in use)")
+    kernel_rows["paged_chunk_verify_attention"]["launches"] = launches[
+        "paged_chunk_verify_attention"]
+    ties = []
+    for r in reqs:
+        if out[r.uid].shape != (64,):
+            raise AssertionError(f"uid {r.uid}: bad output {out[r.uid]}")
+        tie = check_against_plain("paged speculative", r.uid, out[r.uid],
+                                  *plain[r.uid])
+        if tie is not None:
+            ties.append(tie)
+    report = dict(
+        tok_per_s=[tps_paged, tps_paged_b],
+        dense_spec_tok_per_s=[tps_dense_a, tps_dense_b], seconds=dt,
+        tokens=n_tok, acceptance_rate=eng.acceptance_rate,
+        n_spec_proposed=eng.n_spec_proposed,
+        n_spec_accepted=eng.n_spec_accepted,
+        dense_acceptance_rate=dense_acceptance,
+        pages_budget=eng.pages_budget, pages_highwater=eng.pages_highwater,
+        host_syncs_per_token=eng.n_host_syncs / n_tok,
+        peak_mib=peak / 2**20, dense_peak_mib=peak_dense / 2**20,
+        held_before_mib=held / 2**20, launches=launches, near_ties=ties)
+    print(f"paged speculative: {len(out)} requests / {n_tok} tokens in "
+          f"{dt:.3f} s: {tps_paged:.1f} tok/s (second run {tps_paged_b:.1f});"
+          f" dense speculative {tps_dense_a:.1f} and {tps_dense_b:.1f} tok/s;"
+          f" acceptance {eng.acceptance_rate:.4f} ({eng.n_spec_accepted}/"
+          f"{eng.n_spec_proposed}; dense {dense_acceptance:.4f}); "
+          f"pages {eng.pages_budget} budget (target and draft), "
+          f"{eng.pages_highwater} high-water; "
+          f"{report['host_syncs_per_token']:.4f} host syncs/token; peak "
+          f"memory {peak / 2**20:.1f} MiB paged vs {peak_dense / 2**20:.1f} "
+          f"MiB dense ({held / 2**20:.1f} MiB held before either run); "
+          f"kernel launches {launches}; "
+          f"tokens == plain route for {len(reqs) - len(ties)}/{len(reqs)} "
+          f"(near ties {ties})", flush=True)
     return report
 
 
@@ -1151,9 +1617,20 @@ def main(argv=None):
 
     phase("speculative serving: gpt-small drafts for the grown gpt-base")
     t0 = time.perf_counter()
-    spec = run_speculative(rows, small, big)
-    del small, big
+    spec, spec_reqs, spec_plain = run_speculative(rows, small, big)
     print(f"phase 6 took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    phase("paged serving of gpt-base: block tables, prefix sharing")
+    t0 = time.perf_counter()
+    paged = run_paged_serve(rows)
+    print(f"phase 7 took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    phase("paged speculative serving: one arena for gpt-small and gpt-base")
+    t0 = time.perf_counter()
+    paged_spec = run_paged_speculative(rows, small, big, spec_reqs,
+                                       spec_plain)
+    del small, big
+    print(f"phase 8 took {time.perf_counter() - t0:.1f} s", flush=True)
 
     kernels = [{key: r[key] for key in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -1164,6 +1641,7 @@ def main(argv=None):
         Path(args.out).write_text(json.dumps(
             {"device": kind, "nvidia_smi": smi, "kernels": list(rows.values()),
              "serve": serve, "grow": grow, "speculative": spec,
+             "paged": paged, "paged_speculative": paged_spec,
              "build_seconds": secs}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

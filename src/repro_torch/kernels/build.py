@@ -21,7 +21,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("flash_attention", "slot_decode_attention", "tr_sandwich",
-           "chunk_verify_attention")
+           "chunk_verify_attention", "paged_slot_decode_attention",
+           "paged_chunk_verify_attention")
 
 _libs: dict = {}  # source name -> loaded ctypes.CDLL
 ptxas_log: dict = {}  # source name -> nvcc's register/shared-memory report

@@ -1,6 +1,9 @@
 """Wrappers of the CUDA decode-side attention kernels:
-``csrc/slot_decode_attention.cu`` (one query per slot) and
-``csrc/chunk_verify_attention.cu`` (a speculative verify chunk per slot).
+``csrc/slot_decode_attention.cu`` (one query per slot),
+``csrc/chunk_verify_attention.cu`` (a speculative verify chunk per slot),
+and their twins over a paged pool, ``csrc/paged_slot_decode_attention.cu``
+and ``csrc/paged_chunk_verify_attention.cu`` (page arenas read through
+per-row block tables).
 
 Each checks what its kernel takes, allocates the output, launches on the
 current stream and counts launches in ``<wrapper>.launches``.  ``ops``
@@ -19,6 +22,7 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128)
 GROUPS = (1, 2, 4, 8)
 CHUNK_MAX = 16  # verify-chunk length (d + 1) the chunk kernel takes
+NBLK_MAX = 2048  # block-table entries per row the paged kernels take
 
 
 def _entry():
@@ -30,14 +34,14 @@ def _entry():
     return fn
 
 
-def _check_tensors(what, floats, lens):
-    """Device, layout and dtype rules both kernels share: every tensor on
+def _check_tensors(what, floats, *ints):
+    """Device, layout and dtype rules the kernels share: every tensor on
     the first one's CUDA device and contiguous; the float tensors
     (``floats``, (name, tensor) pairs) share float32 or bfloat16 and are
-    16-byte aligned; ``lens`` is the per-row int tensor, checked by the
-    caller for its dtype and shape."""
+    16-byte aligned; ``ints`` are the (name, tensor) int tensors (per-row
+    lengths, block tables), checked by the caller for dtype and shape."""
     first = floats[0][1]
-    for name, t in (*floats, lens):
+    for name, t in (*floats, *ints):
         if t.device.type != "cuda" or t.device != first.device:
             raise ValueError(f"{what}: {name} must be a CUDA tensor on "
                              f"{first.device} (got {t.device})")
@@ -163,3 +167,133 @@ def chunk_verify_attention(q, ck, cv, k, v, offsets, *, ring, window=None):
 
 
 chunk_verify_attention.launches = 0
+
+
+def _check_heads(what, H, KV, hd):
+    if KV < 1 or H % KV or H // KV not in GROUPS:
+        raise ValueError(f"{what}: H/KV = {H}/{KV} must be one of {GROUPS}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"{what}: head_dim {hd} not in {HEAD_DIMS}")
+
+
+def _check_arena(what, arenas, bt, B, KV, hd):
+    """Page arenas (n_pages, page, KV, hd) and a (B, nblk) int32 table."""
+    n_pages, page = arenas[0][1].shape[:2]
+    for name, a in arenas:
+        if a.dim() != 4 or a.shape != (n_pages, page, KV, hd):
+            raise ValueError(f"{what}: {name} must be an arena (n_pages, "
+                             f"page, KV, hd) = ({n_pages}, {page}, {KV}, "
+                             f"{hd}); got {tuple(a.shape)}")
+    if n_pages < 1 or page < 1:
+        raise ValueError(f"{what}: the arena needs at least one page")
+    if bt.dtype != torch.int32 or bt.dim() != 2 or bt.shape[0] != B:
+        raise ValueError(f"{what}: bt must be ({B}, nblk) int32 (got "
+                         f"{tuple(bt.shape)} {bt.dtype})")
+    if not 1 <= bt.shape[1] <= NBLK_MAX:
+        raise ValueError(f"{what}: nblk = {bt.shape[1]} must be in "
+                         f"1..{NBLK_MAX}")
+
+
+def _paged_slot_entry():
+    fn = build.load("paged_slot_decode_attention"
+                    ).paged_slot_decode_attention_fwd
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def paged_slot_decode_attention(q, k, v, bt, kv_len):
+    """q: (B, H, hd); k, v: (n_pages, page, KV, hd) page arenas; bt:
+    (B, nblk) int32 block tables; kv_len: (B,) int32 -> (B, H, hd).
+    Position p of row b is ``arena[bt[b, p // page], p % page]``; table
+    entries outside the arena clamp to its last page.  kv_len 0 gives
+    exact zeros; kv_len > nblk * page reads nblk * page."""
+    what = "paged_slot_decode_attention"
+    _check_tensors(what, (("q", q), ("k", k), ("v", v)), ("bt", bt),
+                   ("kv_len", kv_len))
+    if q.dim() != 3:
+        raise ValueError(f"{what}: q must be (B, H, hd)")
+    B, H, hd = q.shape
+    KV = k.shape[2] if k.dim() == 4 else -1
+    _check_arena(what, (("k", k), ("v", v)), bt, B, KV, hd)
+    if kv_len.dtype != torch.int32 or kv_len.shape != (B,):
+        raise ValueError(f"{what}: kv_len must be ({B},) int32 (got "
+                         f"{tuple(kv_len.shape)} {kv_len.dtype})")
+    _check_heads(what, H, KV, hd)
+    n_pages, page = k.shape[:2]
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        rc = _paged_slot_entry()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bt.data_ptr(),
+            kv_len.data_ptr(), out.data_ptr(), DTYPES[q.dtype], B, n_pages,
+            page, bt.shape[1], KV, H, hd, hd ** -0.5,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
+    paged_slot_decode_attention.launches += 1
+    return out
+
+
+paged_slot_decode_attention.launches = 0
+
+
+def _paged_chunk_entry():
+    fn = build.load("paged_chunk_verify_attention"
+                    ).paged_chunk_verify_attention_fwd
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def paged_chunk_verify_attention(q, ck, cv, bt, k, v, offsets, *, ring,
+                                 window=None):
+    """q: (B, S, H, hd); ck, cv: (n_pages, page, KV, hd) read-only cache
+    arenas; bt: (B, nblk) int32 block tables (logical cache length
+    ``nblk * page``, full layout); k, v: (B, S, KV, hd) the chunk's own
+    K/V; offsets: (B,) int32 committed lengths -> (B, S, H, hd).  Offsets
+    < 0 give exact zeros; the arenas are never written."""
+    what = "paged_chunk_verify_attention"
+    if ring:
+        raise NotImplementedError(
+            f"{what}: the paged ring-buffer layout is not ported to "
+            "repro_torch yet (the ring slice, ROADMAP.md)")
+    _check_tensors(what, (("q", q), ("ck", ck), ("cv", cv), ("k", k),
+                          ("v", v)), ("bt", bt), ("offsets", offsets))
+    if q.dim() != 4:
+        raise ValueError(f"{what}: q must be (B, S, H, hd)")
+    B, S, H, hd = q.shape
+    KV = ck.shape[2] if ck.dim() == 4 else -1
+    _check_arena(what, (("ck", ck), ("cv", cv)), bt, B, KV, hd)
+    if k.shape != (B, S, KV, hd) or v.shape != k.shape:
+        raise ValueError(f"{what}: q {tuple(q.shape)} needs the chunk's k, v "
+                         f"of shape (B, S, KV, hd); got {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if offsets.dtype != torch.int32 or offsets.shape != (B,):
+        raise ValueError(f"{what}: offsets must be ({B},) int32 (got "
+                         f"{tuple(offsets.shape)} {offsets.dtype})")
+    _check_heads(what, H, KV, hd)
+    if not 1 <= S <= CHUNK_MAX:
+        raise ValueError(f"{what}: chunk length S = {S} must be in "
+                         f"1..{CHUNK_MAX}")
+    if window is not None and window < 1:
+        raise ValueError(f"{what}: window must be >= 1 (got {window})")
+    n_pages, page = ck.shape[:2]
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        rc = _paged_chunk_entry()(
+            q.data_ptr(), ck.data_ptr(), cv.data_ptr(), bt.data_ptr(),
+            k.data_ptr(), v.data_ptr(), offsets.data_ptr(), out.data_ptr(),
+            DTYPES[q.dtype], B, S, n_pages, page, bt.shape[1], KV, H, hd,
+            window or 0, hd ** -0.5,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
+    paged_chunk_verify_attention.launches += 1
+    return out
+
+
+paged_chunk_verify_attention.launches = 0

@@ -12,6 +12,12 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import (
     chunk_verify_attention as _chunk,
 )
+from repro_torch.kernels.decode_attention import (
+    paged_chunk_verify_attention as _paged_chunk,
+)
+from repro_torch.kernels.decode_attention import (
+    paged_slot_decode_attention as _paged_slot,
+)
 from repro_torch.kernels.decode_attention import slot_decode_attention as _slot
 from repro_torch.kernels.flash_attention import flash_attention as _flash
 from repro_torch.kernels.tr_sandwich import tr_sandwich as _sandwich
@@ -53,6 +59,36 @@ def chunk_verify_attention(q, ck, cv, k, v, offsets, *, ring, window=None,
                                               ring=ring, window=window)
     return _chunk(q, ck, cv, k, v, offsets.contiguous(), ring=ring,
                   window=window)
+
+
+def paged_slot_decode_attention(q, k, v, bt, kv_len, *, done=None):
+    """Full-KV slot decode over a paged pool: (n_pages, page, KV, hd)
+    arenas read through (B, nblk) block tables.  ``done`` rows fold into
+    ``kv_len = 0`` as in the dense entry."""
+    B = q.shape[0]
+    kv_len = torch.as_tensor(kv_len, dtype=torch.int32,
+                             device=q.device).reshape(-1).expand(B)
+    if done is not None:
+        kv_len = torch.where(done, 0, kv_len)
+    if q.device.type == "cpu":
+        return ref.paged_slot_decode_attention_ref(q, k, v, bt, kv_len)
+    return _paged_slot(q, k, v, bt, kv_len.contiguous())
+
+
+def paged_chunk_verify_attention(q, ck, cv, bt, k, v, offsets, *, ring,
+                                 window=None, done=None):
+    """Speculative chunk verify over a paged pool (cache read-only).
+    ``done`` rows fold into ``offsets = -1``."""
+    B = q.shape[0]
+    offsets = torch.as_tensor(offsets, dtype=torch.int32,
+                              device=q.device).reshape(-1).expand(B)
+    if done is not None:
+        offsets = torch.where(done, -1, offsets)
+    if q.device.type == "cpu":
+        return ref.paged_chunk_verify_attention_ref(
+            q, ck, cv, bt, k, v, offsets, ring=ring, window=window)
+    return _paged_chunk(q, ck, cv, bt, k, v, offsets.contiguous(), ring=ring,
+                        window=window)
 
 
 def _sandwich_on_device(x, a_i, a_o):
@@ -98,4 +134,6 @@ def kernels():
     """The CUDA kernel wrappers, by name (their ``launches`` counters are
     what a run reads)."""
     return {"flash_attention": _flash, "slot_decode_attention": _slot,
-            "tr_sandwich": _sandwich, "chunk_verify_attention": _chunk}
+            "tr_sandwich": _sandwich, "chunk_verify_attention": _chunk,
+            "paged_slot_decode_attention": _paged_slot,
+            "paged_chunk_verify_attention": _paged_chunk}

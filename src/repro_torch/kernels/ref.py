@@ -101,3 +101,32 @@ def chunk_verify_attention_ref(q, ck, cv, k, v, offsets, *, ring,
     out = torch.einsum("bkgqs,bskh->bqkgh", p, v_all)
     out = out * (off >= 0).to(out.dtype)[:, None, None, None, None]
     return out.reshape(B, S, H, hd).to(q.dtype)
+
+
+def _paged_gather_ref(arena, bt):
+    """(n_pages, page, ...) arena + (B, nblk) block table -> the dense
+    pool layout (B, nblk * page, ...).  Sentinel entries clamp to the last
+    page, whose bytes sit at positions every paged version masks away (an
+    independent twin of ``models.attention.paged_gather``, re-derived so
+    the plain versions can catch a fault in either)."""
+    n_pages = arena.shape[0]
+    bt = bt.long()
+    g = arena[torch.where(bt < n_pages, bt, n_pages - 1)]
+    return g.reshape((bt.shape[0], -1) + tuple(arena.shape[2:]))
+
+
+def paged_slot_decode_attention_ref(q, k, v, bt, kv_len):
+    """q: (B, H, hd); k, v: (n_pages, page, KV, hd) arenas; bt: (B, nblk)
+    block tables; kv_len: (B,) -> (B, H, hd): the dense version over the
+    gathered view."""
+    return slot_decode_attention_ref(
+        q, _paged_gather_ref(k, bt), _paged_gather_ref(v, bt), kv_len)
+
+
+def paged_chunk_verify_attention_ref(q, ck, cv, bt, k, v, offsets, *, ring,
+                                     window=None):
+    """The chunk-verify version over (n_pages, page, KV, hd) cache arenas
+    and (B, nblk) block tables (logical cache length ``nblk * page``)."""
+    return chunk_verify_attention_ref(
+        q, _paged_gather_ref(ck, bt), _paged_gather_ref(cv, bt), k, v,
+        offsets, ring=ring, window=window)

@@ -24,6 +24,11 @@ asked for and absent:
   # the same vocabulary, freshly initialised)
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt-base \
       --engine continuous --grow gpt-small --speculate --spec-d 4
+
+  # the paged pool: block tables over one page arena of --pages pages
+  # (shared by target and draft with --speculate), prefix sharing
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt-base \
+      --engine continuous --pool paged --pages 64 --max-len 1024
 """
 from __future__ import annotations
 
@@ -52,8 +57,7 @@ UNPORTED_FLAGS = {
     "--grow-cfg": "live upgrade", "--upgrade-at": "live upgrade",
     "--upgrade-sync": "live upgrade", "--temperature": "sampling", "--top-k": "sampling", "--top-p": "sampling",
     "--sample-seed": "sampling", "--kernel": "the kernel switch (the device "
-    "picks kernel or plain version)", "--pool": "the paged pool",
-    "--pages": "the paged pool", "--mesh": "sharded serving",
+    "picks kernel or plain version)", "--mesh": "sharded serving",
     "--deadline": "deadlines", "--journal": "the request journal",
     "--resume": "the request journal", "--snapshot": "engine snapshots",
     "--faults": "fault injection",
@@ -172,6 +176,13 @@ def main(argv=None):
                              "net2net"])
     ap.add_argument("--grow-rank", type=int, default=1)
     ap.add_argument("--grow-steps", type=int, default=0)
+    ap.add_argument("--pool", default="dense", choices=["dense", "paged"],
+                    help="continuous: slot-pool layout, dense (one full "
+                         "max_len row per slot) or paged (block tables over "
+                         "a shared page arena, with a prefix cache)")
+    ap.add_argument("--pages", type=int, default=0,
+                    help="paged: page-arena depth (0 = capacity * blocks "
+                         "per slot, the dense pool's footprint)")
     ap.add_argument("--speculate", action="store_true",
                     help="greedy speculative decode: a draft model proposes, "
                          "the target verifies (needs --draft, or --grow whose "
@@ -191,6 +202,8 @@ def main(argv=None):
         require_servable(cfg)
     elif args.policy != "fifo":
         raise SystemExit("error: --policy requires --engine continuous")
+    if args.engine != "continuous" and (args.pool != "dense" or args.pages):
+        raise SystemExit("error: --pool/--pages require --engine continuous")
     max_len = args.max_len or (args.prompt_len + args.gen)
     if args.speculate:
         if args.engine != "continuous":
@@ -241,8 +254,16 @@ def main(argv=None):
 
     engine = ContinuousBatchingEngine(cfg, params, capacity=args.capacity,
                                       max_len=max_len, k=args.k,
-                                      policy=args.policy,
+                                      policy=args.policy, pool=args.pool,
+                                      pages=args.pages or None,
                                       speculative=speculative)
+    if engine.pages_budget is not None:
+        arena = ("one arena shared by target and draft"
+                 if speculative is not None else "target arena")
+        note = (f"--pages {args.pages}" if args.pages
+                else "default: the dense pool's footprint")
+        print(f"[serve] page budget: {engine.pages_budget} pages, {arena} "
+              f"({note})")
     rng = np.random.default_rng(0)
     reqs = []
     for uid in range(args.batch):
@@ -261,12 +282,17 @@ def main(argv=None):
         f"{engine.acceptance_rate:.3f} ({engine.n_spec_accepted}/"
         f"{engine.n_spec_proposed}), {engine.n_spec_fallbacks} spec "
         "fallback(s)")
-    print(f"[{mode}] {cfg.family}/{engine.cache_layout} (dense pool) on "
-          f"{dev} served {len(reqs)} requests / {n_tok} tokens in {dt:.2f}s "
-          f"({n_tok / dt:.1f} tok/s, {engine.n_decode_dispatches} "
-          f"macro-steps of K={args.k}, {engine.n_prefills} prefill batches, "
+    paged_note = "" if engine.pool_kind != "paged" else (
+        f", {engine.pages_budget} pages budget, {engine.pages_highwater} "
+        f"pages peak ({engine._alloc.meta.page} tok/page), prefix hit rate "
+        f"{engine.prefix_hit_rate:.2f}")
+    print(f"[{mode}] {cfg.family}/{engine.cache_layout} "
+          f"({engine.pool_kind} pool) on {dev} served {len(reqs)} requests "
+          f"/ {n_tok} tokens in {dt:.2f}s ({n_tok / dt:.1f} tok/s, "
+          f"{engine.n_decode_dispatches} macro-steps of K={args.k}, "
+          f"{engine.n_prefills} prefill batches, "
           f"{engine.n_host_syncs / max(n_tok, 1):.2f} host syncs/token"
-          f"{spec_note})")
+          f"{spec_note}{paged_note})")
     if engine.rejected:
         print(f"[continuous] rejected {len(engine.rejected)} request(s):")
         for uid, why in sorted(engine.rejected.items()):

@@ -17,6 +17,9 @@ and, to run as a speculative draft or target, the chunk-verify hooks
   commit_slots(params, tokens, positions, n_feed, cache, pending, cfg,
                done=None)
   prefill_cache(params, tokens, cfg, cache) -> cache
+and, to serve from a paged pool (``serve/paged.py``), the declaration of
+its pageable cache groups:
+  paged_groups(cfg) -> {group key: (kind, leaf names)}
 Only the transformer family is ported so far.
 """
 from __future__ import annotations
@@ -44,6 +47,17 @@ def serve_supported(cfg):
         return False, (f"family {cfg.family!r} is not ported to "
                        "repro_torch yet (see ROADMAP.md)")
     return get_family(cfg).serve_supported(cfg)
+
+
+def paged_groups(cfg):
+    """Slot-state protocol: which slot-cache groups page under a paged
+    pool, ``{top-level cache key: ("seq", leaf names)}`` ("seq": the named
+    (L, B, S, ...) leaves share one sequence axis that splits into pages,
+    and every slot holds a block table).  An empty dict means nothing
+    pages."""
+    fam = get_family(cfg)
+    probe = getattr(fam, "paged_groups", None)
+    return probe(cfg) if probe else {}
 
 
 def slot_cache_layout(cfg):

@@ -42,6 +42,21 @@ def _sdpa(q, k, v, mask, scale):
     return torch.einsum("bkgqs,bskh->bqkgh", probs.to(v.dtype), v)
 
 
+def paged_gather(arena, bt):
+    """A slot's dense cache view gathered from a page arena.
+
+    arena: (n_pages, page, ...) shared pages; bt: (B, nblk) int block
+    table (``n_pages`` is the sentinel of a block with no page).
+    Sentinels clamp to the last page: its bytes sit at positions every
+    caller masks away (per-row ``kv_len`` or the verify band), so their
+    softmax weight is exactly 0.  Returns (B, nblk * page, ...), the dense
+    pool layout.
+    """
+    n_pages = arena.shape[0]
+    g = arena[bt.long().clamp(max=n_pages - 1)]  # (B, nblk, page, ...)
+    return g.reshape((bt.shape[0], -1) + tuple(arena.shape[2:]))
+
+
 def attention(q, k, v, *, causal=True, q_offset=0, kv_len=None, scale=None,
               chunk_q=512):
     """Grouped-query attention.

@@ -11,12 +11,16 @@ Three call sites reach the hand-written kernels through ``kernels.ops``,
 which picks kernel or plain version by the tensor's device:
   * causal cached prefill at ``q_offset == 0`` -> ``ops.flash_attention``
     (the kernel masks ragged tiles, so every prefill length takes it);
-  * continuous-batching slot decode -> ``ops.slot_decode_attention``;
+  * continuous-batching slot decode -> ``ops.slot_decode_attention``, or
+    ``ops.paged_slot_decode_attention`` over a paged pool;
   * speculative verify of a chunk per slot -> ``ops.chunk_verify_attention``
-    (``verify_step_slots``; ``commit_slots`` then writes the accepted
-    prefix).
-Caches are updated in place (the reference package returns new buffers,
-which XLA aliases through donation); the returned cache is the same dict.
+    or ``ops.paged_chunk_verify_attention`` (``verify_step_slots``;
+    ``commit_slots`` then writes the accepted prefix).
+A paged cache group (``serve/paged.py``) carries a block table ``"bt"``
+beside its page arenas; the slot-decode and verify paths detect it by
+``"bt" in cache``.  Caches are updated in place (the reference package
+returns new buffers, which XLA aliases through donation); the returned
+cache is the same dict.
 """
 from __future__ import annotations
 
@@ -134,6 +138,45 @@ def _slot_kv_len(slot_positions, slot_done):
     return torch.where(slot_done, 0, kv)
 
 
+def _cache_seq_len(cache):
+    """Logical sequence length of a slot cache group: the cache axis of the
+    dense layout, ``nblk * page`` through the block table of a paged group
+    (whose arenas carry no per-slot sequence axis)."""
+    if "bt" in cache:
+        return cache["bt"].shape[-1] * cache["k"].shape[-3]
+    return cache["k"].shape[-3]
+
+
+def _paged_slot_forward(q, cache, k, v, slot_positions, slot_kv_len,
+                        slot_done, cdt):
+    """Slot-decode step over one layer of a PAGED cache group.
+
+    cache: {"k"/"v": (n_pages + 1, page, KV, hd), "bt": (B, nblk)}.  The
+    write of row b resolves through its table: page ``bt[b, pos // page]``
+    at offset ``pos % page``.  A write that must be dropped -- a ``done``
+    row (whose table may be all-sentinel after eviction), a position past
+    the row's pages (its table entry is the sentinel) or at or past
+    ``nblk * page`` -- goes to the scratch page ``n_pages``, which no read
+    sees (``serve/paged.py``).  Reads go to the paged slot kernel over the
+    real pages only.  Returns (B, 1, H, hd).
+    """
+    ck, cv, bt = cache["k"], cache["v"], cache["bt"]
+    n_pages, page = ck.shape[0] - 1, ck.shape[1]
+    nblk = bt.shape[1]
+    blk = slot_positions // page
+    pid = bt.gather(1, blk.clamp(max=nblk - 1)[:, None])[:, 0].long()
+    drop = slot_positions >= _cache_seq_len(cache)
+    if slot_done is not None:
+        drop = drop | slot_done
+    pid = torch.where(drop, n_pages, pid)
+    off = slot_positions % page
+    ck[pid, off] = k[:, 0].to(ck.dtype)
+    cv[pid, off] = v[:, 0].to(cv.dtype)
+    out = ops.paged_slot_decode_attention(
+        q[:, 0], ck[:n_pages].to(cdt), cv[:n_pages].to(cdt), bt, slot_kv_len)
+    return out[:, None]
+
+
 def _attn_forward(x, p, cfg, *, cache=None, q_offset=0, slot_positions=None,
                   slot_kv_len=None, chunk_offsets=None, slot_done=None):
     """Returns (out, cache). x: (B,S,D).
@@ -154,6 +197,10 @@ def _attn_forward(x, p, cfg, *, cache=None, q_offset=0, slot_positions=None,
     cache and itself (``slot_done`` rows give zeros).  The cache is not
     written; the second return value is the pending ``{"k", "v"}`` of the
     chunk, which ``commit_slots`` writes for the accepted prefix.
+
+    Both routes take a paged cache group too (``"bt" in cache``): the
+    slot route through ``_paged_slot_forward``, the verify route through
+    the paged chunk kernel over the arenas' real pages.
     """
     B, S, D = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -174,15 +221,25 @@ def _attn_forward(x, p, cfg, *, cache=None, q_offset=0, slot_positions=None,
 
     if chunk_offsets is not None:
         # the pool leaves as they are: no [cache ‖ chunk] copy
-        out = ops.chunk_verify_attention(q, cache["k"].to(cdt),
-                                         cache["v"].to(cdt), k, v,
-                                         chunk_offsets, ring=False,
-                                         done=slot_done)
+        if "bt" in cache:
+            n_pages = cache["k"].shape[0] - 1  # the scratch page stays unread
+            out = ops.paged_chunk_verify_attention(
+                q, cache["k"][:n_pages].to(cdt), cache["v"][:n_pages].to(cdt),
+                cache["bt"], k, v, chunk_offsets, ring=False, done=slot_done)
+        else:
+            out = ops.chunk_verify_attention(q, cache["k"].to(cdt),
+                                             cache["v"].to(cdt), k, v,
+                                             chunk_offsets, ring=False,
+                                             done=slot_done)
         return _attn_out(out, p, cfg, cdt), {"k": k, "v": v}
+    if slot_positions is not None and "bt" in cache:
+        out = _paged_slot_forward(q, cache, k, v, slot_positions,
+                                  slot_kv_len, slot_done, cdt)
+        return _attn_out(out, p, cfg, cdt), cache
     if slot_positions is not None:
         ck, cv = cache["k"], cache["v"]
         rows = torch.arange(B, device=x.device)
-        wpos = slot_positions.clamp(max=ck.shape[1] - 1)
+        wpos = slot_positions.clamp(max=_cache_seq_len(cache) - 1)
         ck[rows, wpos] = k[:, 0].to(ck.dtype)
         cv[rows, wpos] = v[:, 0].to(cv.dtype)
         out = ops.slot_decode_attention(q[:, 0], ck.to(cdt), cv.to(cdt),
@@ -236,7 +293,7 @@ def _layer_stack(x, params, cfg, cache=None, **attn_kw):
     per_layer = []
     for i in range(cfg.n_layers):
         layer_cache = None if cache is None else {
-            "k": cache["dense"]["k"][i], "v": cache["dense"]["v"][i]}
+            name: leaf[i] for name, leaf in cache["dense"].items()}
         x, second = _block(x, take_layer(group, i), cfg, cache=layer_cache,
                            **attn_kw)
         per_layer.append(second)
@@ -365,7 +422,8 @@ def decode_step_slots(params, tokens, positions, cache, cfg, done=None):
     batch = {"tokens": tokens[:, None], "positions": positions[:, None]}
     x = _run_layers(embed_inputs(params, batch, cfg), params, cfg,
                     cache=cache, slot_positions=positions.long(),
-                    slot_kv_len=_slot_kv_len(positions, done).to(torch.int32))
+                    slot_kv_len=_slot_kv_len(positions, done).to(torch.int32),
+                    slot_done=done)
     return _head(params, x, cfg)[:, -1], cache
 
 
@@ -421,23 +479,25 @@ def commit_slots(params, tokens, positions, n_feed, cache, pending, cfg,
     bit-for-bit.  Full layouts only; committed positions must lie inside
     the cache (the engine's ``max_len`` bound keeps them below it).
 
-    The reference scatters uncommitted entries to the out-of-range index
-    ``Sc`` and lets the scatter drop them; PyTorch refuses such an index
-    (on the card, a device-side assert).  Here every chunk entry j writes
+    The reference scatters uncommitted entries to an out-of-range index
+    and lets the scatter drop them; PyTorch refuses such an index (on the
+    card, a device-side assert).  Dense pool: every chunk entry j writes
     the committed entry ``min(j, n_feed - 1)`` again -- the same value at
     the same place -- and a row with nothing to commit writes back the
     old value of its position ``positions[b]`` (clamped into the cache).
-    No boolean-mask indexing and no host sync.
+    Paged pool: position ``pos`` resolves to page ``bt[b, pos // page]``
+    and an uncommitted entry goes to the scratch page (``serve/paged.py``).
+    No boolean-mask indexing and no host sync either way.
     """
     del params, tokens
-    if any(isinstance(g, dict) and "bt" in g for g in cache.values()):
-        raise NotImplementedError(
-            "commit_slots on a paged pool is not ported to repro_torch yet "
-            "(the paged slice, ROADMAP.md)")
     if done is not None:
         n_feed = torch.where(done, 0, n_feed)
     n_feed = n_feed.long()
-    for name, cl in cache["dense"].items():
+    group = cache["dense"]
+    if "bt" in group:
+        _commit_paged(group, pending["dense"], positions, n_feed)
+        return cache
+    for name, cl in group.items():
         pl = pending["dense"][name]  # (L, B, S, KV, hd)
         B, Sc = cl.shape[1], cl.shape[2]
         S = pl.shape[2]
@@ -449,6 +509,28 @@ def commit_slots(params, tokens, positions, n_feed, cache, pending, cfg,
                           pl[:, rows, src].to(cl.dtype), cl[:, rows, idx])
         cl[:, rows, idx] = new
     return cache
+
+
+def _commit_paged(group, pending, positions, n_feed):
+    """``commit_slots`` for a paged group {arenas (L, n_pages + 1, page,
+    KV, hd), "bt": (L, B, nblk)}; pending leaves are (L, B, S, KV, hd) and
+    never carry a table.  Entry j of row b goes to page ``bt[b, (pos + j)
+    // page]``, or to the scratch page when it is not committed (or lies
+    past the table)."""
+    bt = group["bt"][0]  # layers share one table
+    n_pages, page = group["k"].shape[1] - 1, group["k"].shape[2]
+    nblk = bt.shape[1]
+    S = pending["k"].shape[2]
+    steps = torch.arange(S, device=bt.device)[None]
+    pos = positions.long()[:, None] + steps  # (B, S)
+    blk = pos // page
+    pid = bt.gather(1, blk.clamp(max=nblk - 1)).long()
+    keep = (steps < n_feed[:, None]) & (blk < nblk)
+    pid = torch.where(keep, pid, n_pages)
+    off = pos % page
+    for name in ("k", "v"):
+        arena = group[name]
+        arena[:, pid, off] = pending[name].to(arena.dtype)
 
 
 def serve_supported(cfg):
@@ -463,6 +545,14 @@ def serve_supported(cfg):
         return False, (f"{why} is not ported to repro_torch yet (see "
                        "ROADMAP.md)")
     return True, "full KV cache (O(max_len) per slot)"
+
+
+def paged_groups(cfg):
+    """Slot-state protocol: the cache groups that page under a paged pool,
+    ``{key: (kind, leaf names)}``.  The transformer's K/V group pages on
+    its sequence axis; the port has no MoE or MLA groups yet."""
+    _require_ported(cfg)
+    return {"dense": ("seq", ("k", "v"))}
 
 
 def slot_cache_layout(cfg):

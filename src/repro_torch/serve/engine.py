@@ -23,6 +23,16 @@ pool, greedy, on the dense pool layout of the reference package:
                          memory with ``non_blocking=True`` behind a CUDA
                          event, so the readback overlaps the next block
                          (``step()`` is the synchronous single iteration);
+  * paged mode        -- ``pool="paged"`` re-lays the pool as shared page
+                         arenas plus per-slot block tables
+                         (``serve/paged.py``): a request reserves the pages
+                         it needs up front (all-or-nothing: without them
+                         it waits in the queue), full prompt pages are
+                         registered by a chained digest, and a later
+                         prompt that opens with the same full pages
+                         aliases them (refcounted) and runs only its
+                         private tail through masked decode steps, with no
+                         prefill; ``pages`` sets the arena's page budget;
   * speculative mode  -- a ``SpeculativeConfig`` swaps the macro loop for
                          ``make_speculative_loop``: a small DRAFT model
                          proposes d tokens per slot and the target
@@ -34,7 +44,9 @@ pool, greedy, on the dense pool layout of the reference package:
                          telemetry back with the token block.  A draft
                          whose logits go non-finite drops the engine to
                          the plain macro loop on the target pool
-                         (degradation ladder, ``n_spec_fallbacks``).
+                         (degradation ladder, ``n_spec_fallbacks``).  On
+                         a paged pool both pools share ONE page-id space
+                         and budget; prefix sharing stays off.
 
 Everything runs on the device the params live on.  Buffers the reference
 package donates to XLA are updated in place here (``index_copy_`` /
@@ -44,10 +56,11 @@ out-of-range index ``capacity``, which XLA drops and PyTorch indexing
 would refuse, so only the first ``n`` rows are copied.
 
 Greedy tokens are the sequential ``generate()`` tokens for every request,
-for any interleaving, any K and any speculation depth, up to float
-near-ties between the routes' arithmetic.  Paged pools, sampling,
-deadlines, faults, the journal, live upgrade and meshes are not ported
-yet.
+for any interleaving, any K, any speculation depth and either pool, up to
+float near-ties between the routes' arithmetic.  Sampling, deadlines,
+faults, the journal, live upgrade and meshes are not ported yet, nor are
+paged ring-window pools (the ring slice) and the paged arena's
+full-reservation degradation rung (the faults slice).
 """
 from __future__ import annotations
 
@@ -59,6 +72,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import get_family, serve_supported, slot_cache_layout
+from repro_torch.serve import paged as paged_lib
 from repro_torch.serve.speculative import (
     SpeculativeConfig,
     make_draft_prefill,
@@ -116,20 +130,22 @@ class ContinuousBatchingEngine:
     ``policy`` is ``"fifo"`` (arrival order) or ``"spf"`` (length-bucketed
     shortest-prefill-first, ties by arrival).  ``speculative`` -- a
     ``SpeculativeConfig`` (draft cfg, draft params, depth d) -- turns on
-    greedy speculative decoding.
+    greedy speculative decoding.  ``pool`` is ``"dense"`` or ``"paged"``;
+    ``pages`` is the paged arena's page budget (default: as many pages as
+    the dense pool holds, ``capacity * nblk``).
     """
 
     def __init__(self, cfg, params, *, capacity: int = 8,
                  max_len: int = 256, prefill_bucket: int = 16, k: int = 8,
-                 policy: str = "fifo", pool: str = "dense", sampling=None,
+                 policy: str = "fifo", pool: str = "dense",
+                 pages: Optional[int] = None, sampling=None,
                  speculative: Optional[SpeculativeConfig] = None,
                  deadline=None, shed_age=None, journal=None, faults=None,
                  mesh=None):
         if pool not in ("dense", "paged"):
             raise ValueError(f"unknown pool kind {pool!r} "
                              "(choose 'dense' or 'paged')")
-        unported = {"pool='paged'": pool == "paged",
-                    "sampling": sampling is not None,
+        unported = {"sampling": sampling is not None,
                     "deadline": deadline is not None,
                     "shed_age": shed_age is not None,
                     "journal": journal is not None,
@@ -138,13 +154,16 @@ class ContinuousBatchingEngine:
         if asked:
             raise NotImplementedError(
                 f"ContinuousBatchingEngine: {', '.join(asked)} not ported to "
-                "repro_torch yet (see ROADMAP.md); this engine serves greedy "
-                "on the dense pool")
+                "repro_torch yet (see ROADMAP.md); this engine serves greedy")
         if k < 1:
             raise ValueError(f"macro-step length k must be >= 1 (got {k})")
         if policy not in POLICIES:
             raise ValueError(f"unknown admission policy {policy!r} "
                              f"(choose from {POLICIES})")
+        if pool == "paged":
+            for c in (cfg, *([] if speculative is None
+                             else [speculative.cfg])):
+                paged_lib.require_full_layout(c)
         ok, why = serve_supported(cfg)
         if not ok:
             raise NotImplementedError(
@@ -205,9 +224,15 @@ class ContinuousBatchingEngine:
         self.n_spec_fallbacks = 0  # draft faults that tripped plain decode
         self._spec_fallback = False  # draft faulted: plain macro decode
 
+        # paged-mode telemetry (zero on a dense pool)
+        self.n_prefix_hits = 0  # admissions served from resident pages
+        self.n_prefix_misses = 0  # prefix probes that found no full chain
+        self.n_prefix_stalls = 0  # hits deferred on tail-page backpressure
+        self.n_pages_allocated = 0  # fresh pages handed out
+        self.n_prefix_tail_steps = 0  # masked decode steps of hit waves
+
         dev = self.device
-        self.pool = self.fam.init_cache(cfg, capacity, max_len, device=dev)
-        self.pool_d = None  # the draft's slot pool, in speculative mode
+        self._build_pools(pool, pages)
         # persistent device-resident decode state: (tokens, positions,
         # remaining, eos_ids, done) -- idle slots are done
         self._state = (torch.zeros(capacity, dtype=torch.int32, device=dev),
@@ -221,18 +246,92 @@ class ContinuousBatchingEngine:
         self._prefill = make_prefill_admit_step(cfg)
         if speculative is not None:
             cfg_d = speculative.cfg
-            self.pool_d = get_family(cfg_d).init_cache(cfg_d, capacity,
-                                                       max_len, device=dev)
             # the plain loop above stays as the degradation ladder's target
             self._spec_loop = make_speculative_loop(cfg, cfg_d,
                                                     speculative.d, k)
             self._draft_prefill = make_draft_prefill(cfg_d)
+
+    def _build_pools(self, pool: str, pages: Optional[int]):
+        """The target's (and in speculative mode the draft's) slot pool,
+        dense or paged.  Paged pools share ONE page-id space: page ``p``
+        is row ``p`` of every pool's arenas, a request allocates its
+        worst-case page count once (a reference in each pool's namespace)
+        and every pool consumes the leading slice, so one ``pages`` budget
+        is real shared memory that draft and target trade freely."""
+        cfgs = [self.cfg]
+        if self.speculative is not None:
+            cfgs.append(self.speculative.cfg)
+        fams = [get_family(c) for c in cfgs]
+        cap, max_len, dev = self.capacity, self.max_len, self.device
+        metas = [None] * len(cfgs)
+        reasons = []
+        if pool == "paged":
+            for i, (f, c) in enumerate(zip(fams, cfgs)):
+                metas[i] = paged_lib.pool_meta(
+                    c, f.init_cache(c, cap, max_len, device="meta"))
+                if metas[i] is None:
+                    role = "target" if i == 0 else "draft"
+                    reasons.append(f"{role}: "
+                                   f"{paged_lib.pool_fallback_reason(c)}")
+        self.pool_fallback_reason = "; ".join(reasons) or None
+        paged_idx = [i for i, m in enumerate(metas) if m is not None]
+        self.pages_budget = None
+        n_pages = None
+        if paged_idx:
+            n_pages = int(pages) if pages else max(metas[i].n_pages
+                                                   for i in paged_idx)
+            self.pages_budget = n_pages
+        pools = []
+        for i, (f, c) in enumerate(zip(fams, cfgs)):
+            if metas[i] is not None:
+                p, metas[i] = paged_lib.build_paged_pool(
+                    f, c, cap, max_len, n_pages=n_pages, device=dev)
+            else:
+                p = f.init_cache(c, cap, max_len, device=dev)
+            pools.append(p)
+        self.pool = pools[0]
+        self.pool_d = pools[1] if len(pools) > 1 else None
+        self._metas = tuple(metas)
+        self._paged = bool(paged_idx)
+        self.pool_kind = "paged" if self._paged else "dense"
+        # pool index -> refcount namespace in the shared allocator
+        self._ns_of = {pi: j for j, pi in enumerate(paged_idx)}
+        self._alloc = paged_lib.PageAllocator(
+            metas[paged_idx[0]], namespaces=len(paged_idx)) \
+            if paged_idx else None
+        # slot -> the page ids its request holds (one list: every paged
+        # pool consumes its leading slice of the same ids)
+        self._slot_pages: Dict[int, list] = {}
+        # pages released to zero outside an eviction (a stalled hit's
+        # unpin, a flushed registry), zeroed with the next eviction
+        self._zero_pending: List[int] = []
+        # prefix sharing: full-KV target pages are addressed by absolute
+        # position; off under speculation, as in the reference
+        self._prefix_ok = (metas[0] is not None
+                           and self.speculative is None
+                           and metas[0].page > 0)
 
     @property
     def acceptance_rate(self) -> float:
         """Fraction of draft proposals the target accepted (speculative
         mode; 0.0 before any speculative block was read back)."""
         return self.n_spec_accepted / max(self.n_spec_proposed, 1)
+
+    @property
+    def pages_in_use(self) -> int:
+        """Live (refcounted) pages of the shared arena (0 when dense)."""
+        return self._alloc.pages_in_use() if self._alloc is not None else 0
+
+    @property
+    def pages_highwater(self) -> int:
+        """Peak live pages of the shared arena so far (0 when dense)."""
+        return self._alloc.highwater if self._alloc is not None else 0
+
+    @property
+    def prefix_hit_rate(self) -> float:
+        """Fraction of prefix probes served from resident pages."""
+        probes = self.n_prefix_hits + self.n_prefix_misses
+        return self.n_prefix_hits / max(probes, 1)
 
     # ------------------------------------------------------------- admission
     def _reject(self, uid: int, why: str):
@@ -261,6 +360,15 @@ class ContinuousBatchingEngine:
         if P + req.max_new_tokens > self.max_len:
             return (f"prompt {P} + {req.max_new_tokens} new tokens "
                     f"exceeds max_len {self.max_len}")
+        if self._alloc is not None:
+            need = max(paged_lib.pages_needed(P, req.max_new_tokens, m)
+                       for m in self._metas if m is not None)
+            if need > self._alloc.meta.n_pages:
+                # no eviction wave can ever make room for it: queued, it
+                # would bounce off admission forever
+                return (f"needs {need} pages but the arena holds only "
+                        f"{self._alloc.meta.n_pages} (raise --pages or "
+                        f"shrink the request)")
         return None
 
     def submit(self, req: Request):
@@ -303,16 +411,90 @@ class ContinuousBatchingEngine:
             r for i, r in enumerate(items) if i not in taken)
         return [items[i] for i in take]
 
+    def _alloc_request(self, req: Request):
+        """Reserve shared-arena pages for one request.
+
+        Returns an admission record, or None on backpressure (nothing is
+        held: the alloc is all-or-nothing).  A request allocates its
+        worst-case page count once, with a reference in every paged pool's
+        namespace.  With prefix sharing on, the target's registry is
+        probed first: every full page strictly before the prompt's last
+        token must resolve (the whole chain or nothing); a hit increfs
+        the resident pages, allocates only its private tail and takes the
+        no-prefill admission path.
+        """
+        P = len(req.prompt)
+        alloc = self._alloc
+        ns_all = tuple(self._ns_of.values())
+        info = {"hit": False, "share": 0, "digests": None, "pids": None}
+        if self._prefix_ok:
+            meta = self._metas[0]
+            digests = paged_lib.prefix_digests(req.prompt, meta.page)
+            info["digests"] = digests
+            share = (P - 1) // meta.page  # >= 1 private tail token stays
+            resident = alloc.lookup(digests[:share]) if share > 0 else None
+            if resident is not None:
+                # pin the resident pages BEFORE the tail alloc: alloc()
+                # reclaims zero-ref retained pages when the free list runs
+                # dry, which could hand back the very pages just looked
+                # up as this slot's private tail
+                alloc.incref(resident)
+                total = paged_lib.pages_needed(P, req.max_new_tokens, meta)
+                tail = alloc.alloc(total - share, ns=ns_all)
+                if tail is None:
+                    # tail backpressure, not a registry miss: unpin and
+                    # wait for the next eviction wave
+                    self._zero_pending.extend(alloc.release(resident))
+                    self.n_prefix_stalls += 1
+                    return None
+                info.update(hit=True, share=share,
+                            pids=list(resident) + tail)
+                self.n_prefix_hits += 1
+                self.n_pages_allocated += len(tail)
+                return info
+            if share > 0:
+                self.n_prefix_misses += 1
+        need = max(paged_lib.pages_needed(P, req.max_new_tokens, m)
+                   for m in self._metas if m is not None)
+        pids = alloc.alloc(need, ns=ns_all)
+        if pids is None:
+            return None
+        info["pids"] = pids
+        self.n_pages_allocated += len(pids)
+        return info
+
     def _admit_batch(self, now: Optional[float]):
         """Admit every arrived request a free slot can take: ONE prefill
         dispatch, ONE pool/state copy and ONE host sync per prefill-bucket
-        group."""
+        group.  A paged pool puts a page-allocation pass in front
+        (all-or-nothing per request: the first request that cannot get its
+        pages returns itself and everything grabbed after it to the FRONT
+        of the queue, in order) and sends prefix hits to the no-prefill
+        path, one host sync for all of them."""
         grabbed = self._select_admissions(now)
+        if not grabbed:
+            return
+        if self._paged:
+            pairs = []
+            for i, r in enumerate(grabbed):
+                info = self._alloc_request(r)
+                if info is None:
+                    # page backpressure: wait for the next eviction wave
+                    self.waiting.extendleft(reversed(grabbed[i:]))
+                    break
+                pairs.append((r, info))
+        else:
+            pairs = [(r, None) for r in grabbed]
         groups: Dict[int, list] = {}
-        for r in grabbed:
-            groups.setdefault(self._bucketed(len(r.prompt)), []).append(r)
+        for r, a in pairs:
+            if a is None or not a["hit"]:
+                groups.setdefault(self._bucketed(len(r.prompt)),
+                                  []).append((r, a))
         for bucket, group in sorted(groups.items()):
             self._admit_group(bucket, group)
+        hits = [(r, a) for r, a in pairs if a is not None and a["hit"]]
+        if hits:
+            self._admit_hits(hits)
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         """Host array -> device tensor without waiting for the device: a
@@ -324,32 +506,74 @@ class ContinuousBatchingEngine:
             return t
         return t.pin_memory().to(self.device, non_blocking=True)
 
-    def _admit_group(self, bucket: int, group: List[Request]):
+    def _take_slots(self, pairs):
+        """Pop a free slot for each admitted (request, record) pair and
+        book its pages; returns the slots and each pool's (n, nblk)
+        block-table rows (None for a dense pool), unallocated blocks at
+        the sentinel."""
+        n = len(pairs)
+        slots = np.zeros((n,), np.int64)
+        bt_rows = [None if m is None else
+                   np.full((n, m.nblk), m.sentinel, np.int32)
+                   for m in self._metas]
+        for j, (_, a) in enumerate(pairs):
+            slots[j] = self.free.pop()
+            if a is not None:
+                pids = a["pids"]
+                self._slot_pages[int(slots[j])] = pids
+                for rows in filter(lambda b: b is not None, bt_rows):
+                    cnt = min(len(pids), rows.shape[1])
+                    rows[j, :cnt] = pids[:cnt]
+        return slots, bt_rows
+
+    def _scatter_rows(self, pool, rows, idx, n, bt_rows, meta):
+        """Copy the first ``n`` prefilled scratch rows into their slots:
+        in place on a dense pool, through the block tables on a paged
+        one (padding rows target no slot and are simply not copied)."""
+        real = {key: {name: leaf[:, :n] for name, leaf in grp.items()}
+                for key, grp in rows.items()}
+        if meta is None:
+            for key, grp in pool.items():
+                for name, leaf in grp.items():
+                    leaf.index_copy_(1, idx, real[key][name])
+        else:
+            paged_lib.admit_scatter(pool, real, idx,
+                                    self._to_device(bt_rows), meta)
+
+    def _set_state(self, idx, first_n, plens, rem0, eos_new):
+        """Write the admitted rows' decode state in place."""
+        plens_d = self._to_device(plens)
+        rem0_d = self._to_device(rem0)
+        eos_d = self._to_device(eos_new)
+        tokens, positions, remaining, eos, done = self._state
+        tokens.index_copy_(0, idx, first_n)
+        positions.index_copy_(0, idx, plens_d)
+        remaining.index_copy_(0, idx, rem0_d)
+        eos.index_copy_(0, idx, eos_d)
+        # a request can finish at its very first (prefill) token
+        done.index_copy_(0, idx, (first_n == eos_d) | (rem0_d <= 0))
+
+    def _admit_group(self, bucket: int, group):
+        """Batched-prefill admission of ``group``'s (request, page record)
+        pairs: dense pools, and paged requests whose prefix missed."""
         dev = self.device
         n = len(group)
         npad = _pow2(n)  # bounds the distinct (group size, bucket) shapes
         padded = np.zeros((npad, bucket), np.int32)
         plens = np.ones((npad,), np.int32)
-        rem0 = np.zeros((npad,), np.int32)
-        eos_new = np.full((npad,), -1, np.int32)
-        slots = np.zeros((n,), np.int64)
-        for j, r in enumerate(group):
+        for j, (r, _) in enumerate(group):
             plens[j] = len(r.prompt)
             padded[j, :plens[j]] = r.prompt
-            rem0[j] = r.max_new_tokens - 1
-            eos_new[j] = -1 if r.eos_id is None else r.eos_id
-            slots[j] = self.free.pop()
+        slots, bt_rows = self._take_slots(group)
         # the scratch rows get full pool-length caches so every admission
         # prefill attends over the same cache length as the pool
         rows = self.fam.init_cache(self.cfg, npad, self.max_len, device=dev)
         plens_d = self._to_device(plens)
         padded_d = self._to_device(padded)
         first, rows = self._prefill(self.params, padded_d, plens_d, rows)
-        # copy the n real rows into their slots in place; padding rows
-        # (n..npad) target no slot and are simply not copied
         idx = self._to_device(slots)
-        for name, leaf in self.pool["dense"].items():
-            leaf.index_copy_(1, idx, rows["dense"][name][:, :n])
+        self._scatter_rows(self.pool, rows, idx, n, bt_rows[0],
+                           self._metas[0])
         if self.speculative is not None:
             # the draft pool admits the SAME prompt rows: its per-row state
             # after the real prompt; the first token is the target's
@@ -358,22 +582,80 @@ class ContinuousBatchingEngine:
                                                   device=dev)
             rows_d = self._draft_prefill(self.speculative.params, padded_d,
                                          plens_d, rows_d)
-            for name, leaf in self.pool_d["dense"].items():
-                leaf.index_copy_(1, idx, rows_d["dense"][name][:, :n])
+            self._scatter_rows(self.pool_d, rows_d, idx, n, bt_rows[1],
+                               self._metas[1])
         first_n = first[:n]
-        rem0_d = self._to_device(rem0[:n])
-        eos_d = self._to_device(eos_new[:n])
-        tokens, positions, remaining, eos, done = self._state
-        tokens.index_copy_(0, idx, first_n)
-        positions.index_copy_(0, idx, plens_d[:n])
-        remaining.index_copy_(0, idx, rem0_d)
-        eos.index_copy_(0, idx, eos_d)
-        # a request can finish at its very first (prefill) token
-        done.index_copy_(0, idx, (first_n == eos_d) | (rem0_d <= 0))
+        self._set_state(idx, first_n, plens[:n], *self._budgets(group))
         self.n_prefills += 1
         first_host = first_n.cpu().numpy()
         self.n_host_syncs += 1
-        for j, r in enumerate(group):
+        for j, (r, a) in enumerate(group):
+            seq = _Sequence(r, int(slots[j]), pos=int(plens[j]),
+                            tokens=[int(first_host[j])])
+            self.active[seq.slot] = seq
+            self.n_tokens += 1
+            if a is not None and a["digests"]:
+                # the pages the prompt covers in full now hold its
+                # prefill-built KV: make them shareable (tail pages built
+                # by the hit path's decode steps are never registered)
+                reg = len(r.prompt) // self._metas[0].page
+                if reg:
+                    self._alloc.register(a["digests"][:reg], a["pids"][:reg])
+            self._finish_if_done(seq, seq.tokens[-1])
+
+    @staticmethod
+    def _budgets(pairs):
+        """(remaining after the first token, eos id or -1) per request."""
+        rem0 = np.array([r.max_new_tokens - 1 for r, _ in pairs], np.int32)
+        eos = np.array([-1 if r.eos_id is None else r.eos_id
+                        for r, _ in pairs], np.int32)
+        return rem0, eos
+
+    def _admit_hits(self, pairs):
+        """No-prefill admission of prefix hits: point the slots' leading
+        block-table entries at the resident shared pages, then run only
+        the private tail tokens (at most one page of them) through masked
+        decode steps over the whole pool -- rows outside the wave are
+        ``done``, so their writes go to the scratch page and nothing of
+        theirs changes.  The reference scans a full page of steps; steps
+        past the longest tail change nothing, so the loop stops there.
+        One host sync reads the first tokens."""
+        meta = self._metas[0]
+        cap, dev = self.capacity, self.device
+        slots, bt_rows = self._take_slots(pairs)
+        wave = np.zeros((cap,), bool)
+        tail_len = np.zeros((cap,), np.int32)
+        pos0 = np.zeros((cap,), np.int32)
+        tail_tokens = np.zeros((cap, meta.page), np.int32)
+        plens = np.zeros((len(pairs),), np.int32)
+        for j, (r, a) in enumerate(pairs):
+            slot = slots[j]
+            p0 = a["share"] * meta.page
+            tail = np.asarray(r.prompt[p0:], np.int32)
+            wave[slot] = True
+            pos0[slot] = p0
+            tail_len[slot] = len(tail)
+            tail_tokens[slot, :len(tail)] = tail
+            plens[j] = len(r.prompt)
+        idx = self._to_device(slots)
+        paged_lib.set_block_tables(self.pool, idx,
+                                   self._to_device(bt_rows[0]), meta)
+        wave_d, tl_d, p0_d, toks_d = (self._to_device(a) for a in (
+            wave, tail_len, pos0, tail_tokens))
+        first = torch.zeros(cap, dtype=torch.int32, device=dev)
+        for j in range(int(tail_len.max())):
+            live = wave_d & (j < tl_d)
+            logits, self.pool = self.fam.decode_step_slots(
+                self.params, toks_d[:, j].contiguous(), p0_d + j, self.pool,
+                self.cfg, done=~live)
+            nxt = logits.argmax(-1).to(torch.int32)
+            first = torch.where(live & (tl_d == j + 1), nxt, first)
+            self.n_prefix_tail_steps += 1
+        first_n = first[idx]
+        self._set_state(idx, first_n, plens, *self._budgets(pairs))
+        first_host = first_n.cpu().numpy()
+        self.n_host_syncs += 1
+        for j, (r, _) in enumerate(pairs):
             seq = _Sequence(r, int(slots[j]), pos=int(plens[j]),
                             tokens=[int(first_host[j])])
             self.active[seq.slot] = seq
@@ -402,13 +684,33 @@ class ContinuousBatchingEngine:
         """Zero retired slots' pool rows and reset their decode state in
         place.  Admission overwrites a whole row anyway; zeroing keeps a
         retired request's KV from outliving it in device memory, and idle
-        slots' no-op steps then derive from token 0."""
-        if not self._evict_pending:
+        slots' no-op steps then derive from token 0.
+
+        A paged pool releases the retired slots' pages here (one reference
+        per namespace) and zeroes, in every paged pool, only the pages
+        whose count reaches zero; prefix-registered pages are retained
+        with their bytes (they are the cached value), and the slots' block
+        tables go back to the sentinel."""
+        if not self._evict_pending and not self._zero_pending:
             return
+        zero = list(self._zero_pending)
+        self._zero_pending.clear()
+        for slot in self._evict_pending:
+            pids = self._slot_pages.pop(slot, None)
+            if pids:
+                # a page crosses GLOBAL zero during exactly one of these
+                # releases and is then zeroed in every paged pool
+                for ns in self._ns_of.values():
+                    zero.extend(self._alloc.release(pids, ns=ns))
         idx = self._to_device(np.asarray(self._evict_pending, np.int64))
-        for pool in filter(None, (self.pool, self.pool_d)):  # both pools
-            for leaf in pool["dense"].values():
-                leaf.index_fill_(1, idx, 0)
+        for pool, meta in zip((self.pool, self.pool_d), self._metas):
+            if meta is not None:
+                paged_lib.evict_clear(pool, idx, self._to_device(
+                    np.asarray(zero, np.int64)), meta)
+            elif pool is not None:
+                for grp in pool.values():
+                    for leaf in grp.values():
+                        leaf.index_fill_(1, idx, 0)
         tokens, positions, remaining, eos, done = self._state
         tokens.index_fill_(0, idx, 0)
         positions.index_fill_(0, idx, 0)
@@ -417,6 +719,17 @@ class ContinuousBatchingEngine:
         done.index_fill_(0, idx, True)
         self.free.extend(self._evict_pending)
         self._evict_pending.clear()
+
+    def _quarantine(self, seq: _Sequence):
+        """Evict a slot whose logits went non-finite.  On a paged pool its
+        pages may have fed resident prefixes, so the registry is flushed
+        and prefix sharing stops (the reference's further rung, full
+        reservation for every later admission, is not ported)."""
+        self.n_quarantined += 1
+        self._retire(seq, "quarantined")
+        if self._alloc is not None and self._prefix_ok:
+            self._zero_pending.extend(self._alloc.flush_registry())
+            self._prefix_ok = False
 
     # ------------------------------------------------------------- step loop
     def _dispatch(self):
@@ -483,8 +796,7 @@ class ContinuousBatchingEngine:
             if poison[slot] and self.active.get(slot) is seq:
                 # the row froze itself at the non-finite step; nothing
                 # from that step was committed
-                self.n_quarantined += 1
-                self._retire(seq, "quarantined")
+                self._quarantine(seq)
 
     def step(self, now: Optional[float] = None):
         """One synchronous engine iteration: evict, admit arrived requests

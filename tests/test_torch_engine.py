@@ -146,7 +146,8 @@ def test_rejections_are_recorded_and_serving_continues(gpt):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(pool="paged"), dict(sampling=object()),
+    # the paged pool is ported; load shedding is not
+    dict(shed_age=1.0), dict(sampling=object()),
     # speculation is ported, sampled speculation is not
     dict(speculative=SpeculativeConfig(get_config("gpt-micro"), {}, d=2),
          sampling=object()),

@@ -1,6 +1,6 @@
 """Card-only tests of the port (``-m gpu``): each CUDA kernel against its
-plain version, the wrappers' refusals, the engine (plain and speculative)
-and the growth contraction on the card.
+plain version, the wrappers' refusals, the engine (plain and speculative,
+dense and paged pools) and the growth contraction on the card.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 GPU machine without JAX:
@@ -23,6 +23,12 @@ from repro_torch.data import lm_batch
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.decode_attention import (
     chunk_verify_attention as cuda_chunk,
+)
+from repro_torch.kernels.decode_attention import (
+    paged_chunk_verify_attention as cuda_paged_chunk,
+)
+from repro_torch.kernels.decode_attention import (
+    paged_slot_decode_attention as cuda_paged_slot,
 )
 from repro_torch.kernels.decode_attention import (
     slot_decode_attention as cuda_slot,
@@ -411,6 +417,237 @@ def test_cuda_spec_engine_launches_chunk_verify_and_matches_generate(
     assert kern["flash_attention"].launches > 0
     assert eng.n_host_syncs == eng.n_prefills + eng.n_decode_dispatches
     assert eng.n_spec_proposed > 0 and eng.n_spec_fallbacks == 0
+    for r in reqs:
+        want = generate(cfg_t, p_t, torch.from_numpy(r.prompt)[None].to(
+            cuda_device), max_new_tokens=r.max_new_tokens, max_len=64)
+        np.testing.assert_array_equal(got[r.uid], want[0].cpu().numpy())
+
+
+# ------------------------------------------------------------ paged pool
+def _paged_case(dev, dtype, B, KV, hd, n_pages, page, nblk, seed):
+    """Arenas of random values and non-contiguous block tables (a seeded
+    page permutation) whose odd rows end in sentinel entries."""
+    k = _cuda_rand(dev, dtype, n_pages, page, KV, hd)
+    v = _cuda_rand(dev, dtype, n_pages + 1, page, KV, hd)[:n_pages]
+    perm = torch.randperm(n_pages, generator=torch.Generator().manual_seed(
+        seed))
+    bt = torch.full((B, nblk), n_pages, dtype=torch.int32)
+    for b in range(B):
+        take = perm[(b * nblk) % n_pages:][:nblk - (b % 2)]
+        bt[b, :len(take)] = take
+    return k, v.contiguous(), bt.to(dev)
+
+
+@pytest.mark.parametrize("B,H,KV,hd,n_pages,page,nblk,dtype", [
+    (8, 12, 12, 64, 128, 64, 16, torch.float32),   # gpt-base, --pages 128
+    (8, 12, 12, 64, 128, 64, 16, torch.bfloat16),
+    (8, 8, 8, 64, 128, 64, 16, torch.float32),     # gpt-small's pool
+    (5, 16, 4, 128, 23, 8, 6, torch.float32),      # G 4, hd 128, page 8
+    (4, 16, 2, 128, 9, 16, 4, torch.bfloat16),     # G 8
+    (3, 2, 2, 64, 5, 24, 3, torch.float32),        # G 1, page 24
+])
+def test_cuda_paged_slot_decode_matches_plain(cuda_device, B, H, KV, hd,
+                                              n_pages, page, nblk, dtype):
+    """Ragged kv_len: 0, lengths that end inside a sentinel block (read
+    through the clamp, as a draft past its budget does), the full table
+    and beyond it; a done row."""
+    k, v, bt = _paged_case(cuda_device, dtype, B, KV, hd, n_pages, page,
+                           nblk, seed=B + H)
+    q = _cuda_rand(cuda_device, dtype, B, H, hd)
+    S = nblk * page
+    kv_len = torch.linspace(0, S + 5, B, device=cuda_device).to(torch.int32)
+    done = torch.zeros(B, dtype=torch.bool, device=cuda_device)
+    done[-1] = B > 2
+    n0 = cuda_paged_slot.launches
+    got = ops.paged_slot_decode_attention(q, k, v, bt, kv_len, done=done)
+    torch.cuda.synchronize()
+    assert cuda_paged_slot.launches == n0 + 1
+    want = ref.paged_slot_decode_attention_ref(
+        q, k, v, bt, torch.where(done, 0, kv_len))
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+    assert (got[0] == 0).all() and (got[done] == 0).all()
+
+
+PAGED_CHUNK_GRID = [(window, G, dtype) for window in (None, 8)
+                    for G in (1, 2, 4, 8)
+                    for dtype in (torch.float32, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("window,G,dtype", PAGED_CHUNK_GRID)
+def test_cuda_paged_chunk_verify_matches_plain(cuda_device, window, G,
+                                               dtype):
+    """Offsets -1, 0, 1, mid, inside a sentinel block, the full table and
+    past it, over pages of 8 (a cache of 48 positions)."""
+    n_pages, page, nblk, KV = 17, 8, 6, 2
+    B, S = 7, 5
+    ck, cv, bt = _paged_case(cuda_device, dtype, B, KV, 64, n_pages, page,
+                             nblk, seed=G)
+    q = _cuda_rand(cuda_device, dtype, B, S, G * KV, 64)
+    k = _cuda_rand(cuda_device, dtype, B, S, KV, 64)
+    v = _cuda_rand(cuda_device, dtype, B, S + 1, KV, 64)[:, :S].contiguous()
+    off = torch.tensor([-1, 0, 1, 21, 44, 48, 50], dtype=torch.int32,
+                       device=cuda_device)
+    n0 = cuda_paged_chunk.launches
+    got = ops.paged_chunk_verify_attention(q, ck, cv, bt, k, v, off,
+                                           ring=False, window=window)
+    torch.cuda.synchronize()
+    assert cuda_paged_chunk.launches == n0 + 1
+    want = ref.paged_chunk_verify_attention_ref(q, ck, cv, bt, k, v, off,
+                                                ring=False, window=window)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+    assert (got[0] == 0).all()
+
+
+@pytest.mark.parametrize("B,S,H,KV,n_pages,dtype", [
+    (8, 5, 12, 12, 64, torch.float32),    # gpt-base verify, --pages 64
+    (8, 5, 8, 8, 64, torch.float32),      # gpt-small catch-up
+    (8, 5, 12, 12, 64, torch.bfloat16),
+    (8, 16, 12, 12, 128, torch.float32),  # S 16
+])
+def test_cuda_paged_chunk_verify_main_shapes_match_plain(
+        cuda_device, B, S, H, KV, n_pages, dtype):
+    page, nblk = 64, 16
+    ck, cv, bt = _paged_case(cuda_device, dtype, B, KV, 64, n_pages, page,
+                             nblk, seed=S)
+    q = _cuda_rand(cuda_device, dtype, B, S, H, 64)
+    k = _cuda_rand(cuda_device, dtype, B, S, KV, 64)
+    v = _cuda_rand(cuda_device, dtype, B, S, KV, 64)
+    off = torch.tensor([-1, 64, 137, 210, 283, 356, 430, 576][:B],
+                       dtype=torch.int32, device=cuda_device)
+    got = ops.paged_chunk_verify_attention(q, ck, cv, bt, k, v, off,
+                                           ring=False)
+    torch.cuda.synchronize()
+    want = ref.paged_chunk_verify_attention_ref(q, ck, cv, bt, k, v, off,
+                                                ring=False)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+def test_cuda_paged_wrappers_refuse_what_the_kernels_do_not_take(
+        cuda_device):
+    k, v, bt = _paged_case(cuda_device, torch.float32, 2, 2, 64, 5, 8, 3, 0)
+    q = _cuda_rand(cuda_device, torch.float32, 2, 4, 64)
+    lens = torch.tensor([3, 9], dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="int32"):
+        cuda_paged_slot(q, k, v, bt.long(), lens)
+    with pytest.raises(ValueError, match="arena"):
+        cuda_paged_slot(q, k, v[:, :4].contiguous(), bt, lens)
+    with pytest.raises(ValueError, match="nblk"):
+        cuda_paged_slot(q, k, v, torch.zeros(2, 4096, dtype=torch.int32,
+                                             device=cuda_device), lens)
+    with pytest.raises(ValueError, match="H/KV"):
+        cuda_paged_slot(q[:, :3].contiguous(), k, v, bt, lens)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_paged_slot(q, k, v, bt.t().contiguous().t(), lens)
+    qc = _cuda_rand(cuda_device, torch.float32, 2, 3, 4, 64)
+    kc = _cuda_rand(cuda_device, torch.float32, 2, 3, 2, 64)
+    with pytest.raises(NotImplementedError, match="ring slice"):
+        cuda_paged_chunk(qc, k, v, bt, kc, kc, lens, ring=True)
+    with pytest.raises(TypeError, match="dtype"):
+        cuda_paged_chunk(qc, k.bfloat16(), v, bt, kc, kc, lens, ring=False)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cuda_paged_chunk(qc, k, v, bt.cpu(), kc, kc, lens, ring=False)
+
+
+def _prefix_requests(vocab, n_shared=6):
+    """Requests that open with the same 40 tokens (five pages of 8 at
+    max_len 64), then 3..8 tokens of their own, and two distinct ones."""
+    prefix = lm_batch(vocab, 1, 40, seed=400)[0]
+    out = [Request(uid=i, prompt=np.concatenate(
+        [prefix, lm_batch(vocab, 1, 3 + i, seed=410 + i)[0]]),
+        max_new_tokens=8 + i % 3) for i in range(n_shared)]
+    for j, (p, g) in enumerate([(13, 9), (30, 6)]):
+        out.append(Request(uid=n_shared + j,
+                           prompt=lm_batch(vocab, 1, p, seed=430 + j)[0],
+                           max_new_tokens=g))
+    return out
+
+
+def test_cuda_paged_engine_matches_dense_with_exact_launches(cuda_device):
+    """The paged engine on the card: tokens equal the dense engine's and
+    ``generate``; every decode step (macro steps and the prefix hits'
+    tail steps) launches the paged slot kernel once per layer and the
+    dense one never; admission prefills launch the flash kernel; every
+    page is released at the end."""
+    cfg = _gqa_hd64_cfg()
+    params = build_params(cfg, seed=0, device=cuda_device)
+    reqs = _prefix_requests(cfg.vocab_size)
+    kern = ops.kernels()
+    dense = ContinuousBatchingEngine(cfg, params, capacity=2, max_len=64,
+                                     k=4).run(reqs)
+    for fn in kern.values():
+        fn.launches = 0
+    eng = ContinuousBatchingEngine(cfg, params, capacity=2, max_len=64, k=4,
+                                   pool="paged", pages=12)
+    got = eng.run([Request(uid=r.uid, prompt=r.prompt,
+                           max_new_tokens=r.max_new_tokens) for r in reqs])
+    torch.cuda.synchronize()
+    steps = eng.k * eng.n_decode_dispatches + eng.n_prefix_tail_steps
+    assert kern["paged_slot_decode_attention"].launches == (
+        cfg.n_layers * steps)
+    assert kern["slot_decode_attention"].launches == 0
+    assert kern["flash_attention"].launches == cfg.n_layers * eng.n_prefills
+    assert kern["paged_chunk_verify_attention"].launches == 0
+    assert eng.n_prefix_hits > 0 and eng.pages_in_use == 0
+    assert eng.pages_highwater <= 12
+    for r in reqs:
+        np.testing.assert_array_equal(got[r.uid], dense[r.uid])
+        want = generate(cfg, params, torch.from_numpy(r.prompt)[None].to(
+            cuda_device), max_new_tokens=r.max_new_tokens, max_len=64)
+        np.testing.assert_array_equal(got[r.uid], want[0].cpu().numpy())
+
+
+def test_cuda_paged_engine_syncs_only_where_it_counts(cuda_device):
+    """A paged engine waits on the host only where it counts a host sync:
+    each admission group's and each prefix-hit wave's first tokens."""
+    cfg = _gqa_hd64_cfg()
+    params = build_params(cfg, seed=0, device=cuda_device)
+    reqs = _prefix_requests(cfg.vocab_size)
+    eng = ContinuousBatchingEngine(cfg, params, capacity=2, max_len=64, k=4,
+                                   pool="paged")
+    eng.run([Request(uid=99, prompt=reqs[-1].prompt, max_new_tokens=2)])
+    before = eng.n_host_syncs - eng.n_decode_dispatches
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            eng.run(reqs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    assert eng.n_prefix_hits > 0
+    assert len(syncs) == (eng.n_host_syncs - eng.n_decode_dispatches
+                          - before), [str(w.message) for w in syncs]
+
+
+def test_cuda_paged_spec_engine_launches_paged_kernels_only(cuda_device):
+    """Speculative serving on one shared page arena: tokens equal
+    ``generate``; each block launches the paged chunk kernel once per layer
+    of both models and the paged slot kernel once per draft layer and
+    proposal; the dense chunk and slot kernels never run."""
+    cfg_t, p_t, cfg_s, p_s = _hd64_pair(cuda_device)
+    d, k = 4, 2
+    reqs = [Request(uid=i, prompt=lm_batch(cfg_t.vocab_size, 1, p,
+                                           seed=70 + i)[0], max_new_tokens=g)
+            for i, (p, g) in enumerate([(16, 12), (33, 7), (9, 20),
+                                        (20, 5)])]
+    kern = ops.kernels()
+    for fn in kern.values():
+        fn.launches = 0
+    eng = ContinuousBatchingEngine(
+        cfg_t, p_t, capacity=2, max_len=64, k=k, pool="paged", pages=10,
+        speculative=SpeculativeConfig(cfg_s, p_s, d=d))
+    got = eng.run(reqs)
+    torch.cuda.synchronize()
+    blocks = k * eng.n_decode_dispatches
+    assert kern["paged_chunk_verify_attention"].launches == (
+        (cfg_t.n_layers + cfg_s.n_layers) * blocks)
+    assert kern["paged_slot_decode_attention"].launches == (
+        cfg_s.n_layers * d * blocks)
+    assert kern["chunk_verify_attention"].launches == 0
+    assert kern["slot_decode_attention"].launches == 0
+    assert eng.n_spec_proposed > 0 and eng.pages_in_use == 0
     for r in reqs:
         want = generate(cfg_t, p_t, torch.from_numpy(r.prompt)[None].to(
             cuda_device), max_new_tokens=r.max_new_tokens, max_len=64)

@@ -48,7 +48,9 @@ def test_port_imports_neither_jax_nor_repro(path):
 def test_port_tree_is_what_the_rule_walks():
     assert len(PORT_FILES) > 15
     for module in ("serve/engine.py", "serve/speculative.py",
-                   "kernels/decode_attention.py", "models/transformer.py"):
+                   "serve/paged.py", "kernels/decode_attention.py",
+                   "kernels/ops.py", "kernels/ref.py", "models/attention.py",
+                   "models/transformer.py"):
         assert ROOT / "src/repro_torch" / module in PORT_FILES
 
 
@@ -85,7 +87,8 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(no_cuda, capsys):
 @pytest.mark.parametrize("argv,flag", [
     (["--grow-cfg", "gpt-micro-big"], "--grow-cfg"),
     (["--upgrade-at", "5"], "--upgrade-at"),
-    (["--temperature=0.7"], "--temperature"), (["--pool", "paged"], "--pool"),
+    (["--temperature=0.7"], "--temperature"),
+    (["--snapshot", "snap.json"], "--snapshot"),
     (["--journal", "j.jsonl"], "--journal"), (["--mesh", "1x2"], "--mesh"),
 ])
 def test_unported_flags_exit_with_a_named_error(argv, flag):

@@ -198,10 +198,6 @@ def test_commit_slots_matches_jax_prefix_and_keeps_idle_rows(gpt):
                                before[name][:, b, end:]), f"row {b}"
         for b in (0, 3):  # n_feed 0, done
             assert torch.equal(got["dense"][name][:, b], before[name][:, b])
-    with pytest.raises(NotImplementedError, match="paged slice"):
-        transformer.commit_slots(tp, None, torch.from_numpy(positions),
-                                 torch.from_numpy(n_feed),
-                                 {"dense": {"bt": None}}, tpend, tcfg)
 
 
 # ------------------------------------------------------- speculative engine
