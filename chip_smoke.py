@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch/CUDA port (``repro_torch``): serving, the
 paper's growth and training loop, speculative serving of the grown model
-with its source drafting, and both served from a paged pool.
+with its source drafting, both served from a paged pool, and
+recurrentgemma-2b (griffin) served from a dense and a paged pool.
 
     python3 chip_smoke.py [--out report.json]
 
@@ -15,10 +16,12 @@ printed as it goes; a failed phase raises, so the exit code is not 0:
   3. kernels -- each kernel against its plain PyTorch version on the card
                 at the main paths' shapes (gpt-base serving, gpt-small ->
                 gpt-base growth, gpt-base's speculative verify and
-                gpt-small's catch-up, and the paged kernels over a 128-page
-                arena through permuted block tables with a sentinel block)
-                plus GQA, bfloat16, ragged, ring and window cases (the
-                sandwich's gradients too), then
+                gpt-small's catch-up, the paged kernels over a 128-page
+                arena through permuted block tables with a sentinel block,
+                recurrentgemma-2b's ring decode over dense rings and a
+                permuted arena, and its admission scan) plus GQA, bfloat16,
+                ragged, ring and window cases (the sandwich's gradients
+                too), then
                 CUDA-event times of kernel, plain version and one PyTorch
                 library call beside the kernel's bound;
   4. serve   -- full-width gpt-base (12 x 768, vocab 50257, random weights
@@ -58,7 +61,25 @@ printed as it goes; a failed phase raises, so the exit code is not 0:
                 one arena of 64 pages, beside the dense speculative engine:
                 tokens == phase 6's plain route, exact launches of the
                 paged chunk-verify and paged slot kernels (the dense ones
-                never).
+                never);
+  9. griffin -- recurrentgemma-2b at full width and depth (26 layers: 18
+                RG-LRU, 8 local MQA with window 2048; f32, seeded weights)
+                through the engine on the dense pool: capacity 8, max_len
+                4096, K 8, 16 requests of 64 new tokens, prompts of 64..512,
+                1990..2040 (rings wrap in decode) and 2100..2600 tokens
+                (rings filled at admission).  Tokens from the engine and
+                from ``generate`` == the plain route (the scalar
+                ``decode_step`` over all rows at one shared position, no
+                kernel) up to reported near ties; exactly 8 ring launches a
+                decode step and 18 scan launches an admission group, no
+                other kernel; a traced run for the idle share;
+ 10. griffin paged -- phase 9's model and requests from a 160-page arena
+                (5/8 of the dense rings' 256) beside the dense pool: tokens
+                == the plain route and the dense engine, exact launches of
+                the paged ring kernel (the dense one never), the refused
+                admissions, prefill groups, macro-steps and pages
+                high-water as a CPU run of the same schedule (1-layer
+                model) predicted, no page left in use.
 
 Each path's launch counters are set to 0 just before it runs and read just
 after; a kernel of the path that was never launched fails the run.  The
@@ -102,7 +123,11 @@ def time_ms(fn, iters, warmup=3):
     launch would otherwise be timed at the host's launch rate.  So the
     stream is first held by a device-side sleep long enough for the host
     to enqueue every call; the CUDA events then bracket only device work
-    (the sleep doubles until the enqueue fits inside it)."""
+    (the sleep doubles until the enqueue fits inside it).  Calls that
+    launch more kernels than the device's launch queue holds (a plain
+    version that loops over a sequence) make the host wait for the device
+    whatever the sleep, so past a 1.6 s hold the calls are timed without
+    one: they keep the device busy by themselves."""
     import torch
 
     for _ in range(warmup):
@@ -112,7 +137,8 @@ def time_ms(fn, iters, warmup=3):
     end = torch.cuda.Event(enable_timing=True)
     hold_s = 0.05
     while True:
-        torch.cuda._sleep(int(hold_s * 2e9))  # cycles; >= hold_s at <= 2 GHz
+        if hold_s <= 1.6:  # cycles; >= hold_s at <= 2 GHz
+            torch.cuda._sleep(int(hold_s * 2e9))
         start.record()
         t0 = time.perf_counter()
         for _ in range(iters):
@@ -120,7 +146,7 @@ def time_ms(fn, iters, warmup=3):
         end.record()
         enqueue_s = time.perf_counter() - t0
         end.synchronize()
-        if enqueue_s < hold_s:
+        if enqueue_s < hold_s or hold_s > 1.6:
             return start.elapsed_time(end) / iters
         hold_s *= 2
 
@@ -367,11 +393,13 @@ def run_kernels():
             shape=f"x{tuple(x.shape)} -> ({N}, {d2i}, {d2o}) {dname}")
     rows["chunk_verify_attention"] = run_chunk_cases(gen)
     rows.update(run_paged_cases(gen))
+    rows.update(run_griffin_cases(gen))
     for r in rows.values():
+        lib = ("none" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms")
         print(f"time {r['name']} [{r['shape']}]: kernel {r['ms']:.4f} ms, "
-              f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} "
-              f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})",
-              flush=True)
+              f"plain {r['plain_ms']:.4f} ms, library {lib}, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
     return rows
 
 
@@ -652,6 +680,203 @@ def run_paged_cases(gen):
     return rows
 
 
+RING_POSITIONS = [-1, 100, 2047, 2048, 3000, 4095, 1500, 2600]
+
+
+def ring_cases():
+    """Phase 3's ring cases: (kind, label, L, B, H, KV, hd, ring, window,
+    dtype, positions, short), recurrentgemma-2b's decode first (8 slots,
+    10 query heads over one KV head of 256, ring = window = 2048):
+    positions done, inside the first lap, at the ring, past it, far past
+    it.  ``short`` rows of a paged case hold only the blocks their
+    position reached (the rest of the table is the sentinel)."""
+    import torch
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    pos = RING_POSITIONS
+    return [
+        ("ring", "recurrentgemma-2b f32", 8, 8, 10, 1, 256, 2048, 2048, f32,
+         pos, ()),
+        ("ring", "recurrentgemma-2b bf16", 2, 8, 10, 1, 256, 2048, 2048,
+         bf16, pos, ()),
+        ("ring", "window < ring f32", 2, 8, 10, 1, 256, 2048, 1000, f32, pos,
+         ()),
+        ("ring", "GQA hd 128 f32", 2, 6, 16, 4, 128, 300, 130, f32,
+         [-1, 0, 5, 299, 300, 1234], ()),
+        ("paged_ring", "recurrentgemma-2b paged f32", 8, 8, 10, 1, 256, 2048,
+         2048, f32, pos, (1,)),
+        ("paged_ring", "recurrentgemma-2b paged bf16", 2, 8, 10, 1, 256,
+         2048, 2048, bf16, pos, (1,)),
+    ]
+
+
+def run_griffin_cases(gen):
+    """Phase 3 for the three griffin kernels: each case against its plain
+    version and timed beside its bound, the plain version and, for the
+    ring kernels, SDPA over K/V gathered into position order (with the
+    band mask) ahead of the timing; the scan has no one-call library
+    counterpart.  The first case of each kernel is its kernels-line
+    row."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention, ref, rglru_scan
+
+    fns = {"ring": decode_attention.ring_decode_attention,
+           "paged_ring": decode_attention.paged_ring_decode_attention}
+    rows = {}
+    for (kind, label, L, B, H, KV, hd, ring, window, dt, positions,
+         short) in ring_cases():
+        def rnd(*s):
+            return torch.randn(*s, generator=gen, device="cuda").to(dt)
+        dname = str(dt).split(".")[1]
+        pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
+        q = rnd(B, H, hd)
+        span = min(window, ring)
+        if kind == "ring":
+            kp, vp = rnd(L, B, ring, KV, hd), rnd(L, B, ring, KV, hd)
+            bt = None
+
+            def kern(j):
+                return fns[kind](q, kp[j], vp[j], pos, window=window)
+
+            def plain(j):
+                return ref.ring_decode_attention_ref(q, kp[j], vp[j], pos,
+                                                     window=window)
+
+            def rows_of(j):
+                return kp[j], vp[j]
+        else:
+            page = 64
+            nblk = ring // page
+            n_pages = B * nblk + 16
+            perm = torch.randperm(n_pages, generator=torch.Generator(
+            ).manual_seed(n_pages), dtype=torch.int32)
+            bt = perm[:B * nblk].reshape(B, nblk).clone()
+            for b in short:  # blocks this row never got: the sentinel
+                bt[b, positions[b] // page + 1:] = n_pages
+            bt = bt.cuda()
+            kp, vp = (rnd(L, n_pages, page, KV, hd),
+                      rnd(L, n_pages, page, KV, hd))
+
+            def kern(j):
+                return fns[kind](q, kp[j], vp[j], bt, pos, window=window)
+
+            def plain(j):
+                return ref.paged_ring_decode_attention_ref(
+                    q, kp[j], vp[j], bt, pos, window=window)
+
+            def rows_of(j):
+                return (ref._paged_gather_ref(kp[j], bt),
+                        ref._paged_gather_ref(vp[j], bt))
+        got = kern(0)
+        torch.cuda.synchronize()
+        name = f"{kind}_decode_attention"
+        err = check_close(f"{name} [{label}]", got, plain(0), dname)
+        if not bool((got[pos < 0] == 0).all()):
+            raise AssertionError(f"{name} [{label}]: done rows are not "
+                                 "exact zeros")
+        item = q.element_size()
+        n_keys = sum(min(p + 1, span) for p in positions if p >= 0)
+        b_ms, b_by = bound_ms(
+            n_keys * KV * hd * 2 * item + 2 * B * H * hd * item + 4 * B
+            + (0 if bt is None else 4 * bt.numel()),
+            4 * n_keys * H * hd, dname)
+        # library yardstick: each row's band gathered into position order
+        # (span positions ending at pos; the ones before 0 masked)
+        p_ord = pos[:, None].long() - span + 1 + torch.arange(
+            span, device="cuda")[None]
+        slot = p_ord.remainder(ring)
+        mask = ((p_ord >= 0) & (pos[:, None] >= 0))[:, None, None]
+        rows_b = torch.arange(B, device="cuda")[:, None]
+        k_ord, v_ord = [], []
+        for j in range(L):
+            kd, vd = rows_of(j)
+            k_ord.append(kd[rows_b, slot].transpose(1, 2).contiguous())
+            v_ord.append(vd[rows_b, slot].transpose(1, 2).contiguous())
+        layers = iter(range(10 ** 9))
+
+        def cycled(f):
+            def call():
+                return f(next(layers) % L)
+            return call
+
+        case = dict(
+            label=label, max_abs_err=err,
+            ms=time_ms(cycled(kern), 10 * L),
+            plain_ms=time_ms(cycled(plain), 2 * L),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=time_ms(cycled(
+                lambda j: F.scaled_dot_product_attention(
+                    q[:, :, None], k_ord[j], v_ord[j], attn_mask=mask,
+                    enable_gqa=H != KV)), 2 * L),
+            shape=(f"q{tuple(q.shape)} "
+                   + (f"ring{tuple(kp.shape[1:])}" if bt is None else
+                      f"arena{tuple(kp.shape[1:])} bt{tuple(bt.shape)}")
+                   + f" {dname} window {window} positions {positions}"))
+        print(f"{name} [{label}] {case['shape']}: max abs err {err:.3g}; "
+              f"kernel {case['ms']:.4f} ms, plain {case['plain_ms']:.4f} "
+              f"ms, library {case['library_ms']:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by})", flush=True)
+        del k_ord, v_ord, kp, vp
+        if name not in rows:
+            rows[name] = dict(
+                name=name, route="cuda",
+                source=f"src/repro_torch/kernels/csrc/{name}.cu",
+                replaces=("src/repro/kernels/decode_attention.py:546"
+                          if kind == "ring" else
+                          "src/repro/kernels/decode_attention.py:407"),
+                cases=[], **{key: case[key] for key in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "shape")})
+        rows[name]["cases"].append(case)
+
+    scan = rglru_scan.rglru_scan
+    for label, B, S, W, dt, with_h0 in (
+            ("recurrentgemma-2b admission f32", 8, 4096, 2560,
+             torch.float32, True),
+            ("ragged f32", 3, 2101, 2560, torch.float32, False),
+            ("recurrentgemma-2b bf16", 8, 4096, 2560, torch.bfloat16, True)):
+        dname = str(dt).split(".")[1]
+        a = (torch.rand(B, S, W, generator=gen, device="cuda") * 0.5
+             + 0.5).to(dt)
+        b = (0.1 * torch.randn(B, S, W, generator=gen, device="cuda")).to(dt)
+        h0 = (torch.randn(B, W, generator=gen, device="cuda") if with_h0
+              else None)
+        got = scan(a, b, h0)
+        torch.cuda.synchronize()
+        want = ref.rglru_scan_ref(a, b, h0)
+        err = check_close(f"rglru_scan [{label}]", got, want, dname)
+        if dname == "float32" and not torch.equal(got, want):
+            raise AssertionError(f"rglru_scan [{label}]: float32 differs "
+                                 "from the plain version's step-by-step "
+                                 f"rounding (max abs err {err:.3g})")
+        item = a.element_size()
+        b_ms, b_by = bound_ms(3 * B * S * W * item
+                              + (0 if h0 is None else 4 * B * W),
+                              2 * B * S * W, dname)
+        case = dict(label=label, max_abs_err=err,
+                    ms=time_ms(lambda: scan(a, b, h0), 10),
+                    plain_ms=time_ms(lambda: ref.rglru_scan_ref(a, b, h0), 2),
+                    bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                    shape=f"a, b ({B}, {S}, {W}) {dname} h0 {with_h0}")
+        print(f"rglru_scan [{label}] {case['shape']}: max abs err "
+              f"{err:.3g}; kernel {case['ms']:.4f} ms, plain "
+              f"{case['plain_ms']:.4f} ms, no library call, bound "
+              f"{b_ms:.4f} ms ({b_by})", flush=True)
+        del a, b, want, got
+        if "rglru_scan" not in rows:
+            rows["rglru_scan"] = dict(
+                name="rglru_scan", route="cuda",
+                source="src/repro_torch/kernels/csrc/rglru_scan.cu",
+                replaces="src/repro/kernels/rglru_scan.py:41", cases=[],
+                **{key: case[key] for key in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "shape")})
+        rows["rglru_scan"]["cases"].append(case)
+    return rows
+
+
 def plain_greedy(cfg, params, prompt, n):
     """Greedy tokens of the plain route: a full forward (plain attention,
     no cache, no CUDA kernel of the port) over prompt + tokens so far at
@@ -840,7 +1065,9 @@ def profile_serve(make_engine, reqs, untraced_wall,
     methods), and the kernels that take the device time.  Tracing slows
     the host, so the idle share is given against both the traced wall
     time and the untraced run's.  ``decode_steps`` counts K per dispatch:
-    decode steps, or speculative blocks."""
+    decode steps, or speculative blocks.  With no ``stages`` only the
+    device is traced: the host's events are what makes reading a trace of
+    a quarter million device ops take minutes."""
     import dataclasses
 
     import torch
@@ -854,8 +1081,10 @@ def profile_serve(make_engine, reqs, untraced_wall,
                 return _fn(*a, **kw)
         setattr(eng, name, ranged)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if stages:
+        activities.append(ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         eng.run([dataclasses.replace(r) for r in reqs])
         torch.cuda.synchronize()
@@ -867,6 +1096,8 @@ def profile_serve(make_engine, reqs, untraced_wall,
     dev = [e for e in events if e.device_type == DeviceType.CUDA
            and not getattr(e, "is_user_annotation", False)
            and e.name not in tags]
+    if not dev:
+        raise AssertionError("the traced run holds no device op")
     busy, top = device_busy_and_top(dev, 12)
     stage_rows = {t: dict(calls=0, host_ms=0.0, device_span_ms=0.0)
                   for t in sorted(tags)}
@@ -1164,12 +1395,11 @@ def run_speculative(kernel_rows, small, big):
     if set(out) != {r.uid for r in reqs} or eng.rejected:
         raise AssertionError(f"requests missing or rejected: {eng.rejected}")
     blocks = SPEC_K * eng.n_decode_dispatches
-    want = {
-        "chunk_verify_attention": (cfg_t.n_layers + cfg_s.n_layers) * blocks,
-        "slot_decode_attention": cfg_s.n_layers * SPEC_D * blocks,
-        "flash_attention": (cfg_t.n_layers + cfg_s.n_layers) * eng.n_prefills,
-        "tr_sandwich": 0, "paged_slot_decode_attention": 0,
-        "paged_chunk_verify_attention": 0}
+    want = {name: 0 for name in kern}
+    want.update(
+        chunk_verify_attention=(cfg_t.n_layers + cfg_s.n_layers) * blocks,
+        slot_decode_attention=cfg_s.n_layers * SPEC_D * blocks,
+        flash_attention=(cfg_t.n_layers + cfg_s.n_layers) * eng.n_prefills)
     if launches != want or eng.n_spec_fallbacks:
         raise AssertionError(f"speculative path launched {launches}, "
                              f"expected {want} ({eng.n_decode_dispatches} "
@@ -1553,6 +1783,378 @@ def run_paged_speculative(kernel_rows, small, big, reqs, plain):
     return report
 
 
+GRIFFIN_PAGES = 160  # phase 10's arena: 5/8 of the dense rings' 256 pages
+EMBED_SCALE = 0.05  # phase 9's tied embedding, scaled down (see below)
+
+
+def griffin_model():
+    """recurrentgemma-2b at full width and depth in float32 (so the routes'
+    tokens can be compared exactly), weights from a seeded generator.  At
+    the init's std (0.02) the scaled, tied embedding of the current token
+    dominates the residual and greedy decoding repeats that token forever
+    (a 3-layer CPU run of this config did); the embedding is scaled by
+    EMBED_SCALE so the blocks decide the next token."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import build_params
+
+    cfg = get_config("recurrentgemma-2b").replace(param_dtype="float32",
+                                                 compute_dtype="float32")
+    params = build_params(cfg, seed=0, device="cuda")
+    params["embed"].mul_(EMBED_SCALE)
+    return cfg, params
+
+
+def griffin_requests(vocab):
+    """Phase 9's 16 requests, 64 new tokens each, in a seeded order: 4
+    prompts of 64..512 tokens (their rings never wrap), 4 of 1990..2040
+    (they wrap during decode: ring = window = 2048) and 8 of 2100..2600
+    (admission fills their rings by ``ring_fill_rows``)."""
+    import numpy as np
+
+    from repro_torch.data import lm_batch
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng(9)
+    lens = ([int(n) for n in rng.integers(64, 513, 4)]
+            + [int(n) for n in rng.integers(1990, 2041, 4)]
+            + [int(n) for n in rng.integers(2100, 2601, 8)])
+    lens = [lens[i] for i in rng.permutation(len(lens))]
+    return [Request(uid=i, prompt=lm_batch(vocab, 1, n, seed=900 + i)[0],
+                    max_new_tokens=64) for i, n in enumerate(lens)]
+
+
+def griffin_plain_route(cfg, params, reqs, n_new):
+    """Greedy tokens of the plain route: the scalar ``decode_step`` over
+    all rows at one shared position from an empty cache, each row fed its
+    prompt and then its own argmax.  It runs ``rglru_step`` and
+    ``_ring_window_attend``: no kernel of the port.  Returns {uid:
+    (tokens, top-2 gaps)}."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import griffin
+
+    B = len(reqs)
+    plens = [len(r.prompt) for r in reqs]
+    P = max(plens)
+    prompts = torch.zeros(B, P, dtype=torch.int32)
+    for b, r in enumerate(reqs):
+        prompts[b, :plens[b]] = torch.from_numpy(r.prompt)
+    prompts = prompts.cuda()
+    pl = torch.tensor(plens, device="cuda")
+    cache = griffin.init_cache(cfg, B, P + n_new, device="cuda")
+    tok = prompts[:, 0]
+    nxts, gaps = [], []
+    for t in range(P + n_new - 1):
+        logits, cache = griffin.decode_step(params, tok, t, cache, cfg)
+        top = logits.float().topk(2, dim=-1).values
+        nxt = logits.argmax(-1).to(torch.int32)
+        nxts.append(nxt)
+        gaps.append(top[:, 0] - top[:, 1])
+        tok = torch.where(t + 1 < pl, prompts[:, min(t + 1, P - 1)], nxt)
+    nxts = torch.stack(nxts).cpu().numpy()  # (steps, B)
+    gaps = torch.stack(gaps).cpu().numpy()
+    out = {}
+    for b, r in enumerate(reqs):
+        sl = slice(plens[b] - 1, plens[b] - 1 + n_new)
+        out[r.uid] = (nxts[sl, b].astype(np.int32), gaps[sl, b])
+    return out
+
+
+def run_griffin_serve(kernel_rows):
+    """Phase 9: recurrentgemma-2b through the continuous-batching engine
+    on the dense pool, ``generate`` beside it, both against the plain
+    route; then a traced run."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import griffin
+    from repro_torch.serve import ContinuousBatchingEngine, Request
+
+    t0 = time.perf_counter()
+    cfg, params = griffin_model()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    pat = griffin.block_pattern(cfg)
+    n_rec, n_attn = pat.count("rec"), pat.count("attn")
+    print(f"recurrentgemma-2b: {cfg.n_layers} layers ({n_rec} RG-LRU, "
+          f"{n_attn} local MQA), d_model {cfg.d_model}, {cfg.n_heads} heads "
+          f"over {cfg.n_kv_heads} KV head of {cfg.head_dim}, window "
+          f"{cfg.window}, vocab {cfg.vocab_size}: {n_params} params (f32, "
+          f"seeded torch.Generator, embedding x {EMBED_SCALE}; drawn in "
+          f"{init_s:.1f} s)", flush=True)
+    reqs = griffin_requests(cfg.vocab_size)
+
+    def engine():
+        return ContinuousBatchingEngine(cfg, params, capacity=8,
+                                        max_len=4096, k=8)
+
+    engine().run([Request(uid=0, prompt=reqs[0].prompt,
+                          max_new_tokens=9)])  # first-use costs
+    kern = ops.kernels()
+    gc.collect()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kern.values():
+        fn.launches = 0
+    eng = engine()
+    t0 = time.perf_counter()
+    out = eng.run([dataclasses.replace(r) for r in reqs])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in kern.items()}
+    peak = torch.cuda.max_memory_allocated()
+    n_tok = sum(len(v) for v in out.values())
+    if set(out) != {r.uid for r in reqs} or eng.rejected:
+        raise AssertionError(f"requests missing or rejected: {eng.rejected}")
+    steps = eng.k * eng.n_decode_dispatches
+    want = {name: 0 for name in kern}
+    want.update(ring_decode_attention=n_attn * steps,
+                rglru_scan=n_rec * eng.n_prefills)
+    if launches != want:
+        raise AssertionError(f"griffin path launched {launches}, expected "
+                             f"{want} ({steps} decode steps, "
+                             f"{eng.n_prefills} admission groups)")
+    for name in ("ring_decode_attention", "rglru_scan"):
+        kernel_rows[name]["launches"] = launches[name]
+    pool_bytes = _pool_bytes(eng.pool)
+    print(f"griffin dense: {len(out)} requests / {n_tok} tokens in {dt:.3f} "
+          f"s: {n_tok / dt:.1f} tok/s, {eng.n_host_syncs / n_tok:.4f} host "
+          f"syncs/token ({eng.n_host_syncs} syncs, {eng.n_decode_dispatches} "
+          f"macro-steps, {eng.n_prefills} prefill groups); pool "
+          f"{pool_bytes / 2**20:.1f} MiB; peak memory {peak / 2**20:.1f} MiB"
+          f" ({(peak - held) / 2**20:.1f} MiB above the {held / 2**20:.1f} "
+          f"MiB held); kernel launches {launches}", flush=True)
+
+    before = {name: fn.launches for name, fn in kern.items()}
+    t0 = time.perf_counter()
+    plain = griffin_plain_route(cfg, params, reqs, 64)
+    plain_s = time.perf_counter() - t0
+    if {name: fn.launches for name, fn in kern.items()} != before:
+        raise AssertionError("the plain route launched a CUDA kernel")
+    ties = {"engine": [], "generate": []}
+    distinct = set()
+    t0 = time.perf_counter()
+    for r in reqs:
+        got = out[r.uid]
+        if got.shape != (64,) or got.min() < 0 or got.max() >= cfg.vocab_size:
+            raise AssertionError(f"uid {r.uid}: bad output {got}")
+        distinct.update(int(t) for t in got)
+        gen = generate(cfg, params, torch.from_numpy(r.prompt)[None].cuda(),
+                       max_new_tokens=64, max_len=4096)[0].cpu().numpy()
+        for what, toks in (("engine", got), ("generate", gen)):
+            tie = check_against_plain(what, r.uid, toks, *plain[r.uid])
+            if tie is not None:
+                ties[what].append(tie)
+    generate_s = time.perf_counter() - t0
+    gaps = np.concatenate([plain[r.uid][1] for r in reqs])
+    exact = {what: len(reqs) - len(t) for what, t in ties.items()}
+    print(f"tokens == plain route (scalar decode_step over all rows, no "
+          f"kernel; {plain_s:.1f} s) for {exact['engine']}/{len(reqs)} "
+          f"requests from the engine and {exact['generate']}/{len(reqs)} "
+          f"from generate ({generate_s:.1f} s for the 16 calls); near ties "
+          f"{ties}; {len(distinct)} distinct "
+          f"tokens generated; plain top-2 gap median {np.median(gaps):.4g},"
+          f" min {gaps.min():.4g}", flush=True)
+    report = dict(tok_per_s=n_tok / dt, seconds=dt, tokens=n_tok,
+                  host_syncs_per_token=eng.n_host_syncs / n_tok,
+                  n_prefills=eng.n_prefills, decode_steps=steps,
+                  pool_bytes=pool_bytes, peak_mib=peak / 2**20,
+                  held_before_mib=held / 2**20, launches=launches,
+                  exact_requests=exact, near_ties=ties,
+                  distinct_tokens=len(distinct),
+                  plain_top2_gap=dict(median=float(np.median(gaps)),
+                                      min=float(gaps.min())),
+                  plain_route_seconds=plain_s, generate_seconds=generate_s,
+                  init_seconds=init_s, prompt_lens=[
+                      len(r.prompt) for r in reqs])
+    t0 = time.perf_counter()
+    report["profile"] = profile_serve(engine, reqs, dt, stages=())
+    report["profile"]["seconds"] = time.perf_counter() - t0
+    return report, (cfg, params, reqs, plain, out)
+
+
+def predict_griffin_schedule(reqs, pages):
+    """The paged engine's admission schedule does not depend on the
+    weights (no eos, fixed budgets): run it on the CPU with a 1-layer
+    model of recurrentgemma-2b's paging geometry (one local-attention
+    layer, window 2048, max_len 4096: page 64, 32 blocks a slot) and
+    count the admissions refused for want of pages, the prefill groups,
+    the macro-steps and the pages high-water."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import build_params
+    from repro_torch.serve import ContinuousBatchingEngine
+
+    cfg = get_config("recurrentgemma-2b").replace(
+        n_layers=1, block_pattern=("attn",), d_model=8, n_heads=1,
+        n_kv_heads=1, head_dim=8, d_ff=8, lru_width=8,
+        param_dtype="float32", compute_dtype="float32")
+    params = build_params(cfg, seed=0, device="cpu")
+    eng = ContinuousBatchingEngine(cfg, params, capacity=8, max_len=4096,
+                                   k=8, pool="paged", pages=pages)
+    waits = []
+    alloc = eng._alloc_request
+
+    def counted(req):
+        info = alloc(req)
+        waits.append(info is None)
+        return info
+    eng._alloc_request = counted
+    with torch.no_grad():
+        eng.run([dataclasses.replace(r) for r in reqs])
+    return dict(refused=sum(waits), n_prefills=eng.n_prefills,
+                n_decode_dispatches=eng.n_decode_dispatches,
+                pages_highwater=eng.pages_highwater)
+
+
+def run_griffin_paged(kernel_rows, model):
+    """Phase 10: phase 9's model and requests from a paged pool of
+    GRIFFIN_PAGES pages beside the dense pool (dense, paged, paged,
+    dense); the refused admissions predicted first by a CPU run of the
+    same schedule."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import griffin
+    from repro_torch.serve import ContinuousBatchingEngine, Request
+
+    cfg, params, reqs, plain, dense_out = model
+    pat = griffin.block_pattern(cfg)
+    n_rec, n_attn = pat.count("rec"), pat.count("attn")
+    t0 = time.perf_counter()
+    predicted = predict_griffin_schedule(reqs, GRIFFIN_PAGES)
+    print(f"predicted by a CPU run of the schedule ({time.perf_counter() - t0:.1f}"
+          f" s, 1-layer model): {predicted}", flush=True)
+
+    def engine(pool):
+        return ContinuousBatchingEngine(
+            cfg, params, capacity=8, max_len=4096, k=8, pool=pool,
+            pages=GRIFFIN_PAGES if pool == "paged" else None)
+
+    def timed(eng):
+        waits = []  # admissions refused for want of pages (backpressure)
+        alloc = eng._alloc_request
+
+        def counted(req):
+            info = alloc(req)
+            waits.append(info is None)
+            return info
+        eng._alloc_request = counted
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            out = eng.run([dataclasses.replace(r) for r in reqs])
+            torch.cuda.synchronize()
+        finally:
+            del eng._alloc_request  # frees the engine on return
+        dt = time.perf_counter() - t0
+        return out, dt, sum(len(v) for v in out.values()) / dt, sum(waits)
+
+    engine("paged").run([Request(uid=0, prompt=reqs[0].prompt,
+                                 max_new_tokens=9)])  # first-use costs
+    kern = ops.kernels()
+    gc.collect()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    dense_a, _, tps_dense_a, _ = timed(engine("dense"))
+    peak_dense = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kern.values():
+        fn.launches = 0
+    eng = engine("paged")
+    out, dt, tps_paged, waits = timed(eng)
+    launches = {name: fn.launches for name, fn in kern.items()}
+    peak = torch.cuda.max_memory_allocated()
+    _, _, tps_paged_b, _ = timed(engine("paged"))
+    _, _, tps_dense_b, _ = timed(engine("dense"))
+    n_tok = sum(len(v) for v in out.values())
+    if set(out) != {r.uid for r in reqs} or eng.rejected:
+        raise AssertionError(f"requests missing or rejected: {eng.rejected}")
+    steps = eng.k * eng.n_decode_dispatches
+    want = {name: 0 for name in kern}
+    want.update(paged_ring_decode_attention=n_attn * steps,
+                rglru_scan=n_rec * eng.n_prefills)
+    if launches != want:
+        raise AssertionError(f"paged griffin path launched {launches}, "
+                             f"expected {want} ({steps} decode steps, "
+                             f"{eng.n_prefills} admission groups)")
+    got_sched = dict(refused=waits, n_prefills=eng.n_prefills,
+                     n_decode_dispatches=eng.n_decode_dispatches,
+                     pages_highwater=eng.pages_highwater)
+    if got_sched != predicted or not waits:
+        raise AssertionError(f"paged schedule {got_sched} differs from the "
+                             f"CPU prediction {predicted} (or no admission "
+                             "waited for pages)")
+    if eng.pages_highwater > GRIFFIN_PAGES or eng.pages_in_use:
+        raise AssertionError(f"pages high-water {eng.pages_highwater}, in "
+                             f"use at the end {eng.pages_in_use}")
+    kernel_rows["paged_ring_decode_attention"]["launches"] = launches[
+        "paged_ring_decode_attention"]
+    dense_eng = engine("dense")
+    report = dict(
+        tok_per_s=[tps_paged, tps_paged_b],
+        dense_tok_per_s=[tps_dense_a, tps_dense_b], seconds=dt,
+        tokens=n_tok, pages_budget=eng.pages_budget,
+        pages_highwater=eng.pages_highwater,
+        n_pages_allocated=eng.n_pages_allocated,
+        admissions_refused_for_pages=waits, predicted=predicted,
+        decode_steps=steps, n_prefills=eng.n_prefills,
+        pool_bytes=_pool_bytes(eng.pool),
+        dense_pool_bytes=_pool_bytes(dense_eng.pool),
+        host_syncs_per_token=eng.n_host_syncs / n_tok,
+        peak_mib=peak / 2**20, dense_peak_mib=peak_dense / 2**20,
+        held_before_mib=held / 2**20, launches=launches)
+    del dense_eng
+    ties = {"paged": [], "dense": [], "paged vs dense": [],
+            "dense vs phase 9": []}
+    for r in reqs:
+        for what, toks in (("paged", out[r.uid]), ("dense", dense_a[r.uid])):
+            if toks.shape != (64,):
+                raise AssertionError(f"uid {r.uid}: bad {what} output {toks}")
+            tie = check_against_plain(what, r.uid, toks, *plain[r.uid])
+            if tie is not None:
+                ties[what].append(tie)
+        for what, a, b in (("paged and dense engines", out, dense_a),
+                           ("dense engines of phases 9 and 10", dense_a,
+                            dense_out)):
+            tie = check_same_tokens(what, r.uid, a[r.uid], b[r.uid],
+                                    plain[r.uid][1])
+            if tie is not None:
+                ties["paged vs dense" if a is out
+                     else "dense vs phase 9"].append(tie)
+    report["near_ties"] = ties
+    print(f"griffin paged: {len(out)} requests / {n_tok} tokens in "
+          f"{dt:.3f} s: {tps_paged:.1f} tok/s (second run "
+          f"{tps_paged_b:.1f}); dense pool {tps_dense_a:.1f} and "
+          f"{tps_dense_b:.1f} tok/s; admissions refused for pages {waits} "
+          f"(predicted {predicted['refused']}); pages {eng.pages_budget} "
+          f"budget, {eng.pages_highwater} high-water, "
+          f"{eng.n_pages_allocated} allocated, {eng.pages_in_use} in use at "
+          f"the end; pool {report['pool_bytes'] / 2**20:.1f} MiB paged vs "
+          f"{report['dense_pool_bytes'] / 2**20:.1f} MiB dense; "
+          f"{report['host_syncs_per_token']:.4f} host syncs/token "
+          f"({eng.n_decode_dispatches} macro-steps, {eng.n_prefills} prefill "
+          f"groups); peak memory {(peak - held) / 2**20:.1f} MiB paged vs "
+          f"{(peak_dense - held) / 2**20:.1f} MiB dense above the "
+          f"{held / 2**20:.1f} MiB held; kernel launches {launches}; tokens "
+          f"== plain route for {len(reqs) - len(ties['paged'])}/{len(reqs)} "
+          f"(paged), {len(reqs) - len(ties['dense'])}/{len(reqs)} (dense); "
+          f"near ties {ties}", flush=True)
+    return report
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1629,8 +2231,21 @@ def main(argv=None):
     t0 = time.perf_counter()
     paged_spec = run_paged_speculative(rows, small, big, spec_reqs,
                                        spec_plain)
-    del small, big
+    del small, big, spec_reqs, spec_plain
     print(f"phase 8 took {time.perf_counter() - t0:.1f} s", flush=True)
+    gc.collect()  # phases 5-8's models go before recurrentgemma-2b
+    torch.cuda.empty_cache()
+
+    phase("serve recurrentgemma-2b (griffin), dense pool")
+    t0 = time.perf_counter()
+    griffin_dense, griffin_model_state = run_griffin_serve(rows)
+    print(f"phase 9 took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    phase("serve recurrentgemma-2b (griffin), paged pool")
+    t0 = time.perf_counter()
+    griffin_paged = run_griffin_paged(rows, griffin_model_state)
+    del griffin_model_state
+    print(f"phase 10 took {time.perf_counter() - t0:.1f} s", flush=True)
 
     kernels = [{key: r[key] for key in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -1642,6 +2257,7 @@ def main(argv=None):
             {"device": kind, "nvidia_smi": smi, "kernels": list(rows.values()),
              "serve": serve, "grow": grow, "speculative": spec,
              "paged": paged, "paged_speculative": paged_spec,
+             "griffin_dense": griffin_dense, "griffin_paged": griffin_paged,
              "build_seconds": secs}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -112,7 +112,8 @@ def register_named(name):
 
 
 def get_config(name: str) -> ModelConfig:
-    import repro_torch.configs.paper_models  # noqa: F401  (populates registry)
+    import repro_torch.configs.archs  # noqa: F401  (populate the registry)
+    import repro_torch.configs.paper_models  # noqa: F401
     if name not in _REGISTRY:
         raise KeyError(
             f"unknown config '{name}'; known: {sorted(_REGISTRY)}")
@@ -120,5 +121,6 @@ def get_config(name: str) -> ModelConfig:
 
 
 def list_configs():
+    import repro_torch.configs.archs  # noqa: F401
     import repro_torch.configs.paper_models  # noqa: F401
     return sorted(_REGISTRY)

@@ -1,11 +1,12 @@
 """Build the hand-written CUDA kernels and load them with ctypes.
 
 Each ``csrc/*.cu`` file has a plain C interface and compiles on its own
-with ``nvcc`` into ``<checkout>/build/kernels/`` (``build/`` is
-git-ignored) at first use.  Every source starts its own ``nvcc`` at the
-same time, so building all kernels takes as long as the slowest one.  A
-library's file name carries a hash of its source and flags, so an edited
-kernel never loads a stale build.  Nothing here runs at import time.
+(with the shared ``csrc/*.cuh`` headers it includes) with ``nvcc`` into
+``<checkout>/build/kernels/`` (``build/`` is git-ignored) at first use.
+Every source starts its own ``nvcc`` at the same time, so building all
+kernels takes as long as the slowest one.  A library's file name carries
+a hash of its source, the headers and the flags, so an edited kernel
+never loads a stale build.  Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -22,7 +23,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("flash_attention", "slot_decode_attention", "tr_sandwich",
            "chunk_verify_attention", "paged_slot_decode_attention",
-           "paged_chunk_verify_attention")
+           "paged_chunk_verify_attention", "ring_decode_attention",
+           "paged_ring_decode_attention", "rglru_scan")
 
 _libs: dict = {}  # source name -> loaded ctypes.CDLL
 ptxas_log: dict = {}  # source name -> nvcc's register/shared-memory report
@@ -37,7 +39,9 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers count too: a source may include any of them
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu",
+                                            *sorted(CSRC.glob("*.cuh"))])
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{tag[:12]}.so"
 

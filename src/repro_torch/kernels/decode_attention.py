@@ -1,14 +1,18 @@
 """Wrappers of the CUDA decode-side attention kernels:
 ``csrc/slot_decode_attention.cu`` (one query per slot),
 ``csrc/chunk_verify_attention.cu`` (a speculative verify chunk per slot),
-and their twins over a paged pool, ``csrc/paged_slot_decode_attention.cu``
-and ``csrc/paged_chunk_verify_attention.cu`` (page arenas read through
-per-row block tables).
+``csrc/ring_decode_attention.cu`` (one query per slot over a ring-buffer
+window cache), and their twins over a paged pool,
+``csrc/paged_slot_decode_attention.cu``,
+``csrc/paged_chunk_verify_attention.cu`` and
+``csrc/paged_ring_decode_attention.cu`` (page arenas read through per-row
+block tables).
 
 Each checks what its kernel takes, allocates the output, launches on the
 current stream and counts launches in ``<wrapper>.launches``.  ``ops``
 routes CPU tensors to the plain versions and folds ``done`` rows into
-``kv_len = 0`` / ``offsets = -1`` before calling these.
+``kv_len = 0`` / ``offsets = -1`` / ``slot_positions = -1`` before calling
+these.
 """
 from __future__ import annotations
 
@@ -297,3 +301,127 @@ def paged_chunk_verify_attention(q, ck, cv, bt, k, v, offsets, *, ring,
 
 
 paged_chunk_verify_attention.launches = 0
+
+
+# ------------------------------------------------- ring-buffer window decode
+RING_HEAD_DIMS = (64, 128, 256)
+RING_GROUP_MAX = 16  # query heads per kv head the ring kernels take
+RING_CHUNK = 64  # band positions per block (CHUNK in the .cuh)
+
+
+def _check_ring(what, q, KV, slot_positions, window, ring):
+    """The ring kernels' own head, band and position rules (G 1..16, hd
+    64/128/256: recurrentgemma-2b has G = 10 and hd = 256)."""
+    B, H, hd = q.shape
+    if KV < 1 or H % KV or not 1 <= H // KV <= RING_GROUP_MAX:
+        raise ValueError(f"{what}: H/KV = {H}/{KV} must be a whole number "
+                         f"in 1..{RING_GROUP_MAX}")
+    if hd not in RING_HEAD_DIMS:
+        raise ValueError(f"{what}: head_dim {hd} not in {RING_HEAD_DIMS}")
+    if (slot_positions.dtype != torch.int32
+            or slot_positions.shape != (B,)):
+        raise ValueError(f"{what}: slot_positions must be ({B},) int32 (got "
+                         f"{tuple(slot_positions.shape)} "
+                         f"{slot_positions.dtype})")
+    if window is None or window < 1:
+        raise ValueError(f"{what}: window must be >= 1 (got {window})")
+    if ring < 1:
+        raise ValueError(f"{what}: the ring needs at least one slot")
+    # blocks per (b, kv head): the band splits into chunks of RING_CHUNK
+    return -(-min(window, ring) // RING_CHUNK)
+
+
+def _ring_work(q, KV, nsplit):
+    B, H, hd = q.shape
+    return torch.empty(B * KV * nsplit * (H // KV) * (hd + 2),
+                       dtype=torch.float32, device=q.device)
+
+
+def _ring_entry():
+    fn = build.load("ring_decode_attention").ring_decode_attention_fwd
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def ring_decode_attention(q, k, v, slot_positions, *, window):
+    """q: (B, H, hd); k, v: (B, ring, KV, hd) ring caches already holding
+    this step's K/V at ``slot_positions[b] % ring``; slot_positions: (B,)
+    int32 query positions -> (B, H, hd).  Attends positions in
+    ``(pos - window, pos]`` that the ring still holds; a position < 0
+    gives exact zeros."""
+    what = "ring_decode_attention"
+    _check_tensors(what, (("q", q), ("k", k), ("v", v)),
+                   ("slot_positions", slot_positions))
+    if q.dim() != 3 or k.dim() != 4:
+        raise ValueError(f"{what}: q must be (B, H, hd) and k, v "
+                         "(B, ring, KV, hd)")
+    B, H, hd = q.shape
+    ring, KV = k.shape[1], k.shape[2]
+    if k.shape != (B, ring, KV, hd) or v.shape != k.shape:
+        raise ValueError(f"{what}: q {tuple(q.shape)} needs k, v of shape "
+                         f"(B, ring, KV, hd); got {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    nsplit = _check_ring(what, q, KV, slot_positions, window, ring)
+    out = torch.empty_like(q)
+    work = _ring_work(q, KV, nsplit)
+    with torch.cuda.device(q.device):
+        rc = _ring_entry()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            slot_positions.data_ptr(), out.data_ptr(), work.data_ptr(),
+            DTYPES[q.dtype], B, ring, KV, H, hd, window, nsplit, hd ** -0.5,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
+    ring_decode_attention.launches += 1
+    return out
+
+
+ring_decode_attention.launches = 0
+
+
+def _paged_ring_entry():
+    fn = build.load("paged_ring_decode_attention"
+                    ).paged_ring_decode_attention_fwd
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def paged_ring_decode_attention(q, k, v, bt, slot_positions, *, window):
+    """q: (B, H, hd); k, v: (n_pages, page, KV, hd) page arenas; bt:
+    (B, nblk) int32 block tables (ring modulus ``nblk * page``: ring slot
+    s of row b is ``arena[bt[b, s // page], s % page]``); slot_positions:
+    (B,) int32 -> (B, H, hd).  Table entries outside the arena clamp to
+    its last page; a position < 0 gives exact zeros."""
+    what = "paged_ring_decode_attention"
+    _check_tensors(what, (("q", q), ("k", k), ("v", v)), ("bt", bt),
+                   ("slot_positions", slot_positions))
+    if q.dim() != 3:
+        raise ValueError(f"{what}: q must be (B, H, hd)")
+    B, H, hd = q.shape
+    KV = k.shape[2] if k.dim() == 4 else -1
+    _check_arena(what, (("k", k), ("v", v)), bt, B, KV, hd)
+    n_pages, page = k.shape[:2]
+    nblk = bt.shape[1]
+    nsplit = _check_ring(what, q, KV, slot_positions, window, nblk * page)
+    out = torch.empty_like(q)
+    work = _ring_work(q, KV, nsplit)
+    with torch.cuda.device(q.device):
+        rc = _paged_ring_entry()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bt.data_ptr(),
+            slot_positions.data_ptr(), out.data_ptr(), work.data_ptr(),
+            DTYPES[q.dtype], B, n_pages, page, nblk, KV, H, hd, window,
+            nsplit, hd ** -0.5,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
+    paged_ring_decode_attention.launches += 1
+    return out
+
+
+paged_ring_decode_attention.launches = 0

@@ -16,10 +16,15 @@ from repro_torch.kernels.decode_attention import (
     paged_chunk_verify_attention as _paged_chunk,
 )
 from repro_torch.kernels.decode_attention import (
+    paged_ring_decode_attention as _paged_ring,
+)
+from repro_torch.kernels.decode_attention import (
     paged_slot_decode_attention as _paged_slot,
 )
+from repro_torch.kernels.decode_attention import ring_decode_attention as _ring
 from repro_torch.kernels.decode_attention import slot_decode_attention as _slot
 from repro_torch.kernels.flash_attention import flash_attention as _flash
+from repro_torch.kernels.rglru_scan import rglru_scan as _rglru
 from repro_torch.kernels.tr_sandwich import tr_sandwich as _sandwich
 
 
@@ -41,6 +46,46 @@ def slot_decode_attention(q, k, v, kv_len, *, done=None):
     if q.device.type == "cpu":
         return ref.slot_decode_attention_ref(q, k, v, kv_len)
     return _slot(q, k, v, kv_len.contiguous())
+
+
+def _positions(slot_positions, q, done):
+    """(B,) int32 query positions with ``done`` rows folded into -1."""
+    pos = torch.as_tensor(slot_positions, dtype=torch.int32,
+                          device=q.device).reshape(-1).expand(q.shape[0])
+    if done is not None:
+        pos = torch.where(done, -1, pos)
+    return pos.contiguous()
+
+
+def ring_decode_attention(q, k, v, slot_positions, *, window, done=None):
+    """Ring-buffer window slot decode over the pool layout: q (B, H, hd),
+    k, v (B, ring, KV, hd) already holding this step at ``pos % ring``.
+    ``done`` rows are folded into ``slot_positions = -1`` (exact-zero
+    output)."""
+    pos = _positions(slot_positions, q, done)
+    if q.device.type == "cpu":
+        return ref.ring_decode_attention_ref(q, k, v, pos, window=window)
+    return _ring(q, k, v, pos, window=window)
+
+
+def paged_ring_decode_attention(q, k, v, bt, slot_positions, *, window,
+                                done=None):
+    """Ring-buffer window slot decode over a paged pool: (n_pages, page,
+    KV, hd) arenas through (B, nblk) block tables, ring modulus
+    ``nblk * page``.  ``done`` rows fold into ``slot_positions = -1``."""
+    pos = _positions(slot_positions, q, done)
+    if q.device.type == "cpu":
+        return ref.paged_ring_decode_attention_ref(q, k, v, bt, pos,
+                                                   window=window)
+    return _paged_ring(q, k, v, bt, pos, window=window)
+
+
+def rglru_scan(a, b, h0=None):
+    """The linear recurrence ``h_t = a_t * h_{t-1} + b_t``: a, b (B, S,
+    W), h0 (B, W) float32 or None -> (B, S, W) in a's dtype."""
+    if a.device.type == "cpu":
+        return ref.rglru_scan_ref(a, b, h0)
+    return _rglru(a, b, h0)
 
 
 def chunk_verify_attention(q, ck, cv, k, v, offsets, *, ring, window=None,
@@ -136,4 +181,7 @@ def kernels():
     return {"flash_attention": _flash, "slot_decode_attention": _slot,
             "tr_sandwich": _sandwich, "chunk_verify_attention": _chunk,
             "paged_slot_decode_attention": _paged_slot,
-            "paged_chunk_verify_attention": _paged_chunk}
+            "paged_chunk_verify_attention": _paged_chunk,
+            "ring_decode_attention": _ring,
+            "paged_ring_decode_attention": _paged_ring,
+            "rglru_scan": _rglru}

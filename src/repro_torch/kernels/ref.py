@@ -67,6 +67,26 @@ def _ring_kpos(cur_len, ring):
     return torch.where(pos >= 0, pos, -1)
 
 
+def ring_decode_attention_ref(q, k, v, slot_positions, *, window):
+    """q: (B, H, hd); k, v: (B, ring, KV, hd) ring caches already holding
+    this step at ``slot_positions[b] % ring``; slot_positions: (B,) query
+    positions (-1: done -> exact zeros).  Attends the slots whose absolute
+    position (from the ring invariant) lies in ``(pos - window, pos]``."""
+    B, H, hd = q.shape
+    ring, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    pos = slot_positions.reshape(-1).to(torch.int32).expand(B)
+    kpos = _ring_kpos(pos + 1, ring)  # (B, ring)
+    mask = (kpos >= 0) & (kpos > pos[:, None] - window) & (pos >= 0)[:, None]
+    qg = q.reshape(B, KV, G, hd).float()
+    logits = torch.einsum("bkgh,bskh->bkgs", qg, k.float()) * hd ** -0.5
+    logits = torch.where(mask[:, None, None], logits, NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgs,bskh->bkgh", p, v.float())
+    out = out * (pos >= 0).to(out.dtype)[:, None, None, None]
+    return out.reshape(B, H, hd).to(q.dtype)
+
+
 def chunk_verify_attention_ref(q, ck, cv, k, v, offsets, *, ring,
                                window=None):
     """q: (B, S, H, hd); ck, cv: (B, Sc, KV, hd) read-only cache; k, v:
@@ -123,6 +143,15 @@ def paged_slot_decode_attention_ref(q, k, v, bt, kv_len):
         q, _paged_gather_ref(k, bt), _paged_gather_ref(v, bt), kv_len)
 
 
+def paged_ring_decode_attention_ref(q, k, v, bt, slot_positions, *,
+                                    window):
+    """The ring version over (n_pages, page, KV, hd) arenas read through
+    (B, nblk) block tables (ring modulus ``nblk * page``)."""
+    return ring_decode_attention_ref(
+        q, _paged_gather_ref(k, bt), _paged_gather_ref(v, bt),
+        slot_positions, window=window)
+
+
 def paged_chunk_verify_attention_ref(q, ck, cv, bt, k, v, offsets, *, ring,
                                      window=None):
     """The chunk-verify version over (n_pages, page, KV, hd) cache arenas
@@ -130,3 +159,18 @@ def paged_chunk_verify_attention_ref(q, ck, cv, bt, k, v, offsets, *, ring,
     return chunk_verify_attention_ref(
         q, _paged_gather_ref(ck, bt), _paged_gather_ref(cv, bt), k, v,
         offsets, ring=ring, window=window)
+
+
+def rglru_scan_ref(a, b, h0=None):
+    """The linear recurrence ``h_t = a_t * h_{t-1} + b_t`` over the
+    sequence, one step at a time in float32 (a product, then a sum, each
+    rounded).  a, b: (B, S, W); h0: (B, W) float32 or None (zeros) ->
+    h: (B, S, W) in a's dtype."""
+    h = (torch.zeros(a[:, 0].shape, dtype=torch.float32, device=a.device)
+         if h0 is None else h0.float())
+    af, bf = a.float(), b.float()
+    out = torch.empty(a.shape, dtype=torch.float32, device=a.device)
+    for t in range(a.shape[1]):
+        h = af[:, t] * h + bf[:, t]
+        out[:, t] = h
+    return out.to(a.dtype)

@@ -29,6 +29,13 @@ asked for and absent:
   # (shared by target and draft with --speculate), prefix sharing
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt-base \
       --engine continuous --pool paged --pages 64 --max-len 1024
+
+  # griffin (recurrentgemma-2b): recurrent state per slot beside
+  # ring-buffer window caches, which page on a paged pool
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch recurrentgemma-2b --engine continuous --batch 16 \
+      --capacity 8 --prompt-len 2048 --gen 64 --max-len 4096 \
+      --pool paged --pages 160
 """
 from __future__ import annotations
 

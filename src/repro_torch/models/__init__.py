@@ -20,7 +20,8 @@ and, to run as a speculative draft or target, the chunk-verify hooks
 and, to serve from a paged pool (``serve/paged.py``), the declaration of
 its pageable cache groups:
   paged_groups(cfg) -> {group key: (kind, leaf names)}
-Only the transformer family is ported so far.
+The transformer and griffin families are ported so far; griffin has no
+chunk-verify hooks, so it serves without speculation.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ import importlib
 
 _FAMILIES = {
     "transformer": "repro_torch.models.transformer",
+    "griffin": "repro_torch.models.griffin",
 }
 
 

@@ -65,3 +65,23 @@ def take_layer(stacked, i):
     """Layer ``i`` of every leaf of a stacked-params subtree (views)."""
     return {k: take_layer(v, i) if isinstance(v, dict) else v[i]
             for k, v in stacked.items()}
+
+
+def slice_layers(stacked, start, stop):
+    """Layers ``start:stop`` of every leaf of a stacked subtree (views)."""
+    return {k: slice_layers(v, start, stop) if isinstance(v, dict)
+            else v[start:stop] for k, v in stacked.items()}
+
+
+def freeze_rows(old, new, done):
+    """Per-row freeze for the continuous-batching slot protocol: rows
+    flagged in ``done`` (B,) keep ``old``'s values, the rest take
+    ``new``'s.  ``old``/``new`` are matching trees whose leaves lead with
+    the batch (slot) axis.  A ``torch.where`` on the flag: no host sync,
+    and a frozen row's bytes stay bit for bit (a recurrent update is
+    irreversible, unlike a KV write that can store the same bytes again).
+    """
+    if isinstance(new, dict):
+        return {k: freeze_rows(old[k], v, done) for k, v in new.items()}
+    return torch.where(done.reshape(done.shape + (1,) * (new.dim() - 1)),
+                       old, new)

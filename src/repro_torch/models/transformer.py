@@ -275,6 +275,33 @@ def _attn_out(out, p, cfg, cdt):
     return y
 
 
+def _ring_positions(cur_len, ring, device=None):
+    """Absolute position held by each ring-buffer slot after ``cur_len``
+    positions (one length for every row), -1 where unwritten: (ring,).
+    ``ring`` is the cache length (the ring modulus), not the window."""
+    slot = torch.arange(ring, device=device)
+    base = ((cur_len - 1) // ring) * ring + slot
+    pos = torch.where(base < cur_len, base, base - ring)
+    return torch.where(pos >= 0, pos, -1)
+
+
+def _ring_window_attend(q, ck, cv, kpos_abs, q_offset, cfg):
+    """Plain attention of S queries at ``q_offset`` over a ring cache whose
+    slots hold the absolute positions ``kpos_abs`` (ring,): keys in
+    ``(qpos - window, qpos]`` that were written.  The scalar-position
+    decode of a ring cache (every row at the same length)."""
+    B, S, H, hd = q.shape
+    KV = ck.shape[2]
+    qg = q.reshape(B, S, KV, H // KV, hd)
+    qpos = q_offset + torch.arange(S, device=q.device)
+    mask = ((kpos_abs[None, :] <= qpos[:, None])
+            & (kpos_abs[None, :] > qpos[:, None] - cfg.window)
+            & (kpos_abs[None, :] >= 0))
+    out = attn_lib._sdpa(qg, ck.to(q.dtype), cv.to(q.dtype), mask,
+                         cfg.head_dim ** -0.5)
+    return out.reshape(B, S, H, hd)
+
+
 def _block(x, bp, cfg, **attn_kw):
     h, cache = _attn_forward(apply_norm(x, bp["ln1"], cfg.norm), bp["attn"],
                              cfg, **attn_kw)

@@ -55,11 +55,14 @@ admission group target no slot: the reference scatters them to the
 out-of-range index ``capacity``, which XLA drops and PyTorch indexing
 would refuse, so only the first ``n`` rows are copied.
 
-Greedy tokens are the sequential ``generate()`` tokens for every request,
-for any interleaving, any K, any speculation depth and either pool, up to
-float near-ties between the routes' arithmetic.  Sampling, deadlines,
-faults, the journal, live upgrade and meshes are not ported yet, nor are
-paged ring-window pools (the ring slice) and the paged arena's
+The engine serves any family of the slot-state protocol: the transformer
+(full KV) and griffin (recurrent state, dense per slot, beside ring-window
+local-attention caches, which page on a paged pool).  Greedy tokens are
+the sequential ``generate()`` tokens for every request, for any
+interleaving, any K, any speculation depth and either pool, up to float
+near-ties between the routes' arithmetic.  Sampling, deadlines, faults,
+the journal, live upgrade and meshes are not ported yet, nor are a
+windowed transformer's paged rings and the paged arena's
 full-reservation degradation rung (the faults slice).
 """
 from __future__ import annotations
@@ -306,9 +309,12 @@ class ContinuousBatchingEngine:
         # unpin, a flushed registry), zeroed with the next eviction
         self._zero_pending: List[int] = []
         # prefix sharing: full-KV target pages are addressed by absolute
-        # position; off under speculation, as in the reference
+        # position; off under speculation and for every family but the
+        # transformer (a recurrent state has no pages to share), as in the
+        # reference
         self._prefix_ok = (metas[0] is not None
                            and self.speculative is None
+                           and self.cfg.family == "transformer"
                            and metas[0].page > 0)
 
     @property

@@ -13,9 +13,14 @@ with ``page`` the ``pad_cache_len`` quantum for ``S`` (8 up to 256, 64
 above).  The block table rides inside the group dict, the same table for
 every layer, so the layer loop hands layer ``i`` its ``bt[i]`` with no
 extra plumbing; model code detects a paged group by ``"bt" in cache``.
-Only the transformer's full-KV ``"seq"`` groups page here; ring-window
-paging (``register_copy``, ``ring_restore_copy``) comes with the ring
-slice and ``"slot"`` groups (xlstm tails) with the xlstm slice.
+A ``"seq"`` group pages a full-KV cache (the transformer's) or a ring
+window cache (griffin's local attention, whose ring modulus is then
+``nblk * page``).  Groups a family does not declare stay dense per slot
+beside the paged ones (griffin's recurrent state: conv tails and RG-LRU
+h, O(1) per slot) and ride the same admission and eviction scatters.
+A windowed transformer's paged rings with prefix sharing
+(``register_copy``, ``ring_restore_copy``) wait for their slice, and
+``"slot"`` groups (xlstm tails) for the xlstm slice.
 
 Page-id conventions
 -------------------
@@ -64,8 +69,9 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-RING_SLICE = ("paged ring-window caches are not ported to repro_torch yet "
-              "(the ring slice, ROADMAP.md)")
+RING_SLICE = ("paged ring caches of a windowed transformer (with their "
+              "prefix sharing) are not ported to repro_torch yet (the "
+              "windowed-transformer ring slice, ROADMAP.md)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,8 +110,9 @@ def page_quantum(padded_len: int) -> int:
 
 
 def require_full_layout(cfg):
-    """Raise for a config whose caches would page as rings (a window)."""
-    if getattr(cfg, "window", None):
+    """Raise for a windowed transformer, whose paged rings (and their
+    prefix sharing) are not ported; griffin's rings page."""
+    if cfg.family == "transformer" and getattr(cfg, "window", None):
         raise NotImplementedError(f"{cfg.name}: {RING_SLICE}")
 
 
@@ -168,7 +175,8 @@ def build_paged_pool(fam, cfg, capacity: int, max_len: int,
     sets the arena depth directly (a speculative pair shares one page-id
     space, so both pools are built to the same depth).  Each arena holds
     ``n_pages + 1`` pages: the last is the scratch page that absorbs
-    dropped writes (module docstring).
+    dropped writes (module docstring).  Groups the family does not
+    declare pageable are the dense pool's, zeroed.
     """
     require_full_layout(cfg)
     shapes = fam.init_cache(cfg, capacity, max_len, device="meta")
@@ -177,11 +185,10 @@ def build_paged_pool(fam, cfg, capacity: int, max_len: int,
         return fam.init_cache(cfg, capacity, max_len, device=device), None
     if n_pages is not None and n_pages != meta.n_pages:
         meta = dataclasses.replace(meta, n_pages=int(n_pages))
-    if set(shapes) != {g.path[0] for g in meta.groups}:
-        raise NotImplementedError(
-            f"{cfg.name}: dense cache groups beside paged ones are not "
-            "ported to repro_torch yet (the xlstm slice, ROADMAP.md)")
-    out = {}
+    # undeclared groups (griffin's recurrent state) stay dense per slot
+    out = {key: {lk: torch.zeros(leaf.shape, dtype=leaf.dtype, device=device)
+                 for lk, leaf in grp.items()}
+           for key, grp in _dense_groups(shapes, meta)}
     for g in meta.groups:
         grp = shapes[g.path[0]]
         if set(grp) != set(g.leaves):
@@ -201,9 +208,11 @@ def build_paged_pool(fam, cfg, capacity: int, max_len: int,
 def pages_needed(prompt_len: int, max_new: int, meta: PoolMeta) -> int:
     """Pages a request needs up front, so no mid-flight top-up is ever
     required: the max over the pool's groups, since every group consumes
-    the leading ``nblk_g`` ids of one shared allocation.  A full cache
-    fits ``prompt + max_new`` inside ``nblk`` pages by the engine's
-    admission check."""
+    the leading ``nblk_g`` ids of one shared allocation.  The ``nblk``
+    clamp covers both layouts: a full cache fits ``prompt + max_new``
+    inside ``nblk`` pages by the engine's admission check, and a ring
+    wraps at ``nblk * page``, so a long request needs every block of it
+    and no more."""
     if not meta.groups:  # single-seq-group geometry
         return min(-(-(prompt_len + max_new) // meta.page), meta.nblk)
     return max(min(-(-(prompt_len + max_new) // g.page), g.nblk)
@@ -211,6 +220,13 @@ def pages_needed(prompt_len: int, max_new: int, meta: PoolMeta) -> int:
 
 
 # ------------------------------------------------------------- scatters
+def _dense_groups(pool, meta: PoolMeta):
+    """(key, group) of the pool's groups that the family did not declare
+    pageable: they stay dense per slot."""
+    paged_keys = {g.path[0] for g in meta.groups}
+    return [(key, grp) for key, grp in pool.items() if key not in paged_keys]
+
+
 def admit_scatter(pool, rows, slots, bt_rows, meta: PoolMeta):
     """Copy freshly prefilled dense cache rows into a paged pool, in place.
 
@@ -218,10 +234,14 @@ def admit_scatter(pool, rows, slots, bt_rows, meta: PoolMeta):
     "bt"); slots: (n,) int64 slot ids; bt_rows: (n, meta.nblk) int32 page
     ids per admitted row, each group consuming its leading ``nblk_g``
     columns; unallocated blocks carry the sentinel, so their chunks land
-    in the scratch page.  Only real rows are passed: PyTorch has no
-    out-of-range drop for the reference's padding rows.
+    in the scratch page.  Dense groups copy the rows into their slots.
+    Only real rows are passed: PyTorch has no out-of-range drop for the
+    reference's padding rows.
     """
     n = slots.shape[0]
+    for key, grp in _dense_groups(pool, meta):
+        for lk, leaf in grp.items():
+            leaf.index_copy_(1, slots, rows[key][lk].to(leaf.dtype))
     for g in meta.groups:
         grp = pool[g.path[0]]
         bt_g = bt_rows[:, :g.nblk]
@@ -247,11 +267,16 @@ def ring_restore_copy(pool, src_pids, dst_pids, meta: PoolMeta):
 
 
 def evict_clear(pool, slots, zero_pids, meta: PoolMeta):
-    """Clear evicted slots in place.  Paged groups zero the handed-back
-    pages listed in ``zero_pids`` (prefix-registered pages are retained,
-    so they are simply absent; a sentinel entry zeroes the scratch page)
-    and reset the rows' block tables to the sentinel."""
+    """Clear evicted slots in place.  Dense groups zero the slots' rows
+    (a retired request's recurrent state does not outlive it); paged
+    groups zero the handed-back pages listed in ``zero_pids``
+    (prefix-registered pages are retained, so they are simply absent; a
+    sentinel entry zeroes the scratch page) and reset the rows' block
+    tables to the sentinel."""
     zero_pids = zero_pids.long()
+    for _, grp in _dense_groups(pool, meta):
+        for leaf in grp.values():
+            leaf.index_fill_(1, slots, 0)
     for g in meta.groups:
         grp = pool[g.path[0]]
         grp["bt"].index_fill_(1, slots, meta.sentinel)

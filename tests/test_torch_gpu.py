@@ -1,6 +1,7 @@
 """Card-only tests of the port (``-m gpu``): each CUDA kernel against its
 plain version, the wrappers' refusals, the engine (plain and speculative,
-dense and paged pools) and the growth contraction on the card.
+dense and paged pools; the transformer and griffin) and the growth
+contraction on the card.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 GPU machine without JAX:
@@ -28,15 +29,22 @@ from repro_torch.kernels.decode_attention import (
     paged_chunk_verify_attention as cuda_paged_chunk,
 )
 from repro_torch.kernels.decode_attention import (
+    paged_ring_decode_attention as cuda_paged_ring,
+)
+from repro_torch.kernels.decode_attention import (
     paged_slot_decode_attention as cuda_paged_slot,
+)
+from repro_torch.kernels.decode_attention import (
+    ring_decode_attention as cuda_ring,
 )
 from repro_torch.kernels.decode_attention import (
     slot_decode_attention as cuda_slot,
 )
 from repro_torch.kernels.flash_attention import flash_attention as cuda_flash
+from repro_torch.kernels.rglru_scan import rglru_scan as cuda_scan
 from repro_torch.kernels.tr_sandwich import tr_sandwich as cuda_sandwich
 from repro_torch.launch.serve import build_params, generate
-from repro_torch.models import transformer
+from repro_torch.models import griffin, transformer
 from repro_torch.serve import (
     ContinuousBatchingEngine,
     Request,
@@ -652,3 +660,202 @@ def test_cuda_paged_spec_engine_launches_paged_kernels_only(cuda_device):
         want = generate(cfg_t, p_t, torch.from_numpy(r.prompt)[None].to(
             cuda_device), max_new_tokens=r.max_new_tokens, max_len=64)
         np.testing.assert_array_equal(got[r.uid], want[0].cpu().numpy())
+
+
+# ------------------------------------------------ griffin: ring and scan
+RING_GRID = [(G, hd, dtype) for G in (1, 4, 10) for hd in (64, 128, 256)
+             for dtype in (torch.float32, torch.bfloat16)]
+
+
+def _ring_positions(ring, window):
+    """Done, the first position, inside the first lap, at the ring, past
+    it, far past it, and a band cut by the window."""
+    return [-1, 0, 5, ring - 1, ring, ring + 17, 3 * ring + 101,
+            window + 3]
+
+
+@pytest.mark.parametrize("G,hd,dtype", RING_GRID)
+@pytest.mark.parametrize("ring,window", [(2048, 2048), (300, 130),
+                                         (40, 1000)])
+def test_cuda_ring_decode_matches_plain(cuda_device, G, hd, dtype, ring,
+                                        window):
+    KV = 1 if G == 10 else 2
+    pos = torch.tensor(_ring_positions(ring, window), dtype=torch.int32,
+                       device=cuda_device)
+    B = pos.shape[0]
+    g = torch.Generator(device=cuda_device).manual_seed(G + hd + ring)
+    q, k, v = (torch.randn(*shape, generator=g, device=cuda_device).to(dtype)
+               for shape in ((B, G * KV, hd), (B, ring, KV, hd),
+                             (B, ring, KV, hd)))
+    got = cuda_ring(q, k, v, pos, window=window)
+    torch.cuda.synchronize()
+    want = ref.ring_decode_attention_ref(q, k, v, pos, window=window)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+    assert (got[0] == 0).all()
+
+
+@pytest.mark.parametrize("G,hd,dtype", [(1, 64, torch.float32),
+                                        (10, 256, torch.float32),
+                                        (10, 256, torch.bfloat16),
+                                        (4, 128, torch.bfloat16)])
+@pytest.mark.parametrize("page,nblk,window", [(64, 32, 2048), (8, 5, 23)])
+def test_cuda_paged_ring_decode_matches_plain(cuda_device, G, hd, dtype,
+                                              page, nblk, window):
+    """A seeded permutation of the arena's pages as tables, the sentinel
+    for blocks short rows never got, positions past the wrap, a done
+    row."""
+    KV = 1 if G == 10 else 2
+    ring = nblk * page
+    pos = [-1, 3, page + 1, ring - 1, ring + 7, 5 * ring + 3]
+    B = len(pos)
+    n_pages = B * nblk - 3
+    perm = torch.randperm(n_pages, generator=torch.Generator().manual_seed(
+        page), dtype=torch.int32)
+    bt = perm[torch.arange(B * nblk) % n_pages].reshape(B, nblk)
+    bt[1, 1:] = n_pages  # a short row: one page
+    bt[2, 2:] = n_pages  # two pages
+    bt = bt.contiguous().to(cuda_device)
+    pos = torch.tensor(pos, dtype=torch.int32, device=cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(G + hd + page)
+    q, k, v = (torch.randn(*shape, generator=g, device=cuda_device).to(dtype)
+               for shape in ((B, G * KV, hd), (n_pages, page, KV, hd),
+                             (n_pages, page, KV, hd)))
+    got = cuda_paged_ring(q, k, v, bt, pos, window=window)
+    torch.cuda.synchronize()
+    want = ref.paged_ring_decode_attention_ref(q, k, v, bt, pos,
+                                               window=window)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+    assert (got[0] == 0).all()
+
+
+@pytest.mark.parametrize("B,S,W", [(8, 4096, 2560), (3, 37, 50),
+                                   (2, 1, 129), (1, 1000, 7)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_h0", [True, False])
+def test_cuda_rglru_scan_matches_plain(cuda_device, B, S, W, dtype,
+                                       with_h0):
+    """Ragged shapes (no divisibility rule), with and without h0: float32
+    equals the plain version bit for bit (each step rounds the product,
+    then the sum, as the plain version's two tensor ops do); bfloat16
+    within one output rounding.  Frozen positions (a = 1, b = 0) carry h
+    through exactly."""
+    g = torch.Generator(device=cuda_device).manual_seed(S + W)
+    a = torch.rand(B, S, W, generator=g, device=cuda_device) * 0.5 + 0.5
+    b = torch.randn(B, S, W, generator=g, device=cuda_device) * 0.1
+    tail = S // 2
+    a[:, tail:], b[:, tail:] = 1.0, 0.0
+    a, b = a.to(dtype), b.to(dtype)
+    h0 = (torch.randn(B, W, generator=g, device=cuda_device) if with_h0
+          else None)
+    got = cuda_scan(a, b, h0)
+    torch.cuda.synchronize()
+    want = ref.rglru_scan_ref(a, b, h0)
+    assert got.dtype == dtype and got.shape == (B, S, W)
+    if dtype == torch.float32:
+        assert torch.equal(got, want)
+        if tail:
+            frozen = got[:, tail - 1:tail].expand(B, S - tail, W)
+            assert torch.equal(got[:, tail:], frozen)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+
+
+def test_cuda_griffin_kernels_refuse_what_they_do_not_take(cuda_device):
+    dev = cuda_device
+    pos = torch.zeros(2, dtype=torch.int32, device=dev)
+    k = torch.zeros(2, 8, 1, 64, device=dev)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cuda_ring(torch.zeros(2, 4, 64), k, k, pos, window=4)
+    with pytest.raises(ValueError, match="head_dim 32"):
+        k32 = torch.zeros(2, 8, 1, 32, device=dev)
+        cuda_ring(torch.zeros(2, 4, 32, device=dev), k32, k32, pos, window=4)
+    with pytest.raises(ValueError, match="H/KV = 17/1"):
+        cuda_ring(torch.zeros(2, 17, 64, device=dev), k, k, pos, window=4)
+    with pytest.raises(ValueError, match="window"):
+        cuda_ring(torch.zeros(2, 4, 64, device=dev), k, k, pos, window=0)
+    with pytest.raises(ValueError, match="slot_positions"):
+        cuda_ring(torch.zeros(2, 4, 64, device=dev), k, k, pos.long(),
+                  window=4)
+    bt = torch.zeros(2, 1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="head_dim 32"):
+        a32 = torch.zeros(3, 8, 1, 32, device=dev)
+        cuda_paged_ring(torch.zeros(2, 4, 32, device=dev), a32, a32, bt,
+                        pos, window=4)
+    with pytest.raises(ValueError, match="nblk"):
+        a = torch.zeros(3, 1, 1, 64, device=dev)
+        cuda_paged_ring(torch.zeros(2, 4, 64, device=dev), a, a,
+                        torch.zeros(2, 4096, dtype=torch.int32, device=dev),
+                        pos, window=4)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cuda_scan(torch.ones(1, 3, 2), torch.zeros(1, 3, 2))
+    with pytest.raises(TypeError, match="float32"):
+        cuda_scan(torch.ones(1, 3, 2, device=dev, dtype=torch.float16),
+                  torch.zeros(1, 3, 2, device=dev, dtype=torch.float16))
+    with pytest.raises(ValueError, match="h0"):
+        cuda_scan(torch.ones(1, 3, 2, device=dev),
+                  torch.zeros(1, 3, 2, device=dev),
+                  torch.zeros(1, 3, device=dev))
+    with pytest.raises(NotImplementedError, match="no backward"):
+        cuda_scan(torch.ones(1, 3, 2, device=dev, requires_grad=True),
+                  torch.zeros(1, 3, 2, device=dev))
+
+
+def _griffin_hd64(dev):
+    """A small griffin whose attention takes a kernel variant (head_dim 64,
+    G 2), weights redrawn (embedding std 0.02, matrices 0.2) so greedy
+    tokens vary."""
+    cfg = ModelConfig(name="griffin-hd64", family="griffin", n_layers=3,
+                      d_model=128, n_heads=2, n_kv_heads=1, head_dim=64,
+                      d_ff=256, vocab_size=257, lru_width=128, window=16,
+                      act="geglu", scale_embeddings=True,
+                      tie_embeddings=True, max_seq_len=256, attn_chunk=16)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = griffin.init(gen, cfg)
+
+    def redraw(tree, path=""):
+        for name, leaf in tree.items():
+            if isinstance(leaf, dict):
+                redraw(leaf, name)
+            elif name != "lam" and path not in ("ln1", "ln2", "final_norm"):
+                std = 0.02 if name == "embed" else 0.2
+                leaf.normal_(0.0, std, generator=gen)
+    redraw(params)
+    return cfg, params
+
+
+@pytest.mark.parametrize("pool", ["dense", "paged"])
+def test_cuda_griffin_engine_launches_ring_and_scan_exactly(cuda_device,
+                                                            pool):
+    """Griffin on the card, rings wrapping (window 16): tokens equal
+    ``generate`` (scan prefill, plain scalar decode); each decode step
+    launches
+    the ring kernel (dense pool) or the paged ring kernel (paged pool,
+    under page pressure) once per attention layer, each admission group
+    the scan once per recurrent layer; no other kernel runs."""
+    cfg, params = _griffin_hd64(cuda_device)
+    n_rec = griffin.block_pattern(cfg).count("rec")
+    n_attn = cfg.n_layers - n_rec
+    reqs = [Request(uid=i, prompt=lm_batch(cfg.vocab_size, 1, p,
+                                           seed=80 + i)[0], max_new_tokens=g)
+            for i, (p, g) in enumerate([(3, 14), (21, 6), (9, 12), (30, 9),
+                                        (5, 20)])]
+    kern = ops.kernels()
+    for fn in kern.values():
+        fn.launches = 0
+    kw = dict(capacity=3, max_len=64, k=4, pool=pool,
+              pages=5 if pool == "paged" else None)
+    eng = ContinuousBatchingEngine(cfg, params, **kw)
+    got = eng.run(reqs)
+    torch.cuda.synchronize()
+    ring = "paged_ring_decode_attention" if pool == "paged" else \
+        "ring_decode_attention"
+    want = {name: 0 for name in kern}
+    want.update({ring: n_attn * eng.k * eng.n_decode_dispatches,
+                 "rglru_scan": n_rec * eng.n_prefills})
+    assert {name: fn.launches for name, fn in kern.items()} == want
+    for r in reqs:
+        gen = generate(cfg, params, torch.from_numpy(r.prompt)[None].to(
+            cuda_device), max_new_tokens=r.max_new_tokens, max_len=64)
+        np.testing.assert_array_equal(got[r.uid], gen[0].cpu().numpy())
+    if pool == "paged":
+        assert eng.pages_in_use == 0 and eng.pages_highwater <= 5

@@ -49,8 +49,11 @@ def test_port_tree_is_what_the_rule_walks():
     assert len(PORT_FILES) > 15
     for module in ("serve/engine.py", "serve/speculative.py",
                    "serve/paged.py", "kernels/decode_attention.py",
-                   "kernels/ops.py", "kernels/ref.py", "models/attention.py",
-                   "models/transformer.py"):
+                   "kernels/ops.py", "kernels/ref.py", "kernels/rglru_scan.py",
+                   "kernels/build.py", "models/attention.py",
+                   "models/transformer.py", "models/griffin.py",
+                   "models/rope.py", "models/common.py", "configs/archs.py",
+                   "launch/serve.py"):
         assert ROOT / "src/repro_torch" / module in PORT_FILES
 
 
