@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch/CUDA port (``repro_torch``): serving, the
 paper's growth and training loop, speculative serving of the grown model
-with its source drafting, both served from a paged pool, and
-recurrentgemma-2b (griffin) served from a dense and a paged pool.
+with its source drafting, both served from a paged pool,
+recurrentgemma-2b (griffin) served from a dense and a paged pool, and
+qwen3-0.6b (RoPE) served on every route.
 
     python3 chip_smoke.py [--out report.json]
 
@@ -19,7 +20,9 @@ printed as it goes; a failed phase raises, so the exit code is not 0:
                 gpt-small's catch-up, the paged kernels over a 128-page
                 arena through permuted block tables with a sentinel block,
                 recurrentgemma-2b's ring decode over dense rings and a
-                permuted arena, and its admission scan) plus GQA, bfloat16,
+                permuted arena, and its admission scan, qwen3-0.6b's and
+                gpt-base's ``generate`` decode over the pool's transposed
+                view) plus GQA, bfloat16,
                 ragged, ring and window cases (the sandwich's gradients
                 too), then
                 CUDA-event times of kernel, plain version and one PyTorch
@@ -28,7 +31,9 @@ printed as it goes; a failed phase raises, so the exit code is not 0:
                 from a seeded generator) through the continuous-batching
                 engine: capacity 8, max_len 1024, K 8, 16 requests of
                 64..512 prompt tokens and 64 new tokens each.  Both kernels'
-                launch counters must move, and every request's tokens,
+                launch counters must move, each ``generate`` call must
+                launch decode_attention exactly 12 x 63 times (and the
+                engine never), and every request's tokens,
                 from the engine and from ``generate``, must equal the plain
                 route's (a full forward per step, which runs no kernel of
                 the port) except where its top-2 logit gap is below 1e-4
@@ -79,7 +84,28 @@ printed as it goes; a failed phase raises, so the exit code is not 0:
                 the paged ring kernel (the dense one never), the refused
                 admissions, prefill groups, macro-steps and pages
                 high-water as a CPU run of the same schedule (1-layer
-                model) predicted, no page left in use.
+                model) predicted, no page left in use;
+ 11. qwen3  -- qwen3-0.6b at full width and depth (28 layers, 16 heads
+                over 8 KV heads of 128, q/k norms, RoPE theta 1e6, vocab
+                151,936, tied; f32, seeded weights with the block
+                matrices scaled 2.5x, so greedy output varies): 16 requests of
+                64..768 prompt tokens and 64 new through the engine
+                (capacity 8, max_len 1024, K 8) on the dense pool, a
+                64-page paged pool and speculatively with the model
+                drafting for itself (d 4, K 2), then ``generate`` for each
+                request (B 1) and over 8 prompts of 512 (B 8).  Tokens ==
+                the plain route (a full forward per token) up to reported
+                near ties, paged == dense, exact launches (decode_attention
+                28 x 63 per ``generate`` call and never from the engine),
+                no page left in use, at least 512 distinct tokens from
+                the dense engine; tok/s, host syncs per token, peak
+                memory, a traced run's idle share.  The f32 logits of 8
+                ``decode_step`` calls against the f32 full forward, within
+                1e-3 of the largest logit.  Then the published
+                bf16 (weights cast from the f32 ones) through ``generate``
+                at B 8: tok/s, and the max |logit| error of 8 decode steps
+                against the f32 route on the same weights, which must be
+                at most twice the plain bf16 route's.
 
 Each path's launch counters are set to 0 just before it runs and read just
 after; a kernel of the path that was never launched fails the run.  The
@@ -391,6 +417,7 @@ def run_kernels():
             library_ms=time_ms(
                 lambda: torch.matmul(a_i.mT, torch.matmul(x, a_o)), 10),
             shape=f"x{tuple(x.shape)} -> ({N}, {d2i}, {d2o}) {dname}")
+    rows["decode_attention"] = run_decode_cases(gen)
     rows["chunk_verify_attention"] = run_chunk_cases(gen)
     rows.update(run_paged_cases(gen))
     rows.update(run_griffin_cases(gen))
@@ -401,6 +428,111 @@ def run_kernels():
               f"plain {r['plain_ms']:.4f} ms, library {lib}, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
     return rows
+
+
+def decode_cases():
+    """Phase 3's ``decode_attention`` cases: (label, L, B, S, H, KV, hd,
+    dtype, layout, kv_len).  qwen3-0.6b's ``generate`` decode at B 8 first
+    (the kernels-line row): q (8, 16, 128) over the head-major view of
+    (8, 576, 8, 128) layer caches, ragged lengths with one 0; then the same
+    in bfloat16, gpt-base's ``generate`` at B 1 (12 heads over 12 KV heads
+    of 64, 1024 positions) and a contiguous head-major cache at yi-9b's
+    grouping (G 8).  ``L`` layer caches, cycled by the timing so that a
+    call finds its layer cold in L2."""
+    import torch
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    qwen = [0, 528, 536, 545, 553, 561, 570, 576]
+    return [
+        ("qwen3-0.6b generate B 8 f32", 8, 8, 576, 16, 8, 128, f32, "pool",
+         qwen),
+        ("qwen3-0.6b generate B 8 bf16", 8, 8, 576, 16, 8, 128, bf16, "pool",
+         qwen),
+        ("gpt-base generate B 1 f32", 12, 1, 1024, 12, 12, 64, f32, "pool",
+         [600]),
+        ("head-major G 8 f32", 2, 4, 300, 32, 4, 128, f32, "head-major",
+         [0, 77, 300, 299]),
+    ]
+
+
+def run_decode_cases(gen):
+    """Phase 3 for ``decode_attention``: every case against the plain
+    version (f32 within 2e-5 + 1e-4 relative, bfloat16 within 5e-3 + 1e-2
+    relative; kv_len-0 rows exact zeros), timed beside its byte bound, the
+    plain version and masked SDPA over the same K/V views.  The first case
+    is the kernels-line row."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention, ref
+
+    fn = decode_attention.decode_attention
+    row = None
+    for label, L, B, S, H, KV, hd, dt, layout, kvl in decode_cases():
+        dname = str(dt).split(".")[1]
+        q = torch.randn(B, H, hd, generator=gen, device="cuda").to(dt)
+        if layout == "pool":  # (L, B, S, KV, hd) pools, read transposed
+            kp, vp = (torch.randn(L, B, S, KV, hd, generator=gen,
+                                  device="cuda").to(dt).transpose(2, 3)
+                      for _ in range(2))
+        else:
+            kp, vp = (torch.randn(L, B, KV, S, hd, generator=gen,
+                                  device="cuda").to(dt) for _ in range(2))
+        lens = torch.tensor(kvl, dtype=torch.int32, device="cuda")
+        got = fn(q, kp[0], vp[0], lens)
+        torch.cuda.synchronize()
+        err = check_close(f"decode_attention [{label}]", got,
+                          ref.decode_attention_ref(q, kp[0], vp[0], lens),
+                          dname)
+        if not bool((got[lens == 0] == 0).all()):
+            raise AssertionError(f"decode_attention [{label}]: rows with "
+                                 "kv_len 0 are not exact zeros")
+        item = q.element_size()
+        n_kv = int(lens.clamp(0, S).sum())
+        b_ms, b_by = bound_ms(
+            n_kv * KV * hd * 2 * item + 2 * B * H * hd * item + 4 * B,
+            4 * n_kv * H * hd, dname)
+        layers = iter(range(10 ** 9))
+        mask = torch.arange(S, device="cuda")[None] < lens[:, None]
+
+        def cycled(call):
+            def run():
+                j = next(layers) % L
+                return call(kp[j], vp[j])
+            return run
+
+        def lib(k, v):
+            return F.scaled_dot_product_attention(
+                q[:, :, None], k, v, attn_mask=mask[:, None, None],
+                enable_gqa=H != KV)
+
+        case = dict(
+            label=label, max_abs_err=err,
+            ms=time_ms(cycled(lambda k, v: fn(q, k, v, lens)), 10 * L),
+            plain_ms=time_ms(cycled(
+                lambda k, v: ref.decode_attention_ref(q, k, v, lens)), 2 * L),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=time_ms(cycled(lib), 10 * L),
+            splits=decode_attention.decode_splits(
+                B, KV, S, torch.cuda.get_device_properties(
+                    0).multi_processor_count)[1],
+            shape=(f"q{tuple(q.shape)} k/v{tuple(kp.shape[1:])} {layout} "
+                   f"{dname} kv_len {kvl}"))
+        print(f"decode_attention [{label}] {case['shape']}: max abs err "
+              f"{err:.3g}, {case['splits']} chunks; kernel {case['ms']:.4f} "
+              f"ms, plain {case['plain_ms']:.4f} ms, SDPA "
+              f"{case['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})",
+              flush=True)
+        if row is None:
+            row = dict(
+                name="decode_attention", route="cuda",
+                source="src/repro_torch/kernels/csrc/decode_attention.cu",
+                replaces="src/repro/kernels/decode_attention.py:126",
+                cases=[], **{key: case[key] for key in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "shape")})
+        row["cases"].append(case)
+    return row
 
 
 def chunk_cases():
@@ -877,6 +1009,37 @@ def run_griffin_cases(gen):
     return rows
 
 
+def timed_run(eng, reqs):
+    """Serve fresh copies of ``reqs`` on ``eng`` between two device syncs.
+    Returns (outputs, seconds, tokens/s, admissions refused for want of
+    pages); fails if a request is missing or was rejected."""
+    import dataclasses
+
+    import torch
+
+    waits = []  # admissions refused for want of pages (backpressure)
+    alloc = eng._alloc_request
+
+    def counted(req):
+        info = alloc(req)
+        waits.append(info is None)
+        return info
+    eng._alloc_request = counted
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        out = eng.run([dataclasses.replace(r) for r in reqs])
+        torch.cuda.synchronize()
+    finally:
+        # the wrapper holds the engine: drop it, so the engine (and its
+        # pool) is freed with the caller's last reference
+        del eng._alloc_request
+    dt = time.perf_counter() - t0
+    if set(out) != {r.uid for r in reqs} or eng.rejected:
+        raise AssertionError(f"requests missing or rejected: {eng.rejected}")
+    return out, dt, sum(len(v) for v in out.values()) / dt, sum(waits)
+
+
 def plain_greedy(cfg, params, prompt, n):
     """Greedy tokens of the plain route: a full forward (plain attention,
     no cache, no CUDA kernel of the port) over prompt + tokens so far at
@@ -964,8 +1127,9 @@ def run_serve(kernel_rows):
     launches = {name: fn.launches for name, fn in kern.items()}
     peak = torch.cuda.max_memory_allocated()
     n_tok = sum(len(v) for v in out.values())
-    if launches["tr_sandwich"]:
-        raise AssertionError("serving launched the growth kernel")
+    if launches["tr_sandwich"] or launches["decode_attention"]:
+        raise AssertionError("the engine launched the growth kernel or the "
+                             "scalar decode kernel")
     print(f"served {len(out)} requests / {n_tok} tokens in {dt:.3f} s: "
           f"{n_tok / dt:.1f} tok/s, {eng.n_host_syncs / n_tok:.4f} host "
           f"syncs/token ({eng.n_host_syncs} syncs, "
@@ -988,12 +1152,25 @@ def run_serve(kernel_rows):
     if {name: fn.launches for name, fn in kern.items()} != before:
         raise AssertionError("the plain reference launched a CUDA kernel")
     near_ties = {"engine": [], "generate": []}
+    gen_launches = []
     for r in reqs:
         got = out[r.uid]
         if got.shape != (64,) or got.min() < 0 or got.max() >= cfg.vocab_size:
             raise AssertionError(f"uid {r.uid}: bad output {got}")
+        for fn in kern.values():
+            fn.launches = 0
         gen = generate(cfg, params, torch.from_numpy(r.prompt)[None].cuda(),
                        max_new_tokens=64, max_len=1024)[0].cpu().numpy()
+        # the scalar decode route: one decode_attention launch per layer
+        # and decode step, the flash kernel once per layer for the prompt
+        want = {name: 0 for name in kern}
+        want.update(decode_attention=cfg.n_layers * 63,
+                    flash_attention=cfg.n_layers)
+        got_l = {name: fn.launches for name, fn in kern.items()}
+        if got_l != want:
+            raise AssertionError(f"uid {r.uid}: generate launched {got_l}, "
+                                 f"expected {want}")
+        gen_launches.append(got_l["decode_attention"])
         for what, toks in (("engine", got), ("generate", gen)):
             tie = check_against_plain(what, r.uid, toks, *plain[r.uid])
             if tie is not None:
@@ -1002,10 +1179,12 @@ def run_serve(kernel_rows):
     print(f"tokens == plain route (full forward, no kernel; {plain_s:.1f} s) "
           f"for {exact['engine']}/{len(reqs)} requests from the engine and "
           f"{exact['generate']}/{len(reqs)} from generate; near-tie "
-          f"divergences: {near_ties}", flush=True)
+          f"divergences: {near_ties}; decode_attention launches per "
+          f"generate call {sorted(set(gen_launches))} (12 x 63)", flush=True)
     report = dict(tok_per_s=n_tok / dt, seconds=dt, tokens=n_tok,
                   host_syncs_per_token=eng.n_host_syncs / n_tok,
                   peak_mib=peak / 2**20, launches=launches,
+                  generate_decode_attention_launches=gen_launches,
                   exact_requests=exact, near_ties=near_ties)
     report["profile"] = profile_serve(engine, reqs, dt)
     return report
@@ -1160,7 +1339,6 @@ def run_grow(kernel_rows):
     from repro_torch.kernels import ops
     from repro_torch.launch import train as launch_train
     from repro_torch.launch.serve import build_params
-    from repro_torch.models import get_family
     from repro_torch.optim import OptimizerConfig, make_optimizer
     from repro_torch.serve import ContinuousBatchingEngine, Request
     from repro_torch.train.steps import (
@@ -1370,30 +1548,20 @@ def run_speculative(kernel_rows, small, big):
         return ContinuousBatchingEngine(cfg_t, big, capacity=8, max_len=1024,
                                         k=k, speculative=spec)
 
-    def timed(eng):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = eng.run([dataclasses.replace(r) for r in reqs])
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        return out, dt, sum(len(v) for v in out.values()) / dt
-
     for warm in (engine(), engine(cfg_s, small)):  # first-use costs
         warm.run([Request(uid=0, prompt=reqs[0].prompt, max_new_tokens=9)])
     kern = ops.kernels()
-    plain_a, _, tps_plain_a = timed(engine())
+    plain_a, _, tps_plain_a, _ = timed_run(engine(), reqs)
     torch.cuda.reset_peak_memory_stats()
     for fn in kern.values():
         fn.launches = 0
     eng = engine(cfg_s, small)
-    out, dt, tps_spec = timed(eng)
+    out, dt, tps_spec, _ = timed_run(eng, reqs)
     launches = {name: fn.launches for name, fn in kern.items()}
     peak = torch.cuda.max_memory_allocated()
-    _, _, tps_spec_b = timed(engine(cfg_s, small))
-    _, _, tps_plain_b = timed(engine())
+    _, _, tps_spec_b, _ = timed_run(engine(cfg_s, small), reqs)
+    _, _, tps_plain_b, _ = timed_run(engine(), reqs)
     n_tok = sum(len(v) for v in out.values())
-    if set(out) != {r.uid for r in reqs} or eng.rejected:
-        raise AssertionError(f"requests missing or rejected: {eng.rejected}")
     blocks = SPEC_K * eng.n_decode_dispatches
     want = {name: 0 for name in kern}
     want.update(
@@ -1458,8 +1626,10 @@ def run_speculative(kernel_rows, small, big):
           f"(speculative) and {len(reqs) - len(ties['plain engine'])}/"
           f"{len(reqs)} (plain engine); near ties {ties}", flush=True)
 
+    # device only: the host's events of ~240,000 device ops take minutes
+    # to read
     report["profile"] = profile_serve(lambda: engine(cfg_s, small), reqs,
-                                      dt)
+                                      dt, stages=())
 
     # the grown gpt-base drafting for itself: every proposal is the
     # target's own argmax up to the two kernels' arithmetic, so each
@@ -1538,8 +1708,6 @@ def run_paged_serve(kernel_rows):
     """Phase 7: phase 4's gpt-base served from a paged pool of
     PAGED_PAGES pages (prefix sharing, page backpressure) beside the dense
     pool on the same requests (dense, paged, paged, dense)."""
-    import dataclasses
-
     import torch
 
     from repro_torch.configs import get_config
@@ -1556,27 +1724,6 @@ def run_paged_serve(kernel_rows):
             cfg, params, capacity=8, max_len=1024, k=8, pool=pool,
             pages=PAGED_PAGES if pool == "paged" else None)
 
-    def timed(eng):
-        waits = []  # admissions refused for want of pages (backpressure)
-        alloc = eng._alloc_request
-
-        def counted(req):
-            info = alloc(req)
-            waits.append(info is None)
-            return info
-        eng._alloc_request = counted
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        try:
-            out = eng.run([dataclasses.replace(r) for r in reqs])
-            torch.cuda.synchronize()
-        finally:
-            # the wrapper holds the engine: drop it, so the engine (and
-            # its pool) is freed on return, not at some later collection
-            del eng._alloc_request
-        dt = time.perf_counter() - t0
-        return out, dt, sum(len(v) for v in out.values()) / dt, sum(waits)
-
     for pool in ("dense", "paged"):  # first-use costs
         engine(pool).run([Request(uid=0, prompt=reqs[0].prompt,
                                   max_new_tokens=9)])
@@ -1584,20 +1731,18 @@ def run_paged_serve(kernel_rows):
     gc.collect()  # no earlier phase's garbage in the peaks below
     held = torch.cuda.memory_allocated()  # params of phases 5 and 7
     torch.cuda.reset_peak_memory_stats()
-    dense_a, _, tps_dense_a, _ = timed(engine("dense"))
+    dense_a, _, tps_dense_a, _ = timed_run(engine("dense"), reqs)
     peak_dense = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     for fn in kern.values():
         fn.launches = 0
     eng = engine("paged")
-    out, dt, tps_paged, waits = timed(eng)
+    out, dt, tps_paged, waits = timed_run(eng, reqs)
     launches = {name: fn.launches for name, fn in kern.items()}
     peak = torch.cuda.max_memory_allocated()
-    _, _, tps_paged_b, _ = timed(engine("paged"))
-    _, _, tps_dense_b, _ = timed(engine("dense"))
+    _, _, tps_paged_b, _ = timed_run(engine("paged"), reqs)
+    _, _, tps_dense_b, _ = timed_run(engine("dense"), reqs)
     n_tok = sum(len(v) for v in out.values())
-    if set(out) != {r.uid for r in reqs} or eng.rejected:
-        raise AssertionError(f"requests missing or rejected: {eng.rejected}")
     steps = eng.k * eng.n_decode_dispatches + eng.n_prefix_tail_steps
     want = {name: 0 for name in kern}
     want.update(paged_slot_decode_attention=cfg.n_layers * steps,
@@ -1683,8 +1828,6 @@ def run_paged_speculative(kernel_rows, small, big, reqs, plain):
     """Phase 8: phase 6's pair and requests, both pools on ONE arena of
     SPEC_PAGES pages, beside the dense speculative engine (dense, paged,
     paged, dense); tokens against phase 6's plain route."""
-    import dataclasses
-
     import torch
 
     from repro_torch.configs import get_config
@@ -1703,35 +1846,27 @@ def run_paged_speculative(kernel_rows, small, big, reqs, plain):
             pages=SPEC_PAGES if pool == "paged" else None,
             speculative=SpeculativeConfig(cfg_s, small, d=SPEC_D))
 
-    def timed(eng):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = eng.run([dataclasses.replace(r) for r in reqs])
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        return out, dt, sum(len(v) for v in out.values()) / dt, eng
-
     engine("paged").run([Request(uid=0, prompt=reqs[0].prompt,
                                  max_new_tokens=9)])  # first-use costs
     kern = ops.kernels()
     gc.collect()
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    _, _, tps_dense_a, dense_eng = timed(engine("dense"))
+    dense_eng = engine("dense")
+    _, _, tps_dense_a, _ = timed_run(dense_eng, reqs)
     peak_dense = torch.cuda.max_memory_allocated()
     dense_acceptance = dense_eng.acceptance_rate
     del dense_eng  # its pools must not count in the paged run's peak
     torch.cuda.reset_peak_memory_stats()
     for fn in kern.values():
         fn.launches = 0
-    out, dt, tps_paged, eng = timed(engine("paged"))
+    eng = engine("paged")
+    out, dt, tps_paged, _ = timed_run(eng, reqs)
     launches = {name: fn.launches for name, fn in kern.items()}
     peak = torch.cuda.max_memory_allocated()
-    _, _, tps_paged_b, _ = timed(engine("paged"))
-    _, _, tps_dense_b, _ = timed(engine("dense"))
+    _, _, tps_paged_b, _ = timed_run(engine("paged"), reqs)
+    _, _, tps_dense_b, _ = timed_run(engine("dense"), reqs)
     n_tok = sum(len(v) for v in out.values())
-    if set(out) != {r.uid for r in reqs} or eng.rejected:
-        raise AssertionError(f"requests missing or rejected: {eng.rejected}")
     blocks = SPEC_K * eng.n_decode_dispatches
     want = {name: 0 for name in kern}
     want.update(
@@ -1865,8 +2000,6 @@ def run_griffin_serve(kernel_rows):
     """Phase 9: recurrentgemma-2b through the continuous-batching engine
     on the dense pool, ``generate`` beside it, both against the plain
     route; then a traced run."""
-    import dataclasses
-
     import numpy as np
     import torch
 
@@ -1904,15 +2037,10 @@ def run_griffin_serve(kernel_rows):
     for fn in kern.values():
         fn.launches = 0
     eng = engine()
-    t0 = time.perf_counter()
-    out = eng.run([dataclasses.replace(r) for r in reqs])
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    out, dt, _, _ = timed_run(eng, reqs)
     launches = {name: fn.launches for name, fn in kern.items()}
     peak = torch.cuda.max_memory_allocated()
     n_tok = sum(len(v) for v in out.values())
-    if set(out) != {r.uid for r in reqs} or eng.rejected:
-        raise AssertionError(f"requests missing or rejected: {eng.rejected}")
     steps = eng.k * eng.n_decode_dispatches
     want = {name: 0 for name in kern}
     want.update(ring_decode_attention=n_attn * steps,
@@ -2022,8 +2150,6 @@ def run_griffin_paged(kernel_rows, model):
     GRIFFIN_PAGES pages beside the dense pool (dense, paged, paged,
     dense); the refused admissions predicted first by a CPU run of the
     same schedule."""
-    import dataclasses
-
     import torch
 
     from repro_torch.kernels import ops
@@ -2043,45 +2169,24 @@ def run_griffin_paged(kernel_rows, model):
             cfg, params, capacity=8, max_len=4096, k=8, pool=pool,
             pages=GRIFFIN_PAGES if pool == "paged" else None)
 
-    def timed(eng):
-        waits = []  # admissions refused for want of pages (backpressure)
-        alloc = eng._alloc_request
-
-        def counted(req):
-            info = alloc(req)
-            waits.append(info is None)
-            return info
-        eng._alloc_request = counted
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        try:
-            out = eng.run([dataclasses.replace(r) for r in reqs])
-            torch.cuda.synchronize()
-        finally:
-            del eng._alloc_request  # frees the engine on return
-        dt = time.perf_counter() - t0
-        return out, dt, sum(len(v) for v in out.values()) / dt, sum(waits)
-
     engine("paged").run([Request(uid=0, prompt=reqs[0].prompt,
                                  max_new_tokens=9)])  # first-use costs
     kern = ops.kernels()
     gc.collect()
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    dense_a, _, tps_dense_a, _ = timed(engine("dense"))
+    dense_a, _, tps_dense_a, _ = timed_run(engine("dense"), reqs)
     peak_dense = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     for fn in kern.values():
         fn.launches = 0
     eng = engine("paged")
-    out, dt, tps_paged, waits = timed(eng)
+    out, dt, tps_paged, waits = timed_run(eng, reqs)
     launches = {name: fn.launches for name, fn in kern.items()}
     peak = torch.cuda.max_memory_allocated()
-    _, _, tps_paged_b, _ = timed(engine("paged"))
-    _, _, tps_dense_b, _ = timed(engine("dense"))
+    _, _, tps_paged_b, _ = timed_run(engine("paged"), reqs)
+    _, _, tps_dense_b, _ = timed_run(engine("dense"), reqs)
     n_tok = sum(len(v) for v in out.values())
-    if set(out) != {r.uid for r in reqs} or eng.rejected:
-        raise AssertionError(f"requests missing or rejected: {eng.rejected}")
     steps = eng.k * eng.n_decode_dispatches
     want = {name: 0 for name in kern}
     want.update(paged_ring_decode_attention=n_attn * steps,
@@ -2153,6 +2258,338 @@ def run_griffin_paged(kernel_rows, model):
           f"(paged), {len(reqs) - len(ties['dense'])}/{len(reqs)} (dense); "
           f"near ties {ties}", flush=True)
     return report
+
+
+QWEN_PAGES = 64  # phase 11's arena: half the dense pool's 128 pages of 64
+QWEN_D, QWEN_K = 4, 2  # phase 11's self-draft depth and blocks a dispatch
+QWEN_MATRIX_SCALE = 2.5  # phase 11: block matrices scaled up (see qwen_model)
+QWEN_MIN_DISTINCT = 512  # of the dense engine's 1024 tokens (see qwen_model)
+F32_LOGIT_RTOL = 1e-3  # f32 kernel route vs f32 full forward, of max |logit|
+
+
+def qwen_model():
+    """qwen3-0.6b at full width and depth in float32 (so the routes'
+    tokens compare exactly), weights from a seeded generator.  At the
+    init's std (0.02) greedy decoding nearly repeats a few tokens (the
+    full-depth engine did, and so did CPU runs of this config cut to 8 and
+    14 layers, also with phase 9's scaled-down embedding), so a fault
+    that leaves the argmax unchanged would pass the token checks.  The
+    block matrices (q, k, v, o and the MLP's) are scaled by
+    QWEN_MATRIX_SCALE, to std 0.05 (about 1.6 / sqrt(d_model), as the
+    card test's redrawn qwen3 smoke model): each block then changes the
+    residual enough that the next token depends on the context (the cut
+    CPU runs stopped repeating), and ``run_qwen`` fails below
+    QWEN_MIN_DISTINCT distinct tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import build_params
+
+    cfg = get_config("qwen3-0.6b").replace(param_dtype="float32",
+                                           compute_dtype="float32")
+    params = build_params(cfg, seed=0, device="cuda")
+    for group in ("attn", "mlp"):
+        for name, leaf in params["dense_blocks"][group].items():
+            if name.startswith("w"):
+                leaf.mul_(QWEN_MATRIX_SCALE)
+    return cfg, params
+
+
+def qwen_requests(vocab):
+    """Phase 11's 16 requests: prompts of 64..768 tokens, 64 new each."""
+    import numpy as np
+
+    from repro_torch.data import lm_batch
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng(11)
+    return [Request(uid=i, prompt=lm_batch(vocab, 1, int(rng.integers(
+        64, 769)), seed=1100 + i)[0], max_new_tokens=64) for i in range(16)]
+
+
+def _bf16_logit_errors(cfg32, params32, prompts, n_steps=8):
+    """The published bf16 against an f32 route on the same bf16-cast
+    weights.  Tokens: the f32 kernel route's greedy ones (prefill and
+    ``n_steps`` decode steps).  Reference: the f32 full forward over
+    prompt + those tokens.  Returns the max |logit| error of the first
+    ``n_steps`` decode steps of the f32 kernel route itself (RoPE at every
+    decode position, decode_attention over the cache), of the bf16 kernel
+    route (prefill, then ``decode_step`` fed the same tokens: flash and
+    decode_attention) and of the bf16 plain route (one full forward), the
+    reference's max |logit|, and the bf16 config and params."""
+    import torch
+
+    from repro_torch.models import transformer
+    from repro_torch.utils.pytree import tree_map
+
+    cfg16 = cfg32.replace(param_dtype="bfloat16", compute_dtype="bfloat16")
+    params16 = tree_map(lambda t: t.bfloat16(), params32)
+    p32 = tree_map(lambda t: t.float(), params16)
+    B, P = prompts.shape
+    with torch.no_grad():
+        cache = transformer.init_cache(cfg32, B, P + n_steps, device="cuda")
+        logits, cache = transformer.prefill(p32, {"tokens": prompts}, cfg32,
+                                            cache)
+        toks, kern32 = [logits.argmax(-1).to(torch.int32)], []
+        for i in range(n_steps):
+            logits, cache = transformer.decode_step(p32, toks[-1], P + i,
+                                                    cache, cfg32)
+            kern32.append(logits.float())
+            toks.append(logits.argmax(-1).to(torch.int32))
+        # (B, n_steps): the decode steps' inputs
+        fed = torch.stack(toks[:n_steps], 1)
+        full = torch.cat([prompts, fed], 1)
+        ref32 = transformer.forward(p32, {"tokens": full}, cfg32)[0][
+            :, P:].float()
+        plain16 = transformer.forward(params16, {"tokens": full}, cfg16)[0][
+            :, P:].float()
+        cache = transformer.init_cache(cfg16, B, P + n_steps, device="cuda")
+        _, cache = transformer.prefill(params16, {"tokens": prompts}, cfg16,
+                                       cache)
+        kern16 = []
+        for i in range(n_steps):
+            logits, cache = transformer.decode_step(params16, fed[:, i],
+                                                    P + i, cache, cfg16)
+            kern16.append(logits.float())
+        kern16 = torch.stack(kern16, 1)
+    return (float((torch.stack(kern32, 1) - ref32).abs().max()),
+            float((kern16 - ref32).abs().max()),
+            float((plain16 - ref32).abs().max()), float(ref32.abs().max()),
+            cfg16, params16)
+
+
+def run_qwen(kernel_rows):
+    """Phase 11: qwen3-0.6b through the engine on the dense pool, a paged
+    pool of QWEN_PAGES pages and the dense pool speculatively with the
+    model drafting for itself; ``generate`` for each request (B 1) and
+    over 8 prompts of 512 tokens (B 8); all against the plain route; a
+    traced run for the idle share; then the published bf16 through
+    ``generate``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data import lm_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.serve import (
+        ContinuousBatchingEngine,
+        Request,
+        SpeculativeConfig,
+    )
+
+    t0 = time.perf_counter()
+    cfg, params = qwen_model()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    L = cfg.n_layers
+    print(f"qwen3-0.6b: {L} layers x d_model {cfg.d_model}, {cfg.n_heads} "
+          f"heads over {cfg.n_kv_heads} KV heads of {cfg.head_dim}, q/k norms,"
+          f" RoPE theta {cfg.rope_theta:g}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, tied: {n_params} params (f32, seeded "
+          f"torch.Generator, block matrices x {QWEN_MATRIX_SCALE}; drawn in "
+          f"{init_s:.1f} s)", flush=True)
+    reqs = qwen_requests(cfg.vocab_size)
+
+    def engine(pool, spec=False):
+        return ContinuousBatchingEngine(
+            cfg, params, capacity=8, max_len=1024, k=QWEN_K if spec else 8,
+            pool=pool, pages=QWEN_PAGES if pool == "paged" else None,
+            speculative=(SpeculativeConfig(cfg, params, d=QWEN_D) if spec
+                         else None))
+
+    for pool, spec in (("dense", False), ("paged", False), ("dense", True)):
+        engine(pool, spec).run([Request(uid=0, prompt=reqs[0].prompt,
+                                        max_new_tokens=9)])  # first use
+    kern = ops.kernels()
+    gc.collect()
+    held = torch.cuda.memory_allocated()
+    runs = {}
+    for label, pool, spec in (("dense", "dense", False),
+                              ("paged", "paged", False),
+                              ("speculative", "dense", True)):
+        torch.cuda.reset_peak_memory_stats()
+        for fn in kern.values():
+            fn.launches = 0
+        eng = engine(pool, spec)
+        out, dt, tps, waits = timed_run(eng, reqs)
+        launches = {name: fn.launches for name, fn in kern.items()}
+        peak = torch.cuda.max_memory_allocated()
+        steps = eng.k * eng.n_decode_dispatches
+        want = {name: 0 for name in kern}
+        if spec:
+            want.update(chunk_verify_attention=2 * L * steps,
+                        slot_decode_attention=L * QWEN_D * steps,
+                        flash_attention=2 * L * eng.n_prefills)
+        else:
+            slot = ("paged_slot_decode_attention" if pool == "paged"
+                    else "slot_decode_attention")
+            want.update({slot: L * (steps + eng.n_prefix_tail_steps),
+                         "flash_attention": L * eng.n_prefills})
+        if launches != want or eng.n_spec_fallbacks:
+            raise AssertionError(f"qwen3 {label} engine launched {launches},"
+                                 f" expected {want} ({steps} decode steps or "
+                                 f"blocks, {eng.n_prefills} admission "
+                                 f"groups, {eng.n_spec_fallbacks} "
+                                 "fallbacks)")
+        if pool == "paged" and eng.pages_in_use:
+            raise AssertionError(f"{eng.pages_in_use} pages left in use")
+        n_tok = sum(len(v) for v in out.values())
+        runs[label] = dict(
+            out=out, tok_per_s=tps, seconds=dt, tokens=n_tok,
+            host_syncs_per_token=eng.n_host_syncs / n_tok,
+            n_prefills=eng.n_prefills, decode_steps=steps,
+            peak_above_held_mib=(peak - held) / 2**20,
+            pool_bytes=_pool_bytes(eng.pool), launches=launches,
+            admissions_refused_for_pages=waits,
+            pages_highwater=eng.pages_highwater,
+            acceptance=(eng.n_spec_accepted, eng.n_spec_proposed))
+        print(f"qwen3 {label}: {len(out)} requests / {n_tok} tokens in "
+              f"{dt:.3f} s: {tps:.1f} tok/s, "
+              f"{eng.n_host_syncs / n_tok:.4f} host syncs/token "
+              f"({eng.n_host_syncs} syncs, {eng.n_decode_dispatches} "
+              f"macro-steps, {eng.n_prefills} prefill groups); pool "
+              f"{runs[label]['pool_bytes'] / 2**20:.1f} MiB; peak "
+              f"{(peak - held) / 2**20:.1f} MiB above the "
+              f"{held / 2**20:.1f} MiB held; admissions refused for pages "
+              f"{waits}, pages high-water {eng.pages_highwater}; acceptance "
+              f"{eng.n_spec_accepted}/{eng.n_spec_proposed}; kernel "
+              f"launches {launches}", flush=True)
+        del eng
+    _, _, tps_dense_b, _ = timed_run(engine("dense"), reqs)
+    runs["dense"]["tok_per_s_second_run"] = tps_dense_b
+
+    # the reference is the plain route alone (no kernel of the port)
+    before = {name: fn.launches for name, fn in kern.items()}
+    t0 = time.perf_counter()
+    plain = {r.uid: plain_greedy(cfg, params, r.prompt, 64) for r in reqs}
+    prompts8 = lm_batch(cfg.vocab_size, 8, 512, seed=1200)
+    plain8 = [plain_greedy(cfg, params, p, 64) for p in prompts8]
+    plain_s = time.perf_counter() - t0
+    if {name: fn.launches for name, fn in kern.items()} != before:
+        raise AssertionError("the plain route launched a CUDA kernel")
+
+    ties = {"dense": [], "paged": [], "speculative": [], "paged vs dense": [],
+            "generate": [], "generate B 8": []}
+    gen_launches, gen_s = 0, 0.0
+    want_gen = {name: 0 for name in kern}
+    want_gen.update(decode_attention=L * 63, flash_attention=L)
+    for r in reqs:
+        for what in ("dense", "paged", "speculative"):
+            toks = runs[what]["out"][r.uid]
+            if toks.shape != (64,) or toks.min() < 0 or \
+                    toks.max() >= cfg.vocab_size:
+                raise AssertionError(f"uid {r.uid}: bad {what} output")
+            tie = check_against_plain(what, r.uid, toks, *plain[r.uid])
+            if tie is not None:
+                ties[what].append(tie)
+        tie = check_same_tokens("paged and dense engines", r.uid,
+                                runs["paged"]["out"][r.uid],
+                                runs["dense"]["out"][r.uid], plain[r.uid][1])
+        if tie is not None:
+            ties["paged vs dense"].append(tie)
+        for fn in kern.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gen = generate(cfg, params, torch.from_numpy(r.prompt)[None].cuda(),
+                       max_new_tokens=64, max_len=1024)[0].cpu().numpy()
+        gen_s += time.perf_counter() - t0
+        got_l = {name: fn.launches for name, fn in kern.items()}
+        if got_l != want_gen:
+            raise AssertionError(f"uid {r.uid}: generate launched {got_l}, "
+                                 f"expected {want_gen}")
+        gen_launches += got_l["decode_attention"]
+        tie = check_against_plain("generate", r.uid, gen, *plain[r.uid])
+        if tie is not None:
+            ties["generate"].append(tie)
+    prompts8_d = torch.from_numpy(prompts8).cuda()
+    generate(cfg, params, prompts8_d[:, :64], max_new_tokens=4)  # first use
+    for fn in kern.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gen8 = generate(cfg, params, prompts8_d, max_new_tokens=64).cpu().numpy()
+    gen8_s = time.perf_counter() - t0
+    got_l = {name: fn.launches for name, fn in kern.items()}
+    if got_l != want_gen:
+        raise AssertionError(f"generate at B 8 launched {got_l}, expected "
+                             f"{want_gen}")
+    gen_launches += got_l["decode_attention"]
+    for b in range(8):
+        tie = check_against_plain("generate B 8", b, gen8[b], *plain8[b])
+        if tie is not None:
+            ties["generate B 8"].append(tie)
+    kernel_rows["decode_attention"]["launches"] = gen_launches
+    distinct = {int(t) for v in runs["dense"]["out"].values() for t in v}
+    if len(distinct) < QWEN_MIN_DISTINCT:
+        raise AssertionError(f"the dense engine's output nearly repeats: "
+                             f"{len(distinct)} distinct tokens")
+    gaps = np.concatenate([plain[r.uid][1] for r in reqs])
+    print(f"qwen3 tokens == plain route (full forward per token, no kernel;"
+          f" {plain_s:.1f} s): "
+          + ", ".join(f"{w} {len(reqs) - len(ties[w])}/{len(reqs)}"
+                      for w in ("dense", "paged", "speculative", "generate"))
+          + f", generate B 8 {8 - len(ties['generate B 8'])}/8; near ties "
+          f"{ties}; {len(distinct)} distinct tokens from the dense engine; "
+          f"plain top-2 gap median {np.median(gaps):.4g}, min "
+          f"{gaps.min():.4g}", flush=True)
+    print(f"qwen3 generate: B 1 {16 * 64 / gen_s:.1f} tok/s over the 16 "
+          f"requests ({gen_s:.1f} s), B 8 x 512-token prompts "
+          f"{8 * 64 / gen8_s:.1f} tok/s ({gen8_s:.2f} s); decode_attention "
+          f"launches {gen_launches} ({L} x 63 a call, 17 calls)", flush=True)
+
+    t0 = time.perf_counter()
+    profile = profile_serve(lambda: engine("dense"), reqs[:8],
+                            untraced_wall=runs["dense"]["seconds"] / 2,
+                            stages=())
+    profile["seconds"] = time.perf_counter() - t0
+    profile["note"] = ("8 of the 16 requests (one wave); the untraced idle "
+                       "share uses half the 16-request run's wall time")
+
+    # the published bf16, weights cast from the f32 ones
+    err_32, err_k, err_p, top, cfg16, params16 = _bf16_logit_errors(
+        cfg, params, prompts8_d)
+    print(f"qwen3 f32 kernel route (prefill, then 8 decode_step calls) "
+          f"against the f32 full forward on the bf16-cast weights: max "
+          f"|logit| error {err_32:.4g}, max |logit| {top:.4g} (limit "
+          f"{F32_LOGIT_RTOL:g} of it)", flush=True)
+    if not err_32 <= F32_LOGIT_RTOL * top:
+        raise AssertionError(f"f32 decode logits off by {err_32:.4g} "
+                             f"(max |logit| {top:.4g})")
+    generate(cfg16, params16, prompts8_d[:, :64], max_new_tokens=4)
+    for fn in kern.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gen16 = generate(cfg16, params16, prompts8_d, max_new_tokens=64)
+    torch.cuda.synchronize()
+    gen16_s = time.perf_counter() - t0
+    if kern["decode_attention"].launches != L * 63 or gen16.shape != (8, 64):
+        raise AssertionError(f"bf16 generate launched "
+                             f"{kern['decode_attention'].launches} "
+                             "decode_attention kernels")
+    print(f"qwen3 bf16 (published dtype, weights cast from f32): generate "
+          f"B 8 x 512 {8 * 64 / gen16_s:.1f} tok/s ({gen16_s:.2f} s); max "
+          f"|logit| error of the first 8 decode steps against the f32 route "
+          f"on the same weights: kernel route {err_k:.4g}, plain route "
+          f"{err_p:.4g} (ratio {err_k / err_p:.3f}, limit 2)", flush=True)
+    if not err_k <= 2 * err_p:
+        raise AssertionError(f"bf16 kernel route's logit error {err_k:.4g} "
+                             f"is more than twice the plain route's "
+                             f"{err_p:.4g}")
+    for run in runs.values():
+        del run["out"]
+    return dict(runs=runs, near_ties=ties, distinct_tokens=len(distinct),
+                plain_top2_gap=dict(median=float(np.median(gaps)),
+                                    min=float(gaps.min())),
+                plain_route_seconds=plain_s,
+                generate_b1_tok_per_s=16 * 64 / gen_s,
+                generate_b8_tok_per_s=8 * 64 / gen8_s,
+                generate_decode_attention_launches=gen_launches,
+                bf16=dict(generate_b8_tok_per_s=8 * 64 / gen16_s,
+                          logit_err_kernel=err_k, logit_err_plain=err_p),
+                f32_decode_logit_err=err_32, f32_max_abs_logit=top,
+                profile=profile, init_seconds=init_s, n_params=n_params,
+                held_mib=held / 2**20)
 
 
 def _leaves(tree):
@@ -2247,6 +2684,11 @@ def main(argv=None):
     del griffin_model_state
     print(f"phase 10 took {time.perf_counter() - t0:.1f} s", flush=True)
 
+    phase("serve qwen3-0.6b (RoPE): dense, paged, speculative, generate")
+    t0 = time.perf_counter()
+    qwen = run_qwen(rows)
+    print(f"phase 11 took {time.perf_counter() - t0:.1f} s", flush=True)
+
     kernels = [{key: r[key] for key in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
@@ -2258,6 +2700,7 @@ def main(argv=None):
              "serve": serve, "grow": grow, "speculative": spec,
              "paged": paged, "paged_speculative": paged_spec,
              "griffin_dense": griffin_dense, "griffin_paged": griffin_paged,
+             "qwen": qwen,
              "build_seconds": secs}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -21,7 +21,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("flash_attention", "slot_decode_attention", "tr_sandwich",
+SOURCES = ("flash_attention", "decode_attention", "slot_decode_attention",
+           "tr_sandwich",
            "chunk_verify_attention", "paged_slot_decode_attention",
            "paged_chunk_verify_attention", "ring_decode_attention",
            "paged_ring_decode_attention", "rglru_scan")

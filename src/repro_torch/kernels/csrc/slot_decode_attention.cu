@@ -3,223 +3,16 @@
 // Replaces: src/repro/kernels/decode_attention.py :: slot_decode_attention
 //           (Pallas TPU kernel `_slot_kernel` with `_flash_update`).
 //
-// Computes  out[b,h,:] = softmax_{j < kv_len[b]}(q[b,h,:] . k[b,j,h/G,:]
-//                        * hd^-0.5) @ v[b,j,h/G,:]
-// with q (B,H,hd) and the pool layout k/v (B,S,KV,hd): position stride
-// KV*hd, each (position, kv head) row hd contiguous values.  Every row has
-// its own valid length; a row with kv_len == 0 (an idle or finished slot)
-// writes exact zeros.  float32 and bfloat16, hd in {64, 128}, G = H/KV in
-// {1, 2, 4, 8}; softmax state and accumulators are float32.
-//
-// Bound on the H100: bytes.  The work streams each row's valid cache once,
-// sum_b kv_len_b * KV * hd * 2 * itemsize bytes, at ~4*G FLOPs per byte
-// loaded (float32) -- far below the ridge point, so 3.35 TB/s is the roof.
-//
-// Design: one block of 8 warps per (b, kv head).  The TPU kernel's
-// sequential cache-block grid axis becomes a loop inside the block; the
-// block stops at kv_len[b] and never reads the unwritten tail.  The G query
-// heads of the group share every K/V row the block loads (the GQA
-// bandwidth win).  Each warp takes 8 consecutive positions per iteration,
-// one hd-wide row per position spread over its 32 lanes (2 or 4 values per
-// lane, one vector load), so each load instruction reads whole contiguous
-// rows and 8 rows of K and V are in flight per warp.  Each warp keeps its
-// own online-softmax state (m, l, acc); a final pass merges the 8 warp
-// states through shared memory.  Empty-block safety: a warp only runs an
-// iteration whose first position is valid, so its max is always a real
-// logit and exp(NEG_INF - NEG_INF) never occurs; warps that saw no position
-// carry m = NEG_INF and get weight exp(NEG_INF - M) == 0 in the merge, and
-// the denominator of a row with kv_len >= 1 is >= 1.  kv_len <= 0 returns
-// before any load.  Known limit: B*KV blocks (96 for gpt-base at 8 slots)
-// do not fill the 132 SMs; a split-K pass is the next step.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-namespace {
-
-constexpr int NW = 8;  // warps per block
-constexpr int U = 8;   // consecutive positions per warp per iteration
-constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-// E contiguous values at p (E*sizeof(T) bytes, aligned) into float registers
-__device__ __forceinline__ void load_vec(const float* p, float (&r)[2]) {
-  const float2 t = *reinterpret_cast<const float2*>(p);
-  r[0] = t.x;
-  r[1] = t.y;
-}
-__device__ __forceinline__ void load_vec(const float* p, float (&r)[4]) {
-  const float4 t = *reinterpret_cast<const float4*>(p);
-  r[0] = t.x;
-  r[1] = t.y;
-  r[2] = t.z;
-  r[3] = t.w;
-}
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* p,
-                                         float (&r)[2]) {
-  const float2 f =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-  r[0] = f.x;
-  r[1] = f.y;
-}
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* p,
-                                         float (&r)[4]) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 a =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 c =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  r[0] = a.x;
-  r[1] = a.y;
-  r[2] = c.x;
-  r[3] = c.y;
-}
-
-template <typename T, int HD, int G>
-__global__ void __launch_bounds__(NW * 32)
-slot_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, const int* __restrict__ kv_len,
-                   T* __restrict__ o, int S, int KV, float scale) {
-  constexpr int E = HD / 32;  // values per lane per row
-  __shared__ float sm_m[NW][G];
-  __shared__ float sm_l[NW][G];
-  __shared__ float sm_acc[NW][G][HD];
-
-  const int kvh = blockIdx.x;
-  const int b = blockIdx.y;
-  const int lane = threadIdx.x & 31;
-  const int w = threadIdx.x >> 5;
-  const long long H = (long long)KV * G;
-  const int n = min(kv_len[b], S);
-  T* ob = o + (b * H + kvh * G) * HD;
-  if (n <= 0) {  // idle / finished slot: exact zeros, no cache read
-    for (int i = threadIdx.x; i < G * HD; i += NW * 32) store(&ob[i], 0.f);
-    return;
-  }
-
-  const T* qb = q + (b * H + kvh * G) * HD + lane * E;
-  float qr[G][E];
-#pragma unroll
-  for (int g = 0; g < G; ++g) load_vec(qb + g * HD, qr[g]);
-
-  float m[G], l[G], acc[G][E];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    m[g] = NEG_INF;
-    l[g] = 0.f;
-#pragma unroll
-    for (int e = 0; e < E; ++e) acc[g][e] = 0.f;
-  }
-
-  const long long ps = (long long)KV * HD;  // position stride of the pool
-  const long long row0 = (long long)b * S * ps + kvh * HD + lane * E;
-  const T* kb = k + row0;
-  const T* vb = v + row0;
-  for (int base = w * U; base < n; base += NW * U) {
-    float kr[U][E], vr[U][E];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      if (base + u < n) {
-        load_vec(kb + (base + u) * ps, kr[u]);
-        load_vec(vb + (base + u) * ps, vr[u]);
-      } else {
-#pragma unroll
-        for (int e = 0; e < E; ++e) kr[u][e] = vr[u][e] = 0.f;
-      }
-    }
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      float s[U];
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        float part = 0.f;
-#pragma unroll
-        for (int e = 0; e < E; ++e) part += qr[g][e] * kr[u][e];
-        s[u] = part;
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-#pragma unroll
-        for (int u = 0; u < U; ++u)
-          s[u] += __shfl_xor_sync(0xffffffffu, s[u], off);
-      float mx = NEG_INF;
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        s[u] = base + u < n ? s[u] * scale : NEG_INF;
-        mx = fmaxf(mx, s[u]);
-      }
-      // position `base` is valid, so mx (and m_new) is a real logit
-      const float m_new = fmaxf(m[g], mx);
-      const float alpha = expf(m[g] - m_new);
-      l[g] *= alpha;
-#pragma unroll
-      for (int e = 0; e < E; ++e) acc[g][e] *= alpha;
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const float p = expf(s[u] - m_new);
-        l[g] += p;
-#pragma unroll
-        for (int e = 0; e < E; ++e) acc[g][e] += p * vr[u][e];
-      }
-      m[g] = m_new;
-    }
-  }
-
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    if (lane == 0) {
-      sm_m[w][g] = m[g];
-      sm_l[w][g] = l[g];
-    }
-#pragma unroll
-    for (int e = 0; e < E; ++e) sm_acc[w][g][lane * E + e] = acc[g][e];
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < G * HD; i += NW * 32) {
-    const int g = i / HD, d = i % HD;
-    float M = NEG_INF;
-#pragma unroll
-    for (int ww = 0; ww < NW; ++ww) M = fmaxf(M, sm_m[ww][g]);
-    float L = 0.f, A = 0.f;
-#pragma unroll
-    for (int ww = 0; ww < NW; ++ww) {
-      const float f = expf(sm_m[ww][g] - M);
-      L += sm_l[ww][g] * f;
-      A += sm_acc[ww][g][d] * f;
-    }
-    store(&ob[i], A / fmaxf(L, 1e-30f));
-  }
-}
-
-template <typename T, int HD>
-int launch_g(const void* q, const void* k, const void* v, const int* kv_len,
-             void* o, int B, int S, int KV, int G, float scale,
-             cudaStream_t stream) {
-  const dim3 grid(KV, B);
-#define SLOT_LAUNCH(GG)                                                     \
-  slot_decode_kernel<T, HD, GG><<<grid, NW * 32, 0, stream>>>(              \
-      static_cast<const T*>(q), static_cast<const T*>(k),                   \
-      static_cast<const T*>(v), kv_len, static_cast<T*>(o), S, KV, scale)
-  switch (G) {
-    case 1: SLOT_LAUNCH(1); break;
-    case 2: SLOT_LAUNCH(2); break;
-    case 4: SLOT_LAUNCH(4); break;
-    case 8: SLOT_LAUNCH(8); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef SLOT_LAUNCH
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
+// q (B,H,hd) and the pool layout k/v (B,S,KV,hd): position stride KV*hd,
+// each (position, kv head) row hd contiguous values.  kv_len (B,) int32;
+// a row with kv_len == 0 (an idle or finished slot) writes exact zeros.
+// The body is the one of decode_attention.cuh (shared with
+// decode_attention.cu), read at the pool's strides with the whole cache
+// axis in one chunk: one block of 8 warps per (b, kv head), no merge
+// pass.  Known limit: B*KV blocks (96 for gpt-base at 8 slots) do not
+// fill the 132 SMs; the header's split over the cache axis is there to
+// turn on, at the cost of a workspace and a merge launch per layer.
+#include "decode_attention.cuh"
 
 // q (B,H,hd), k/v (B,S,KV,hd), kv_len (B,) int32, o (B,H,hd); all
 // contiguous on the device.  dtype: 0 = float32, 1 = bfloat16.  Returns
@@ -229,20 +22,9 @@ extern "C" int slot_decode_attention_fwd(const void* q, const void* k,
                                          void* o, int dtype, int B, int S,
                                          int KV, int H, int hd, float scale,
                                          void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* kl = static_cast<const int*>(kv_len);
-  if (B <= 0) return 0;
-  if (KV <= 0 || H % KV) return (int)cudaErrorInvalidValue;
-  const int G = H / KV;
-  if (dtype == 0 && hd == 64)
-    return launch_g<float, 64>(q, k, v, kl, o, B, S, KV, G, scale, st);
-  if (dtype == 0 && hd == 128)
-    return launch_g<float, 128>(q, k, v, kl, o, B, S, KV, G, scale, st);
-  if (dtype == 1 && hd == 64)
-    return launch_g<__nv_bfloat16, 64>(q, k, v, kl, o, B, S, KV, G, scale,
-                                       st);
-  if (dtype == 1 && hd == 128)
-    return launch_g<__nv_bfloat16, 128>(q, k, v, kl, o, B, S, KV, G, scale,
-                                        st);
-  return (int)cudaErrorInvalidValue;
+  const long long ps = (long long)KV * hd;  // position stride of the pool
+  return dattn::run(q, k, v, static_cast<const int*>(kv_len), o, nullptr,
+                    dtype, B, S, KV, H, hd, (long long)S * ps, hd, ps,
+                    S > 1 ? S : 1, 1, scale,
+                    static_cast<cudaStream_t>(stream));
 }

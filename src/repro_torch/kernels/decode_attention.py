@@ -1,5 +1,7 @@
 """Wrappers of the CUDA decode-side attention kernels:
-``csrc/slot_decode_attention.cu`` (one query per slot),
+``csrc/decode_attention.cu`` (one query per row over a head-major cache,
+read through strides) and ``csrc/slot_decode_attention.cu`` (one query per
+slot over the pool), which share ``csrc/decode_attention.cuh``,
 ``csrc/chunk_verify_attention.cu`` (a speculative verify chunk per slot),
 ``csrc/ring_decode_attention.cu`` (one query per slot over a ring-buffer
 window cache), and their twins over a paged pool,
@@ -17,6 +19,7 @@ these.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -61,33 +64,52 @@ def _check_tensors(what, floats, *ints):
                              "(vector loads)")
 
 
-def _check(q, k, v, kv_len):
-    _check_tensors("slot_decode_attention", (("q", q), ("k", k), ("v", v)),
-                   ("kv_len", kv_len))
+def _check_one_query(what, q, k, v, kv_len, *, pool):
+    """The rules of the one-query kernels (decode_attention.cuh).  With
+    ``pool`` k, v are the (B, S, KV, hd) slot pool and must be contiguous;
+    else they are head-major (B, KV, S, hd), read through their B, KV and
+    S strides with hd contiguous."""
+    layout = "(B, S, KV, hd)" if pool else "(B, KV, S, hd)"
+    _check_tensors(what, (("q", q), ("k", k), ("v", v)) if pool
+                   else (("q", q),), ("kv_len", kv_len))
     if q.dim() != 3 or k.dim() != 4:
-        raise ValueError("slot_decode_attention: q must be (B, H, hd) and "
-                         "k, v (B, S, KV, hd)")
+        raise ValueError(f"{what}: q must be (B, H, hd) and k, v {layout}")
     B, H, hd = q.shape
-    S, KV = k.shape[1], k.shape[2]
-    if k.shape != (B, S, KV, hd) or v.shape != k.shape:
-        raise ValueError(f"slot_decode_attention: q {tuple(q.shape)} needs "
-                         f"k, v of shape (B, S, KV, hd); got "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    kh, vh = (k.transpose(1, 2), v.transpose(1, 2)) if pool else (k, v)
+    KV, S = kh.shape[1], kh.shape[2]
+    if kh.shape != (B, KV, S, hd) or vh.shape != kh.shape:
+        raise ValueError(f"{what}: q {tuple(q.shape)} needs k, v of shape "
+                         f"{layout}; got {tuple(k.shape)}, {tuple(v.shape)}")
+    for name, t in (("k", kh), ("v", vh)):
+        if t.device != q.device:
+            raise ValueError(f"{what}: {name} must be a CUDA tensor on "
+                             f"{q.device} (got {t.device})")
+        if t.dtype != q.dtype:
+            raise TypeError(f"{what}: {name} has dtype {t.dtype}; q, k, v "
+                            "must share float32 or bfloat16")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{what}: {name} must have a contiguous head "
+                             f"dim (stride 1, got {t.stride(-1)})")
+        item = t.element_size()
+        if t.data_ptr() % 16 or any(st * item % 16 for st in t.stride()[:3]):
+            raise ValueError(f"{what}: {name} must be 16-byte aligned, its "
+                             f"B, KV and S strides {t.stride()[:3]} too "
+                             "(vector loads)")
+    if vh.stride() != kh.stride():
+        raise ValueError(f"{what}: k and v must share strides (got "
+                         f"{k.stride()} and {v.stride()})")
     if kv_len.dtype != torch.int32 or kv_len.shape != (B,):
-        raise ValueError(f"slot_decode_attention: kv_len must be ({B},) "
-                         f"int32 (got {tuple(kv_len.shape)} {kv_len.dtype})")
-    if KV < 1 or H % KV or H // KV not in GROUPS:
-        raise ValueError(f"slot_decode_attention: H/KV = {H}/{KV} must be "
-                         f"one of {GROUPS}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"slot_decode_attention: head_dim {hd} not in "
-                         f"{HEAD_DIMS}")
+        raise ValueError(f"{what}: kv_len must be ({B},) int32 (got "
+                         f"{tuple(kv_len.shape)} {kv_len.dtype})")
+    _check_heads(what, H, KV, hd)
+    if S < 1:
+        raise ValueError(f"{what}: the cache needs at least one position")
 
 
 def slot_decode_attention(q, k, v, kv_len):
     """q: (B, H, hd); k, v: (B, S, KV, hd) pool layout; kv_len: (B,) int32
     -> (B, H, hd).  kv_len 0 gives exact zeros; kv_len > S reads S."""
-    _check(q, k, v, kv_len)
+    _check_one_query("slot_decode_attention", q, k, v, kv_len, pool=True)
     B, H, hd = q.shape
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
@@ -104,6 +126,66 @@ def slot_decode_attention(q, k, v, kv_len):
 
 slot_decode_attention.launches = 0
 
+
+# ------------------------------------------- head-major (strided) decode
+SPLIT_UNIT = 64  # positions a block walks per iteration (NW * U in the .cuh)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _decode_entry():
+    fn = build.load("decode_attention").decode_attention_fwd
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                       + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 2
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def decode_splits(B, KV, S, n_sm):
+    """(chunk, nsplit): the cache axis cut into ``nsplit`` chunks of
+    ``chunk`` positions (a multiple of SPLIT_UNIT), enough for about two
+    blocks per SM over the B * KV (row, kv head) pairs.  One chunk needs
+    no merge pass."""
+    want = max(1, -(-2 * n_sm // max(1, B * KV)))
+    chunk = -(-S // want)
+    chunk = -(-chunk // SPLIT_UNIT) * SPLIT_UNIT
+    return chunk, -(-S // chunk)
+
+
+def decode_attention(q, k, v, kv_len):
+    """q: (B, H, hd) contiguous; k, v: (B, KV, S, hd) head-major, read
+    through their B, KV and S strides (hd contiguous: a contiguous tensor,
+    or the pool's (B, S, KV, hd) cache as its ``transpose(1, 2)`` view);
+    kv_len: (B,) int32 -> (B, H, hd).  kv_len 0 gives exact zeros; kv_len
+    > S reads S."""
+    _check_one_query("decode_attention", q, k, v, kv_len, pool=False)
+    B, H, hd = q.shape
+    KV, S = k.shape[1], k.shape[2]
+    chunk, nsplit = decode_splits(B, KV, S, _sm_count(q.device))
+    out = torch.empty_like(q)
+    work = None
+    if nsplit > 1:  # per-chunk (m, l, acc) partials for the merge pass
+        work = torch.empty(B * KV * nsplit * (H // KV) * (hd + 2),
+                           dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        rc = _decode_entry()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
+            out.data_ptr(), None if work is None else work.data_ptr(),
+            DTYPES[q.dtype], B, S, KV, H, hd, *k.stride()[:3], chunk, nsplit,
+            hd ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
+                           f"error {rc}")
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0
 
 
 def _chunk_entry():
@@ -135,10 +217,7 @@ def _check_chunk(q, ck, cv, k, v, offsets, window):
     if offsets.dtype != torch.int32 or offsets.shape != (B,):
         raise ValueError(f"{what}: offsets must be ({B},) int32 (got "
                          f"{tuple(offsets.shape)} {offsets.dtype})")
-    if KV < 1 or H % KV or H // KV not in GROUPS:
-        raise ValueError(f"{what}: H/KV = {H}/{KV} must be one of {GROUPS}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"{what}: head_dim {hd} not in {HEAD_DIMS}")
+    _check_heads(what, H, KV, hd)
     if not 1 <= S <= CHUNK_MAX:
         raise ValueError(f"{what}: chunk length S = {S} must be in "
                          f"1..{CHUNK_MAX}")

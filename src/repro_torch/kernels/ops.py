@@ -13,6 +13,9 @@ from repro_torch.kernels.decode_attention import (
     chunk_verify_attention as _chunk,
 )
 from repro_torch.kernels.decode_attention import (
+    decode_attention as _decode,
+)
+from repro_torch.kernels.decode_attention import (
     paged_chunk_verify_attention as _paged_chunk,
 )
 from repro_torch.kernels.decode_attention import (
@@ -33,6 +36,25 @@ def flash_attention(q, k, v, *, causal=True):
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal)
     return _flash(q, k, v, causal=causal)
+
+
+def decode_attention(q, k, v, kv_len, *, done=None):
+    """One query per row over a head-major cache: q (B, H, hd); k, v
+    (B, KV, S, hd), any strides with hd contiguous (the pool layout's
+    ``transpose(1, 2)`` view reads without a copy); kv_len an int (one
+    length for every row) or (B,).  ``done`` rows are folded into
+    ``kv_len = 0`` (exact-zero output)."""
+    B = q.shape[0]
+    if isinstance(kv_len, int):
+        kv_len = torch.full((B,), kv_len, dtype=torch.int32, device=q.device)
+    else:
+        kv_len = torch.as_tensor(kv_len, dtype=torch.int32,
+                                 device=q.device).reshape(-1).expand(B)
+    if done is not None:
+        kv_len = torch.where(done, 0, kv_len)
+    if q.device.type == "cpu":
+        return ref.decode_attention_ref(q, k, v, kv_len)
+    return _decode(q, k, v, kv_len.contiguous())
 
 
 def slot_decode_attention(q, k, v, kv_len, *, done=None):
@@ -178,7 +200,8 @@ def tr_sandwich(x, a_i, a_o):
 def kernels():
     """The CUDA kernel wrappers, by name (their ``launches`` counters are
     what a run reads)."""
-    return {"flash_attention": _flash, "slot_decode_attention": _slot,
+    return {"flash_attention": _flash, "decode_attention": _decode,
+            "slot_decode_attention": _slot,
             "tr_sandwich": _sandwich, "chunk_verify_attention": _chunk,
             "paged_slot_decode_attention": _paged_slot,
             "paged_chunk_verify_attention": _paged_chunk,

@@ -26,6 +26,25 @@ def flash_attention_ref(q, k, v, *, causal=True):
     return out.reshape(B, H, S, hd).to(q.dtype)
 
 
+def decode_attention_ref(q, k, v, kv_len):
+    """q: (B, H, hd); k, v: (B, KV, S, hd) head-major (any strides);
+    kv_len: an int or (B,) valid lengths -> (B, H, hd).  Rows with
+    kv_len == 0 return exact zeros."""
+    B, H, hd = q.shape
+    KV, S = k.shape[1], k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, KV, G, hd).float()
+    logits = torch.einsum("bkgh,bksh->bkgs", qg, k.float()) * hd ** -0.5
+    kvl = torch.as_tensor(kv_len, device=q.device).reshape(-1).to(
+        torch.int64).expand(B)
+    mask = torch.arange(S, device=q.device)[None] < kvl[:, None]
+    logits = torch.where(mask[:, None, None], logits, NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgs,bksh->bkgh", p, v.float())
+    out = out * (kvl > 0).to(out.dtype)[:, None, None, None]
+    return out.reshape(B, H, hd).to(q.dtype)
+
+
 def slot_decode_attention_ref(q, k, v, kv_len):
     """q: (B, H, hd); k, v: (B, S, KV, hd) -- the slot pool's layout;
     kv_len: (B,) valid lengths -> (B, H, hd).  Rows with kv_len == 0 (idle

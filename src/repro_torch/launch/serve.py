@@ -36,6 +36,14 @@ asked for and absent:
       --arch recurrentgemma-2b --engine continuous --batch 16 \
       --capacity 8 --prompt-len 2048 --gen 64 --max-len 4096 \
       --pool paged --pages 160
+
+  # a RoPE decoder (qwen3-0.6b, bf16 as published): naive generate, whose
+  # decode steps run the decode_attention kernel, then the engine
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
+      --batch 8 --prompt-len 512 --gen 64
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
+      --engine continuous --batch 16 --capacity 8 --prompt-len 768 \
+      --gen 64 --max-len 1024 --pool paged --pages 64
 """
 from __future__ import annotations
 

@@ -1,16 +1,27 @@
-"""Transformer family, ported for dense decoder LMs with learned positions.
+"""Transformer family, ported for dense decoder LMs.
 
-Covers the paper's GPT/BERT/DeiT configs: LayerNorm or RMSNorm, GELU or
-gated MLPs, learned absolute positions, MHA or GQA attention, separate or
-tied LM head.  Params are nested dicts stacked over a leading layer axis,
-as in the reference package.  Configs with MLA, MoE, a sliding window,
+Covers the paper's GPT/BERT/DeiT configs and the RoPE decoders (qwen1.5,
+qwen3, stablelm, yi): LayerNorm or RMSNorm, GELU or gated MLPs, learned
+absolute positions or standard (optionally partial) RoPE, qkv bias and
+per-head q/k norms, MHA or GQA attention, separate or tied LM head.
+Params are nested dicts stacked over a leading layer axis, as in the
+reference package.  Configs with MLA, MoE, a sliding window, multimodal
 RoPE or an MTP head raise ``NotImplementedError`` (ROADMAP.md lists the
 slices that bring them).
 
-Three call sites reach the hand-written kernels through ``kernels.ops``,
+RoPE rotates q and k after the q/k norms and before any cache write, at
+each token's absolute position: ``q_offset + arange(S)`` on the scalar
+routes (or ``batch["positions"]``), each slot's own, unclamped position on
+the slot routes, and ``positions[b] + arange(S)`` in speculative verify.
+One (cos, sin) table per forward serves every layer.
+
+Four call sites reach the hand-written kernels through ``kernels.ops``,
 which picks kernel or plain version by the tensor's device:
   * causal cached prefill at ``q_offset == 0`` -> ``ops.flash_attention``
     (the kernel masks ragged tiles, so every prefill length takes it);
+  * the scalar cached decode step (``decode_step``: S == 1 at one shared
+    position) -> ``ops.decode_attention`` over the cache's head-major
+    ``transpose(1, 2)`` view (strides, no copy);
   * continuous-batching slot decode -> ``ops.slot_decode_attention``, or
     ``ops.paged_slot_decode_attention`` over a paged pool;
   * speculative verify of a chunk per slot -> ``ops.chunk_verify_attention``
@@ -29,6 +40,7 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import ffn as ffn_lib
+from repro_torch.models import rope as rope_lib
 from repro_torch.models.common import (
     apply_norm,
     init_norm,
@@ -47,7 +59,8 @@ def _unported(cfg):
     for flag, what in ((cfg.mla, "MLA attention"), (cfg.moe, "MoE layers"),
                        (cfg.window, "sliding-window attention"),
                        (cfg.mtp, "the MTP head"),
-                       (cfg.rope != "none", f"RoPE ({cfg.rope})")):
+                       (cfg.rope not in ("none", "standard"),
+                        f"RoPE ({cfg.rope})")):
         if flag:
             return what
     return None
@@ -177,9 +190,18 @@ def _paged_slot_forward(q, cache, k, v, slot_positions, slot_kv_len,
     return out[:, None]
 
 
-def _attn_forward(x, p, cfg, *, cache=None, q_offset=0, slot_positions=None,
-                  slot_kv_len=None, chunk_offsets=None, slot_done=None):
+def _attn_forward(x, p, cfg, *, rope=None, cache=None, q_offset=0,
+                  slot_positions=None, slot_kv_len=None, chunk_offsets=None,
+                  slot_done=None, decode_kv_len=None):
     """Returns (out, cache). x: (B,S,D).
+
+    ``rope`` -- the (cos, sin) table of ``rope_lib.rope_tables`` at this
+    forward's positions (None without RoPE): q and k turn after the q/k
+    norms, before anything is written to the cache.
+
+    ``decode_kv_len`` -- the scalar decode step's (B,) int32 valid length,
+    ``q_offset + 1`` on every row, built once for all layers (None builds
+    it from ``q_offset`` in the kernel's entry point).
 
     ``slot_positions`` (B,) switches to the continuous-batching decode
     path: S is 1, each row is an independent cache slot at its own length;
@@ -218,6 +240,9 @@ def _attn_forward(x, p, cfg, *, cache=None, q_offset=0, slot_positions=None,
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
+    if rope is not None:
+        q = rope_lib.rotate(q, rope)
+        k = rope_lib.rotate(k, rope)
 
     if chunk_offsets is not None:
         # the pool leaves as they are: no [cache ‖ chunk] copy
@@ -262,6 +287,14 @@ def _attn_forward(x, p, cfg, *, cache=None, q_offset=0, slot_positions=None,
                                      k[:, :S].transpose(1, 2),
                                      v[:, :S].transpose(1, 2), causal=True)
             return _attn_out(of.transpose(1, 2), p, cfg, cdt), cache
+        if S == 1:
+            # Scalar decode step: one query per row over the first
+            # q_offset + 1 positions, through the head-major view of the
+            # (B, S, KV, hd) cache (a transpose of strides, no copy).
+            od = ops.decode_attention(
+                q[:, 0], k.transpose(1, 2), v.transpose(1, 2),
+                kv_len if decode_kv_len is None else decode_kv_len)
+            return _attn_out(od[:, None], p, cfg, cdt), cache
     out = attn_lib.attention(q, k, v, causal=cfg.causal, q_offset=q_offset,
                              kv_len=kv_len, chunk_q=cfg.attn_chunk)
     return _attn_out(out, p, cfg, cdt), cache
@@ -311,25 +344,46 @@ def _block(x, bp, cfg, **attn_kw):
     return x, cache
 
 
-def _layer_stack(x, params, cfg, cache=None, **attn_kw):
+def _layer_stack(x, params, cfg, positions, cache=None, **attn_kw):
     """The block stack as a Python loop over the stacked layer axis; layer
-    ``i`` reads and writes ``cache[...][i]`` views in place.  Returns the
+    ``i`` reads and writes ``cache[...][i]`` views in place.  ``positions``
+    (B, S) are the tokens' absolute positions, which RoPE configs rotate
+    by (one table for every layer; ignored without RoPE).  Returns the
     residual stream before the final norm and each layer's second output
     of ``_attn_forward`` (its cache, or its pending chunk K/V)."""
+    rope = None
+    if cfg.rope == "standard":
+        rope = rope_lib.rope_tables(positions, cfg.head_dim,
+                                    theta=cfg.rope_theta,
+                                    fraction=cfg.rope_fraction,
+                                    dtype=x.dtype)
     group = params["dense_blocks"]
     per_layer = []
     for i in range(cfg.n_layers):
         layer_cache = None if cache is None else {
             name: leaf[i] for name, leaf in cache["dense"].items()}
-        x, second = _block(x, take_layer(group, i), cfg, cache=layer_cache,
-                           **attn_kw)
+        x, second = _block(x, take_layer(group, i), cfg, rope=rope,
+                           cache=layer_cache, **attn_kw)
         per_layer.append(second)
     return x, per_layer
 
 
-def _run_layers(x, params, cfg, cache=None, **attn_kw):
-    x, _ = _layer_stack(x, params, cfg, cache=cache, **attn_kw)
+def _run_layers(x, params, cfg, positions, cache=None, **attn_kw):
+    x, _ = _layer_stack(x, params, cfg, positions, cache=cache, **attn_kw)
     return apply_norm(x, params["final_norm"], cfg.norm)
+
+
+def _positions_from_batch(batch, x, cfg, q_offset=0):
+    """(B, S) absolute positions of the embedded batch ``x``:
+    ``batch["positions"]`` where given, else ``q_offset + arange(S)`` on
+    every row.  None without RoPE (nothing reads them)."""
+    if cfg.rope != "standard":
+        return None
+    pos = batch.get("positions")
+    if pos is not None:
+        return pos
+    B, S = x.shape[:2]
+    return (q_offset + torch.arange(S, device=x.device))[None].expand(B, S)
 
 
 # ================================================================== forward
@@ -360,7 +414,8 @@ def forward(params, batch, cfg):
     batch: {"tokens": (B,S)} or {"inputs": (B,S,Din)}.
     Returns (logits, aux) with aux = {"moe_aux": 0.0}."""
     _require_ported(cfg)
-    x = _run_layers(embed_inputs(params, batch, cfg), params, cfg)
+    x = embed_inputs(params, batch, cfg)
+    x = _run_layers(x, params, cfg, _positions_from_batch(batch, x, cfg))
     return _head(params, x, cfg), {"moe_aux": 0.0}
 
 
@@ -387,12 +442,15 @@ def init_cache(cfg, batch_size, max_len, dtype=None, device="cpu"):
                       "v": torch.zeros(shape, dtype=dtype, device=device)}}
 
 
-def _forward_cached(params, batch, cfg, cache, q_offset, at=None):
+def _forward_cached(params, batch, cfg, cache, q_offset, at=None,
+                    **attn_kw):
     """Cached forward from ``q_offset``.  ``at`` (B,) picks one position
     per row whose logits are returned as (B, V); None returns (B, S, V)."""
     _require_ported(cfg)
-    x = _run_layers(embed_inputs(params, batch, cfg), params, cfg,
-                    cache=cache, q_offset=q_offset)
+    x = embed_inputs(params, batch, cfg)
+    x = _run_layers(x, params, cfg,
+                    _positions_from_batch(batch, x, cfg, q_offset),
+                    cache=cache, q_offset=q_offset, **attn_kw)
     if at is not None:
         x = x[torch.arange(x.shape[0], device=x.device), at]
     return _head(params, x, cfg), cache
@@ -416,7 +474,11 @@ def decode_step(params, tokens, pos, cache, cfg):
         batch["positions"] = torch.full((tokens.shape[0], 1), pos,
                                         dtype=torch.long,
                                         device=tokens.device)
-    logits, cache = _forward_cached(params, batch, cfg, cache, pos)
+    # every layer's attention reads the first pos + 1 positions of each row
+    kv_len = torch.full((tokens.shape[0],), pos + 1, dtype=torch.int32,
+                        device=tokens.device)
+    logits, cache = _forward_cached(params, batch, cfg, cache, pos,
+                                    decode_kv_len=kv_len)
     return logits[:, -1], cache
 
 
@@ -447,8 +509,10 @@ def decode_step_slots(params, tokens, positions, cache, cfg, done=None):
     """
     _require_ported(cfg)
     batch = {"tokens": tokens[:, None], "positions": positions[:, None]}
+    # RoPE turns at the unclamped position; only the cache write clamps
     x = _run_layers(embed_inputs(params, batch, cfg), params, cfg,
-                    cache=cache, slot_positions=positions.long(),
+                    batch["positions"], cache=cache,
+                    slot_positions=positions.long(),
                     slot_kv_len=_slot_kv_len(positions, done).to(torch.int32),
                     slot_done=done)
     return _head(params, x, cfg)[:, -1], cache
@@ -459,7 +523,9 @@ def prefill_cache(params, tokens, cfg, cache):
     head): a speculative draft's admission, whose logits nobody reads.
     Returns the cache, updated in place."""
     _require_ported(cfg)
-    _layer_stack(embed_inputs(params, {"tokens": tokens}, cfg), params, cfg,
+    batch = {"tokens": tokens}
+    x = embed_inputs(params, batch, cfg)
+    _layer_stack(x, params, cfg, _positions_from_batch(batch, x, cfg),
                  cache=cache, q_offset=0)
     return cache
 
@@ -487,7 +553,8 @@ def verify_step_slots(params, tokens, positions, cache, cfg, done=None,
     pos2d = positions[:, None] + torch.arange(
         S, dtype=positions.dtype, device=positions.device)[None]
     x = embed_inputs(params, {"tokens": tokens, "positions": pos2d}, cfg)
-    x, per_layer = _layer_stack(x, params, cfg, cache=cache,
+    # RoPE turns at the unclamped positions, overshoot included
+    x, per_layer = _layer_stack(x, params, cfg, pos2d, cache=cache,
                                 chunk_offsets=positions, slot_done=done)
     pending = {"dense": {name: torch.stack([pl[name] for pl in per_layer])
                          for name in ("k", "v")}}

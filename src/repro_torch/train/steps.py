@@ -166,6 +166,40 @@ def make_decode_step(cfg):
     return decode_fn
 
 
+def make_prefill_full_step(cfg):
+    """Prefill that returns logits at every position, (B, S, V): prompts
+    padded to a bucket length are read at each row's true last token."""
+    fam = get_family(cfg)
+    if not hasattr(fam, "prefill_full"):
+        raise NotImplementedError(
+            f"family {cfg.family!r} has no full-logits prefill")
+
+    def prefill_fn(params, batch, cache):
+        return fam.prefill_full(params, batch, cfg, cache)
+
+    return prefill_fn
+
+
+def make_slot_decode_step(cfg):
+    """One greedy continuous-batching step: every batch row is a cache
+    slot at its own length.
+
+    fn(params, tokens (B,), positions (B,), cache) -> (next (B,) int32,
+    cache).
+    """
+    fam = get_family(cfg)
+    if not hasattr(fam, "decode_step_slots"):
+        raise NotImplementedError(
+            f"family {cfg.family!r} has no slot-indexed decode path")
+
+    def decode_fn(params, tokens, positions, cache):
+        logits, cache = fam.decode_step_slots(params, tokens, positions,
+                                              cache, cfg)
+        return logits.argmax(-1).to(torch.int32), cache
+
+    return decode_fn
+
+
 def make_prefill_admit_step(cfg):
     """Batched greedy admission prefill for the continuous-batching engine.
 

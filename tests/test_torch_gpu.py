@@ -26,6 +26,9 @@ from repro_torch.kernels.decode_attention import (
     chunk_verify_attention as cuda_chunk,
 )
 from repro_torch.kernels.decode_attention import (
+    decode_attention as cuda_decode,
+)
+from repro_torch.kernels.decode_attention import (
     paged_chunk_verify_attention as cuda_paged_chunk,
 )
 from repro_torch.kernels.decode_attention import (
@@ -859,3 +862,167 @@ def test_cuda_griffin_engine_launches_ring_and_scan_exactly(cuda_device,
         np.testing.assert_array_equal(got[r.uid], gen[0].cpu().numpy())
     if pool == "paged":
         assert eng.pages_in_use == 0 and eng.pages_highwater <= 5
+
+
+# ------------------------------------- RoPE transformers: decode_attention
+DECODE_GRID = [(G, hd, dtype) for G in (1, 2, 4, 8) for hd in (64, 128)
+               for dtype in (torch.float32, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("G,hd,dtype", DECODE_GRID)
+def test_cuda_decode_attention_matches_plain(cuda_device, G, hd, dtype):
+    """S of 37, 300 and 576 (one chunk, and several with a merge pass);
+    ragged lengths with 0, 1, S and past S, a done row; a contiguous
+    head-major cache and the pool's (B, S, KV, hd) cache through its
+    ``transpose(1, 2)`` view; a scalar length."""
+    B, KV = 6, 2
+    for S in (37, 300, 576):
+        q = _cuda_rand(cuda_device, dtype, B, G * KV, hd)
+        pool_k, pool_v = _cuda_rand(cuda_device, dtype, 2, B, S, KV, hd)
+        lens = torch.tensor([0, 1, S // 3, S, S + 7, S - 2],
+                            dtype=torch.int32, device=cuda_device)
+        done = torch.zeros(B, dtype=torch.bool, device=cuda_device)
+        done[-1] = True
+        for k, v in ((pool_k.transpose(1, 2), pool_v.transpose(1, 2)),
+                     (pool_k.transpose(1, 2).contiguous(),
+                      pool_v.transpose(1, 2).contiguous())):
+            n0 = cuda_decode.launches
+            got = ops.decode_attention(q, k, v, lens, done=done)
+            torch.cuda.synchronize()
+            assert cuda_decode.launches == n0 + 1
+            want = ref.decode_attention_ref(q, k, v,
+                                            torch.where(done, 0, lens))
+            torch.testing.assert_close(got.float(), want.float(),
+                                       **_tol(dtype))
+            assert (got[0] == 0).all() and (got[-1] == 0).all()
+            got = ops.decode_attention(q, k, v, S - 3)
+            want = ref.decode_attention_ref(q, k, v, S - 3)
+            torch.testing.assert_close(got.float(), want.float(),
+                                       **_tol(dtype))
+
+
+def test_cuda_decode_attention_reads_the_pool_view_without_a_copy(
+        cuda_device):
+    """The (B, S, KV, hd) pool's transposed view, k and v sharing strides,
+    is taken as it is (qwen3-0.6b's decode shape, 4 chunks)."""
+    q = _cuda_rand(cuda_device, torch.float32, 8, 16, 128)
+    pool = _cuda_rand(cuda_device, torch.float32, 2, 8, 576, 8, 128)
+    lens = torch.arange(520, 576, 7, dtype=torch.int32, device=cuda_device)
+    lens[3] = 0
+    got = cuda_decode(q, pool[0].transpose(1, 2), pool[1].transpose(1, 2),
+                      lens)
+    want = ref.decode_attention_ref(q, pool[0].transpose(1, 2),
+                                    pool[1].transpose(1, 2), lens)
+    torch.testing.assert_close(got, want, atol=F32_ATOL, rtol=1e-4)
+    assert (got[3] == 0).all()
+
+
+def test_cuda_decode_attention_refuses_what_it_does_not_take(cuda_device):
+    q = _cuda_rand(cuda_device, torch.float32, 2, 4, 64)
+    k = _cuda_rand(cuda_device, torch.float32, 2, 2, 40, 64)
+    lens = torch.tensor([3, 40], dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cuda_decode(q.cpu(), k.cpu(), k.cpu(), lens.cpu())
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cuda_decode(q, k.cpu(), k, lens)
+    q80 = _cuda_rand(cuda_device, torch.float32, 2, 4, 80)
+    k80 = _cuda_rand(cuda_device, torch.float32, 2, 2, 40, 80)
+    with pytest.raises(ValueError, match="head_dim 80"):
+        cuda_decode(q80, k80, k80, lens)
+    wide = _cuda_rand(cuda_device, torch.float32, 2, 2, 40, 128)
+    with pytest.raises(ValueError, match="stride 1"):
+        cuda_decode(q, wide[..., ::2], wide[..., ::2], lens)
+    flat = _cuda_rand(cuda_device, torch.float32, 2 * 2 * 40 * 64 + 1)
+    odd = flat[1:].view(2, 2, 40, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        cuda_decode(q, odd, odd, lens)
+    with pytest.raises(ValueError, match="H/KV"):
+        cuda_decode(_cuda_rand(cuda_device, torch.float32, 2, 6, 64), k, k,
+                    lens)
+    with pytest.raises(ValueError, match="int32"):
+        cuda_decode(q, k, k, lens.long())
+    with pytest.raises(TypeError, match="dtype"):
+        cuda_decode(q, k.bfloat16(), k.bfloat16(), lens)
+
+
+def _qwen3_hd128(dev):
+    """qwen3-0.6b-smoke at head_dim 128 (its own 32 is no kernel
+    variant): q/k norms, GQA 4/2, RoPE theta 1e6; weights redrawn
+    (embedding std 0.02, matrices 0.2) so greedy tokens vary."""
+    cfg = get_config("qwen3-0.6b-smoke").replace(head_dim=128)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = transformer.init(gen, cfg)
+
+    def redraw(tree, path=""):
+        for name, leaf in tree.items():
+            if isinstance(leaf, dict):
+                redraw(leaf, name)
+            elif path not in ("ln1", "ln2", "final_norm") and \
+                    not name.endswith("_norm"):
+                leaf.normal_(0.0, 0.02 if name == "embed" else 0.2,
+                             generator=gen)
+    redraw(params)
+    return cfg, params
+
+
+def test_cuda_decode_step_launches_decode_attention_once_per_layer(
+        cuda_device):
+    """The scalar cached decode step of a RoPE model launches the kernel
+    once per layer over the cache's head-major view; its logits match the
+    plain full forward."""
+    cfg, params = _qwen3_hd128(cuda_device)
+    toks = torch.from_numpy(lm_batch(cfg.vocab_size, 3, 21, seed=5)).to(
+        cuda_device)
+    cache = transformer.init_cache(cfg, 3, 64, device=cuda_device)
+    _, cache = transformer.prefill(params, {"tokens": toks[:, :20]}, cfg,
+                                   cache)
+    n0 = cuda_decode.launches
+    got, _ = transformer.decode_step(params, toks[:, 20], 20, cache, cfg)
+    torch.cuda.synchronize()
+    assert cuda_decode.launches == n0 + cfg.n_layers
+    want, _ = transformer.forward(params, {"tokens": toks}, cfg)
+    torch.testing.assert_close(got, want[:, -1], atol=F32_ATOL, rtol=1e-4)
+
+
+@pytest.mark.parametrize("pool", ["dense", "paged"])
+def test_cuda_rope_engine_matches_generate_with_exact_launches(cuda_device,
+                                                               pool):
+    """qwen3 (head_dim 128) through the engine on the card, then drafting
+    for itself: tokens equal ``generate``, which launches decode_attention
+    once per layer and decode step; the engine launches its pool's slot
+    kernel once per layer and decode step and never decode_attention."""
+    cfg, params = _qwen3_hd128(cuda_device)
+    reqs = [Request(uid=i, prompt=lm_batch(cfg.vocab_size, 1, p,
+                                           seed=90 + i)[0], max_new_tokens=g)
+            for i, (p, g) in enumerate([(16, 12), (33, 7), (9, 20),
+                                        (20, 5)])]
+    kern = ops.kernels()
+    slot = ("paged_slot_decode_attention" if pool == "paged"
+            else "slot_decode_attention")
+    for fn in kern.values():
+        fn.launches = 0
+    kw = dict(capacity=2, max_len=64, k=4, pool=pool,
+              pages=10 if pool == "paged" else None)
+    eng = ContinuousBatchingEngine(cfg, params, **kw)
+    got = eng.run(reqs)
+    torch.cuda.synchronize()
+    steps = eng.k * eng.n_decode_dispatches + eng.n_prefix_tail_steps
+    want = {name: 0 for name in kern}
+    want.update({slot: cfg.n_layers * steps,
+                 "flash_attention": cfg.n_layers * eng.n_prefills})
+    assert {name: fn.launches for name, fn in kern.items()} == want
+    spec = ContinuousBatchingEngine(
+        cfg, params, speculative=SpeculativeConfig(cfg, params, d=3),
+        **dict(kw, pages=20 if pool == "paged" else None))
+    got_spec = spec.run([Request(uid=r.uid, prompt=r.prompt,
+                                 max_new_tokens=r.max_new_tokens)
+                         for r in reqs])
+    assert spec.n_spec_accepted == spec.n_spec_proposed > 0
+    for r in reqs:
+        n0 = cuda_decode.launches
+        gen = generate(cfg, params, torch.from_numpy(r.prompt)[None].to(
+            cuda_device), max_new_tokens=r.max_new_tokens, max_len=64)
+        assert cuda_decode.launches == n0 + cfg.n_layers * (
+            r.max_new_tokens - 1)
+        np.testing.assert_array_equal(got[r.uid], gen[0].cpu().numpy())
+        np.testing.assert_array_equal(got_spec[r.uid], gen[0].cpu().numpy())

@@ -5,10 +5,10 @@ gather and the two paged kernels' plain versions (against JAX's oracle and
 its Pallas kernels in interpret mode), the model's paged slot decode and
 paged verify/commit, and the paged engine -- plain, under page pressure
 and speculative -- against JAX's paged engine: tokens and the prefix,
-page and host-sync counters exactly equal.  The JAX paged tests' subject,
-qwen-smoke, needs RoPE, which the port lacks: these use gpt-micro(-big)
-and a tiny GQA decoder.  The CUDA kernels are held against the plain
-versions in ``test_torch_gpu.py``.
+page and host-sync counters exactly equal.  These use gpt-micro(-big)
+and a tiny GQA decoder; the RoPE configs (the JAX paged tests' subject,
+qwen-smoke) page in ``test_torch_rope.py``.  The CUDA kernels are held
+against the plain versions in ``test_torch_gpu.py``.
 """
 import jax
 import jax.numpy as jnp

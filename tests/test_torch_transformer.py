@@ -119,7 +119,7 @@ def test_port_init_matches_reference_layout():
 
 
 @pytest.mark.parametrize("kw,what", [
-    (dict(rope="standard"), "RoPE"),
+    (dict(rope="mrope", mrope_sections=(2, 3, 3)), "RoPE"),
     (dict(mla=True, kv_lora_rank=8, q_lora_rank=8, qk_nope_dim=8,
           qk_rope_dim=8, v_head_dim=8), "MLA"),
     (dict(moe=True, n_experts=4, top_k=2), "MoE"),
