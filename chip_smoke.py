@@ -26,7 +26,9 @@ printed as it goes; a failed phase raises, so the exit code is not 0:
                 ragged, ring and window cases (the sandwich's gradients
                 too), then
                 CUDA-event times of kernel, plain version and one PyTorch
-                library call beside the kernel's bound;
+                library call beside the kernel's bound (flash and the
+                sandwich in f32 and bf16, their f32 bound at the 3xTF32
+                rate beside the SIMT one);
   4. serve   -- full-width gpt-base (12 x 768, vocab 50257, random weights
                 from a seeded generator) through the continuous-batching
                 engine: capacity 8, max_len 1024, K 8, 16 requests of
@@ -128,7 +130,9 @@ ROOT = Path(__file__).resolve().parent
 # H100 SXM peaks (NVIDIA data sheet, dense): memory rate, and the
 # operation rate for each input type (float32 outside the tensor cores)
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12,
+              # float32 on the tensor cores as 3xTF32: three TF32 passes
+              "float32_3xtf32": 495e12 / 3}
 TOL = {  # (atol, rtol): float32 differs only by summation order; bfloat16
     # rounds its output to 8 mantissa bits (~4e-3 at |out| near 1)
     "float32": (2e-5, 1e-4),
@@ -189,9 +193,11 @@ def check_close(name, out, want, dtype_name):
     return err
 
 
-def bound_ms(nbytes, flops, dtype_name):
+def bound_ms(nbytes, flops, dtype_name, rate=None):
+    """(ms, "bytes" or "operations"): the larger of the bytes over the
+    memory rate and the operations over ``PEAK_FLOPS[rate or dtype]``."""
     t_bytes = nbytes / PEAK_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[dtype_name]
+    t_ops = flops / PEAK_FLOPS[rate or dtype_name]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -310,13 +316,25 @@ def run_kernels():
                           dname)
         print(f"flash_attention [{label}] q{tuple(q.shape)} "
               f"kv{tuple(k.shape)}: max abs err {err:.3g}", flush=True)
-        if i:
+        if i not in (0, 2):  # time the first f32 and the first bf16 case
             continue
         B, H, S, hd = q.shape
         KV = k.shape[1]
-        item = q.element_size()
-        b_ms, b_by = bound_ms((2 * B * H + 2 * B * KV) * S * hd * item,
-                              2 * B * H * S * S * hd, dname)
+        nbytes = (2 * B * H + 2 * B * KV) * S * hd * q.element_size()
+        flops = 2 * B * H * S * S * hd
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  enable_gqa=H != KV)
+        if i == 2:
+            row = rows["flash_attention"]
+            row["bf16_ms"] = time_ms(lambda: fa(q, k, v, causal=True), 20)
+            row["bf16_library_ms"] = time_ms(sdpa, 20)
+            row["bf16_bound_ms"], row["bf16_bound_by"] = bound_ms(
+                nbytes, flops, dname)
+            row["bf16_max_abs_err"] = err
+            continue
+        b_ms, b_by = bound_ms(nbytes, flops, dname, "float32_3xtf32")
         rows["flash_attention"] = dict(
             name="flash_attention", route="cuda",
             source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -325,9 +343,9 @@ def run_kernels():
             ms=time_ms(lambda: fa(q, k, v, causal=True), 20),
             plain_ms=time_ms(
                 lambda: ref.flash_attention_ref(q, k, v, causal=True), 5),
-            bound_ms=b_ms, bound_by=b_by,
-            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=H != KV), 20),
+            bound_ms=b_ms, bound_by=b_by, bound_rate="3xTF32",
+            bound_simt_ms=bound_ms(nbytes, flops, dname)[0],
+            library_ms=time_ms(sdpa, 20),
             shape=f"q{tuple(q.shape)} k/v{tuple(k.shape)} {dname} causal")
 
     sd = decode_attention.slot_decode_attention
@@ -397,14 +415,25 @@ def run_kernels():
               f"{tuple(a_i.shape)} a_o{tuple(a_o.shape)}: max abs err "
               f"{err:.3g}; grads max relative err {grad_rel:.3g}",
               flush=True)
-        if i:
+        if i > 1:  # time the first f32 and the first bf16 case
             continue
         N, d1i, d1o = x.shape
         d2i, d2o = a_i.shape[1], a_o.shape[1]
-        b_ms, b_by = bound_ms(
-            (N * d1i * d1o + d1i * d2i + d1o * d2o + N * d2i * d2o)
-            * x.element_size(),
-            2 * N * (d1i * d1o * d2o + d1i * d2i * d2o), dname)
+        nbytes = ((N * d1i * d1o + d1i * d2i + d1o * d2o + N * d2i * d2o)
+                  * x.element_size())
+        flops = 2 * N * (d1i * d1o * d2o + d1i * d2i * d2o)
+
+        def two_products():  # yardstick only: T goes to device memory
+            return torch.matmul(a_i.mT, torch.matmul(x, a_o))
+        if i == 1:
+            row = rows["tr_sandwich"]
+            row["bf16_ms"] = time_ms(lambda: sw(x, a_i, a_o), 10)
+            row["bf16_library_ms"] = time_ms(two_products, 10)
+            row["bf16_bound_ms"], row["bf16_bound_by"] = bound_ms(
+                nbytes, flops, dname)
+            row["bf16_max_abs_err"] = err
+            continue
+        b_ms, b_by = bound_ms(nbytes, flops, dname, "float32_3xtf32")
         rows["tr_sandwich"] = dict(
             name="tr_sandwich", route="cuda",
             source="src/repro_torch/kernels/csrc/tr_sandwich.cu",
@@ -412,10 +441,9 @@ def run_kernels():
             max_abs_err=err, grad_max_rel_err=grad_rel,
             ms=time_ms(lambda: sw(x, a_i, a_o), 10),
             plain_ms=time_ms(lambda: ref.tr_sandwich_ref(x, a_i, a_o), 5),
-            bound_ms=b_ms, bound_by=b_by,
-            # yardstick only: two cuBLAS products, T to device memory
-            library_ms=time_ms(
-                lambda: torch.matmul(a_i.mT, torch.matmul(x, a_o)), 10),
+            bound_ms=b_ms, bound_by=b_by, bound_rate="3xTF32",
+            bound_simt_ms=bound_ms(nbytes, flops, dname)[0],
+            library_ms=time_ms(two_products, 10),
             shape=f"x{tuple(x.shape)} -> ({N}, {d2i}, {d2o}) {dname}")
     rows["decode_attention"] = run_decode_cases(gen)
     rows["chunk_verify_attention"] = run_chunk_cases(gen)
@@ -424,9 +452,17 @@ def run_kernels():
     for r in rows.values():
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
+        rate = f", {r['bound_rate']}" if "bound_rate" in r else ""
         print(f"time {r['name']} [{r['shape']}]: kernel {r['ms']:.4f} ms, "
               f"plain {r['plain_ms']:.4f} ms, library {lib}, bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}{rate})", flush=True)
+        if "bound_simt_ms" in r:
+            print(f"time {r['name']}: f32 SIMT bound "
+                  f"{r['bound_simt_ms']:.4f} ms; bf16 kernel "
+                  f"{r['bf16_ms']:.4f} ms, library "
+                  f"{r['bf16_library_ms']:.4f} ms, bound "
+                  f"{r['bf16_bound_ms']:.4f} ms ({r['bf16_bound_by']})",
+                  flush=True)
     return rows
 
 
@@ -2689,9 +2725,12 @@ def main(argv=None):
     qwen = run_qwen(rows)
     print(f"phase 11 took {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # the contract's keys, then the tensor-core rows' 3xTF32 and bf16 ones
     kernels = [{key: r[key] for key in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
-        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+        "bound_rate", "bound_simt_ms", "bf16_ms", "bf16_library_ms",
+        "bf16_bound_ms") if key in r}
         for r in rows.values()]
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

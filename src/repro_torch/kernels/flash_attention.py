@@ -50,6 +50,11 @@ def _check(q, k, v):
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head_dim {hd} not in "
                          f"{HEAD_DIMS}")
+    if q.dtype == torch.bfloat16 and any(
+            t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3])
+            for t in (q, k, v)):
+        raise ValueError("flash_attention: bf16 q, k, v rows must start on "
+                         "16 bytes (the kernel copies them by TMA)")
 
 
 def flash_attention(q, k, v, *, causal=True):

@@ -102,6 +102,35 @@ def test_cuda_flash_matches_plain(cuda_device, B, H, KV, S, hd, dtype,
     torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("S", [63, 65, 129])
+def test_cuda_flash_tile_edges_match_plain(cuda_device, S, hd, dtype):
+    """Query and key tiles that end one short of or one past a 64-row (and
+    32- / 64-key) edge, G 8, and k/v slices of a cache longer than S."""
+    B, H, KV = 2, 16, 2
+    q = _cuda_rand(cuda_device, dtype, B, S, H, hd).transpose(1, 2)
+    ck = _cuda_rand(cuda_device, dtype, B, S + 37, KV, hd)
+    cv = _cuda_rand(cuda_device, dtype, B, S + 41, KV, hd)
+    k, v = ck[:, :S].transpose(1, 2), cv[:, :S].transpose(1, 2)
+    got = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    want = ref.flash_attention_ref(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_is_deterministic(cuda_device, dtype):
+    """Two calls on the same inputs give bit-equal outputs."""
+    q = _cuda_rand(cuda_device, dtype, 2, 300, 8, 128).transpose(1, 2)
+    k = _cuda_rand(cuda_device, dtype, 2, 301, 4, 128)[:, :300].transpose(1, 2)
+    v = _cuda_rand(cuda_device, dtype, 2, 300, 4, 128).transpose(1, 2)
+    a = cuda_flash(q, k, v)
+    b = cuda_flash(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("B,S,H,KV,hd,dtype", [
     (8, 1024, 12, 12, 64, torch.float32),
     (4, 256, 16, 4, 128, torch.float32),
@@ -132,6 +161,9 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     h = _cuda_rand(cuda_device, torch.float16, 1, 2, 8, 64)
     with pytest.raises(TypeError, match="dtype"):
         cuda_flash(h, h, h)
+    b = _cuda_rand(cuda_device, torch.bfloat16, 1, 2, 8, 72)[..., 1:65]
+    with pytest.raises(ValueError, match="16 bytes"):
+        cuda_flash(b, b, b)  # rows one element off 16 bytes
     q = _cuda_rand(cuda_device, torch.float32, 2, 6, 64)
     pool = _cuda_rand(cuda_device, torch.float32, 2, 16, 2, 64)
     lens = torch.tensor([3, 4], dtype=torch.int32, device=cuda_device)
@@ -244,6 +276,37 @@ def test_cuda_tr_sandwich_matches_plain(cuda_device, N, d1i, d1o, d2i, d2o,
     torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
 
 
+@pytest.mark.parametrize("N,d1i,d1o,d2i,d2o,dtype", [
+    # TMA route: rows on 16 bytes, D1i/D1o not multiples of 16, D2i/D2o not
+    # multiples of 64
+    (4, 200, 100, 196, 132, torch.float32),
+    (3, 120, 72, 136, 200, torch.bfloat16),
+    # element-wise route (rows off 16 bytes)
+    (2, 77, 45, 99, 70, torch.bfloat16),
+    (2, 33, 17, 65, 63, torch.float32),
+    # the widest contraction the shared memory takes (shallow stage)
+    (2, 768, 40, 72, 100, torch.float32),
+    (2, 768, 24, 48, 40, torch.bfloat16),
+])
+def test_cuda_tr_sandwich_tile_edges_match_plain(cuda_device, N, d1i, d1o,
+                                                 d2i, d2o, dtype):
+    x, a_i, a_o = _sandwich_inputs(cuda_device, dtype, N, d1i, d1o, d2i, d2o)
+    got = ops.tr_sandwich(x, a_i, a_o)
+    torch.cuda.synchronize()
+    want = ref.tr_sandwich_ref(x, a_i, a_o)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_tr_sandwich_is_deterministic(cuda_device, dtype):
+    """Two calls on the same inputs give bit-equal outputs."""
+    x, a_i, a_o = _sandwich_inputs(cuda_device, dtype, 5, 256, 192, 320, 200)
+    a = cuda_sandwich(x, a_i, a_o)
+    b = cuda_sandwich(x, a_i, a_o)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
 def test_cuda_tr_sandwich_grads_match_autograd(cuda_device):
     """Forward and dX run the kernel (two launches); all three grads match
     autograd of the plain einsum (f32, relative to the largest entry)."""
@@ -273,10 +336,13 @@ def test_cuda_tr_sandwich_refuses_what_it_does_not_take(cuda_device):
         cuda_sandwich(x.transpose(1, 2), a_i, a_o)
     with pytest.raises(ValueError, match="rows"):
         cuda_sandwich(x, a_i[:16].contiguous(), a_o)
-    big = torch.zeros(1, 2048, 8, device=cuda_device)
-    with pytest.raises(ValueError, match="shared memory"):
-        cuda_sandwich(big, torch.zeros(2048, 8, device=cuda_device),
-                      torch.zeros(8, 8, device=cuda_device))
+    # T^T (64 x D1i, f32) and the shallow ring fit up to D1i 768
+    for d1i, dtype in ((769, torch.float32), (769, torch.bfloat16)):
+        big = torch.zeros(1, d1i, 8, device=cuda_device, dtype=dtype)
+        with pytest.raises(ValueError, match="shared memory"):
+            cuda_sandwich(big, torch.zeros(d1i, 8, device=cuda_device,
+                                           dtype=dtype),
+                          torch.zeros(8, 8, device=cuda_device, dtype=dtype))
 
 
 @pytest.mark.parametrize("rank", [1, 2])
