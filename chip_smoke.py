@@ -26,9 +26,10 @@ printed as it goes; a failed phase raises, so the exit code is not 0:
                 ragged, ring and window cases (the sandwich's gradients
                 too), then
                 CUDA-event times of kernel, plain version and one PyTorch
-                library call beside the kernel's bound (flash and the
-                sandwich in f32 and bf16, their f32 bound at the 3xTF32
-                rate beside the SIMT one);
+                library call beside the kernel's bound, in f32 and, for
+                every kernel with a bf16 case, in bf16 (flash's and the
+                sandwich's f32 bound at the 3xTF32 rate beside the SIMT
+                one);
   4. serve   -- full-width gpt-base (12 x 768, vocab 50257, random weights
                 from a seeded generator) through the continuous-batching
                 engine: capacity 8, max_len 1024, K 8, 16 requests of
@@ -362,7 +363,7 @@ def run_kernels():
         print(f"slot_decode_attention [{label}] q{tuple(q.shape)} "
               f"pool{tuple(kp.shape[1:])} kv_len {kvl.tolist()}: max abs "
               f"err {err:.3g}, kv_len-0 rows exact zeros", flush=True)
-        if i:
+        if i not in (0, 2):  # time the first f32 and the first bf16 case
             continue
         L = kp.shape[0]
         B, H, hd = q.shape
@@ -388,6 +389,14 @@ def run_kernels():
                 q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
                 attn_mask=mask[:, None, None], enable_gqa=H != KV)
 
+        if i == 2:
+            row = rows["slot_decode_attention"]
+            row["bf16_ms"] = time_ms(cycled(lambda k, v: sd(q, k, v, kvl)),
+                                     10 * L)
+            row["bf16_library_ms"] = time_ms(cycled(lib), 10 * L)
+            row["bf16_bound_ms"], row["bf16_bound_by"] = b_ms, b_by
+            row["bf16_max_abs_err"] = err
+            continue
         rows["slot_decode_attention"] = dict(
             name="slot_decode_attention", route="cuda",
             source="src/repro_torch/kernels/csrc/slot_decode_attention.cu",
@@ -449,6 +458,12 @@ def run_kernels():
     rows["chunk_verify_attention"] = run_chunk_cases(gen)
     rows.update(run_paged_cases(gen))
     rows.update(run_griffin_cases(gen))
+    for r in rows.values():  # the first bf16 case's numbers, on the row
+        bf16 = [c for c in r.get("cases", ()) if c["dtype"] == "bfloat16"]
+        if bf16 and "bf16_ms" not in r:
+            for key in ("ms", "library_ms", "bound_ms", "bound_by",
+                        "max_abs_err"):
+                r[f"bf16_{key}"] = bf16[0][key]
     for r in rows.values():
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
@@ -456,11 +471,13 @@ def run_kernels():
         print(f"time {r['name']} [{r['shape']}]: kernel {r['ms']:.4f} ms, "
               f"plain {r['plain_ms']:.4f} ms, library {lib}, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}{rate})", flush=True)
-        if "bound_simt_ms" in r:
-            print(f"time {r['name']}: f32 SIMT bound "
-                  f"{r['bound_simt_ms']:.4f} ms; bf16 kernel "
-                  f"{r['bf16_ms']:.4f} ms, library "
-                  f"{r['bf16_library_ms']:.4f} ms, bound "
+        if "bf16_ms" in r:
+            simt = (f"f32 SIMT bound {r['bound_simt_ms']:.4f} ms; "
+                    if "bound_simt_ms" in r else "")
+            lib = ("none" if r["bf16_library_ms"] is None
+                   else f"{r['bf16_library_ms']:.4f} ms")
+            print(f"time {r['name']}: {simt}bf16 kernel "
+                  f"{r['bf16_ms']:.4f} ms, library {lib}, bound "
                   f"{r['bf16_bound_ms']:.4f} ms ({r['bf16_bound_by']})",
                   flush=True)
     return rows
@@ -543,7 +560,7 @@ def run_decode_cases(gen):
                 enable_gqa=H != KV)
 
         case = dict(
-            label=label, max_abs_err=err,
+            label=label, dtype=dname, max_abs_err=err,
             ms=time_ms(cycled(lambda k, v: fn(q, k, v, lens)), 10 * L),
             plain_ms=time_ms(cycled(
                 lambda k, v: ref.decode_attention_ref(q, k, v, lens)), 2 * L),
@@ -673,7 +690,7 @@ def run_chunk_cases(gen):
             return call
 
         case = dict(
-            label=label, max_abs_err=err,
+            label=label, dtype=dname, max_abs_err=err,
             ms=time_ms(cycled(lambda j: cv_fn(q, ckp[j], cvp[j], kc, vc, off,
                                               **kw)), 10 * L),
             plain_ms=time_ms(cycled(lambda j: ref.chunk_verify_attention_ref(
@@ -818,7 +835,7 @@ def run_paged_cases(gen):
             return call
 
         case = dict(
-            label=label, max_abs_err=err,
+            label=label, dtype=dname, max_abs_err=err,
             ms=time_ms(cycled(kern), 10 * L),
             plain_ms=time_ms(cycled(plain), 2 * L),
             bound_ms=b_ms, bound_by=b_by,
@@ -829,10 +846,14 @@ def run_paged_cases(gen):
             shape=(f"q{tuple(q.shape)} arena{tuple(ka.shape[1:])} bt"
                    f"{tuple(bt.shape)} {dname} "
                    f"{'kv_len' if kind == 'slot' else 'offsets'} {lens}"))
-        print(f"{name} [{label}] {case['shape']}: max abs err {err:.3g}; "
-              f"kernel {case['ms']:.4f} ms, plain {case['plain_ms']:.4f} "
-              f"ms, library {case['library_ms']:.4f} ms, bound "
-              f"{b_ms:.4f} ms ({b_by})", flush=True)
+        if kind == "slot":  # the band's pieces: (positions, clusters of)
+            case["splits"] = decode_attention._paged_splits("slot", q, KV,
+                                                            cap)
+        split = (f", pieces {case['splits']}" if "splits" in case else "")
+        print(f"{name} [{label}] {case['shape']}: max abs err {err:.3g}"
+              f"{split}; kernel {case['ms']:.4f} ms, plain "
+              f"{case['plain_ms']:.4f} ms, library {case['library_ms']:.4f} "
+              f"ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
         del k_all, v_all, ka, va
         if name not in rows:
             rows[name] = dict(
@@ -970,7 +991,7 @@ def run_griffin_cases(gen):
             return call
 
         case = dict(
-            label=label, max_abs_err=err,
+            label=label, dtype=dname, max_abs_err=err,
             ms=time_ms(cycled(kern), 10 * L),
             plain_ms=time_ms(cycled(plain), 2 * L),
             bound_ms=b_ms, bound_by=b_by,
@@ -982,10 +1003,15 @@ def run_griffin_cases(gen):
                    + (f"ring{tuple(kp.shape[1:])}" if bt is None else
                       f"arena{tuple(kp.shape[1:])} bt{tuple(bt.shape)}")
                    + f" {dname} window {window} positions {positions}"))
-        print(f"{name} [{label}] {case['shape']}: max abs err {err:.3g}; "
-              f"kernel {case['ms']:.4f} ms, plain {case['plain_ms']:.4f} "
-              f"ms, library {case['library_ms']:.4f} ms, bound "
-              f"{b_ms:.4f} ms ({b_by})", flush=True)
+        split = ""
+        if bt is not None:  # the band's pieces: (positions, clusters of)
+            case["splits"] = decode_attention._paged_splits("ring", q, KV,
+                                                            span)
+            split = f", pieces {case['splits']}"
+        print(f"{name} [{label}] {case['shape']}: max abs err {err:.3g}"
+              f"{split}; kernel {case['ms']:.4f} ms, plain "
+              f"{case['plain_ms']:.4f} ms, library {case['library_ms']:.4f} "
+              f"ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
         del k_ord, v_ord, kp, vp
         if name not in rows:
             rows[name] = dict(
@@ -1023,7 +1049,7 @@ def run_griffin_cases(gen):
         b_ms, b_by = bound_ms(3 * B * S * W * item
                               + (0 if h0 is None else 4 * B * W),
                               2 * B * S * W, dname)
-        case = dict(label=label, max_abs_err=err,
+        case = dict(label=label, dtype=dname, max_abs_err=err,
                     ms=time_ms(lambda: scan(a, b, h0), 10),
                     plain_ms=time_ms(lambda: ref.rglru_scan_ref(a, b, h0), 2),
                     bound_ms=b_ms, bound_by=b_by, library_ms=None,

@@ -1,6 +1,6 @@
-// Ring-buffer window slot decode for sm_90a: the kernels shared by
-// ring_decode_attention.cu (one ring row per slot) and
-// paged_ring_decode_attention.cu (the ring spread over a page arena).
+// Ring-buffer window slot decode for sm_90a: the kernels of
+// ring_decode_attention.cu (one ring row per slot).  The paged twin,
+// paged_ring_decode_attention.cu, runs the paged body of paged_decode.cuh.
 //
 // Computes, for each slot b at query position pos = slot_positions[b],
 //   out[b,h,:] = softmax_{p in band}(q[b,h,:] . K[p,h/G,:] * scale) @ V[p,h/G,:]
@@ -48,7 +48,6 @@ constexpr int NWARP = NT / 32;
 constexpr int CHUNK = 64;  // band positions per block
 constexpr int GMAX = 16;    // query heads per kv head
 constexpr int U = 4;        // positions per warp per phase-1 iteration
-constexpr int MAX_NBLK = 2048;  // paged: table entries per row (8 KB)
 constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -95,19 +94,6 @@ struct DenseRows {
   int ring;
   __device__ __forceinline__ long long operator()(int p) const {
     return base + (long long)(p % ring) * stride;
-  }
-};
-
-// ... in a page arena (n_pages, page, KV, hd): slot s = p % ring sits at
-// page bt[s / page] (the block's table row, clamped, in shared memory).
-struct PagedRows {
-  const int* bt;
-  long long stride;  // KV * hd
-  int ring, page;
-  __device__ __forceinline__ long long operator()(int p) const {
-    const int s = p % ring;
-    const int blk = s / page;
-    return ((long long)bt[blk] * page + (s - blk * page)) * stride;
   }
 };
 
@@ -294,7 +280,7 @@ ring_combine_kernel(float* __restrict__ work, const int* __restrict__ pos_b,
   store(&ob[i], A / fmaxf(L, 1e-30f));
 }
 
-// Checks shared by both entries; returns 0 when the geometry is taken.
+// The entry's checks; returns 0 when the geometry is taken.
 inline int check_geometry(int B, int KV, int H, int hd, int ring, int window,
                           int nsplit) {
   if (B < 0 || KV < 1 || H % KV || H / KV < 1 || H / KV > GMAX)

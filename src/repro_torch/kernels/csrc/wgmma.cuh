@@ -37,11 +37,9 @@
 
 #include <cstdint>
 
-namespace tc {
+#include "mbarrier.cuh"  // smem_u32, mbarriers, bulk copies
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+namespace tc {
 
 // ---- asynchronous copies ---------------------------------------------------
 
@@ -122,42 +120,6 @@ __device__ __forceinline__ uint64_t kmajor_desc(const void* tile, int R,
          ((uint64_t)(sbo >> 4) << 32);
 }
 
-// ---- barriers and bulk copies (a producer warp fills a ring of slots;
-// consumers wait on a slot's "full" barrier and release it on "empty") -----
-__device__ __forceinline__ void mbar_init(uint64_t* b, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(b)),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect(uint64_t* b, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(b)),
-      "r"(bytes)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(b))
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* b, int parity) {
-  asm volatile(
-      "{\n.reg .pred p;\nWAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n}\n" ::"r"(smem_u32(b)),
-      "r"(parity)
-      : "memory");
-}
-// `bytes` (a multiple of 16) from device memory, counted on barrier b
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          int bytes, uint64_t* b) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(b))
-      : "memory");
-}
 // one box of a tensor map at coordinates c (innermost first; zeros outside
 // the tensor), counted on barrier b
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,

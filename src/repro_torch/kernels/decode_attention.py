@@ -8,7 +8,8 @@ window cache), and their twins over a paged pool,
 ``csrc/paged_slot_decode_attention.cu``,
 ``csrc/paged_chunk_verify_attention.cu`` and
 ``csrc/paged_ring_decode_attention.cu`` (page arenas read through per-row
-block tables).
+block tables; the paged slot and ring kernels share one body,
+``csrc/paged_decode.cuh``, split by ``paged_decode_splits``).
 
 Each checks what its kernel takes, allocates the output, launches on the
 current stream and counts launches in ``<wrapper>.launches``.  ``ops``
@@ -277,11 +278,58 @@ def _check_arena(what, arenas, bt, B, KV, hd):
                          f"1..{NBLK_MAX}")
 
 
+PAGED_TILE = 32  # positions a tile of the paged body (TR in the .cuh)
+PAGED_CLUSTER_MAX = 16  # pieces of one band: a thread-block cluster
+# blocks an SM at most: past about 4.5 the clusters' launch and merge cost
+# more than the split gains (gpt-base's 96 bands on an H100)
+PAGED_LOAD = 4.5
+
+
+def paged_decode_splits(B, KV, span, n_sm, per_sm):
+    """(chunk, nsplit): each (row, kv head) band of up to ``span``
+    positions cut into ``nsplit`` pieces of ``chunk`` positions (a
+    multiple of PAGED_TILE), one thread-block cluster a band.  The B * KV
+    bands take as many blocks as the card holds at once (``per_sm`` an SM
+    of its ``n_sm``), at most PAGED_LOAD an SM and PAGED_CLUSTER_MAX a
+    band.  The paged slot and ring kernels take it
+    (``csrc/paged_decode.cuh``); their pieces merge in the launch."""
+    blocks = int(min(per_sm, PAGED_LOAD) * n_sm)
+    want = min(PAGED_CLUSTER_MAX, max(1, blocks // max(1, B * KV)))
+    chunk = -(-max(1, span) // want)
+    chunk = -(-chunk // PAGED_TILE) * PAGED_TILE
+    return chunk, -(-max(1, span) // chunk)
+
+
+@functools.lru_cache(maxsize=None)
+def _paged_per_sm(kind, device, dtype, hd, G):
+    """Blocks of the paged ``kind`` ("slot" or "ring") kernel's instance an
+    SM holds at once (CUDA's occupancy for its threads and shared
+    memory)."""
+    name = f"paged_{kind}_decode_attention"
+    fn = getattr(build.load(name), f"{name}_blocks_per_sm")
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = fn(DTYPES[dtype], hd, G, ctypes.addressof(n))
+    if rc != 0 or n.value < 1:
+        raise RuntimeError(f"{name}: occupancy query failed (CUDA error "
+                           f"{rc}, {n.value} blocks an SM)")
+    return n.value
+
+
+def _paged_splits(kind, q, KV, span):
+    B, H, hd = q.shape
+    return paged_decode_splits(
+        B, KV, span, _sm_count(q.device),
+        _paged_per_sm(kind, q.device, q.dtype, hd, H // KV))
+
+
 def _paged_slot_entry():
     fn = build.load("paged_slot_decode_attention"
                     ).paged_slot_decode_attention_fwd
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -306,12 +354,14 @@ def paged_slot_decode_attention(q, k, v, bt, kv_len):
                          f"{tuple(kv_len.shape)} {kv_len.dtype})")
     _check_heads(what, H, KV, hd)
     n_pages, page = k.shape[:2]
+    nblk = bt.shape[1]
+    chunk, nsplit = _paged_splits("slot", q, KV, nblk * page)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         rc = _paged_slot_entry()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bt.data_ptr(),
             kv_len.data_ptr(), out.data_ptr(), DTYPES[q.dtype], B, n_pages,
-            page, bt.shape[1], KV, H, hd, hd ** -0.5,
+            page, nblk, KV, H, hd, chunk, nsplit, hd ** -0.5,
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
@@ -406,7 +456,7 @@ def _check_ring(what, q, KV, slot_positions, window, ring):
         raise ValueError(f"{what}: window must be >= 1 (got {window})")
     if ring < 1:
         raise ValueError(f"{what}: the ring needs at least one slot")
-    # blocks per (b, kv head): the band splits into chunks of RING_CHUNK
+    # the dense kernel's blocks per (b, kv head): chunks of RING_CHUNK
     return -(-min(window, ring) // RING_CHUNK)
 
 
@@ -465,7 +515,7 @@ def _paged_ring_entry():
     fn = build.load("paged_ring_decode_attention"
                     ).paged_ring_decode_attention_fwd
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 11
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -487,16 +537,15 @@ def paged_ring_decode_attention(q, k, v, bt, slot_positions, *, window):
     _check_arena(what, (("k", k), ("v", v)), bt, B, KV, hd)
     n_pages, page = k.shape[:2]
     nblk = bt.shape[1]
-    nsplit = _check_ring(what, q, KV, slot_positions, window, nblk * page)
+    _check_ring(what, q, KV, slot_positions, window, nblk * page)
+    chunk, nsplit = _paged_splits("ring", q, KV, min(window, nblk * page))
     out = torch.empty_like(q)
-    work = _ring_work(q, KV, nsplit)
     with torch.cuda.device(q.device):
         rc = _paged_ring_entry()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bt.data_ptr(),
-            slot_positions.data_ptr(), out.data_ptr(), work.data_ptr(),
-            DTYPES[q.dtype], B, n_pages, page, nblk, KV, H, hd, window,
-            nsplit, hd ** -0.5,
-            torch.cuda.current_stream(q.device).cuda_stream)
+            slot_positions.data_ptr(), out.data_ptr(), DTYPES[q.dtype], B,
+            n_pages, page, nblk, KV, H, hd, window, chunk, nsplit,
+            hd ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
     paged_ring_decode_attention.launches += 1

@@ -21,6 +21,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import grow as growlib
 from repro_torch.core import mango, packing
 from repro_torch.data import lm_batch
+from repro_torch.kernels import decode_attention as kda
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.decode_attention import (
     chunk_verify_attention as cuda_chunk,
@@ -795,6 +796,108 @@ def test_cuda_paged_ring_decode_matches_plain(cuda_device, G, hd, dtype,
                                                window=window)
     torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
     assert (got[0] == 0).all()
+
+
+# The paged slot and ring kernels share one body (csrc/paged_decode.cuh):
+# each (row, kv head) band is cut into pieces (``paged_decode_splits``),
+# one thread-block cluster a band, merged in the launch.
+PAGED_EDGE_GRID = [(kind, G, hd, dtype, page)
+                   for kind, G, hd in (("slot", 8, 128), ("ring", 8, 128),
+                                       ("ring", 10, 256))
+                   for dtype in (torch.float32, torch.bfloat16)
+                   for page in (8, 24, 64)]
+
+
+def _paged_edge_case(dev, kind, G, hd, dtype, page):
+    """Inputs at the body's edges, from the split the wrapper will take:
+    bands shorter than one piece (the other ranks get nothing), ending on
+    a piece boundary and on a page boundary, the full table and past it
+    (slot), wrapped rings (ring), a sentinel entry inside an attended
+    band, a done row.  Pages 8 and 24 cut the pieces of 32 positions
+    across pages; window > ring at page 8, < ring at 24, = ring at 64."""
+    KV = 1 if G == 10 else 2
+    nblk = 12
+    cap = nblk * page
+    window = {8: 1000, 24: 100, 64: cap}[page]
+    span = cap if kind == "slot" else min(window, cap)
+    g = torch.Generator(device=dev).manual_seed(G + hd + page)
+    q = torch.randn(8, G * KV, hd, generator=g, device=dev).to(dtype)
+    chunk, nsplit = kda._paged_splits(kind, q, KV, span)  # the wrapper's
+    assert nsplit > 1
+    if kind == "slot":
+        rows = [0, 1, chunk - 1, chunk, 2 * page, cap, cap + 5, 3 * page + 2]
+    else:
+        rows = [-1, 0, chunk - 1, chunk, 2 * page - 1, cap - 1, cap + 3,
+                3 * cap + 7]
+    B = len(rows)
+    n_pages = B * nblk - 5
+    perm = torch.randperm(n_pages, generator=torch.Generator().manual_seed(
+        page + G), dtype=torch.int32)
+    bt = perm[torch.arange(B * nblk) % n_pages].reshape(B, nblk)
+    bt[4, 1] = n_pages  # the sentinel inside row 4's band (blocks 0, 1)
+    bt[7, 2] = n_pages + 7  # and inside row 7's (its band covers block 2)
+    k, v = (torch.randn(n_pages, page, KV, hd, generator=g,
+                        device=dev).to(dtype) for _ in range(2))
+    rows = torch.tensor(rows, dtype=torch.int32, device=dev)
+    return q, k, v, bt.contiguous().to(dev), rows, window
+
+
+@pytest.mark.parametrize("kind,G,hd,dtype,page", PAGED_EDGE_GRID)
+def test_cuda_paged_decode_body_edges_match_plain(cuda_device, kind, G, hd,
+                                                  dtype, page):
+    q, k, v, bt, rows, window = _paged_edge_case(cuda_device, kind, G, hd,
+                                                 dtype, page)
+    if kind == "slot":
+        fn = cuda_paged_slot
+        n0 = fn.launches
+        got = fn(q, k, v, bt, rows)
+        want = ref.paged_slot_decode_attention_ref(q, k, v, bt, rows)
+        done = rows <= 0
+    else:
+        fn = cuda_paged_ring
+        n0 = fn.launches
+        got = fn(q, k, v, bt, rows, window=window)
+        want = ref.paged_ring_decode_attention_ref(q, k, v, bt, rows,
+                                                   window=window)
+        done = rows < 0
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+    assert bool(done.any()) and (got[done] == 0).all()
+    assert torch.isfinite(got.float()).all()
+
+
+@pytest.mark.parametrize("kind", ["slot", "ring"])
+def test_cuda_paged_decode_is_one_kernel_and_one_allocation(cuda_device,
+                                                            kind):
+    """One call puts exactly one kernel on the device (the in-launch merge:
+    no merge kernel, no memset) and allocates only its output (no
+    workspace)."""
+    q, k, v, bt, rows, window = _paged_edge_case(
+        cuda_device, kind, 10 if kind == "ring" else 8,
+        256 if kind == "ring" else 128, torch.bfloat16, 64)
+    if kind == "slot":
+        def call():
+            return cuda_paged_slot(q, k, v, bt, rows)
+    else:
+        def call():
+            return cuda_paged_ring(q, k, v, bt, rows, window=window)
+    call()
+    torch.cuda.synchronize()
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    device_ops = [e.name for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+    assert len(device_ops) == 1 and "paged_decode_kernel" in device_ops[0], \
+        device_ops
+    n_alloc = torch.cuda.memory_stats()["allocation.all.allocated"]
+    out = call()
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] == \
+        n_alloc + 1
+    assert out.shape == q.shape
 
 
 @pytest.mark.parametrize("B,S,W", [(8, 4096, 2560), (3, 37, 50),

@@ -32,6 +32,9 @@ from repro_torch.kernels.decode_attention import (
     paged_chunk_verify_attention as cuda_paged_chunk,
 )
 from repro_torch.kernels.decode_attention import (
+    paged_decode_splits,
+)
+from repro_torch.kernels.decode_attention import (
     paged_slot_decode_attention as cuda_paged_slot,
 )
 from repro_torch.launch import serve as launch_serve
@@ -340,6 +343,25 @@ def test_cpu_tensors_take_the_plain_versions_and_wrappers_refuse_them():
     with pytest.raises(ValueError, match="CUDA tensor"):
         cuda_paged_chunk(q[:, None], k, v, bt, k[:2, :1], v[:2, :1], kvl,
                          ring=False)
+
+
+@pytest.mark.parametrize("B,KV,span,per_sm,want", [
+    (8, 12, 1024, 3, (256, 4)),   # gpt-base f32: 3 blocks an SM, one wave
+    (8, 12, 1024, 5, (192, 6)),   # gpt-base bf16: 5 an SM, capped at 4.5
+    (8, 1, 2048, 1, (128, 16)),   # recurrentgemma-2b: a 16-block cluster
+    (8, 8, 1024, 3, (192, 6)),    # qwen3-0.6b's paged pool (hd 128, G 2)
+    (3, 2, 37, 4, (32, 2)),       # ragged: pieces of one tile
+    (64, 32, 4096, 3, (4096, 1)),  # more bands than the card holds
+])
+def test_paged_decode_splits_pin_the_cut_of_each_band(B, KV, span, per_sm,
+                                                      want):
+    """The paged slot and ring kernels' split (132 SMs, an H100 SXM): each
+    band in pieces of a multiple of 32 positions, at most 16 (one
+    thread-block cluster), covering the band with no empty last piece."""
+    chunk, nsplit = paged_decode_splits(B, KV, span, 132, per_sm)
+    assert (chunk, nsplit) == want
+    assert chunk % 32 == 0 and 1 <= nsplit <= 16
+    assert chunk * (nsplit - 1) < span <= chunk * nsplit
 
 
 # ------------------------------------------------------------ the model
