@@ -846,10 +846,13 @@ def run_paged_cases(gen):
             shape=(f"q{tuple(q.shape)} arena{tuple(ka.shape[1:])} bt"
                    f"{tuple(bt.shape)} {dname} "
                    f"{'kv_len' if kind == 'slot' else 'offsets'} {lens}"))
-        if kind == "slot":  # the band's pieces: (positions, clusters of)
-            case["splits"] = decode_attention._paged_splits("slot", q, KV,
-                                                            cap)
-        split = (f", pieces {case['splits']}" if "splits" in case else "")
+        # the band's pieces: (positions, a cluster of); a verify's rows a
+        # tile and tiles first
+        case["splits"] = (
+            decode_attention._paged_splits(name, q, KV, cap)
+            if kind == "slot" else
+            decode_attention._verify_plan(q, KV, cap, None))
+        split = f", pieces {case['splits']}"
         print(f"{name} [{label}] {case['shape']}: max abs err {err:.3g}"
               f"{split}; kernel {case['ms']:.4f} ms, plain "
               f"{case['plain_ms']:.4f} ms, library {case['library_ms']:.4f} "
@@ -1003,11 +1006,9 @@ def run_griffin_cases(gen):
                    + (f"ring{tuple(kp.shape[1:])}" if bt is None else
                       f"arena{tuple(kp.shape[1:])} bt{tuple(bt.shape)}")
                    + f" {dname} window {window} positions {positions}"))
-        split = ""
-        if bt is not None:  # the band's pieces: (positions, clusters of)
-            case["splits"] = decode_attention._paged_splits("ring", q, KV,
-                                                            span)
-            split = f", pieces {case['splits']}"
+        # the band's pieces: (positions, a cluster of)
+        case["splits"] = decode_attention._paged_splits(name, q, KV, span)
+        split = f", pieces {case['splits']}"
         print(f"{name} [{label}] {case['shape']}: max abs err {err:.3g}"
               f"{split}; kernel {case['ms']:.4f} ms, plain "
               f"{case['plain_ms']:.4f} ms, library {case['library_ms']:.4f} "
@@ -1577,6 +1578,16 @@ def run_grow(kernel_rows):
 SPEC_D, SPEC_K = 4, 2
 
 
+def spec_groups(eng):
+    """Admission groups of a speculative engine: it counts two prefills a
+    group (the target's and the draft's), as the reference does."""
+    groups, odd = divmod(eng.n_prefills, 2)
+    if odd:
+        raise AssertionError(f"a speculative engine counted {eng.n_prefills} "
+                             "prefills, not two an admission group")
+    return groups
+
+
 def run_speculative(kernel_rows, small, big):
     """Phase 6: the grown gpt-base (phase 5's ``big``) served by the
     speculative engine with the pretrained gpt-small (``small``) drafting,
@@ -1625,16 +1636,17 @@ def run_speculative(kernel_rows, small, big):
     _, _, tps_plain_b, _ = timed_run(engine(), reqs)
     n_tok = sum(len(v) for v in out.values())
     blocks = SPEC_K * eng.n_decode_dispatches
+    groups = spec_groups(eng)
     want = {name: 0 for name in kern}
     want.update(
         chunk_verify_attention=(cfg_t.n_layers + cfg_s.n_layers) * blocks,
         slot_decode_attention=cfg_s.n_layers * SPEC_D * blocks,
-        flash_attention=(cfg_t.n_layers + cfg_s.n_layers) * eng.n_prefills)
+        flash_attention=(cfg_t.n_layers + cfg_s.n_layers) * groups)
     if launches != want or eng.n_spec_fallbacks:
         raise AssertionError(f"speculative path launched {launches}, "
                              f"expected {want} ({eng.n_decode_dispatches} "
                              f"dispatches of {SPEC_K} blocks, "
-                             f"{eng.n_prefills} admission groups, "
+                             f"{groups} admission groups, "
                              f"{eng.n_spec_fallbacks} fallbacks)")
     kernel_rows["chunk_verify_attention"]["launches"] = launches[
         "chunk_verify_attention"]
@@ -1930,17 +1942,18 @@ def run_paged_speculative(kernel_rows, small, big, reqs, plain):
     _, _, tps_dense_b, _ = timed_run(engine("dense"), reqs)
     n_tok = sum(len(v) for v in out.values())
     blocks = SPEC_K * eng.n_decode_dispatches
+    groups = spec_groups(eng)
     want = {name: 0 for name in kern}
     want.update(
         paged_chunk_verify_attention=(cfg_t.n_layers + cfg_s.n_layers)
         * blocks,
         paged_slot_decode_attention=cfg_s.n_layers * SPEC_D * blocks,
-        flash_attention=(cfg_t.n_layers + cfg_s.n_layers) * eng.n_prefills)
+        flash_attention=(cfg_t.n_layers + cfg_s.n_layers) * groups)
     if launches != want or eng.n_spec_fallbacks or eng.pages_in_use:
         raise AssertionError(f"paged speculative path launched {launches}, "
                              f"expected {want} ({eng.n_decode_dispatches} "
                              f"dispatches of {SPEC_K} blocks, "
-                             f"{eng.n_prefills} admission groups, "
+                             f"{groups} admission groups, "
                              f"{eng.n_spec_fallbacks} fallbacks, "
                              f"{eng.pages_in_use} pages left in use)")
     kernel_rows["paged_chunk_verify_attention"]["launches"] = launches[
@@ -2476,20 +2489,21 @@ def run_qwen(kernel_rows):
         launches = {name: fn.launches for name, fn in kern.items()}
         peak = torch.cuda.max_memory_allocated()
         steps = eng.k * eng.n_decode_dispatches
+        groups = spec_groups(eng) if spec else eng.n_prefills
         want = {name: 0 for name in kern}
         if spec:
             want.update(chunk_verify_attention=2 * L * steps,
                         slot_decode_attention=L * QWEN_D * steps,
-                        flash_attention=2 * L * eng.n_prefills)
+                        flash_attention=2 * L * groups)
         else:
             slot = ("paged_slot_decode_attention" if pool == "paged"
                     else "slot_decode_attention")
             want.update({slot: L * (steps + eng.n_prefix_tail_steps),
-                         "flash_attention": L * eng.n_prefills})
+                         "flash_attention": L * groups})
         if launches != want or eng.n_spec_fallbacks:
             raise AssertionError(f"qwen3 {label} engine launched {launches},"
                                  f" expected {want} ({steps} decode steps or "
-                                 f"blocks, {eng.n_prefills} admission "
+                                 f"blocks, {groups} admission "
                                  f"groups, {eng.n_spec_fallbacks} "
                                  "fallbacks)")
         if pool == "paged" and eng.pages_in_use:
@@ -2508,7 +2522,7 @@ def run_qwen(kernel_rows):
               f"{dt:.3f} s: {tps:.1f} tok/s, "
               f"{eng.n_host_syncs / n_tok:.4f} host syncs/token "
               f"({eng.n_host_syncs} syncs, {eng.n_decode_dispatches} "
-              f"macro-steps, {eng.n_prefills} prefill groups); pool "
+              f"macro-steps, {groups} prefill groups); pool "
               f"{runs[label]['pool_bytes'] / 2**20:.1f} MiB; peak "
               f"{(peak - held) / 2**20:.1f} MiB above the "
               f"{held / 2**20:.1f} MiB held; admissions refused for pages "

@@ -1,65 +1,89 @@
-// One-query decode over a PAGED pool for sm_90a: the body shared by
-// paged_slot_decode_attention.cu and paged_ring_decode_attention.cu.
+// Decode-side attention over a PAGED or DENSE pool for sm_90a: the body
+// shared by paged_slot_decode_attention.cu, paged_ring_decode_attention.cu,
+// ring_decode_attention.cu and paged_chunk_verify_attention.cu.
 //
-// Computes, for each row b and kv head h,
-//   out[b,hG+g,:] = softmax_{p in band}(q[b,hG+g,:] . K[p] * scale) @ V[p]
-// where position p of row b sits in slot s = p % cap (cap = nblk * page)
-// of its block table: K[p] = k[bt[b, s / page], s % page, h, :].  A table
-// entry outside [0, n_pages) (the sentinel n_pages of a block the row
-// never got) clamps to page n_pages - 1, as in the reference; no read
-// leaves the arena, and the arenas are never written.  The band is
-//   slot (RING false, rowarg = kv_len):   [0, min(kv_len, cap))
-//   ring (RING true, rowarg = position):  [max(0, pos - min(window, cap)
-//                                          + 1), pos]
-// walked by position, so no negative number is ever divided.  An empty
-// band (kv_len <= 0, pos < 0: an idle or finished slot) writes exact
-// zeros.  float32 and bfloat16; the ring takes hd in {64, 128, 256} and
-// G = H / KV in 1..16, the slot hd in {64, 128} and G up to 8.  Softmax
-// state and sums are float32, products float32 FMAs.
+// Computes, for each row b, kv head h and query row r of the group,
+//   out[r,:] = softmax_{p in band, p seen by r}(q[r,:] . K[p] * scale) @ V[p]
+// over one band of key positions of (b, h).  The row address is a
+// compile-time policy (DENSE):
+//   paged: position p of row b sits in slot s = p % cap (cap = nblk *
+//          page) of its block table: K[p] = k[bt[b, s / page], s % page,
+//          h, :].  A table entry outside [0, n_pages) (the sentinel
+//          n_pages of a block the row never got) clamps to page n_pages -
+//          1, as in the reference; no read leaves the arena;
+//   dense: the pool (B, cap, KV, hd) is an arena of B pages of cap rows
+//          and row b owns page b (no table is read).
+// The band kind (KIND) sets the band and the query rows:
+//   SLOT   (rowarg = kv_len):    [0, min(kv_len, cap)); the G heads of h;
+//   RING   (rowarg = position):  [max(0, pos - min(window, cap) + 1), pos],
+//                                walked by position, so no negative number
+//                                is ever divided; the G heads of h;
+//   VERIFY (rowarg = offset):    the cache [lo, min(off, cap)), lo = max(0,
+//                                off - window + 1) with a window, then the
+//                                chunk's own S keys kc/vc (B, S, KV, hd) at
+//                                positions off .. off + S - 1; the S * G
+//                                query rows (i, g), i at position off + i,
+//                                in tiles of at most 16 (grid z).  Row i
+//                                sees a key at kpos iff kpos <= off + i and,
+//                                with a window, kpos > off + i - window:
+//                                masked keys weigh exactly 0.
+// An empty band (kv_len <= 0, pos < 0, off < 0: an idle or finished slot)
+// writes exact zeros; the pools are never written.  float32 and bfloat16;
+// the ring takes hd in {64, 128, 256} and G = H / KV in 1..16, the slot hd
+// in {64, 128} and G up to 8, the verify hd in {64, 128}, G up to 16 and S
+// in 1..16.  Softmax state and sums are float32, products float32 FMAs.
 //
 // Bound on the H100: bytes.  Each band position's K and V row is read
-// once, sum_b n_b * KV * hd * 2 * itemsize bytes, at ~2 * G FLOPs a byte
-// (float32) -- far below the ridge point, so 3.35 TB/s is the roof.
+// once, sum_b n_b * KV * hd * 2 * itemsize bytes, at ~2 * (query rows)
+// FLOPs a byte (float32) -- far below the ridge point, so 3.35 TB/s is
+// the roof.
 //
 // Design, for what held the earlier kernels back (one latency chain per
 // iteration, the longest row on one SM, a merge kernel and a workspace):
-//  1. Split the band, merge in the launch.  Each (b, kv head) band is cut
-//     into `nsplit` pieces of `chunk` positions (a host choice,
-//     `paged_decode_splits` in kernels/decode_attention.py); the pieces of
-//     one band are one thread-block cluster (grid (nsplit, KV, B), cluster
-//     (nsplit, 1, 1), nsplit <= 16).  Each block leaves its piece's
-//     partial (m, l, acc) in its shared memory; after a cluster barrier
-//     every rank merges a slice of the band's G * hd outputs, reading the
-//     partials of the ranks that hold positions through distributed shared
-//     memory (all loads in flight at once), and a second barrier keeps
-//     each block alive until it has been read.  One launch, no workspace.
+//  1. Split the band, merge in the launch.  Each band is cut into `nsplit`
+//     pieces of `chunk` positions (a host choice, `paged_decode_splits` in
+//     kernels/decode_attention.py, covering the longest band a row can
+//     have); a verify's band cuts its own length, which only the device
+//     knows, into nsplit pieces of a multiple of 32 positions instead (a
+//     verify's cache is rarely full; the slot's and the ring's bands are,
+//     and an even spread only crowds their SMs).  The pieces of one band
+//     are one thread-block cluster (grid (nsplit, KV, B * tiles), cluster (nsplit,
+//     1, 1), nsplit <= 16).  Each block leaves its piece's partial (m, l,
+//     acc) in its shared memory; after a cluster barrier every rank merges
+//     a slice of the band's outputs, reading the partials of the ranks that
+//     hold positions through distributed shared memory (all loads in
+//     flight at once), and a second barrier keeps each block alive until
+//     it has been read.  One launch, no workspace.
 //  2. Stage K/V asynchronously.  One producer warp walks the piece a tile
 //     of 32 positions at a time: each lane resolves one position to its
-//     page (the table entry read once per position, by one lane) and
-//     issues `cp.async.bulk` copies of its K and V rows (hd * itemsize
-//     contiguous bytes) into a ring of S stages, counted on the stage's
-//     mbarrier.  With KV == 1 the rows of a page are contiguous and one
-//     copy takes the whole run up to the page's end; on the slot band,
-//     whose tiles start on multiples of 32, pages of whole tiles take one
-//     TMA box (hd x 1 head x 32 rows, strided) a tile instead.  The next
-//     tiles land while the consumers compute on this one.
+//     row (the table entry read once per position, by one lane; the
+//     verify's chunk keys come from kc/vc) and issues `cp.async.bulk`
+//     copies of its K and V rows (hd * itemsize contiguous bytes) into a
+//     ring of S stages, counted on the stage's mbarrier.  With KV == 1 the
+//     rows of a page (and of a chunk) are contiguous and one copy takes
+//     the whole run up to its end; on a band whose tiles start on
+//     multiples of 32 (slot; verify without a window), pages of whole
+//     tiles take one TMA box (hd x 1 head x 32 rows, strided) a cache tile
+//     instead.  The next tiles land while the consumers compute on this
+//     one.
 //  3. Compute from shared memory, four consumer warps, per tile of 32
 //     positions:
 //     a. logits: L threads a row (4, or 8 over two rows 16 apart when the
-//        group has 8 or more heads, so each q read serves two rows), each
-//        a strided share of the hd dot products for every head, then
-//        log2(L) shuffles; the chunk order is rotated by row so the K
+//        block has 8 or more query rows, so each q read serves two rows),
+//        each a strided share of the hd dot products for every query row,
+//        then log2(L) shuffles; the chunk order is rotated by row so the K
 //        reads hit distinct banks, and q sits in 16-byte planes so a
-//        warp's q reads are contiguous;
-//     b. online softmax, every head at once: 128 / heads lanes a head
+//        warp's q reads are contiguous; the verify masks here;
+//     b. online softmax, every query row at once: 128 / rows lanes a row
 //        (at most 32), a few positions a lane;
 //     c. P @ V: each thread owns a 16-byte column chunk of V for a set of
-//        heads (or, when the group has fewer heads than thread groups, one
-//        head over a class of positions, summed before the merge).
+//        rows (or, when the block has fewer rows than thread groups, one
+//        row over a class of positions, summed before the merge).
 //     Float32 FMAs throughout (bfloat16 converted on load), so float32
-//     matches the plain version to summation order.  The group's head
-//     count is a compile-time 1, 2, 4, 8, 10 (recurrentgemma-2b) or 16;
-//     other counts run in the next one up with zero q rows.
+//     matches the plain version to summation order.  The block's query row
+//     count is a compile-time 1, 2, 4, 8, 10 (recurrentgemma-2b's group,
+//     qwen3-0.6b's self-draft verify) or 16; other counts run in the next
+//     one up with zero q rows.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -73,27 +97,31 @@ namespace pdec {
 
 namespace cg = cooperative_groups;
 
+enum Kind : int { SLOT = 0, RING = 1, VERIFY = 2 };  // the band kinds
+
 constexpr int NCW = 4;         // consumer warps
 constexpr int NC = NCW * 32;   // consumer threads
 constexpr int NT = NC + 32;    // and one producer warp
 constexpr int CLUSTER_MAX = 16;  // pieces of one band (a cluster)
-// Bytes of K + V stages at most: the slot kernel keeps three blocks an SM
-// at hd 64 in float32 (gpt-base: 96 bands); a ring band of one KV head
-// (recurrentgemma-2b: 8 bands of 16 blocks) has an SM to itself and keeps
-// a third bfloat16 stage in flight
-__host__ __device__ constexpr int stage_bytes(bool ring) {
-  return (ring ? 96 : 64) * 1024;
+constexpr int ROWS_MAX = 16;     // query rows a block
+constexpr int CHUNK_MAX = 16;    // a verify chunk's keys
+// Bytes of K + V stages at most: the slot and verify kernels keep three
+// blocks an SM at hd 64 in float32 (gpt-base: 96 bands); a ring band of one
+// KV head (recurrentgemma-2b: 8 bands of 16 blocks) has an SM to itself and
+// keeps a third bfloat16 stage in flight
+__host__ __device__ constexpr int stage_bytes(int kind) {
+  return (kind == RING ? 96 : 64) * 1024;
 }
 constexpr float NEG_INF = -1e30f;
 
 // Tile geometry of a (type, head_dim, band) instance.
-template <typename T, int HD, bool RING>
+template <typename T, int HD, int KIND>
 struct Geo {
   static constexpr int R = HD * (int)sizeof(T);  // bytes of a K or V row
   static constexpr int TR = 32;       // positions a tile
   static constexpr int C = R / 16;    // 16-byte chunks a row
   static constexpr int VALS = 16 / (int)sizeof(T);  // values a chunk
-  static constexpr int S0 = stage_bytes(RING) / (2 * TR * R);
+  static constexpr int S0 = stage_bytes(KIND) / (2 * TR * R);
   static constexpr int S = S0 > 4 ? 4 : S0 < 2 ? 2 : S0;  // stages (2..4)
   static constexpr int NR = NC / C;   // P @ V thread groups (2..16)
   static constexpr int SP = TR + 4;   // row stride of the P tile (floats)
@@ -103,16 +131,16 @@ __host__ __device__ constexpr int pow2ceil(int x) {
   return x <= 1 ? 1 : 2 * pow2ceil((x + 1) / 2);
 }
 
-// Shared memory of an instance (GC heads a group, compile time): barriers,
+// Shared memory of an instance (GC query rows, compile time): barriers,
 // the K and V rings, q (float), the partial accumulators, P (two tiles),
-// alpha (two tiles), m, l.
-template <typename T, int HD, int GC, bool RING>
+// alpha (two tiles), m, l and, for a verify, each row's query position.
+template <typename T, int HD, int GC, int KIND>
 constexpr int smem_bytes() {
-  using G_ = Geo<T, HD, RING>;
+  using G_ = Geo<T, HD, KIND>;
   constexpr int GP = pow2ceil(GC);
   constexpr int PF = G_::NR > GP ? G_::NR / GP : 1;
   return 128 + 2 * G_::S * G_::TR * G_::R + (GC + PF * GP) * HD * 4 +
-         (2 * GC * G_::SP + 4 * GC) * 4;
+         (2 * GC * G_::SP + 4 * GC) * 4 + (KIND == VERIFY ? GC * 4 : 0);
 }
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -146,18 +174,22 @@ __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(NC) : "memory");
 }
 
-// GC: the group's heads at compile time (1, 2, 4, 8, 10 or 16); a group of
-// G < GC heads runs with the q rows past G zero and their outputs dropped.
-template <typename T, int HD, int GC, bool RING>
+// GC: the block's query rows at compile time (1, 2, 4, 8, 10 or 16); a
+// block of fewer rows runs with the q rows past them zero and their outputs
+// dropped.  A verify's chunk has `slen` keys and its query rows come in
+// tiles of `rows` (slen and rows are 1 and G outside a verify).
+template <typename T, int HD, int GC, int KIND, bool DENSE>
 __global__ void __launch_bounds__(NT)
 paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const int* __restrict__ bt,
+                    const T* __restrict__ v, const T* __restrict__ kc,
+                    const T* __restrict__ vc, const int* __restrict__ bt,
                     const int* __restrict__ rowarg, T* __restrict__ o,
                     const __grid_constant__ CUtensorMap kmap,
                     const __grid_constant__ CUtensorMap vmap, int tma,
-                    int n_pages, int page, int nblk, int KV, int G,
-                    int window, int chunk, float scale) {
-  using Gm = Geo<T, HD, RING>;
+                    int n_pages, int page, int nblk, int KV, int G, int slen,
+                    int rows, int window, int chunk, float scale) {
+  using Gm = Geo<T, HD, KIND>;
+  constexpr bool VER = KIND == VERIFY;
   constexpr int TR = Gm::TR, C = Gm::C, VALS = Gm::VALS;
   constexpr int S = Gm::S, NR = Gm::NR, SP = Gm::SP, R = Gm::R;
   constexpr int PB = GC >= 8 ? 2 : 1;  // logit rows a thread (q reuse)
@@ -183,33 +215,67 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* sAlpha = sP + 2 * GC * SP;      // [2][GC]
   float* sM = sAlpha + 2 * GC;           // [GC]
   float* sL = sM + GC;                   // [GC]
+  int* sQp = reinterpret_cast<int*>(sL + GC);  // [GC] verify: query position
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int rank = blockIdx.x, nsplit = gridDim.x;
-  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int kvh = blockIdx.y;
+  // a verify's blocks of one row b are its tiles of query rows (i, g)
+  const int tiles = VER ? (slen * G + rows - 1) / rows : 1;
+  const int b = VER ? blockIdx.z / tiles : blockIdx.z;
+  const int r0 = VER ? (blockIdx.z - b * tiles) * rows : 0;  // first row
+  const int nq = VER ? min(rows, slen * G - r0) : G;  // rows this block answers
   const int cap = nblk * page;
-  int lo = 0, n;
-  if (RING) {
+  // the band [lo, lo + n); a verify's cache part ends at ce, its chunk's
+  // keys follow (key position pos0 + t for chunk row t)
+  int lo = 0, n, ce = 0, pos0 = 0;
+  if constexpr (KIND == RING) {
     const int pos = rowarg[b];
     n = 0;
     if (pos >= 0) {
       lo = max(0, pos - min(window, cap) + 1);
       n = pos + 1 - lo;
     }
+  } else if constexpr (VER) {
+    pos0 = rowarg[b];
+    n = 0;
+    if (pos0 >= 0) {
+      lo = window > 0 ? max(0, pos0 - window + 1) : 0;
+      ce = max(lo, min(pos0, cap));
+      n = ce - lo + slen;
+    }
   } else {
     n = min(rowarg[b], cap);
   }
-  T* ob = o + ((long long)b * KV * G + (long long)kvh * G) * HD;
-  const int GH = G * HD;
+  // element i of the block's nq x HD query rows, in q and in o: (b, i, kvh
+  // * G + g) for row r0 + i / HD = i * G + g of a verify, else the group's
+  // rows (b, kvh * G + i / HD)
+  const long long grp = ((long long)b * KV * G + (long long)kvh * G) * HD;
+  auto elem = [&](int i) -> long long {
+    if constexpr (VER) {
+      const int rr = r0 + i / HD, qi = rr / G;
+      return (((long long)b * slen + qi) * KV * G + (long long)kvh * G + rr -
+              qi * G) * HD + i % HD;
+    } else {
+      return grp + i;
+    }
+  };
+  const int GH = nq * HD;
   const int per = (GH + nsplit - 1) / nsplit;  // outputs this rank merges
   const int o0 = rank * per, o1 = min(GH, o0 + per);
   if (n <= 0) {  // empty band, the same for the whole cluster: zeros
-    for (int i = o0 + tid; i < o1; i += NT) store(&ob[i], 0.f);
+    for (int i = o0 + tid; i < o1; i += NT) store(&o[elem(i)], 0.f);
     return;
   }
-  // this rank's piece [p0, p1) of the band
-  const int p0 = lo + (int)min((long long)n, (long long)rank * chunk);
-  const int p1 = lo + (int)min((long long)n, (long long)(rank + 1) * chunk);
+  // the pieces: the host's chunk, which covers the longest band a row can
+  // have; a verify's band, rarely that long, cuts its own n positions over
+  // the cluster's ranks in pieces of a multiple of TR.  This rank's piece
+  // is [p0, p1)
+  const int cut =
+      VER ? min(chunk, ((n + nsplit - 1) / nsplit + TR - 1) / TR * TR)
+          : chunk;
+  const int p0 = lo + (int)min((long long)n, (long long)rank * cut);
+  const int p1 = lo + (int)min((long long)n, (long long)(rank + 1) * cut);
   const int ntile = (p1 - p0 + TR - 1) / TR;
 
   if (tid == 0) {
@@ -227,17 +293,26 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const long long ps = (long long)KV * HD;  // elements between positions
     const T* kb = k + (long long)kvh * HD;
     const T* vb = v + (long long)kvh * HD;
-    const int* btb = bt + (long long)b * nblk;
+    // the page holding block blk of row b: its own (dense), or its table
+    // entry clamped into the arena
+    auto page_of = [&](int blk) -> int {
+      if constexpr (DENSE) {
+        return b;
+      } else {
+        return min(max(__ldg(bt + (long long)b * nblk + blk), 0),
+                   n_pages - 1);
+      }
+    };
     for (int it = 0; it < ntile; ++it) {
       const int s = it % S;
       if (it >= S) tc::mbar_wait(empty + s, (it / S - 1) & 1);
       const int tp = p0 + it * TR;
       const int tv = min(TR, p1 - tp);
-      if (tma) {  // the tile lies in one page: one box of TR rows each
+      // the tile lies in one page (of the cache): one box of TR rows each
+      if (tma && (!VER || tp + TR <= ce)) {
         if (lane == 0) {
           const int blk = tp / page;
-          const int pg = min(max(__ldg(btb + blk), 0), n_pages - 1);
-          const int row = pg * page + tp - blk * page;
+          const int row = page_of(blk) * page + tp - blk * page;
           tc::mbar_expect(full + s, 2 * TR * R);
           tc::tma_load_3d(sK + s * TR * HD, &kmap, 0, kvh, row, full + s);
           tc::tma_load_3d(sV + s * TR * HD, &vmap, 0, kvh, row, full + s);
@@ -247,31 +322,44 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (lane == 0) tc::mbar_expect(full + s, 2 * tv * R);
       __syncwarp();
       if (lane < tv) {
-        const int slot = (tp + lane) % cap;
-        const int blk = slot / page, off = slot - blk * page;
-        // with one kv head a page's rows are contiguous: one copy a run
-        const bool start = KV != 1 || lane == 0 || off == 0;
-        if (start) {
-          const int rows = KV != 1 ? 1 : min(tv - lane, page - off);
-          const int pg = min(max(__ldg(btb + blk), 0), n_pages - 1);
-          const long long src = ((long long)pg * page + off) * ps;
-          const int dst = (s * TR + lane) * HD;
-          tc::bulk_load(sK + dst, kb + src, rows * R, full + s);
-          tc::bulk_load(sV + dst, vb + src, rows * R, full + s);
+        const int p = tp + lane;
+        const int dst = (s * TR + lane) * HD;
+        if (!VER || p < ce) {
+          const int slot = VER ? p : p % cap;
+          const int blk = slot / page, off = slot - blk * page;
+          // with one kv head a page's rows are contiguous: one copy a run
+          const bool start = KV != 1 || lane == 0 || off == 0;
+          if (start) {
+            int nrow = KV != 1 ? 1 : min(tv - lane, page - off);
+            if (VER) nrow = min(nrow, ce - p);  // the cache part ends at ce
+            const long long src = ((long long)page_of(blk) * page + off) * ps;
+            tc::bulk_load(sK + dst, kb + src, nrow * R, full + s);
+            tc::bulk_load(sV + dst, vb + src, nrow * R, full + s);
+          }
+        } else {  // a verify's chunk row t: (b, t, kvh) of kc/vc
+          const bool start = KV != 1 || lane == 0 || p == ce;
+          if (start) {
+            const int nrow = KV != 1 ? 1 : tv - lane;
+            const long long src = ((long long)b * slen + p - ce) * ps;
+            tc::bulk_load(sK + dst, kc + (long long)kvh * HD + src, nrow * R,
+                          full + s);
+            tc::bulk_load(sV + dst, vc + (long long)kvh * HD + src, nrow * R,
+                          full + s);
+          }
         }
       }
     }
   } else {
     // ---- consumers -----------------------------------------------------
-    const T* qb = q + ((long long)b * KV * G + (long long)kvh * G) * HD;
     for (int i = tid; i < GC * HD; i += NC) {
       const int d = i % HD, c = d / VALS, e = d % VALS;
       sQ[i - d + (e / 4) * C * 4 + c * 4 + e % 4] =
-          i < GH ? to_f(qb[i]) : 0.f;
+          i < GH ? to_f(q[elem(i)]) : 0.f;
     }
     for (int g = tid; g < GC; g += NC) {
       sM[g] = NEG_INF;
       sL[g] = 0.f;
+      if constexpr (VER) sQp[g] = pos0 + (r0 + g) / G;
     }
     consumer_sync();
     const int qg = tid / L, qj = tid % L;  // logits: rows qg + RS u, part
@@ -288,7 +376,8 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     for (int it = 0; it < ntile; ++it) {
       const int s = it % S;
-      const int tv = min(TR, p1 - (p0 + it * TR));
+      const int tp = p0 + it * TR;
+      const int tv = min(TR, p1 - tp);
       const T* tK = sK + s * TR * HD;
       const T* tV = sV + s * TR * HD;
       float* P = sP + (it & 1) * GC * SP;
@@ -328,13 +417,20 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int u = 0; u < PB; ++u) {
         const int row = qg + RS * u;
+        int kp = 0;  // a verify's key position at this row of the tile
+        if constexpr (VER) kp = tp + row < ce ? tp + row : pos0 + tp + row - ce;
 #pragma unroll
         for (int g = 0; g < GC; ++g) {
 #pragma unroll
           for (int off = L / 2; off > 0; off >>= 1)
             part[u][g] += __shfl_xor_sync(0xffffffffu, part[u][g], off);
-          if (g % L == qj)
-            P[g * SP + row] = row < tv ? part[u][g] * scale : NEG_INF;
+          if (g % L == qj) {
+            bool seen = row < tv;
+            if constexpr (VER)  // causal, and inside the query's window
+              seen = seen && kp <= sQp[g] &&
+                     (window <= 0 || kp > sQp[g] - window);
+            P[g * SP + row] = seen ? part[u][g] * scale : NEG_INF;
+          }
         }
       }
       consumer_sync();
@@ -351,13 +447,18 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int off = LH / 2; off > 0; off >>= 1)
           mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-        // the tile's first position is in the band: mx is a real logit
+        // slot and ring: the tile's first position is in the band, so mx is
+        // a real logit; a verify's row may see no key of the tile (mx and
+        // m_new NEG_INF), and its masked keys weigh exactly 0
         const float m_old = sM[sgc];
         const float m_new = fmaxf(m_old, mx);
         float sum = 0.f;
 #pragma unroll
         for (int u = 0; u < PPL; ++u) {
-          x[u] = expf(x[u] - m_new);
+          if constexpr (VER)
+            x[u] = x[u] == NEG_INF ? 0.f : expf(x[u] - m_new);
+          else
+            x[u] = expf(x[u] - m_new);
           sum += x[u];
         }
 #pragma unroll
@@ -463,7 +564,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // ---- merge the cluster's pieces: rank r writes outputs [o0, o1) -------
   cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();  // every piece's (m, l, acc) is in its shared memory
-  const int nr = min(nsplit, (n + chunk - 1) / chunk);  // pieces with data
+  const int nr = min(nsplit, (n + cut - 1) / cut);  // pieces with data
   for (int i = o0 + tid; i < o1; i += NT) {
     const int g = i / HD;
     float mr[CLUSTER_MAX], lr[CLUSTER_MAX], ar[CLUSTER_MAX];
@@ -483,25 +584,35 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float Lsum = 0.f, A = 0.f;
 #pragma unroll
     for (int r = 0; r < CLUSTER_MAX; ++r) {
-      const float f = expf(mr[r] - M);  // 0 for a rank past nr
+      // 0 for a rank past nr, and for a verify row's piece of masked keys
+      const float f = expf(mr[r] - M);
       Lsum += lr[r] * f;
       A += ar[r] * f;
     }
-    store(&ob[i], A / fmaxf(Lsum, 1e-30f));
+    store(&o[elem(i)], A / fmaxf(Lsum, 1e-30f));
   }
   cluster.sync();  // no block leaves while another reads its memory
 }
 
+// One call's arguments.  kc, vc: a verify's chunk keys (else null); bt: the
+// block tables (null with a dense pool, which is n_pages = B pages of page
+// = cap rows, nblk 1); S and rows are 1 and G outside a verify.
+struct Call {
+  const void *q, *k, *v, *kc, *vc;
+  const int *bt, *rowarg;
+  void* o;
+  int B, n_pages, page, nblk, KV, G, S, rows, window, chunk, nsplit;
+  float scale;
+};
+
 // The instance's attributes (shared memory past 48 KB, clusters past 8
 // blocks), set once; then, with `resident`, the blocks an SM holds at once
 // (*resident) instead of a launch.
-template <typename T, int HD, int GC, bool RING>
-int launch(const void* q, const void* k, const void* v, const int* bt,
-           const int* rowarg, void* o, int B, int n_pages, int page,
-           int nblk, int KV, int G, int window, int chunk, int nsplit,
-           float scale, cudaStream_t st, int* resident) {
-  auto kern = paged_decode_kernel<T, HD, GC, RING>;
-  constexpr int smem = smem_bytes<T, HD, GC, RING>();
+template <typename T, int HD, int GC, int KIND, bool DENSE>
+int launch(const Call& c, cudaStream_t st, int* resident) {
+  auto kern = paged_decode_kernel<T, HD, GC, KIND, DENSE>;
+  constexpr int smem = smem_bytes<T, HD, GC, KIND>();
+  constexpr int TR = Geo<T, HD, KIND>::TR;
   static bool ready = false;  // per instance: the attributes, once
   if (!ready) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -515,118 +626,125 @@ int launch(const void* q, const void* k, const void* v, const int* bt,
   if (resident)
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(resident, kern,
                                                               NT, smem);
+  const int tiles = (c.S * c.G + c.rows - 1) / c.rows;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(nsplit, KV, B);
+  cfg.gridDim = dim3(c.nsplit, c.KV, c.B * tiles);
   cfg.blockDim = dim3(NT);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = nsplit;
+  attr[0].val.clusterDim.x = c.nsplit;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  // the slot band's tiles start on multiples of TR (chunk is one): with
-  // several kv heads (strided rows) and pages of whole tiles, one 3-d box
-  // (hd, 1 head, TR positions) of the arena a tile; else row copies
+  // bands whose tiles start on multiples of TR (the slot's, a verify's
+  // without a window; chunk is one): with several kv heads (strided rows)
+  // and pages of whole tiles, one 3-d box (hd, 1 head, TR positions) of the
+  // arena a cache tile; else row copies
   CUtensorMap kmap{}, vmap{};
   int tma = 0;
-  if (!RING && KV > 1 && page % Geo<T, HD, RING>::TR == 0 &&
-      chunk % Geo<T, HD, RING>::TR == 0) {
+  if (KIND != RING && (KIND == SLOT || c.window == 0) && c.KV > 1 &&
+      c.page % TR == 0 && c.chunk % TR == 0) {
     const unsigned long long es = sizeof(T);
     const unsigned long long dims[3] = {(unsigned long long)HD,
-                                        (unsigned long long)KV,
-                                        (unsigned long long)n_pages * page};
-    const unsigned long long strides[2] = {HD * es, KV * HD * es};
-    const unsigned box[3] = {HD, 1, Geo<T, HD, RING>::TR};
-    tma = tc::tensor_map(&kmap, k, (int)es, 3, dims, strides, box, false) &&
-          tc::tensor_map(&vmap, v, (int)es, 3, dims, strides, box, false);
+                                        (unsigned long long)c.KV,
+                                        (unsigned long long)c.n_pages *
+                                            c.page};
+    const unsigned long long strides[2] = {HD * es, c.KV * HD * es};
+    const unsigned box[3] = {HD, 1, TR};
+    tma = tc::tensor_map(&kmap, c.k, (int)es, 3, dims, strides, box, false) &&
+          tc::tensor_map(&vmap, c.v, (int)es, 3, dims, strides, box, false);
   }
   const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, kern, static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), bt, rowarg, static_cast<T*>(o), kmap, vmap,
-      tma, n_pages, page, nblk, KV, G, window, chunk, scale);
+      &cfg, kern, static_cast<const T*>(c.q), static_cast<const T*>(c.k),
+      static_cast<const T*>(c.v), static_cast<const T*>(c.kc),
+      static_cast<const T*>(c.vc), c.bt, c.rowarg, static_cast<T*>(c.o),
+      kmap, vmap, tma, c.n_pages, c.page, c.nblk, c.KV, c.G, c.S, c.rows,
+      c.window, c.chunk, c.scale);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
-template <typename T, int HD, bool RING>
-int launch_g(const void* q, const void* k, const void* v, const int* bt,
-             const int* rowarg, void* o, int B, int n_pages, int page,
-             int nblk, int KV, int G, int window, int chunk, int nsplit,
-             float scale, cudaStream_t st, int* resident) {
-#define PDEC_LAUNCH(GC)                                                     \
-  return launch<T, HD, GC, RING>(q, k, v, bt, rowarg, o, B, n_pages, page,  \
-                                 nblk, KV, G, window, chunk, nsplit, scale, \
-                                 st, resident)
-  if (G == 1) PDEC_LAUNCH(1);
-  if (G == 2) PDEC_LAUNCH(2);
-  if (G <= 4) PDEC_LAUNCH(4);
-  if (G <= 8) PDEC_LAUNCH(8);
-  if constexpr (RING) {  // the slot kernel takes G <= 8
-    if (G == 10) PDEC_LAUNCH(10);  // recurrentgemma-2b
+// The instance for c.rows query rows a block (the group's G outside a
+// verify): 1, 2, 4, 8 and, but for the slot (G <= 8), 10 and 16.
+template <typename T, int HD, int KIND, bool DENSE>
+int launch_g(const Call& c, cudaStream_t st, int* resident) {
+#define PDEC_LAUNCH(GC) return launch<T, HD, GC, KIND, DENSE>(c, st, resident)
+  const int g = c.rows;
+  if (g == 1) PDEC_LAUNCH(1);
+  if (g == 2) PDEC_LAUNCH(2);
+  if (g <= 4) PDEC_LAUNCH(4);
+  if (g <= 8) PDEC_LAUNCH(8);
+  if constexpr (KIND != SLOT) {
+    if (g <= 10) PDEC_LAUNCH(10);  // recurrentgemma-2b, qwen3-0.6b's verify
     PDEC_LAUNCH(16);
   }
 #undef PDEC_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
 
-// Checks shared by both entries, then the launch.  `span` is the longest
-// band a row can have (cap, or min(window, cap)); the pieces must cover it.
-template <bool RING>
-int run(const void* q, const void* k, const void* v, const void* bt,
-        const void* rowarg, void* o, int dtype, int B, int n_pages, int page,
-        int nblk, int KV, int H, int hd, int window, int chunk, int nsplit,
-        float scale, void* stream) {
-  if (B < 0 || KV < 1 || H % KV || H / KV < 1 || H / KV > 16 ||
-      n_pages < 1 || page < 1 || nblk < 1 || chunk < 1 || nsplit < 1 ||
-      nsplit > CLUSTER_MAX || (RING && window < 1))
-    return (int)cudaErrorInvalidValue;
-  const long long cap = (long long)nblk * page;
-  const long long span = RING && window < cap ? window : cap;
-  if (cap > (1 << 30) || (long long)chunk * nsplit < span)
-    return (int)cudaErrorInvalidValue;
-  if (B == 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* tb = static_cast<const int*>(bt);
-  const int* ra = static_cast<const int*>(rowarg);
-  const int G = H / KV;
-#define PDEC_RUN(TT, HH)                                                   \
-  return launch_g<TT, HH, RING>(q, k, v, tb, ra, o, B, n_pages, page,      \
-                                nblk, KV, G, window, chunk, nsplit, scale, \
-                                st, nullptr)
-  if (dtype == 0 && hd == 64) PDEC_RUN(float, 64);
-  if (dtype == 0 && hd == 128) PDEC_RUN(float, 128);
-  if (dtype == 1 && hd == 64) PDEC_RUN(__nv_bfloat16, 64);
-  if (dtype == 1 && hd == 128) PDEC_RUN(__nv_bfloat16, 128);
-  if constexpr (RING) {  // the slot kernel takes hd 64 and 128
-    if (dtype == 0 && hd == 256) PDEC_RUN(float, 256);
-    if (dtype == 1 && hd == 256) PDEC_RUN(__nv_bfloat16, 256);
+// The (dtype, hd) instance: hd 64 or 128, and 256 for the ring.
+template <int KIND, bool DENSE>
+int launch_t(const Call& c, int dtype, int hd, cudaStream_t st,
+             int* resident) {
+#define PDEC_TYPE(TT, HH) return launch_g<TT, HH, KIND, DENSE>(c, st, resident)
+  if (dtype == 0 && hd == 64) PDEC_TYPE(float, 64);
+  if (dtype == 0 && hd == 128) PDEC_TYPE(float, 128);
+  if (dtype == 1 && hd == 64) PDEC_TYPE(__nv_bfloat16, 64);
+  if (dtype == 1 && hd == 128) PDEC_TYPE(__nv_bfloat16, 128);
+  if constexpr (KIND == RING) {
+    if (dtype == 0 && hd == 256) PDEC_TYPE(float, 256);
+    if (dtype == 1 && hd == 256) PDEC_TYPE(__nv_bfloat16, 256);
   }
-#undef PDEC_RUN
+#undef PDEC_TYPE
   return (int)cudaErrorInvalidValue;
 }
 
-// Blocks of the (dtype, hd, G) instance an SM holds at once, in *out (the
-// host's split takes it).  Returns a CUDA error code (0 on success).
-template <bool RING>
-int blocks_per_sm(int dtype, int hd, int G, int* out) {
-  if (G < 1 || G > (RING ? 16 : 8)) return (int)cudaErrorInvalidValue;
-#define PDEC_Q(TT, HH)                                                    \
-  return launch_g<TT, HH, RING>(nullptr, nullptr, nullptr, nullptr,       \
-                                nullptr, nullptr, 0, 1, 1, 1, 1, G, 1, 1, \
-                                1, 1.f, nullptr, out)
-  if (dtype == 0 && hd == 64) PDEC_Q(float, 64);
-  if (dtype == 0 && hd == 128) PDEC_Q(float, 128);
-  if (dtype == 1 && hd == 64) PDEC_Q(__nv_bfloat16, 64);
-  if (dtype == 1 && hd == 128) PDEC_Q(__nv_bfloat16, 128);
-  if constexpr (RING) {
-    if (dtype == 0 && hd == 256) PDEC_Q(float, 256);
-    if (dtype == 1 && hd == 256) PDEC_Q(__nv_bfloat16, 256);
+// Checks shared by every entry, then the launch.  H: query heads; c.G,
+// and outside a verify c.S and c.rows, are set here.  The pieces must
+// cover the longest band a row can have: cap (slot), min(window, cap)
+// (ring), the cache part plus the chunk (verify).
+template <int KIND, bool DENSE>
+int run(Call c, int H, int dtype, int hd, void* stream) {
+  if (c.B < 0 || c.KV < 1 || H % c.KV || H / c.KV < 1 ||
+      H / c.KV > ROWS_MAX || c.n_pages < 1 || c.page < 1 || c.nblk < 1 ||
+      c.chunk < 1 || c.nsplit < 1 || c.nsplit > CLUSTER_MAX ||
+      c.window < 0 || (KIND == RING && c.window < 1))
+    return (int)cudaErrorInvalidValue;
+  c.G = H / c.KV;
+  if (KIND != VERIFY) {
+    c.S = 1;
+    c.rows = c.G;
+  } else if (c.S < 1 || c.S > CHUNK_MAX || c.rows < 1 ||
+             c.rows > ROWS_MAX || c.rows > c.S * c.G) {
+    return (int)cudaErrorInvalidValue;
   }
-#undef PDEC_Q
-  return (int)cudaErrorInvalidValue;
+  const long long cap = (long long)c.nblk * c.page;
+  long long span = cap;
+  if (KIND == RING && c.window < cap) span = c.window;
+  if (KIND == VERIFY)
+    span = (c.window > 0 && c.window - 1 < cap ? c.window - 1 : cap) + c.S;
+  const long long tiles = (c.S * c.G + c.rows - 1) / c.rows;
+  if (cap > (1 << 30) || (long long)c.chunk * c.nsplit < span ||
+      (long long)c.B * tiles > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (c.B == 0) return 0;
+  return launch_t<KIND, DENSE>(c, dtype, hd, static_cast<cudaStream_t>(stream),
+                               nullptr);
+}
+
+// Blocks of the (dtype, hd, rows) instance an SM holds at once, in *out (the
+// host's split takes it); rows is the group's G outside a verify.  Returns
+// a CUDA error code (0 on success).
+template <int KIND, bool DENSE>
+int blocks_per_sm(int dtype, int hd, int rows, int* out) {
+  if (rows < 1 || rows > (KIND == SLOT ? 8 : ROWS_MAX))
+    return (int)cudaErrorInvalidValue;
+  Call c = {};
+  c.rows = rows;
+  return launch_t<KIND, DENSE>(c, dtype, hd, nullptr, out);
 }
 
 }  // namespace pdec

@@ -15,11 +15,12 @@
 // (recurrentgemma-2b: G 10, hd 256), any page size.
 //
 // Bound on the H100: bytes (each band position's K and V row once).  The
-// body, paged_decode.cuh, is shared with the paged slot kernel: the band
-// is cut into clusters of pieces merged in the launch (recurrentgemma-2b
-// has one KV head, so 8 slots are 8 bands; 16 pieces each fill the card),
-// and a producer warp stages K/V with bulk copies on mbarriers, one copy
-// per run of a page's rows (one KV head: the rows are contiguous).
+// body, paged_decode.cuh, is shared with the slot, dense ring and verify
+// kernels: the band is cut into clusters of pieces merged in the launch
+// (recurrentgemma-2b has one KV head, so 8 slots are 8 bands; 16 pieces
+// each fill the card), and a producer warp stages K/V with bulk copies on
+// mbarriers, one copy per run of a page's rows (one KV head: the rows are
+// contiguous).
 #include "paged_decode.cuh"
 
 // q (B,H,hd), k/v (n_pages,page,KV,hd) arenas, bt (B,nblk) int32,
@@ -33,14 +34,28 @@ extern "C" int paged_ring_decode_attention_fwd(
     const void* slot_positions, void* o, int dtype, int B, int n_pages,
     int page, int nblk, int KV, int H, int hd, int window, int chunk,
     int nsplit, float scale, void* stream) {
-  return pdec::run<true>(q, k, v, bt, slot_positions, o, dtype, B, n_pages,
-                         page, nblk, KV, H, hd, window, chunk, nsplit, scale,
-                         stream);
+  pdec::Call c = {};
+  c.q = q;
+  c.k = k;
+  c.v = v;
+  c.bt = static_cast<const int*>(bt);
+  c.rowarg = static_cast<const int*>(slot_positions);
+  c.o = o;
+  c.B = B;
+  c.n_pages = n_pages;
+  c.page = page;
+  c.nblk = nblk;
+  c.KV = KV;
+  c.window = window;
+  c.chunk = chunk;
+  c.nsplit = nsplit;
+  c.scale = scale;
+  return pdec::run<pdec::RING, false>(c, H, dtype, hd, stream);
 }
 
 // The blocks of the (dtype, hd, G) instance an SM holds at once, in *out;
 // returns a CUDA error code (0 on success).
 extern "C" int paged_ring_decode_attention_blocks_per_sm(
     int dtype, int hd, int G, int* out) {
-  return pdec::blocks_per_sm<true>(dtype, hd, G, out);
+  return pdec::blocks_per_sm<pdec::RING, false>(dtype, hd, G, out);
 }

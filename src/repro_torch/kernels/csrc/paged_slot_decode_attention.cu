@@ -16,7 +16,7 @@
 // bfloat16, hd in {64, 128}, G = H/KV in {1, 2, 4, 8}, any page size.
 //
 // Bound on the H100: bytes (each row's valid positions once).  The body,
-// paged_decode.cuh, is shared with the paged ring kernel: the band
+// paged_decode.cuh, is shared with the ring and verify kernels: the band
 // [0, kv_len) is cut into clusters of pieces merged in the launch, and a
 // producer warp stages K/V rows with bulk copies on mbarriers; the TPU
 // kernel's page-pinned blocks and BlockSpec index map become one table
@@ -33,13 +33,27 @@ extern "C" int paged_slot_decode_attention_fwd(
     const void* kv_len, void* o, int dtype, int B, int n_pages, int page,
     int nblk, int KV, int H, int hd, int chunk, int nsplit, float scale,
     void* stream) {
-  return pdec::run<false>(q, k, v, bt, kv_len, o, dtype, B, n_pages, page,
-                          nblk, KV, H, hd, 0, chunk, nsplit, scale, stream);
+  pdec::Call c = {};
+  c.q = q;
+  c.k = k;
+  c.v = v;
+  c.bt = static_cast<const int*>(bt);
+  c.rowarg = static_cast<const int*>(kv_len);
+  c.o = o;
+  c.B = B;
+  c.n_pages = n_pages;
+  c.page = page;
+  c.nblk = nblk;
+  c.KV = KV;
+  c.chunk = chunk;
+  c.nsplit = nsplit;
+  c.scale = scale;
+  return pdec::run<pdec::SLOT, false>(c, H, dtype, hd, stream);
 }
 
 // The blocks of the (dtype, hd, G) instance an SM holds at once, in *out;
 // returns a CUDA error code (0 on success).
 extern "C" int paged_slot_decode_attention_blocks_per_sm(
     int dtype, int hd, int G, int* out) {
-  return pdec::blocks_per_sm<false>(dtype, hd, G, out);
+  return pdec::blocks_per_sm<pdec::SLOT, false>(dtype, hd, G, out);
 }

@@ -5,71 +5,52 @@
 //
 // q (B, H, hd); k/v (B, ring, KV, hd) ring caches that already hold this
 // step's K/V at slot pos % ring; slot_positions (B,) int32, -1 for a done
-// row (exact zeros).  The band, the bound on the H100 (bytes) and the
-// split-band design are described in ring_decode_attention.cuh.  float32
-// and bfloat16, hd in {64, 128, 256}, G = H/KV in 1..16; softmax state and
-// accumulators are float32.
-#include "ring_decode_attention.cuh"
-
-namespace {
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(ring::NT)
-ring_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const int* __restrict__ pos_b,
-                    float* __restrict__ work, int nrow, int nsplit, int ring_n,
-                    int KV, int G, int window, float scale) {
-  const int b = blockIdx.y;
-  const ring::DenseRows rows{(long long)b * ring_n * KV * HD,
-                             (long long)KV * HD, ring_n};
-  ring::partial_block<T, HD>(q, k, v, rows, pos_b[b], work, nrow, nsplit, KV,
-                             G, window, ring_n, scale);
-}
-
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, const int* pos,
-           void* o, float* work, int B, int ring_n, int KV, int G,
-           int window, int nsplit, float scale, cudaStream_t st) {
-  const int nrow = B * KV;
-  ring_partial_kernel<T, HD><<<dim3(KV, B, nsplit), ring::NT, 0, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), pos, work, nrow, nsplit, ring_n, KV, G,
-      window, scale);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const int zb = (G * HD + ring::NT - 1) / ring::NT;
-  ring::ring_combine_kernel<T><<<dim3(KV, B, zb), ring::NT, 0, st>>>(
-      work, pos, static_cast<T*>(o), nrow, nsplit, KV, G, HD);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
+// row (exact zeros).  The band is [max(0, pos - min(window, ring) + 1),
+// pos], walked by position (p in slot p % ring).  float32 and bfloat16, hd
+// in {64, 128, 256}, G = H/KV in 1..16 (recurrentgemma-2b: G 10, hd 256),
+// any ring length; softmax state and accumulators are float32.
+//
+// Bound on the H100: bytes (each band position's K and V row once).  The
+// dense pool is an arena of B pages of `ring` rows in which row b owns page
+// b, so this is the paged ring kernel with a compile-time dense row address
+// (no table read): the body, paged_decode.cuh, cuts each (b, kv head) band
+// into a thread-block cluster of pieces merged in the launch (one launch,
+// no workspace; recurrentgemma-2b's 8 bands take 16 pieces each), and a
+// producer warp stages K/V with bulk copies on mbarriers, one copy per run
+// of rows up to the ring's end when KV == 1.  What is left is the launch,
+// the cluster barriers and the merge, and float32 FMAs over the G heads.
+#include "paged_decode.cuh"
 
 // q (B,H,hd), k/v (B,ring,KV,hd), slot_positions (B,) int32, o (B,H,hd);
-// work: B*KV*nsplit*G*(hd+2) floats of scratch; all contiguous on the
-// device.  nsplit * 64 >= min(window, ring).  dtype: 0 = float32, 1 =
-// bfloat16.  Returns cudaGetLastError() after the launches (0 on
-// success); no synchronisation.
+// all contiguous on the device.  The band is cut into nsplit (1..16)
+// pieces of chunk positions, chunk * nsplit >= min(window, ring).  dtype:
+// 0 = float32, 1 = bfloat16.  One launch; returns cudaGetLastError() after
+// it (0 on success); no synchronisation.
 extern "C" int ring_decode_attention_fwd(
     const void* q, const void* k, const void* v, const void* slot_positions,
-    void* o, void* work, int dtype, int B, int ring_n, int KV, int H, int hd,
-    int window, int nsplit, float scale, void* stream) {
-  const int rc = ring::check_geometry(B, KV, H, hd, ring_n, window, nsplit);
-  if (rc) return rc;
-  if (B == 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* pos = static_cast<const int*>(slot_positions);
-  float* wk = static_cast<float*>(work);
-  const int G = H / KV;
-#define RING_LAUNCH(TT, HH)                                                \
-  return launch<TT, HH>(q, k, v, pos, o, wk, B, ring_n, KV, G, window,     \
-                        nsplit, scale, st)
-  if (dtype == 0 && hd == 64) RING_LAUNCH(float, 64);
-  if (dtype == 0 && hd == 128) RING_LAUNCH(float, 128);
-  if (dtype == 0 && hd == 256) RING_LAUNCH(float, 256);
-  if (dtype == 1 && hd == 64) RING_LAUNCH(__nv_bfloat16, 64);
-  if (dtype == 1 && hd == 128) RING_LAUNCH(__nv_bfloat16, 128);
-  if (dtype == 1 && hd == 256) RING_LAUNCH(__nv_bfloat16, 256);
-#undef RING_LAUNCH
-  return (int)cudaErrorInvalidValue;
+    void* o, int dtype, int B, int ring, int KV, int H, int hd, int window,
+    int chunk, int nsplit, float scale, void* stream) {
+  pdec::Call c = {};
+  c.q = q;
+  c.k = k;
+  c.v = v;
+  c.rowarg = static_cast<const int*>(slot_positions);
+  c.o = o;
+  c.B = B;
+  c.n_pages = B > 0 ? B : 1;  // row b's ring is page b
+  c.page = ring;
+  c.nblk = 1;
+  c.KV = KV;
+  c.window = window;
+  c.chunk = chunk;
+  c.nsplit = nsplit;
+  c.scale = scale;
+  return pdec::run<pdec::RING, true>(c, H, dtype, hd, stream);
+}
+
+// The blocks of the (dtype, hd, G) instance an SM holds at once, in *out;
+// returns a CUDA error code (0 on success).
+extern "C" int ring_decode_attention_blocks_per_sm(int dtype, int hd, int G,
+                                                   int* out) {
+  return pdec::blocks_per_sm<pdec::RING, true>(dtype, hd, G, out);
 }

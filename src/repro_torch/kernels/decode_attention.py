@@ -1,15 +1,18 @@
 """Wrappers of the CUDA decode-side attention kernels:
 ``csrc/decode_attention.cu`` (one query per row over a head-major cache,
 read through strides) and ``csrc/slot_decode_attention.cu`` (one query per
-slot over the pool), which share ``csrc/decode_attention.cuh``,
-``csrc/chunk_verify_attention.cu`` (a speculative verify chunk per slot),
+slot over the pool), which share ``csrc/decode_attention.cuh``;
+``csrc/chunk_verify_attention.cu`` (a speculative verify chunk per slot);
+and four kernels over one body, ``csrc/paged_decode.cuh``:
 ``csrc/ring_decode_attention.cu`` (one query per slot over a ring-buffer
-window cache), and their twins over a paged pool,
+window cache, the dense pool read as an arena of one page a row),
 ``csrc/paged_slot_decode_attention.cu``,
-``csrc/paged_chunk_verify_attention.cu`` and
-``csrc/paged_ring_decode_attention.cu`` (page arenas read through per-row
-block tables; the paged slot and ring kernels share one body,
-``csrc/paged_decode.cuh``, split by ``paged_decode_splits``).
+``csrc/paged_ring_decode_attention.cu`` and
+``csrc/paged_chunk_verify_attention.cu`` (page arenas read through
+per-row block tables).  The body cuts each (row, kv head) band into a
+thread-block cluster of pieces merged in the launch; the host picks the
+cut (``paged_decode_splits``) and, for a verify, the tiles of its S * G
+query rows (``verify_tiles``).
 
 Each checks what its kernel takes, allocates the output, launches on the
 current stream and counts launches in ``<wrapper>.launches``.  ``ops``
@@ -280,6 +283,7 @@ def _check_arena(what, arenas, bt, B, KV, hd):
 
 PAGED_TILE = 32  # positions a tile of the paged body (TR in the .cuh)
 PAGED_CLUSTER_MAX = 16  # pieces of one band: a thread-block cluster
+PAGED_ROWS_MAX = 16  # query rows a block of the body (ROWS_MAX in the .cuh)
 # blocks an SM at most: past about 4.5 the clusters' launch and merge cost
 # more than the split gains (gpt-base's 96 bands on an H100)
 PAGED_LOAD = 4.5
@@ -291,8 +295,9 @@ def paged_decode_splits(B, KV, span, n_sm, per_sm):
     multiple of PAGED_TILE), one thread-block cluster a band.  The B * KV
     bands take as many blocks as the card holds at once (``per_sm`` an SM
     of its ``n_sm``), at most PAGED_LOAD an SM and PAGED_CLUSTER_MAX a
-    band.  The paged slot and ring kernels take it
-    (``csrc/paged_decode.cuh``); their pieces merge in the launch."""
+    band.  The kernels of ``csrc/paged_decode.cuh`` take it (a verify's
+    bands are its B * tiles rows' (row, kv head) pairs); their pieces
+    merge in the launch."""
     blocks = int(min(per_sm, PAGED_LOAD) * n_sm)
     want = min(PAGED_CLUSTER_MAX, max(1, blocks // max(1, B * KV)))
     chunk = -(-max(1, span) // want)
@@ -300,29 +305,56 @@ def paged_decode_splits(B, KV, span, n_sm, per_sm):
     return chunk, -(-max(1, span) // chunk)
 
 
+def verify_tiles(S, G):
+    """(rows, tiles): a verify's S * G query rows (i, g) of one (row, kv
+    head) cut into ``tiles`` blocks of at most ``rows`` (PAGED_ROWS_MAX),
+    as even as they come; the kernel runs ``rows`` in its next
+    compile-time row count (1, 2, 4, 8, 10, 16)."""
+    tiles = -(-S * G // PAGED_ROWS_MAX)
+    return -(-S * G // tiles), tiles
+
+
+def verify_span(S, cap, window):
+    """The longest band of a verify over a cache of ``cap`` positions: the
+    attended cache (at most ``window - 1`` positions below the chunk) and
+    the chunk's own S keys."""
+    return min(cap, window - 1 if window else cap) + S
+
+
 @functools.lru_cache(maxsize=None)
-def _paged_per_sm(kind, device, dtype, hd, G):
-    """Blocks of the paged ``kind`` ("slot" or "ring") kernel's instance an
-    SM holds at once (CUDA's occupancy for its threads and shared
-    memory)."""
-    name = f"paged_{kind}_decode_attention"
+def _paged_per_sm(name, device, dtype, hd, rows):
+    """Blocks an SM holds at once (CUDA's occupancy for its threads and
+    shared memory) of library ``name``'s instance for ``rows`` query rows
+    a block (the group's G outside a verify)."""
     fn = getattr(build.load(name), f"{name}_blocks_per_sm")
     fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     n = ctypes.c_int(0)
     with torch.cuda.device(device):
-        rc = fn(DTYPES[dtype], hd, G, ctypes.addressof(n))
+        rc = fn(DTYPES[dtype], hd, rows, ctypes.addressof(n))
     if rc != 0 or n.value < 1:
         raise RuntimeError(f"{name}: occupancy query failed (CUDA error "
                            f"{rc}, {n.value} blocks an SM)")
     return n.value
 
 
-def _paged_splits(kind, q, KV, span):
-    B, H, hd = q.shape
+def _paged_splits(name, q, KV, span, rows=None, tiles=1):
+    """(chunk, nsplit) of library ``name``'s call on ``q`` (B, [S,] H, hd):
+    B * tiles * KV bands of up to ``span`` positions, ``rows`` query rows
+    a block (default: the group's H / KV)."""
+    H, hd = q.shape[-2:]
     return paged_decode_splits(
-        B, KV, span, _sm_count(q.device),
-        _paged_per_sm(kind, q.device, q.dtype, hd, H // KV))
+        q.shape[0] * tiles, KV, span, _sm_count(q.device),
+        _paged_per_sm(name, q.device, q.dtype, hd, rows or H // KV))
+
+
+def _verify_plan(q, KV, cap, window):
+    """(rows, tiles, chunk, nsplit) of a paged verify on q (B, S, H, hd)."""
+    S, H = q.shape[1:3]
+    rows, tiles = verify_tiles(S, H // KV)
+    return (rows, tiles, *_paged_splits(
+        "paged_chunk_verify_attention", q, KV, verify_span(S, cap, window),
+        rows, tiles))
 
 
 def _paged_slot_entry():
@@ -355,7 +387,7 @@ def paged_slot_decode_attention(q, k, v, bt, kv_len):
     _check_heads(what, H, KV, hd)
     n_pages, page = k.shape[:2]
     nblk = bt.shape[1]
-    chunk, nsplit = _paged_splits("slot", q, KV, nblk * page)
+    chunk, nsplit = _paged_splits(what, q, KV, nblk * page)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         rc = _paged_slot_entry()(
@@ -376,7 +408,7 @@ def _paged_chunk_entry():
     fn = build.load("paged_chunk_verify_attention"
                     ).paged_chunk_verify_attention_fwd
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 13
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -415,13 +447,15 @@ def paged_chunk_verify_attention(q, ck, cv, bt, k, v, offsets, *, ring,
     if window is not None and window < 1:
         raise ValueError(f"{what}: window must be >= 1 (got {window})")
     n_pages, page = ck.shape[:2]
+    nblk = bt.shape[1]
+    rows, _, chunk, nsplit = _verify_plan(q, KV, nblk * page, window)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         rc = _paged_chunk_entry()(
             q.data_ptr(), ck.data_ptr(), cv.data_ptr(), bt.data_ptr(),
             k.data_ptr(), v.data_ptr(), offsets.data_ptr(), out.data_ptr(),
-            DTYPES[q.dtype], B, S, n_pages, page, bt.shape[1], KV, H, hd,
-            window or 0, hd ** -0.5,
+            DTYPES[q.dtype], B, S, n_pages, page, nblk, KV, H, hd,
+            window or 0, rows, chunk, nsplit, hd ** -0.5,
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
@@ -435,12 +469,12 @@ paged_chunk_verify_attention.launches = 0
 # ------------------------------------------------- ring-buffer window decode
 RING_HEAD_DIMS = (64, 128, 256)
 RING_GROUP_MAX = 16  # query heads per kv head the ring kernels take
-RING_CHUNK = 64  # band positions per block (CHUNK in the .cuh)
 
 
 def _check_ring(what, q, KV, slot_positions, window, ring):
     """The ring kernels' own head, band and position rules (G 1..16, hd
-    64/128/256: recurrentgemma-2b has G = 10 and hd = 256)."""
+    64/128/256: recurrentgemma-2b has G = 10 and hd = 256).  Returns the
+    longest band, min(window, ring), which the kernel cuts into pieces."""
     B, H, hd = q.shape
     if KV < 1 or H % KV or not 1 <= H // KV <= RING_GROUP_MAX:
         raise ValueError(f"{what}: H/KV = {H}/{KV} must be a whole number "
@@ -456,20 +490,13 @@ def _check_ring(what, q, KV, slot_positions, window, ring):
         raise ValueError(f"{what}: window must be >= 1 (got {window})")
     if ring < 1:
         raise ValueError(f"{what}: the ring needs at least one slot")
-    # the dense kernel's blocks per (b, kv head): chunks of RING_CHUNK
-    return -(-min(window, ring) // RING_CHUNK)
-
-
-def _ring_work(q, KV, nsplit):
-    B, H, hd = q.shape
-    return torch.empty(B * KV * nsplit * (H // KV) * (hd + 2),
-                       dtype=torch.float32, device=q.device)
+    return min(window, ring)
 
 
 def _ring_entry():
     fn = build.load("ring_decode_attention").ring_decode_attention_fwd
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -493,14 +520,14 @@ def ring_decode_attention(q, k, v, slot_positions, *, window):
         raise ValueError(f"{what}: q {tuple(q.shape)} needs k, v of shape "
                          f"(B, ring, KV, hd); got {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
-    nsplit = _check_ring(what, q, KV, slot_positions, window, ring)
+    span = _check_ring(what, q, KV, slot_positions, window, ring)
+    chunk, nsplit = _paged_splits(what, q, KV, span)
     out = torch.empty_like(q)
-    work = _ring_work(q, KV, nsplit)
     with torch.cuda.device(q.device):
         rc = _ring_entry()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            slot_positions.data_ptr(), out.data_ptr(), work.data_ptr(),
-            DTYPES[q.dtype], B, ring, KV, H, hd, window, nsplit, hd ** -0.5,
+            slot_positions.data_ptr(), out.data_ptr(), DTYPES[q.dtype], B,
+            ring, KV, H, hd, window, chunk, nsplit, hd ** -0.5,
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
@@ -537,8 +564,8 @@ def paged_ring_decode_attention(q, k, v, bt, slot_positions, *, window):
     _check_arena(what, (("k", k), ("v", v)), bt, B, KV, hd)
     n_pages, page = k.shape[:2]
     nblk = bt.shape[1]
-    _check_ring(what, q, KV, slot_positions, window, nblk * page)
-    chunk, nsplit = _paged_splits("ring", q, KV, min(window, nblk * page))
+    span = _check_ring(what, q, KV, slot_positions, window, nblk * page)
+    chunk, nsplit = _paged_splits(what, q, KV, span)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         rc = _paged_ring_entry()(

@@ -590,6 +590,7 @@ class ContinuousBatchingEngine:
                                          plens_d, rows_d)
             self._scatter_rows(self.pool_d, rows_d, idx, n, bt_rows[1],
                                self._metas[1])
+            self.n_prefills += 1  # the draft's prefill counts, as in JAX
         first_n = first[:n]
         self._set_state(idx, first_n, plens[:n], *self._budgets(group))
         self.n_prefills += 1

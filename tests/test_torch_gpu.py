@@ -493,7 +493,10 @@ def test_cuda_spec_engine_launches_chunk_verify_and_matches_generate(
     assert kern["slot_decode_attention"].launches == (
         cfg_s.n_layers * d * k * eng.n_decode_dispatches)
     assert kern["flash_attention"].launches > 0
-    assert eng.n_host_syncs == eng.n_prefills + eng.n_decode_dispatches
+    # two prefills (target and draft) an admission group, one sync a group
+    groups, odd = divmod(eng.n_prefills, 2)
+    assert not odd and groups > 0
+    assert eng.n_host_syncs == groups + eng.n_decode_dispatches
     assert eng.n_spec_proposed > 0 and eng.n_spec_fallbacks == 0
     for r in reqs:
         want = generate(cfg_t, p_t, torch.from_numpy(r.prompt)[None].to(
@@ -798,14 +801,43 @@ def test_cuda_paged_ring_decode_matches_plain(cuda_device, G, hd, dtype,
     assert (got[0] == 0).all()
 
 
-# The paged slot and ring kernels share one body (csrc/paged_decode.cuh):
-# each (row, kv head) band is cut into pieces (``paged_decode_splits``),
-# one thread-block cluster a band, merged in the launch.
+# The paged slot and ring kernels, the dense ring kernel and the paged
+# verify share one body (csrc/paged_decode.cuh): each (row, kv head) band
+# is one thread-block cluster of ``nsplit`` pieces (``paged_decode_splits``)
+# merged in the launch: pieces of the host's chunk positions, or, for a
+# verify, a band of n positions cut into pieces of ceil(n / nsplit) rounded
+# up to 32 (at most the host's chunk).  Grid entries are (kind, G, hd, dtype,
+# page): a dense ring's "page" is its ring length (the window by
+# DENSE_RING_WINDOW), a verify's S and window come from VERIFY_EDGE.
+DENSE_RING_WINDOW = {2048: 2048, 384: 1000, 200: 100}
+VERIFY_EDGE = {  # (G, page) -> (S, window)
+    (1, 64): (5, None),   # gpt-base's verify: 5 rows in the 8-row instance
+    (2, 24): (1, None),   # S 1
+    (8, 8): (16, 40),     # S 16 x G 8: 8 tiles of 16 rows, a window
+    (8, 64): (16, None),  # 8 tiles, TMA boxes over the cache
+    (4, 24): (5, 70),     # 20 rows in 2 tiles; the window cuts each row
+    (2, 8): (5, 3),       # a window shorter than the chunk
+    (1, 32): (16, None),  # one tile of 16 rows
+}
 PAGED_EDGE_GRID = [(kind, G, hd, dtype, page)
                    for kind, G, hd in (("slot", 8, 128), ("ring", 8, 128),
                                        ("ring", 10, 256))
                    for dtype in (torch.float32, torch.bfloat16)
-                   for page in (8, 24, 64)]
+                   for page in (8, 24, 64)] + [
+    ("dense_ring", 10, 256, torch.float32, 2048),
+    ("dense_ring", 10, 256, torch.bfloat16, 384),
+    ("dense_ring", 8, 128, torch.float32, 384),
+    ("dense_ring", 8, 128, torch.bfloat16, 200),
+    ("dense_ring", 4, 64, torch.float32, 200),
+    ("verify", 1, 64, torch.float32, 64),
+    ("verify", 1, 64, torch.bfloat16, 64),
+    ("verify", 2, 128, torch.float32, 24),
+    ("verify", 8, 128, torch.float32, 8),
+    ("verify", 8, 128, torch.bfloat16, 64),
+    ("verify", 4, 64, torch.float32, 24),
+    ("verify", 2, 64, torch.bfloat16, 8),
+    ("verify", 1, 128, torch.float32, 32),
+]
 
 
 def _paged_edge_case(dev, kind, G, hd, dtype, page):
@@ -822,7 +854,8 @@ def _paged_edge_case(dev, kind, G, hd, dtype, page):
     span = cap if kind == "slot" else min(window, cap)
     g = torch.Generator(device=dev).manual_seed(G + hd + page)
     q = torch.randn(8, G * KV, hd, generator=g, device=dev).to(dtype)
-    chunk, nsplit = kda._paged_splits(kind, q, KV, span)  # the wrapper's
+    chunk, nsplit = kda._paged_splits(  # the wrapper's
+        f"paged_{kind}_decode_attention", q, KV, span)
     assert nsplit > 1
     if kind == "slot":
         rows = [0, 1, chunk - 1, chunk, 2 * page, cap, cap + 5, 3 * page + 2]
@@ -842,24 +875,90 @@ def _paged_edge_case(dev, kind, G, hd, dtype, page):
     return q, k, v, bt.contiguous().to(dev), rows, window
 
 
+def _dense_ring_edge_case(dev, G, hd, dtype, ring):
+    """A dense ring's edges, from the wrapper's split: a done row, a band
+    of one position (the other ranks get nothing), bands ending on and
+    just past a piece boundary, wrapped rings, and a window above, below
+    or at the ring length."""
+    KV = 1 if G == 10 else 2
+    window = DENSE_RING_WINDOW[ring]
+    g = torch.Generator(device=dev).manual_seed(G + hd + ring)
+    q = torch.randn(8, G * KV, hd, generator=g, device=dev).to(dtype)
+    chunk, nsplit = kda._paged_splits("ring_decode_attention", q, KV,
+                                      min(window, ring))
+    assert nsplit > 1
+    pos = torch.tensor([-1, 0, chunk - 1, chunk, 2 * chunk + 5, ring - 1,
+                        ring + 3, 3 * ring + 7], dtype=torch.int32,
+                       device=dev)
+    k, v = (torch.randn(8, ring, KV, hd, generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    return q, k, v, pos, window
+
+
+def _verify_edge_case(dev, G, hd, dtype, page):
+    """A paged verify's edges, from the wrapper's plan: offsets -1, 0 and
+    1, the chunk's keys straddling a piece boundary (offset 30: a band of
+    at most 32 * nsplit positions cuts into pieces of 32; no window), a
+    sentinel inside an attended band, the full table and past it; S and
+    the window from VERIFY_EDGE."""
+    S, window = VERIFY_EDGE[G, page]
+    KV, nblk, B = 2, 12, 8
+    cap = nblk * page
+    g = torch.Generator(device=dev).manual_seed(G + hd + page + S)
+    q = torch.randn(B, S, G * KV, hd, generator=g, device=dev).to(dtype)
+    kc, vc = (torch.randn(B, S, KV, hd, generator=g, device=dev).to(dtype)
+              for _ in range(2))
+    rows, tiles, chunk, nsplit = kda._verify_plan(q, KV, cap, window)
+    assert (nsplit > 1 or window is not None) and rows * tiles >= S * G
+    offs = torch.tensor([-1, 0, 1, 30, 2 * chunk - 1, cap - S, cap,
+                         cap + 3], dtype=torch.int32, device=dev)
+    n_pages = B * nblk - 5
+    perm = torch.randperm(n_pages, generator=torch.Generator().manual_seed(
+        page + G), dtype=torch.int32)
+    bt = perm[torch.arange(B * nblk) % n_pages].reshape(B, nblk)
+    bt[4, 1] = n_pages  # the sentinel inside row 4's cache (blocks 0, 1)
+    bt[6, 2] = n_pages + 7  # and inside row 6's (the full table)
+    ck, cv = (torch.randn(n_pages, page, KV, hd, generator=g,
+                          device=dev).to(dtype) for _ in range(2))
+    return q, ck, cv, bt.contiguous().to(dev), kc, vc, offs, window
+
+
 @pytest.mark.parametrize("kind,G,hd,dtype,page", PAGED_EDGE_GRID)
 def test_cuda_paged_decode_body_edges_match_plain(cuda_device, kind, G, hd,
                                                   dtype, page):
-    q, k, v, bt, rows, window = _paged_edge_case(cuda_device, kind, G, hd,
-                                                 dtype, page)
-    if kind == "slot":
-        fn = cuda_paged_slot
+    if kind == "verify":
+        q, ck, cv, bt, kc, vc, rows, window = _verify_edge_case(
+            cuda_device, G, hd, dtype, page)
+        fn = cuda_paged_chunk
         n0 = fn.launches
-        got = fn(q, k, v, bt, rows)
-        want = ref.paged_slot_decode_attention_ref(q, k, v, bt, rows)
-        done = rows <= 0
-    else:
-        fn = cuda_paged_ring
-        n0 = fn.launches
-        got = fn(q, k, v, bt, rows, window=window)
-        want = ref.paged_ring_decode_attention_ref(q, k, v, bt, rows,
-                                                   window=window)
+        got = fn(q, ck, cv, bt, kc, vc, rows, ring=False, window=window)
+        want = ref.paged_chunk_verify_attention_ref(
+            q, ck, cv, bt, kc, vc, rows, ring=False, window=window)
         done = rows < 0
+    elif kind == "dense_ring":
+        q, k, v, rows, window = _dense_ring_edge_case(cuda_device, G, hd,
+                                                      dtype, page)
+        fn = cuda_ring
+        n0 = fn.launches
+        got = fn(q, k, v, rows, window=window)
+        want = ref.ring_decode_attention_ref(q, k, v, rows, window=window)
+        done = rows < 0
+    else:
+        q, k, v, bt, rows, window = _paged_edge_case(cuda_device, kind, G,
+                                                     hd, dtype, page)
+        if kind == "slot":
+            fn = cuda_paged_slot
+            n0 = fn.launches
+            got = fn(q, k, v, bt, rows)
+            want = ref.paged_slot_decode_attention_ref(q, k, v, bt, rows)
+            done = rows <= 0
+        else:
+            fn = cuda_paged_ring
+            n0 = fn.launches
+            got = fn(q, k, v, bt, rows, window=window)
+            want = ref.paged_ring_decode_attention_ref(q, k, v, bt, rows,
+                                                       window=window)
+            done = rows < 0
     torch.cuda.synchronize()
     assert fn.launches == n0 + 1
     torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
@@ -867,21 +966,35 @@ def test_cuda_paged_decode_body_edges_match_plain(cuda_device, kind, G, hd,
     assert torch.isfinite(got.float()).all()
 
 
-@pytest.mark.parametrize("kind", ["slot", "ring"])
+@pytest.mark.parametrize("kind", ["slot", "ring", "dense_ring", "verify"])
 def test_cuda_paged_decode_is_one_kernel_and_one_allocation(cuda_device,
                                                             kind):
     """One call puts exactly one kernel on the device (the in-launch merge:
     no merge kernel, no memset) and allocates only its output (no
     workspace)."""
-    q, k, v, bt, rows, window = _paged_edge_case(
-        cuda_device, kind, 10 if kind == "ring" else 8,
-        256 if kind == "ring" else 128, torch.bfloat16, 64)
-    if kind == "slot":
+    if kind == "verify":
+        q, ck, cv, bt, kc, vc, offs, window = _verify_edge_case(
+            cuda_device, 1, 64, torch.bfloat16, 64)
+
         def call():
-            return cuda_paged_slot(q, k, v, bt, rows)
+            return cuda_paged_chunk(q, ck, cv, bt, kc, vc, offs, ring=False,
+                                    window=window)
+    elif kind == "dense_ring":
+        q, k, v, pos, window = _dense_ring_edge_case(
+            cuda_device, 10, 256, torch.bfloat16, 2048)
+
+        def call():
+            return cuda_ring(q, k, v, pos, window=window)
     else:
-        def call():
-            return cuda_paged_ring(q, k, v, bt, rows, window=window)
+        q, k, v, bt, rows, window = _paged_edge_case(
+            cuda_device, kind, 10 if kind == "ring" else 8,
+            256 if kind == "ring" else 128, torch.bfloat16, 64)
+        if kind == "slot":
+            def call():
+                return cuda_paged_slot(q, k, v, bt, rows)
+        else:
+            def call():
+                return cuda_paged_ring(q, k, v, bt, rows, window=window)
     call()
     torch.cuda.synchronize()
     from torch.profiler import DeviceType, ProfilerActivity, profile

@@ -280,8 +280,11 @@ def test_cpu_tensors_take_the_plain_versions_and_wrappers_refuse_them():
     with pytest.raises(ValueError, match="head_dim 32"):
         decode_attention._check_ring("ring", torch.zeros(2, 4, 32), 1, pos,
                                      4, 8)
+    # the longest band, which both ring kernels cut into pieces
     assert decode_attention._check_ring(
-        "ring", torch.zeros(2, 10, 256), 1, pos, 2048, 2048) == 32
+        "ring", torch.zeros(2, 10, 256), 1, pos, 2048, 1000) == 1000
+    assert decode_attention._check_ring(
+        "ring", torch.zeros(2, 10, 256), 1, pos, 2048, 2048) == 2048
 
 
 # ------------------------------------------------------------- the pieces

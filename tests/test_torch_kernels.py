@@ -12,6 +12,11 @@ from _torch_port import F32_ATOL
 from repro.kernels import ops as jops
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.decode_attention import (
+    paged_decode_splits,
+    verify_span,
+    verify_tiles,
+)
+from repro_torch.kernels.decode_attention import (
     slot_decode_attention as cuda_slot,
 )
 from repro_torch.kernels.flash_attention import flash_attention as cuda_flash
@@ -78,3 +83,56 @@ def test_cpu_tensors_take_the_plain_version_and_kernels_refuse_them():
         cuda_flash(q, k, k)
     with pytest.raises(ValueError, match="CUDA tensor"):
         cuda_slot(q[:, :, 0].contiguous(), pool, pool, lens)
+
+
+# Host-side planning of the paged-decode body's launches (132 SMs, an
+# H100 SXM; ``per_sm`` is the instance's occupancy, which only the card
+# reports): pieces of a multiple of 32 positions, at most 16 a band (one
+# thread-block cluster), covering the band with no empty last piece.
+def _check_pieces(chunk, nsplit, span):
+    assert chunk % 32 == 0 and 1 <= nsplit <= 16
+    assert chunk * (nsplit - 1) < span <= chunk * nsplit
+
+
+@pytest.mark.parametrize("B,KV,ring,window,per_sm,want", [
+    (8, 1, 2048, 2048, 1, (128, 16)),  # recurrentgemma-2b, f32 and bf16
+    (8, 1, 2048, 1000, 1, (64, 16)),   # window < ring
+    (6, 4, 300, 130, 2, (32, 5)),      # GQA hd 128: 24 bands
+    (8, 2, 40, 1000, 2, (32, 2)),      # window > ring: the ring's 40
+])
+def test_dense_ring_pieces_come_from_paged_decode_splits(B, KV, ring, window,
+                                                         per_sm, want):
+    """``ring_decode_attention`` reads the dense pool as an arena of one
+    page a row: its B * KV bands of up to min(window, ring) positions are
+    cut as the paged ring's are."""
+    span = min(window, ring)
+    chunk, nsplit = paged_decode_splits(B, KV, span, 132, per_sm)
+    assert (chunk, nsplit) == want
+    _check_pieces(chunk, nsplit, span)
+
+
+@pytest.mark.parametrize("B,S,KV,G,cap,window,per_sm,want", [
+    # gpt-base's verify (d 4): 5 rows run in the 8-row instance
+    (8, 5, 12, 1, 1024, None, 3, (5, 1, 288, 4)),
+    (8, 5, 12, 1, 1024, None, 5, (5, 1, 192, 6)),   # bf16, capped at 4.5
+    (8, 5, 8, 1, 1024, None, 3, (5, 1, 192, 6)),    # gpt-small's catch-up
+    (8, 5, 8, 2, 1024, None, 2, (10, 1, 288, 4)),   # qwen3-0.6b self-draft
+    (4, 16, 2, 8, 500, 64, 2, (16, 8, 32, 3)),      # S 16 x G 8, window 64
+    (7, 5, 2, 4, 48, 8, 3, (10, 2, 32, 1)),         # 20 rows: 2 tiles
+    (7, 5, 2, 8, 48, None, 2, (14, 3, 32, 2)),      # 40 rows: 3 tiles
+    (8, 1, 12, 1, 1024, None, 3, (1, 1, 288, 4)),   # S 1: a one-query band
+])
+def test_verify_plan_tiles_rows_and_cuts_bands(B, S, KV, G, cap, window,
+                                               per_sm, want):
+    """``paged_chunk_verify_attention``'s plan: the S * G query rows (i, g)
+    of a (row, kv head) in as few tiles of at most 16 as hold them, as
+    even as they come; each of the B * KV * tiles bands -- the attended
+    cache (``window - 1`` positions at most) and the chunk's S keys -- cut
+    as the decode body's bands are."""
+    rows, tiles = verify_tiles(S, G)
+    assert 1 <= rows <= 16 and rows * (tiles - 1) < S * G <= rows * tiles
+    span = verify_span(S, cap, window)
+    assert span == min(cap, window - 1 if window else cap) + S
+    chunk, nsplit = paged_decode_splits(B * tiles, KV, span, 132, per_sm)
+    assert (rows, tiles, chunk, nsplit) == want
+    _check_pieces(chunk, nsplit, span)

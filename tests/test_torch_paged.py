@@ -683,8 +683,8 @@ def test_paged_speculation_matches_jax():
     got = eng.run(_reqs(Request, specs))
     _assert_same(got, want)
     _assert_same(got, _generate_each(cfg_t, p_t, _reqs(Request, specs)))
-    assert (eng.n_spec_proposed, eng.n_spec_accepted) == (
-        jeng.n_spec_proposed, jeng.n_spec_accepted)
+    assert (eng.n_spec_proposed, eng.n_spec_accepted, eng.n_prefills) == (
+        jeng.n_spec_proposed, jeng.n_spec_accepted, jeng.n_prefills)
     assert eng.n_spec_proposed > 0 and eng.n_prefix_hits == 0
     assert (eng.pages_budget, eng.pages_highwater, eng.n_pages_allocated) \
         == (jeng.pages_budget, jeng.pages_highwater, jeng.n_pages_allocated)
