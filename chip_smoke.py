@@ -489,9 +489,11 @@ def decode_cases():
     (the kernels-line row): q (8, 16, 128) over the head-major view of
     (8, 576, 8, 128) layer caches, ragged lengths with one 0; then the same
     in bfloat16, gpt-base's ``generate`` at B 1 (12 heads over 12 KV heads
-    of 64, 1024 positions) and a contiguous head-major cache at yi-9b's
-    grouping (G 8).  ``L`` layer caches, cycled by the timing so that a
-    call finds its layer cold in L2."""
+    of 64, 1024 positions), qwen3-0.6b's at B 1 early in a reply (a band
+    of 100 in a max_len of 1024: shorter than the host's pieces) and a
+    contiguous head-major cache at yi-9b's grouping (G 8).  ``L`` layer
+    caches, cycled by the timing so that a call finds its layer cold in
+    L2."""
     import torch
 
     f32, bf16 = torch.float32, torch.bfloat16
@@ -503,6 +505,8 @@ def decode_cases():
          qwen),
         ("gpt-base generate B 1 f32", 12, 1, 1024, 12, 12, 64, f32, "pool",
          [600]),
+        ("qwen3-0.6b generate B 1 short f32", 8, 1, 1024, 16, 8, 128, f32,
+         "pool", [100]),
         ("head-major G 8 f32", 2, 4, 300, 32, 4, 128, f32, "head-major",
          [0, 77, 300, 299]),
     ]
@@ -511,15 +515,18 @@ def decode_cases():
 def run_decode_cases(gen):
     """Phase 3 for ``decode_attention``: every case against the plain
     version (f32 within 2e-5 + 1e-4 relative, bfloat16 within 5e-3 + 1e-2
-    relative; kv_len-0 rows exact zeros), timed beside its byte bound, the
-    plain version and masked SDPA over the same K/V views.  The first case
-    is the kernels-line row."""
+    relative; kv_len-0 rows exact zeros), with each band cutting its own
+    length on the device (the wrapper's choice) and with the host's cut
+    of the whole cache axis, each timed, beside its byte bound, the plain
+    version and masked SDPA over the same K/V views.  The first case is
+    the kernels-line row."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import decode_attention, ref
 
     fn = decode_attention.decode_attention
+    on_device_default = decode_attention.DECODE_CUT_ON_DEVICE
     row = None
     for label, L, B, S, H, KV, hd, dt, layout, kvl in decode_cases():
         dname = str(dt).split(".")[1]
@@ -532,14 +539,19 @@ def run_decode_cases(gen):
             kp, vp = (torch.randn(L, B, KV, S, hd, generator=gen,
                                   device="cuda").to(dt) for _ in range(2))
         lens = torch.tensor(kvl, dtype=torch.int32, device="cuda")
-        got = fn(q, kp[0], vp[0], lens)
-        torch.cuda.synchronize()
-        err = check_close(f"decode_attention [{label}]", got,
-                          ref.decode_attention_ref(q, kp[0], vp[0], lens),
-                          dname)
-        if not bool((got[lens == 0] == 0).all()):
-            raise AssertionError(f"decode_attention [{label}]: rows with "
-                                 "kv_len 0 are not exact zeros")
+        want = ref.decode_attention_ref(q, kp[0], vp[0], lens)
+        errs = {}
+        for on_device in (False, True):
+            decode_attention.DECODE_CUT_ON_DEVICE = on_device
+            got = fn(q, kp[0], vp[0], lens)
+            torch.cuda.synchronize()
+            errs[on_device] = check_close(
+                f"decode_attention [{label}, cut on the "
+                f"{'device' if on_device else 'host'}]", got, want, dname)
+            if not bool((got[lens == 0] == 0).all()):
+                raise AssertionError(f"decode_attention [{label}]: rows "
+                                     "with kv_len 0 are not exact zeros")
+        err = errs[on_device_default]
         item = q.element_size()
         n_kv = int(lens.clamp(0, S).sum())
         b_ms, b_by = bound_ms(
@@ -559,23 +571,31 @@ def run_decode_cases(gen):
                 q[:, :, None], k, v, attn_mask=mask[:, None, None],
                 enable_gqa=H != KV)
 
+        kern = cycled(lambda k, v: fn(q, k, v, lens))
+        cut_ms = {True: 0.0, False: 0.0}  # device, host, host, device
+        for on_device in (True, False, False, True):
+            decode_attention.DECODE_CUT_ON_DEVICE = on_device
+            cut_ms[on_device] += time_ms(kern, 10 * L) / 2
+        decode_attention.DECODE_CUT_ON_DEVICE = on_device_default
         case = dict(
             label=label, dtype=dname, max_abs_err=err,
-            ms=time_ms(cycled(lambda k, v: fn(q, k, v, lens)), 10 * L),
+            ms=cut_ms[on_device_default],
+            device_cut_ms=cut_ms[True], host_cut_ms=cut_ms[False],
+            host_cut_max_abs_err=errs[False],
             plain_ms=time_ms(cycled(
                 lambda k, v: ref.decode_attention_ref(q, k, v, lens)), 2 * L),
             bound_ms=b_ms, bound_by=b_by,
             library_ms=time_ms(cycled(lib), 10 * L),
-            splits=decode_attention.decode_splits(
-                B, KV, S, torch.cuda.get_device_properties(
-                    0).multi_processor_count)[1],
+            splits=decode_attention._paged_splits("decode_attention", q, KV,
+                                                  S),
             shape=(f"q{tuple(q.shape)} k/v{tuple(kp.shape[1:])} {layout} "
                    f"{dname} kv_len {kvl}"))
         print(f"decode_attention [{label}] {case['shape']}: max abs err "
-              f"{err:.3g}, {case['splits']} chunks; kernel {case['ms']:.4f} "
-              f"ms, plain {case['plain_ms']:.4f} ms, SDPA "
-              f"{case['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})",
-              flush=True)
+              f"{err:.3g}, pieces {case['splits']}; kernel {case['ms']:.4f} "
+              f"ms (bands cut on the device {case['device_cut_ms']:.4f} ms, "
+              f"on the host {case['host_cut_ms']:.4f} ms), plain "
+              f"{case['plain_ms']:.4f} ms, SDPA {case['library_ms']:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by})", flush=True)
         if row is None:
             row = dict(
                 name="decode_attention", route="cuda",
@@ -701,9 +721,14 @@ def run_chunk_cases(gen):
                 enable_gqa=H != KV)), 10 * L),
             shape=(f"q{tuple(q.shape)} cache{tuple(ckp.shape[1:])} {dname} "
                    f"ring {ring} window {window} offsets {offs}"))
+        # rows a tile, tiles, then the band's pieces: (positions, a
+        # cluster of)
+        case["splits"] = decode_attention._verify_plan(
+            q, KV, Sc, window, "chunk_verify_attention")
         cases.append(case)
         print(f"chunk_verify_attention [{label}] {case['shape']}: max abs "
-              f"err {err:.3g}; kernel {case['ms']:.4f} ms, plain "
+              f"err {err:.3g}, pieces {case['splits']}; kernel "
+              f"{case['ms']:.4f} ms, plain "
               f"{case['plain_ms']:.4f} ms, library {case['library_ms']:.4f} "
               f"ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
         del k_all, v_all, ckp, cvp

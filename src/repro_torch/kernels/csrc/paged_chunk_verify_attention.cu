@@ -75,6 +75,7 @@ extern "C" int paged_chunk_verify_attention_fwd(
   c.page = page;
   c.nblk = nblk;
   c.KV = KV;
+  pdec::own_strides(c, hd);
   c.S = S;
   c.rows = rows;
   c.window = window;

@@ -1,31 +1,38 @@
 // Decode-side attention over a PAGED or DENSE pool for sm_90a: the body
 // shared by paged_slot_decode_attention.cu, paged_ring_decode_attention.cu,
-// ring_decode_attention.cu and paged_chunk_verify_attention.cu.
+// paged_chunk_verify_attention.cu, ring_decode_attention.cu,
+// chunk_verify_attention.cu and decode_attention.cu.
 //
 // Computes, for each row b, kv head h and query row r of the group,
 //   out[r,:] = softmax_{p in band, p seen by r}(q[r,:] . K[p] * scale) @ V[p]
 // over one band of key positions of (b, h).  The row address is a
-// compile-time policy (DENSE):
+// compile-time policy (DENSE) over element strides (sb, skv, ss) of a page,
+// a kv head and a page row (hd contiguous; an arena's or a pool's own
+// strides unless the entry gives others):
 //   paged: position p of row b sits in slot s = p % cap (cap = nblk *
 //          page) of its block table: K[p] = k[bt[b, s / page], s % page,
 //          h, :].  A table entry outside [0, n_pages) (the sentinel
 //          n_pages of a block the row never got) clamps to page n_pages -
 //          1, as in the reference; no read leaves the arena;
-//   dense: the pool (B, cap, KV, hd) is an arena of B pages of cap rows
-//          and row b owns page b (no table is read).
+//   dense: row b's cache is page b of cap rows (the pool (B, cap, KV, hd),
+//          or decode_attention's (B, KV, S, hd) at any such strides); no
+//          table is read.
 // The band kind (KIND) sets the band and the query rows:
 //   SLOT   (rowarg = kv_len):    [0, min(kv_len, cap)); the G heads of h;
 //   RING   (rowarg = position):  [max(0, pos - min(window, cap) + 1), pos],
 //                                walked by position, so no negative number
 //                                is ever divided; the G heads of h;
-//   VERIFY (rowarg = offset):    the cache [lo, min(off, cap)), lo = max(0,
-//                                off - window + 1) with a window, then the
-//                                chunk's own S keys kc/vc (B, S, KV, hd) at
-//                                positions off .. off + S - 1; the S * G
-//                                query rows (i, g), i at position off + i,
-//                                in tiles of at most 16 (grid z).  Row i
-//                                sees a key at kpos iff kpos <= off + i and,
-//                                with a window, kpos > off + i - window:
+//   VERIFY (rowarg = offset):    the cache, then the chunk's own S keys
+//                                kc/vc (B, S, KV, hd) at positions off ..
+//                                off + S - 1.  The cache is [lo, min(off,
+//                                cap)) in the full layout (slot p), [max(lo,
+//                                off - cap), off) in the ring layout (slot p
+//                                % cap, walked by position as RING is), lo =
+//                                max(0, off - window + 1) with a window.  The
+//                                S * G query rows (i, g), i at position off +
+//                                i, come in tiles of at most 16 (grid z).  Row
+//                                i sees a key at kpos iff kpos <= off + i
+//                                and, with a window, kpos > off + i - window:
 //                                masked keys weigh exactly 0.
 // An empty band (kv_len <= 0, pos < 0, off < 0: an idle or finished slot)
 // writes exact zeros; the pools are never written.  float32 and bfloat16;
@@ -43,29 +50,31 @@
 //  1. Split the band, merge in the launch.  Each band is cut into `nsplit`
 //     pieces of `chunk` positions (a host choice, `paged_decode_splits` in
 //     kernels/decode_attention.py, covering the longest band a row can
-//     have); a verify's band cuts its own length, which only the device
-//     knows, into nsplit pieces of a multiple of 32 positions instead (a
-//     verify's cache is rarely full; the slot's and the ring's bands are,
-//     and an even spread only crowds their SMs).  The pieces of one band
-//     are one thread-block cluster (grid (nsplit, KV, B * tiles), cluster (nsplit,
-//     1, 1), nsplit <= 16).  Each block leaves its piece's partial (m, l,
-//     acc) in its shared memory; after a cluster barrier every rank merges
-//     a slice of the band's outputs, reading the partials of the ranks that
-//     hold positions through distributed shared memory (all loads in
-//     flight at once), and a second barrier keeps each block alive until
-//     it has been read.  One launch, no workspace.
+//     have).  With `devcut` (every verify, and decode_attention, whose
+//     cache is max_len wide) a band cuts its own length, which only the
+//     device knows, into nsplit pieces of a multiple of 32 positions
+//     instead (such bands are rarely full; the paged slot's and the ring's
+//     are, and an even spread only crowds their SMs).  The pieces of one
+//     band are one thread-block cluster (grid (nsplit, KV, B * tiles),
+//     cluster (nsplit, 1, 1), nsplit <= 16).  Each block leaves its piece's
+//     partial (m, l, acc) in its shared memory; after a cluster barrier
+//     every rank merges a slice of the band's outputs, reading the partials
+//     of the ranks that hold positions through distributed shared memory
+//     (all loads in flight at once), and a second barrier keeps each block
+//     alive until it has been read.  One launch, no workspace.
 //  2. Stage K/V asynchronously.  One producer warp walks the piece a tile
 //     of 32 positions at a time: each lane resolves one position to its
 //     row (the table entry read once per position, by one lane; the
 //     verify's chunk keys come from kc/vc) and issues `cp.async.bulk`
 //     copies of its K and V rows (hd * itemsize contiguous bytes) into a
-//     ring of S stages, counted on the stage's mbarrier.  With KV == 1 the
-//     rows of a page (and of a chunk) are contiguous and one copy takes
-//     the whole run up to its end; on a band whose tiles start on
-//     multiples of 32 (slot; verify without a window), pages of whole
-//     tiles take one TMA box (hd x 1 head x 32 rows, strided) a cache tile
-//     instead.  The next tiles land while the consumers compute on this
-//     one.
+//     ring of S stages, counted on the stage's mbarrier.  Where a page's
+//     rows are contiguous (ss == hd: one kv head, or a head-major cache;
+//     a chunk's rows with one kv head) one copy takes the whole run up to
+//     its end; on a band whose tiles start on multiples of 32 (slot; a
+//     full-layout verify without a window), pages of whole tiles with
+//     strided rows take one TMA box (hd x 1 head x 32 rows x 1 page) a
+//     cache tile instead.  The next tiles land while the consumers compute
+//     on this one.
 //  3. Compute from shared memory, four consumer warps, per tile of 32
 //     positions:
 //     a. logits: L threads a row (4, or 8 over two rows 16 apart when the
@@ -177,7 +186,9 @@ __device__ __forceinline__ void consumer_sync() {
 // GC: the block's query rows at compile time (1, 2, 4, 8, 10 or 16); a
 // block of fewer rows runs with the q rows past them zero and their outputs
 // dropped.  A verify's chunk has `slen` keys and its query rows come in
-// tiles of `rows` (slen and rows are 1 and G outside a verify).
+// tiles of `rows` (slen and rows are 1 and G outside a verify); `ring`
+// picks its cache's ring layout.  (sb, skv, ss): the elements between
+// pages, kv heads and page rows of k and v.
 template <typename T, int HD, int GC, int KIND, bool DENSE>
 __global__ void __launch_bounds__(NT)
 paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -186,8 +197,10 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const int* __restrict__ rowarg, T* __restrict__ o,
                     const __grid_constant__ CUtensorMap kmap,
                     const __grid_constant__ CUtensorMap vmap, int tma,
-                    int n_pages, int page, int nblk, int KV, int G, int slen,
-                    int rows, int window, int chunk, float scale) {
+                    int n_pages, int page, int nblk, long long sb,
+                    long long skv, long long ss, int KV, int G, int slen,
+                    int rows, int window, int ring, int chunk, int devcut,
+                    float scale) {
   using Gm = Geo<T, HD, KIND>;
   constexpr bool VER = KIND == VERIFY;
   constexpr int TR = Gm::TR, C = Gm::C, VALS = Gm::VALS;
@@ -241,7 +254,12 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     n = 0;
     if (pos0 >= 0) {
       lo = window > 0 ? max(0, pos0 - window + 1) : 0;
-      ce = max(lo, min(pos0, cap));
+      if (ring) {  // the ring holds [pos0 - cap, pos0)
+        lo = max(lo, pos0 - cap);
+        ce = pos0;
+      } else {
+        ce = max(lo, min(pos0, cap));
+      }
       n = ce - lo + slen;
     }
   } else {
@@ -268,12 +286,12 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     return;
   }
   // the pieces: the host's chunk, which covers the longest band a row can
-  // have; a verify's band, rarely that long, cuts its own n positions over
-  // the cluster's ranks in pieces of a multiple of TR.  This rank's piece
-  // is [p0, p1)
+  // have; with devcut a band, rarely that long, cuts its own n positions
+  // over the cluster's ranks in pieces of a multiple of TR.  This rank's
+  // piece is [p0, p1)
   const int cut =
-      VER ? min(chunk, ((n + nsplit - 1) / nsplit + TR - 1) / TR * TR)
-          : chunk;
+      devcut ? min(chunk, ((n + nsplit - 1) / nsplit + TR - 1) / TR * TR)
+             : chunk;
   const int p0 = lo + (int)min((long long)n, (long long)rank * cut);
   const int p1 = lo + (int)min((long long)n, (long long)(rank + 1) * cut);
   const int ntile = (p1 - p0 + TR - 1) / TR;
@@ -290,9 +308,10 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (warp == NCW) {
     // ---- producer: one lane per position of the tile -------------------
-    const long long ps = (long long)KV * HD;  // elements between positions
-    const T* kb = k + (long long)kvh * HD;
-    const T* vb = v + (long long)kvh * HD;
+    const T* kb = k + kvh * skv;
+    const T* vb = v + kvh * skv;
+    const bool contig = ss == HD;  // a page's rows are contiguous
+    const long long cs = (long long)KV * HD;  // a chunk key's row stride
     // the page holding block blk of row b: its own (dense), or its table
     // entry clamped into the arena
     auto page_of = [&](int blk) -> int {
@@ -311,11 +330,12 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       // the tile lies in one page (of the cache): one box of TR rows each
       if (tma && (!VER || tp + TR <= ce)) {
         if (lane == 0) {
-          const int blk = tp / page;
-          const int row = page_of(blk) * page + tp - blk * page;
+          const int blk = tp / page, pg = page_of(blk);
           tc::mbar_expect(full + s, 2 * TR * R);
-          tc::tma_load_3d(sK + s * TR * HD, &kmap, 0, kvh, row, full + s);
-          tc::tma_load_3d(sV + s * TR * HD, &vmap, 0, kvh, row, full + s);
+          tc::tma_load_4d(sK + s * TR * HD, &kmap, 0, kvh, tp - blk * page,
+                          pg, full + s);
+          tc::tma_load_4d(sV + s * TR * HD, &vmap, 0, kvh, tp - blk * page,
+                          pg, full + s);
         }
         continue;
       }
@@ -325,14 +345,14 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int p = tp + lane;
         const int dst = (s * TR + lane) * HD;
         if (!VER || p < ce) {
-          const int slot = VER ? p : p % cap;
+          const int slot = p < cap ? p : p % cap;
           const int blk = slot / page, off = slot - blk * page;
-          // with one kv head a page's rows are contiguous: one copy a run
-          const bool start = KV != 1 || lane == 0 || off == 0;
+          // contiguous rows: one copy a run, up to the page's end
+          const bool start = !contig || lane == 0 || off == 0;
           if (start) {
-            int nrow = KV != 1 ? 1 : min(tv - lane, page - off);
+            int nrow = contig ? min(tv - lane, page - off) : 1;
             if (VER) nrow = min(nrow, ce - p);  // the cache part ends at ce
-            const long long src = ((long long)page_of(blk) * page + off) * ps;
+            const long long src = page_of(blk) * sb + off * ss;
             tc::bulk_load(sK + dst, kb + src, nrow * R, full + s);
             tc::bulk_load(sV + dst, vb + src, nrow * R, full + s);
           }
@@ -340,7 +360,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const bool start = KV != 1 || lane == 0 || p == ce;
           if (start) {
             const int nrow = KV != 1 ? 1 : tv - lane;
-            const long long src = ((long long)b * slen + p - ce) * ps;
+            const long long src = ((long long)b * slen + p - ce) * cs;
             tc::bulk_load(sK + dst, kc + (long long)kvh * HD + src, nrow * R,
                           full + s);
             tc::bulk_load(sV + dst, vc + (long long)kvh * HD + src, nrow * R,
@@ -596,14 +616,27 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // One call's arguments.  kc, vc: a verify's chunk keys (else null); bt: the
 // block tables (null with a dense pool, which is n_pages = B pages of page
-// = cap rows, nblk 1); S and rows are 1 and G outside a verify.
+// = cap rows, nblk 1); (sb, skv, ss): k's and v's element strides of a
+// page, a kv head and a page row (own_strides: an arena's or a pool's);
+// S and rows are 1 and G outside a verify; ring: a verify's ring layout;
+// devcut: each band cuts its own length (set for every verify).
 struct Call {
   const void *q, *k, *v, *kc, *vc;
   const int *bt, *rowarg;
   void* o;
   int B, n_pages, page, nblk, KV, G, S, rows, window, chunk, nsplit;
+  long long sb, skv, ss;
+  int ring, devcut;
   float scale;
 };
+
+// The strides of (n_pages, page, KV, hd) rows: an arena's, or a dense
+// pool (B, cap, KV, hd) read as B pages.
+inline void own_strides(Call& c, int hd) {
+  c.skv = hd;
+  c.ss = (long long)c.KV * hd;
+  c.sb = c.page * c.ss;
+}
 
 // The instance's attributes (shared memory past 48 KB, clusters past 8
 // blocks), set once; then, with `resident`, the blocks an SM holds at once
@@ -639,30 +672,30 @@ int launch(const Call& c, cudaStream_t st, int* resident) {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  // bands whose tiles start on multiples of TR (the slot's, a verify's
-  // without a window; chunk is one): with several kv heads (strided rows)
-  // and pages of whole tiles, one 3-d box (hd, 1 head, TR positions) of the
-  // arena a cache tile; else row copies
+  // bands whose tiles start on multiples of TR (the slot's, a full-layout
+  // verify's without a window; chunk is one): with strided rows and pages
+  // of whole tiles, one 4-d box (hd, 1 head, TR rows, 1 page) a cache
+  // tile; else row copies (also where the encoder refuses the strides)
   CUtensorMap kmap{}, vmap{};
   int tma = 0;
-  if (KIND != RING && (KIND == SLOT || c.window == 0) && c.KV > 1 &&
-      c.page % TR == 0 && c.chunk % TR == 0) {
+  if (KIND != RING && (KIND == SLOT || (c.window == 0 && !c.ring)) &&
+      c.ss != HD && c.page % TR == 0 && c.chunk % TR == 0) {
     const unsigned long long es = sizeof(T);
-    const unsigned long long dims[3] = {(unsigned long long)HD,
-                                        (unsigned long long)c.KV,
-                                        (unsigned long long)c.n_pages *
-                                            c.page};
-    const unsigned long long strides[2] = {HD * es, c.KV * HD * es};
-    const unsigned box[3] = {HD, 1, TR};
-    tma = tc::tensor_map(&kmap, c.k, (int)es, 3, dims, strides, box, false) &&
-          tc::tensor_map(&vmap, c.v, (int)es, 3, dims, strides, box, false);
+    const unsigned long long dims[4] = {
+        (unsigned long long)HD, (unsigned long long)c.KV,
+        (unsigned long long)c.page, (unsigned long long)c.n_pages};
+    const unsigned long long strides[3] = {c.skv * es, c.ss * es,
+                                           c.sb * es};
+    const unsigned box[4] = {HD, 1, TR, 1};
+    tma = tc::tensor_map(&kmap, c.k, (int)es, 4, dims, strides, box, false) &&
+          tc::tensor_map(&vmap, c.v, (int)es, 4, dims, strides, box, false);
   }
   const cudaError_t e = cudaLaunchKernelEx(
       &cfg, kern, static_cast<const T*>(c.q), static_cast<const T*>(c.k),
       static_cast<const T*>(c.v), static_cast<const T*>(c.kc),
       static_cast<const T*>(c.vc), c.bt, c.rowarg, static_cast<T*>(c.o),
-      kmap, vmap, tma, c.n_pages, c.page, c.nblk, c.KV, c.G, c.S, c.rows,
-      c.window, c.chunk, c.scale);
+      kmap, vmap, tma, c.n_pages, c.page, c.nblk, c.sb, c.skv, c.ss, c.KV,
+      c.G, c.S, c.rows, c.window, c.ring, c.chunk, c.devcut, c.scale);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -703,9 +736,10 @@ int launch_t(const Call& c, int dtype, int hd, cudaStream_t st,
 }
 
 // Checks shared by every entry, then the launch.  H: query heads; c.G,
-// and outside a verify c.S and c.rows, are set here.  The pieces must
-// cover the longest band a row can have: cap (slot), min(window, cap)
-// (ring), the cache part plus the chunk (verify).
+// and outside a verify c.S and c.rows, are set here; a verify cuts its
+// bands on the device.  The pieces must cover the longest band a row can
+// have: cap (slot), min(window, cap) (ring), the cache part plus the chunk
+// (verify, either layout).
 template <int KIND, bool DENSE>
 int run(Call c, int H, int dtype, int hd, void* stream) {
   if (c.B < 0 || c.KV < 1 || H % c.KV || H / c.KV < 1 ||
@@ -717,9 +751,12 @@ int run(Call c, int H, int dtype, int hd, void* stream) {
   if (KIND != VERIFY) {
     c.S = 1;
     c.rows = c.G;
+    c.ring = 0;
   } else if (c.S < 1 || c.S > CHUNK_MAX || c.rows < 1 ||
              c.rows > ROWS_MAX || c.rows > c.S * c.G) {
     return (int)cudaErrorInvalidValue;
+  } else {
+    c.devcut = 1;
   }
   const long long cap = (long long)c.nblk * c.page;
   long long span = cap;

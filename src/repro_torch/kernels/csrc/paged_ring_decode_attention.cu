@@ -46,6 +46,7 @@ extern "C" int paged_ring_decode_attention_fwd(
   c.page = page;
   c.nblk = nblk;
   c.KV = KV;
+  pdec::own_strides(c, hd);
   c.window = window;
   c.chunk = chunk;
   c.nsplit = nsplit;

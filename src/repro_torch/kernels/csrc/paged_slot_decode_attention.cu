@@ -45,6 +45,7 @@ extern "C" int paged_slot_decode_attention_fwd(
   c.page = page;
   c.nblk = nblk;
   c.KV = KV;
+  pdec::own_strides(c, hd);
   c.chunk = chunk;
   c.nsplit = nsplit;
   c.scale = scale;

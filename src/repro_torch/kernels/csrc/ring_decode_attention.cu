@@ -41,6 +41,7 @@ extern "C" int ring_decode_attention_fwd(
   c.page = ring;
   c.nblk = 1;
   c.KV = KV;
+  pdec::own_strides(c, hd);
   c.window = window;
   c.chunk = chunk;
   c.nsplit = nsplit;

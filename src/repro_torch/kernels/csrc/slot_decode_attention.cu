@@ -6,12 +6,10 @@
 // q (B,H,hd) and the pool layout k/v (B,S,KV,hd): position stride KV*hd,
 // each (position, kv head) row hd contiguous values.  kv_len (B,) int32;
 // a row with kv_len == 0 (an idle or finished slot) writes exact zeros.
-// The body is the one of decode_attention.cuh (shared with
-// decode_attention.cu), read at the pool's strides with the whole cache
-// axis in one chunk: one block of 8 warps per (b, kv head), no merge
-// pass.  Known limit: B*KV blocks (96 for gpt-base at 8 slots) do not
-// fill the 132 SMs; the header's split over the cache axis is there to
-// turn on, at the cost of a workspace and a merge launch per layer.
+// The body is the one of decode_attention.cuh, read at the pool's strides
+// with the whole cache axis in one block of 8 warps per (b, kv head), no
+// merge pass.  Known limit: B*KV blocks (96 for gpt-base at 8 slots) do
+// not fill the 132 SMs (paged_decode.cuh splits its bands over clusters).
 #include "decode_attention.cuh"
 
 // q (B,H,hd), k/v (B,S,KV,hd), kv_len (B,) int32, o (B,H,hd); all
@@ -23,8 +21,7 @@ extern "C" int slot_decode_attention_fwd(const void* q, const void* k,
                                          int KV, int H, int hd, float scale,
                                          void* stream) {
   const long long ps = (long long)KV * hd;  // position stride of the pool
-  return dattn::run(q, k, v, static_cast<const int*>(kv_len), o, nullptr,
-                    dtype, B, S, KV, H, hd, (long long)S * ps, hd, ps,
-                    S > 1 ? S : 1, 1, scale,
+  return dattn::run(q, k, v, static_cast<const int*>(kv_len), o, dtype, B,
+                    S, KV, H, hd, (long long)S * ps, hd, ps, scale,
                     static_cast<cudaStream_t>(stream));
 }

@@ -1,12 +1,12 @@
 """Wrappers of the CUDA decode-side attention kernels:
-``csrc/decode_attention.cu`` (one query per row over a head-major cache,
-read through strides) and ``csrc/slot_decode_attention.cu`` (one query per
-slot over the pool), which share ``csrc/decode_attention.cuh``;
-``csrc/chunk_verify_attention.cu`` (a speculative verify chunk per slot);
-and four kernels over one body, ``csrc/paged_decode.cuh``:
-``csrc/ring_decode_attention.cu`` (one query per slot over a ring-buffer
-window cache, the dense pool read as an arena of one page a row),
-``csrc/paged_slot_decode_attention.cu``,
+``csrc/slot_decode_attention.cu`` (one query per slot over the pool, on
+``csrc/decode_attention.cuh``) and six kernels over one body,
+``csrc/paged_decode.cuh``: ``csrc/decode_attention.cu`` (one query per
+row over a head-major cache, read through strides),
+``csrc/chunk_verify_attention.cu`` (a speculative verify chunk per slot,
+full or ring layout) and ``csrc/ring_decode_attention.cu`` (one query per
+slot over a ring-buffer window cache), which read a dense cache as an
+arena of one page a row, and ``csrc/paged_slot_decode_attention.cu``,
 ``csrc/paged_ring_decode_attention.cu`` and
 ``csrc/paged_chunk_verify_attention.cu`` (page arenas read through
 per-row block tables).  The body cuts each (row, kv head) band into a
@@ -69,7 +69,8 @@ def _check_tensors(what, floats, *ints):
 
 
 def _check_one_query(what, q, k, v, kv_len, *, pool):
-    """The rules of the one-query kernels (decode_attention.cuh).  With
+    """The rules of the one-query kernels (the slot and decode_attention
+    entries).  With
     ``pool`` k, v are the (B, S, KV, hd) slot pool and must be contiguous;
     else they are head-major (B, KV, S, hd), read through their B, KV and
     S strides with hd contiguous."""
@@ -132,7 +133,10 @@ slot_decode_attention.launches = 0
 
 
 # ------------------------------------------- head-major (strided) decode
-SPLIT_UNIT = 64  # positions a block walks per iteration (NW * U in the .cuh)
+# decode_attention's bands cut their own kv_len over the pieces on the
+# device (generate's cache is max_len wide and mostly unfilled); False
+# takes the host's cut of the whole cache axis, as the paged slot does
+DECODE_CUT_ON_DEVICE = True
 
 
 @functools.lru_cache(maxsize=None)
@@ -143,22 +147,11 @@ def _sm_count(device):
 def _decode_entry():
     fn = build.load("decode_attention").decode_attention_fwd
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                       + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 2
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                       + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 3
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
-
-
-def decode_splits(B, KV, S, n_sm):
-    """(chunk, nsplit): the cache axis cut into ``nsplit`` chunks of
-    ``chunk`` positions (a multiple of SPLIT_UNIT), enough for about two
-    blocks per SM over the B * KV (row, kv head) pairs.  One chunk needs
-    no merge pass."""
-    want = max(1, -(-2 * n_sm // max(1, B * KV)))
-    chunk = -(-S // want)
-    chunk = -(-chunk // SPLIT_UNIT) * SPLIT_UNIT
-    return chunk, -(-S // chunk)
 
 
 def decode_attention(q, k, v, kv_len):
@@ -166,25 +159,22 @@ def decode_attention(q, k, v, kv_len):
     through their B, KV and S strides (hd contiguous: a contiguous tensor,
     or the pool's (B, S, KV, hd) cache as its ``transpose(1, 2)`` view);
     kv_len: (B,) int32 -> (B, H, hd).  kv_len 0 gives exact zeros; kv_len
-    > S reads S."""
-    _check_one_query("decode_attention", q, k, v, kv_len, pool=False)
+    > S reads S.  Each (row, kv head) band of up to S positions is one
+    thread-block cluster of ``_paged_splits`` pieces."""
+    what = "decode_attention"
+    _check_one_query(what, q, k, v, kv_len, pool=False)
     B, H, hd = q.shape
     KV, S = k.shape[1], k.shape[2]
-    chunk, nsplit = decode_splits(B, KV, S, _sm_count(q.device))
+    chunk, nsplit = _paged_splits(what, q, KV, S)
     out = torch.empty_like(q)
-    work = None
-    if nsplit > 1:  # per-chunk (m, l, acc) partials for the merge pass
-        work = torch.empty(B * KV * nsplit * (H // KV) * (hd + 2),
-                           dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         rc = _decode_entry()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
-            out.data_ptr(), None if work is None else work.data_ptr(),
-            DTYPES[q.dtype], B, S, KV, H, hd, *k.stride()[:3], chunk, nsplit,
+            out.data_ptr(), DTYPES[q.dtype], B, S, KV, H, hd,
+            *k.stride()[:3], chunk, nsplit, int(DECODE_CUT_ON_DEVICE),
             hd ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
-                           f"error {rc}")
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
     decode_attention.launches += 1
     return out
 
@@ -195,7 +185,7 @@ decode_attention.launches = 0
 def _chunk_entry():
     fn = build.load("chunk_verify_attention").chunk_verify_attention_fwd
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 12
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -235,16 +225,21 @@ def chunk_verify_attention(q, ck, cv, k, v, offsets, *, ring, window=None):
     """q: (B, S, H, hd); ck, cv: (B, Sc, KV, hd) read-only cache, full
     (``ring`` False) or ring-buffer layout; k, v: (B, S, KV, hd) the chunk's
     own K/V; offsets: (B,) int32 committed lengths -> (B, S, H, hd).
-    Offsets < 0 give exact zeros; the cache is never written."""
+    Offsets < 0 give exact zeros; the cache is never written.  Planned as
+    the paged verify is (``_verify_plan``): the cache is B pages of Sc
+    rows."""
     _check_chunk(q, ck, cv, k, v, offsets, window)
     B, S, H, hd = q.shape
+    Sc, KV = ck.shape[1], ck.shape[2]
+    rows, _, chunk, nsplit = _verify_plan(q, KV, Sc, window,
+                                          "chunk_verify_attention")
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         rc = _chunk_entry()(
             q.data_ptr(), ck.data_ptr(), cv.data_ptr(), k.data_ptr(),
             v.data_ptr(), offsets.data_ptr(), out.data_ptr(),
-            DTYPES[q.dtype], B, S, ck.shape[1], ck.shape[2], H, hd,
-            int(ring), window or 0, hd ** -0.5,
+            DTYPES[q.dtype], B, S, Sc, KV, H, hd, int(ring), window or 0,
+            rows, chunk, nsplit, hd ** -0.5,
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"chunk_verify_attention kernel launch failed: "
@@ -348,13 +343,13 @@ def _paged_splits(name, q, KV, span, rows=None, tiles=1):
         _paged_per_sm(name, q.device, q.dtype, hd, rows or H // KV))
 
 
-def _verify_plan(q, KV, cap, window):
-    """(rows, tiles, chunk, nsplit) of a paged verify on q (B, S, H, hd)."""
+def _verify_plan(q, KV, cap, window, name="paged_chunk_verify_attention"):
+    """(rows, tiles, chunk, nsplit) of library ``name``'s verify on q
+    (B, S, H, hd) over a cache of ``cap`` positions a row."""
     S, H = q.shape[1:3]
     rows, tiles = verify_tiles(S, H // KV)
     return (rows, tiles, *_paged_splits(
-        "paged_chunk_verify_attention", q, KV, verify_span(S, cap, window),
-        rows, tiles))
+        name, q, KV, verify_span(S, cap, window), rows, tiles))
 
 
 def _paged_slot_entry():

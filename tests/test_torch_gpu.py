@@ -801,14 +801,17 @@ def test_cuda_paged_ring_decode_matches_plain(cuda_device, G, hd, dtype,
     assert (got[0] == 0).all()
 
 
-# The paged slot and ring kernels, the dense ring kernel and the paged
-# verify share one body (csrc/paged_decode.cuh): each (row, kv head) band
-# is one thread-block cluster of ``nsplit`` pieces (``paged_decode_splits``)
-# merged in the launch: pieces of the host's chunk positions, or, for a
-# verify, a band of n positions cut into pieces of ceil(n / nsplit) rounded
-# up to 32 (at most the host's chunk).  Grid entries are (kind, G, hd, dtype,
-# page): a dense ring's "page" is its ring length (the window by
-# DENSE_RING_WINDOW), a verify's S and window come from VERIFY_EDGE.
+# The paged slot and ring kernels, the dense ring, the paged and dense
+# verify and decode_attention share one body (csrc/paged_decode.cuh): each
+# (row, kv head) band is one thread-block cluster of ``nsplit`` pieces
+# (``paged_decode_splits``) merged in the launch: pieces of the host's
+# chunk positions, or, for a verify and decode_attention, a band of n
+# positions cut into pieces of ceil(n / nsplit) rounded up to 32 (at most
+# the host's chunk).  Grid entries are (kind, G, hd, dtype, page): a dense
+# ring's "page" is its ring length (the window by DENSE_RING_WINDOW), a
+# verify's S and window come from VERIFY_EDGE; a dense verify's "page" is
+# its cache length Sc (DENSE_VERIFY_EDGE), decode_attention's its cache
+# length S (DECODE_EDGE).
 DENSE_RING_WINDOW = {2048: 2048, 384: 1000, 200: 100}
 VERIFY_EDGE = {  # (G, page) -> (S, window)
     (1, 64): (5, None),   # gpt-base's verify: 5 rows in the 8-row instance
@@ -818,6 +821,23 @@ VERIFY_EDGE = {  # (G, page) -> (S, window)
     (4, 24): (5, 70),     # 20 rows in 2 tiles; the window cuts each row
     (2, 8): (5, 3),       # a window shorter than the chunk
     (1, 32): (16, None),  # one tile of 16 rows
+}
+DENSE_VERIFY_EDGE = {  # (G, Sc) -> (S, window, ring, KV)
+    (1, 1024): (5, None, False, 12),  # gpt-base's verify: TMA boxes
+    (8, 300): (16, 64, False, 2),     # S 16 x G 8: 8 tiles, a window
+    (8, 96): (16, None, True, 2),     # 8 tiles over a wrapped ring
+    (2, 100): (1, 3, True, 2),        # S 1, a window of 3 in a ring
+    (4, 200): (5, 64, True, 2),       # 20 rows in 2 tiles, ring + window
+    (2, 64): (5, 3, False, 2),        # a window shorter than the chunk
+    (4, 40): (16, None, True, 1),     # one kv head: runs of rows
+}
+DECODE_EDGE = {  # (G, S) -> (B, KV, layout)
+    (1, 1024): (1, 12, "pool"),       # gpt-base's generate at B 1
+    (1, 100): (1, 12, "pool"),        # B 1, a band shorter than a piece
+    (2, 576): (8, 8, "pool"),         # qwen3-0.6b's generate at B 8
+    (8, 300): (8, 4, "head-major"),   # runs of contiguous rows
+    (4, 37): (8, 2, "head-major"),
+    (1, 200): (8, 2, "pool"),         # strided rows, no TMA (200 % 32)
 }
 PAGED_EDGE_GRID = [(kind, G, hd, dtype, page)
                    for kind, G, hd in (("slot", 8, 128), ("ring", 8, 128),
@@ -837,6 +857,21 @@ PAGED_EDGE_GRID = [(kind, G, hd, dtype, page)
     ("verify", 4, 64, torch.float32, 24),
     ("verify", 2, 64, torch.bfloat16, 8),
     ("verify", 1, 128, torch.float32, 32),
+    ("dense_verify", 1, 64, torch.float32, 1024),
+    ("dense_verify", 1, 64, torch.bfloat16, 1024),
+    ("dense_verify", 8, 128, torch.float32, 300),
+    ("dense_verify", 8, 128, torch.bfloat16, 96),
+    ("dense_verify", 2, 64, torch.float32, 100),
+    ("dense_verify", 4, 128, torch.bfloat16, 200),
+    ("dense_verify", 2, 128, torch.float32, 64),
+    ("dense_verify", 4, 64, torch.float32, 40),
+    ("decode", 1, 64, torch.float32, 1024),
+    ("decode", 1, 64, torch.bfloat16, 100),
+    ("decode", 2, 128, torch.float32, 576),
+    ("decode", 2, 128, torch.bfloat16, 576),
+    ("decode", 8, 128, torch.float32, 300),
+    ("decode", 4, 64, torch.bfloat16, 37),
+    ("decode", 1, 128, torch.float32, 200),
 ]
 
 
@@ -923,6 +958,50 @@ def _verify_edge_case(dev, G, hd, dtype, page):
     return q, ck, cv, bt.contiguous().to(dev), kc, vc, offs, window
 
 
+def _dense_verify_edge_case(dev, G, hd, dtype, Sc):
+    """A dense verify's edges, from the wrapper's plan: offsets -1, 0 and
+    1, the chunk's keys straddling a piece boundary (30), a band ending
+    near a piece boundary, a full cache and offsets past it (full: the
+    whole cache; ring: wrapped); S, window, layout and KV from
+    DENSE_VERIFY_EDGE."""
+    S, window, ring, KV = DENSE_VERIFY_EDGE[G, Sc]
+    B = 8
+    g = torch.Generator(device=dev).manual_seed(G + hd + Sc + S)
+    q = torch.randn(B, S, G * KV, hd, generator=g, device=dev).to(dtype)
+    kc, vc, ck, cv = (
+        torch.randn(B, n, KV, hd, generator=g, device=dev).to(dtype)
+        for n in (S, S, Sc, Sc))
+    rows, tiles, chunk, nsplit = kda._verify_plan(
+        q, KV, Sc, window, "chunk_verify_attention")
+    assert rows * tiles >= S * G and chunk * nsplit >= min(
+        Sc, window - 1 if window else Sc) + S
+    offs = torch.tensor([-1, 0, 1, 30, 2 * chunk - 1, Sc - S, Sc,
+                         3 * Sc + 7], dtype=torch.int32, device=dev)
+    return q, ck, cv, kc, vc, offs, ring, window
+
+
+def _decode_edge_case(dev, G, hd, dtype, S):
+    """decode_attention's edges, from the wrapper's split: kv_len 0, 1, a
+    band shorter than a piece, on and past a piece boundary, S and past S,
+    over the pool's (B, S, KV, hd) cache read through its transposed view
+    or a contiguous head-major cache (DECODE_EDGE); at B 1 one length."""
+    B, KV, layout = DECODE_EDGE[G, S]
+    g = torch.Generator(device=dev).manual_seed(G + hd + S)
+    q = torch.randn(B, G * KV, hd, generator=g, device=dev).to(dtype)
+    chunk, nsplit = kda._paged_splits("decode_attention", q, KV, S)
+    assert chunk * nsplit >= S
+    if layout == "pool":
+        k, v = (torch.randn(B, S, KV, hd, generator=g, device=dev).to(
+            dtype).transpose(1, 2) for _ in range(2))
+    else:
+        k, v = (torch.randn(B, KV, S, hd, generator=g, device=dev).to(dtype)
+                for _ in range(2))
+    lens = ([S // 2 + 37] if S > 200 else [37]) if B == 1 else [
+        0, 1, min(chunk - 1, S), min(chunk, S), min(chunk + 1, S), S // 3,
+        S, S + 7]
+    return q, k, v, torch.tensor(lens, dtype=torch.int32, device=dev)
+
+
 @pytest.mark.parametrize("kind,G,hd,dtype,page", PAGED_EDGE_GRID)
 def test_cuda_paged_decode_body_edges_match_plain(cuda_device, kind, G, hd,
                                                   dtype, page):
@@ -943,6 +1022,22 @@ def test_cuda_paged_decode_body_edges_match_plain(cuda_device, kind, G, hd,
         got = fn(q, k, v, rows, window=window)
         want = ref.ring_decode_attention_ref(q, k, v, rows, window=window)
         done = rows < 0
+    elif kind == "dense_verify":
+        q, ck, cv, kc, vc, rows, ring, window = _dense_verify_edge_case(
+            cuda_device, G, hd, dtype, page)
+        fn = cuda_chunk
+        n0 = fn.launches
+        got = fn(q, ck, cv, kc, vc, rows, ring=ring, window=window)
+        want = ref.chunk_verify_attention_ref(q, ck, cv, kc, vc, rows,
+                                              ring=ring, window=window)
+        done = rows < 0
+    elif kind == "decode":
+        q, k, v, rows = _decode_edge_case(cuda_device, G, hd, dtype, page)
+        fn = cuda_decode
+        n0 = fn.launches
+        got = fn(q, k, v, rows)
+        want = ref.decode_attention_ref(q, k, v, rows)
+        done = rows <= 0
     else:
         q, k, v, bt, rows, window = _paged_edge_case(cuda_device, kind, G,
                                                      hd, dtype, page)
@@ -962,11 +1057,14 @@ def test_cuda_paged_decode_body_edges_match_plain(cuda_device, kind, G, hd,
     torch.cuda.synchronize()
     assert fn.launches == n0 + 1
     torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
-    assert bool(done.any()) and (got[done] == 0).all()
+    # every batch holds a done row, but decode_attention's at B 1
+    assert bool(done.any()) or len(rows) == 1
+    assert (got[done] == 0).all()
     assert torch.isfinite(got.float()).all()
 
 
-@pytest.mark.parametrize("kind", ["slot", "ring", "dense_ring", "verify"])
+@pytest.mark.parametrize("kind", ["slot", "ring", "dense_ring", "verify",
+                                  "dense_verify", "decode"])
 def test_cuda_paged_decode_is_one_kernel_and_one_allocation(cuda_device,
                                                             kind):
     """One call puts exactly one kernel on the device (the in-launch merge:
@@ -985,6 +1083,19 @@ def test_cuda_paged_decode_is_one_kernel_and_one_allocation(cuda_device,
 
         def call():
             return cuda_ring(q, k, v, pos, window=window)
+    elif kind == "dense_verify":
+        q, ck, cv, kc, vc, offs, ring, window = _dense_verify_edge_case(
+            cuda_device, 1, 64, torch.bfloat16, 1024)
+
+        def call():
+            return cuda_chunk(q, ck, cv, kc, vc, offs, ring=ring,
+                              window=window)
+    elif kind == "decode":
+        q, k, v, lens = _decode_edge_case(cuda_device, 1, 64,
+                                          torch.float32, 1024)
+
+        def call():
+            return cuda_decode(q, k, v, lens)
     else:
         q, k, v, bt, rows, window = _paged_edge_case(
             cuda_device, kind, 10 if kind == "ring" else 8,
@@ -1153,7 +1264,7 @@ DECODE_GRID = [(G, hd, dtype) for G in (1, 2, 4, 8) for hd in (64, 128)
 
 @pytest.mark.parametrize("G,hd,dtype", DECODE_GRID)
 def test_cuda_decode_attention_matches_plain(cuda_device, G, hd, dtype):
-    """S of 37, 300 and 576 (one chunk, and several with a merge pass);
+    """S of 37, 300 and 576 (bands of one piece and of several);
     ragged lengths with 0, 1, S and past S, a done row; a contiguous
     head-major cache and the pool's (B, S, KV, hd) cache through its
     ``transpose(1, 2)`` view; a scalar length."""

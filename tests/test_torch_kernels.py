@@ -10,6 +10,7 @@ import torch
 
 from _torch_port import F32_ATOL
 from repro.kernels import ops as jops
+from repro_torch.kernels import decode_attention as kda
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.decode_attention import (
     paged_decode_splits,
@@ -136,3 +137,73 @@ def test_verify_plan_tiles_rows_and_cuts_bands(B, S, KV, G, cap, window,
     chunk, nsplit = paged_decode_splits(B * tiles, KV, span, 132, per_sm)
     assert (rows, tiles, chunk, nsplit) == want
     _check_pieces(chunk, nsplit, span)
+
+
+def _wrapper_plan(monkeypatch, per_sm):
+    """The wrappers' own planning on a card of 132 SMs whose instance
+    holds ``per_sm`` blocks an SM; records (library, rows) of each
+    occupancy query."""
+    asked = []
+
+    def occupancy(name, device, dtype, hd, rows):
+        asked.append((name, rows))
+        return per_sm
+    monkeypatch.setattr(kda, "_sm_count", lambda device: 132)
+    monkeypatch.setattr(kda, "_paged_per_sm", occupancy)
+    return asked
+
+
+@pytest.mark.parametrize("B,S,H,KV,Sc,window,per_sm,want", [
+    # gpt-base's verify (d 4): 5 rows in the 8-row instance, f32 and bf16
+    (8, 5, 12, 12, 1024, None, 3, (5, 1, 288, 4)),
+    (8, 5, 12, 12, 1024, None, 5, (5, 1, 192, 6)),
+    (8, 5, 8, 8, 1024, None, 3, (5, 1, 192, 6)),     # gpt-small's catch-up
+    (4, 16, 16, 2, 500, 64, 2, (16, 8, 32, 3)),      # S 16 x G 8, window 64
+    (6, 5, 8, 2, 300, 128, 2, (10, 2, 32, 5)),       # ring Sc 300, window 128
+])
+def test_dense_verify_plan_tiles_rows_and_cuts_bands(monkeypatch, B, S, H, KV,
+                                                     Sc, window, per_sm,
+                                                     want):
+    """``chunk_verify_attention`` plans as the paged verify does, over a
+    cache of Sc positions a row (the dense cache is B pages of Sc rows):
+    the S * G query rows in tiles of at most 16, each of the B * KV *
+    tiles bands -- the attended cache, ``window - 1`` positions at most in
+    either layout, and the chunk's S keys -- cut as the body's bands are,
+    at the occupancy of its own library's instance for ``rows``."""
+    asked = _wrapper_plan(monkeypatch, per_sm)
+    q = torch.zeros(B, S, H, 64)
+    plan = kda._verify_plan(q, KV, Sc, window, "chunk_verify_attention")
+    assert plan == want
+    rows, tiles, chunk, nsplit = plan
+    assert asked == [("chunk_verify_attention", rows)]
+    assert (rows, tiles) == verify_tiles(S, H // KV)
+    _check_pieces(chunk, nsplit, verify_span(S, Sc, window))
+    # the same cut as the paged verify over a table of the same capacity
+    assert kda._verify_plan(q, KV, Sc, window) == want
+
+
+@pytest.mark.parametrize("B,KV,S,want", [
+    (1, 12, 1024, (64, 16)),    # gpt-base generate at B 1: 16 pieces a band
+    (8, 8, 576, (96, 6)),       # qwen3-0.6b generate at B 8 (phase 3)
+    (8, 8, 1024, (192, 6)),     # ... over a max_len of 1024
+    (64, 32, 4096, (4096, 1)),  # more bands than the card holds
+    (2, 2, 37, (32, 2)),        # ragged: pieces of one tile
+])
+def test_decode_attention_pieces_come_from_paged_decode_splits(
+        monkeypatch, B, KV, S, want):
+    """``decode_attention`` cuts each (row, kv head) band of up to S
+    positions as the body's SLOT bands are, at its own instance's
+    occupancy for the group's G heads (3 blocks an SM: float32 at hd 64
+    and 128); on the device each band then cuts its own kv_len over those
+    pieces (multiples of 32, at most ``chunk``), which always covers it."""
+    asked = _wrapper_plan(monkeypatch, 3)
+    G = 2
+    q = torch.zeros(B, KV * G, 128)
+    chunk, nsplit = kda._paged_splits("decode_attention", q, KV, S)
+    assert (chunk, nsplit) == want
+    assert asked == [("decode_attention", G)]
+    _check_pieces(chunk, nsplit, S)
+    for n in (1, 31, 33, S // 3, S - 1, S):
+        per = -(-n // nsplit)  # a band of n positions, as the device cuts it
+        cut = min(chunk, -(-per // 32) * 32)
+        assert cut % 32 == 0 and cut * nsplit >= n

@@ -230,8 +230,10 @@ def test_decode_attention_plain_matches_jax_ref_and_pallas(G, hd, S, dtype,
 
 def test_decode_attention_wrapper_refuses_and_splits():
     """On the CPU ``ops`` runs the plain version and the CUDA wrapper
-    refuses the tensors; the split of the cache axis fills about two
-    blocks per SM with chunks of whole 64-position iterations."""
+    refuses the tensors; the cache axis is cut as the paged-decode body's
+    bands are (``paged_decode_splits`` at the instance's blocks an SM,
+    here 3: float32 at hd 64 and 128), in pieces of whole 32-position
+    tiles, one thread-block cluster of at most 16 a band."""
     q, k = torch.zeros(2, 4, 64), torch.zeros(2, 2, 70, 64)
     kda.decode_attention.launches = 0
     ops.decode_attention(q, k, k, 5)
@@ -243,12 +245,12 @@ def test_decode_attention_wrapper_refuses_and_splits():
         kda._check_heads("decode_attention", 4, 2, 80)
     with pytest.raises(ValueError, match="H/KV = 12/1"):
         kda._check_heads("decode_attention", 12, 1, 64)
-    # gpt-base generate (B 1, 12 KV heads, 1024 positions): 16 chunks
-    assert kda.decode_splits(1, 12, 1024, 132) == (64, 16)
-    # qwen3-0.6b at B 8 (8 KV heads): 4 chunks of 256
-    assert kda.decode_splits(8, 8, 1024, 132) == (256, 4)
-    assert kda.decode_splits(64, 32, 4096, 132) == (4096, 1)
-    assert kda.decode_splits(2, 2, 37, 132) == (64, 1)
+    # gpt-base generate (B 1, 12 KV heads, 1024 positions): 16 pieces
+    assert kda.paged_decode_splits(1, 12, 1024, 132, 3) == (64, 16)
+    # qwen3-0.6b at B 8 (8 KV heads): 6 pieces of 192
+    assert kda.paged_decode_splits(8, 8, 1024, 132, 3) == (192, 6)
+    assert kda.paged_decode_splits(64, 32, 4096, 132, 3) == (4096, 1)
+    assert kda.paged_decode_splits(2, 2, 37, 132, 3) == (32, 2)
 
 
 def test_scalar_decode_step_routes_through_decode_attention(monkeypatch):
