@@ -20,11 +20,13 @@ printed as it goes; a failed phase raises, so the exit code is not 0:
                 gpt-small's catch-up, the paged kernels over a 128-page
                 arena through permuted block tables with a sentinel block,
                 recurrentgemma-2b's ring decode over dense rings and a
-                permuted arena, and its admission scan, qwen3-0.6b's and
-                gpt-base's ``generate`` decode over the pool's transposed
-                view) plus GQA, bfloat16,
-                ragged, ring and window cases (the sandwich's gradients
-                too), then
+                permuted arena, and its admission scan at 8 rows and at
+                one, qwen3-0.6b's and gpt-base's ``generate`` decode over
+                the pool's transposed view) plus GQA, bfloat16, ragged,
+                ring and window cases, gpt-base's verify at d 16 (S 17)
+                dense and paged, the dense slot and ``decode_attention``
+                with their bands cut on the device and by the host (the
+                sandwich's gradients too), then
                 CUDA-event times of kernel, plain version and one PyTorch
                 library call beside the kernel's bound, in f32 and, for
                 every kernel with a bf16 case, in bf16 (flash's and the
@@ -54,8 +56,10 @@ printed as it goes; a failed phase raises, so the exit code is not 0:
                 new tokens): tokens == the plain route (near ties
                 reported), exact launch counts of the chunk-verify, slot
                 and flash kernels, tok/s beside the non-speculative engine
-                on the same requests; then gpt-base drafting for itself,
-                where a rejection must sit at a near tie;
+                on the same requests; a traced run, and a second one
+                with the dense slot's other cut of its bands; then
+                gpt-base drafting for itself, where a rejection must sit
+                at a near tie;
   7. paged   -- phase 4's gpt-base from a paged pool of 48 pages (3/8 of
                 the dense pool's 128), capacity 8, max_len 1024 (page 64),
                 K 8: 16 requests of 64 new tokens, 12 opening with one
@@ -102,14 +106,16 @@ printed as it goes; a failed phase raises, so the exit code is not 0:
                 28 x 63 per ``generate`` call and never from the engine),
                 no page left in use, at least 512 distinct tokens from
                 the dense engine; tok/s, host syncs per token, peak
-                memory, a traced run's idle share.  The f32 logits of 8
-                ``decode_step`` calls against the f32 full forward, within
-                1e-3 of the largest logit.  Then the published
+                memory, a traced run's idle share (and the dense slot's
+                traced time with each cut of its bands).  The f32 logits
+                of 8 ``decode_step`` calls against the f32 full forward,
+                within 1e-3 of the largest logit.  Then the published
                 bf16 (weights cast from the f32 ones) through ``generate``
                 at B 8: tok/s, and the max |logit| error of 8 decode steps
                 against the f32 route on the same weights, which must be
                 at most twice the plain bf16 route's.
 
+Each traced run prints the device time of each of the port's kernels.
 Each path's launch counters are set to 0 just before it runs and read just
 after; a kernel of the path that was never launched fails the run.  The
 line before the last is the kernels JSON; the last line is
@@ -225,7 +231,8 @@ def flash_cases(gen):
 
 def slot_cases(gen):
     """(label, q, k, v, kv_len) at gpt-base's slot pool first; k/v are
-    (L, B, S, KV, hd) pools whose layers the timing cycles through."""
+    (L, B, S, KV, hd) pools whose layers the timing cycles through.  Cases
+    0, 2 and 4 are timed."""
     import torch
 
     out = []
@@ -237,7 +244,11 @@ def slot_cases(gen):
             ("gpt-base pool bf16", 2, 8, 1024, 12, 12, 64, torch.bfloat16,
              [0, 97, 200, 333, 451, 576, 800, 1024]),
             ("GQA bf16", 2, 4, 512, 16, 4, 128, torch.bfloat16,
-             [3, 0, 511, 64])):
+             [3, 0, 511, 64]),
+            # phase 6's draft: gpt-small's pool, bands of a prompt and a
+            # reply filling a third to a half of it
+            ("gpt-small draft f32", 12, 8, 1024, 8, 8, 64, torch.float32,
+             [64, 120, 180, 240, 300, 360, 420, 512])):
         def rnd(*s):
             return torch.randn(*s, generator=gen, device="cuda").to(dt)
         out.append((label, rnd(B, H, hd), rnd(L, B, S, KV, hd),
@@ -350,20 +361,30 @@ def run_kernels():
             shape=f"q{tuple(q.shape)} k/v{tuple(k.shape)} {dname} causal")
 
     sd = decode_attention.slot_decode_attention
+    on_device_default = decode_attention.SLOT_CUT_ON_DEVICE
     for i, (label, q, kp, vp, kvl) in enumerate(slot_cases(gen)):
         dname = str(q.dtype).split(".")[1]
-        got = sd(q, kp[0], vp[0], kvl)
-        torch.cuda.synchronize()
         want = ref.slot_decode_attention_ref(q, kp[0], vp[0], kvl)
-        err = check_close(f"slot_decode_attention [{label}]", got, want,
-                          dname)
-        if not bool((got[kvl == 0] == 0).all()):
-            raise AssertionError(f"slot_decode_attention [{label}]: rows "
-                                 "with kv_len 0 are not exact zeros")
+        errs = {}
+        for on_device in (False, True):  # the host's cut, the device's
+            decode_attention.SLOT_CUT_ON_DEVICE = on_device
+            got = sd(q, kp[0], vp[0], kvl)
+            torch.cuda.synchronize()
+            errs[on_device] = check_close(
+                f"slot_decode_attention [{label}, cut on the "
+                f"{'device' if on_device else 'host'}]", got, want, dname)
+            if not bool((got[kvl == 0] == 0).all()):
+                raise AssertionError(f"slot_decode_attention [{label}]: "
+                                     "rows with kv_len 0 are not exact zeros")
+        decode_attention.SLOT_CUT_ON_DEVICE = on_device_default
+        err = errs[on_device_default]
+        splits = decode_attention._paged_splits(
+            "slot_decode_attention", q, kp.shape[3], kp.shape[2])
         print(f"slot_decode_attention [{label}] q{tuple(q.shape)} "
               f"pool{tuple(kp.shape[1:])} kv_len {kvl.tolist()}: max abs "
-              f"err {err:.3g}, kv_len-0 rows exact zeros", flush=True)
-        if i not in (0, 2):  # time the first f32 and the first bf16 case
+              f"err {err:.3g} (host's cut {errs[False]:.3g}), pieces "
+              f"{splits}, kv_len-0 rows exact zeros", flush=True)
+        if i not in (0, 2, 4):  # the first f32 and bf16 cases, the draft
             continue
         L = kp.shape[0]
         B, H, hd = q.shape
@@ -389,10 +410,26 @@ def run_kernels():
                 q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
                 attn_mask=mask[:, None, None], enable_gqa=H != KV)
 
+        kern = cycled(lambda k, v: sd(q, k, v, kvl))
+        cut_ms = {True: 0.0, False: 0.0}  # device, host, host, device
+        for on_device in (True, False, False, True):
+            decode_attention.SLOT_CUT_ON_DEVICE = on_device
+            cut_ms[on_device] += time_ms(kern, 10 * L) / 2
+        decode_attention.SLOT_CUT_ON_DEVICE = on_device_default
+        print(f"slot_decode_attention [{label}]: bands cut on the device "
+              f"{cut_ms[True]:.4f} ms, on the host {cut_ms[False]:.4f} ms, "
+              f"bound {b_ms:.4f} ms", flush=True)
+        if i == 4:
+            rows["slot_decode_attention"]["gpt_small_draft"] = dict(
+                device_cut_ms=cut_ms[True], host_cut_ms=cut_ms[False],
+                library_ms=time_ms(cycled(lib), 10 * L), bound_ms=b_ms,
+                splits=splits)
+            continue
         if i == 2:
             row = rows["slot_decode_attention"]
-            row["bf16_ms"] = time_ms(cycled(lambda k, v: sd(q, k, v, kvl)),
-                                     10 * L)
+            row["bf16_ms"] = cut_ms[on_device_default]
+            row["bf16_device_cut_ms"] = cut_ms[True]
+            row["bf16_host_cut_ms"] = cut_ms[False]
             row["bf16_library_ms"] = time_ms(cycled(lib), 10 * L)
             row["bf16_bound_ms"], row["bf16_bound_by"] = b_ms, b_by
             row["bf16_max_abs_err"] = err
@@ -401,8 +438,9 @@ def run_kernels():
             name="slot_decode_attention", route="cuda",
             source="src/repro_torch/kernels/csrc/slot_decode_attention.cu",
             replaces="src/repro/kernels/decode_attention.py:502",
-            max_abs_err=err,
-            ms=time_ms(cycled(lambda k, v: sd(q, k, v, kvl)), 10 * L),
+            max_abs_err=err, ms=cut_ms[on_device_default],
+            device_cut_ms=cut_ms[True], host_cut_ms=cut_ms[False],
+            splits=splits,
             plain_ms=time_ms(cycled(
                 lambda k, v: ref.slot_decode_attention_ref(q, k, v, kvl)),
                 2 * L),
@@ -613,7 +651,8 @@ def chunk_cases():
     speculative path's two shapes first -- gpt-base's verify and gpt-small's
     catch-up, d 4 at capacity 8 over max_len 1024, one done row -- then
     ring, window, GQA and bfloat16 cases (cache lengths that divide
-    nothing, wrapped ring offsets, S*G = 128 across 16 query tiles)."""
+    nothing, wrapped ring offsets, S*G = 128 across 16 query tiles), and
+    gpt-base's verify at d 16 (S 17: tiles mixing cache and chunk rows)."""
     import torch
 
     spread = [-1, 64, 137, 210, 283, 356, 430, 576]
@@ -631,6 +670,8 @@ def chunk_cases():
          [-1, 0, 7, 299, 301, 901]),
         ("window full G8 f32", 2, 4, 16, 16, 2, 500, 128, f32, False, 64,
          [-1, 3, 250, 500]),
+        ("gpt-base verify S 17 f32", 2, 8, 17, 12, 12, 1024, 64, f32, False,
+         None, spread),
     ]
 
 
@@ -765,6 +806,8 @@ def paged_cases(gen):
          16, f32, spread),
         ("chunk", "gpt-base verify paged bf16", 2, 8, 5, 12, 12, 64, 128, 64,
          16, bf16, spread),
+        ("chunk", "gpt-base verify S 17 paged f32", 2, 8, 17, 12, 12, 64, 128,
+         64, 16, f32, spread),
     ]
 
 
@@ -1056,7 +1099,8 @@ def run_griffin_cases(gen):
             ("recurrentgemma-2b admission f32", 8, 4096, 2560,
              torch.float32, True),
             ("ragged f32", 3, 2101, 2560, torch.float32, False),
-            ("recurrentgemma-2b bf16", 8, 4096, 2560, torch.bfloat16, True)):
+            ("recurrentgemma-2b bf16", 8, 4096, 2560, torch.bfloat16, True),
+            ("single admission f32", 1, 2048, 2560, torch.float32, True)):
         dname = str(dt).split(".")[1]
         a = (torch.rand(B, S, W, generator=gen, device="cuda") * 0.5
              + 0.5).to(dt)
@@ -1079,9 +1123,13 @@ def run_griffin_cases(gen):
                     ms=time_ms(lambda: scan(a, b, h0), 10),
                     plain_ms=time_ms(lambda: ref.rglru_scan_ref(a, b, h0), 2),
                     bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                    shape=f"a, b ({B}, {S}, {W}) {dname} h0 {with_h0}")
+                    shape=f"a, b ({B}, {S}, {W}) {dname} h0 {with_h0}",
+                    plan=rglru_scan.scan_plan(B, S, W, item, torch.cuda.
+                                              get_device_properties(0).
+                                              multi_processor_count))
         print(f"rglru_scan [{label}] {case['shape']}: max abs err "
-              f"{err:.3g}; kernel {case['ms']:.4f} ms, plain "
+              f"{err:.3g}, plan (steps, blocks) {case['plan']}; kernel "
+              f"{case['ms']:.4f} ms, plain "
               f"{case['plain_ms']:.4f} ms, no library call, bound "
               f"{b_ms:.4f} ms ({b_by})", flush=True)
         del a, b, want, got
@@ -1293,6 +1341,38 @@ def device_busy_and_top(dev, n_top):
     return busy, sorted(by_name.items(), key=lambda kv: -kv[1][1])[:n_top]
 
 
+# the paged-decode body's instances by their template arguments (band kind
+# 0 slot, 1 ring, 2 verify; row address true dense, false paged).  The
+# dense SLOT instance also runs decode_attention, which no engine launches
+PDEC_KERNELS = {("0", "true"): "slot_decode_attention",
+                ("0", "false"): "paged_slot_decode_attention",
+                ("1", "true"): "ring_decode_attention",
+                ("1", "false"): "paged_ring_decode_attention",
+                ("2", "true"): "chunk_verify_attention",
+                ("2", "false"): "paged_chunk_verify_attention"}
+
+
+def port_kernel_ms(dev):
+    """{kernel: (launches, ms)}: the traced device time of the port's own
+    kernels among the device events ``dev``, by kernel."""
+    import re
+
+    out = {}
+    for e in dev:
+        m = re.search(r"paged_decode_kernel<[^,]+, \d+, \d+, (\d), "
+                      r"(true|false)>", e.name)
+        if m:
+            name = PDEC_KERNELS[m.groups()]
+        else:
+            name = next((k for k in ("rglru_scan", "flash_attention")
+                         if k.split("_")[0] in e.name), None)
+            if name is None:
+                continue
+        n, t = out.get(name, (0, 0.0))
+        out[name] = (n + 1, t + e.time_range.elapsed_us() / 1e3)
+    return out
+
+
 def profile_step(label, fn):
     """One call of ``fn`` under torch.profiler: device busy time, idle
     share of the traced wall time, and the 8 device ops that take most of
@@ -1383,7 +1463,9 @@ def profile_serve(make_engine, reqs, untraced_wall,
         device_ops=len(dev),
         decode_steps=eng.n_decode_dispatches * eng.k, stages=stage_rows,
         top_device_ops=[dict(name=n[:90], calls=c, ms=t / 1e3)
-                        for n, (c, t) in top])
+                        for n, (c, t) in top],
+        port_kernels={k: dict(calls=c, ms=t) for k, (c, t) in
+                      sorted(port_kernel_ms(dev).items())})
     print(f"profile: device busy {busy / 1e6:.4f} s in {len(dev)} device "
           f"ops over {report['decode_steps']} decode steps; idle share "
           f"{report['device_idle_share_untraced']:.3f} of the untraced "
@@ -1396,7 +1478,35 @@ def profile_serve(make_engine, reqs, untraced_wall,
     for r in report["top_device_ops"]:
         print(f"profile device op {r['ms']:9.3f} ms {r['calls']:6d}x "
               f"{r['name']}", flush=True)
+    for k, v in report["port_kernels"].items():
+        print(f"profile traced kernel {k}: {v['ms']:.3f} ms in {v['calls']} "
+              "launches", flush=True)
     return report
+
+
+def slot_cuts_traced(make_engine, reqs, untraced_wall, report):
+    """The dense slot's traced time with each cut of its bands: the
+    device's or the host's (``SLOT_CUT_ON_DEVICE``).  ``report`` is the
+    traced run with the wrapper's choice; a second, device-only traced run
+    takes the other cut."""
+    from repro_torch.kernels import decode_attention
+
+    chosen = decode_attention.SLOT_CUT_ON_DEVICE
+    decode_attention.SLOT_CUT_ON_DEVICE = not chosen
+    try:
+        other = profile_serve(make_engine, reqs, untraced_wall, stages=())
+    finally:
+        decode_attention.SLOT_CUT_ON_DEVICE = chosen
+
+    def slot_ms(r):
+        return r["port_kernels"].get("slot_decode_attention",
+                                     {"ms": 0.0})["ms"]
+    cuts = {("device" if chosen else "host"): slot_ms(report),
+            ("host" if chosen else "device"): slot_ms(other)}
+    print(f"traced dense slot: bands cut on the device {cuts['device']:.3f} "
+          f"ms, on the host {cuts['host']:.3f} ms (the wrapper cuts on the "
+          f"{'device' if chosen else 'host'})", flush=True)
+    return cuts
 
 
 GROW_DATA_VOCAB = 1024  # phase 5's chain runs over the first 1024 token ids
@@ -1729,6 +1839,8 @@ def run_speculative(kernel_rows, small, big):
     # to read
     report["profile"] = profile_serve(lambda: engine(cfg_s, small), reqs,
                                       dt, stages=())
+    report["dense_slot_traced_ms"] = slot_cuts_traced(
+        lambda: engine(cfg_s, small), reqs, dt, report["profile"])
 
     # the grown gpt-base drafting for itself: every proposal is the
     # target's own argmax up to the two kernels' arithmetic, so each
@@ -2645,6 +2757,9 @@ def run_qwen(kernel_rows):
     profile["seconds"] = time.perf_counter() - t0
     profile["note"] = ("8 of the 16 requests (one wave); the untraced idle "
                        "share uses half the 16-request run's wall time")
+    profile["dense_slot_traced_ms"] = slot_cuts_traced(
+        lambda: engine("dense"), reqs[:8], runs["dense"]["seconds"] / 2,
+        profile)
 
     # the published bf16, weights cast from the f32 ones
     err_32, err_k, err_p, top, cfg16, params16 = _bf16_logit_errors(

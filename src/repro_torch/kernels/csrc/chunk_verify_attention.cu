@@ -15,12 +15,13 @@
 //   full: slot s holds position s, written iff s < off;
 //   ring: slot s holds the largest p < off with p % Sc == s (p >= 0).
 // Rows with off < 0 (done slots) write exact zeros.  float32 and bfloat16,
-// hd in {64, 128}, G = H/KV in {1, 2, 4, 8}, S in 1..16, any Sc; softmax
+// hd in {64, 128}, G = H/KV in {1, 2, 4, 8}, any S and Sc; softmax
 // state and sums are float32.  The cache is never written.
 //
 // Bound on the H100: bytes.  Each row's attended cache positions and its S
 // chunk keys once, sum_b (valid cache positions + S) * KV * hd * 2 *
-// itemsize bytes, plus q and out, far below the ridge point for S*G <= 16.
+// itemsize bytes, plus q and out, far below the ridge point at a block's
+// 16 query rows.
 //
 // Design: the verify band of the decode body, paged_decode.cuh, with the
 // dense row address (row b's cache is page b of Sc rows, as the dense ring

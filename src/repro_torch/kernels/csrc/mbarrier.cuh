@@ -1,7 +1,6 @@
 // Shared-memory addresses, mbarriers and bulk copies for sm_90a, shared by
-// wgmma.cuh (flash_attention.cu, tr_sandwich.cu) and paged_decode.cuh
-// (paged_slot_decode_attention.cu, paged_ring_decode_attention.cu,
-// ring_decode_attention.cu, paged_chunk_verify_attention.cu).
+// wgmma.cuh (flash_attention.cu, tr_sandwich.cu, rglru_scan.cu) and
+// paged_decode.cuh (the seven decode-side attention kernels).
 #pragma once
 
 #include <cuda_runtime.h>

@@ -18,8 +18,8 @@
 // sentinel of a block with no page, which a draft's catch-up past its
 // budget can reach) clamps to page n_pages - 1 as in the reference, so
 // no read leaves the arena.  Rows with off < 0 (done slots) write exact
-// zeros.  float32 and bfloat16, hd in {64, 128}, G = H/KV in 1..16, S in
-// 1..16, any page size; softmax state and sums are float32.  The arenas
+// zeros.  float32 and bfloat16, hd in {64, 128}, G = H/KV in 1..16, any S
+// and page size; softmax state and sums are float32.  The arenas
 // are never written.  The ring-buffer layout is not taken here (the ring
 // slice).
 //

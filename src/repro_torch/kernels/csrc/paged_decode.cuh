@@ -1,7 +1,8 @@
 // Decode-side attention over a PAGED or DENSE pool for sm_90a: the body
 // shared by paged_slot_decode_attention.cu, paged_ring_decode_attention.cu,
 // paged_chunk_verify_attention.cu, ring_decode_attention.cu,
-// chunk_verify_attention.cu and decode_attention.cu.
+// chunk_verify_attention.cu, decode_attention.cu and
+// slot_decode_attention.cu.
 //
 // Computes, for each row b, kv head h and query row r of the group,
 //   out[r,:] = softmax_{p in band, p seen by r}(q[r,:] . K[p] * scale) @ V[p]
@@ -37,8 +38,11 @@
 // An empty band (kv_len <= 0, pos < 0, off < 0: an idle or finished slot)
 // writes exact zeros; the pools are never written.  float32 and bfloat16;
 // the ring takes hd in {64, 128, 256} and G = H / KV in 1..16, the slot hd
-// in {64, 128} and G up to 8, the verify hd in {64, 128}, G up to 16 and S
-// in 1..16.  Softmax state and sums are float32, products float32 FMAs.
+// in {64, 128} and G up to 8, the verify hd in {64, 128}, G up to 16 and
+// any S: its chunk keys are further positions of the band, staged through
+// the same tile ring as the cache (a tile may hold both; a long chunk spans
+// tiles), so only the grid's z limit bounds it, B * tiles <= 65,535.
+// Softmax state and sums are float32, products float32 FMAs.
 //
 // Bound on the H100: bytes.  Each band position's K and V row is read
 // once, sum_b n_b * KV * hd * 2 * itemsize bytes, at ~2 * (query rows)
@@ -50,11 +54,12 @@
 //  1. Split the band, merge in the launch.  Each band is cut into `nsplit`
 //     pieces of `chunk` positions (a host choice, `paged_decode_splits` in
 //     kernels/decode_attention.py, covering the longest band a row can
-//     have).  With `devcut` (every verify, and decode_attention, whose
-//     cache is max_len wide) a band cuts its own length, which only the
-//     device knows, into nsplit pieces of a multiple of 32 positions
-//     instead (such bands are rarely full; the paged slot's and the ring's
-//     are, and an even spread only crowds their SMs).  The pieces of one
+//     have).  With `devcut` (every verify; decode_attention and the dense
+//     slot, whose caches are max_len wide, as their wrappers choose) a
+//     band cuts its own length, which only the device knows, into nsplit
+//     pieces of a multiple of 32 positions instead (such bands are rarely
+//     full; the paged slot's and the ring's are, and an even spread only
+//     crowds their SMs).  The pieces of one
 //     band are one thread-block cluster (grid (nsplit, KV, B * tiles),
 //     cluster (nsplit, 1, 1), nsplit <= 16).  Each block leaves its piece's
 //     partial (m, l, acc) in its shared memory; after a cluster barrier
@@ -103,6 +108,12 @@
 #include "wgmma.cuh"  // mbarriers, bulk and TMA copies, tensor maps
 
 namespace pdec {
+// Internal linkage: two libraries may hold the same instance (the dense
+// slot and decode_attention both run SLOT over a dense row), and a
+// function-local static of a shared template (launch's `ready`) would be
+// one object across every loaded library, so one library's attributes
+// would pass for the other's.
+namespace {
 
 namespace cg = cooperative_groups;
 
@@ -113,7 +124,7 @@ constexpr int NC = NCW * 32;   // consumer threads
 constexpr int NT = NC + 32;    // and one producer warp
 constexpr int CLUSTER_MAX = 16;  // pieces of one band (a cluster)
 constexpr int ROWS_MAX = 16;     // query rows a block
-constexpr int CHUNK_MAX = 16;    // a verify chunk's keys
+constexpr long long GRID_Z_MAX = 65535;  // CUDA's limit: B * tiles blocks
 // Bytes of K + V stages at most: the slot and verify kernels keep three
 // blocks an SM at hd 64 in float32 (gpt-base: 96 bands); a ring band of one
 // KV head (recurrentgemma-2b: 8 bands of 16 blocks) has an SM to itself and
@@ -752,8 +763,8 @@ int run(Call c, int H, int dtype, int hd, void* stream) {
     c.S = 1;
     c.rows = c.G;
     c.ring = 0;
-  } else if (c.S < 1 || c.S > CHUNK_MAX || c.rows < 1 ||
-             c.rows > ROWS_MAX || c.rows > c.S * c.G) {
+  } else if (c.S < 1 || c.rows < 1 || c.rows > ROWS_MAX ||
+             c.rows > (long long)c.S * c.G) {
     return (int)cudaErrorInvalidValue;
   } else {
     c.devcut = 1;
@@ -763,9 +774,9 @@ int run(Call c, int H, int dtype, int hd, void* stream) {
   if (KIND == RING && c.window < cap) span = c.window;
   if (KIND == VERIFY)
     span = (c.window > 0 && c.window - 1 < cap ? c.window - 1 : cap) + c.S;
-  const long long tiles = (c.S * c.G + c.rows - 1) / c.rows;
+  const long long tiles = ((long long)c.S * c.G + c.rows - 1) / c.rows;
   if (cap > (1 << 30) || (long long)c.chunk * c.nsplit < span ||
-      (long long)c.B * tiles > 65535)
+      (long long)c.B * tiles > GRID_Z_MAX)
     return (int)cudaErrorInvalidValue;
   if (c.B == 0) return 0;
   return launch_t<KIND, DENSE>(c, dtype, hd, static_cast<cudaStream_t>(stream),
@@ -784,4 +795,5 @@ int blocks_per_sm(int dtype, int hd, int rows, int* out) {
   return launch_t<KIND, DENSE>(c, dtype, hd, nullptr, out);
 }
 
+}  // namespace
 }  // namespace pdec

@@ -1,8 +1,7 @@
-"""Wrappers of the CUDA decode-side attention kernels:
-``csrc/slot_decode_attention.cu`` (one query per slot over the pool, on
-``csrc/decode_attention.cuh``) and six kernels over one body,
-``csrc/paged_decode.cuh``: ``csrc/decode_attention.cu`` (one query per
-row over a head-major cache, read through strides),
+"""Wrappers of the CUDA decode-side attention kernels, seven kernels over
+one body, ``csrc/paged_decode.cuh``: ``csrc/slot_decode_attention.cu``
+(one query per slot over the dense pool), ``csrc/decode_attention.cu``
+(one query per row over a head-major cache, read through strides),
 ``csrc/chunk_verify_attention.cu`` (a speculative verify chunk per slot,
 full or ring layout) and ``csrc/ring_decode_attention.cu`` (one query per
 slot over a ring-buffer window cache), which read a dense cache as an
@@ -32,14 +31,13 @@ from repro_torch.kernels import build
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128)
 GROUPS = (1, 2, 4, 8)
-CHUNK_MAX = 16  # verify-chunk length (d + 1) the chunk kernel takes
 NBLK_MAX = 2048  # block-table entries per row the paged kernels take
 
 
 def _entry():
     fn = build.load("slot_decode_attention").slot_decode_attention_fwd
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -111,20 +109,31 @@ def _check_one_query(what, q, k, v, kv_len, *, pool):
         raise ValueError(f"{what}: the cache needs at least one position")
 
 
+# the dense slot's bands cut their own kv_len over the pieces on the device
+# (True), or take the host's cut of the whole pool row (False), as the
+# paged slot does
+SLOT_CUT_ON_DEVICE = True
+
+
 def slot_decode_attention(q, k, v, kv_len):
     """q: (B, H, hd); k, v: (B, S, KV, hd) pool layout; kv_len: (B,) int32
-    -> (B, H, hd).  kv_len 0 gives exact zeros; kv_len > S reads S."""
-    _check_one_query("slot_decode_attention", q, k, v, kv_len, pool=True)
+    -> (B, H, hd).  kv_len 0 gives exact zeros; kv_len > S reads S.  Each
+    (row, kv head) band of up to S positions is one thread-block cluster
+    of ``_paged_splits`` pieces."""
+    what = "slot_decode_attention"
+    _check_one_query(what, q, k, v, kv_len, pool=True)
     B, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    chunk, nsplit = _paged_splits(what, q, KV, S)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         rc = _entry()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
-            out.data_ptr(), DTYPES[q.dtype], B, k.shape[1], k.shape[2], H,
-            hd, hd ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
+            out.data_ptr(), DTYPES[q.dtype], B, S, KV, H, hd, chunk, nsplit,
+            int(SLOT_CUT_ON_DEVICE), hd ** -0.5,
+            torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"slot_decode_attention kernel launch failed: "
-                           f"CUDA error {rc}")
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
     slot_decode_attention.launches += 1
     return out
 
@@ -212,9 +221,7 @@ def _check_chunk(q, ck, cv, k, v, offsets, window):
         raise ValueError(f"{what}: offsets must be ({B},) int32 (got "
                          f"{tuple(offsets.shape)} {offsets.dtype})")
     _check_heads(what, H, KV, hd)
-    if not 1 <= S <= CHUNK_MAX:
-        raise ValueError(f"{what}: chunk length S = {S} must be in "
-                         f"1..{CHUNK_MAX}")
+    _check_chunk_length(what, B, S, H // KV)
     if Sc < 1:
         raise ValueError(f"{what}: the cache needs at least one slot")
     if window is not None and window < 1:
@@ -279,6 +286,7 @@ def _check_arena(what, arenas, bt, B, KV, hd):
 PAGED_TILE = 32  # positions a tile of the paged body (TR in the .cuh)
 PAGED_CLUSTER_MAX = 16  # pieces of one band: a thread-block cluster
 PAGED_ROWS_MAX = 16  # query rows a block of the body (ROWS_MAX in the .cuh)
+GRID_Z_MAX = 65535  # CUDA's limit on grid z, where a verify's tiles lie
 # blocks an SM at most: past about 4.5 the clusters' launch and merge cost
 # more than the split gains (gpt-base's 96 bands on an H100)
 PAGED_LOAD = 4.5
@@ -307,6 +315,18 @@ def verify_tiles(S, G):
     compile-time row count (1, 2, 4, 8, 10, 16)."""
     tiles = -(-S * G // PAGED_ROWS_MAX)
     return -(-S * G // tiles), tiles
+
+
+def _check_chunk_length(what, B, S, G):
+    """A verify takes any chunk length S >= 1: its chunk keys stage through
+    the body's tile ring after the cache.  Only CUDA's grid bounds it: the
+    B * tiles blocks of query-row tiles (``verify_tiles``) lie on grid z."""
+    if S < 1:
+        raise ValueError(f"{what}: chunk length S = {S} must be >= 1")
+    tiles = verify_tiles(S, G)[1]
+    if B * tiles > GRID_Z_MAX:
+        raise ValueError(f"{what}: B * query tiles = {B} * {tiles} exceeds "
+                         f"CUDA's grid z limit of {GRID_Z_MAX}")
 
 
 def verify_span(S, cap, window):
@@ -436,9 +456,7 @@ def paged_chunk_verify_attention(q, ck, cv, bt, k, v, offsets, *, ring,
         raise ValueError(f"{what}: offsets must be ({B},) int32 (got "
                          f"{tuple(offsets.shape)} {offsets.dtype})")
     _check_heads(what, H, KV, hd)
-    if not 1 <= S <= CHUNK_MAX:
-        raise ValueError(f"{what}: chunk length S = {S} must be in "
-                         f"1..{CHUNK_MAX}")
+    _check_chunk_length(what, B, S, H // KV)
     if window is not None and window < 1:
         raise ValueError(f"{what}: window must be >= 1 (got {window})")
     n_pages, page = ck.shape[:2]

@@ -8,7 +8,7 @@ CUDA is asked for and absent:
       --grow-from gpt-micro --device cpu --steps 20
 
 One device: the reference's mesh and sharding have nothing to do here.
-Checkpointing (``--ckpt-dir``, ``--resume``, ``--grow-src-ckpt``) is not
+Checkpointing (``--ckpt-dir``, ``--ckpt-every``, ``--resume``) is not
 ported yet and exits with a named error.
 """
 from __future__ import annotations
@@ -34,7 +34,7 @@ from repro_torch.utils.device import resolve_device
 # reference-package flags this slice does not port yet: name -> what it is
 UNPORTED_FLAGS = {
     "--ckpt-dir": "checkpointing", "--ckpt-every": "checkpointing",
-    "--resume": "checkpointing", "--grow-src-ckpt": "checkpointing",
+    "--resume": "checkpointing",
 }
 
 

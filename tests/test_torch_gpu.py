@@ -155,6 +155,34 @@ def test_cuda_slot_decode_matches_plain(cuda_device, B, S, H, KV, hd, dtype):
     assert (got[0] == 0).all() and (got[-1] == 0).all()
 
 
+@pytest.mark.parametrize("on_device", [True, False])
+@pytest.mark.parametrize("B,S,H,KV,hd,dtype", [
+    (8, 1024, 12, 12, 64, torch.float32),   # gpt-base's pool: TMA boxes
+    (8, 1024, 16, 8, 128, torch.bfloat16),  # qwen3-0.6b's pool
+    (4, 300, 32, 4, 128, torch.float32),    # GQA G 8, hd 128, ragged pool
+    (6, 100, 16, 2, 128, torch.bfloat16),   # G 8 bf16, row copies
+    (3, 64, 8, 1, 64, torch.bfloat16),      # one kv head: bulk runs
+])
+def test_cuda_slot_decode_on_the_decode_body_matches_plain(
+        cuda_device, monkeypatch, B, S, H, KV, hd, dtype, on_device):
+    """The dense slot on the paged-decode body, its bands cut on the device
+    or on the host: kv_len 0 (exact zeros), 1, a tile edge, mid, S and
+    past S (reads S), in one launch."""
+    monkeypatch.setattr(kda, "SLOT_CUT_ON_DEVICE", on_device)
+    q = _cuda_rand(cuda_device, dtype, B, H, hd)
+    k = _cuda_rand(cuda_device, dtype, B, S, KV, hd)
+    v = _cuda_rand(cuda_device, dtype, B, S + 1, KV, hd)[:, :S].contiguous()
+    lens = [0, S + 7, 1, 32, S // 2, S, 33, S - 1][:B]
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    n0 = cuda_slot.launches
+    got = cuda_slot(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    assert cuda_slot.launches == n0 + 1
+    want = ref.slot_decode_attention_ref(q, k, v, kv_len)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+    assert (got[0] == 0).all()
+
+
 def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     q = _cuda_rand(cuda_device, torch.float32, 1, 2, 8, 32)
     with pytest.raises(ValueError, match="head_dim"):
@@ -443,13 +471,53 @@ def test_cuda_chunk_verify_refuses_what_it_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="int32"):
         cuda_chunk(q, ck, cv, k, v, off.long(), **kw)
     with pytest.raises(ValueError, match="chunk length"):
-        big = _chunk_case(cuda_device, torch.float32, 2, 17, 4, 2, 32, 64,
-                          [3, 9])
-        cuda_chunk(*big, **kw)
+        empty = _chunk_case(cuda_device, torch.float32, 2, 0, 4, 2, 32, 64,
+                            [3, 9])
+        cuda_chunk(*empty, **kw)
     with pytest.raises(ValueError, match="window"):
         cuda_chunk(q, ck, cv, k, v, off, ring=True, window=0)
     with pytest.raises(ValueError, match="CUDA tensor"):
         cuda_chunk(q, ck, cv, k, v, off.cpu(), **kw)
+
+
+VERIFY_LONG_GRID = [(kind, S, G, dtype) for kind in ("full", "ring", "paged")
+                    for S in (17, 33, 65) for G in (1, 8)
+                    for dtype in (torch.float32, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("kind,S,G,dtype", VERIFY_LONG_GRID)
+def test_cuda_verify_past_16_keys_matches_plain(cuda_device, kind, S, G,
+                                                dtype):
+    """Chunks of 17, 33 and 65 keys (speculation depth 16, 32 and 64):
+    tiles of 32 positions that hold cache and chunk rows (offsets off 32),
+    chunks over two or more tiles, and up to 33 tiles of 16 query rows
+    (S 65 x G 8).  The dense cache in the full layout (320 positions: TMA
+    boxes for whole cache tiles, row copies for the mixed ones) and the
+    ring layout (300, wrapped offsets), and the paged verify over pages
+    of 64 (a cap of 320, sentinel blocks)."""
+    B, KV, hd = 6, 2, 64
+    if kind == "ring":
+        Sc, offsets = 300, [-1, 0, 37, 297, 305, 941]
+    else:
+        Sc, offsets = 320, [-1, 0, 37, 100, 320 - S, 330]
+    q, ck, cv, k, v, off = _chunk_case(cuda_device, dtype, B, S, G * KV, KV,
+                                       Sc, hd, offsets)
+    if kind == "paged":
+        fn, kw = cuda_paged_chunk, dict(ring=False)
+        ck, cv, bt = _paged_case(cuda_device, dtype, B, KV, hd, 11, 64, 5,
+                                 seed=S + G)
+        args = (q, ck, cv, bt, k, v, off)
+        want = ref.paged_chunk_verify_attention_ref(*args, **kw)
+    else:
+        fn, kw = cuda_chunk, dict(ring=kind == "ring")
+        args = (q, ck, cv, k, v, off)
+        want = ref.chunk_verify_attention_ref(*args, **kw)
+    n0 = fn.launches
+    got = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+    assert (got[0] == 0).all()
 
 
 def _hd64_pair(dev):
@@ -501,6 +569,41 @@ def test_cuda_spec_engine_launches_chunk_verify_and_matches_generate(
     for r in reqs:
         want = generate(cfg_t, p_t, torch.from_numpy(r.prompt)[None].to(
             cuda_device), max_new_tokens=r.max_new_tokens, max_len=64)
+        np.testing.assert_array_equal(got[r.uid], want[0].cpu().numpy())
+
+
+def test_cuda_spec_engine_at_depth_16_matches_the_plain_route(cuda_device):
+    """``--spec-d 16`` on the card: every block verifies a chunk of 17 keys
+    (two tiles of query rows), and the tokens equal the plain route's (a
+    full forward per token, which runs no kernel of the port) and
+    ``generate``'s."""
+    cfg_t, p_t, cfg_s, p_s = _hd64_pair(cuda_device)
+    d, k = 16, 2
+    reqs = [Request(uid=i, prompt=lm_batch(cfg_t.vocab_size, 1, p,
+                                           seed=170 + i)[0], max_new_tokens=g)
+            for i, (p, g) in enumerate([(16, 40), (33, 25), (9, 60)])]
+    kern = ops.kernels()
+    for fn in kern.values():
+        fn.launches = 0
+    eng = ContinuousBatchingEngine(
+        cfg_t, p_t, capacity=2, max_len=128, k=k,
+        speculative=SpeculativeConfig(cfg_s, p_s, d=d))
+    got = eng.run(reqs)
+    torch.cuda.synchronize()
+    assert kern["chunk_verify_attention"].launches == (
+        (cfg_t.n_layers + cfg_s.n_layers) * k * eng.n_decode_dispatches)
+    assert eng.n_spec_proposed > 0 and eng.n_spec_fallbacks == 0
+    for r in reqs:
+        seq = torch.from_numpy(r.prompt)[None].to(cuda_device)
+        plain = []
+        for _ in range(r.max_new_tokens):
+            logits, _ = transformer.forward(p_t, {"tokens": seq}, cfg_t)
+            nxt = logits[0, -1].argmax()
+            plain.append(int(nxt))
+            seq = torch.cat([seq, nxt.to(seq.dtype).view(1, 1)], dim=1)
+        np.testing.assert_array_equal(got[r.uid], np.array(plain))
+        want = generate(cfg_t, p_t, torch.from_numpy(r.prompt)[None].to(
+            cuda_device), max_new_tokens=r.max_new_tokens, max_len=128)
         np.testing.assert_array_equal(got[r.uid], want[0].cpu().numpy())
 
 
@@ -1064,7 +1167,7 @@ def test_cuda_paged_decode_body_edges_match_plain(cuda_device, kind, G, hd,
 
 
 @pytest.mark.parametrize("kind", ["slot", "ring", "dense_ring", "verify",
-                                  "dense_verify", "decode"])
+                                  "dense_verify", "decode", "dense_slot"])
 def test_cuda_paged_decode_is_one_kernel_and_one_allocation(cuda_device,
                                                             kind):
     """One call puts exactly one kernel on the device (the in-launch merge:
@@ -1096,6 +1199,14 @@ def test_cuda_paged_decode_is_one_kernel_and_one_allocation(cuda_device,
 
         def call():
             return cuda_decode(q, k, v, lens)
+    elif kind == "dense_slot":
+        q = _cuda_rand(cuda_device, torch.float32, 8, 12, 64)
+        k = _cuda_rand(cuda_device, torch.float32, 8, 1024, 12, 64)
+        lens = torch.tensor([0, 97, 200, 333, 451, 576, 800, 1024],
+                            dtype=torch.int32, device=cuda_device)
+
+        def call():
+            return cuda_slot(q, k, k, lens)
     else:
         q, k, v, bt, rows, window = _paged_edge_case(
             cuda_device, kind, 10 if kind == "ring" else 8,
@@ -1125,7 +1236,13 @@ def test_cuda_paged_decode_is_one_kernel_and_one_allocation(cuda_device,
 
 
 @pytest.mark.parametrize("B,S,W", [(8, 4096, 2560), (3, 37, 50),
-                                   (2, 1, 129), (1, 1000, 7)])
+                                   (2, 1, 129), (1, 1000, 7),
+                                   # TMA boxes at a single admission, ragged
+                                   # sequences and a 400-byte row; W 99 (396
+                                   # bytes) takes the per-lane path
+                                   (1, 2048, 2560), (3, 2101, 2560),
+                                   (4, 31, 100), (4, 31, 99), (1, 1, 2560),
+                                   (3, 2101, 99)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("with_h0", [True, False])
 def test_cuda_rglru_scan_matches_plain(cuda_device, B, S, W, dtype,
@@ -1154,6 +1271,31 @@ def test_cuda_rglru_scan_matches_plain(cuda_device, B, S, W, dtype,
             assert torch.equal(got[:, tail:], frozen)
     else:
         torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+
+
+@pytest.mark.parametrize("W", [2560, 99])
+def test_cuda_rglru_scan_is_one_kernel_and_one_allocation(cuda_device, W):
+    """Either path (TMA boxes at W 2560, per-lane at W 99) puts exactly one
+    kernel on the device and allocates only its output."""
+    a = _cuda_rand(cuda_device, torch.float32, 2, 300, W)
+    b = _cuda_rand(cuda_device, torch.float32, 2, 301, W)[:, 1:].contiguous()
+    h0 = _cuda_rand(cuda_device, torch.float32, 2, W)
+    cuda_scan(a, b, h0)
+    torch.cuda.synchronize()
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        cuda_scan(a, b, h0)
+        torch.cuda.synchronize()
+    device_ops = [e.name for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+    assert len(device_ops) == 1 and "rglru_scan" in device_ops[0], \
+        device_ops
+    n_alloc = torch.cuda.memory_stats()["allocation.all.allocated"]
+    out = cuda_scan(a, b, h0)
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] == \
+        n_alloc + 1
+    assert torch.equal(out, ref.rglru_scan_ref(a, b, h0))
 
 
 def test_cuda_griffin_kernels_refuse_what_they_do_not_take(cuda_device):

@@ -21,6 +21,7 @@ from repro_torch.kernels.decode_attention import (
     slot_decode_attention as cuda_slot,
 )
 from repro_torch.kernels.flash_attention import flash_attention as cuda_flash
+from repro_torch.kernels.rglru_scan import scan_plan, scan_smem
 
 
 def _rand(rng, *shape):
@@ -122,6 +123,10 @@ def test_dense_ring_pieces_come_from_paged_decode_splits(B, KV, ring, window,
     (7, 5, 2, 4, 48, 8, 3, (10, 2, 32, 1)),         # 20 rows: 2 tiles
     (7, 5, 2, 8, 48, None, 2, (14, 3, 32, 2)),      # 40 rows: 3 tiles
     (8, 1, 12, 1, 1024, None, 3, (1, 1, 288, 4)),   # S 1: a one-query band
+    # d >= 16: chunks past one tile of 32 keys and 16 query rows
+    (8, 17, 12, 1, 1024, None, 3, (9, 2, 544, 2)),  # gpt-base at d 16
+    (8, 33, 8, 1, 1024, None, 3, (11, 3, 544, 2)),  # gpt-small at d 32
+    (4, 65, 2, 8, 500, None, 2, (16, 33, 576, 1)),  # S 65 x G 8: 33 tiles
 ])
 def test_verify_plan_tiles_rows_and_cuts_bands(B, S, KV, G, cap, window,
                                                per_sm, want):
@@ -207,3 +212,88 @@ def test_decode_attention_pieces_come_from_paged_decode_splits(
         per = -(-n // nsplit)  # a band of n positions, as the device cuts it
         cut = min(chunk, -(-per // 32) * 32)
         assert cut % 32 == 0 and cut * nsplit >= n
+
+
+@pytest.mark.parametrize("B,KV,S,per_sm,want", [
+    (8, 12, 1024, 3, (256, 4)),  # gpt-base's pool, f32: 96 bands
+    (8, 12, 1024, 5, (192, 6)),  # ... bf16, capped at 4.5 an SM
+    (8, 8, 1024, 3, (192, 6)),   # qwen3-0.6b's pool (G 2)
+    (4, 4, 512, 3, (32, 16)),    # GQA: 16 bands, 16 pieces each
+    (3, 1, 100, 4, (32, 4)),     # a pool of 100: pieces of one tile
+])
+def test_slot_decode_pieces_come_from_paged_decode_splits(
+        monkeypatch, B, KV, S, per_sm, want):
+    """The dense slot cuts each (row, kv head) band of up to S positions
+    (its pool row) as the paged slot cuts a table of S positions, at its
+    own library's occupancy for the group's G heads; with the device's
+    cut each band then cuts its own kv_len over those pieces (multiples of
+    32, at most ``chunk``), which always covers it."""
+    asked = _wrapper_plan(monkeypatch, per_sm)
+    G = 2
+    q = torch.zeros(B, KV * G, 64)
+    chunk, nsplit = kda._paged_splits("slot_decode_attention", q, KV, S)
+    assert (chunk, nsplit) == want
+    assert asked == [("slot_decode_attention", G)]
+    assert (chunk, nsplit) == paged_decode_splits(B, KV, S, 132, per_sm)
+    _check_pieces(chunk, nsplit, S)
+    for n in (1, 31, 33, S // 3, S - 1, S):
+        per = -(-n // nsplit)  # a band of n positions, as the device cuts it
+        cut = min(chunk, -(-per // 32) * 32)
+        assert cut % 32 == 0 and cut * nsplit >= n
+
+
+def _scan_cover(B, S, W, steps, blocks):
+    """How often the kernel's launch of ``scan_plan``'s (steps, blocks)
+    visits each lane (B, W) and each step S, from its own index rules: a
+    TMA-path block x walks lanes w0 .. w0 + 31 of row x // wtiles in
+    stages of ``steps`` (boxes clipped at W and S); a per-lane-path thread
+    walks its one lane's whole sequence."""
+    lanes, seq = np.zeros((B, W), int), np.zeros(S, int)
+    if steps:
+        wtiles = -(-W // 32)
+        for x in range(blocks):
+            bi, w0 = divmod(x, wtiles)
+            lanes[bi, w0 * 32:w0 * 32 + 32] += 1
+        for t0 in range(0, -(-S // steps) * steps, steps):
+            seq[t0:t0 + steps] += 1
+    else:
+        for lane in range(blocks * 128):
+            if lane < B * W:
+                lanes[divmod(lane, W)] += 1
+        seq += 1
+    return lanes, seq
+
+
+@pytest.mark.parametrize("B,S,W,item,want", [
+    (8, 4096, 2560, 4, (32, 640)),   # recurrentgemma-2b admission, f32
+    (8, 4096, 2560, 2, (64, 640)),   # ... bf16
+    (1, 2048, 2560, 4, (128, 80)),   # a single admission: a tile an SM
+    (1, 2048, 2560, 2, (256, 80)),   # ... bf16: the box's 256 rows
+    (3, 2101, 2560, 4, (64, 240)),   # ragged sequence
+    (2, 1, 128, 4, (8, 8)),          # S 1
+    (1, 31, 100, 4, (32, 4)),        # W 100 f32: 400-byte rows, TMA
+    (64, 4096, 4096, 4, (16, 8192)),  # more tiles than an SM holds
+    (1, 31, 99, 4, (0, 1)),          # W 99 f32: 396-byte rows
+    (2, 7, 100, 2, (0, 2)),          # W 100 bf16: 200-byte rows
+])
+def test_scan_plan_covers_every_lane_and_step_once(B, S, W, item, want):
+    """``rglru_scan``'s plan: the TMA path only where W * itemsize is a
+    multiple of 16 (else steps 0, the per-lane path); blocks of 32 lanes
+    whose resident share of an SM's shared memory holds their stages; and
+    its launch visits every (b, t, w) exactly once."""
+    steps, blocks = scan_plan(B, S, W, item, 132)
+    assert (steps, blocks) == want
+    assert (steps > 0) == (W * item % 16 == 0)
+    if steps:
+        assert steps % 8 == 0 and steps <= 256
+        per_sm = min(8, -(-blocks // 132))
+        assert per_sm * scan_smem(steps, item) <= 220 * 1024
+    lanes, seq = _scan_cover(B, S, W, steps, blocks)
+    assert (lanes == 1).all() and (seq[:S] == 1).all()
+
+
+def test_scan_plan_takes_the_per_lane_path_off_16_bytes():
+    """A tensor whose data starts off 16 bytes (a view at an odd offset)
+    cannot be described to the TMA unit either, whatever its width."""
+    assert scan_plan(8, 64, 2560, 4, 132, ptrs=(0, 256, 512))[0] == 32
+    assert scan_plan(8, 64, 2560, 4, 132, ptrs=(0, 260, 512)) == (0, 160)

@@ -328,6 +328,30 @@ def test_paged_chunk_plain_matches_jax_ref_and_pallas(G, window, dtype):
                                    np.asarray(w, np.float32), **tol)
 
 
+@pytest.mark.parametrize("S,G,window", [(17, 1, None), (17, 4, 8),
+                                        (33, 2, None), (33, 1, 8)])
+def test_paged_chunk_plain_matches_pallas_past_16_keys(S, G, window):
+    """Chunks of 17 and 33 keys (speculation depth 16 and 32) through the
+    table: the plain version against the JAX oracle and the Pallas kernel;
+    f32 within 1e-5."""
+    B, KV, hd, n_pages, page, nblk = 6, 2, 16, 11, 8, 4
+    rng, rnd, bt, ck, cv = _arena_inputs(S + G, B, G * KV, KV, hd, n_pages,
+                                         page, nblk, np.float32)
+    q, k, v = rnd(B, S, G * KV, hd), rnd(B, S, KV, hd), rnd(B, S, KV, hd)
+    offsets = np.array([-1, 0, 13, 29, 32, 35], np.int32)
+    jin = [jnp.asarray(a) for a in (q, ck, cv, bt, k, v)]
+    want = [jops.paged_chunk_verify_attention(
+        *jin, jnp.asarray(offsets), ring=False, window=window, mode=m)
+        for m in ("reference", "interpret")]
+    got = ops.paged_chunk_verify_attention(
+        *(torch.from_numpy(a) for a in (q, ck, cv, bt, k, v)),
+        torch.from_numpy(offsets), ring=False, window=window)
+    assert got.shape == (B, S, G * KV, hd) and (got[0] == 0).all()
+    for w in want:
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), atol=1e-5,
+                                   rtol=0)
+
+
 def test_cpu_tensors_take_the_plain_versions_and_wrappers_refuse_them():
     rng, rnd, bt, k, v = _arena_inputs(5, 2, 4, 2, 64, 5, 8, 3, np.float32)
     q = torch.from_numpy(rnd(2, 4, 64))

@@ -127,11 +127,27 @@ def test_train_launcher_needs_cuda_unless_asked_for_cpu(no_cuda, tmp_path):
 
 @pytest.mark.parametrize("argv,flag", [
     (["--ckpt-dir", "ckpt"], "--ckpt-dir"), (["--resume"], "--resume"),
-    (["--grow-src-ckpt=src"], "--grow-src-ckpt"),
+    (["--ckpt-every", "5"], "--ckpt-every"),
 ])
 def test_train_checkpoint_flags_exit_with_a_named_error(argv, flag):
     with pytest.raises(SystemExit, match=f"error: {flag} .*not ported"):
         launch_train.main(["--arch", "gpt-micro", "--device", "cpu", *argv])
+
+
+def test_train_clis_both_reject_grow_src_ckpt(monkeypatch, capsys):
+    """``--grow-src-ckpt`` is no flag of the reference's train CLI (only an
+    argument of its ``train()``), so argparse rejects it in both CLIs."""
+    from repro.launch import train as jax_train
+
+    argv = ["--arch", "gpt-micro", "--grow-src-ckpt=src"]
+    with pytest.raises(SystemExit) as port:
+        launch_train.main([*argv, "--device", "cpu"])
+    monkeypatch.setattr(sys, "argv", ["train.py", *argv])
+    with pytest.raises(SystemExit) as reference:
+        jax_train.main()
+    assert port.value.code == reference.value.code == 2
+    assert capsys.readouterr().err.count(
+        "unrecognized arguments: --grow-src-ckpt=src") == 2
 
 
 def test_naive_engine_runs_on_cpu(capsys):

@@ -89,6 +89,35 @@ def test_chunk_verify_plain_matches_jax_ref_and_pallas(ring, window, G,
                                    np.asarray(want, np.float32), **tol)
 
 
+@pytest.mark.parametrize("S,ring,window,G", [
+    (17, False, None, 1), (17, True, 8, 2), (33, False, 8, 4),
+    (33, True, None, 2)])
+def test_chunk_verify_plain_matches_pallas_past_16_keys(S, ring, window, G):
+    """Chunks of d + 1 = 17 and 33 keys (speculation depth 16 and 32), past
+    one tile of the CUDA body's 32 positions and 16 query rows: the plain
+    version against the JAX oracle and the Pallas kernel, whose block spans
+    the whole chunk.  Offsets -1 (done), 0, 1, mid, Sc and, on the ring,
+    two wrapped ones; f32 within 1e-5."""
+    B, KV, Sc, hd = 7, 2, 48, 16
+    q, ck, cv, k, v = _chunk_inputs(S + G, B, S, G * KV, KV, Sc, hd,
+                                    np.float32)
+    offsets = np.array([-1, 0, 1, 21, Sc, Sc + 5, 3 * Sc + 7], np.int32)
+    if not ring:
+        offsets[5:] = [Sc - 1, 40]
+    kw = dict(ring=ring, window=window)
+    jin = [jnp.asarray(a) for a in (q, ck, cv, k, v)]
+    want = [jops.chunk_verify_attention(*jin, jnp.asarray(offsets), mode=m,
+                                        **kw)
+            for m in ("reference", "interpret")]
+    got = ops.chunk_verify_attention(
+        *(torch.from_numpy(a) for a in (q, ck, cv, k, v)),
+        torch.from_numpy(offsets), **kw)
+    assert got.shape == (B, S, G * KV, hd) and (got[0] == 0).all()
+    for w in want:
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), atol=1e-5,
+                                   rtol=0)
+
+
 def test_chunk_verify_done_folds_into_offsets_and_cpu_takes_plain():
     """``done`` rows give exact zeros; CPU tensors go to the plain version
     without touching the CUDA wrapper, which refuses them."""
@@ -278,6 +307,27 @@ def test_spec_exact_grown_pair_matches_jax_and_generate(grown_pair, d):
     _assert_same_counts(eng, jeng)
     assert len(reqs) > eng.capacity and eng.n_spec_proposed > 0
     assert 0.0 <= eng.acceptance_rate <= 1.0 and eng.n_spec_fallbacks == 0
+
+
+def test_spec_depth_16_pair_matches_jax_and_generate(grown_pair):
+    """d = 16: verify chunks of 17 keys, past the 16 that the CUDA verify
+    kernels once took.  The pair probe accepts it; the port's engine
+    (plain versions on the CPU) gives the JAX speculative engine's tokens
+    and counts, and its own ``generate``'s tokens."""
+    jcfg_t, jcfg_s, jp_t, jp_s, cfg_t, cfg_s, p_t, p_s = grown_pair
+    d, max_len = 16, 64
+    ok, why = spec_pair_supported(cfg_t, cfg_s, d=d, max_len=max_len)
+    assert ok, why
+    specs = [(4, 21), (9, 18), (6, 30)]
+    jeng = _jax_spec_engine(jcfg_t, jp_t, jcfg_s, jp_s, d, max_len=max_len)
+    want = jeng.run(_requests(JaxRequest, jcfg_t.vocab_size, specs, 90))
+    eng = _spec_engine(cfg_t, p_t, cfg_s, p_s, d, max_len=max_len)
+    reqs = _requests(Request, cfg_t.vocab_size, specs, 90)
+    got = eng.run(reqs)
+    _assert_same(got, want)
+    _assert_same(got, _generate_each(cfg_t, p_t, reqs, max_len=max_len))
+    _assert_same_counts(eng, jeng)
+    assert len(reqs) > eng.capacity and eng.n_spec_proposed > 0
 
 
 @pytest.fixture(scope="module")
