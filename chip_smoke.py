@@ -3,7 +3,8 @@
 paper's growth and training loop, speculative serving of the grown model
 with its source drafting, both served from a paged pool,
 recurrentgemma-2b (griffin) served from a dense and a paged pool, and
-qwen3-0.6b (RoPE) served on every route.
+qwen3-0.6b (RoPE) served on every route; DeiT-S grown into DeiT-B
+with checkpoints, resume and the three examples.
 
     python3 chip_smoke.py [--out report.json]
 
@@ -114,6 +115,23 @@ printed as it goes; a failed phase raises, so the exit code is not 0:
                 at B 8: tok/s, and the max |logit| error of 8 decode steps
                 against the f32 route on the same weights, which must be
                 at most twice the plain bf16 route's.
+ 12. deit   -- the paper's headline setting at full width: DeiT-S (12 x
+                384) grown into DeiT-B (12 x 768), 197 tokens, 1000
+                classes, f32, batches of 32 synthetic images whose labels
+                come from the first 16 classes.  Pretrain DeiT-S 40 steps
+                (ms/step), save it through an async checkpoint manager and
+                reload it (every leaf equal, on the card); 10 rank-1 Mango
+                operator steps into DeiT-B (the sandwich launching every
+                step), grow, the contraction against its reference (1e-5),
+                grown below scratch on a held-out batch (the margin), 4
+                DeiT-B train steps (ms/step); the train launcher grown
+                from that checkpoint (the sibling-directory rule),
+                saving every 3 of 6 steps, then resumed from a copy of
+                step 3 (losses at steps 3-5 within 1e-4 relative; each
+                save's seconds and bytes); the three examples
+                (``quickstart``, ``grow_pipeline`` at its default steps,
+                ``train_100m --grow --steps 8``); peak memory and traces
+                of the DeiT-B train step and the operator step.
 
 Each traced run prints the device time of each of the port's kernels.
 Each path's launch counters are set to 0 just before it runs and read just
@@ -259,7 +277,8 @@ def slot_cases(gen):
 
 def sandwich_cases(gen):
     """(label, x, a_i, a_o) at the growth path's shape first (gpt-small ->
-    gpt-base: 12 slots x 12 layers, 512 -> 768).  x ~ N(0, 1) and the
+    gpt-base: 12 slots x 12 layers, 512 -> 768), the DeiT path's last
+    (deit-s -> deit-b: 12 x 12, 384 -> 768).  x ~ N(0, 1) and the
     operators are scaled by 1/sqrt(fan-in), so |Y| ~ 1."""
     import torch
 
@@ -270,7 +289,10 @@ def sandwich_cases(gen):
             ("gpt-small->gpt-base bf16", 144, 512, 512, 768, 768,
              torch.bfloat16),
             ("ragged f32", 3, 50, 70, 100, 36, torch.float32),
-            ("non-square bf16", 7, 256, 384, 640, 96, torch.bfloat16)):
+            ("non-square bf16", 7, 256, 384, 640, 96, torch.bfloat16),
+            ("deit-s->deit-b f32", 144, 384, 384, 768, 768, torch.float32),
+            ("deit-s->deit-b bf16", 144, 384, 384, 768, 768,
+             torch.bfloat16)):
         def rnd(*s, scale=1.0):
             return (scale * torch.randn(*s, generator=gen,
                                         device="cuda")).to(dt)
@@ -462,7 +484,7 @@ def run_kernels():
               f"{tuple(a_i.shape)} a_o{tuple(a_o.shape)}: max abs err "
               f"{err:.3g}; grads max relative err {grad_rel:.3g}",
               flush=True)
-        if i > 1:  # time the first f32 and the first bf16 case
+        if i in (2, 3):  # time gpt-small's and deit-s's f32 and bf16
             continue
         N, d1i, d1o = x.shape
         d2i, d2o = a_i.shape[1], a_o.shape[1]
@@ -472,19 +494,26 @@ def run_kernels():
 
         def two_products():  # yardstick only: T goes to device memory
             return torch.matmul(a_i.mT, torch.matmul(x, a_o))
-        if i == 1:
-            row = rows["tr_sandwich"]
+        if i in (1, 5):
+            row = (rows["tr_sandwich"] if i == 1
+                   else rows["tr_sandwich"]["deit"])
             row["bf16_ms"] = time_ms(lambda: sw(x, a_i, a_o), 10)
             row["bf16_library_ms"] = time_ms(two_products, 10)
             row["bf16_bound_ms"], row["bf16_bound_by"] = bound_ms(
                 nbytes, flops, dname)
             row["bf16_max_abs_err"] = err
+            if i == 5:
+                row["bf16_plain_ms"] = time_ms(
+                    lambda: ref.tr_sandwich_ref(x, a_i, a_o), 5)
+                print(f"time tr_sandwich [{label}]: kernel "
+                      f"{row['bf16_ms']:.4f} ms, plain "
+                      f"{row['bf16_plain_ms']:.4f} ms, cuBLAS "
+                      f"{row['bf16_library_ms']:.4f} ms, bound "
+                      f"{row['bf16_bound_ms']:.4f} ms "
+                      f"({row['bf16_bound_by']})", flush=True)
             continue
         b_ms, b_by = bound_ms(nbytes, flops, dname, "float32_3xtf32")
-        rows["tr_sandwich"] = dict(
-            name="tr_sandwich", route="cuda",
-            source="src/repro_torch/kernels/csrc/tr_sandwich.cu",
-            replaces="src/repro/kernels/tr_sandwich.py:41",
+        row = dict(
             max_abs_err=err, grad_max_rel_err=grad_rel,
             ms=time_ms(lambda: sw(x, a_i, a_o), 10),
             plain_ms=time_ms(lambda: ref.tr_sandwich_ref(x, a_i, a_o), 5),
@@ -492,6 +521,17 @@ def run_kernels():
             bound_simt_ms=bound_ms(nbytes, flops, dname)[0],
             library_ms=time_ms(two_products, 10),
             shape=f"x{tuple(x.shape)} -> ({N}, {d2i}, {d2o}) {dname}")
+        if i == 4:  # the DeiT path's shape, beside the main row
+            rows["tr_sandwich"]["deit"] = row
+            print(f"time tr_sandwich [{label}]: kernel {row['ms']:.4f} ms, "
+                  f"plain {row['plain_ms']:.4f} ms, cuBLAS "
+                  f"{row['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+                  f"3xTF32; SIMT {row['bound_simt_ms']:.4f} ms)", flush=True)
+            continue
+        rows["tr_sandwich"] = dict(
+            name="tr_sandwich", route="cuda",
+            source="src/repro_torch/kernels/csrc/tr_sandwich.cu",
+            replaces="src/repro/kernels/tr_sandwich.py:41", **row)
     rows["decode_attention"] = run_decode_cases(gen)
     rows["chunk_verify_attention"] = run_chunk_cases(gen)
     rows.update(run_paged_cases(gen))
@@ -2808,6 +2848,345 @@ def run_qwen(kernel_rows):
                 held_mib=held / 2**20)
 
 
+DEIT_SRC, DEIT_TGT = "deit-s", "deit-b"  # phase 12's pair, full width
+DEIT_CLASSES = 16  # phase 12's labels: the first 16 of DeiT's 1000 classes
+DEIT_BATCH = 32
+DEIT_PRETRAIN, DEIT_OP_STEPS = 40, 10
+CKPT_ROOT = ROOT / "build" / "chip_ckpt"
+
+
+def vision_batches(cfg, seed, n_classes=DEIT_CLASSES, device="cuda"):
+    """Phase 12's batches on ``device``: ``vision_batch`` at the config's
+    image and patch size (224 and 16: 196 patches of 768 values), cut to
+    its ``continuous_inputs`` and ``learned_pos - 1`` as the launcher's
+    ``data_for`` cuts them, labels from the first ``n_classes``."""
+    import torch
+
+    from repro_torch.data import vision_batch
+
+    step = 0
+    while True:
+        b = vision_batch(n_classes, DEIT_BATCH, cfg.image_size,
+                         cfg.patch_size, seed=seed, step=step)
+        b["inputs"] = b["inputs"][:, :cfg.learned_pos - 1,
+                                  :cfg.continuous_inputs]
+        yield {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+        step += 1
+
+
+def _recording_managers(launch_train):
+    """Swap the launcher's ``CheckpointManager`` for a subclass that keeps
+    every instance (their ``saves`` hold each save's seconds and bytes);
+    -> (list of instances, restore function)."""
+    made, real = [], launch_train.CheckpointManager
+
+    class Recording(real):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+    launch_train.CheckpointManager = Recording
+
+    def restore():
+        launch_train.CheckpointManager = real
+    return made, restore
+
+
+def run_deit(kernel_rows, device="cuda"):
+    """Phase 12: the paper's headline setting at full width, DeiT-S (12 x
+    384, 6 heads) grown into DeiT-B (12 x 768, 12 heads): 197 tokens (196
+    patches of 16 x 16 x 3 from 224 x 224 images, and the class token),
+    1000 classes, f32, seeded weights and synthetic vision batches.
+
+    The labels are drawn from the first 16 of the 1000 classes
+    (``vision_batch(16, ...)``), so that a few tens of pretraining steps
+    teach DeiT-S something growth can carry over (phase 5 restricts its
+    vocabulary for the same reason); the launcher runs (part 3) use its
+    own ``data_for``, over all 1000.
+
+    1. pretrain DeiT-S, save it through an async ``CheckpointManager`` and
+       reload it leaf for leaf; 2. train the rank-1 Mango operator into
+       DeiT-B (the sandwich launching every step), grow, hold the
+       contraction against its reference, grown vs scratch on a held-out
+       batch, a few DeiT-B train steps; 3. the train launcher grown from
+       that checkpoint (the sibling-directory rule) with checkpoints every
+       3 steps, then resumed from a copy of step 3: the same losses;
+       4. the three examples; 5. clean up, peak memory, traces."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager, load_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.core import grow as growlib
+    from repro_torch.core import mango, packing
+    from repro_torch.examples import grow_pipeline, quickstart, train_100m
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.serve import build_params
+    from repro_torch.optim import OptimizerConfig, make_optimizer
+    from repro_torch.train.steps import (
+        make_eval_step,
+        make_grow_step,
+        make_train_step,
+    )
+    from repro_torch.utils.pytree import (
+        tree_flatten_with_paths,
+        tree_param_count,
+        tree_size_bytes,
+    )
+
+    sync = torch.cuda.synchronize
+    cfg_s, cfg_t = get_config(DEIT_SRC), get_config(DEIT_TGT)
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    kern = ops.kernels()
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kern.values():
+        fn.launches = 0
+    report = {}
+
+    # 1. pretrain the source, save it, reload it
+    small = build_params(cfg_s, seed=0, device=device)
+    opt = OptimizerConfig(lr=1e-3)
+    init_fn, _ = make_optimizer(opt)
+    state, step = init_fn(small), make_train_step(cfg_s, opt)
+    report["n_params"] = {DEIT_SRC: tree_param_count(small)}
+    it = vision_batches(cfg_s, seed=0, device=device)
+    t0 = time.perf_counter()
+    batches = [next(it) for _ in range(DEIT_PRETRAIN)]
+    report["batch_host_ms"] = (time.perf_counter() - t0) * 1e3 / len(batches)
+    losses, ms = [], []
+    for s_, b in enumerate(batches):
+        sync()
+        t0 = time.perf_counter()
+        small, state, m = step(small, state, b, s_ + 1)
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    del batches
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"DeiT-S pretraining loss not finite: {losses}")
+    report.update(pretrain_ms_per_step=float(np.mean(ms[1:])),
+                  pretrain_first_step_ms=ms[0], pretrain_losses=losses)
+    print(f"pretrain {DEIT_SRC} ({report['n_params'][DEIT_SRC]:,} params): "
+          f"{DEIT_PRETRAIN} steps of {DEIT_BATCH} images, loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}, "
+          f"{report['pretrain_ms_per_step']:.1f} ms/step after the first "
+          f"({ms[0]:.1f} ms); a batch takes the host "
+          f"{report['batch_host_ms']:.1f} ms to make", flush=True)
+    src_dir = CKPT_ROOT / DEIT_SRC
+    tree = {"p": small, "o": state}
+    mgr = CheckpointManager(str(src_dir), keep=3, every=DEIT_PRETRAIN,
+                            async_save=True)
+    sync()
+    t0 = time.perf_counter()
+    mgr.maybe_save(DEIT_PRETRAIN, tree, extra={"arch": DEIT_SRC})
+    snapshot_ms = (time.perf_counter() - t0) * 1e3
+    mgr.wait()
+    save = dict(mgr.saves[0], snapshot_ms=snapshot_ms)
+    if save["bytes"] != tree_size_bytes(tree):
+        raise AssertionError(f"the save wrote {save['bytes']} bytes of a "
+                             f"{tree_size_bytes(tree)}-byte tree")
+    t0 = time.perf_counter()
+    back, sstep, extra = load_checkpoint(str(src_dir), tree)
+    sync()
+    save["load_s"] = time.perf_counter() - t0
+    bad = [n for (n, a), (_, b) in zip(tree_flatten_with_paths(tree),
+                                       tree_flatten_with_paths(back))
+           if not (b.is_cuda == (device == "cuda") and torch.equal(a, b))]
+    if bad or sstep != DEIT_PRETRAIN or extra != {"arch": DEIT_SRC}:
+        raise AssertionError(f"the reloaded {DEIT_SRC} checkpoint differs: "
+                             f"step {sstep}, extra {extra}, leaves {bad[:5]}")
+    del back, state, tree
+    report["source_save"] = save
+    print(f"saved {DEIT_SRC} params and AdamW state at step {sstep}: "
+          f"{save['bytes']:,} bytes, snapshot on the caller "
+          f"{snapshot_ms:.1f} ms, write {save['seconds']:.2f} s "
+          f"({save['bytes'] / save['seconds'] / 1e9:.2f} GB/s), reload "
+          f"{save['load_s']:.2f} s; every leaf equal and on the card",
+          flush=True)
+
+    # 2. the operator (Eq. 7), growth, grown vs scratch, DeiT-B steps
+    gen = torch.Generator(device=device).manual_seed(0)
+    gop, op_params = growlib.build("mango", cfg_s, cfg_t, rank=1, gen=gen)
+    dims = gop.op.dims("dense_blocks")
+    gstep = make_grow_step(gop, cfg_t, OptimizerConfig(lr=1e-3))
+    ostate = make_optimizer(OptimizerConfig(lr=1e-3))[0](op_params)
+    it = vision_batches(cfg_t, seed=3, device=device)
+    losses, ms = [], []
+    for s_ in range(DEIT_OP_STEPS):
+        b = next(it)
+        before = kern["tr_sandwich"].launches
+        sync()
+        t0 = time.perf_counter()
+        op_params, ostate, m = gstep(op_params, ostate, small, b, s_ + 1)
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if kern["tr_sandwich"].launches == before:
+            raise AssertionError(f"DeiT operator step {s_} did not launch "
+                                 "the tr_sandwich kernel")
+        losses.append(float(m["loss"]))
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"DeiT operator loss not finite: {losses}")
+    report.update(operator_ms_per_step=float(np.mean(ms[1:])),
+                  operator_losses=losses, operator_dims=dims)
+    print(f"operator training {DEIT_SRC} -> {DEIT_TGT} (rank-1 Mango, "
+          f"{dims}): {DEIT_OP_STEPS} steps, loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}, {report['operator_ms_per_step']:.1f} ms/step "
+          f"after the first ({ms[0]:.1f} ms), the sandwich launched on "
+          "every step", flush=True)
+    b = next(it)
+    (op_params, ostate, _), report["operator_step_profile"] = profile_step(
+        "deit operator step", lambda: gstep(op_params, ostate, small, b,
+                                            DEIT_OP_STEPS + 1))
+    with torch.no_grad():
+        big = growlib.grow_params(gop, op_params, small)
+        g = gop.op.plan_src.groups[0]
+        M1 = packing.pack_group(g, small[g.name], cfg_s.d_model)
+        cores = op_params["groups"][g.name]
+        got = mango.contract(M1, cores)
+        want = mango.contract_reference(M1, cores)
+        rel = float((got - want).abs().max() / want.abs().max())
+    if not rel <= 1e-5:
+        raise AssertionError(f"DeiT contract disagrees with "
+                             f"contract_reference: max err {rel:.3g} of "
+                             "the largest entry > 1e-5")
+    report["contract_max_rel_err"] = rel
+    report["n_params"][DEIT_TGT] = tree_param_count(big)
+    print(f"grow {DEIT_TGT} ({report['n_params'][DEIT_TGT]:,} params); "
+          f"contract vs contract_reference on M2{tuple(got.shape)}: max err "
+          f"{rel:.3g} of the largest entry (limit 1e-5)", flush=True)
+    del got, want, M1, ostate
+    ev = make_eval_step(cfg_t)
+    held = next(vision_batches(cfg_t, seed=50, device=device))
+    scratch = build_params(cfg_t, seed=99, device=device)
+    evg, evs = ev(big, held), ev(scratch, held)
+    del scratch
+    report.update(grown_loss=float(evg["loss"]),
+                  scratch_loss=float(evs["loss"]),
+                  grown_acc=float(evg["acc"]), scratch_acc=float(evs["acc"]))
+    report["margin"] = report["scratch_loss"] - report["grown_loss"]
+    print(f"held-out loss of {DEIT_TGT}: grown {report['grown_loss']:.4f} "
+          f"(acc {report['grown_acc']:.3f}), scratch "
+          f"{report['scratch_loss']:.4f} (acc {report['scratch_acc']:.3f}), "
+          f"margin {report['margin']:.4f}", flush=True)
+    if not report["margin"] > 0:
+        raise AssertionError(f"the grown {DEIT_TGT} does not start below "
+                             "the scratch one")
+    tstate, tstep = init_fn(big), make_train_step(cfg_t, opt)
+    it = vision_batches(cfg_t, seed=1, device=device)
+    ms, tr_losses = [], []
+    for s_ in range(4):
+        b = next(it)
+        sync()
+        t0 = time.perf_counter()
+        big, tstate, m = tstep(big, tstate, b, s_ + 1)
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        tr_losses.append(float(m["loss"]))
+    report.update(train_ms_per_step=float(np.mean(ms[1:])),
+                  train_losses=tr_losses)
+    print(f"train grown {DEIT_TGT}: 4 steps, loss {tr_losses[0]:.4f} -> "
+          f"{tr_losses[-1]:.4f}, {report['train_ms_per_step']:.1f} ms/step "
+          f"after the first ({ms[0]:.1f} ms)", flush=True)
+    b = next(it)
+    (big, tstate, _), report["train_step_profile"] = profile_step(
+        "deit-b train step", lambda: tstep(big, tstate, b, 5))
+    del big, tstate, small, op_params, b, held
+    gc.collect()
+
+    # 3. the launcher grown from the checkpoint, checkpointing; resumed
+    managers, restore = _recording_managers(launch_train)
+    runs = {}
+    try:
+        for run, ckpt, kw in (
+                ("A", CKPT_ROOT / DEIT_TGT, dict(grow_from=DEIT_SRC)),
+                ("B", CKPT_ROOT / f"{DEIT_TGT}-resumed", dict(resume=True))):
+            if run == "B":
+                shutil.copytree(CKPT_ROOT / DEIT_TGT / "step_0000000003",
+                                ckpt / "step_0000000003")
+            logs = []
+            t0 = time.perf_counter()
+            _, hist = launch_train.train(
+                DEIT_TGT, ckpt_dir=str(ckpt), ckpt_every=3, steps=6,
+                batch=DEIT_BATCH, log_every=1, device=device,
+                log_fn=lambda msg, _l=logs: (_l.append(msg),
+                                             print(msg, flush=True)), **kw)
+            runs[run] = dict(seconds=time.perf_counter() - t0, logs=logs,
+                             losses={h["step"]: h["loss"] for h in hist},
+                             saves=managers[-1].saves)
+    finally:
+        restore()
+    want_src = (f"[grow] source weights from {CKPT_ROOT / DEIT_SRC} @ step "
+                f"{DEIT_PRETRAIN}")
+    if want_src not in runs["A"]["logs"]:
+        raise AssertionError(f"run A did not log {want_src!r}")
+    if "[resume] restored step 3" not in runs["B"]["logs"]:
+        raise AssertionError("run B did not resume from step 3")
+    a, b_ = runs["A"]["losses"], runs["B"]["losses"]
+    if sorted(b_) != [3, 4, 5]:
+        raise AssertionError(f"run B logged steps {sorted(b_)}")
+    rel = max(abs(b_[s] - a[s]) / abs(a[s]) for s in b_)
+    if not rel <= 1e-4:
+        raise AssertionError(f"resumed losses {b_} differ from the "
+                             f"uninterrupted run's {a} (max relative "
+                             f"{rel:.3g} > 1e-4)")
+    for r in runs.values():
+        for sv in r["saves"]:
+            sv["gb_per_s"] = sv["bytes"] / sv["seconds"] / 1e9
+    report["launcher"] = dict(resumed_max_rel_loss_diff=rel, **{
+        k: {kk: vv for kk, vv in v.items() if kk != "logs"}
+        for k, v in runs.items()})
+    print(f"launcher: run A {runs['A']['seconds']:.1f} s (grown from the "
+          f"step-{DEIT_PRETRAIN} checkpoint), run B resumed from step 3 "
+          f"{runs['B']['seconds']:.1f} s; losses at steps 3-5 "
+          f"{[round(b_[s], 6) for s in (3, 4, 5)]} vs "
+          f"{[round(a[s], 6) for s in (3, 4, 5)]}: max relative difference "
+          f"{rel:.3g} (limit 1e-4)", flush=True)
+    for run in ("A", "B"):
+        for sv in runs[run]["saves"]:
+            print(f"run {run} save at step {sv['step']}: {sv['bytes']:,} "
+                  f"bytes in {sv['seconds']:.2f} s ({sv['gb_per_s']:.2f} "
+                  "GB/s)", flush=True)
+
+    # 4. the three examples
+    examples = {}
+    t0 = time.perf_counter()
+    qs = quickstart.main(["--device", device])
+    examples["quickstart"] = dict(seconds=time.perf_counter() - t0, **qs)
+    t0 = time.perf_counter()
+    hist = grow_pipeline.run(str(CKPT_ROOT / "pipeline"), device=device)
+    examples["grow_pipeline"] = dict(seconds=time.perf_counter() - t0,
+                                     final_loss=hist[-1]["loss"])
+    t0 = time.perf_counter()
+    _, hist = train_100m.main(["--grow", "--steps", "8", "--ckpt-dir",
+                               str(CKPT_ROOT / "100m"), "--device", device])
+    examples["train_100m"] = dict(seconds=time.perf_counter() - t0,
+                                  final_loss=hist[-1]["loss"])
+    if not all(np.isfinite(examples[k]["final_loss"])
+               for k in ("grow_pipeline", "train_100m")):
+        raise AssertionError(f"an example's loss is not finite: {examples}")
+    report["examples"] = examples
+    print("examples: " + "; ".join(
+        f"{k} {v['seconds']:.1f} s" for k, v in examples.items())
+        + f" (quickstart grown {qs['grown']:.4f} < scratch "
+        f"{qs['scratch']:.4f})", flush=True)
+
+    # 5. clean up, peak memory, launches
+    shutil.rmtree(CKPT_ROOT)
+    launches = {name: fn.launches for name, fn in kern.items()}
+    report.update(launches=launches,
+                  peak_mib=torch.cuda.max_memory_allocated() / 2**20)
+    print(f"deit path: kernel launches {launches}, peak memory "
+          f"{report['peak_mib']:.1f} MiB", flush=True)
+    if launches["tr_sandwich"] == 0:
+        raise AssertionError("tr_sandwich was never launched on the DeiT "
+                             "path")
+    kernel_rows["tr_sandwich"]["deit_launches"] = launches["tr_sandwich"]
+    return report
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2904,6 +3283,13 @@ def main(argv=None):
     t0 = time.perf_counter()
     qwen = run_qwen(rows)
     print(f"phase 11 took {time.perf_counter() - t0:.1f} s", flush=True)
+    gc.collect()  # phase 11's models go before DeiT-B
+    torch.cuda.empty_cache()
+
+    phase("grow deit-s -> deit-b: checkpoints, resume, the examples")
+    t0 = time.perf_counter()
+    deit = run_deit(rows)
+    print(f"phase 12 took {time.perf_counter() - t0:.1f} s", flush=True)
 
     # the contract's keys, then the tensor-core rows' 3xTF32 and bf16 ones
     kernels = [{key: r[key] for key in (
@@ -2919,7 +3305,7 @@ def main(argv=None):
              "serve": serve, "grow": grow, "speculative": spec,
              "paged": paged, "paged_speculative": paged_spec,
              "griffin_dense": griffin_dense, "griffin_paged": griffin_paged,
-             "qwen": qwen,
+             "qwen": qwen, "deit": deit,
              "build_seconds": secs}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

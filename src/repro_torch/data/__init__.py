@@ -1,1 +1,6 @@
-from repro_torch.data.synthetic import lm_batch, lm_data_iter  # noqa: F401
+from repro_torch.data.synthetic import (  # noqa: F401
+    frames_batch,
+    lm_batch,
+    lm_data_iter,
+    vision_batch,
+)

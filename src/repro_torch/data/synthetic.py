@@ -1,10 +1,13 @@
-"""Deterministic synthetic LM tokens with learnable structure (numpy).
+"""Deterministic synthetic data with learnable structure (numpy).
 
-Tokens follow a noisy affine-modular chain
-    t_{k+1} = (a * t_k + b + e_k) mod V,   e_k ~ clipped geometric,
-so a model can fit them.  Output is byte-identical to the reference
-package's ``lm_batch``: batch content is a pure function of
-(seed, step, shard).
+  * LM tokens follow a noisy affine-modular chain
+        t_{k+1} = (a * t_k + b + e_k) mod V,   e_k ~ clipped geometric,
+    so a model can fit them.
+  * Vision batches plant a class-dependent low-frequency pattern in noise.
+  * Audio-frame batches plant a unit sequence into continuous frames.
+
+Output is byte-identical to the reference package's: batch content is a
+pure function of (seed, step, shard).
 """
 from __future__ import annotations
 
@@ -39,3 +42,46 @@ def lm_data_iter(vocab_size, batch, seq_len, *, seed=0, shard=0,
         yield {"tokens": lm_batch(vocab_size, batch, seq_len, seed=seed,
                                   step=step, shard=shard)}
         step += 1
+
+
+def vision_batch(n_classes, batch, image_size, patch_size, *, seed=0,
+                 step=0, shard=0, channels=3):
+    """Patchified synthetic images: returns {"inputs": (B, N, P), "labels"}.
+
+    Class c plants cos/sin gratings of frequency (c mod 8), a pattern a
+    ViT can learn to classify.
+    """
+    r = _rng(seed, step, shard)
+    labels = r.integers(0, n_classes, size=(batch,))
+    H = image_size
+    yy, xx = np.meshgrid(np.arange(H), np.arange(H), indexing="ij")
+    imgs = 0.3 * r.standard_normal((batch, H, H, channels)).astype(np.float32)
+    freq = (labels % 8 + 1).astype(np.float32)
+    phase = (labels // 8).astype(np.float32)
+    pat = np.cos(2 * np.pi * freq[:, None, None] * xx[None] / H
+                 + phase[:, None, None]) \
+        * np.sin(2 * np.pi * freq[:, None, None] * yy[None] / H)
+    imgs += pat[..., None].astype(np.float32)
+    # patchify -> (B, N, p*p*C)
+    p = patch_size
+    n = H // p
+    x = imgs.reshape(batch, n, p, n, p, channels).transpose(0, 1, 3, 2, 4, 5)
+    x = x.reshape(batch, n * n, p * p * channels)
+    return {"inputs": x, "labels": labels.astype(np.int32)}
+
+
+def frames_batch(dim, vocab_size, batch, seq_len, *, seed=0, step=0,
+                 shard=0):
+    """Continuous frames + per-frame unit labels (HuBERT-style stub).
+
+    Frame t embeds its unit id as a planted sinusoid so the encoder can
+    learn the masked-unit task.
+    """
+    r = _rng(seed, step, shard)
+    units = lm_batch(vocab_size, batch, seq_len, seed=seed + 1, step=step,
+                     shard=shard)
+    base = r.standard_normal((batch, seq_len, dim)).astype(np.float32) * 0.3
+    t = np.arange(dim)[None, None, :]
+    base += np.sin(2 * np.pi * (units[..., None] + 1) * t / dim).astype(
+        np.float32)
+    return {"inputs": base, "tokens": units}

@@ -72,7 +72,12 @@ def make_train_step(cfg, opt_cfg: OptimizerConfig, schedule=None,
         return value_and_grad(fwd_loss, params, batch)
 
     def split(batch):
+        # one microbatch takes no split (a ``cls`` batch has no "tokens");
+        # more read the global batch size from "tokens", as the reference
+        # does
         n = n_microbatches
+        if n == 1:
+            return [batch]
         B = batch["tokens"].shape[0]
 
         def part(x, i):

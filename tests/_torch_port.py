@@ -5,6 +5,8 @@ initialised by the JAX package (or drawn from numpy) and converted leaf for
 leaf, so both sides compute on identical weights.
 """
 import dataclasses
+import importlib.util
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -66,3 +68,14 @@ def both_params(jcfg, **kw):
     """(numpy params for JAX, the same as CPU tensors for the port)."""
     p = jax_params(jcfg, **kw)
     return p, from_jax(p)
+
+
+def reference_example(name):
+    """``examples/<name>.py`` of the JAX package, loaded by path (the
+    examples are no package); ``train_100m`` registers its configs in the
+    JAX registry as it loads."""
+    path = Path(__file__).resolve().parents[1] / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"reference_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod

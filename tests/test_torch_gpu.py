@@ -289,6 +289,8 @@ def _sandwich_inputs(dev, dtype, N, d1i, d1o, d2i, d2o):
 @pytest.mark.parametrize("N,d1i,d1o,d2i,d2o,dtype", [
     (144, 512, 512, 768, 768, torch.float32),  # gpt-small -> gpt-base
     (144, 512, 512, 768, 768, torch.bfloat16),
+    (144, 384, 384, 768, 768, torch.float32),  # deit-s -> deit-b
+    (144, 384, 384, 768, 768, torch.bfloat16),
     (3, 64, 64, 128, 128, torch.float32),      # gpt-micro -> gpt-micro-big
     (3, 50, 70, 100, 36, torch.float32),       # ragged on every axis
     (5, 64, 48, 130, 96, torch.bfloat16),
@@ -392,6 +394,34 @@ def test_cuda_contract_takes_the_kernel_at_rank_one(cuda_device, rank):
         assert cuda_sandwich.launches == n0 + (rank == 1)
         want = mango.contract_reference(M1, cores)
         assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+@pytest.mark.parametrize("async_save", [False, True])
+def test_cuda_checkpoint_round_trip(cuda_device, tmp_path, async_save):
+    """CUDA f32 and bf16 leaves saved (async: snapshot on the caller's
+    thread, then the leaves are overwritten in place) and restored into a
+    CUDA template: equal bit for bit, on the card, in their dtypes."""
+    from repro_torch.checkpoint import CheckpointManager, load_checkpoint
+
+    tree = {"p": {"w": _cuda_rand(cuda_device, torch.float32, 384, 768),
+                  "h": _cuda_rand(cuda_device, torch.bfloat16, 768, 1000)},
+            "o": {"m": _cuda_rand(cuda_device, torch.float32, 1000)}}
+    want = {k: {kk: vv.clone() for kk, vv in v.items()}
+            for k, v in tree.items()}
+    mgr = CheckpointManager(str(tmp_path), every=1, async_save=async_save)
+    assert mgr.maybe_save(1, tree)
+    for v in tree.values():
+        for t in v.values():
+            t.zero_()
+    mgr.wait()
+    assert mgr.saves[0]["bytes"] == (384 * 768 + 1000) * 4 + 768 * 1000 * 2
+    got, step, _ = load_checkpoint(str(tmp_path), tree)
+    assert step == 1
+    for k in want:
+        for kk, w in want[k].items():
+            g = got[k][kk]
+            assert g.device.type == "cuda" and g.dtype == w.dtype
+            assert torch.equal(g, w), (k, kk)
 
 
 def _chunk_case(dev, dtype, B, S, H, KV, Sc, hd, offsets):

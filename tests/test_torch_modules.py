@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import F32_ATOL, port_config
+from _torch_port import F32_ATOL, port_config, reference_example
 from repro.configs.base import get_config as jax_get_config
 from repro.data.synthetic import lm_batch as jax_lm_batch
 from repro.models import attention as jax_attn
@@ -27,10 +27,13 @@ def _rand(rng, *shape, scale=1.0):
 
 def test_configs_match_the_reference_registry():
     """Every config the port registers equals its JAX twin field for field
-    (the JAX TPU-only knobs aside)."""
+    (the JAX TPU-only knobs aside), the two the 100M example registers
+    too."""
+    import repro_torch.examples.train_100m  # noqa: F401  (registers them)
+    reference_example("train_100m")  # registers the JAX twins
     names = list_configs()
     assert {"gpt-base", "gpt-small", "gpt-micro", "gpt-micro-big",
-            "bert-base", "deit-micro"} <= set(names)
+            "bert-base", "deit-micro", "gpt-100m", "gpt-25m"} <= set(names)
     for name in names:
         assert get_config(name) == port_config(jax_get_config(name)), name
     cfg = get_config("gpt-base")

@@ -2,6 +2,7 @@
 its entry points run on CUDA unless asked for the CPU, raising when CUDA
 is missing instead of quietly running elsewhere."""
 import ast
+import importlib
 import os
 import shutil
 import subprocess
@@ -53,7 +54,10 @@ def test_port_tree_is_what_the_rule_walks():
                    "kernels/build.py", "models/attention.py",
                    "models/transformer.py", "models/griffin.py",
                    "models/rope.py", "models/common.py", "configs/archs.py",
-                   "launch/serve.py"):
+                   "launch/serve.py", "launch/train.py",
+                   "checkpoint/manager.py", "data/synthetic.py",
+                   "examples/quickstart.py", "examples/grow_pipeline.py",
+                   "examples/train_100m.py"):
         assert ROOT / "src/repro_torch" / module in PORT_FILES
 
 
@@ -112,6 +116,20 @@ def test_serve_grow_serves_a_grown_model_on_cpu(capsys):
     assert "served 2 requests / 6 tokens" in out and "on cpu" in out
 
 
+@pytest.mark.parametrize("example", ["quickstart", "grow_pipeline",
+                                     "train_100m"])
+def test_examples_need_cuda_unless_asked_for_cpu(no_cuda, example,
+                                                 tmp_path):
+    """Each example raises before any work when CUDA is asked for (the
+    default) and missing."""
+    module = importlib.import_module(f"repro_torch.examples.{example}")
+    argv = {"quickstart": [], "train_100m": ["--ckpt-dir", str(tmp_path)],
+            "grow_pipeline": ["--root", str(tmp_path)]}[example]
+    with pytest.raises(RuntimeError, match="CUDA was requested"):
+        module.main(argv)
+    assert not any(tmp_path.iterdir())
+
+
 def test_train_launcher_needs_cuda_unless_asked_for_cpu(no_cuda, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA was requested"):
         launch_train.main(["--arch", "gpt-micro", "--steps", "1"])
@@ -125,13 +143,26 @@ def test_train_launcher_needs_cuda_unless_asked_for_cpu(no_cuda, tmp_path):
     assert '"loss"' in hist.read_text()
 
 
-@pytest.mark.parametrize("argv,flag", [
-    (["--ckpt-dir", "ckpt"], "--ckpt-dir"), (["--resume"], "--resume"),
-    (["--ckpt-every", "5"], "--ckpt-every"),
-])
-def test_train_checkpoint_flags_exit_with_a_named_error(argv, flag):
-    with pytest.raises(SystemExit, match=f"error: {flag} .*not ported"):
-        launch_train.main(["--arch", "gpt-micro", "--device", "cpu", *argv])
+@pytest.mark.parametrize("flag", ["--ckpt-dir", "--ckpt-every", "--resume"])
+def test_train_checkpoint_flags_run_on_cpu(flag, tmp_path, capsys):
+    """``--ckpt-dir`` saves (every steps // 4 and at the end),
+    ``--ckpt-every`` sets the period, ``--resume`` restarts from the newest
+    save."""
+    ckpt = tmp_path / "gpt-micro"
+    argv = ["--arch", "gpt-micro", "--steps", "4", "--batch", "2", "--seq",
+            "8", "--device", "cpu", "--ckpt-dir", str(ckpt)]
+    extra = {"--ckpt-dir": [], "--ckpt-every": ["--ckpt-every", "3"],
+             "--resume": []}[flag]
+    launch_train.main([*argv, *extra])
+    saved = {"--ckpt-dir": [2, 3, 4], "--ckpt-every": [3, 4],
+             "--resume": [2, 3, 4]}[flag]
+    assert sorted(os.listdir(ckpt)) == [f"step_{s:010d}" for s in saved]
+    if flag == "--resume":
+        launch_train.main([*argv[:3], "6", *argv[4:], "--resume"])
+        after = capsys.readouterr().out.split("[resume] restored step 4")
+        assert len(after) == 2  # logs steps 4.. (log_every 10): the last
+        assert "step     5" in after[1] and "step     0" not in after[1]
+        assert sorted(os.listdir(ckpt))[-1] == "step_0000000006"
 
 
 def test_train_clis_both_reject_grow_src_ckpt(monkeypatch, capsys):
