@@ -4,7 +4,7 @@ paper's growth and training loop, speculative serving of the grown model
 with its source drafting, both served from a paged pool,
 recurrentgemma-2b (griffin) served from a dense and a paged pool, and
 qwen3-0.6b (RoPE) served on every route; DeiT-S grown into DeiT-B
-with checkpoints, resume and the three examples.
+with checkpoints, resume and the three examples; gpt-base sampled.
 
     python3 chip_smoke.py [--out report.json]
 
@@ -131,7 +131,22 @@ printed as it goes; a failed phase raises, so the exit code is not 0:
                 save's seconds and bytes); the three examples
                 (``quickstart``, ``grow_pipeline`` at its default steps,
                 ``train_100m --grow --steps 8``); peak memory and traces
-                of the DeiT-B train step and the operator step.
+                of the DeiT-B train step and the operator step;
+ 13. sampled -- gpt-base (phase 4's weights) sampled at temperature 0.8,
+                top-k 50, top-p 0.95, seed 5, on phase 7's 16 requests
+                (64 new tokens, capacity 8, K 8): the port's threefry
+                keys, bits and uniforms on the card equal to the CPU's and
+                ``filtered_probs`` within 1e-6; the sampled dense engine
+                beside the greedy one (tok/s of both; host syncs, prefill
+                groups, macro-steps and every kernel's launches equal);
+                tokens == a sequential sampled replay (``fam.prefill`` and
+                ``decode_step`` along the same (seed, uid) chain) up to
+                reported near ties of the perturbed scores, and not all
+                equal to greedy's; the paged pool of 48 pages with prefix
+                hits == dense, no page left in use; gpt-base drafting for
+                itself (d 4, K 2, 8 requests) at acceptance 1.0 with equal
+                tokens in two runs; device ops per decode step of two
+                device-only traced runs, sampled and greedy.
 
 Each traced run prints the device time of each of the port's kernels.
 Each path's launch counters are set to 0 just before it runs and read just
@@ -1941,7 +1956,8 @@ def _pool_bytes(pool):
 
 def check_same_tokens(what, uid, got, want, gaps):
     """Two routes' tokens must be equal, except from a step where the
-    plain route's top-2 gap is a near tie (reported)."""
+    reference route's top-2 gap (of the logits, or of the perturbed scores
+    of a sampled draw) is a near tie (reported)."""
     import numpy as np
 
     diff = np.nonzero(got != want)[0]
@@ -1950,7 +1966,7 @@ def check_same_tokens(what, uid, got, want, gaps):
     t = int(diff[0])
     if gaps[t] >= NEAR_TIE:
         raise AssertionError(f"uid {uid}: {what} diverge at step {t} where "
-                             f"the plain top-2 gap is {gaps[t]:.3g}")
+                             f"the reference's top-2 gap is {gaps[t]:.3g}")
     print(f"near tie: uid {uid} {what} diverge at step {t}", flush=True)
     return (uid, t, float(gaps[t]))
 
@@ -3187,6 +3203,229 @@ def run_deit(kernel_rows, device="cuda"):
     return report
 
 
+SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.95, seed=5)  # phase 13
+SAMPLED_SPEC_REQS = 8  # phase 13's self-draft runs serve the first 8
+
+
+def check_sampling_on_card(sp, vocab):
+    """The port's threefry chains, random bits, uniforms and
+    ``filtered_probs`` on the card against the same functions on the CPU:
+    keys, bits and uniforms equal, probabilities within 1e-6."""
+    import torch
+
+    from repro_torch.serve import sampling
+
+    uids = torch.tensor([0, 1, 12345, 2**31 - 1])
+    pairs = {}
+    for dev in ("cpu", "cuda"):
+        keys = sampling.request_key(sp.seed, uids.to(dev))
+        carry, sub = sampling.next_keys(keys)
+        out = dict(keys=keys, carry=carry, sub=sub,
+                   fold=sampling.fold_in(sub, 5))
+        for shape in ((50257,), (3,), (5, 37)):
+            out[f"bits{shape}"] = sampling.random_bits(sub, shape)
+            out[f"uniform{shape}"] = sampling.uniform(sub, shape)
+        pairs[dev] = out
+    for name, want in pairs["cpu"].items():
+        got = pairs["cuda"][name]
+        if got.device.type != "cuda" or not torch.equal(got.cpu(), want):
+            raise AssertionError(f"sampling {name}: the card's differs from "
+                                 "the CPU's")
+    gen = torch.Generator().manual_seed(13)
+    logits = 3 * torch.randn(8, vocab, generator=gen)
+    want = sampling.filtered_probs(logits, sp)
+    got = sampling.filtered_probs(logits.cuda(), sp).cpu()
+    err = (got - want).abs().max().item()
+    if err > 1e-6 or not torch.equal(got > 0, want > 0):
+        raise AssertionError(f"filtered_probs on the card: max abs err "
+                             f"{err:.3g} (limit 1e-6) or another support")
+    print(f"sampling on the card == CPU: keys, splits, fold_in, bits and "
+          f"uniforms of (50257,), (3,), (5, 37) equal; filtered_probs "
+          f"(8, {vocab}) max abs err {err:.3g}", flush=True)
+    return err
+
+
+def sampled_replay_on_card(cfg, params, req, sp, tokens):
+    """Sequential replay of one request's sampling chain: ``fam.prefill``
+    and ``fam.decode_step`` at B 1, the chain rooted at (seed, uid) and
+    split once a token, fed ``tokens`` as the generated prefix.  Returns
+    what the chain draws at each step and the top-2 gap of the perturbed
+    scores there."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import get_family
+    from repro_torch.serve import sampling
+
+    fam = get_family(cfg)
+    cache = fam.init_cache(cfg, 1, len(req.prompt) + len(tokens),
+                           device="cuda")
+    x = torch.tensor(req.prompt, dtype=torch.int32, device="cuda")[None]
+    logits, cache = fam.prefill(params, {"tokens": x}, cfg, cache)
+    keys = sampling.request_key(sp.seed,
+                                torch.tensor([req.uid], device="cuda"))
+    scores = []
+    pos = len(req.prompt)
+    for i, t in enumerate(tokens):
+        keys, sub = sampling.next_keys(keys)
+        probs = sampling.filtered_probs(logits, sp)
+        logp = torch.where(probs > 0, torch.log(probs.clamp_min(1e-38)),
+                           sampling.NEG_INF)
+        scores.append(sampling.gumbel(sub, logits.shape[-1:]) + logp)
+        if i + 1 < len(tokens):
+            logits, cache = fam.decode_step(
+                params, torch.tensor([int(t)], dtype=torch.int32,
+                                     device="cuda"), pos, cache, cfg)
+            pos += 1
+    s = torch.cat(scores)
+    top = s.topk(2, dim=-1).values
+    return (s.argmax(-1).cpu().numpy().astype(np.int32),
+            (top[:, 0] - top[:, 1]).cpu().numpy())
+
+
+def run_sampled():
+    """Phase 13: gpt-base sampled (temperature 0.8, top-k 50, top-p 0.95,
+    seed 5) through the engine on phase 7's 16 requests, beside the greedy
+    engine: the card's sampling against the CPU's, tokens against a
+    sequential sampled replay, launches and host syncs equal greedy's,
+    the paged pool with prefix hits, self-draft rejection sampling."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import build_params
+    from repro_torch.serve import (
+        ContinuousBatchingEngine,
+        Request,
+        SamplingParams,
+        SpeculativeConfig,
+    )
+
+    cfg = get_config("gpt-base")
+    params = build_params(cfg, seed=0, device="cuda")
+    sp = SamplingParams(**SAMPLED)
+    reqs = paged_requests(cfg.vocab_size)
+    report = dict(probs_max_abs_err=check_sampling_on_card(
+        sp, cfg.vocab_size))
+
+    def engine(sampling, pool="dense", k=8, speculative=None):
+        return ContinuousBatchingEngine(
+            cfg, params, capacity=8, max_len=1024, k=k, pool=pool,
+            pages=PAGED_PAGES if pool == "paged" else None,
+            sampling=sampling, speculative=speculative)
+
+    engine(sp).run([Request(uid=0, prompt=reqs[0].prompt,
+                            max_new_tokens=9)])  # first-use costs
+    kern = ops.kernels()
+    runs = {}
+    for label, sampling in (("greedy", None), ("sampled", sp)):
+        for fn in kern.values():
+            fn.launches = 0
+        eng = engine(sampling)
+        out, dt, tps, _ = timed_run(eng, reqs)
+        runs[label] = dict(out=out, seconds=dt, tok_per_s=tps,
+                           launches={n: fn.launches
+                                     for n, fn in kern.items()},
+                           syncs=eng.n_host_syncs,
+                           dispatches=eng.n_decode_dispatches,
+                           prefills=eng.n_prefills)
+    g, s = runs["greedy"], runs["sampled"]
+    for key in ("launches", "syncs", "dispatches", "prefills"):
+        if s[key] != g[key]:
+            raise AssertionError(f"sampled {key} {s[key]} != greedy's "
+                                 f"{g[key]}")
+    if not (s["launches"]["slot_decode_attention"]
+            and s["launches"]["flash_attention"]):
+        raise AssertionError(f"sampled path launched {s['launches']}")
+    out = s["out"]
+    if all(np.array_equal(out[u], g["out"][u]) for u in out):
+        raise AssertionError("sampled tokens equal the greedy run's")
+    print(f"sampled: {len(out)} requests / "
+          f"{sum(len(v) for v in out.values())} tokens, "
+          f"{s['tok_per_s']:.1f} tok/s beside greedy {g['tok_per_s']:.1f} "
+          f"({s['seconds']:.3f} s and {g['seconds']:.3f} s); host syncs "
+          f"{s['syncs']} == greedy's; launches {s['launches']} == greedy's",
+          flush=True)
+
+    t0 = time.perf_counter()
+    ties = {"engine vs replay": [], "paged vs dense": []}
+    gaps = {}
+    for r in reqs:
+        toks = out[r.uid]
+        if toks.shape != (64,) or toks.min() < 0 or toks.max() >= \
+                cfg.vocab_size:
+            raise AssertionError(f"uid {r.uid}: bad output {toks}")
+        drawn, gaps[r.uid] = sampled_replay_on_card(cfg, params, r, sp, toks)
+        tie = check_same_tokens("the sampled engine and its replay", r.uid,
+                                toks, drawn, gaps[r.uid])
+        if tie is not None:
+            ties["engine vs replay"].append(tie)
+    replay_s = time.perf_counter() - t0
+
+    for fn in kern.values():
+        fn.launches = 0
+    peng = engine(sp, "paged")
+    pout, pdt, ptps, waits = timed_run(peng, reqs)
+    p_launches = {n: fn.launches for n, fn in kern.items()}
+    if peng.n_prefix_hits == 0 or peng.pages_in_use != 0:
+        raise AssertionError(f"sampled paged: prefix hits "
+                             f"{peng.n_prefix_hits}, pages in use at the "
+                             f"end {peng.pages_in_use}")
+    for r in reqs:
+        tie = check_same_tokens("sampled paged and dense engines", r.uid,
+                                pout[r.uid], out[r.uid], gaps[r.uid])
+        if tie is not None:
+            ties["paged vs dense"].append(tie)
+    print(f"sampled tokens == the sequential replay (fam.prefill + "
+          f"decode_step, {replay_s:.1f} s) for "
+          f"{len(reqs) - len(ties['engine vs replay'])}/{len(reqs)} "
+          f"requests; paged ({PAGED_PAGES} pages, {peng.n_prefix_hits} "
+          f"prefix hits, {waits} admissions refused for pages, "
+          f"{ptps:.1f} tok/s, 0 pages in use at the end) == dense for "
+          f"{len(reqs) - len(ties['paged vs dense'])}/{len(reqs)}; paged "
+          f"launches {p_launches}; near ties {ties}", flush=True)
+
+    spec_reqs = reqs[:SAMPLED_SPEC_REQS]
+    spec = []
+    for _ in range(2):
+        e = engine(sp, k=2, speculative=SpeculativeConfig(cfg, params, d=4))
+        sout, _, stps, _ = timed_run(e, spec_reqs)
+        spec.append((sout, stps, e.n_spec_proposed, e.n_spec_accepted))
+    (s1, tps1, prop, acc), (s2, tps2, _, _) = spec
+    if prop == 0 or acc != prop:
+        raise AssertionError(f"self-draft acceptance {acc}/{prop} != 1.0")
+    if any(not np.array_equal(s1[u], s2[u]) for u in s1):
+        raise AssertionError("two self-draft sampled runs differ")
+    print(f"self-draft sampled speculation (d 4, K 2, {len(spec_reqs)} "
+          f"requests): acceptance {acc}/{prop} = 1.0, the two runs' tokens "
+          f"equal, {tps1:.1f} and {tps2:.1f} tok/s", flush=True)
+
+    prof = {}
+    for label, sampling in (("greedy", None), ("sampled", sp)):
+        r = profile_serve(lambda: engine(sampling), reqs,
+                          runs[label]["seconds"], stages=())
+        prof[label] = dict(r, ops_per_decode_step=r["device_ops"]
+                           / r["decode_steps"])
+    print(f"device ops per decode step: sampled "
+          f"{prof['sampled']['ops_per_decode_step']:.1f}, greedy "
+          f"{prof['greedy']['ops_per_decode_step']:.1f} (admission ops "
+          f"included; {prof['sampled']['decode_steps']} decode steps)",
+          flush=True)
+    report.update(
+        tok_per_s=s["tok_per_s"], greedy_tok_per_s=g["tok_per_s"],
+        seconds=s["seconds"], greedy_seconds=g["seconds"],
+        host_syncs=s["syncs"], launches=s["launches"],
+        paged_tok_per_s=ptps, paged_prefix_hits=peng.n_prefix_hits,
+        paged_waits=waits, paged_launches=p_launches,
+        spec_tok_per_s=[tps1, tps2], spec_proposed=prop, spec_accepted=acc,
+        replay_seconds=replay_s, near_ties=ties,
+        ops_per_decode_step={k: v["ops_per_decode_step"]
+                             for k, v in prof.items()},
+        profile=prof)
+    return report
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3290,6 +3529,13 @@ def main(argv=None):
     t0 = time.perf_counter()
     deit = run_deit(rows)
     print(f"phase 12 took {time.perf_counter() - t0:.1f} s", flush=True)
+    gc.collect()  # phase 12's models go before gpt-base
+    torch.cuda.empty_cache()
+
+    phase("sampled serving of gpt-base: chains, replay, paged, speculative")
+    t0 = time.perf_counter()
+    sampled = run_sampled()
+    print(f"phase 13 took {time.perf_counter() - t0:.1f} s", flush=True)
 
     # the contract's keys, then the tensor-core rows' 3xTF32 and bf16 ones
     kernels = [{key: r[key] for key in (
@@ -3305,7 +3551,7 @@ def main(argv=None):
              "serve": serve, "grow": grow, "speculative": spec,
              "paged": paged, "paged_speculative": paged_spec,
              "griffin_dense": griffin_dense, "griffin_paged": griffin_paged,
-             "qwen": qwen, "deit": deit,
+             "qwen": qwen, "deit": deit, "sampled": sampled,
              "build_seconds": secs}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -25,6 +25,11 @@ asked for and absent:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt-base \
       --engine continuous --grow gpt-small --speculate --spec-d 4
 
+  # sampled decode: temperature / top-k / top-p over per-request chains
+  # seeded from (--sample-seed, uid); speculation then rejection-samples
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt-base \
+      --engine continuous --temperature 0.8 --top-k 50 --top-p 0.95
+
   # the paged pool: block tables over one page arena of --pages pages
   # (shared by target and draft with --speculate), prefix sharing
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt-base \
@@ -61,6 +66,7 @@ from repro_torch.serve import (
     POLICIES,
     ContinuousBatchingEngine,
     Request,
+    SamplingParams,
     SpeculativeConfig,
     spec_pair_supported,
 )
@@ -70,8 +76,7 @@ from repro_torch.utils.device import resolve_device
 # reference-package flags this slice does not port yet: name -> what it is
 UNPORTED_FLAGS = {
     "--grow-cfg": "live upgrade", "--upgrade-at": "live upgrade",
-    "--upgrade-sync": "live upgrade", "--temperature": "sampling", "--top-k": "sampling", "--top-p": "sampling",
-    "--sample-seed": "sampling", "--kernel": "the kernel switch (the device "
+    "--upgrade-sync": "live upgrade", "--kernel": "the kernel switch (the device "
     "picks kernel or plain version)", "--mesh": "sharded serving",
     "--deadline": "deadlines", "--journal": "the request journal",
     "--resume": "the request journal", "--snapshot": "engine snapshots",
@@ -207,6 +212,12 @@ def main(argv=None):
                          "source)")
     ap.add_argument("--spec-d", type=int, default=4,
                     help="speculation depth: draft proposals per block")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature (0 = greedy; implied 1.0 "
+                         "when only --top-k/--top-p are set)")
+    ap.add_argument("--top-k", type=int, default=0)
+    ap.add_argument("--top-p", type=float, default=1.0)
+    ap.add_argument("--sample-seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where to run (default cuda; raises without CUDA)")
     args = ap.parse_args(argv)
@@ -215,10 +226,27 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.engine == "continuous":
         require_servable(cfg)
-    elif args.policy != "fifo":
-        raise SystemExit("error: --policy requires --engine continuous")
+    sampling = None
+    if args.temperature > 0 or args.top_k > 0 or args.top_p < 1.0:
+        # any non-default sampling flag samples: --top-k/--top-p alone
+        # would otherwise be greedy (temperature 0 means greedy)
+        temperature = args.temperature if args.temperature > 0 else 1.0
+        if args.temperature <= 0:
+            print("[serve] --top-k/--top-p without --temperature: "
+                  "sampling at temperature 1.0")
+        sampling = SamplingParams(temperature=temperature,
+                                  top_k=args.top_k, top_p=args.top_p,
+                                  seed=args.sample_seed)
+    if args.engine == "naive" and (sampling is not None
+                                   or args.policy != "fifo"):
+        # greedy lock-step output while the user asked for sampling would
+        # misrepresent the output
+        raise SystemExit("error: --temperature/--top-k/--top-p/--policy "
+                         "require --engine continuous (the naive loop is "
+                         "greedy lock-step)")
     if args.engine != "continuous" and (args.pool != "dense" or args.pages):
-        raise SystemExit("error: --pool/--pages require --engine continuous")
+        raise SystemExit("error: --pool/--pages require --engine "
+                         "continuous (the naive loop has no slot pool)")
     max_len = args.max_len or (args.prompt_len + args.gen)
     if args.speculate:
         if args.engine != "continuous":
@@ -271,6 +299,7 @@ def main(argv=None):
                                       max_len=max_len, k=args.k,
                                       policy=args.policy, pool=args.pool,
                                       pages=args.pages or None,
+                                      sampling=sampling,
                                       speculative=speculative)
     if engine.pages_budget is not None:
         arena = ("one arena shared by target and draft"

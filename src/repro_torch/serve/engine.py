@@ -1,7 +1,7 @@
 """Continuous-batching serve engine with on-device macro-step decode.
 
 The engine serves a stream of requests through a fixed-capacity slot
-pool, greedy, on the dense pool layout of the reference package:
+pool, on the dense pool layout of the reference package:
 
   * ``Request``       -- prompt + max_new_tokens (+ optional eos, and an
                          arrival time that ``step(now)`` admits by);
@@ -46,7 +46,14 @@ pool, greedy, on the dense pool layout of the reference package:
                          the plain macro loop on the target pool
                          (degradation ladder, ``n_spec_fallbacks``).  On
                          a paged pool both pools share ONE page-id space
-                         and budget; prefix sharing stays off.
+                         and budget; prefix sharing stays off;
+  * sampling          -- a non-greedy ``SamplingParams`` threads per-slot
+                         threefry chains (``serve/sampling.py``) through
+                         admission, prefix hits and the decode loops:
+                         roots come from (seed, uid) on the device,
+                         admission scatters them, eviction zeroes them,
+                         and no draw reads anything back to the host
+                         (speculative mode uses rejection sampling).
 
 Everything runs on the device the params live on.  Buffers the reference
 package donates to XLA are updated in place here (``index_copy_`` /
@@ -60,8 +67,9 @@ The engine serves any family of the slot-state protocol: the transformer
 local-attention caches, which page on a paged pool).  Greedy tokens are
 the sequential ``generate()`` tokens for every request, for any
 interleaving, any K, any speculation depth and either pool, up to float
-near-ties between the routes' arithmetic.  Sampling, deadlines, faults,
-the journal, live upgrade and meshes are not ported yet, nor are a
+near-ties between the routes' arithmetic; sampled tokens are a function
+of (seed, uid, prompt) alone.  Deadlines, faults, the journal, live
+upgrade and meshes are not ported yet, nor are a
 windowed transformer's paged rings and the paged arena's
 full-reservation degradation rung (the faults slice).
 """
@@ -76,6 +84,7 @@ import torch
 
 from repro_torch.models import get_family, serve_supported, slot_cache_layout
 from repro_torch.serve import paged as paged_lib
+from repro_torch.serve import sampling as sampling_lib
 from repro_torch.serve.speculative import (
     SpeculativeConfig,
     make_draft_prefill,
@@ -131,9 +140,11 @@ class ContinuousBatchingEngine:
     and syncs over more tokens; admission happens only at block
     boundaries, so K trades admission latency against decode throughput.
     ``policy`` is ``"fifo"`` (arrival order) or ``"spf"`` (length-bucketed
-    shortest-prefill-first, ties by arrival).  ``speculative`` -- a
+    shortest-prefill-first, ties by arrival).  ``sampling`` -- a
+    ``SamplingParams`` -- draws instead of taking the argmax (a greedy one,
+    temperature 0, is the greedy engine).  ``speculative`` -- a
     ``SpeculativeConfig`` (draft cfg, draft params, depth d) -- turns on
-    greedy speculative decoding.  ``pool`` is ``"dense"`` or ``"paged"``;
+    speculative decoding.  ``pool`` is ``"dense"`` or ``"paged"``;
     ``pages`` is the paged arena's page budget (default: as many pages as
     the dense pool holds, ``capacity * nblk``).
     """
@@ -141,15 +152,15 @@ class ContinuousBatchingEngine:
     def __init__(self, cfg, params, *, capacity: int = 8,
                  max_len: int = 256, prefill_bucket: int = 16, k: int = 8,
                  policy: str = "fifo", pool: str = "dense",
-                 pages: Optional[int] = None, sampling=None,
+                 pages: Optional[int] = None,
+                 sampling: Optional[sampling_lib.SamplingParams] = None,
                  speculative: Optional[SpeculativeConfig] = None,
                  deadline=None, shed_age=None, journal=None, faults=None,
                  mesh=None):
         if pool not in ("dense", "paged"):
             raise ValueError(f"unknown pool kind {pool!r} "
                              "(choose 'dense' or 'paged')")
-        unported = {"sampling": sampling is not None,
-                    "deadline": deadline is not None,
+        unported = {"deadline": deadline is not None,
                     "shed_age": shed_age is not None,
                     "journal": journal is not None,
                     "faults": faults is not None, "mesh": mesh is not None}
@@ -157,7 +168,7 @@ class ContinuousBatchingEngine:
         if asked:
             raise NotImplementedError(
                 f"ContinuousBatchingEngine: {', '.join(asked)} not ported to "
-                "repro_torch yet (see ROADMAP.md); this engine serves greedy")
+                "repro_torch yet (see ROADMAP.md)")
         if k < 1:
             raise ValueError(f"macro-step length k must be >= 1 (got {k})")
         if policy not in POLICIES:
@@ -203,6 +214,8 @@ class ContinuousBatchingEngine:
         self.prefill_bucket = prefill_bucket
         self.k = k
         self.policy = policy
+        self.sampling = None if sampling_lib.is_greedy(sampling) \
+            else sampling
         self.waiting: collections.deque[Request] = collections.deque()
         self.active: Dict[int, _Sequence] = {}
         self.finished: Dict[int, np.ndarray] = {}
@@ -244,14 +257,18 @@ class ContinuousBatchingEngine:
                        torch.full((capacity,), -1, dtype=torch.int32,
                                   device=dev),
                        torch.ones(capacity, dtype=torch.bool, device=dev))
+        # per-slot sampling chains (None when greedy): (capacity, 2) int64
+        # threefry keys, zero on idle slots
+        self._keys = None if self.sampling is None else torch.zeros(
+            (capacity, 2), dtype=torch.int64, device=dev)
         self.free = list(range(capacity))[::-1]  # pop -> slot 0..
-        self._loop = make_slot_decode_loop(cfg, k)
-        self._prefill = make_prefill_admit_step(cfg)
+        self._loop = make_slot_decode_loop(cfg, k, self.sampling)
+        self._prefill = make_prefill_admit_step(cfg, self.sampling)
         if speculative is not None:
             cfg_d = speculative.cfg
             # the plain loop above stays as the degradation ladder's target
-            self._spec_loop = make_speculative_loop(cfg, cfg_d,
-                                                    speculative.d, k)
+            self._spec_loop = make_speculative_loop(
+                cfg, cfg_d, speculative.d, k, self.sampling)
             self._draft_prefill = make_draft_prefill(cfg_d)
 
     def _build_pools(self, pool: str, pages: Optional[int]):
@@ -546,8 +563,9 @@ class ContinuousBatchingEngine:
             paged_lib.admit_scatter(pool, real, idx,
                                     self._to_device(bt_rows), meta)
 
-    def _set_state(self, idx, first_n, plens, rem0, eos_new):
-        """Write the admitted rows' decode state in place."""
+    def _set_state(self, idx, first_n, plens, rem0, eos_new, keys_n=None):
+        """Write the admitted rows' decode state (and sampling chains) in
+        place."""
         plens_d = self._to_device(plens)
         rem0_d = self._to_device(rem0)
         eos_d = self._to_device(eos_new)
@@ -558,6 +576,8 @@ class ContinuousBatchingEngine:
         eos.index_copy_(0, idx, eos_d)
         # a request can finish at its very first (prefill) token
         done.index_copy_(0, idx, (first_n == eos_d) | (rem0_d <= 0))
+        if keys_n is not None:
+            self._keys.index_copy_(0, idx, keys_n)
 
     def _admit_group(self, bucket: int, group):
         """Batched-prefill admission of ``group``'s (request, page record)
@@ -576,7 +596,19 @@ class ContinuousBatchingEngine:
         rows = self.fam.init_cache(self.cfg, npad, self.max_len, device=dev)
         plens_d = self._to_device(plens)
         padded_d = self._to_device(padded)
-        first, rows = self._prefill(self.params, padded_d, plens_d, rows)
+        keys = None
+        if self.sampling is None:
+            first, rows = self._prefill(self.params, padded_d, plens_d, rows)
+        else:
+            # chain roots are derived from (seed, uid) on the device in the
+            # same prefill; ``skips`` stays on the host (all zero: the
+            # port's requests carry no committed run yet)
+            uids = np.zeros((npad,), np.int64)
+            uids[:n] = [r.uid for r, _ in group]
+            first, rows, keys = self._prefill(
+                self.params, padded_d, plens_d, rows, self._to_device(uids),
+                torch.zeros((npad,), dtype=torch.int64))
+            keys = keys[:n]
         idx = self._to_device(slots)
         self._scatter_rows(self.pool, rows, idx, n, bt_rows[0],
                            self._metas[0])
@@ -592,7 +624,8 @@ class ContinuousBatchingEngine:
                                self._metas[1])
             self.n_prefills += 1  # the draft's prefill counts, as in JAX
         first_n = first[:n]
-        self._set_state(idx, first_n, plens[:n], *self._budgets(group))
+        self._set_state(idx, first_n, plens[:n], *self._budgets(group),
+                        keys)
         self.n_prefills += 1
         first_host = first_n.cpu().numpy()
         self.n_host_syncs += 1
@@ -626,7 +659,10 @@ class ContinuousBatchingEngine:
         ``done``, so their writes go to the scratch page and nothing of
         theirs changes.  The reference scans a full page of steps; steps
         past the longest tail change nothing, so the loop stops there.
-        One host sync reads the first tokens."""
+        Sampled, each row's chain is derived on the device from (seed,
+        uid) and advanced once, by the draw at its last tail step, as the
+        skipped prefill would have; a step where no row ends draws
+        nothing.  One host sync reads the first tokens."""
         meta = self._metas[0]
         cap, dev = self.capacity, self.device
         slots, bt_rows = self._take_slots(pairs)
@@ -635,6 +671,7 @@ class ContinuousBatchingEngine:
         pos0 = np.zeros((cap,), np.int32)
         tail_tokens = np.zeros((cap, meta.page), np.int32)
         plens = np.zeros((len(pairs),), np.int32)
+        uids = np.zeros((cap,), np.int64)
         for j, (r, a) in enumerate(pairs):
             slot = slots[j]
             p0 = a["share"] * meta.page
@@ -644,22 +681,38 @@ class ContinuousBatchingEngine:
             tail_len[slot] = len(tail)
             tail_tokens[slot, :len(tail)] = tail
             plens[j] = len(r.prompt)
+            uids[slot] = r.uid
         idx = self._to_device(slots)
         paged_lib.set_block_tables(self.pool, idx,
                                    self._to_device(bt_rows[0]), meta)
         wave_d, tl_d, p0_d, toks_d = (self._to_device(a) for a in (
             wave, tail_len, pos0, tail_tokens))
         first = torch.zeros(cap, dtype=torch.int32, device=dev)
+        chain = None
+        if self.sampling is not None:
+            chain = sampling_lib.request_key(self.sampling.seed,
+                                             self._to_device(uids))
         for j in range(int(tail_len.max())):
             live = wave_d & (j < tl_d)
             logits, self.pool = self.fam.decode_step_slots(
                 self.params, toks_d[:, j].contiguous(), p0_d + j, self.pool,
                 self.cfg, done=~live)
-            nxt = logits.argmax(-1).to(torch.int32)
-            first = torch.where(live & (tl_d == j + 1), nxt, first)
             self.n_prefix_tail_steps += 1
+            last = live & (tl_d == j + 1)
+            if chain is None:
+                nxt = logits.argmax(-1).to(torch.int32)
+            elif (tail_len[wave] == j + 1).any():  # host arrays: no sync
+                advanced, subs = sampling_lib.next_keys(chain)
+                nxt = sampling_lib.sample_logits(logits, subs, self.sampling)
+                # the chain advances exactly once: at the draw of the
+                # row's first sampled token
+                chain = torch.where(last[:, None], advanced, chain)
+            else:
+                continue  # no row's tail ends at this step: no draw
+            first = torch.where(last, nxt, first)
         first_n = first[idx]
-        self._set_state(idx, first_n, plens, *self._budgets(pairs))
+        self._set_state(idx, first_n, plens, *self._budgets(pairs),
+                        None if chain is None else chain[idx])
         first_host = first_n.cpu().numpy()
         self.n_host_syncs += 1
         for j, (r, _) in enumerate(pairs):
@@ -724,6 +777,8 @@ class ContinuousBatchingEngine:
         remaining.index_fill_(0, idx, 0)
         eos.index_fill_(0, idx, -1)
         done.index_fill_(0, idx, True)
+        if self._keys is not None:
+            self._keys.index_fill_(0, idx, 0)
         self.free.extend(self._evict_pending)
         self._evict_pending.clear()
 
@@ -743,20 +798,25 @@ class ContinuousBatchingEngine:
         """Enqueue one macro step (K decode steps, or K whole speculative
         draft→verify→commit blocks) and its readback, with no host sync."""
         tokens, positions, remaining, eos_ids, done = self._state
+        chains = () if self._keys is None else (self._keys,)
         if self.speculative is not None and not self._spec_fallback:
             (block, valid, poison, dbad, tokens, positions, remaining, done,
-             self.pool, self.pool_d, n_prop, n_acc) = self._spec_loop(
-                self.params, self.speculative.params, tokens, positions,
-                remaining, eos_ids, done, self.pool, self.pool_d)
+             self.pool, self.pool_d, *chains, n_prop, n_acc) = \
+                self._spec_loop(self.params, self.speculative.params, tokens,
+                                positions, remaining, eos_ids, done,
+                                self.pool, self.pool_d, *chains)
             # acceptance telemetry and the draft-fault flag in one tensor
             stats = torch.stack([n_prop, n_acc, dbad.long()])
         else:
             # a speculative engine whose draft misbehaved keeps serving
             # through the plain macro loop on its TARGET pool
             (block, valid, poison, tokens, positions, remaining, done,
-             self.pool) = self._loop(self.params, tokens, positions,
-                                     remaining, eos_ids, done, self.pool)
+             self.pool, *chains) = self._loop(
+                self.params, tokens, positions, remaining, eos_ids, done,
+                self.pool, *chains)
             stats = None
+        if chains:
+            self._keys = chains[0]
         self._state = (tokens, positions, remaining, eos_ids, done)
         host, ready = (block, valid, poison, stats), None
         if self.device.type == "cuda":

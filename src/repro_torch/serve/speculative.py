@@ -1,4 +1,4 @@
-"""Greedy speculative decoding for the continuous-batching engine.
+"""Speculative decoding for the continuous-batching engine.
 
 The paper grows every target weight as a (multi-)linear function of the
 pretrained source weights, which makes the small source model a
@@ -19,7 +19,11 @@ well-matched DRAFT for its grown target at serve time:
 
 Every emitted token is the target's own argmax after its committed prefix,
 so greedy speculative decode gives the tokens of non-speculative
-``generate()``; acceptance only decides how many one block emits.
+``generate()``; acceptance only decides how many one block emits.  Under a
+non-greedy ``SamplingParams`` the draft samples its proposals and the
+target accepts each by rejection sampling (accept ``x ~ q`` with
+probability ``min(1, p(x) / q(x))``, else redraw from ``max(p - q, 0)``),
+so every emitted token follows the target's filtered distribution.
 
 The draft's proposals write the draft pool IN PLACE, past each row's
 committed length (the reference package proposes on a functional copy of
@@ -35,8 +39,7 @@ reference's ``spec_ring_restore``) or propose on a copy.
 ``make_speculative_loop(cfg_t, cfg_d, d, k)`` runs ``k`` whole
 draft→verify→commit blocks per dispatch as a Python loop that never reads
 a value back to the host, so a dispatch emits up to ``k * (d + 1)`` tokens
-per slot with one host sync.  Sampled speculation (rejection sampling)
-comes with the sampling slice.
+per slot with one host sync.
 """
 from __future__ import annotations
 
@@ -46,6 +49,7 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.models import get_family, spec_decode_supported
+from repro_torch.serve import sampling as sampling_lib
 
 
 @dataclasses.dataclass
@@ -120,8 +124,8 @@ def _non_finite_rows(logits):
 
 
 def make_speculative_loop(cfg_t, cfg_d, d: int, k: int, sampling=None):
-    """K greedy speculative blocks per dispatch: the engine's macro-step
-    in speculative mode.
+    """K speculative blocks per dispatch: the engine's macro-step in
+    speculative mode.
 
     fn(params_t, params_d, tokens (B,), positions (B,), remaining (B,),
        eos_ids (B,), done (B,), pool_t, pool_d) ->
@@ -138,20 +142,50 @@ def make_speculative_loop(cfg_t, cfg_d, d: int, k: int, sampling=None):
     readback.  ``poison[b]`` flags a row whose TARGET verify logits came
     back non-finite: it commits nothing that block and freezes, and the
     engine quarantines it.  A broken draft cannot change greedy output
-    (bad proposals are merely rejected), so ``draft_bad`` only reports
-    non-finite draft logits; the engine then drops to plain macro decode.
-    Pools are updated in place.
+    (bad proposals are merely rejected), so under greedy ``draft_bad``
+    only reports non-finite draft logits; the engine then drops to plain
+    macro decode.  Pools are updated in place.
+
+    With a non-greedy ``sampling`` the signature gains per-slot chains --
+    fn(..., pool_d, keys (B, 2)) -> (..., pool_d, keys, n_proposed,
+    n_accepted) -- advanced once a block for live rows.  Block key
+    ``kb``: draft draw j uses ``fold_in(kb, j)``, the d acceptance
+    uniforms ``fold_in(kb, d)``, the S replacement draws ``fold_in(kb, d +
+    1)`` over (S, V).  A row whose DRAFT logits went non-finite is
+    poisoned too: its rejection sampling would no longer follow the
+    target's distribution.
     """
-    if sampling is not None:
-        raise NotImplementedError(
-            "sampled speculative decoding (rejection sampling) is not "
-            "ported to repro_torch yet (the sampling slice, ROADMAP.md); "
-            "speculation here is greedy")
     fam_t, fam_d = get_family(cfg_t), get_family(cfg_d)
+    greedy = sampling_lib.is_greedy(sampling)
     S = d + 1
 
+    def accept_sampled(chunk, logits_t, qs, kblock):
+        """Rejection sampling: (accepted (B, d), out_tokens (B, S))."""
+        B, V = chunk.shape[0], logits_t.shape[-1]
+        p = sampling_lib.filtered_probs(logits_t.reshape(B * S, V),
+                                        sampling).reshape(B, S, V)
+        x = chunk[:, 1:].long()  # (B, d) draft proposals
+        p_x = p[:, :-1].gather(-1, x[..., None])[..., 0]
+        q_x = qs.gather(-1, x[..., None])[..., 0]
+        u = sampling_lib.uniform(sampling_lib.fold_in(kblock, d), (d,))
+        match = u < (p_x / q_x.clamp_min(1e-38)).clamp_max(1.0)
+        # replacements: the residual distribution at each rejection point;
+        # the all-accepted bonus draws from the target's own last one
+        repl_dists = torch.cat(
+            [sampling_lib.residual_probs(p[:, :-1], qs), p[:, -1:]], 1)
+        logp = torch.where(repl_dists > 0,
+                           torch.log(repl_dists.clamp_min(1e-38)),
+                           sampling_lib.NEG_INF)
+        repl = sampling_lib.categorical(
+            sampling_lib.fold_in(kblock, d + 1), logp).to(torch.int32)
+        out_tokens = torch.where(
+            torch.cat([match, torch.zeros_like(match[:, :1])], 1),
+            torch.cat([chunk[:, 1:], torch.zeros_like(chunk[:, :1])], 1),
+            repl)
+        return match, out_tokens
+
     def one_block(params_t, params_d, tokens, positions, remaining, eos_ids,
-                  done, pool_t, pool_d):
+                  done, pool_t, pool_d, keys):
         B = tokens.shape[0]
         live0 = ~done
         # a row owing R more tokens can accept at most min(d, R - 1)
@@ -159,23 +193,38 @@ def make_speculative_loop(cfg_t, cfg_d, d: int, k: int, sampling=None):
         # budget clipping does not read as rejection in the telemetry
         n_prop_rows = torch.where(live0, (remaining - 1).clamp(0, d), 0)
 
+        if not greedy:
+            advanced, kblock = sampling_lib.next_keys(keys)
+            keys = torch.where(live0[:, None], advanced, keys)
         # draft proposals, written into the draft pool in place (module
-        # docstring); done rows keep their token
-        tok, dbad, drafts = tokens, torch.zeros_like(done), []
+        # docstring); done rows keep their token.  Sampled, draw j uses
+        # fold_in(kblock, j) and keeps its distribution q_j
+        tok, dbad, drafts, qs = tokens, torch.zeros_like(done), [], []
         for j in range(d):
             logits, pool_d = fam_d.decode_step_slots(
                 params_d, tok, positions + j, pool_d, cfg_d, done=done)
             dbad = dbad | (live0 & _non_finite_rows(logits))
-            tok = torch.where(done, tok, logits.argmax(-1).to(torch.int32))
+            if greedy:
+                nxt = logits.argmax(-1).to(torch.int32)
+            else:
+                qs.append(sampling_lib.filtered_probs(logits, sampling))
+                nxt = sampling_lib.sample_probs(
+                    qs[-1], sampling_lib.fold_in(kblock, j))
+            tok = torch.where(done, tok, nxt)
             drafts.append(tok)
         chunk = torch.stack([tokens, *drafts], 1)  # (B, S)
         logits_t, pend_t = fam_t.verify_step_slots(
             params_t, chunk, positions, pool_t, cfg_t, done=done)
-        bad = live0 & _non_finite_rows(logits_t)
-        out_tokens = logits_t.argmax(-1).to(torch.int32)  # (B, S)
-        # proposal j survives iff it IS the target's argmax after the
-        # accepted prefix, so every emitted token is the target's own
-        match = chunk[:, 1:] == out_tokens[:, :-1]
+        if greedy:
+            bad = live0 & _non_finite_rows(logits_t)
+            out_tokens = logits_t.argmax(-1).to(torch.int32)  # (B, S)
+            # proposal j survives iff it IS the target's argmax after the
+            # accepted prefix, so every emitted token is the target's own
+            match = chunk[:, 1:] == out_tokens[:, :-1]
+        else:
+            bad = live0 & (_non_finite_rows(logits_t) | dbad)
+            match, out_tokens = accept_sampled(chunk, logits_t,
+                                               torch.stack(qs, 1), kblock)
 
         # output j (1-based) is committed iff the row is live, proposals
         # 1..j-1 were all accepted, the budget still owes >= j tokens and
@@ -214,11 +263,11 @@ def make_speculative_loop(cfg_t, cfg_d, d: int, k: int, sampling=None):
         positions = positions + n_out
         n_acc = (n_out - 1).clamp(min=0).sum()
         return (out_tokens.T, valid.T, bad, dbad.any(), tokens, positions,
-                remaining, done_next, pool_t, pool_d, n_prop_rows.sum(),
-                n_acc)
+                remaining, done_next, pool_t, pool_d, keys,
+                n_prop_rows.sum(), n_acc)
 
     def loop_fn(params_t, params_d, tokens, positions, remaining, eos_ids,
-                done, pool_t, pool_d):
+                done, pool_t, pool_d, keys=None):
         blocks, valids = [], []
         poison = torch.zeros_like(done)
         draft_bad = torch.zeros((), dtype=torch.bool, device=done.device)
@@ -226,17 +275,18 @@ def make_speculative_loop(cfg_t, cfg_d, d: int, k: int, sampling=None):
         n_acc = torch.zeros_like(n_prop)
         for _ in range(k):
             (block, valid, bad, dbad, tokens, positions, remaining, done,
-             pool_t, pool_d, prop, acc) = one_block(
+             pool_t, pool_d, keys, prop, acc) = one_block(
                 params_t, params_d, tokens, positions, remaining, eos_ids,
-                done, pool_t, pool_d)
+                done, pool_t, pool_d, keys)
             blocks.append(block)
             valids.append(valid)
             poison = poison | bad
             draft_bad = draft_bad | dbad
             n_prop = n_prop + prop
             n_acc = n_acc + acc
-        return (torch.cat(blocks), torch.cat(valids), poison, draft_bad,
-                tokens, positions, remaining, done, pool_t, pool_d, n_prop,
-                n_acc)
+        out = (torch.cat(blocks), torch.cat(valids), poison, draft_bad,
+               tokens, positions, remaining, done, pool_t, pool_d)
+        return (*out, n_prop, n_acc) if greedy else (*out, keys, n_prop,
+                                                      n_acc)
 
     return loop_fn

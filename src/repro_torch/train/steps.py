@@ -6,7 +6,9 @@ steps take gradients with ``torch.autograd.grad`` over every leaf of the
 trained tree and hand them to the optimizer; they return the reference
 package's metric keys (``loss``, ``ce``, ``grad_norm``, ``lr``).  The serving
 macro-step is a Python loop of K slot-decode steps that never reads a value
-back to the host.  Sampled decode comes in a later slice (ROADMAP.md).
+back to the host; with a non-greedy ``SamplingParams`` the admission
+prefill and the macro-step draw from per-request threefry chains
+(``serve/sampling.py``).
 """
 from __future__ import annotations
 
@@ -205,25 +207,59 @@ def make_slot_decode_step(cfg):
     return decode_fn
 
 
-def make_prefill_admit_step(cfg):
-    """Batched greedy admission prefill for the continuous-batching engine.
+def make_prefill_admit_step(cfg, sampling=None):
+    """Batched admission prefill for the continuous-batching engine.
 
     fn(params, tokens (N, Sbucket), plens (N,), cache) -> (first (N,) int32,
     cache): all requests of one prefill bucket run as ONE multi-row
     forward, and each row's first generated token (argmax at its true last
     prompt position) is computed on the device.
+
+    With a non-greedy ``sampling`` (``serve.sampling.SamplingParams``) the
+    signature gains per-row chain roots --
+    fn(params, tokens, plens, cache, uids (N,), skips (N,)) ->
+    (first, cache, keys (N, 2)) -- each row's chain is seeded from
+    (sampling.seed, uid) on the device, advanced ``skips[i]`` splits (the
+    journal-resume hook: a re-admitted sequence has already sampled that
+    many tokens; fresh admissions pass zeros), its first key samples the
+    first token, and the advanced chains come back for the admission
+    scatter.  The reference advances under a mask for every bucket
+    position; steps past the largest skip change nothing, so when
+    ``skips`` lies on the CPU the loop stops there, with no host read.
     """
+    from repro_torch.serve import sampling as sampling_lib
+
     fam = get_family(cfg)
 
-    def prefill_fn(params, tokens, plens, cache):
+    if sampling_lib.is_greedy(sampling):
+        def prefill_fn(params, tokens, plens, cache):
+            logits, cache = fam.prefill_last(params, tokens, plens, cfg,
+                                             cache)
+            return logits.argmax(-1).to(torch.int32), cache
+
+        return prefill_fn
+
+    def prefill_sampled(params, tokens, plens, cache, uids, skips):
         logits, cache = fam.prefill_last(params, tokens, plens, cfg, cache)
-        return logits.argmax(-1).to(torch.int32), cache
+        roots = sampling_lib.request_key(sampling.seed, uids)
+        bound = tokens.shape[1]
+        if skips.device.type == "cpu":
+            bound = min(bound, int(skips.max()) if skips.numel() else 0)
+        if bound:
+            skips = skips.to(roots.device, non_blocking=True)
+        for i in range(bound):
+            # a committed token consumed one split of its chain
+            advanced, _ = sampling_lib.next_keys(roots)
+            roots = torch.where((i < skips)[:, None], advanced, roots)
+        keys, subs = sampling_lib.next_keys(roots)
+        first = sampling_lib.sample_logits(logits, subs, sampling)
+        return first, cache, keys
 
-    return prefill_fn
+    return prefill_sampled
 
 
-def make_slot_decode_loop(cfg, k: int):
-    """Macro-step: K greedy slot-decode steps with no host sync.
+def make_slot_decode_loop(cfg, k: int, sampling=None):
+    """Macro-step: K slot-decode steps with no host sync.
 
     fn(params, tokens (B,), positions (B,), remaining (B,), eos_ids (B,),
        done (B,), cache) ->
@@ -239,10 +275,20 @@ def make_slot_decode_loop(cfg, k: int):
     non-finite freezes on that step like an eos row (its token is never
     committed) and is flagged for the engine to quarantine.  ``eos_ids``
     uses -1 for "no eos"; ``remaining`` counts decode tokens still owed.
-    """
-    fam = get_family(cfg)
 
-    def loop_fn(params, tokens, positions, remaining, eos_ids, done, cache):
+    With a non-greedy ``sampling`` the signature gains per-slot PRNG
+    chains -- fn(..., cache, keys (B, 2)) -> (..., cache, keys) -- and each
+    step draws from the temperature/top-k/top-p-filtered distribution.  A
+    chain advances only where its row really samples, so a request's
+    tokens are a pure function of (seed, uid, prompt).
+    """
+    from repro_torch.serve import sampling as sampling_lib
+
+    fam = get_family(cfg)
+    greedy = sampling_lib.is_greedy(sampling)
+
+    def loop_fn(params, tokens, positions, remaining, eos_ids, done, cache,
+                keys=None):
         poison = torch.zeros_like(done)
         block, valid = [], []
         for _ in range(k):
@@ -252,7 +298,12 @@ def make_slot_decode_loop(cfg, k: int):
             bad = live & ~torch.isfinite(logits.float()).all(-1)
             live = live & ~bad
             poison = poison | bad
-            nxt = logits.argmax(-1).to(torch.int32)
+            if greedy:
+                nxt = logits.argmax(-1).to(torch.int32)
+            else:
+                advanced, subs = sampling_lib.next_keys(keys)
+                keys = torch.where(live[:, None], advanced, keys)
+                nxt = sampling_lib.sample_logits(logits, subs, sampling)
             tokens = torch.where(live, nxt, tokens)
             remaining = torch.where(live, remaining - 1, remaining)
             done = done | bad | (live & ((tokens == eos_ids)
@@ -260,7 +311,8 @@ def make_slot_decode_loop(cfg, k: int):
             positions = torch.where(live, positions + 1, positions)
             block.append(tokens)
             valid.append(live)
-        return (torch.stack(block), torch.stack(valid), poison, tokens,
-                positions, remaining, done, cache)
+        out = (torch.stack(block), torch.stack(valid), poison, tokens,
+               positions, remaining, done, cache)
+        return out if greedy else (*out, keys)
 
     return loop_fn

@@ -2,7 +2,8 @@
 
 Inputs are made from seeded numpy and handed to both packages; params are
 initialised by the JAX package (or drawn from numpy) and converted leaf for
-leaf, so both sides compute on identical weights.
+leaf, so both sides compute on identical weights.  Sampled tokens compare
+under the near-tie rule of ``check_sampled``.
 """
 import dataclasses
 import importlib.util
@@ -79,3 +80,73 @@ def reference_example(name):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+# ----------------------------------------------------------------- sampling
+NEAR_TIE = 1e-4  # top-2 gap of perturbed scores below which routes may differ
+
+
+def perturbed_scores(logits, key, sp):
+    """(B, V) Gumbel-perturbed log-probabilities of the port's sampled draw
+    (``sampling.sample_logits``): the drawn token is their argmax."""
+    from repro_torch.serve import sampling
+
+    probs = sampling.filtered_probs(logits, sp)
+    logp = torch.where(probs > 0, torch.log(probs.clamp_min(1e-38)),
+                       sampling.NEG_INF)
+    return sampling.gumbel(key, logits.shape[-1:]) + logp
+
+
+def top2_gap(scores):
+    top = scores.float().topk(2, dim=-1).values
+    return (top[..., 0] - top[..., 1]).numpy()
+
+
+def sampled_replay(cfg, params, prompt, uid, sp, tokens, max_len):
+    """Sequential replay of one request's sampling chain in the port (its
+    scalar ``prefill`` and ``decode_step``), fed ``tokens`` as the
+    generated prefix: returns (drawn, gaps), where ``drawn[i]`` is the
+    token the chain draws at step i after ``tokens[:i]`` and ``gaps[i]``
+    the top-2 gap of the perturbed scores there.  Fed the chain's own
+    draws, ``drawn`` is the engine's expected output."""
+    from repro_torch.models import get_family
+    from repro_torch.serve import sampling
+
+    fam = get_family(cfg)
+    cache = fam.init_cache(cfg, 1, max_len)
+    x = torch.from_numpy(np.asarray(prompt, np.int32))[None]
+    logits, cache = fam.prefill(params, {"tokens": x}, cfg, cache)
+    keys = sampling.request_key(sp.seed, torch.tensor([uid]))
+    drawn, gaps = [], []
+    pos = len(prompt)
+    for i, t in enumerate(tokens):
+        keys, subs = sampling.next_keys(keys)
+        scores = perturbed_scores(logits, subs, sp)
+        drawn.append(int(scores.argmax(-1)[0]))
+        gaps.append(float(top2_gap(scores)[0]))
+        if i + 1 < len(tokens):
+            logits, cache = fam.decode_step(
+                params, torch.tensor([int(t)], dtype=torch.int32), pos,
+                cache, cfg)
+            pos += 1
+    return np.asarray(drawn, np.int32), np.asarray(gaps)
+
+
+def check_sampled(what, uid, got, want, gaps):
+    """Sampled tokens must be equal, except at a near tie: at the first
+    mismatch the top-2 gap of the perturbed scores there (``gaps``, along
+    the common prefix) must be below ``NEAR_TIE``; the mismatch is printed
+    and the rest of the request is not compared.  Returns the near tie
+    (uid, step, gap) or None."""
+    got, want = np.asarray(got), np.asarray(want)
+    n = min(len(got), len(want))
+    diff = np.nonzero(got[:n] != want[:n])[0]
+    if diff.size == 0:
+        assert len(got) == len(want), f"uid {uid}: {what} lengths differ"
+        return None
+    t = int(diff[0])
+    gap = float(gaps[t])
+    assert gap < NEAR_TIE, (f"uid {uid}: {what} differ at step {t}, where "
+                            f"the top-2 perturbed-score gap is {gap:.3g}")
+    print(f"near tie: uid {uid} {what} differ at step {t} (gap {gap:.3g})")
+    return uid, t, gap

@@ -16,12 +16,7 @@ from repro.launch.serve import generate as jax_generate
 from repro.serve import ContinuousBatchingEngine as JaxEngine
 from repro.serve import Request as JaxRequest
 from repro_torch.launch.serve import generate
-from repro_torch.configs import get_config
-from repro_torch.serve import (
-    ContinuousBatchingEngine,
-    Request,
-    SpeculativeConfig,
-)
+from repro_torch.serve import ContinuousBatchingEngine, Request
 
 MAX_LEN = 32
 SPECS = [(3, 6), (9, 2), (5, 8), (12, 4), (4, 7), (7, 1), (6, 5)]
@@ -146,11 +141,9 @@ def test_rejections_are_recorded_and_serving_continues(gpt):
 
 
 @pytest.mark.parametrize("kw", [
-    # the paged pool is ported; load shedding is not
-    dict(shed_age=1.0), dict(sampling=object()),
-    # speculation is ported, sampled speculation is not
-    dict(speculative=SpeculativeConfig(get_config("gpt-micro"), {}, d=2),
-         sampling=object()),
+    # the paged pool, sampling and sampled speculation are ported; load
+    # shedding is not
+    dict(shed_age=1.0),
     dict(deadline=1.0), dict(journal=object()), dict(faults=object()),
     dict(mesh="1x1")])
 def test_unported_engine_modes_raise(gpt, kw):

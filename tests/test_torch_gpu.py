@@ -1,7 +1,7 @@
 """Card-only tests of the port (``-m gpu``): each CUDA kernel against its
 plain version, the wrappers' refusals, the engine (plain and speculative,
-dense and paged pools; the transformer and griffin) and the growth
-contraction on the card.
+dense and paged pools; the transformer and griffin), the growth
+contraction and the sampling chains on the card.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 GPU machine without JAX:
@@ -52,8 +52,10 @@ from repro_torch.models import griffin, transformer
 from repro_torch.serve import (
     ContinuousBatchingEngine,
     Request,
+    SamplingParams,
     SpeculativeConfig,
 )
+from repro_torch.serve import sampling
 
 F32_ATOL = 2e-5  # f32: kernel and plain version sum in different orders
 # bf16 outputs carry 8 mantissa bits: one rounding step is ~4e-3 at |out|
@@ -1591,3 +1593,42 @@ def test_cuda_rope_engine_matches_generate_with_exact_launches(cuda_device,
             r.max_new_tokens - 1)
         np.testing.assert_array_equal(got[r.uid], gen[0].cpu().numpy())
         np.testing.assert_array_equal(got_spec[r.uid], gen[0].cpu().numpy())
+
+
+# ------------------------------------------------------------------ sampling
+@pytest.mark.parametrize("shape", [(50257,), (3,), (5, 37), (8, 50257)])
+def test_cuda_sampling_chains_bits_and_uniforms_equal_cpu(cuda_device,
+                                                          shape):
+    """The threefry chains (roots, splits, fold_in), random bits and
+    uniforms on the card equal the CPU's bit for bit (chip_smoke.py phase
+    13's first check)."""
+    uids = torch.tensor([0, 1, 12345, 2**31 - 1])
+    out = {}
+    for dev in ("cpu", cuda_device):
+        keys = sampling.request_key(5, uids.to(dev))
+        carry, sub = sampling.next_keys(keys)
+        out[str(dev)] = [keys, carry, sub, sampling.fold_in(sub, 5),
+                         sampling.random_bits(sub, shape),
+                         sampling.uniform(sub, shape)]
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert got.device.type == "cuda"
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("sp", [
+    SamplingParams(temperature=0.8, top_k=50, top_p=0.95, seed=5),
+    SamplingParams(temperature=0.8, top_k=12, top_p=0.9),
+    SamplingParams(temperature=1.3, top_k=50)])
+def test_cuda_filtered_probs_match_cpu(cuda_device, sp):
+    """``filtered_probs`` over gpt-base-wide rows on the card: the CPU's
+    support, probabilities within 1e-6; the sampled tokens equal."""
+    logits = 3 * torch.randn(8, 50257,
+                             generator=torch.Generator().manual_seed(13))
+    want = sampling.filtered_probs(logits, sp)
+    got = sampling.filtered_probs(logits.to(cuda_device), sp)
+    assert torch.equal(got.cpu() > 0, want > 0)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-6, rtol=0)
+    keys = sampling.request_key(sp.seed, torch.arange(8))
+    assert torch.equal(
+        sampling.sample_probs(got, keys.to(cuda_device)).cpu(),
+        sampling.sample_probs(want, keys))

@@ -49,7 +49,7 @@ def test_port_imports_neither_jax_nor_repro(path):
 def test_port_tree_is_what_the_rule_walks():
     assert len(PORT_FILES) > 15
     for module in ("serve/engine.py", "serve/speculative.py",
-                   "serve/paged.py", "kernels/decode_attention.py",
+                   "serve/paged.py", "serve/sampling.py", "kernels/decode_attention.py",
                    "kernels/ops.py", "kernels/ref.py", "kernels/rglru_scan.py",
                    "kernels/build.py", "models/attention.py",
                    "models/transformer.py", "models/griffin.py",
@@ -94,7 +94,7 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(no_cuda, capsys):
 @pytest.mark.parametrize("argv,flag", [
     (["--grow-cfg", "gpt-micro-big"], "--grow-cfg"),
     (["--upgrade-at", "5"], "--upgrade-at"),
-    (["--temperature=0.7"], "--temperature"),
+    (["--faults", "plan.json"], "--faults"),
     (["--snapshot", "snap.json"], "--snapshot"),
     (["--journal", "j.jsonl"], "--journal"), (["--mesh", "1x2"], "--mesh"),
 ])

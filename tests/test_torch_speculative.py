@@ -35,6 +35,7 @@ from repro_torch.models import transformer
 from repro_torch.serve import (
     ContinuousBatchingEngine,
     Request,
+    SamplingParams,
     SpeculativeConfig,
     spec_pair_supported,
 )
@@ -388,8 +389,9 @@ def test_spec_pair_probe_rejections(gpt, gqa):
         _spec_engine(cfg_t, params,
                      cfg_t.replace(name="bf16-draft",
                                    compute_dtype="bfloat16"), params, d=2)
-    with pytest.raises(NotImplementedError, match="sampling slice"):
-        make_speculative_loop(cfg_t, cfg_t, 2, 2, sampling=object())
+    # sampled speculation (rejection sampling) builds
+    assert callable(make_speculative_loop(
+        cfg_t, cfg_t, 2, 2, sampling=SamplingParams(temperature=0.8)))
 
 
 def _perturbed(params, scale=3e-3, seed=1):
