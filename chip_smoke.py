@@ -4,7 +4,8 @@ paper's growth and training loop, speculative serving of the grown model
 with its source drafting, both served from a paged pool,
 recurrentgemma-2b (griffin) served from a dense and a paged pool, and
 qwen3-0.6b (RoPE) served on every route; DeiT-S grown into DeiT-B
-with checkpoints, resume and the three examples; gpt-base sampled.
+with checkpoints, resume and the three examples; gpt-base sampled;
+gpt-small grown live into gpt-base under traffic, and crash recovery.
 
     python3 chip_smoke.py [--out report.json]
 
@@ -81,13 +82,15 @@ printed as it goes; a failed phase raises, so the exit code is not 0:
                 4096, K 8, 16 requests of 64 new tokens, prompts of 64..512,
                 1990..2040 (rings wrap in decode) and 2100..2600 tokens
                 (rings filled at admission).  Tokens from the engine and
-                from ``generate`` == the plain route (the scalar
-                ``decode_step`` over all rows at one shared position, no
-                kernel) up to reported near ties; exactly 8 ring launches a
-                decode step and 18 scan launches an admission group, no
-                other kernel; a traced run for the idle share;
- 10. griffin paged -- phase 9's model and requests from a 160-page arena
-                (5/8 of the dense rings' 256) beside the dense pool: tokens
+                from ``generate`` (its first 8 requests) == the plain route
+                (the scalar ``decode_step`` over all rows at one shared
+                position, no kernel) up to reported near ties; exactly 8
+                ring launches a decode step and 18 scan launches an
+                admission group, no other kernel; a traced run of the
+                first 8 requests for the idle share;
+ 10. griffin paged -- phase 9's model and its first 8 requests from a
+                160-page arena (5/8 of the dense rings' 256) beside the
+                dense pool: tokens
                 == the plain route and the dense engine, exact launches of
                 the paged ring kernel (the dense one never), the refused
                 admissions, prefill groups, macro-steps and pages
@@ -101,7 +104,8 @@ printed as it goes; a failed phase raises, so the exit code is not 0:
                 (capacity 8, max_len 1024, K 8) on the dense pool, a
                 64-page paged pool and speculatively with the model
                 drafting for itself (d 4, K 2), then ``generate`` for each
-                request (B 1) and over 8 prompts of 512 (B 8).  Tokens ==
+                of the first 8 requests (B 1) and over 8 prompts of 512
+                (B 8).  Tokens ==
                 the plain route (a full forward per token) up to reported
                 near ties, paged == dense, exact launches (decode_attention
                 28 x 63 per ``generate`` call and never from the engine),
@@ -147,6 +151,29 @@ printed as it goes; a failed phase raises, so the exit code is not 0:
                 itself (d 4, K 2, 8 requests) at acceptance 1.0 with equal
                 tokens in two runs; device ops per decode step of two
                 device-only traced runs, sampled and greedy.
+ 14. upgrade -- phase 5's pretrained gpt-small served (capacity 8, max_len
+                512, K 8, prefill bucket 16; 16 requests of 64 new tokens,
+                prompts of 64..384 tokens from the 1024-id chain) and grown
+                LIVE into gpt-base (rank-1 Mango, noise 0) with gpt-small
+                drafting after the swap (d 4): first growing on a
+                background thread while the engine serves waves of the
+                requests, then synchronously with the swap at dispatch 2,
+                then synchronously on a 48-page paged pool.  Every request
+                against the plain routes: served before the swap ==
+                gpt-small's, resumed == gpt-small's committed prefix then
+                the grown gpt-base's on prompt ++ committed, queued at the
+                swap == the grown gpt-base's (near ties reported); exact
+                launches in the synchronous runs; the swap itself builds,
+                loads and launches nothing, and every kernel launched after
+                it was launched by the prewarm; pause, prewarm and growth
+                seconds, the greedy agreement probe, the post-swap
+                acceptance, pages resident at the swap and re-prefilled, no
+                page in use at the end.  Then the grown gpt-base sampled
+                (phase 13's policy) with a journal and a snapshot, crashed
+                after 3 dispatches, restored from the snapshot and resumed
+                from the journal: tokens == the uninterrupted run's up to
+                near ties; and the same through the launcher's
+                ``--journal``, ``--snapshot`` and ``--resume``.
 
 Each traced run prints the device time of each of the port's kernels.
 Each path's launch counters are set to 0 just before it runs and read just
@@ -2187,6 +2214,13 @@ def run_paged_speculative(kernel_rows, small, big, reqs, plain):
 
 
 GRIFFIN_PAGES = 160  # phase 10's arena: 5/8 of the dense rings' 256 pages
+# phase 9 holds ``generate`` of the first 8 of its 16 requests against the
+# plain route (16 until PR 24, cut to make room for phase 14)
+GRIFFIN_GENERATE_REQS = 8
+# phase 10 serves the first 8 of them, and phase 9's traced run traces
+# them (16 until PR 24, cut for the same reason; at 160 pages 9 of their
+# admissions still wait for pages)
+GRIFFIN_PAGED_REQS = 8
 EMBED_SCALE = 0.05  # phase 9's tied embedding, scaled down (see below)
 
 
@@ -2342,19 +2376,24 @@ def run_griffin_serve(kernel_rows):
         if got.shape != (64,) or got.min() < 0 or got.max() >= cfg.vocab_size:
             raise AssertionError(f"uid {r.uid}: bad output {got}")
         distinct.update(int(t) for t in got)
-        gen = generate(cfg, params, torch.from_numpy(r.prompt)[None].cuda(),
-                       max_new_tokens=64, max_len=4096)[0].cpu().numpy()
-        for what, toks in (("engine", got), ("generate", gen)):
+        runs = [("engine", got)]
+        if r.uid < GRIFFIN_GENERATE_REQS:
+            runs.append(("generate", generate(
+                cfg, params, torch.from_numpy(r.prompt)[None].cuda(),
+                max_new_tokens=64, max_len=4096)[0].cpu().numpy()))
+        for what, toks in runs:
             tie = check_against_plain(what, r.uid, toks, *plain[r.uid])
             if tie is not None:
                 ties[what].append(tie)
     generate_s = time.perf_counter() - t0
     gaps = np.concatenate([plain[r.uid][1] for r in reqs])
-    exact = {what: len(reqs) - len(t) for what, t in ties.items()}
+    exact = {"engine": len(reqs) - len(ties["engine"]),
+             "generate": GRIFFIN_GENERATE_REQS - len(ties["generate"])}
     print(f"tokens == plain route (scalar decode_step over all rows, no "
           f"kernel; {plain_s:.1f} s) for {exact['engine']}/{len(reqs)} "
-          f"requests from the engine and {exact['generate']}/{len(reqs)} "
-          f"from generate ({generate_s:.1f} s for the 16 calls); near ties "
+          f"requests from the engine and {exact['generate']}/"
+          f"{GRIFFIN_GENERATE_REQS} from generate ({generate_s:.1f} s for "
+          f"the {GRIFFIN_GENERATE_REQS} calls); near ties "
           f"{ties}; {len(distinct)} distinct "
           f"tokens generated; plain top-2 gap median {np.median(gaps):.4g},"
           f" min {gaps.min():.4g}", flush=True)
@@ -2370,8 +2409,12 @@ def run_griffin_serve(kernel_rows):
                   plain_route_seconds=plain_s, generate_seconds=generate_s,
                   init_seconds=init_s, prompt_lens=[
                       len(r.prompt) for r in reqs])
+    # the traced run serves the first 8 requests (reading a trace costs
+    # ~0.2 ms a device op): their untraced time first
     t0 = time.perf_counter()
-    report["profile"] = profile_serve(engine, reqs, dt, stages=())
+    traced = reqs[:GRIFFIN_PAGED_REQS]
+    _, traced_dt, _, _ = timed_run(engine(), traced)
+    report["profile"] = profile_serve(engine, traced, traced_dt, stages=())
     report["profile"]["seconds"] = time.perf_counter() - t0
     return report, (cfg, params, reqs, plain, out)
 
@@ -2414,8 +2457,8 @@ def predict_griffin_schedule(reqs, pages):
 
 
 def run_griffin_paged(kernel_rows, model):
-    """Phase 10: phase 9's model and requests from a paged pool of
-    GRIFFIN_PAGES pages beside the dense pool (dense, paged, paged,
+    """Phase 10: phase 9's model and its first GRIFFIN_PAGED_REQS requests
+    from a paged pool of GRIFFIN_PAGES pages beside the dense pool (dense, paged, paged,
     dense); the refused admissions predicted first by a CPU run of the
     same schedule."""
     import torch
@@ -2425,6 +2468,7 @@ def run_griffin_paged(kernel_rows, model):
     from repro_torch.serve import ContinuousBatchingEngine, Request
 
     cfg, params, reqs, plain, dense_out = model
+    reqs = reqs[:GRIFFIN_PAGED_REQS]
     pat = griffin.block_pattern(cfg)
     n_rec, n_attn = pat.count("rec"), pat.count("attn")
     t0 = time.perf_counter()
@@ -2531,6 +2575,9 @@ def run_griffin_paged(kernel_rows, model):
 QWEN_PAGES = 64  # phase 11's arena: half the dense pool's 128 pages of 64
 QWEN_D, QWEN_K = 4, 2  # phase 11's self-draft depth and blocks a dispatch
 QWEN_MATRIX_SCALE = 2.5  # phase 11: block matrices scaled up (see qwen_model)
+# phase 11 runs ``generate`` at B 1 on the first 8 of its 16 requests (16
+# until PR 24, cut to make room for phase 14)
+QWEN_GENERATE_REQS = 8
 QWEN_MIN_DISTINCT = 512  # of the dense engine's 1024 tokens (see qwen_model)
 F32_LOGIT_RTOL = 1e-3  # f32 kernel route vs f32 full forward, of max |logit|
 
@@ -2627,8 +2674,9 @@ def _bf16_logit_errors(cfg32, params32, prompts, n_steps=8):
 def run_qwen(kernel_rows):
     """Phase 11: qwen3-0.6b through the engine on the dense pool, a paged
     pool of QWEN_PAGES pages and the dense pool speculatively with the
-    model drafting for itself; ``generate`` for each request (B 1) and
-    over 8 prompts of 512 tokens (B 8); all against the plain route; a
+    model drafting for itself; ``generate`` for the first
+    QWEN_GENERATE_REQS requests (B 1) and over 8 prompts of 512 tokens
+    (B 8); all against the plain route; a
     traced run for the idle share; then the published bf16 through
     ``generate``."""
     import numpy as np
@@ -2755,6 +2803,8 @@ def run_qwen(kernel_rows):
                                 runs["dense"]["out"][r.uid], plain[r.uid][1])
         if tie is not None:
             ties["paged vs dense"].append(tie)
+        if r.uid >= QWEN_GENERATE_REQS:
+            continue
         for fn in kern.values():
             fn.launches = 0
         torch.cuda.synchronize()
@@ -2796,15 +2846,17 @@ def run_qwen(kernel_rows):
     print(f"qwen3 tokens == plain route (full forward per token, no kernel;"
           f" {plain_s:.1f} s): "
           + ", ".join(f"{w} {len(reqs) - len(ties[w])}/{len(reqs)}"
-                      for w in ("dense", "paged", "speculative", "generate"))
-          + f", generate B 8 {8 - len(ties['generate B 8'])}/8; near ties "
+                      for w in ("dense", "paged", "speculative"))
+          + f", generate {QWEN_GENERATE_REQS - len(ties['generate'])}/"
+          f"{QWEN_GENERATE_REQS}, generate B 8 {8 - len(ties['generate B 8'])}/8; near ties "
           f"{ties}; {len(distinct)} distinct tokens from the dense engine; "
           f"plain top-2 gap median {np.median(gaps):.4g}, min "
           f"{gaps.min():.4g}", flush=True)
-    print(f"qwen3 generate: B 1 {16 * 64 / gen_s:.1f} tok/s over the 16 "
-          f"requests ({gen_s:.1f} s), B 8 x 512-token prompts "
-          f"{8 * 64 / gen8_s:.1f} tok/s ({gen8_s:.2f} s); decode_attention "
-          f"launches {gen_launches} ({L} x 63 a call, 17 calls)", flush=True)
+    print(f"qwen3 generate: B 1 {QWEN_GENERATE_REQS * 64 / gen_s:.1f} tok/s "
+          f"over the first {QWEN_GENERATE_REQS} requests ({gen_s:.1f} s), B 8"
+          f" x 512-token prompts {8 * 64 / gen8_s:.1f} tok/s ({gen8_s:.2f} "
+          f"s); decode_attention launches {gen_launches} ({L} x 63 a call, "
+          f"{QWEN_GENERATE_REQS + 1} calls)", flush=True)
 
     t0 = time.perf_counter()
     profile = profile_serve(lambda: engine("dense"), reqs[:8],
@@ -2854,7 +2906,7 @@ def run_qwen(kernel_rows):
                 plain_top2_gap=dict(median=float(np.median(gaps)),
                                     min=float(gaps.min())),
                 plain_route_seconds=plain_s,
-                generate_b1_tok_per_s=16 * 64 / gen_s,
+                generate_b1_tok_per_s=QWEN_GENERATE_REQS * 64 / gen_s,
                 generate_b8_tok_per_s=8 * 64 / gen8_s,
                 generate_decode_attention_launches=gen_launches,
                 bf16=dict(generate_b8_tok_per_s=8 * 64 / gen16_s,
@@ -3426,6 +3478,428 @@ def run_sampled():
     return report
 
 
+UPGRADE_K, UPGRADE_D = 8, 4  # phase 14: macro-step, post-swap draft depth
+# phase 14's background run serves waves of its 16 requests while the
+# model grows, at most this many; a growth that outlives them swaps at the
+# boundary after the last one
+UPGRADE_WAVES = 10
+
+
+def upgrade_requests(uid0=0):
+    """Phase 14's 16 requests: prompts of 64..384 tokens from phase 5's
+    chain over the first 1024 ids, 64 new tokens each."""
+    import numpy as np
+
+    from repro_torch.data import lm_batch
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng(14)
+    return [Request(uid=uid0 + i, prompt=lm_batch(
+        GROW_DATA_VOCAB, 1, int(rng.integers(64, 385)), seed=1400 + i)[0],
+        max_new_tokens=64) for i in range(16)]
+
+
+class SwapWatch:
+    """Wraps an engine's ``_apply_upgrade``: records the engine's window
+    counters, every kernel's launches, the loaded kernel libraries and the
+    builds at the swap, and the requests finished by then."""
+
+    def __init__(self, eng):
+        from repro_torch.kernels import build, ops
+
+        self.eng, self.kern, self.build = eng, ops.kernels(), build
+        self.builds = []
+        self._build_all = build.build_all
+        build.build_all = self._record_build
+        self._apply = eng._apply_upgrade
+        eng._apply_upgrade = self._swap
+        self.at = None
+
+    def _record_build(self, *a, **kw):
+        self.builds.append(a)
+        return self._build_all(*a, **kw)
+
+    def _snap(self):
+        e = self.eng
+        return dict(launches={n: f.launches for n, f in self.kern.items()},
+                    libs=sorted(self.build._libs),
+                    builds=len(self.builds),
+                    dispatches=e.n_decode_dispatches, prefills=e.n_prefills,
+                    tail_steps=e.n_prefix_tail_steps,
+                    finished=set(e.finished))
+
+    def _swap(self, mgr):
+        before = self._snap()
+        self._apply(mgr)
+        self.at = dict(before=before, after=self._snap())
+
+    def close(self):
+        self.build.build_all = self._build_all
+        del self.eng._apply_upgrade
+
+
+def run_upgrade(small):
+    """Phase 14: phase 5's pretrained gpt-small served on the dense pool
+    and grown live into gpt-base (rank-1 Mango, noise 0) with the old
+    model drafting after the swap: a background growth, then a
+    synchronous one swapping at dispatch 2, then the synchronous one on a
+    48-page paged pool; then the grown gpt-base sampled with a journal and
+    a snapshot, crashed after 3 dispatches, restored and resumed, by hand
+    and through the launcher."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ContinuousBatchingEngine, UpgradeManager
+
+    cfg_s, cfg_t = get_config("gpt-small"), get_config("gpt-base")
+    reqs = upgrade_requests()
+    kern = ops.kernels()
+    report = {}
+    plain = {}  # (weights, prompt, n) -> plain tokens and gaps
+    grown_seen = []  # grown weights so far, each a key of ``plain``
+
+    def weights_key(mgr):
+        """Growth is deterministic: a run whose grown weights equal an
+        earlier run's (checked leaf for leaf) reuses its plain routes."""
+        leaves = list(_leaves(mgr.grown_params))
+        for i, seen in enumerate(grown_seen):
+            if all(torch.equal(a, b) for a, b in zip(seen, leaves)):
+                return i
+        grown_seen.append(leaves)
+        return len(grown_seen) - 1
+
+    def plain_route(key, cfg, params, prompt, n):
+        k = (key, tuple(int(t) for t in prompt), n)
+        if k not in plain:
+            plain[k] = plain_greedy(cfg, params, prompt, n)
+        return plain[k]
+
+    def plain_small(i):
+        return plain_route("small", cfg_s, small, reqs[i].prompt, 64)
+
+    def engine(pool):
+        return ContinuousBatchingEngine(
+            cfg_s, small, capacity=8, max_len=512, k=UPGRADE_K,
+            prefill_bucket=16, pool=pool,
+            pages=PAGED_PAGES if pool == "paged" else None)
+
+    def manager(eng, background):
+        mgr = UpgradeManager(eng, cfg_t, method="mango", rank=1,
+                             spec_d=UPGRADE_D, upgrade_at=2, probe_fp=True)
+        if mgr.spec_config() is None:
+            raise AssertionError(f"no draft after the swap: "
+                                 f"{mgr.spec_reason}")
+        return mgr.start(background=background)
+
+    def check(label, eng, mgr, watch, out, waves):
+        """Every request of every wave against the plain routes: served
+        before the swap == gpt-small's, resumed == gpt-small's committed
+        prefix then the grown gpt-base's on prompt ++ committed, admitted
+        after the swap == the grown gpt-base's."""
+        resumed = {r.uid: r for r in mgr.resumed_requests}
+        before = watch.at["after"]["finished"] - set(resumed)
+        key = weights_key(mgr)
+        ties, kinds = [], {"before": 0, "resumed": 0, "after": 0}
+        for uid, toks in out.items():
+            i = uid % 16
+            if toks.shape != (64,):
+                raise AssertionError(f"{label} uid {uid}: bad output {toks}")
+            if uid in resumed:
+                r = resumed[uid]
+                nc = r.n_committed
+                tie = check_against_plain(
+                    f"{label} committed prefix", uid, toks[:nc],
+                    plain_small(i)[0][:nc], plain_small(i)[1][:nc])
+                post = plain_route(key, cfg_t, mgr.grown_params, r.prompt,
+                                   64 - nc)
+                tie2 = check_against_plain(f"{label} post-swap suffix", uid,
+                                           toks[nc:], *post)
+                ties += [t for t in (tie, tie2) if t is not None]
+                kinds["resumed"] += 1
+            elif uid in before:
+                tie = check_against_plain(f"{label} pre-swap", uid, toks,
+                                          *plain_small(i))
+                ties += [tie] if tie is not None else []
+                kinds["before"] += 1
+            else:
+                tie = check_against_plain(
+                    f"{label} post-swap", uid, toks,
+                    *plain_route(key, cfg_t, mgr.grown_params,
+                                 reqs[i].prompt, 64))
+                ties += [tie] if tie is not None else []
+                kinds["after"] += 1
+        if len(out) != 16 * waves or eng.rejected:
+            raise AssertionError(f"{label}: {len(out)} outputs of "
+                                 f"{16 * waves}, rejected {eng.rejected}")
+        return kinds, ties, key
+
+    def swap_checks(label, watch, mgr):
+        """Nothing is built, loaded or launched in the swap itself, and
+        every kernel the grown path launches was launched by the
+        prewarm."""
+        b, a = watch.at["before"], watch.at["after"]
+        if (a["libs"] != b["libs"] or a["builds"] != b["builds"]
+                or a["launches"] != b["launches"]):
+            raise AssertionError(f"{label}: the swap built, loaded or "
+                                 f"launched something: {b} -> {a}")
+
+    def one_run(pool, background):
+        eng = engine(pool)
+        for fn in kern.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        mgr = manager(eng, background)
+        start_s = time.perf_counter() - t0
+        prewarm = {n: f.launches for n, f in kern.items()}
+        watch = SwapWatch(eng)
+        for fn in kern.values():
+            fn.launches = 0
+        out, waves = {}, 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            while True:
+                out.update(eng.run(upgrade_requests(uid0=16 * waves)))
+                waves += 1
+                if mgr.state in ("swapped", "failed") or \
+                        waves >= UPGRADE_WAVES:
+                    break
+            if mgr.state != "swapped":
+                mgr.wait()
+                mgr.poll(eng)
+            torch.cuda.synchronize()
+        finally:
+            watch.close()
+        serve_s = time.perf_counter() - t0
+        if mgr.state != "swapped" or watch.at is None:
+            raise AssertionError(f"upgrade ended in {mgr.state}: "
+                                 f"{mgr.error}")
+        label = f"{pool}{' background' if background else ''}"
+        launches = {n: f.launches for n, f in kern.items()}
+        swap_checks(label, watch, mgr)
+        kinds, ties, key = check(label, eng, mgr, watch, out, waves)
+        post = {n: launches[n] - watch.at["after"]["launches"][n]
+                for n in kern}
+        # (the background growth's launches mix with the serving ones)
+        cold = [] if background else [
+            n for n, c in post.items() if c and not prewarm[n]]
+        if cold:
+            raise AssertionError(f"{label}: {cold} launched after the swap "
+                                 "but not by the prewarm")
+        res = dict(
+            pause_ms=mgr.pause_ms, grow_s=mgr.grow_seconds,
+            prewarm_s=mgr.prewarm_seconds, start_s=start_s,
+            fp_token_agreement=mgr.fp_token_agreement,
+            resumed=mgr.resumed, waves=waves, serve_s=serve_s,
+            tok_per_s=16 * 64 * waves / serve_s,
+            acceptance=eng.acceptance_rate,
+            spec_proposed=eng.n_spec_proposed,
+            spec_accepted=eng.n_spec_accepted,
+            pages_resident_at_swap=mgr.pages_resident_at_swap,
+            pages_reprefilled=mgr.pages_reprefilled,
+            pages_in_use_at_end=eng.pages_in_use, kinds=kinds,
+            near_ties=ties, launches=launches, grown_weights=key,
+            prewarm_shapes=len(mgr.prewarm_shapes))
+        if not background:
+            res["exact_launches"] = exact_launches(label, eng, watch,
+                                                   launches, pool)
+        if pool == "paged" and eng.pages_in_use:
+            raise AssertionError(f"{label}: {eng.pages_in_use} pages in use "
+                                 "at the end")
+        print(f"upgrade {label}: gpt-small -> gpt-base grown in "
+              f"{mgr.grow_seconds:.3f} s, prewarm {mgr.prewarm_seconds:.2f} s"
+              f" ({len(mgr.prewarm_shapes)} admissions), swap pause "
+              f"{mgr.pause_ms:.2f} ms at dispatch "
+              f"{watch.at['before']['dispatches']} of wave {waves}, "
+              f"{mgr.resumed} resumed, greedy agreement "
+              f"{mgr.fp_token_agreement:.3f}; served {16 * waves} requests "
+              f"in {serve_s:.2f} s; post-swap acceptance of gpt-small "
+              f"drafting for the grown gpt-base (d {UPGRADE_D}) "
+              f"{eng.acceptance_rate:.4f} ({eng.n_spec_accepted}/"
+              f"{eng.n_spec_proposed}); pages resident at the swap "
+              f"{mgr.pages_resident_at_swap}, re-prefilled "
+              f"{mgr.pages_reprefilled}, in use at the end "
+              f"{eng.pages_in_use}; requests {kinds} == the plain routes "
+              f"(grown weights #{key}), near ties {ties}; launches "
+              f"{launches}", flush=True)
+        return res, mgr
+
+    def exact_launches(label, eng, watch, launches, pool):
+        """The synchronous run's launches: gpt-small's slot kernel each
+        layer of each decode step and flash each layer of each admission
+        group before the swap; after it, the grown gpt-base verifying with
+        gpt-small drafting (d 4)."""
+        b = watch.at["before"]
+        disp_pre, disp_post = b["dispatches"], \
+            eng.n_decode_dispatches - b["dispatches"]
+        groups_pre = b["prefills"]
+        groups_post = (eng.n_prefills - b["prefills"]) // 2
+        blocks = UPGRADE_K * disp_post
+        steps_pre = UPGRADE_K * disp_pre + b["tail_steps"]
+        slot, verify = (("paged_slot_decode_attention",
+                         "paged_chunk_verify_attention") if pool == "paged"
+                        else ("slot_decode_attention",
+                              "chunk_verify_attention"))
+        want = {n: 0 for n in kern}
+        want[slot] = cfg_s.n_layers * (steps_pre + UPGRADE_D * blocks)
+        want[verify] = (cfg_t.n_layers + cfg_s.n_layers) * blocks
+        want["flash_attention"] = (cfg_s.n_layers * groups_pre
+                                   + (cfg_t.n_layers + cfg_s.n_layers)
+                                   * groups_post)
+        if launches != want:
+            raise AssertionError(f"{label}: launched {launches}, expected "
+                                 f"{want} ({disp_pre} + {disp_post} "
+                                 f"dispatches, {groups_pre} + {groups_post} "
+                                 "admission groups)")
+        return want
+
+    engine("dense").run([upgrade_requests()[0]])  # first-use costs
+    report["background"], _ = one_run("dense", True)
+    report["dense"], mgr = one_run("dense", False)
+    report["paged"], _ = one_run("paged", False)
+    plain.clear()
+    grown_seen.clear()
+    report["sampled_recovery"] = run_recovery(cfg_t, mgr.grown_params)
+    return report
+
+
+def run_recovery(cfg, params):
+    """Phase 14, part c: the grown gpt-base sampled (phase 13's policy)
+    with a journal and a snapshot, crashed after 3 dispatches (3 engine
+    iterations, then the engine dropped), restored from the snapshot and
+    resumed from the journal; tokens == the uninterrupted run's up to
+    near ties of the perturbed scores.  Then the same through the
+    launcher's --journal, --snapshot and --resume."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.serve import (
+        ContinuousBatchingEngine,
+        RequestJournal,
+        SamplingParams,
+        read_journal,
+        recovery_requests,
+        restore_engine,
+        snapshot_engine,
+    )
+
+    sp = SamplingParams(**SAMPLED)
+    work = ROOT / "build" / "phase14"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+
+    def engine(journal=None):
+        return ContinuousBatchingEngine(cfg, params, capacity=8,
+                                        max_len=512, k=UPGRADE_K,
+                                        prefill_bucket=16, sampling=sp,
+                                        journal=journal)
+
+    def crash(eng, reqs, steps=3):
+        for r in reqs:
+            eng.submit(r)
+        for _ in range(steps):
+            eng.step()
+        if eng._inflight or not (eng.waiting or eng.active):
+            raise AssertionError("the crash point is not mid-trace")
+        eng.journal.close()
+
+    def compare(what, p, reqs, got, want):
+        """Sampled tokens equal, or a first mismatch at a near tie of the
+        perturbed scores (a sequential replay, run only where they
+        differ)."""
+        ties = []
+        for r in reqs:
+            a, b = got[r.uid], want[r.uid]
+            if np.array_equal(a, b):
+                continue
+            _, gaps = sampled_replay_on_card(cfg, p, r, sp, b)
+            tie = check_same_tokens(what, r.uid, a[:len(b)], b[:len(a)],
+                                    gaps)
+            ties.append(tie)
+        return ties
+
+    reqs = upgrade_requests()
+    t0 = time.perf_counter()
+    want = engine().run(reqs)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    journal = work / "journal.jsonl"
+    t0 = time.perf_counter()
+    snap = snapshot_engine(engine(), str(work / "snapshot"))
+    snap_s = time.perf_counter() - t0
+    crash(engine(RequestJournal(str(journal))), upgrade_requests())
+    gc.collect()
+    t0 = time.perf_counter()
+    st = read_journal(str(journal))
+    resumed, done = recovery_requests(st)
+    eng = restore_engine(str(work / "snapshot"),
+                         journal=RequestJournal(str(journal)))
+    restore_s = time.perf_counter() - t0
+    flash = ops.kernels()["flash_attention"]
+    flash_before = flash.launches
+    got = {**done, **eng.run(resumed)}
+    eng.journal.close()
+    flash_resume = flash.launches - flash_before
+    if not any(r.n_committed for r in resumed) or set(got) != set(want):
+        raise AssertionError(f"resume: {len(resumed)} resumed, outputs "
+                             f"{sorted(got)}")
+    ties = compare("resumed and uninterrupted sampled runs", params, reqs,
+                   got, want)
+    if flash_resume != cfg.n_layers * eng.n_prefills:
+        raise AssertionError(f"the resumed run launched flash "
+                             f"{flash_resume} times in {eng.n_prefills} "
+                             "admission groups")
+    print(f"sampled crash/resume: snapshot {snap_s:.2f} s ({snap}), crash "
+          f"after 3 dispatches, restore {restore_s:.2f} s; "
+          f"{len(resumed)} resumed ({sum(r.n_committed for r in resumed)} "
+          f"committed tokens re-prefilled by flash, {flash_resume} launches "
+          f"in {eng.n_prefills} groups), {len(done)} complete; tokens == "
+          f"the uninterrupted run ({plain_s:.2f} s) for "
+          f"{len(reqs) - len(ties)}/{len(reqs)}, near ties {ties}",
+          flush=True)
+
+    # the same through the launcher: a run with --journal and --snapshot,
+    # a crash of its restored engine, then --resume
+    argv = ["--arch", "gpt-base", "--engine", "continuous", "--batch", "16",
+            "--capacity", "8", "--prompt-len", "384", "--gen", "64",
+            "--max-len", "512", "--temperature", str(sp.temperature),
+            "--top-k", str(sp.top_k), "--top-p", str(sp.top_p),
+            "--sample-seed", str(sp.seed)]
+    j1, j2 = work / "launch1.jsonl", work / "launch2.jsonl"
+    t0 = time.perf_counter()
+    launch_serve.main([*argv, "--journal", str(j1), "--snapshot",
+                       str(work / "launch_snap")])
+    leng = restore_engine(str(work / "launch_snap"),
+                          journal=RequestJournal(str(j2)))
+    lreqs = launch_serve.trace_requests(leng.cfg, 16, 384, 64)
+    crash(leng, lreqs)
+    lparams = leng.params
+    del leng
+    gc.collect()
+    launch_serve.main([*argv, "--journal", str(j2), "--resume"])
+    launch_s = time.perf_counter() - t0
+    a, b = read_journal(str(j1)), read_journal(str(j2))
+    if set(a.finished) != set(range(16)) or a.finished != b.finished:
+        raise AssertionError(f"launcher journals: {a.finished} vs "
+                             f"{b.finished}")
+    lties = compare("launcher resumed and uninterrupted runs", lparams,
+                    lreqs, {u: np.asarray(t) for u, t in b.committed.items()},
+                    {u: np.asarray(t) for u, t in a.committed.items()})
+    print(f"launcher --journal/--snapshot, a crash after 3 dispatches, "
+          f"--resume: {launch_s:.1f} s; resumed tokens == the uninterrupted "
+          f"launcher run for {16 - len(lties)}/16, near ties {lties}",
+          flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+    return dict(snapshot_s=snap_s, restore_s=restore_s,
+                resumed=len(resumed), complete=len(done), near_ties=ties,
+                launcher_s=launch_s, launcher_near_ties=lties)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3502,7 +3976,7 @@ def main(argv=None):
     t0 = time.perf_counter()
     paged_spec = run_paged_speculative(rows, small, big, spec_reqs,
                                        spec_plain)
-    del small, big, spec_reqs, spec_plain
+    del big, spec_reqs, spec_plain  # phase 14 serves gpt-small again
     print(f"phase 8 took {time.perf_counter() - t0:.1f} s", flush=True)
     gc.collect()  # phases 5-8's models go before recurrentgemma-2b
     torch.cuda.empty_cache()
@@ -3537,6 +4011,12 @@ def main(argv=None):
     sampled = run_sampled()
     print(f"phase 13 took {time.perf_counter() - t0:.1f} s", flush=True)
 
+    phase("live upgrade gpt-small -> gpt-base; crash recovery")
+    t0 = time.perf_counter()
+    upgrade = run_upgrade(small)
+    del small
+    print(f"phase 14 took {time.perf_counter() - t0:.1f} s", flush=True)
+
     # the contract's keys, then the tensor-core rows' 3xTF32 and bf16 ones
     kernels = [{key: r[key] for key in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -3552,7 +4032,7 @@ def main(argv=None):
              "paged": paged, "paged_speculative": paged_spec,
              "griffin_dense": griffin_dense, "griffin_paged": griffin_paged,
              "qwen": qwen, "deit": deit, "sampled": sampled,
-             "build_seconds": secs}, indent=1))
+             "upgrade": upgrade, "build_seconds": secs}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}))

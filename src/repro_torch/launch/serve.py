@@ -42,6 +42,21 @@ asked for and absent:
       --capacity 8 --prompt-len 2048 --gen 64 --max-len 4096 \
       --pool paged --pages 160
 
+  # live upgrade: serve gpt-small, grow it into gpt-base with Mango while
+  # serving (--upgrade-sync grows first), hot-swap at dispatch 2; the old
+  # source then drafts for its grown target
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt-small \
+      --engine continuous --batch 16 --capacity 8 --gen 64 \
+      --grow-cfg gpt-base --upgrade-at 2
+
+  # crash safety: a request journal and an engine snapshot; after a crash
+  # --resume replays the journal (mid-flight requests re-admit as prompt
+  # followed by their committed tokens, finished ones are not re-run)
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt-base \
+      --engine continuous --journal j.jsonl --snapshot snap/
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt-base \
+      --engine continuous --journal j.jsonl --resume
+
   # a RoPE decoder (qwen3-0.6b, bf16 as published): naive generate, whose
   # decode steps run the decode_attention kernel, then the engine
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
@@ -66,20 +81,23 @@ from repro_torch.serve import (
     POLICIES,
     ContinuousBatchingEngine,
     Request,
+    RequestJournal,
     SamplingParams,
     SpeculativeConfig,
+    UpgradeError,
+    UpgradeManager,
+    read_journal,
+    recovery_requests,
+    snapshot_engine,
     spec_pair_supported,
 )
 from repro_torch.train.steps import make_decode_step, make_prefill_step
 from repro_torch.utils.device import resolve_device
 
-# reference-package flags this slice does not port yet: name -> what it is
+# reference-package flags the port does not take yet: name -> what it is
 UNPORTED_FLAGS = {
-    "--grow-cfg": "live upgrade", "--upgrade-at": "live upgrade",
-    "--upgrade-sync": "live upgrade", "--kernel": "the kernel switch (the device "
-    "picks kernel or plain version)", "--mesh": "sharded serving",
-    "--deadline": "deadlines", "--journal": "the request journal",
-    "--resume": "the request journal", "--snapshot": "engine snapshots",
+    "--kernel": "the kernel switch (the device picks kernel or plain "
+    "version)", "--mesh": "sharded serving", "--deadline": "deadlines",
     "--faults": "fault injection",
 }
 
@@ -141,6 +159,23 @@ def build_params(cfg, *, grow_from=None, grow_method="mango", grow_rank=1,
         data_iter=lm_data_iter(cfg.vocab_size, 4, 32, seed=seed + 1),
         seed=seed, device=dev, log_fn=log_fn, return_source=True)
     return (params, cfg_src, params_src) if return_source else params
+
+
+def trace_requests(cfg, n, prompt_len, gen, eos_id=None, skip=()):
+    """The continuous launcher's trace: ``n`` requests (uids 0..n-1, those
+    in ``skip`` left out), prompts of ``prompt_len // 2 .. prompt_len``
+    tokens (lengths from a generator seeded 0, tokens from
+    ``lm_batch(seed=uid)``), ``gen`` new tokens each."""
+    rng = np.random.default_rng(0)
+    reqs = []
+    for uid in range(n):
+        plen = int(rng.integers(max(1, prompt_len // 2), prompt_len + 1))
+        if uid in skip:
+            continue  # a resume already owns this uid
+        prompt = lm_batch(cfg.vocab_size, 1, plen, seed=uid)[0]
+        reqs.append(Request(uid=uid, prompt=prompt, max_new_tokens=gen,
+                            eos_id=eos_id))
+    return reqs
 
 
 def require_servable(cfg):
@@ -218,6 +253,37 @@ def main(argv=None):
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--top-p", type=float, default=1.0)
     ap.add_argument("--sample-seed", type=int, default=0)
+    ap.add_argument("--grow-cfg", default=None, metavar="TGT_ARCH",
+                    help="continuous: LIVE upgrade -- Mango-grow --arch into "
+                         "this target while serving, then hot-swap the "
+                         "grown weights into the running engine with zero "
+                         "dropped requests (mid-flight sequences continue "
+                         "token-exactly; the old source becomes the "
+                         "speculative draft when the pair probe passes).  "
+                         "Growth method/rank/steps follow "
+                         "--grow-method/--grow-rank/--grow-steps")
+    ap.add_argument("--upgrade-at", type=int, default=0,
+                    help="with --grow-cfg: least number of decode dispatches "
+                         "before the hot swap may land (0 = the first block "
+                         "boundary after growth is ready)")
+    ap.add_argument("--upgrade-sync", action="store_true",
+                    help="with --grow-cfg: grow BEFORE serving starts "
+                         "instead of on a background thread, so the swap "
+                         "lands at --upgrade-at deterministically")
+    ap.add_argument("--journal", default=None, metavar="PATH",
+                    help="continuous: append-only crash-safe request "
+                         "journal (JSONL); committed tokens flush at "
+                         "block-readback granularity")
+    ap.add_argument("--resume", action="store_true",
+                    help="replay --journal before serving: mid-flight "
+                         "requests re-admit token-exactly (prompt followed "
+                         "by the committed tokens), finished ones are not "
+                         "re-run")
+    ap.add_argument("--snapshot", default=None, metavar="DIR",
+                    help="continuous: write an engine snapshot (weights + "
+                         "geometry, checkpoint format) before serving; "
+                         "serve.recovery.restore_engine rebuilds the "
+                         "engine from it")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where to run (default cuda; raises without CUDA)")
     args = ap.parse_args(argv)
@@ -247,6 +313,23 @@ def main(argv=None):
     if args.engine != "continuous" and (args.pool != "dense" or args.pages):
         raise SystemExit("error: --pool/--pages require --engine "
                          "continuous (the naive loop has no slot pool)")
+    if args.engine == "naive" and (args.journal or args.resume
+                                   or args.snapshot):
+        # the reference's text (it names its --deadline and --faults too)
+        raise SystemExit("error: --deadline/--journal/--resume/--snapshot/"
+                         "--faults require --engine continuous (the fault "
+                         "tolerance layer lives in the slot-pool engine)")
+    if args.resume and not args.journal:
+        raise SystemExit("error: --resume needs --journal PATH (the "
+                         "journal IS the recovery record)")
+    if args.grow_cfg and args.engine != "continuous":
+        raise SystemExit("error: --grow-cfg requires --engine continuous "
+                         "(a live upgrade hot-swaps the slot-pool "
+                         "engine)")
+    if (args.upgrade_at or args.upgrade_sync) and not args.grow_cfg:
+        raise SystemExit("error: --upgrade-at/--upgrade-sync need "
+                         "--grow-cfg TGT_ARCH (they schedule the live "
+                         "upgrade)")
     max_len = args.max_len or (args.prompt_len + args.gen)
     if args.speculate:
         if args.engine != "continuous":
@@ -295,12 +378,21 @@ def main(argv=None):
         print(toks[:2])
         return
 
+    recovered, resumed = {}, []
+    if args.resume:
+        st = read_journal(args.journal)
+        resumed, recovered = recovery_requests(st)
+        print(f"[serve] --resume: journal replays {len(st.order)} "
+              f"request(s) — {len(recovered)} already complete, "
+              f"{len(resumed)} re-admitting mid-flight")
+    journal = RequestJournal(args.journal) if args.journal else None
     engine = ContinuousBatchingEngine(cfg, params, capacity=args.capacity,
                                       max_len=max_len, k=args.k,
                                       policy=args.policy, pool=args.pool,
                                       pages=args.pages or None,
                                       sampling=sampling,
-                                      speculative=speculative)
+                                      speculative=speculative,
+                                      journal=journal)
     if engine.pages_budget is not None:
         arena = ("one arena shared by target and draft"
                  if speculative is not None else "target arena")
@@ -308,21 +400,67 @@ def main(argv=None):
                 else "default: the dense pool's footprint")
         print(f"[serve] page budget: {engine.pages_budget} pages, {arena} "
               f"({note})")
-    rng = np.random.default_rng(0)
-    reqs = []
-    for uid in range(args.batch):
-        plen = int(rng.integers(max(1, args.prompt_len // 2),
-                                args.prompt_len + 1))
-        prompt = lm_batch(cfg.vocab_size, 1, plen, seed=uid)[0]
-        reqs.append(Request(uid=uid, prompt=prompt,
-                            max_new_tokens=args.gen, eos_id=args.eos_id))
+    if args.snapshot:
+        path = snapshot_engine(engine, args.snapshot)
+        print(f"[serve] engine snapshot -> {path}")
+    upgrade = None
+    if args.grow_cfg:
+        try:
+            upgrade = UpgradeManager(
+                engine, get_config(args.grow_cfg), method=args.grow_method,
+                rank=args.grow_rank, grow_steps=args.grow_steps,
+                spec_d=args.spec_d, upgrade_at=args.upgrade_at,
+                probe_fp=True)
+        except UpgradeError as e:
+            raise SystemExit(f"error: --grow-cfg: {e}")
+        upgrade.start(background=not args.upgrade_sync)
+        how = "pre-grown" if args.upgrade_sync else "growing in background"
+        print(f"[serve] live upgrade armed: {cfg.name} -> "
+              f"{upgrade.cfg_tgt.name} ({how}, swap at dispatch "
+              f">= {args.upgrade_at})")
+    reqs = resumed + trace_requests(
+        cfg, args.batch, args.prompt_len, args.gen, args.eos_id,
+        skip={r.uid for r in resumed} | set(recovered))
     t0 = time.time()
     out = engine.run(reqs)
     dt = time.time() - t0
+    if upgrade is not None:
+        if upgrade.state in ("growing", "ready"):
+            # the trace ended before the background growth was ready: land
+            # the swap now, so the next trace serves the target
+            upgrade.wait()
+            upgrade.poll(engine)
+            print("[serve] upgrade: growth outlived the trace — swap "
+                  "landed at trace end")
+        if upgrade.state == "swapped":
+            spec = (f"draft={upgrade.cfg_src.name} d={upgrade.spec_d}"
+                    if engine.speculative is not None else
+                    f"off ({upgrade.spec_reason})")
+            fp = upgrade.fp_token_agreement
+            page_note = ""
+            if upgrade.pages_resident_at_swap:
+                page_note = (
+                    f", pages {upgrade.pages_carried} carried / "
+                    f"{upgrade.pages_reprefilled} re-prefilled "
+                    f"({upgrade.pages_resident_at_swap} resident at swap)")
+            print(f"[serve] upgrade SWAPPED: {upgrade.cfg_src.name} -> "
+                  f"{upgrade.cfg_tgt.name} in {upgrade.grow_seconds:.1f}s "
+                  f"growth, {upgrade.prewarm_seconds or 0:.1f}s prewarm, "
+                  f"pause {upgrade.pause_ms:.0f} ms, {upgrade.resumed} "
+                  f"mid-flight resumed, {engine.n_held_for_upgrade} held "
+                  f"submits, {len(engine.rejected)} dropped{page_note}; "
+                  f"greedy agreement "
+                  f"{'n/a' if fp is None else f'{fp:.3f}'}; post-swap "
+                  f"speculation {spec}")
+        elif upgrade.state == "failed":
+            print(f"[serve] upgrade FAILED (engine kept serving "
+                  f"{cfg.name}): {upgrade.error}")
+    out = {**recovered, **out}
     n_tok = sum(len(v) for v in out.values())
-    mode = "speculative" if speculative is not None else "continuous"
-    spec_note = "" if speculative is None else (
-        f", draft={speculative.cfg.name} d={speculative.d} acceptance "
+    spec_eng = engine.speculative
+    mode = "speculative" if spec_eng is not None else "continuous"
+    spec_note = "" if spec_eng is None else (
+        f", draft={spec_eng.cfg.name} d={spec_eng.d} acceptance "
         f"{engine.acceptance_rate:.3f} ({engine.n_spec_accepted}/"
         f"{engine.n_spec_proposed}), {engine.n_spec_fallbacks} spec "
         "fallback(s)")
@@ -330,7 +468,7 @@ def main(argv=None):
         f", {engine.pages_budget} pages budget, {engine.pages_highwater} "
         f"pages peak ({engine._alloc.meta.page} tok/page), prefix hit rate "
         f"{engine.prefix_hit_rate:.2f}")
-    print(f"[{mode}] {cfg.family}/{engine.cache_layout} "
+    print(f"[{mode}] {engine.cfg.family}/{engine.cache_layout} "
           f"({engine.pool_kind} pool) on {dev} served {len(reqs)} requests "
           f"/ {n_tok} tokens in {dt:.2f}s ({n_tok / dt:.1f} tok/s, "
           f"{engine.n_decode_dispatches} macro-steps of K={args.k}, "
@@ -338,9 +476,11 @@ def main(argv=None):
           f"{engine.n_host_syncs / max(n_tok, 1):.2f} host syncs/token"
           f"{spec_note}{paged_note})")
     if engine.rejected:
-        print(f"[continuous] rejected {len(engine.rejected)} request(s):")
+        print(f"[{mode}] rejected {len(engine.rejected)} request(s):")
         for uid, why in sorted(engine.rejected.items()):
             print(f"  uid {uid}: {why}")
+    if journal is not None:
+        journal.close()
     for uid in sorted(out)[:2]:
         print(uid, out[uid])
 

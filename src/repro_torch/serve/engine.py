@@ -68,15 +68,30 @@ local-attention caches, which page on a paged pool).  Greedy tokens are
 the sequential ``generate()`` tokens for every request, for any
 interleaving, any K, any speculation depth and either pool, up to float
 near-ties between the routes' arithmetic; sampled tokens are a function
-of (seed, uid, prompt) alone.  Deadlines, faults, the journal, live
-upgrade and meshes are not ported yet, nor are a
+of (seed, uid, prompt) alone.
+
+The runtime layer: a ``serve.recovery.RequestJournal`` (``journal=``)
+records every submit, committed token, finish and rejection, flushed only
+at the host syncs the engine already pays (the admission readback and the
+block readback), so journaling adds none.  A request with ``n_committed``
+is a RESUME: its prompt is the original prompt followed by the tokens it
+had committed, prefill re-derives the next token (a sampled one advances
+its chain past the committed run first), and its budget counts the run.
+A ``serve.upgrade.UpgradeManager`` attached as ``upgrade`` hot-swaps a
+grown model in at a block boundary: the engine quiesces, turns every
+mid-flight sequence into a resume, rebuilds everything derived from the
+model (``_configure``) and re-admits the resumes ahead of the queue.
+Telemetry counts per drain window (``drain()``; ``lifetime_totals()``
+keeps the view since construction).  Deadlines, load shedding, fault
+injection and meshes are not ported yet (the faults slice), nor are a
 windowed transformer's paged rings and the paged arena's
-full-reservation degradation rung (the faults slice).
+full-reservation degradation rung.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -98,6 +113,20 @@ from repro_torch.train.steps import (
 
 POLICIES = ("fifo", "spf")
 
+# Telemetry that accumulates per drain window, as in the reference:
+# ``drain()`` folds these into ``engine.lifetime`` and zeroes them, so a
+# long-lived server's rates (acceptance, tok/s, hit rate) describe the
+# current window.  ``n_expired``, ``n_shed``, ``n_faults_injected`` and
+# ``n_degraded_admissions`` count mechanisms of the faults slice and stay 0.
+_WINDOW_COUNTERS = (
+    "n_decode_dispatches", "n_decode_steps", "n_prefills", "n_host_syncs",
+    "n_tokens", "n_spec_proposed", "n_spec_accepted", "n_admitted",
+    "n_prefix_hits", "n_prefix_misses", "n_prefix_stalls",
+    "n_pages_allocated", "n_expired", "n_quarantined", "n_shed",
+    "n_spec_fallbacks", "n_faults_injected", "n_degraded_admissions",
+    "n_held_for_upgrade",
+)
+
 
 def _pow2(n: int) -> int:
     p = 1
@@ -108,12 +137,22 @@ def _pow2(n: int) -> int:
 
 @dataclasses.dataclass
 class Request:
-    """One generation request."""
+    """One generation request.
+
+    ``n_committed`` marks the last N prompt tokens as previously COMMITTED
+    generated tokens (the resume contract of the journal and the live
+    upgrade): the prompt is the original prompt followed by the committed
+    run, and the budget counts the run against ``max_new_tokens``.
+    ``deadline`` (a per-request TTL in seconds) round-trips through the
+    journal; ``submit`` refuses a request that sets it until the faults
+    slice ports deadlines."""
     uid: int
     prompt: np.ndarray  # (P,) int32 prompt tokens
     max_new_tokens: int = 16
     eos_id: Optional[int] = None
     arrival: float = 0.0  # admission time on the clock ``step(now)`` reads
+    deadline: Optional[float] = None
+    n_committed: int = 0  # resume: committed suffix of ``prompt``
 
 
 @dataclasses.dataclass
@@ -123,6 +162,7 @@ class _Sequence:
     slot: int
     pos: int  # current length == write position of the next decode step
     tokens: List[int]
+    t_first: float = 0.0  # wall time of the first token (orders resumes)
 
 
 def _device_of(params) -> torch.device:
@@ -162,7 +202,6 @@ class ContinuousBatchingEngine:
                              "(choose 'dense' or 'paged')")
         unported = {"deadline": deadline is not None,
                     "shed_age": shed_age is not None,
-                    "journal": journal is not None,
                     "faults": faults is not None, "mesh": mesh is not None}
         asked = [name for name, on in unported.items() if on]
         if asked:
@@ -174,7 +213,75 @@ class ContinuousBatchingEngine:
         if policy not in POLICIES:
             raise ValueError(f"unknown admission policy {policy!r} "
                              f"(choose from {POLICIES})")
-        if pool == "paged":
+        self.capacity = capacity
+        self.max_len = max_len
+        self.prefill_bucket = prefill_bucket
+        self.k = k
+        self.policy = policy
+        self.sampling = None if sampling_lib.is_greedy(sampling) \
+            else sampling
+        self.deadline = None  # engine-wide TTL: the faults slice
+        self.journal = journal  # serve.recovery.RequestJournal or None
+        self._pool_arg = pool  # requested pool kind (re-applied on a swap)
+        self.pages_arg = pages  # requested page budget (snapshot field)
+        # host-side request bookkeeping: owned here and never rebuilt by
+        # _configure -- a live upgrade replaces the model under the
+        # traffic, not the traffic under the model
+        self.waiting: collections.deque[Request] = collections.deque()
+        self.active: Dict[int, _Sequence] = {}
+        self.finished: Dict[int, np.ndarray] = {}
+        self.rejected: Dict[int, str] = {}  # uid -> why submit refused it
+        # uid -> terminal outcome: finished / quarantined / rejected
+        self.outcomes: Dict[int, str] = {}
+        self._seen_uids: set = set()
+        self._evict_pending: List[int] = []
+        # (host block, host valid, host poison, ready event, [(slot, uid)])
+        # of dispatched-but-unread macro steps
+        self._inflight: collections.deque = collections.deque()
+        # live upgrade: serve/upgrade.py attaches an UpgradeManager here
+        # and the swap drives upgrade_state serving -> relayout -> swapped
+        self.upgrade = None
+        self.upgrade_state = "serving"
+        self._held_for_upgrade: List[Request] = []
+        self.n_upgrades = 0  # completed hot swaps since construction
+        self.last_upgrade_pause_ms: Optional[float] = None
+        self.n_decode_dispatches = 0
+        self.n_decode_steps = 0  # dispatches * k (loop steps executed)
+        # admission groups prefilled (both pools in speculative mode; the
+        # reference counts the draft's prefill as a second one)
+        self.n_prefills = 0
+        self.n_host_syncs = 0  # blocking device->host reads
+        self.n_tokens = 0  # generated tokens (incl. prefill first tokens)
+        self.n_admitted = 0  # requests that got a slot (and their pages)
+        self.n_quarantined = 0  # NaN/Inf-poisoned slots evicted
+        self.n_spec_proposed = 0  # draft tokens offered to the target
+        self.n_spec_accepted = 0  # draft tokens the target kept
+        self.n_spec_fallbacks = 0  # draft faults that tripped plain decode
+        # paged-mode telemetry (zero on a dense pool)
+        self.n_prefix_hits = 0  # admissions served from resident pages
+        self.n_prefix_misses = 0  # prefix probes that found no full chain
+        self.n_prefix_stalls = 0  # hits deferred on tail-page backpressure
+        self.n_pages_allocated = 0  # fresh pages handed out
+        self.n_prefix_tail_steps = 0  # masked decode steps of hit waves
+        # counters of the faults slice's mechanisms: present, always 0
+        self.n_expired = 0
+        self.n_shed = 0
+        self.n_faults_injected = 0
+        self.n_degraded_admissions = 0
+        self.n_held_for_upgrade = 0  # submits held across a swap window
+        # drained windows: drain() adds the window counters here
+        self.lifetime: Dict[str, int] = {c: 0 for c in _WINDOW_COUNTERS}
+        self._configure(cfg, params, speculative)
+
+    def _configure(self, cfg, params, speculative):
+        """Build -- or, on a live upgrade, REBUILD -- everything derived
+        from the model: the checks of the configuration, the slot pools
+        and paging metadata, the decode state and the step functions.
+        ``_apply_upgrade`` calls it again with the grown model after
+        quiescing, which is the swap's pool re-layout; every host-side
+        queue and counter lives in ``__init__`` and survives."""
+        capacity, max_len = self.capacity, self.max_len
+        if self._pool_arg == "paged":
             for c in (cfg, *([] if speculative is None
                              else [speculative.cfg])):
                 paged_lib.require_full_layout(c)
@@ -209,46 +316,10 @@ class ContinuousBatchingEngine:
         self.fam = get_family(cfg)
         self.cache_layout = slot_cache_layout(cfg)
         self.device = _device_of(params)
-        self.capacity = capacity
-        self.max_len = max_len
-        self.prefill_bucket = prefill_bucket
-        self.k = k
-        self.policy = policy
-        self.sampling = None if sampling_lib.is_greedy(sampling) \
-            else sampling
-        self.waiting: collections.deque[Request] = collections.deque()
-        self.active: Dict[int, _Sequence] = {}
-        self.finished: Dict[int, np.ndarray] = {}
-        self.rejected: Dict[int, str] = {}  # uid -> why submit refused it
-        # uid -> terminal outcome: finished / quarantined / rejected
-        self.outcomes: Dict[int, str] = {}
-        self._seen_uids: set = set()
-        self._evict_pending: List[int] = []
-        # (host block, host valid, host poison, ready event, [(slot, uid)])
-        # of dispatched-but-unread macro steps
-        self._inflight: collections.deque = collections.deque()
-        self.n_decode_dispatches = 0
-        # admission groups prefilled (both pools in speculative mode; the
-        # reference counts the draft's prefill as a second one)
-        self.n_prefills = 0
-        self.n_host_syncs = 0  # blocking device->host reads
-        self.n_tokens = 0  # generated tokens (incl. prefill first tokens)
-        self.n_quarantined = 0  # NaN/Inf-poisoned slots evicted
         self.speculative = speculative
-        self.n_spec_proposed = 0  # draft tokens offered to the target
-        self.n_spec_accepted = 0  # draft tokens the target kept
-        self.n_spec_fallbacks = 0  # draft faults that tripped plain decode
         self._spec_fallback = False  # draft faulted: plain macro decode
-
-        # paged-mode telemetry (zero on a dense pool)
-        self.n_prefix_hits = 0  # admissions served from resident pages
-        self.n_prefix_misses = 0  # prefix probes that found no full chain
-        self.n_prefix_stalls = 0  # hits deferred on tail-page backpressure
-        self.n_pages_allocated = 0  # fresh pages handed out
-        self.n_prefix_tail_steps = 0  # masked decode steps of hit waves
-
         dev = self.device
-        self._build_pools(pool, pages)
+        self._build_pools(self._pool_arg, self.pages_arg)
         # persistent device-resident decode state: (tokens, positions,
         # remaining, eos_ids, done) -- idle slots are done
         self._state = (torch.zeros(capacity, dtype=torch.int32, device=dev),
@@ -262,13 +333,13 @@ class ContinuousBatchingEngine:
         self._keys = None if self.sampling is None else torch.zeros(
             (capacity, 2), dtype=torch.int64, device=dev)
         self.free = list(range(capacity))[::-1]  # pop -> slot 0..
-        self._loop = make_slot_decode_loop(cfg, k, self.sampling)
+        self._loop = make_slot_decode_loop(cfg, self.k, self.sampling)
         self._prefill = make_prefill_admit_step(cfg, self.sampling)
         if speculative is not None:
             cfg_d = speculative.cfg
             # the plain loop above stays as the degradation ladder's target
             self._spec_loop = make_speculative_loop(
-                cfg, cfg_d, speculative.d, k, self.sampling)
+                cfg, cfg_d, speculative.d, self.k, self.sampling)
             self._draft_prefill = make_draft_prefill(cfg_d)
 
     def _build_pools(self, pool: str, pages: Optional[int]):
@@ -301,6 +372,9 @@ class ContinuousBatchingEngine:
             n_pages = int(pages) if pages else max(metas[i].n_pages
                                                    for i in paged_idx)
             self.pages_budget = n_pages
+        # a swap's rebuild drops the old pools first: both models' pools
+        # at once would need the memory of two engines
+        self._pools = ()
         pools = []
         for i, (f, c) in enumerate(zip(fams, cfgs)):
             if metas[i] is not None:
@@ -309,8 +383,7 @@ class ContinuousBatchingEngine:
             else:
                 p = f.init_cache(c, cap, max_len, device=dev)
             pools.append(p)
-        self.pool = pools[0]
-        self.pool_d = pools[1] if len(pools) > 1 else None
+        self._pools = tuple(pools)
         self._metas = tuple(metas)
         self._paged = bool(paged_idx)
         self.pool_kind = "paged" if self._paged else "dense"
@@ -335,6 +408,16 @@ class ContinuousBatchingEngine:
                            and metas[0].page > 0)
 
     @property
+    def pool(self):
+        """The target model's slot pool."""
+        return self._pools[0]
+
+    @property
+    def pool_d(self):
+        """The draft model's slot pool (None unless speculative)."""
+        return self._pools[1] if len(self._pools) > 1 else None
+
+    @property
     def acceptance_rate(self) -> float:
         """Fraction of draft proposals the target accepted (speculative
         mode; 0.0 before any speculative block was read back)."""
@@ -356,35 +439,51 @@ class ContinuousBatchingEngine:
         probes = self.n_prefix_hits + self.n_prefix_misses
         return self.n_prefix_hits / max(probes, 1)
 
+    def lifetime_totals(self) -> Dict[str, int]:
+        """Window counters summed over every drained window PLUS the live
+        one: the view since construction that ``drain()`` leaves intact."""
+        return {c: self.lifetime[c] + getattr(self, c)
+                for c in _WINDOW_COUNTERS}
+
     # ------------------------------------------------------------- admission
     def _reject(self, uid: int, why: str):
-        """Graceful rejection: record and keep serving.  The uid is NOT
-        marked seen -- a corrected resubmission is fine."""
+        """Graceful rejection: record, journal and keep serving.  The uid
+        is NOT marked seen -- a corrected resubmission is fine."""
         self.rejected[uid] = why
         self.outcomes[uid] = "rejected"
+        if self.journal is not None:
+            self.journal.record_reject(uid, why)
 
     def _invalid_reason(self, req: Request) -> Optional[str]:
         """Every malformed-request class, in one place: a bad request is
         recorded, never raised, so it cannot kill in-flight sequences."""
-        P = len(req.prompt)
+        P, nc = len(req.prompt), req.n_committed
         if req.max_new_tokens < 1:
             return ("max_new_tokens must be >= 1 "
                     "(prefill always emits the first token)")
         if P < 1:
             return "empty prompt"
+        if not (0 <= nc < req.max_new_tokens and nc < P):
+            return (f"n_committed {nc} must lie in [0, max_new_tokens) "
+                    "and leave at least one real prompt token")
         if req.eos_id is not None and not (
                 0 <= req.eos_id < self.cfg.vocab_size):
             return (f"eos_id {req.eos_id} outside the vocabulary "
                     f"[0, {self.cfg.vocab_size})")
+        if req.deadline is not None:
+            return ("per-request deadlines are not ported to repro_torch "
+                    "yet (the faults slice, see ROADMAP.md)")
         toks = np.asarray(req.prompt)
         if int(toks.min()) < 0 or int(toks.max()) >= self.cfg.vocab_size:
             return (f"prompt tokens outside the vocabulary "
                     f"[0, {self.cfg.vocab_size})")
-        if P + req.max_new_tokens > self.max_len:
-            return (f"prompt {P} + {req.max_new_tokens} new tokens "
+        # a resume's committed run sits in its prompt: the cache needs
+        # P - nc original + max_new positions
+        if P - nc + req.max_new_tokens > self.max_len:
+            return (f"prompt {P - nc} + {req.max_new_tokens} new tokens "
                     f"exceeds max_len {self.max_len}")
         if self._alloc is not None:
-            need = max(paged_lib.pages_needed(P, req.max_new_tokens, m)
+            need = max(paged_lib.pages_needed(P, req.max_new_tokens - nc, m)
                        for m in self._metas if m is not None)
             if need > self._alloc.meta.n_pages:
                 # no eviction wave can ever make room for it: queued, it
@@ -395,14 +494,28 @@ class ContinuousBatchingEngine:
         return None
 
     def submit(self, req: Request):
-        if req.uid in self._seen_uids:
+        if req.uid in self._seen_uids or any(
+                r.uid == req.uid for r in self._held_for_upgrade):
             # a duplicate uid is a caller bug, not a malformed request
             raise ValueError(f"request uid {req.uid} already submitted")
+        if self.upgrade_state == "relayout":
+            # mid-swap the geometry (and with it what is valid) is being
+            # rebuilt: hold the request and submit it once the swap lands
+            self._held_for_upgrade.append(req)
+            self.n_held_for_upgrade += 1
+            return
+        self._submit_checked(req)
+
+    def _submit_checked(self, req: Request):
+        """Validate and enqueue (``submit`` past the duplicate and swap
+        gates; also the release path of held submissions)."""
         why = self._invalid_reason(req)
         if why is not None:
             self._reject(req.uid, f"request {req.uid}: {why}")
             return
         self._seen_uids.add(req.uid)
+        if self.journal is not None:
+            self.journal.record_submit(req)
         self.waiting.append(req)
 
     def _bucketed(self, n: int) -> int:
@@ -447,6 +560,7 @@ class ContinuousBatchingEngine:
         no-prefill admission path.
         """
         P = len(req.prompt)
+        n_new = req.max_new_tokens - req.n_committed
         alloc = self._alloc
         ns_all = tuple(self._ns_of.values())
         info = {"hit": False, "share": 0, "digests": None, "pids": None}
@@ -462,7 +576,7 @@ class ContinuousBatchingEngine:
                 # dry, which could hand back the very pages just looked
                 # up as this slot's private tail
                 alloc.incref(resident)
-                total = paged_lib.pages_needed(P, req.max_new_tokens, meta)
+                total = paged_lib.pages_needed(P, n_new, meta)
                 tail = alloc.alloc(total - share, ns=ns_all)
                 if tail is None:
                     # tail backpressure, not a registry miss: unpin and
@@ -477,7 +591,7 @@ class ContinuousBatchingEngine:
                 return info
             if share > 0:
                 self.n_prefix_misses += 1
-        need = max(paged_lib.pages_needed(P, req.max_new_tokens, m)
+        need = max(paged_lib.pages_needed(P, n_new, m)
                    for m in self._metas if m is not None)
         pids = alloc.alloc(need, ns=ns_all)
         if pids is None:
@@ -601,13 +715,17 @@ class ContinuousBatchingEngine:
             first, rows = self._prefill(self.params, padded_d, plens_d, rows)
         else:
             # chain roots are derived from (seed, uid) on the device in the
-            # same prefill; ``skips`` stays on the host (all zero: the
-            # port's requests carry no committed run yet)
+            # same prefill; ``skips`` replays a resume's committed run (one
+            # split a token), so its first fresh draw takes the key the
+            # uninterrupted run would have.  It stays on the host: the
+            # prefill then bounds its loop without reading the device
             uids = np.zeros((npad,), np.int64)
             uids[:n] = [r.uid for r, _ in group]
+            skips = np.zeros((npad,), np.int64)
+            skips[:n] = [r.n_committed for r, _ in group]
             first, rows, keys = self._prefill(
                 self.params, padded_d, plens_d, rows, self._to_device(uids),
-                torch.zeros((npad,), dtype=torch.int64))
+                torch.from_numpy(skips))
             keys = keys[:n]
         idx = self._to_device(slots)
         self._scatter_rows(self.pool, rows, idx, n, bt_rows[0],
@@ -629,11 +747,9 @@ class ContinuousBatchingEngine:
         self.n_prefills += 1
         first_host = first_n.cpu().numpy()
         self.n_host_syncs += 1
+        t = time.monotonic()
         for j, (r, a) in enumerate(group):
-            seq = _Sequence(r, int(slots[j]), pos=int(plens[j]),
-                            tokens=[int(first_host[j])])
-            self.active[seq.slot] = seq
-            self.n_tokens += 1
+            seq = self._admitted(r, int(slots[j]), int(first_host[j]), t)
             if a is not None and a["digests"]:
                 # the pages the prompt covers in full now hold its
                 # prefill-built KV: make them shareable (tail pages built
@@ -642,11 +758,31 @@ class ContinuousBatchingEngine:
                 if reg:
                     self._alloc.register(a["digests"][:reg], a["pids"][:reg])
             self._finish_if_done(seq, seq.tokens[-1])
+        if self.journal is not None:
+            self.journal.flush()  # rides the admission sync just paid
+
+    def _admitted(self, r: Request, slot: int, first: int,
+                  t: float) -> _Sequence:
+        """Book an admitted request: a resume re-enters holding its
+        committed run (output continuity without replaying delivered
+        tokens), then the first token its admission drew."""
+        prior = ([int(x) for x in r.prompt[len(r.prompt) - r.n_committed:]]
+                 if r.n_committed else [])
+        seq = _Sequence(r, slot, pos=len(r.prompt), tokens=prior + [first],
+                        t_first=t)
+        self.active[slot] = seq
+        self.n_tokens += 1
+        self.n_admitted += 1
+        if self.journal is not None:
+            self.journal.record_tokens(r.uid, [first])
+        return seq
 
     @staticmethod
     def _budgets(pairs):
-        """(remaining after the first token, eos id or -1) per request."""
-        rem0 = np.array([r.max_new_tokens - 1 for r, _ in pairs], np.int32)
+        """(remaining after the first token, eos id or -1) per request; a
+        resume's committed run already spent part of its budget."""
+        rem0 = np.array([r.max_new_tokens - r.n_committed - 1
+                         for r, _ in pairs], np.int32)
         eos = np.array([-1 if r.eos_id is None else r.eos_id
                         for r, _ in pairs], np.int32)
         return rem0, eos
@@ -660,8 +796,9 @@ class ContinuousBatchingEngine:
         theirs changes.  The reference scans a full page of steps; steps
         past the longest tail change nothing, so the loop stops there.
         Sampled, each row's chain is derived on the device from (seed,
-        uid) and advanced once, by the draw at its last tail step, as the
-        skipped prefill would have; a step where no row ends draws
+        uid), advanced past a resume's committed run (``n_committed``
+        splits), and advanced once more by the draw at its last tail step,
+        as the skipped prefill would have; a step where no row ends draws
         nothing.  One host sync reads the first tokens."""
         meta = self._metas[0]
         cap, dev = self.capacity, self.device
@@ -672,6 +809,7 @@ class ContinuousBatchingEngine:
         tail_tokens = np.zeros((cap, meta.page), np.int32)
         plens = np.zeros((len(pairs),), np.int32)
         uids = np.zeros((cap,), np.int64)
+        skips = np.zeros((cap,), np.int64)
         for j, (r, a) in enumerate(pairs):
             slot = slots[j]
             p0 = a["share"] * meta.page
@@ -682,6 +820,7 @@ class ContinuousBatchingEngine:
             tail_tokens[slot, :len(tail)] = tail
             plens[j] = len(r.prompt)
             uids[slot] = r.uid
+            skips[slot] = r.n_committed
         idx = self._to_device(slots)
         paged_lib.set_block_tables(self.pool, idx,
                                    self._to_device(bt_rows[0]), meta)
@@ -692,10 +831,16 @@ class ContinuousBatchingEngine:
         if self.sampling is not None:
             chain = sampling_lib.request_key(self.sampling.seed,
                                              self._to_device(uids))
+            sk_d = self._to_device(skips)
+            for i in range(int(skips.max())):
+                # a resume's committed run consumed one split a token
+                advanced, _ = sampling_lib.next_keys(chain)
+                chain = torch.where((i < sk_d)[:, None], advanced, chain)
+        pool = self.pool
         for j in range(int(tail_len.max())):
             live = wave_d & (j < tl_d)
-            logits, self.pool = self.fam.decode_step_slots(
-                self.params, toks_d[:, j].contiguous(), p0_d + j, self.pool,
+            logits, pool = self.fam.decode_step_slots(
+                self.params, toks_d[:, j].contiguous(), p0_d + j, pool,
                 self.cfg, done=~live)
             self.n_prefix_tail_steps += 1
             last = live & (tl_d == j + 1)
@@ -710,17 +855,18 @@ class ContinuousBatchingEngine:
             else:
                 continue  # no row's tail ends at this step: no draw
             first = torch.where(last, nxt, first)
+        self._pools = (pool,) + self._pools[1:]
         first_n = first[idx]
         self._set_state(idx, first_n, plens, *self._budgets(pairs),
                         None if chain is None else chain[idx])
         first_host = first_n.cpu().numpy()
         self.n_host_syncs += 1
+        t = time.monotonic()
         for j, (r, _) in enumerate(pairs):
-            seq = _Sequence(r, int(slots[j]), pos=int(plens[j]),
-                            tokens=[int(first_host[j])])
-            self.active[seq.slot] = seq
-            self.n_tokens += 1
+            seq = self._admitted(r, int(slots[j]), int(first_host[j]), t)
             self._finish_if_done(seq, seq.tokens[-1])
+        if self.journal is not None:
+            self.journal.flush()
 
     # ------------------------------------------------------------- lifecycle
     def _finish_if_done(self, seq: _Sequence, last_token: int):
@@ -734,6 +880,8 @@ class ContinuousBatchingEngine:
     def _retire(self, seq: _Sequence, outcome: str):
         self.finished[seq.req.uid] = np.asarray(seq.tokens, np.int32)
         self.outcomes[seq.req.uid] = outcome
+        if self.journal is not None:
+            self.journal.record_finish(seq.req.uid, outcome)
         del self.active[seq.slot]
         # the slot re-enters ``free`` only once its eviction is applied
         # (_flush_evictions), so a same-wave admission cannot be wiped by
@@ -763,11 +911,11 @@ class ContinuousBatchingEngine:
                 for ns in self._ns_of.values():
                     zero.extend(self._alloc.release(pids, ns=ns))
         idx = self._to_device(np.asarray(self._evict_pending, np.int64))
-        for pool, meta in zip((self.pool, self.pool_d), self._metas):
+        for pool, meta in zip(self._pools, self._metas):
             if meta is not None:
                 paged_lib.evict_clear(pool, idx, self._to_device(
                     np.asarray(zero, np.int64)), meta)
-            elif pool is not None:
+            else:
                 for grp in pool.values():
                     for leaf in grp.values():
                         leaf.index_fill_(1, idx, 0)
@@ -793,6 +941,95 @@ class ContinuousBatchingEngine:
             self._zero_pending.extend(self._alloc.flush_registry())
             self._prefix_ok = False
 
+    # ----------------------------------------------------------- live upgrade
+    def _apply_upgrade(self, mgr) -> None:
+        """Hot-swap the grown model under live traffic, driven by an
+        attached ``serve.upgrade.UpgradeManager`` at a block boundary
+        (``poll`` from ``step``/``run``).
+
+        The pause is one quiesce: every in-flight block is read back and
+        its tokens committed, each mid-flight sequence becomes a resume
+        request (original prompt followed by its committed run,
+        ``n_committed`` marking the run), everything derived from the
+        model is rebuilt for the grown one, and the resumes re-enter
+        through the ordinary admission path at the FRONT of the queue.
+        Nothing is dropped: a resume needs the positions and pages its
+        original request needed, so it is admissible by construction.
+        The manager prewarmed the grown model's path, so the pause holds
+        no first use of a kernel or a library."""
+        t0 = time.perf_counter()
+        self.upgrade_state = "relayout"
+        while self._inflight:
+            self._process(self._inflight.popleft())
+        self._flush_evictions()
+        # every page live at the quiesce is lost by the swap (its bytes are
+        # activations of the old model), so what the swap costs in pages
+        # is the resume wave's re-prefill
+        pages_at_swap = self.pages_in_use
+        resumes: List[Request] = []
+        for seq in sorted(self.active.values(),
+                          key=lambda q: (q.t_first, q.req.uid)):
+            r = seq.req
+            orig = (r.prompt[:len(r.prompt) - r.n_committed]
+                    if r.n_committed else r.prompt)
+            resumes.append(Request(
+                uid=r.uid,
+                prompt=np.asarray(list(orig) + seq.tokens, np.int32),
+                max_new_tokens=r.max_new_tokens, eos_id=r.eos_id,
+                arrival=r.arrival, deadline=r.deadline,
+                n_committed=len(seq.tokens)))
+        self.active.clear()
+        self._evict_pending.clear()
+        spec = mgr.spec_config()
+        self._configure(mgr.cfg_tgt, mgr.grown_params, spec)
+        if spec is not None and any(self._invalid_reason(r) is not None
+                                    for r in resumes):
+            # the draft's pool raised the shared arena's page need (a
+            # request reserves the most any pool needs) past an explicit
+            # page budget for an in-flight resume: dropping nothing comes
+            # before free speculation, so swap without the draft
+            mgr.disable_spec("draft page need exceeds the shared arena "
+                             "for an in-flight request")
+            self._configure(mgr.cfg_tgt, mgr.grown_params, None)
+        # queued requests were validated under the OLD geometry: one that
+        # became unservable must not livelock admission (resumes skip this
+        # by construction)
+        keep: collections.deque = collections.deque()
+        for r in self.waiting:
+            why = self._invalid_reason(r)
+            if why is None:
+                keep.append(r)
+            else:
+                self._seen_uids.discard(r.uid)
+                self._reject(r.uid, f"request {r.uid}: {why} "
+                             "(post-upgrade geometry)")
+        keep.extendleft(reversed(resumes))
+        self.waiting = keep
+        self.n_upgrades += 1
+        self.upgrade_state = "swapped"
+        held, self._held_for_upgrade = self._held_for_upgrade, []
+        for r in held:
+            self._submit_checked(r)
+        if self.journal is not None:
+            # last-submit-wins resume records: a crash right after the
+            # swap replays exactly these requests
+            for r in resumes:
+                self.journal.record_submit(r)
+            self.journal.flush()
+        pause_ms = (time.perf_counter() - t0) * 1e3
+        self.last_upgrade_pause_ms = pause_ms
+        # the reference's bill: each resume's pages at its full budget past
+        # its prompt (the admission reserves max_new - n_committed)
+        pages_reprefill = 0
+        if self._alloc is not None:
+            pages_reprefill = sum(
+                max(paged_lib.pages_needed(len(r.prompt), r.max_new_tokens,
+                                           m)
+                    for m in self._metas if m is not None)
+                for r in resumes)
+        mgr._swapped(self, pause_ms, resumes, pages_resident=pages_at_swap,
+                     pages_reprefilled=pages_reprefill)
+
     # ------------------------------------------------------------- step loop
     def _dispatch(self):
         """Enqueue one macro step (K decode steps, or K whole speculative
@@ -801,19 +1038,21 @@ class ContinuousBatchingEngine:
         chains = () if self._keys is None else (self._keys,)
         if self.speculative is not None and not self._spec_fallback:
             (block, valid, poison, dbad, tokens, positions, remaining, done,
-             self.pool, self.pool_d, *chains, n_prop, n_acc) = \
+             pool_t, pool_d, *chains, n_prop, n_acc) = \
                 self._spec_loop(self.params, self.speculative.params, tokens,
                                 positions, remaining, eos_ids, done,
-                                self.pool, self.pool_d, *chains)
+                                *self._pools, *chains)
+            self._pools = (pool_t, pool_d)
             # acceptance telemetry and the draft-fault flag in one tensor
             stats = torch.stack([n_prop, n_acc, dbad.long()])
         else:
             # a speculative engine whose draft misbehaved keeps serving
             # through the plain macro loop on its TARGET pool
             (block, valid, poison, tokens, positions, remaining, done,
-             self.pool, *chains) = self._loop(
+             pool, *chains) = self._loop(
                 self.params, tokens, positions, remaining, eos_ids, done,
                 self.pool, *chains)
+            self._pools = (pool,) + self._pools[1:]
             stats = None
         if chains:
             self._keys = chains[0]
@@ -826,6 +1065,7 @@ class ContinuousBatchingEngine:
             ready = torch.cuda.Event()
             ready.record()
         self.n_decode_dispatches += 1
+        self.n_decode_steps += self.k
         live = [(slot, seq.req.uid) for slot, seq in self.active.items()]
         self._inflight.append((*host, ready, live))
 
@@ -856,18 +1096,26 @@ class ContinuousBatchingEngine:
             vm = valid[:, slot]
             nv = int(vm.sum())
             if nv:
+                new = [int(t) for t in block[:, slot][vm]]
                 seq.pos += nv
-                seq.tokens.extend(int(t) for t in block[:, slot][vm])
+                seq.tokens.extend(new)
                 self.n_tokens += nv
+                if self.journal is not None:
+                    self.journal.record_tokens(uid, new)
                 self._finish_if_done(seq, seq.tokens[-1])
             if poison[slot] and self.active.get(slot) is seq:
                 # the row froze itself at the non-finite step; nothing
                 # from that step was committed
                 self._quarantine(seq)
+        if self.journal is not None:
+            self.journal.flush()  # rides the block readback just paid
 
     def step(self, now: Optional[float] = None):
-        """One synchronous engine iteration: evict, admit arrived requests
-        into free slots, run one macro step, and read it back."""
+        """One synchronous engine iteration: poll a live upgrade, evict,
+        admit arrived requests into free slots, run one macro step, and
+        read it back."""
+        if self.upgrade is not None:
+            self.upgrade.poll(self)
         self._flush_evictions()
         self._admit_batch(now)
         if self.active:
@@ -885,6 +1133,8 @@ class ContinuousBatchingEngine:
         for r in requests or ():
             self.submit(r)
         while self.waiting or self.active or self._inflight:
+            if self.upgrade is not None:
+                self.upgrade.poll(self)
             self._flush_evictions()
             self._admit_batch(None)
             if self.active:
@@ -896,3 +1146,24 @@ class ContinuousBatchingEngine:
         self._flush_evictions()
         return {uid: toks for uid, toks in self.finished.items()
                 if uid not in already}
+
+    def drain(self):
+        """Return and clear the accumulated results, and roll the
+        telemetry window.
+
+        A long-lived server calls this periodically: ``finished``,
+        ``rejected``, ``outcomes`` and the uid set otherwise grow with
+        every request ever served, and the window counters would turn
+        every derived rate into an average since construction.  The
+        counters are added to ``self.lifetime`` and reset to zero
+        (``lifetime_totals()`` keeps the whole view); drained uids become
+        submittable again."""
+        out = self.finished
+        self.finished = {}
+        self.rejected = {}
+        self.outcomes = {}
+        self._seen_uids.difference_update(out)
+        for c in _WINDOW_COUNTERS:
+            self.lifetime[c] += getattr(self, c)
+            setattr(self, c, 0)
+        return out

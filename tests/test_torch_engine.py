@@ -141,15 +141,37 @@ def test_rejections_are_recorded_and_serving_continues(gpt):
 
 
 @pytest.mark.parametrize("kw", [
-    # the paged pool, sampling and sampled speculation are ported; load
-    # shedding is not
+    # the paged pool, sampling, sampled speculation and the journal are
+    # ported; deadlines, load shedding, faults and meshes are not
     dict(shed_age=1.0),
-    dict(deadline=1.0), dict(journal=object()), dict(faults=object()),
+    dict(deadline=1.0), dict(faults=object()),
     dict(mesh="1x1")])
 def test_unported_engine_modes_raise(gpt, kw):
     _, tcfg, _, tp = gpt
     with pytest.raises(NotImplementedError, match="not ported"):
         ContinuousBatchingEngine(tcfg, tp, max_len=MAX_LEN, **kw)
+
+
+def test_engine_runs_with_a_journal(gpt, tmp_path):
+    """``journal=`` records every request's submit, tokens and finish
+    (``tests/test_torch_recovery.py`` holds it to JAX's journal), with
+    the tokens and host syncs of the engine without it."""
+    from repro_torch.serve import RequestJournal, read_journal
+
+    _, tcfg, _, tp = gpt
+    kw = dict(capacity=3, max_len=MAX_LEN, prefill_bucket=4, k=4)
+    bare = ContinuousBatchingEngine(tcfg, tp, **kw)
+    want = bare.run(_requests(Request, tcfg.vocab_size, SPECS))
+    j = RequestJournal(str(tmp_path / "j.jsonl"))
+    eng = ContinuousBatchingEngine(tcfg, tp, journal=j, **kw)
+    got = eng.run(_requests(Request, tcfg.vocab_size, SPECS))
+    j.close()
+    _assert_same(got, want)
+    assert eng.n_host_syncs == bare.n_host_syncs
+    st = read_journal(str(tmp_path / "j.jsonl"))
+    assert st.order == list(range(len(SPECS)))
+    assert st.finished == {uid: "finished" for uid in want}
+    _assert_same({u: np.asarray(t) for u, t in st.committed.items()}, want)
 
 
 def test_engine_refuses_bad_geometry(gpt):

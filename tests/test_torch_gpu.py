@@ -1632,3 +1632,144 @@ def test_cuda_filtered_probs_match_cpu(cuda_device, sp):
     assert torch.equal(
         sampling.sample_probs(got, keys.to(cuda_device)).cpu(),
         sampling.sample_probs(want, keys))
+
+
+# ------------------------------------------------- live upgrade, recovery
+def _hd64_source(dev):
+    """``_hd64_pair``'s 2 x 128 source with seeded weights, and its target
+    config (the upgrade grows it)."""
+    cfg_t, _, cfg_s, _ = _hd64_pair(dev)
+    params = build_params(cfg_s, seed=3, device=dev)
+    return cfg_s, params, cfg_t
+
+
+@pytest.mark.parametrize("pool", ["dense", "paged"])
+def test_cuda_hot_swap_is_token_exact_and_prewarmed(cuda_device, pool):
+    """The hd-64 source grown live (rank-1 Mango on the card) and swapped
+    in at dispatch 2, its source drafting after: every request's committed
+    prefix equals the source's ``generate`` and its suffix the grown
+    target's on prompt ++ committed; the swap builds, loads and launches
+    nothing, and every kernel launched after it was launched by the
+    prewarm first."""
+    from repro_torch.kernels import build
+    from repro_torch.serve import UpgradeManager
+
+    cfg_s, p_s, cfg_t = _hd64_source(cuda_device)
+    eng = ContinuousBatchingEngine(cfg_s, p_s, capacity=3, max_len=64, k=2,
+                                   pool=pool)
+    mgr = UpgradeManager(eng, cfg_t, upgrade_at=2, spec_d=3)
+    kern = ops.kernels()
+    for fn in kern.values():
+        fn.launches = 0
+    mgr.start(background=False)
+    warm = {n for n, f in kern.items() if f.launches}
+    assert kern["tr_sandwich"].launches > 0  # the growth ran the sandwich
+    at = {}
+    apply = eng._apply_upgrade
+
+    def watched(m):
+        libs = sorted(build._libs)
+        before = {n: f.launches for n, f in kern.items()}
+        apply(m)
+        at.update(libs=sorted(build._libs) == libs,
+                  quiet={n: f.launches for n, f in kern.items()} == before,
+                  launches={n: f.launches for n, f in kern.items()})
+
+    eng._apply_upgrade = watched
+    reqs = [Request(uid=i, prompt=lm_batch(cfg_s.vocab_size, 1, p,
+                                           seed=40 + i)[0], max_new_tokens=g)
+            for i, (p, g) in enumerate([(9, 14), (20, 12), (14, 13)])]
+    got = eng.run(reqs)
+    torch.cuda.synchronize()
+    assert mgr.state == "swapped" and at["libs"] and at["quiet"]
+    after = {n for n, f in kern.items() if f.launches > at["launches"][n]}
+    assert after and after <= warm
+    assert eng.speculative is not None and eng.n_spec_proposed > 0
+    assert eng.pages_in_use == 0 and eng.rejected == {}
+    by_uid = {r.uid: r for r in mgr.resumed_requests}
+    assert set(by_uid) == {r.uid for r in reqs}
+    for r in reqs:
+        nc = by_uid[r.uid].n_committed
+        pre = generate(cfg_s, p_s, torch.from_numpy(r.prompt)[None].to(
+            cuda_device), max_new_tokens=nc, max_len=64)[0].cpu().numpy()
+        post = generate(cfg_t, mgr.grown_params, torch.from_numpy(
+            by_uid[r.uid].prompt)[None].to(cuda_device),
+            max_new_tokens=r.max_new_tokens - nc,
+            max_len=64)[0].cpu().numpy()
+        np.testing.assert_array_equal(got[r.uid], np.concatenate([pre,
+                                                                  post]))
+
+
+def test_cuda_sampled_crash_resume_matches_uninterrupted(cuda_device,
+                                                         tmp_path):
+    """A sampled gpt-small on the card with a journal and a snapshot, dropped
+    after 2 iterations, restored on the card and resumed from the journal:
+    the tokens equal the uninterrupted run's, except from a step where the
+    uninterrupted run's perturbed scores (replayed) nearly tie."""
+    from repro_torch.models import get_family
+    from repro_torch.serve import (
+        RequestJournal,
+        read_journal,
+        recovery_requests,
+        restore_engine,
+        snapshot_engine,
+    )
+
+    # a registered config (a restore looks its arch up by name)
+    cfg_s = get_config("gpt-small")
+    p_s = build_params(cfg_s, seed=3, device=cuda_device)
+    sp = SamplingParams(temperature=0.9, top_k=20, seed=4)
+    specs = [(9, 14), (20, 12), (14, 13), (6, 10)]
+
+    def reqs():
+        return [Request(uid=i, prompt=lm_batch(cfg_s.vocab_size, 1, p,
+                                               seed=60 + i)[0],
+                        max_new_tokens=g) for i, (p, g) in enumerate(specs)]
+
+    def engine(journal=None):
+        return ContinuousBatchingEngine(cfg_s, p_s, capacity=2, max_len=64,
+                                        k=2, sampling=sp, journal=journal)
+
+    want = engine().run(reqs())
+    snapshot_engine(engine(), str(tmp_path / "snap"))
+    path = str(tmp_path / "j.jsonl")
+    j = RequestJournal(path)
+    eng = engine(j)
+    for r in reqs():
+        eng.submit(r)
+    eng.step()
+    eng.step()
+    j.close()
+    del eng
+    resumed, done = recovery_requests(read_journal(path))
+    assert any(r.n_committed for r in resumed)
+    eng2 = restore_engine(str(tmp_path / "snap"),
+                          journal=RequestJournal(path))
+    assert eng2.device.type == "cuda" and eng2.sampling == sp
+    got = {**done, **eng2.run(resumed)}
+    eng2.journal.close()
+    fam = get_family(cfg_s)
+    for r in reqs():
+        a, b = got[r.uid], want[r.uid]
+        diff = np.nonzero(a != b)[0]
+        if not diff.size:
+            continue
+        # replay the uninterrupted chain up to the first mismatch
+        t = int(diff[0])
+        cache = fam.init_cache(cfg_s, 1, 64, device=cuda_device)
+        logits, cache = fam.prefill(p_s, {"tokens": torch.from_numpy(
+            r.prompt)[None].to(cuda_device)}, cfg_s, cache)
+        keys = sampling.request_key(sp.seed, torch.tensor(
+            [r.uid], device=cuda_device))
+        for i in range(t + 1):
+            keys, sub = sampling.next_keys(keys)
+            if i < t:
+                logits, cache = fam.decode_step(
+                    p_s, torch.tensor([int(b[i])], dtype=torch.int32,
+                                      device=cuda_device),
+                    len(r.prompt) + i, cache, cfg_s)
+        probs = sampling.filtered_probs(logits, sp)
+        scores = sampling.gumbel(sub, logits.shape[-1:]) + torch.where(
+            probs > 0, torch.log(probs.clamp_min(1e-38)), sampling.NEG_INF)
+        top = scores.float().topk(2, dim=-1).values[0]
+        assert float(top[0] - top[1]) < 1e-4, (r.uid, t)

@@ -49,7 +49,8 @@ def test_port_imports_neither_jax_nor_repro(path):
 def test_port_tree_is_what_the_rule_walks():
     assert len(PORT_FILES) > 15
     for module in ("serve/engine.py", "serve/speculative.py",
-                   "serve/paged.py", "serve/sampling.py", "kernels/decode_attention.py",
+                   "serve/paged.py", "serve/sampling.py", "serve/recovery.py",
+                   "serve/upgrade.py", "kernels/decode_attention.py",
                    "kernels/ops.py", "kernels/ref.py", "kernels/rglru_scan.py",
                    "kernels/build.py", "models/attention.py",
                    "models/transformer.py", "models/griffin.py",
@@ -92,16 +93,87 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(no_cuda, capsys):
 
 
 @pytest.mark.parametrize("argv,flag", [
-    (["--grow-cfg", "gpt-micro-big"], "--grow-cfg"),
-    (["--upgrade-at", "5"], "--upgrade-at"),
-    (["--faults", "plan.json"], "--faults"),
-    (["--snapshot", "snap.json"], "--snapshot"),
-    (["--journal", "j.jsonl"], "--journal"), (["--mesh", "1x2"], "--mesh"),
+    (["--faults", "plan.json"], "--faults"), (["--mesh", "1x2"], "--mesh"),
+    (["--deadline", "1.5"], "--deadline"), (["--kernel=auto"], "--kernel"),
 ])
 def test_unported_flags_exit_with_a_named_error(argv, flag):
     with pytest.raises(SystemExit, match=f"error: {flag} .*not ported"):
         launch_serve.main(["--arch", "gpt-micro", "--engine", "continuous",
                            "--device", "cpu", *argv])
+
+
+SERVE_CPU = ["--arch", "gpt-micro", "--engine", "continuous", "--batch",
+             "4", "--prompt-len", "12", "--gen", "8", "--capacity", "2",
+             "--k", "2", "--device", "cpu"]
+
+
+@pytest.mark.parametrize("flag", ["--grow-cfg", "--upgrade-at",
+                                  "--upgrade-sync", "--journal", "--resume",
+                                  "--snapshot"])
+def test_runtime_flags_run_on_cpu(flag, tmp_path, capsys):
+    """The live-upgrade and recovery flags run through the launcher:
+    ``--grow-cfg`` grows gpt-micro into gpt-micro-big on a background
+    thread and swaps it in (at the trace's end if growth outlives it);
+    ``--upgrade-at`` / ``--upgrade-sync`` grow first and swap at dispatch
+    2 with the two mid-flight requests resumed; ``--journal`` records the
+    trace; ``--resume`` finishes a trace whose engine died after one step
+    with the uninterrupted run's tokens; ``--snapshot`` writes a snapshot
+    that ``restore_engine`` rebuilds."""
+    from repro_torch.serve import (
+        ContinuousBatchingEngine,
+        RequestJournal,
+        read_journal,
+        restore_engine,
+    )
+
+    journal = tmp_path / "j.jsonl"
+    extra = {"--grow-cfg": ["--grow-cfg", "gpt-micro-big"],
+             "--upgrade-at": ["--grow-cfg", "gpt-micro-big", "--upgrade-sync",
+                              "--upgrade-at", "2"],
+             "--upgrade-sync": ["--grow-cfg", "gpt-micro-big",
+                                "--upgrade-sync"],
+             "--journal": ["--journal", str(journal)],
+             "--resume": ["--journal", str(journal), "--resume"],
+             "--snapshot": ["--snapshot", str(tmp_path / "snap")]}[flag]
+    cfg = get_config("gpt-micro")
+    params = launch_serve.build_params(cfg, device="cpu")
+    reqs = launch_serve.trace_requests(cfg, 4, 12, 8)
+    want = ContinuousBatchingEngine(cfg, params, capacity=2, max_len=20,
+                                    k=2).run(reqs)
+    if flag == "--resume":
+        # the crash: one engine iteration, then the engine is dropped
+        j = RequestJournal(str(journal))
+        eng = ContinuousBatchingEngine(cfg, params, capacity=2, max_len=20,
+                                       k=2, journal=j)
+        for r in launch_serve.trace_requests(cfg, 4, 12, 8):
+            eng.submit(r)
+        eng.step()
+        j.close()
+    launch_serve.main([*SERVE_CPU, *extra])
+    out = capsys.readouterr().out
+    assert "tokens in" in out and "on cpu" in out
+    if flag in ("--grow-cfg", "--upgrade-at", "--upgrade-sync"):
+        assert "upgrade SWAPPED: gpt-micro -> gpt-micro-big" in out
+        assert "0 dropped" in out
+        # a background growth lands wherever it is ready; grown first, the
+        # swap lands at dispatch 2 (two requests mid-flight) or at once
+        resumed = {"--upgrade-at": "2", "--upgrade-sync": "0"}.get(flag)
+        if resumed is not None:
+            assert f"{resumed} mid-flight resumed" in out
+    elif flag in ("--journal", "--resume"):
+        st = read_journal(str(journal))
+        assert set(st.finished) == set(want)
+        for uid in want:
+            np.testing.assert_array_equal(st.committed[uid], want[uid])
+        if flag == "--resume":
+            assert "re-admitting mid-flight" in out
+            assert "--resume: journal replays 4 request(s) — 0 already " \
+                "complete, 4 re-admitting" in out
+    else:
+        assert "engine snapshot ->" in out
+        eng = restore_engine(str(tmp_path / "snap"), device="cpu")
+        assert (eng.cfg.name, eng.capacity, eng.k, eng.max_len) == (
+            "gpt-micro", 2, 2, 20)
 
 
 def test_serve_grow_serves_a_grown_model_on_cpu(capsys):
