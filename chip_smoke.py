@@ -5,7 +5,8 @@ with its source drafting, both served from a paged pool,
 recurrentgemma-2b (griffin) served from a dense and a paged pool, and
 qwen3-0.6b (RoPE) served on every route; DeiT-S grown into DeiT-B
 with checkpoints, resume and the three examples; gpt-base sampled;
-gpt-small grown live into gpt-base under traffic, and crash recovery.
+gpt-small grown live into gpt-base under traffic, and crash recovery;
+griffin speculation; the fault layer.
 
     python3 chip_smoke.py [--out report.json]
 
@@ -58,8 +59,8 @@ printed as it goes; a failed phase raises, so the exit code is not 0:
                 new tokens): tokens == the plain route (near ties
                 reported), exact launch counts of the chunk-verify, slot
                 and flash kernels, tok/s beside the non-speculative engine
-                on the same requests; a traced run, and a second one
-                with the dense slot's other cut of its bands; then
+                on the same requests; a traced run of its first 8
+                requests; then
                 gpt-base drafting for itself, where a rejection must sit
                 at a near tie;
   7. paged   -- phase 4's gpt-base from a paged pool of 48 pages (3/8 of
@@ -82,7 +83,7 @@ printed as it goes; a failed phase raises, so the exit code is not 0:
                 4096, K 8, 16 requests of 64 new tokens, prompts of 64..512,
                 1990..2040 (rings wrap in decode) and 2100..2600 tokens
                 (rings filled at admission).  Tokens from the engine and
-                from ``generate`` (its first 8 requests) == the plain route
+                from ``generate`` (its first 4 requests) == the plain route
                 (the scalar ``decode_step`` over all rows at one shared
                 position, no kernel) up to reported near ties; exactly 8
                 ring launches a decode step and 18 scan launches an
@@ -96,6 +97,16 @@ printed as it goes; a failed phase raises, so the exit code is not 0:
                 admissions, prefill groups, macro-steps and pages
                 high-water as a CPU run of the same schedule (1-layer
                 model) predicted, no page left in use;
+ 10b. griffin speculation -- phase 9's model drafting for itself (d 4, K
+                2) on its first 8 requests, on the dense pool and on phase
+                10's 160-page pool: the model itself (acceptance exactly
+                1.0), then a copy nudged by seeded noise (1e-3 of each
+                leaf's std; acceptance strictly inside (0, 1)).  Tokens ==
+                phase 9's plain route up to reported near ties; exact
+                launches of the ring (paged ring) kernel, 3d + 2 a block
+                and attention layer, and of the scan, each recurrent layer
+                of each admission prefill (target and draft); tok/s beside
+                phase 10's plain engines;
  11. qwen3  -- qwen3-0.6b at full width and depth (28 layers, 16 heads
                 over 8 KV heads of 128, q/k norms, RoPE theta 1e6, vocab
                 151,936, tied; f32, seeded weights with the block
@@ -111,8 +122,7 @@ printed as it goes; a failed phase raises, so the exit code is not 0:
                 28 x 63 per ``generate`` call and never from the engine),
                 no page left in use, at least 512 distinct tokens from
                 the dense engine; tok/s, host syncs per token, peak
-                memory, a traced run's idle share (and the dense slot's
-                traced time with each cut of its bands).  The f32 logits
+                memory, a traced run's idle share.  The f32 logits
                 of 8 ``decode_step`` calls against the f32 full forward,
                 within 1e-3 of the largest logit.  Then the published
                 bf16 (weights cast from the f32 ones) through ``generate``
@@ -174,6 +184,23 @@ printed as it goes; a failed phase raises, so the exit code is not 0:
                 from the journal: tokens == the uninterrupted run's up to
                 near ties; and the same through the launcher's
                 ``--journal``, ``--snapshot`` and ``--resume``.
+ 15. faults -- the grown gpt-base of phase 14 (gpt-small drafting where
+                said) on phase 7's 16 requests, capacity 8, max_len 1024,
+                K 8: the plan ``nan@2,oom@3:2,slow@4:0.05,malformed@5`` on
+                the dense pool and a 48-page pool (exactly one request
+                quarantined, its tokens a prefix of its plain-route tokens,
+                every other request == the plain route, the hostile
+                request rejected, the paged arena degraded to full
+                reservations and no page in use at the end, exact
+                launches); a NaN in the draft's pool (d 4, K 2: one
+                fallback, nothing quarantined, every token == the plain
+                route, exact launches); a 3 s hang past a 2 s deadline on
+                the wall clock (all 16 expired, the run bounded); shedding
+                at capacity 1; the launcher crashed by ``--faults crash@3``
+                and resumed by ``--resume`` (16/16 == the whole launcher
+                run); ``run(realtime=True)`` over seeded arrival offsets
+                (time to first token per request, gaps between block
+                readbacks).
 
 Each traced run prints the device time of each of the port's kernels.
 Each path's launch counters are set to 0 just before it runs and read just
@@ -1566,31 +1593,6 @@ def profile_serve(make_engine, reqs, untraced_wall,
     return report
 
 
-def slot_cuts_traced(make_engine, reqs, untraced_wall, report):
-    """The dense slot's traced time with each cut of its bands: the
-    device's or the host's (``SLOT_CUT_ON_DEVICE``).  ``report`` is the
-    traced run with the wrapper's choice; a second, device-only traced run
-    takes the other cut."""
-    from repro_torch.kernels import decode_attention
-
-    chosen = decode_attention.SLOT_CUT_ON_DEVICE
-    decode_attention.SLOT_CUT_ON_DEVICE = not chosen
-    try:
-        other = profile_serve(make_engine, reqs, untraced_wall, stages=())
-    finally:
-        decode_attention.SLOT_CUT_ON_DEVICE = chosen
-
-    def slot_ms(r):
-        return r["port_kernels"].get("slot_decode_attention",
-                                     {"ms": 0.0})["ms"]
-    cuts = {("device" if chosen else "host"): slot_ms(report),
-            ("host" if chosen else "device"): slot_ms(other)}
-    print(f"traced dense slot: bands cut on the device {cuts['device']:.3f} "
-          f"ms, on the host {cuts['host']:.3f} ms (the wrapper cuts on the "
-          f"{'device' if chosen else 'host'})", flush=True)
-    return cuts
-
-
 GROW_DATA_VOCAB = 1024  # phase 5's chain runs over the first 1024 token ids
 GROW_BATCH, GROW_SEQ = 8, 256
 
@@ -1917,12 +1919,14 @@ def run_speculative(kernel_rows, small, big):
           f"(speculative) and {len(reqs) - len(ties['plain engine'])}/"
           f"{len(reqs)} (plain engine); near ties {ties}", flush=True)
 
-    # device only: the host's events of ~240,000 device ops take minutes
-    # to read
-    report["profile"] = profile_serve(lambda: engine(cfg_s, small), reqs,
-                                      dt, stages=())
-    report["dense_slot_traced_ms"] = slot_cuts_traced(
-        lambda: engine(cfg_s, small), reqs, dt, report["profile"])
+    # device only, and the first 8 requests (one wave): the host's events
+    # of ~240,000 device ops, the 16 requests' trace, take minutes to read
+    # (16 until PR 25, cut to make room for phases 10b and 15)
+    report["profile"] = profile_serve(lambda: engine(cfg_s, small),
+                                      reqs[:8], dt / 2, stages=())
+    report["profile"]["note"] = (
+        "8 of the 16 requests (one wave); the untraced idle share uses "
+        "half the 16-request run's wall time")
 
     # the grown gpt-base drafting for itself: every proposal is the
     # target's own argmax up to the two kernels' arithmetic, so each
@@ -2214,9 +2218,10 @@ def run_paged_speculative(kernel_rows, small, big, reqs, plain):
 
 
 GRIFFIN_PAGES = 160  # phase 10's arena: 5/8 of the dense rings' 256 pages
-# phase 9 holds ``generate`` of the first 8 of its 16 requests against the
-# plain route (16 until PR 24, cut to make room for phase 14)
-GRIFFIN_GENERATE_REQS = 8
+# phase 9 holds ``generate`` of the first 4 of its 16 requests against the
+# plain route (16 until PR 24, 8 until PR 25, cut to make room for phases
+# 14, 10b and 15)
+GRIFFIN_GENERATE_REQS = 4
 # phase 10 serves the first 8 of them, and phase 9's traced run traces
 # them (16 until PR 24, cut for the same reason; at 160 pages 9 of their
 # admissions still wait for pages)
@@ -2572,6 +2577,124 @@ def run_griffin_paged(kernel_rows, model):
     return report
 
 
+GRIFFIN_SPEC_D, GRIFFIN_SPEC_K = 4, 2  # phase 10b: draft depth, blocks
+GRIFFIN_DRAFT_NOISE = 1e-3  # phase 10b's nudged draft: noise / leaf std
+
+
+def nudged_copy(params, scale, seed):
+    """A copy of ``params`` with seeded Gaussian noise of ``scale`` times
+    each leaf's standard deviation added (norm scales, all ones, keep
+    theirs): a draft that agrees with its target most of the time."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def nudge(t):
+        if isinstance(t, dict):
+            return {k: nudge(v) for k, v in t.items()}
+        noise = torch.randn(t.shape, generator=gen, device=t.device,
+                            dtype=t.dtype)
+        return t + noise.mul_(scale * t.float().std().item())
+
+    return nudge(params)
+
+
+def run_griffin_spec(model, paged_report):
+    """Phase 10b: griffin speculation.  recurrentgemma-2b drafting for
+    itself (d 4, K 2) on phase 9's first 8 requests, on the dense pool and
+    on phase 10's 160-page pool: first the model itself (every proposal
+    accepted), then a copy nudged by seeded noise (acceptance strictly
+    inside (0, 1)).  Tokens == phase 9's plain route up to reported near
+    ties; exact launches of the ring (or paged ring) kernel -- d proposals,
+    S verify steps and S catch-up steps a block, each attention layer --
+    and of the scan, each recurrent layer of each admission prefill (two a
+    group: target and draft); tok/s beside phase 10's plain engines on
+    the same requests."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import griffin
+    from repro_torch.serve import ContinuousBatchingEngine, SpeculativeConfig
+
+    cfg, params, reqs, plain, _ = model
+    reqs = reqs[:GRIFFIN_PAGED_REQS]
+    pat = griffin.block_pattern(cfg)
+    n_rec, n_attn = pat.count("rec"), pat.count("attn")
+    d, k = GRIFFIN_SPEC_D, GRIFFIN_SPEC_K
+    kern = ops.kernels()
+    report = dict(d=d, k=k, plain_dense_tok_per_s=paged_report[
+        "dense_tok_per_s"], plain_paged_tok_per_s=paged_report["tok_per_s"])
+    ties = []
+    for label in ("self", "nudged"):
+        t0 = time.perf_counter()
+        draft = params if label == "self" else nudged_copy(
+            params, GRIFFIN_DRAFT_NOISE, seed=10)
+        copy_s = time.perf_counter() - t0
+        for pool in ("dense", "paged"):
+            eng = ContinuousBatchingEngine(
+                cfg, params, capacity=8, max_len=4096, k=k, pool=pool,
+                pages=GRIFFIN_PAGES if pool == "paged" else None,
+                speculative=SpeculativeConfig(cfg, draft, d=d))
+            for fn in kern.values():
+                fn.launches = 0
+            out, dt, tps, waits = timed_run(eng, reqs)
+            launches = {name: fn.launches for name, fn in kern.items()}
+            ring = ("paged_ring_decode_attention" if pool == "paged"
+                    else "ring_decode_attention")
+            want = {name: 0 for name in kern}
+            want.update({ring: n_attn * (3 * d + 2) * k
+                         * eng.n_decode_dispatches,
+                         "rglru_scan": n_rec * eng.n_prefills})
+            if launches != want:
+                raise AssertionError(
+                    f"griffin speculation ({label}, {pool}) launched "
+                    f"{launches}, expected {want} ({eng.n_decode_dispatches}"
+                    f" dispatches, {eng.n_prefills} prefills)")
+            acc = eng.acceptance_rate
+            if eng.n_spec_proposed == 0 or eng.n_spec_fallbacks or (
+                    acc != 1.0 if label == "self" else not 0.0 < acc < 1.0):
+                raise AssertionError(
+                    f"griffin speculation ({label}, {pool}): acceptance "
+                    f"{acc} ({eng.n_spec_accepted}/{eng.n_spec_proposed}), "
+                    f"{eng.n_spec_fallbacks} fallbacks")
+            if pool == "paged" and eng.pages_in_use:
+                raise AssertionError(f"{eng.pages_in_use} pages in use")
+            for r in reqs:
+                if out[r.uid].shape != (64,):
+                    raise AssertionError(f"uid {r.uid}: {out[r.uid]}")
+                tie = check_against_plain(f"griffin spec {label} {pool}",
+                                          r.uid, out[r.uid], *plain[r.uid])
+                if tie is not None:
+                    ties.append((label, pool) + tie)
+            n_tok = sum(len(v) for v in out.values())
+            report[f"{label}_{pool}"] = dict(
+                tok_per_s=tps, seconds=dt, tokens=n_tok, acceptance=acc,
+                proposed=eng.n_spec_proposed, accepted=eng.n_spec_accepted,
+                dispatches=eng.n_decode_dispatches,
+                n_prefills=eng.n_prefills, refused_for_pages=waits,
+                launches={n: v for n, v in launches.items() if v},
+                host_syncs_per_token=eng.n_host_syncs / n_tok)
+            print(f"griffin speculation, {label} draft, {pool} pool: "
+                  f"{n_tok} tokens in {dt:.3f} s: {tps:.1f} tok/s (plain "
+                  f"engine {pool}: "
+                  f"{report[f'plain_{pool}_tok_per_s']}); acceptance "
+                  f"{acc:.4f} ({eng.n_spec_accepted}/{eng.n_spec_proposed});"
+                  f" {eng.n_decode_dispatches} dispatches, {eng.n_prefills} "
+                  f"prefills, admissions refused for pages {waits}; "
+                  f"launches {report[f'{label}_{pool}']['launches']}",
+                  flush=True)
+            del eng
+        if label == "nudged":
+            report["nudged_copy_s"] = copy_s
+            del draft
+            gc.collect()
+            torch.cuda.empty_cache()
+    report["near_ties"] = ties
+    print(f"griffin speculation: tokens == plain route for every request "
+          f"of the 4 runs but near ties {ties}", flush=True)
+    return report
+
+
 QWEN_PAGES = 64  # phase 11's arena: half the dense pool's 128 pages of 64
 QWEN_D, QWEN_K = 4, 2  # phase 11's self-draft depth and blocks a dispatch
 QWEN_MATRIX_SCALE = 2.5  # phase 11: block matrices scaled up (see qwen_model)
@@ -2865,9 +2988,6 @@ def run_qwen(kernel_rows):
     profile["seconds"] = time.perf_counter() - t0
     profile["note"] = ("8 of the 16 requests (one wave); the untraced idle "
                        "share uses half the 16-request run's wall time")
-    profile["dense_slot_traced_ms"] = slot_cuts_traced(
-        lambda: engine("dense"), reqs[:8], runs["dense"]["seconds"] / 2,
-        profile)
 
     # the published bf16, weights cast from the f32 ones
     err_32, err_k, err_p, top, cfg16, params16 = _bf16_logit_errors(
@@ -3761,7 +3881,7 @@ def run_upgrade(small):
     plain.clear()
     grown_seen.clear()
     report["sampled_recovery"] = run_recovery(cfg_t, mgr.grown_params)
-    return report
+    return report, mgr.grown_params
 
 
 def run_recovery(cfg, params):
@@ -3900,6 +4020,282 @@ def run_recovery(cfg, params):
                 launcher_s=launch_s, launcher_near_ties=lties)
 
 
+FAULT_PLAN = "nan@2,oom@3:2,slow@4:0.05,malformed@5"  # phase 15, part a
+FAULT_DEADLINE, FAULT_HANG = 2.0, 3.0  # phase 15, part c (seconds)
+FAULT_SHED_AGE = 0.25  # phase 15, part d (seconds)
+
+
+def run_faults(small, big):
+    """Phase 15: the fault layer on the grown gpt-base (phase 14's) with
+    phase 5's gpt-small drafting, phase 7's 16 requests, capacity 8, max_len
+    1024, K 8: (a) FAULT_PLAN on the dense pool and a 48-page paged pool --
+    exactly one request quarantined with a prefix of its plain-route
+    tokens, every other request equal to the plain route, the paged arena
+    degraded (full reservations) with no page in use at the end; (b) a
+    draft-pool NaN (d 4, K 2): one fallback to plain decode, nothing
+    quarantined, every token unchanged; (c) a hang past the engine's
+    deadline on the wall clock: every request expired, the run bounded;
+    (d) queue-age shedding at capacity 1; (e) the launcher crashed by
+    ``--faults crash@3`` and resumed by ``--resume``: 16/16 requests equal
+    the uninterrupted launcher run; (f) ``run(realtime=True)`` over seeded
+    arrival offsets: time to first token per request and the gaps between
+    block readbacks.  Exact launches in (a) and (b)."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.serve import (
+        ContinuousBatchingEngine,
+        Fault,
+        FaultPlan,
+        SpeculativeConfig,
+        read_journal,
+    )
+
+    cfg_s, cfg = get_config("gpt-small"), get_config("gpt-base")
+    L, Ls = cfg.n_layers, cfg_s.n_layers
+    reqs = paged_requests(cfg.vocab_size)
+    kern = ops.kernels()
+    report = {}
+    t0 = time.perf_counter()
+    plain = {r.uid: plain_greedy(cfg, big, r.prompt, 64) for r in reqs}
+    report["plain_route_s"] = time.perf_counter() - t0
+
+    def engine(**kw):
+        kw = dict(dict(capacity=8, max_len=1024, k=8), **kw)
+        return ContinuousBatchingEngine(cfg, big, **kw)
+
+    def serve(eng, rs=reqs, **kw):
+        for fn in kern.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = eng.run([dataclasses.replace(r) for r in rs], **kw)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t, {
+            n: fn.launches for n, fn in kern.items()}
+
+    def against_plain(what, eng, out):
+        """Finished requests == plain; a quarantined one a prefix of it."""
+        ties = []
+        for r in reqs:
+            got, (want, gaps) = out.get(r.uid), plain[r.uid]
+            o = eng.outcomes.get(r.uid)
+            if o == "quarantined":
+                if not 0 <= len(got) < 64:
+                    raise AssertionError(f"{what}: quarantined uid {r.uid} "
+                                         f"delivered {len(got)} tokens")
+                want, gaps = want[:len(got)], gaps[:len(got)]
+            elif o != "finished" or got.shape != (64,):
+                raise AssertionError(f"{what}: uid {r.uid} {o} {got}")
+            tie = check_against_plain(what, r.uid, got, want, gaps)
+            if tie is not None:
+                ties.append(tie)
+        return ties
+
+    # (a) the plan on both pools
+    for pool in ("dense", "paged"):
+        eng = engine(pool=pool, pages=PAGED_PAGES if pool == "paged" else
+                     None, faults=FaultPlan.parse(FAULT_PLAN))
+        out, dt, launches = serve(eng)
+        slot = "paged_slot_decode_attention" if pool == "paged" else \
+            "slot_decode_attention"
+        want = {n: 0 for n in kern}
+        want[slot] = L * (eng.k * eng.n_decode_dispatches
+                          + eng.n_prefix_tail_steps)
+        want["flash_attention"] = L * eng.n_prefills
+        bad = {u: o for u, o in eng.outcomes.items() if o != "finished"}
+        quarantined = [u for u, o in bad.items() if o == "quarantined"]
+        if (launches != want or eng.n_faults_injected != 4
+                or eng.n_quarantined != 1 or len(quarantined) != 1
+                or set(bad) != {quarantined[0], -1005}
+                or "empty prompt" not in eng.rejected.get(-1005, "")
+                or eng._oom_waves):
+            raise AssertionError(f"faults on the {pool} pool: launches "
+                                 f"{launches} (expected {want}), outcomes "
+                                 f"{bad}, rejected {eng.rejected}")
+        if pool == "paged" and not (eng._arena_degraded
+                                    and eng.n_degraded_admissions > 0
+                                    and eng.pages_in_use == 0):
+            raise AssertionError(
+                f"paged faults: degraded {eng._arena_degraded}, "
+                f"{eng.n_degraded_admissions} degraded admissions, "
+                f"{eng.pages_in_use} pages in use")
+        ties = against_plain(f"faults {pool}", eng, out)
+        report[f"plan_{pool}"] = dict(
+            seconds=dt, quarantined=quarantined[0],
+            quarantined_tokens=len(out[quarantined[0]]),
+            degraded_admissions=eng.n_degraded_admissions,
+            dispatches=eng.n_decode_dispatches, near_ties=ties,
+            launches={n: v for n, v in launches.items() if v})
+        print(f"faults {FAULT_PLAN} on the {pool} pool: {dt:.3f} s; "
+              f"{eng.n_faults_injected} injected, uid {quarantined[0]} "
+              f"quarantined after {len(out[quarantined[0]])} tokens (a "
+              f"prefix of its plain route), uid -1005 rejected (empty "
+              f"prompt), {eng.n_degraded_admissions} degraded admissions, "
+              f"{eng.pages_in_use} pages in use at the end; the other 15 "
+              f"== plain route but near ties {ties}; launches "
+              f"{report[f'plan_{pool}']['launches']}", flush=True)
+        del eng
+
+    # (b) a NaN in the draft's pool: speculation falls back, once
+    d, k = 4, 2
+    eng = engine(k=k, speculative=SpeculativeConfig(cfg_s, small, d=d),
+                 faults=FaultPlan([Fault("nan", 2, pool=1)]))
+    modes = []
+    dispatch = eng._dispatch
+
+    def counted_dispatch():
+        modes.append(not eng._spec_fallback)
+        dispatch()
+    eng._dispatch = counted_dispatch
+    out, dt, launches = serve(eng)
+    del eng._dispatch
+    n_spec, n_plain = sum(modes), len(modes) - sum(modes)
+    want = {n: 0 for n in kern}
+    want["slot_decode_attention"] = k * (Ls * d * n_spec + L * n_plain)
+    want["chunk_verify_attention"] = (L + Ls) * k * n_spec
+    want["flash_attention"] = (L + Ls) * (eng.n_prefills // 2)
+    if (launches != want or eng.n_spec_fallbacks != 1
+            or eng.n_quarantined != 0 or not n_plain):
+        raise AssertionError(f"draft NaN: launches {launches} (expected "
+                             f"{want}), {eng.n_spec_fallbacks} fallbacks, "
+                             f"{eng.n_quarantined} quarantined")
+    ties = against_plain("draft NaN", eng, out)
+    report["draft_nan"] = dict(seconds=dt, spec_dispatches=n_spec,
+                               plain_dispatches=n_plain, near_ties=ties,
+                               launches={n: v for n, v in launches.items()
+                                         if v})
+    print(f"draft-pool NaN under gpt-small drafting (d {d}, K {k}): "
+          f"{dt:.3f} s; {eng.n_spec_fallbacks} fallback after {n_spec} "
+          f"speculative dispatches ({n_plain} plain after it), "
+          f"{eng.n_quarantined} quarantined; 16/16 == plain route but near "
+          f"ties {ties}; launches {report['draft_nan']['launches']}",
+          flush=True)
+    del eng
+
+    # (c) a hang past the deadline, on the wall clock
+    eng = engine(deadline=FAULT_DEADLINE,
+                 faults=FaultPlan([Fault("hang", 2, duration=FAULT_HANG)]))
+    out, dt, _ = serve(eng)
+    if (eng.n_expired != 16 or set(eng.outcomes.values()) != {"expired"}
+            or set(out) != {r.uid for r in reqs} or dt > 4 * FAULT_HANG):
+        raise AssertionError(f"hang: {eng.n_expired} expired, outcomes "
+                             f"{eng.outcomes}, {dt:.1f} s")
+    partial = sorted(len(v) for v in out.values())
+    report["hang"] = dict(seconds=dt, expired=eng.n_expired,
+                          tokens=partial)
+    print(f"hang {FAULT_HANG} s past a {FAULT_DEADLINE} s deadline: all 16 "
+          f"expired in {dt:.2f} s (partial outputs of {partial} tokens, "
+          f"the queued ones empty)", flush=True)
+    del eng
+
+    # (d) queue-age shedding at capacity 1
+    eng = engine(capacity=1, shed_age=FAULT_SHED_AGE,
+                 faults=FaultPlan([Fault("slow", 1, duration=0.5)]))
+    out, dt, _ = serve(eng)
+    shed = sorted(u for u, o in eng.outcomes.items() if o == "shed")
+    served = sorted(u for u, o in eng.outcomes.items() if o == "finished")
+    if (not shed or eng.n_shed != len(shed)
+            or len(shed) + len(served) != 16
+            or not all("shed after" in eng.rejected[u] for u in shed)):
+        raise AssertionError(f"shedding: outcomes {eng.outcomes}")
+    for u in served:
+        if check_against_plain("shed run", u, out[u], *plain[u]):
+            raise AssertionError(f"shed run: uid {u} near tie")
+    report["shed"] = dict(seconds=dt, shed=len(shed), served=served)
+    print(f"shedding at capacity 1 (shed_age {FAULT_SHED_AGE} s, a 0.5 s "
+          f"slow dispatch): {len(shed)} shed, {served} served (== plain "
+          f"route) in {dt:.2f} s", flush=True)
+    del eng
+
+    # (e) the launcher crashed by its plan, then resumed
+    work = ROOT / "build" / "phase15"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    argv = ["--arch", "gpt-base", "--engine", "continuous", "--batch", "16",
+            "--capacity", "8", "--prompt-len", "384", "--gen", "64",
+            "--max-len", "512"]
+    j0, j1 = str(work / "whole.jsonl"), str(work / "crashed.jsonl")
+    t0 = time.perf_counter()
+    launch_serve.main([*argv, "--journal", j0])
+    launch_serve.main([*argv, "--journal", j1, "--faults", "crash@3"])
+    crashed = read_journal(j1)
+    launch_serve.main([*argv, "--journal", j1, "--resume"])
+    launch_s = time.perf_counter() - t0
+    a, b = read_journal(j0), read_journal(j1)
+    if (set(a.finished) != set(range(16)) or a.finished != b.finished
+            or len(crashed.finished) == 16
+            or not any(crashed.committed.values())):
+        raise AssertionError(f"launcher crash: {crashed.finished} at the "
+                             f"crash, then {b.finished} vs {a.finished}")
+    lties = []
+    for u in range(16):
+        got, want = np.asarray(b.committed[u]), np.asarray(a.committed[u])
+        if np.array_equal(got, want):
+            continue
+        lparams = launch_serve.build_params(cfg, device="cuda",
+                                            log_fn=lambda *_: None)
+        lreq = launch_serve.trace_requests(cfg, 16, 384, 64)[u]
+        gaps = plain_greedy(cfg, lparams, lreq.prompt, 64)[1]
+        lties.append(check_same_tokens("launcher resumed and whole runs", u,
+                                       got, want, gaps))
+    shutil.rmtree(work, ignore_errors=True)
+    report["launcher_crash"] = dict(seconds=launch_s, near_ties=lties,
+                                    committed_at_crash=sum(
+                                        len(v) for v in
+                                        crashed.committed.values()))
+    print(f"launcher --faults crash@3 then --resume: "
+          f"{report['launcher_crash']['committed_at_crash']} tokens "
+          f"committed at the crash; {16 - len(lties)}/16 resumed requests "
+          f"== the whole launcher run (near ties {lties}); {launch_s:.1f} s "
+          f"for the three launcher runs", flush=True)
+
+    # (f) run(realtime=True): time to first token and block gaps
+    rng = np.random.default_rng(15)
+    arrivals = np.cumsum(rng.exponential(0.05, len(reqs)))
+    timed = [dataclasses.replace(r, arrival=float(a))
+             for r, a in zip(reqs, arrivals)]
+    eng = engine()
+    reads = []
+    process = eng._process
+
+    def stamped(item):
+        process(item)
+        reads.append(time.monotonic())
+    eng._process = stamped
+    torch.cuda.synchronize()
+    t_run = time.monotonic()
+    out = eng.run(timed, realtime=True)
+    torch.cuda.synchronize()
+    dt = time.monotonic() - t_run
+    del eng._process
+    ttft = {s.req.uid: (s.t_first - t_run - s.req.arrival) * 1e3
+            for s in eng.retired}
+    gaps = np.diff(reads) * 1e3
+    if set(ttft) != {r.uid for r in reqs} or min(ttft.values()) < 0:
+        raise AssertionError(f"realtime: ttft {ttft}")
+    ties = against_plain("realtime run", eng, out)
+    report["realtime"] = dict(
+        seconds=dt, arrivals_s=arrivals.tolist(), ttft_ms=ttft,
+        block_gap_ms=gaps.tolist(), k=eng.k, near_ties=ties)
+    tt = np.array(list(ttft.values()))
+    print(f"run(realtime=True) over arrivals at {arrivals[0]:.3f}.."
+          f"{arrivals[-1]:.3f} s: {dt:.2f} s; time to first token per "
+          f"request (ms) {[round(ttft[u], 1) for u in sorted(ttft)]} "
+          f"(median {np.median(tt):.1f}, max {tt.max():.1f}); gap between "
+          f"block readbacks ({eng.k} tokens a row each) median "
+          f"{np.median(gaps):.2f} ms, p90 {np.percentile(gaps, 90):.2f} ms, "
+          f"max {gaps.max():.2f} ms over {len(gaps)} gaps; tokens == plain "
+          f"route but near ties {ties}", flush=True)
+    return report
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3989,8 +4385,13 @@ def main(argv=None):
     phase("serve recurrentgemma-2b (griffin), paged pool")
     t0 = time.perf_counter()
     griffin_paged = run_griffin_paged(rows, griffin_model_state)
-    del griffin_model_state
     print(f"phase 10 took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    phase("griffin speculation: recurrentgemma-2b drafting for itself")
+    t0 = time.perf_counter()
+    griffin_spec = run_griffin_spec(griffin_model_state, griffin_paged)
+    del griffin_model_state
+    print(f"phase 10b took {time.perf_counter() - t0:.1f} s", flush=True)
 
     phase("serve qwen3-0.6b (RoPE): dense, paged, speculative, generate")
     t0 = time.perf_counter()
@@ -4013,9 +4414,15 @@ def main(argv=None):
 
     phase("live upgrade gpt-small -> gpt-base; crash recovery")
     t0 = time.perf_counter()
-    upgrade = run_upgrade(small)
-    del small
+    upgrade, grown = run_upgrade(small)
     print(f"phase 14 took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    phase("faults: quarantine, degradation, deadlines, shedding, crash, "
+          "realtime arrivals")
+    t0 = time.perf_counter()
+    faults = run_faults(small, grown)
+    del small, grown
+    print(f"phase 15 took {time.perf_counter() - t0:.1f} s", flush=True)
 
     # the contract's keys, then the tensor-core rows' 3xTF32 and bf16 ones
     kernels = [{key: r[key] for key in (
@@ -4031,6 +4438,7 @@ def main(argv=None):
              "serve": serve, "grow": grow, "speculative": spec,
              "paged": paged, "paged_speculative": paged_spec,
              "griffin_dense": griffin_dense, "griffin_paged": griffin_paged,
+             "griffin_speculative": griffin_spec, "faults": faults,
              "qwen": qwen, "deit": deit, "sampled": sampled,
              "upgrade": upgrade, "build_seconds": secs}, indent=1))
     print(json.dumps({"kernels": kernels}))

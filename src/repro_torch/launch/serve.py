@@ -57,6 +57,20 @@ asked for and absent:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt-base \
       --engine continuous --journal j.jsonl --resume
 
+  # griffin speculation: recurrentgemma-2b drafting for itself (the
+  # verify runs the slot decode over each chunk; d + 1 must fit the window)
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch recurrentgemma-2b --engine continuous --speculate \
+      --draft recurrentgemma-2b --spec-d 4 --k 2 --prompt-len 512 --gen 64
+
+  # the fault layer: a per-request deadline and a fault plan (kind@step
+  # with kinds nan/oom/slow/hang/malformed/crash; the report names every
+  # request that did not finish); a crash leaves the journal to --resume
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt-base \
+      --engine continuous --deadline 30 --faults nan@2,oom@3:2,slow@4:0.05
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt-base \
+      --engine continuous --journal j.jsonl --faults crash@3
+
   # a RoPE decoder (qwen3-0.6b, bf16 as published): naive generate, whose
   # decode steps run the decode_attention kernel, then the engine
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
@@ -80,6 +94,8 @@ from repro_torch.models import get_family, serve_supported
 from repro_torch.serve import (
     POLICIES,
     ContinuousBatchingEngine,
+    EngineKilled,
+    FaultPlan,
     Request,
     RequestJournal,
     SamplingParams,
@@ -97,8 +113,7 @@ from repro_torch.utils.device import resolve_device
 # reference-package flags the port does not take yet: name -> what it is
 UNPORTED_FLAGS = {
     "--kernel": "the kernel switch (the device picks kernel or plain "
-    "version)", "--mesh": "sharded serving", "--deadline": "deadlines",
-    "--faults": "fault injection",
+    "version)", "--mesh": "sharded serving",
 }
 
 
@@ -270,6 +285,10 @@ def main(argv=None):
                     help="with --grow-cfg: grow BEFORE serving starts "
                          "instead of on a background thread, so the swap "
                          "lands at --upgrade-at deterministically")
+    ap.add_argument("--deadline", type=float, default=0.0,
+                    help="continuous: per-request TTL in seconds -- the "
+                         "watchdog evicts a request this long after its "
+                         "arrival with outcome 'expired' (0 = off)")
     ap.add_argument("--journal", default=None, metavar="PATH",
                     help="continuous: append-only crash-safe request "
                          "journal (JSONL); committed tokens flush at "
@@ -284,6 +303,12 @@ def main(argv=None):
                          "geometry, checkpoint format) before serving; "
                          "serve.recovery.restore_engine rebuilds the "
                          "engine from it")
+    ap.add_argument("--faults", default=None, metavar="PLAN",
+                    help="continuous: deterministic fault injection -- "
+                         "'kind@step[:arg],...' with kinds "
+                         "nan/oom/slow/hang/malformed/crash, or "
+                         "'seed:S[:N]' for a seeded random plan "
+                         "(chaos testing; see serve/faults.py)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where to run (default cuda; raises without CUDA)")
     args = ap.parse_args(argv)
@@ -313,9 +338,10 @@ def main(argv=None):
     if args.engine != "continuous" and (args.pool != "dense" or args.pages):
         raise SystemExit("error: --pool/--pages require --engine "
                          "continuous (the naive loop has no slot pool)")
-    if args.engine == "naive" and (args.journal or args.resume
+    if args.engine == "naive" and (args.deadline or args.journal
+                                   or args.resume or args.faults
                                    or args.snapshot):
-        # the reference's text (it names its --deadline and --faults too)
+        # the reference's text
         raise SystemExit("error: --deadline/--journal/--resume/--snapshot/"
                          "--faults require --engine continuous (the fault "
                          "tolerance layer lives in the slot-pool engine)")
@@ -386,13 +412,15 @@ def main(argv=None):
               f"request(s) — {len(recovered)} already complete, "
               f"{len(resumed)} re-admitting mid-flight")
     journal = RequestJournal(args.journal) if args.journal else None
+    faults = FaultPlan.parse(args.faults) if args.faults else None
     engine = ContinuousBatchingEngine(cfg, params, capacity=args.capacity,
                                       max_len=max_len, k=args.k,
                                       policy=args.policy, pool=args.pool,
                                       pages=args.pages or None,
                                       sampling=sampling,
                                       speculative=speculative,
-                                      journal=journal)
+                                      deadline=args.deadline or None,
+                                      journal=journal, faults=faults)
     if engine.pages_budget is not None:
         arena = ("one arena shared by target and draft"
                  if speculative is not None else "target arena")
@@ -422,7 +450,16 @@ def main(argv=None):
         cfg, args.batch, args.prompt_len, args.gen, args.eos_id,
         skip={r.uid for r in resumed} | set(recovered))
     t0 = time.time()
-    out = engine.run(reqs)
+    try:
+        out = engine.run(reqs)
+    except EngineKilled as e:
+        # the injected crash: the journal survived, the process "died";
+        # exit cleanly so a restart can resume it
+        if journal is not None:
+            journal.close()
+        print(f"[serve] ENGINE KILLED ({e}) — journal at {args.journal} "
+              "holds the committed state; rerun with --resume")
+        return
     dt = time.time() - t0
     if upgrade is not None:
         if upgrade.state in ("growing", "ready"):
@@ -479,6 +516,15 @@ def main(argv=None):
         print(f"[{mode}] rejected {len(engine.rejected)} request(s):")
         for uid, why in sorted(engine.rejected.items()):
             print(f"  uid {uid}: {why}")
+    bad = {u: o for u, o in engine.outcomes.items() if o != "finished"}
+    if bad or engine.n_faults_injected:
+        print(f"[{mode}] fault report: {engine.n_faults_injected} "
+              f"fault(s) injected, {engine.n_expired} expired, "
+              f"{engine.n_quarantined} quarantined, {engine.n_shed} shed, "
+              f"{engine.n_spec_fallbacks} spec fallback(s), "
+              f"{engine.n_degraded_admissions} degraded admission(s)")
+        for uid, o in sorted(bad.items()):
+            print(f"  uid {uid}: {o}")
     if journal is not None:
         journal.close()
     for uid in sorted(out)[:2]:

@@ -16,12 +16,16 @@ and, to run as a speculative draft or target, the chunk-verify hooks
   verify_step_slots(params, tokens, positions, cache, cfg, done=None)
   commit_slots(params, tokens, positions, n_feed, cache, pending, cfg,
                done=None)
-  prefill_cache(params, tokens, cfg, cache) -> cache
+  prefill_cache(params, tokens, cfg, cache, plens=None) -> cache
 and, to serve from a paged pool (``serve/paged.py``), the declaration of
 its pageable cache groups:
   paged_groups(cfg) -> {group key: (kind, leaf names)}
-The transformer and griffin families are ported so far; griffin has no
-chunk-verify hooks, so it serves without speculation.
+A family whose slot-decode steps overwrite state a proposal must not
+keep (griffin's recurrence and rings) adds
+  snapshot_slots(cache, positions, n) / restore_slots(cache, snap,
+                                                     positions, n)
+so a speculative draft can propose in place.  The transformer and griffin
+families are ported so far.
 """
 from __future__ import annotations
 

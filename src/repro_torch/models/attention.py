@@ -12,7 +12,9 @@ cache length, >= the window): slot ``s`` holds the largest position ``p``
 written so far with ``p % ring == s``.  The slot-decode step writes each
 row's K/V at ``pos % ring`` and attends by absolute position through
 ``ops.ring_decode_attention`` (dense pool) or
-``ops.paged_ring_decode_attention`` (paged pool).
+``ops.paged_ring_decode_attention`` (paged pool).  Speculative verify
+writes a chunk of such steps and restores the rejected sites afterwards
+(``paged_ring_restore_sites`` resolves them through a block table).
 """
 from __future__ import annotations
 
@@ -225,3 +227,29 @@ def paged_ring_slot_update_attend(q, cache, k, v, slot_positions, *, window,
         q[:, 0], ck[:n_pages].to(q.dtype), cv[:n_pages].to(q.dtype), bt,
         slot_positions, window=window, done=done)
     return out[:, None]
+
+
+def paged_ring_restore_sites(bt, positions, n_feed, chunk_len, page,
+                             n_pages):
+    """Scatter sites for the paged speculative ring ROLLBACK.
+
+    A verify scan writes the whole chunk into the paged ring through the
+    block table; commit must re-store the PRE-chunk bytes at every
+    rejected write site (``j >= n_feed[b]``).  Returns (pid_restore,
+    pid_read, off), each (B, chunk): ``pid_read`` is the clamped physical
+    page to read old bytes from, ``pid_restore`` aims accepted sites (and
+    blocks the row never got) at page ``n_pages`` -- the scratch page of
+    the port's arenas, where the reference's scatter drops them -- and
+    ``off`` is the in-page offset.  Requires ``chunk_len <= ring`` (the
+    speculative pair probe enforces ``d + 1 <= window``) so no ring slot
+    is written twice within one chunk.
+    """
+    ring = bt.shape[1] * page
+    j = torch.arange(chunk_len, dtype=positions.dtype,
+                     device=positions.device)
+    sidx = (positions[:, None] + j[None]) % ring  # (B, chunk)
+    pid = bt.gather(1, (sidx // page).long())
+    rejected = j[None] >= n_feed[:, None]
+    pid_restore = torch.where(rejected, pid, n_pages)
+    pid_read = pid.clamp(max=n_pages - 1)
+    return pid_restore, pid_read, sidx % page

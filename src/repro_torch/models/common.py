@@ -9,6 +9,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models.attention import paged_ring_restore_sites
+from repro_torch.utils.pytree import tree_map
+
 
 def trunc_normal(gen: torch.Generator, shape, std=0.02, dtype=torch.float32,
                  device=None):
@@ -85,3 +88,151 @@ def freeze_rows(old, new, done):
         return {k: freeze_rows(old[k], v, done) for k, v in new.items()}
     return torch.where(done.reshape(done.shape + (1,) * (new.dim() - 1)),
                        old, new)
+
+
+# ------------------------------------------- speculative-decode slot hooks
+def spec_verify_scan(step_fn, params, tokens, positions, cache, cfg,
+                     done=None, stack_filter=None):
+    """Generic ``verify_step_slots`` for recurrent slot layouts.
+
+    Runs the family's single-token ``decode_step_slots`` over the chunk
+    axis, a Python loop of S steps that updates ``cache`` in place, and
+    stacks a copy of the slot state after each step: a recurrence has no
+    one-shot parallel verify, but its per-slot state is O(1), so keeping
+    it at every chunk position is cheap and gives exact per-row rollback.
+    Each step runs the (B, 1) slot-decode arithmetic of the sequential
+    path, so logits and committed state equal feeding the chunk token by
+    token.
+
+    ``stack_filter`` selects the sub-tree of the cache to stack: griffin
+    stacks only its O(1) recurrent leaves and commits its O(window)
+    local-attention rings by restoring write sites (``spec_ring_restore``).
+    ``step_fn`` may return None for the logits (a draft's catch-up needs
+    no head); the logits are then None too.
+
+    tokens: (B, S) chunk per slot; positions: (B,) per-row start offsets.
+    Returns (logits (B, S, V) or None, stacked, cache): ``stacked`` mirrors
+    the (filtered) cache tree with a leading chunk axis -- ``stacked[j]``
+    is the state after each row fed its first ``j + 1`` chunk tokens --
+    and ``cache`` is the post-chunk cache (the same dict, updated).
+    """
+    logits, states = [], []
+    for j in range(tokens.shape[1]):
+        out, cache = step_fn(params, tokens[:, j].contiguous(),
+                             positions + j, cache, cfg, done=done)
+        logits.append(out)
+        ys = cache if stack_filter is None else stack_filter(cache)
+        states.append(tree_map(lambda t: t.clone(), ys))
+    stacked = tree_map(lambda *ts: torch.stack(ts), *states)
+    if logits[0] is None:
+        return None, stacked, cache
+    return torch.stack(logits, 1), stacked, cache
+
+
+def spec_commit_gather(old, stacked, n_feed, done=None):
+    """Generic ``commit_slots`` for recurrent (O(1)-per-slot) leaves.
+
+    ``old`` is the pre-chunk state tree of (L, B, ...) leaves, ``stacked``
+    the per-step states of ``spec_verify_scan`` (S, L, B, ...).  Row ``b``
+    gets ``stacked[n_feed[b] - 1]``, the state after its first
+    ``n_feed[b]`` chunk feeds; rows with ``n_feed == 0`` (or flagged
+    ``done``) keep ``old``.  The rejected tail of the chunk never reaches
+    the committed state because the gather predates it.  Returns a new
+    tree.
+    """
+    keep = n_feed <= 0
+    if done is not None:
+        keep = keep | done
+    idx = (n_feed - 1).clamp(min=0).long()
+
+    def per_leaf(o, st):
+        B = o.shape[1]
+        shape = (1, 1, B) + (1,) * (o.dim() - 2)
+        sel = st.gather(0, idx.reshape(shape).expand((1,) + o.shape))[0]
+        return torch.where(keep.reshape((1, B) + (1,) * (o.dim() - 2)),
+                           o, sel)
+
+    return tree_map(per_leaf, old, stacked)
+
+
+def ring_write_slots(positions, chunk_len, ring):
+    """(B, chunk) ring slots ``(positions[b] + j) % ring`` that a run of
+    ``chunk_len`` slot-decode steps from ``positions`` writes."""
+    j = torch.arange(chunk_len, dtype=positions.dtype,
+                     device=positions.device)
+    return ((positions[:, None] + j[None]) % ring).long()
+
+
+def spec_ring_sites(group, positions, chunk_len):
+    """The bytes of a dense ring group at the slots a chunk of
+    ``chunk_len`` steps from ``positions`` writes: {leaf: (L, B, chunk,
+    ...)}, taken BEFORE the chunk runs so ``spec_ring_restore`` can put
+    the rejected sites back.  O(chunk) a slot, never the whole ring."""
+    ring = next(iter(group.values())).shape[2]
+    sidx = ring_write_slots(positions, chunk_len, ring)
+    rows = torch.arange(sidx.shape[0], device=sidx.device)[:, None]
+    return {name: leaf[:, rows, sidx] for name, leaf in group.items()}
+
+
+def spec_ring_restore(saved, group, positions, n_feed, chunk_len):
+    """Commit ring-buffer leaves after a verify scan WITHOUT per-step
+    stacking: keep the scan's bytes where the chunk write was accepted,
+    put the pre-chunk bytes (``saved``, from ``spec_ring_sites``) back
+    where it was rejected.  In place on ``group``'s (L, B, ring, ...)
+    leaves; returns ``group``.
+
+    Chunk index ``j`` wrote row ``b``'s slot ``(positions[b] + j) %
+    ring`` and is rejected iff ``j >= n_feed[b]``.  Requires ``chunk_len
+    <= ring`` (the speculative pair probe enforces ``d + 1 <= window``), so
+    no slot is written twice within one chunk and every site is restored
+    or kept unambiguously.  The reference masks the whole ring against a
+    copy of it; only the chunk's sites can differ, so only they are
+    written.
+    """
+    ring = next(iter(group.values())).shape[2]
+    sidx = ring_write_slots(positions, chunk_len, ring)
+    rows = torch.arange(sidx.shape[0], device=sidx.device)[:, None]
+    j = torch.arange(chunk_len, device=n_feed.device)
+    rejected = j[None] >= n_feed[:, None]  # (B, chunk)
+    for name, leaf in group.items():
+        cur = leaf[:, rows, sidx]
+        mask = rejected.reshape((1,) + rejected.shape
+                                + (1,) * (cur.dim() - 3))
+        leaf[:, rows, sidx] = torch.where(mask, saved[name], cur)
+    return group
+
+
+def paged_spec_ring_sites(group, positions, chunk_len):
+    """``spec_ring_sites`` over a PAGED ring group {"k"/"v": (L, n_pages +
+    1, page, ...) arenas, "bt": (L, B, nblk)}: the pre-chunk bytes at each
+    write site, resolved through the block table (a block the row never
+    got reads the last real page; its restore goes to the scratch page)."""
+    bt = group["bt"][0]  # layers share one table
+    leaves = [k for k in group if k != "bt"]
+    n_pages, page = group[leaves[0]].shape[1] - 1, group[leaves[0]].shape[2]
+    zeros = torch.zeros_like(positions)
+    _, pid_read, off = paged_ring_restore_sites(
+        bt, positions, zeros, chunk_len, page, n_pages)
+    return {key: group[key][:, pid_read.long(), off.long()]
+            for key in leaves}
+
+
+def paged_spec_ring_restore(saved, group, positions, n_feed, chunk_len):
+    """``spec_ring_restore`` over a PAGED ring group: the scan wrote the
+    whole chunk through the block table, so commit re-stores the pre-chunk
+    bytes (``saved``, from ``paged_spec_ring_sites``) at every rejected
+    write site (``j >= n_feed[b]``), resolved through the same table.
+    Accepted sites -- and blocks the row never got -- are aimed at the
+    scratch page ``n_pages``, which no read sees (the reference drops them
+    at its out-of-range sentinel).  Sound because ring pages are
+    slot-private (the prefix cache never aliases ring block tables) and
+    ``chunk_len <= ring``.  In place; returns ``group``."""
+    bt = group["bt"][0]
+    leaves = [k for k in group if k != "bt"]
+    n_pages, page = group[leaves[0]].shape[1] - 1, group[leaves[0]].shape[2]
+    pid_restore, _, off = paged_ring_restore_sites(
+        bt, positions, n_feed, chunk_len, page, n_pages)
+    pid_restore, off = pid_restore.long(), off.long()
+    for key in leaves:
+        group[key][:, pid_restore, off] = saved[key]
+    return group

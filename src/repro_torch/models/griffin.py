@@ -20,8 +20,12 @@ banded attention, as in the reference.
 
 Caches are updated in place (the reference returns new buffers, which XLA
 aliases through donation); the returned cache is the same dict.  The
-speculative hooks (``verify_step_slots``, ``commit_slots``) are not
-ported, so griffin serves greedy without speculation.
+speculative hooks run the slot decode over the chunk (``verify_step_slots``)
+and roll each row back to its accepted boundary (``commit_slots``): the
+recurrent state from per-step copies, the rings by restoring the rejected
+write sites.  Working in place, a draft's proposals also overwrite state,
+so ``snapshot_slots`` / ``restore_slots`` put it back before the draft's
+catch-up.
 """
 from __future__ import annotations
 
@@ -37,6 +41,12 @@ from repro_torch.models.common import (
     gelu,
     init_norm,
     pad_cache_len,
+    paged_spec_ring_restore,
+    paged_spec_ring_sites,
+    spec_commit_gather,
+    spec_ring_restore,
+    spec_ring_sites,
+    spec_verify_scan,
     take_layer,
     trunc_normal,
 )
@@ -370,6 +380,18 @@ def prefill(params, batch, cfg, cache):
     return _forward_cached(params, batch, cfg, cache, 0, at=last)
 
 
+def prefill_cache(params, tokens, cfg, cache, plens=None):
+    """Admission prefill that only fills the cache (no final norm, no
+    head): a speculative draft's admission.  ``plens`` (B,) are the true
+    prompt lengths of a bucket-padded batch, as in ``prefill_full``.
+    Returns the cache, updated in place."""
+    x = _embed(params, tokens, cfg)
+    B, S = x.shape[:2]
+    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    _run_blocks(params, x, cfg, positions, caches=cache, plens=plens)
+    return cache
+
+
 def decode_step(params, tokens, pos, cache, cfg):
     """One decode step, every row at position ``pos``: tokens (B,) int.
     Runs ``rglru_step`` and the plain ``_ring_window_attend`` (no kernel).
@@ -407,10 +429,96 @@ def decode_step_slots(params, tokens, positions, cache, cfg, done=None):
     their ring slots bit for bit; live rows advance the recurrence and
     write their ring slot at ``pos % ring``.  Returns (logits (B, V),
     cache) with the cache updated in place."""
-    x = _embed(params, tokens[:, None], cfg)
-    x = _run_blocks(params, x, cfg, positions[:, None], caches=cache,
-                    slot_positions=positions, slot_done=done)
+    x = _slot_blocks(params, tokens, positions, cache, cfg, done)
     return _head(params, x, cfg)[:, -1], cache
+
+
+def _slot_blocks(params, tokens, positions, cache, cfg, done):
+    x = _embed(params, tokens[:, None], cfg)
+    return _run_blocks(params, x, cfg, positions[:, None], caches=cache,
+                       slot_positions=positions, slot_done=done)
+
+
+def _slot_state_step(params, tokens, positions, cache, cfg, done=None):
+    """``decode_step_slots`` without the head: (None, cache).  A draft's
+    catch-up verify needs only the state; the reference computes the
+    logits and lets XLA drop them."""
+    _slot_blocks(params, tokens, positions, cache, cfg, done)
+    return None, cache
+
+
+# ------------------------------------------------------------ speculation
+def snapshot_slots(cache, positions, n):
+    """What a run of ``n`` slot-decode steps from ``positions`` overwrites:
+    the O(1) recurrent group (copied) and the local-attention ring bytes
+    at the ``n`` sites the run writes, ``(positions + j) % ring``, not the
+    rings.  The speculative draft takes one before it proposes in place
+    and ``restore_slots`` puts it back, so its catch-up verify starts
+    from the committed state; the verify takes one for its commit."""
+    snap = {"rec_old": {k: t.clone() for k, t in cache["rec"].items()}}
+    if "attn" in cache:
+        grp = cache["attn"]
+        sites = paged_spec_ring_sites if "bt" in grp else spec_ring_sites
+        snap["ring_old"] = sites(grp, positions, n)
+    return snap
+
+
+def _restore_rings(cache, snap, positions, n_feed, n):
+    if "attn" in cache:
+        grp = cache["attn"]
+        restore = paged_spec_ring_restore if "bt" in grp \
+            else spec_ring_restore
+        restore(snap["ring_old"], grp, positions, n_feed, n)
+
+
+def restore_slots(cache, snap, positions, n):
+    """Undo a run of ``n`` slot-decode steps from ``positions`` in place:
+    the recurrent group and the ring sites back to ``snap``
+    (``snapshot_slots`` of the same positions and ``n``).  Returns the
+    cache."""
+    for name, t in cache["rec"].items():
+        t.copy_(snap["rec_old"][name])
+    _restore_rings(cache, snap, positions, torch.zeros_like(positions), n)
+    return cache
+
+
+def verify_step_slots(params, tokens, positions, cache, cfg, done=None,
+                      logits=True):
+    """Speculative verify for the recurrent slot layout: the single-token
+    slot decode run over the chunk (``spec_verify_scan``), in place.
+    Only the O(1) recurrent state (rglru h, conv tails) is stacked per
+    chunk position; the O(window) local-attention rings are not -- the
+    pre-chunk bytes of the chunk's ring sites are kept instead, and
+    ``commit_slots`` restores the rejected ones, so verify memory stays
+    O(state + chunk), not O(chunk * window).  Equal to sequential decode
+    by construction: each step runs the (B, 1) arithmetic of the macro
+    decode loop.  ``logits=False`` skips the head (a draft's catch-up)
+    and returns (None, pending)."""
+    pending = snapshot_slots(cache, positions, tokens.shape[1])
+    out, stacked, _ = spec_verify_scan(
+        decode_step_slots if logits else _slot_state_step, params, tokens,
+        positions, cache, cfg, done=done,
+        stack_filter=lambda c: {"rec": c["rec"]})
+    pending["rec"] = stacked["rec"]
+    return out, pending
+
+
+def commit_slots(params, tokens, positions, n_feed, cache, pending, cfg,
+                 done=None):
+    """Commit per leaf kind, in place: recurrent state takes the stacked
+    verify state at ``n_feed - 1`` per row (a recurrence cannot re-store
+    its updates, so it keeps every step); local-attention rings keep the
+    scan's accepted writes and get their pre-chunk bytes back at rejected
+    sites.  Rows with ``n_feed == 0`` or flagged ``done`` keep their
+    pre-chunk state wholesale."""
+    del params, cfg
+    if done is not None:
+        n_feed = torch.where(done, 0, n_feed)
+    rec = spec_commit_gather(pending["rec_old"], pending["rec"], n_feed)
+    for name, t in cache["rec"].items():
+        t.copy_(rec[name])
+    _restore_rings(cache, pending, positions, n_feed, tokens.shape[1])
+    return cache
 
 
 def serve_supported(cfg):

@@ -518,10 +518,12 @@ def decode_step_slots(params, tokens, positions, cache, cfg, done=None):
     return _head(params, x, cfg)[:, -1], cache
 
 
-def prefill_cache(params, tokens, cfg, cache):
+def prefill_cache(params, tokens, cfg, cache, plens=None):
     """Admission prefill that only fills the cache (no final norm, no
     head): a speculative draft's admission, whose logits nobody reads.
-    Returns the cache, updated in place."""
+    ``plens`` is not needed: a full cache hides each row's pad tail behind
+    its length.  Returns the cache, updated in place."""
+    del plens
     _require_ported(cfg)
     batch = {"tokens": tokens}
     x = embed_inputs(params, batch, cfg)

@@ -3,6 +3,11 @@ from repro_torch.serve.engine import (  # noqa: F401
     ContinuousBatchingEngine,
     Request,
 )
+from repro_torch.serve.faults import (  # noqa: F401
+    EngineKilled,
+    Fault,
+    FaultPlan,
+)
 from repro_torch.serve.recovery import (  # noqa: F401
     JournalState,
     RequestJournal,

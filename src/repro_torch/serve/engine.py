@@ -82,22 +82,33 @@ grown model in at a block boundary: the engine quiesces, turns every
 mid-flight sequence into a resume, rebuilds everything derived from the
 model (``_configure``) and re-admits the resumes ahead of the queue.
 Telemetry counts per drain window (``drain()``; ``lifetime_totals()``
-keeps the view since construction).  Deadlines, load shedding, fault
-injection and meshes are not ported yet (the faults slice), nor are a
-windowed transformer's paged rings and the paged arena's
-full-reservation degradation rung.
+keeps the view since construction).
+
+The fault layer: ``deadline`` (an engine-wide TTL in seconds, overridden
+per request by ``Request.deadline``) expires requests at step boundaries
+-- an active one keeps its partial tokens, a queued one gets an empty
+output -- and ``shed_age`` sheds requests queued longer than it (told why
+in ``rejected``, their uids free again).  A slot whose logits go
+non-finite is quarantined; on a paged pool that also degrades the arena:
+the prefix registry is flushed and every later admission reserves its
+full block table.  A ``serve.faults.FaultPlan`` (``faults=``) injects
+NaN, oom, slow, hang, malformed and crash faults at dispatch boundaries.
+Each fault is reported by counters and outcomes, never hidden.  Every
+clock read and sleep goes through ``serve.faults.monotonic`` / ``sleep``.
+Meshes are not ported (the distributed slice), nor a windowed
+transformer's paged rings.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
-import time
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.models import get_family, serve_supported, slot_cache_layout
+from repro_torch.serve import faults as faults_lib
 from repro_torch.serve import paged as paged_lib
 from repro_torch.serve import sampling as sampling_lib
 from repro_torch.serve.speculative import (
@@ -116,8 +127,7 @@ POLICIES = ("fifo", "spf")
 # Telemetry that accumulates per drain window, as in the reference:
 # ``drain()`` folds these into ``engine.lifetime`` and zeroes them, so a
 # long-lived server's rates (acceptance, tok/s, hit rate) describe the
-# current window.  ``n_expired``, ``n_shed``, ``n_faults_injected`` and
-# ``n_degraded_admissions`` count mechanisms of the faults slice and stay 0.
+# current window.
 _WINDOW_COUNTERS = (
     "n_decode_dispatches", "n_decode_steps", "n_prefills", "n_host_syncs",
     "n_tokens", "n_spec_proposed", "n_spec_accepted", "n_admitted",
@@ -143,9 +153,8 @@ class Request:
     generated tokens (the resume contract of the journal and the live
     upgrade): the prompt is the original prompt followed by the committed
     run, and the budget counts the run against ``max_new_tokens``.
-    ``deadline`` (a per-request TTL in seconds) round-trips through the
-    journal; ``submit`` refuses a request that sets it until the faults
-    slice ports deadlines."""
+    ``deadline`` is a per-request TTL in seconds (it overrides the
+    engine's ``deadline``) and round-trips through the journal."""
     uid: int
     prompt: np.ndarray  # (P,) int32 prompt tokens
     max_new_tokens: int = 16
@@ -163,6 +172,7 @@ class _Sequence:
     pos: int  # current length == write position of the next decode step
     tokens: List[int]
     t_first: float = 0.0  # wall time of the first token (orders resumes)
+    t_done: float = 0.0  # wall time of retirement
 
 
 def _device_of(params) -> torch.device:
@@ -186,7 +196,9 @@ class ContinuousBatchingEngine:
     ``SpeculativeConfig`` (draft cfg, draft params, depth d) -- turns on
     speculative decoding.  ``pool`` is ``"dense"`` or ``"paged"``;
     ``pages`` is the paged arena's page budget (default: as many pages as
-    the dense pool holds, ``capacity * nblk``).
+    the dense pool holds, ``capacity * nblk``).  ``deadline`` and
+    ``shed_age`` (seconds) turn on the deadline watchdog and queue-age load
+    shedding; ``faults`` attaches a ``serve.faults.FaultPlan``.
     """
 
     def __init__(self, cfg, params, *, capacity: int = 8,
@@ -200,19 +212,20 @@ class ContinuousBatchingEngine:
         if pool not in ("dense", "paged"):
             raise ValueError(f"unknown pool kind {pool!r} "
                              "(choose 'dense' or 'paged')")
-        unported = {"deadline": deadline is not None,
-                    "shed_age": shed_age is not None,
-                    "faults": faults is not None, "mesh": mesh is not None}
-        asked = [name for name, on in unported.items() if on]
-        if asked:
+        if mesh is not None:
             raise NotImplementedError(
-                f"ContinuousBatchingEngine: {', '.join(asked)} not ported to "
-                "repro_torch yet (see ROADMAP.md)")
+                "ContinuousBatchingEngine: mesh not ported to repro_torch "
+                "yet (sharded serving is the distributed slice, see "
+                "ROADMAP.md)")
         if k < 1:
             raise ValueError(f"macro-step length k must be >= 1 (got {k})")
         if policy not in POLICIES:
             raise ValueError(f"unknown admission policy {policy!r} "
                              f"(choose from {POLICIES})")
+        if deadline is not None and deadline <= 0:
+            raise ValueError(f"deadline must be > 0 (got {deadline})")
+        if shed_age is not None and shed_age <= 0:
+            raise ValueError(f"shed_age must be > 0 (got {shed_age})")
         self.capacity = capacity
         self.max_len = max_len
         self.prefill_bucket = prefill_bucket
@@ -220,8 +233,10 @@ class ContinuousBatchingEngine:
         self.policy = policy
         self.sampling = None if sampling_lib.is_greedy(sampling) \
             else sampling
-        self.deadline = None  # engine-wide TTL: the faults slice
+        self.deadline = deadline  # engine-wide TTL (seconds); None = off
+        self.shed_age = shed_age  # queue-age load-shed threshold
         self.journal = journal  # serve.recovery.RequestJournal or None
+        self.faults = faults  # serve.faults.FaultPlan or None
         self._pool_arg = pool  # requested pool kind (re-applied on a swap)
         self.pages_arg = pages  # requested page budget (snapshot field)
         # host-side request bookkeeping: owned here and never rebuilt by
@@ -230,10 +245,16 @@ class ContinuousBatchingEngine:
         self.waiting: collections.deque[Request] = collections.deque()
         self.active: Dict[int, _Sequence] = {}
         self.finished: Dict[int, np.ndarray] = {}
+        self.retired: List[_Sequence] = []  # kept for latency accounting
         self.rejected: Dict[int, str] = {}  # uid -> why submit refused it
-        # uid -> terminal outcome: finished / quarantined / rejected
+        # uid -> terminal outcome: finished / expired / quarantined / shed /
+        # rejected (only "finished" rows are complete outputs)
         self.outcomes: Dict[int, str] = {}
         self._seen_uids: set = set()
+        self._t_submit: Dict[int, float] = {}  # uid -> submit time
+        self._any_deadline = deadline is not None  # no watchdog work if off
+        self._fault_step = 0  # dispatches seen (the FaultPlan's clock)
+        self._oom_waves = 0  # admission waves stalled by an oom fault
         self._evict_pending: List[int] = []
         # (host block, host valid, host poison, ready event, [(slot, uid)])
         # of dispatched-but-unread macro steps
@@ -254,6 +275,10 @@ class ContinuousBatchingEngine:
         self.n_tokens = 0  # generated tokens (incl. prefill first tokens)
         self.n_admitted = 0  # requests that got a slot (and their pages)
         self.n_quarantined = 0  # NaN/Inf-poisoned slots evicted
+        self.n_expired = 0  # deadline-evicted requests (active or queued)
+        self.n_shed = 0  # queued requests dropped by queue-age shedding
+        self.n_faults_injected = 0  # FaultPlan records that fired
+        self.n_degraded_admissions = 0  # full-reservation paged admissions
         self.n_spec_proposed = 0  # draft tokens offered to the target
         self.n_spec_accepted = 0  # draft tokens the target kept
         self.n_spec_fallbacks = 0  # draft faults that tripped plain decode
@@ -263,11 +288,6 @@ class ContinuousBatchingEngine:
         self.n_prefix_stalls = 0  # hits deferred on tail-page backpressure
         self.n_pages_allocated = 0  # fresh pages handed out
         self.n_prefix_tail_steps = 0  # masked decode steps of hit waves
-        # counters of the faults slice's mechanisms: present, always 0
-        self.n_expired = 0
-        self.n_shed = 0
-        self.n_faults_injected = 0
-        self.n_degraded_admissions = 0
         self.n_held_for_upgrade = 0  # submits held across a swap window
         # drained windows: drain() adds the window counters here
         self.lifetime: Dict[str, int] = {c: 0 for c in _WINDOW_COUNTERS}
@@ -318,6 +338,7 @@ class ContinuousBatchingEngine:
         self.device = _device_of(params)
         self.speculative = speculative
         self._spec_fallback = False  # draft faulted: plain macro decode
+        self._arena_degraded = False  # paged arena faulted: no sharing
         dev = self.device
         self._build_pools(self._pool_arg, self.pages_arg)
         # persistent device-resident decode state: (tokens, positions,
@@ -470,9 +491,8 @@ class ContinuousBatchingEngine:
                 0 <= req.eos_id < self.cfg.vocab_size):
             return (f"eos_id {req.eos_id} outside the vocabulary "
                     f"[0, {self.cfg.vocab_size})")
-        if req.deadline is not None:
-            return ("per-request deadlines are not ported to repro_torch "
-                    "yet (the faults slice, see ROADMAP.md)")
+        if req.deadline is not None and req.deadline <= 0:
+            return f"deadline must be > 0 (got {req.deadline})"
         toks = np.asarray(req.prompt)
         if int(toks.min()) < 0 or int(toks.max()) >= self.cfg.vocab_size:
             return (f"prompt tokens outside the vocabulary "
@@ -503,6 +523,7 @@ class ContinuousBatchingEngine:
             # rebuilt: hold the request and submit it once the swap lands
             self._held_for_upgrade.append(req)
             self.n_held_for_upgrade += 1
+            self._t_submit.setdefault(req.uid, faults_lib.monotonic())
             return
         self._submit_checked(req)
 
@@ -511,9 +532,15 @@ class ContinuousBatchingEngine:
         gates; also the release path of held submissions)."""
         why = self._invalid_reason(req)
         if why is not None:
+            self._t_submit.pop(req.uid, None)
             self._reject(req.uid, f"request {req.uid}: {why}")
             return
         self._seen_uids.add(req.uid)
+        # setdefault: a request held across a swap keeps its submit time,
+        # so deadlines and shedding count the held window too
+        self._t_submit.setdefault(req.uid, faults_lib.monotonic())
+        if req.deadline is not None:
+            self._any_deadline = True
         if self.journal is not None:
             self.journal.record_submit(req)
         self.waiting.append(req)
@@ -564,7 +591,7 @@ class ContinuousBatchingEngine:
         alloc = self._alloc
         ns_all = tuple(self._ns_of.values())
         info = {"hit": False, "share": 0, "digests": None, "pids": None}
-        if self._prefix_ok:
+        if self._prefix_ok and not self._arena_degraded:
             meta = self._metas[0]
             digests = paged_lib.prefix_digests(req.prompt, meta.page)
             info["digests"] = digests
@@ -591,13 +618,20 @@ class ContinuousBatchingEngine:
                 return info
             if share > 0:
                 self.n_prefix_misses += 1
-        need = max(paged_lib.pages_needed(P, n_new, m)
-                   for m in self._metas if m is not None)
+        paged_metas = [m for m in self._metas if m is not None]
+        # degradation ladder: once the arena has held a poisoned slot,
+        # sharing is off and every admission reserves its FULL block table
+        # (dense-pool semantics on paged storage)
+        need = max(m.nblk for m in paged_metas) if self._arena_degraded \
+            else max(paged_lib.pages_needed(P, n_new, m)
+                     for m in paged_metas)
         pids = alloc.alloc(need, ns=ns_all)
         if pids is None:
             return None
         info["pids"] = pids
         self.n_pages_allocated += len(pids)
+        if self._arena_degraded:
+            self.n_degraded_admissions += 1
         return info
 
     def _admit_batch(self, now: Optional[float]):
@@ -607,7 +641,12 @@ class ContinuousBatchingEngine:
         (all-or-nothing per request: the first request that cannot get its
         pages returns itself and everything grabbed after it to the FRONT
         of the queue, in order) and sends prefix hits to the no-prefill
-        path, one host sync for all of them."""
+        path, one host sync for all of them.  An injected ``oom`` stalls
+        whole waves: nothing is admitted and the requests stay queued."""
+        if self._oom_waves > 0:
+            if self.waiting:
+                self._oom_waves -= 1
+            return
         grabbed = self._select_admissions(now)
         if not grabbed:
             return
@@ -747,7 +786,7 @@ class ContinuousBatchingEngine:
         self.n_prefills += 1
         first_host = first_n.cpu().numpy()
         self.n_host_syncs += 1
-        t = time.monotonic()
+        t = faults_lib.monotonic()
         for j, (r, a) in enumerate(group):
             seq = self._admitted(r, int(slots[j]), int(first_host[j]), t)
             if a is not None and a["digests"]:
@@ -861,7 +900,7 @@ class ContinuousBatchingEngine:
                         None if chain is None else chain[idx])
         first_host = first_n.cpu().numpy()
         self.n_host_syncs += 1
-        t = time.monotonic()
+        t = faults_lib.monotonic()
         for j, (r, _) in enumerate(pairs):
             seq = self._admitted(r, int(slots[j]), int(first_host[j]), t)
             self._finish_if_done(seq, seq.tokens[-1])
@@ -878,10 +917,16 @@ class ContinuousBatchingEngine:
             self._retire(seq, "finished")
 
     def _retire(self, seq: _Sequence, outcome: str):
+        """Retire a sequence with a terminal ``outcome``: normal completion
+        and forced eviction (expiry, quarantine) alike.  Partial tokens are
+        still delivered: a request the watchdog killed keeps everything it
+        committed."""
+        seq.t_done = faults_lib.monotonic()
         self.finished[seq.req.uid] = np.asarray(seq.tokens, np.int32)
         self.outcomes[seq.req.uid] = outcome
         if self.journal is not None:
             self.journal.record_finish(seq.req.uid, outcome)
+        self.retired.append(seq)
         del self.active[seq.slot]
         # the slot re-enters ``free`` only once its eviction is applied
         # (_flush_evictions), so a same-wave admission cannot be wiped by
@@ -931,15 +976,72 @@ class ContinuousBatchingEngine:
         self._evict_pending.clear()
 
     def _quarantine(self, seq: _Sequence):
-        """Evict a slot whose logits went non-finite.  On a paged pool its
-        pages may have fed resident prefixes, so the registry is flushed
-        and prefix sharing stops (the reference's further rung, full
-        reservation for every later admission, is not ported)."""
+        """Evict a slot whose logits went non-finite.  The device row froze
+        itself at the bad step (the in-loop sentinel folds into the done
+        mask, committing nothing from it), so this is a forced retirement
+        -- plus arena degradation: a paged pool can no longer trust its
+        resident prefix pages, so the registry is flushed and admissions
+        fall back to full reservation."""
         self.n_quarantined += 1
         self._retire(seq, "quarantined")
-        if self._alloc is not None and self._prefix_ok:
+        if self._alloc is not None and not self._arena_degraded:
+            self._arena_degraded = True
             self._zero_pending.extend(self._alloc.flush_registry())
             self._prefix_ok = False
+
+    def _deadline_of(self, req: Request) -> Optional[float]:
+        return req.deadline if req.deadline is not None else self.deadline
+
+    def _age(self, req: Request, now: Optional[float]) -> float:
+        """Seconds since the request entered the system: the trace clock
+        when arrivals are replayed, the engine's clock since ``submit``
+        otherwise."""
+        if now is not None:
+            return now - req.arrival
+        t = faults_lib.monotonic()
+        return t - self._t_submit.get(req.uid, t)
+
+    def _expire(self, now: Optional[float]):
+        """Deadline watchdog and queue-age load shedding.  Nothing to do
+        (one check) unless a TTL or a shed threshold is configured."""
+        if not self._any_deadline and self.shed_age is None:
+            return
+        for seq in list(self.active.values()):
+            ddl = self._deadline_of(seq.req)
+            if ddl is not None and self._age(seq.req, now) > ddl:
+                self.n_expired += 1
+                self._retire(seq, "expired")
+        if not self.waiting:
+            return
+        keep = collections.deque()
+        for r in self.waiting:
+            age = self._age(r, now)
+            ddl = self._deadline_of(r)
+            if ddl is not None and age > ddl:
+                # expired before it got a slot: an empty output, the same
+                # outcome as an active expiry
+                self.n_expired += 1
+                self.finished[r.uid] = np.zeros((0,), np.int32)
+                self.outcomes[r.uid] = "expired"
+                if self.journal is not None:
+                    self.journal.record_finish(r.uid, "expired")
+            elif self.shed_age is not None and age > self.shed_age:
+                # sustained backpressure: drop the oldest queued work with
+                # an explicit outcome instead of serving everyone late; the
+                # uid may be resubmitted, and its age then starts again
+                # (the reference keeps the old submit time and sheds the
+                # retry at once)
+                self.n_shed += 1
+                self.outcomes[r.uid] = "shed"
+                self.rejected[r.uid] = (
+                    f"shed after {age:.3f}s queued (> {self.shed_age})")
+                self._seen_uids.discard(r.uid)
+                self._t_submit.pop(r.uid, None)
+                if self.journal is not None:
+                    self.journal.record_finish(r.uid, "shed")
+            else:
+                keep.append(r)
+        self.waiting = keep
 
     # ----------------------------------------------------------- live upgrade
     def _apply_upgrade(self, mgr) -> None:
@@ -957,7 +1059,7 @@ class ContinuousBatchingEngine:
         original request needed, so it is admissible by construction.
         The manager prewarmed the grown model's path, so the pause holds
         no first use of a kernel or a library."""
-        t0 = time.perf_counter()
+        t0 = faults_lib.monotonic()
         self.upgrade_state = "relayout"
         while self._inflight:
             self._process(self._inflight.popleft())
@@ -1016,7 +1118,7 @@ class ContinuousBatchingEngine:
             for r in resumes:
                 self.journal.record_submit(r)
             self.journal.flush()
-        pause_ms = (time.perf_counter() - t0) * 1e3
+        pause_ms = (faults_lib.monotonic() - t0) * 1e3
         self.last_upgrade_pause_ms = pause_ms
         # the reference's bill: each resume's pages at its full budget past
         # its prompt (the admission reserves max_new - n_committed)
@@ -1030,10 +1132,55 @@ class ContinuousBatchingEngine:
         mgr._swapped(self, pause_ms, resumes, pages_resident=pages_at_swap,
                      pages_reprefilled=pages_reprefill)
 
+    # ---------------------------------------------------------------- faults
+    def _inject(self, f):
+        """Fire one FaultPlan record (from ``_dispatch``, only when a plan
+        is attached)."""
+        self.n_faults_injected += 1
+        if f.kind == "crash":
+            # kill -9 at a step boundary: journaled state survives, unread
+            # in-flight blocks do not
+            if self.journal is not None:
+                self.journal.flush()
+            raise faults_lib.EngineKilled(
+                f"injected crash at engine step {self._fault_step}")
+        if f.kind in ("slow", "hang"):
+            faults_lib.sleep(f.duration)
+            return
+        if f.kind == "oom":
+            self._oom_waves += max(int(f.duration), 1)
+            return
+        if f.kind == "malformed":
+            # a hostile request arriving mid-trace; the rejection path must
+            # absorb it without disturbing in-flight work
+            self.submit(Request(uid=-(1000 + self._fault_step),
+                                prompt=np.zeros((0,), np.int32),
+                                max_new_tokens=1))
+            return
+        # kind == "nan": corrupt a live slot's cache bytes on the device;
+        # the NaN flows through real attention into real logits, where the
+        # in-loop sentinel must catch it
+        slot = f.slot if f.slot in self.active else (
+            min(self.active) if self.active else None)
+        if slot is None or f.pool >= len(self._pools):
+            return
+        # a paged pool poisons the slot's first page (attention reads it
+        # every step); the shared id space makes it a page of every paged
+        # pool.  A dense pool poisons the slot's rows
+        pid = self._slot_pages[slot][0] \
+            if self._metas[f.pool] is not None else 0
+        faults_lib.poison_pool(self._pools[f.pool], slot, pid)
+
     # ------------------------------------------------------------- step loop
     def _dispatch(self):
         """Enqueue one macro step (K decode steps, or K whole speculative
-        draft→verify→commit blocks) and its readback, with no host sync."""
+        draft→verify→commit blocks) and its readback, with no host sync.
+        An attached FaultPlan fires the faults due at this dispatch
+        first."""
+        if self.faults is not None:
+            self._fault_step += 1
+            for f in self.faults.due(self._fault_step):
+                self._inject(f)
         tokens, positions, remaining, eos_ids, done = self._state
         chains = () if self._keys is None else (self._keys,)
         if self.speculative is not None and not self._spec_fallback:
@@ -1111,11 +1258,12 @@ class ContinuousBatchingEngine:
             self.journal.flush()  # rides the block readback just paid
 
     def step(self, now: Optional[float] = None):
-        """One synchronous engine iteration: poll a live upgrade, evict,
-        admit arrived requests into free slots, run one macro step, and
-        read it back."""
+        """One synchronous engine iteration: poll a live upgrade, expire,
+        evict, admit arrived requests into free slots, run one macro step,
+        and read it back."""
         if self.upgrade is not None:
             self.upgrade.poll(self)
+        self._expire(now)
         self._flush_evictions()
         self._admit_batch(now)
         if self.active:
@@ -1123,26 +1271,58 @@ class ContinuousBatchingEngine:
         while self._inflight:
             self._process(self._inflight.popleft())
 
-    def run(self, requests=None):
-        """Serve until every submitted request finishes, double-buffering
-        readback: block N+1 is enqueued before the host waits on block N,
-        so admissions chain onto the latest enqueued state (a queued
-        request waits at most one extra block).  Returns {uid: generated
-        tokens} for the requests that finished during THIS call."""
+    def run(self, requests=None, *, realtime: bool = False,
+            pipeline: bool = True):
+        """Serve until every submitted request finishes.
+
+        ``realtime=True`` replays ``Request.arrival`` offsets against the
+        engine's clock (benchmark traces): a request is admitted once its
+        arrival has passed, and an idle engine sleeps to the next arrival.
+        Otherwise arrivals are ignored and admission is slot-limited.
+
+        ``pipeline=True`` double-buffers readback: block N+1 is enqueued
+        before the host waits on block N, so admissions chain onto the
+        latest enqueued state (a queued request waits at most one extra
+        block).  ``pipeline=False`` runs ``step`` after ``step``, one sync
+        a block.  Returns {uid: generated tokens} for the requests that
+        finished during THIS call."""
         already = set(self.finished)
         for r in requests or ():
             self.submit(r)
-        while self.waiting or self.active or self._inflight:
-            if self.upgrade is not None:
-                self.upgrade.poll(self)
-            self._flush_evictions()
-            self._admit_batch(None)
-            if self.active:
-                self._dispatch()
-            # wait on the OLDEST block only once a newer one is enqueued
-            # (or nothing is left to dispatch)
-            if len(self._inflight) >= (2 if self.active else 1):
-                self._process(self._inflight.popleft())
+        t0 = faults_lib.monotonic()
+
+        def wall_now():
+            return faults_lib.monotonic() - t0 if realtime else None
+
+        if not pipeline:
+            while self.waiting or self.active or self._inflight:
+                now = wall_now()
+                if realtime and not self.active and self.waiting:
+                    nxt = min(r.arrival for r in self.waiting)
+                    if nxt > now:
+                        faults_lib.sleep(nxt - now)
+                        now = wall_now()
+                self.step(now=now)
+        else:
+            while self.waiting or self.active or self._inflight:
+                now = wall_now()
+                if (realtime and not self.active and not self._inflight
+                        and self.waiting):
+                    nxt = min(r.arrival for r in self.waiting)
+                    if nxt > now:
+                        faults_lib.sleep(nxt - now)
+                        now = wall_now()
+                if self.upgrade is not None:
+                    self.upgrade.poll(self)
+                self._expire(now)
+                self._flush_evictions()
+                self._admit_batch(now)
+                if self.active:
+                    self._dispatch()
+                # wait on the OLDEST block only once a newer one is
+                # enqueued (or nothing is left to dispatch)
+                if len(self._inflight) >= (2 if self.active else 1):
+                    self._process(self._inflight.popleft())
         self._flush_evictions()
         return {uid: toks for uid, toks in self.finished.items()
                 if uid not in already}
@@ -1152,17 +1332,21 @@ class ContinuousBatchingEngine:
         telemetry window.
 
         A long-lived server calls this periodically: ``finished``,
-        ``rejected``, ``outcomes`` and the uid set otherwise grow with
-        every request ever served, and the window counters would turn
+        ``retired``, ``rejected``, ``outcomes`` and the uid set otherwise
+        grow with every request ever served, and the window counters would
+        turn
         every derived rate into an average since construction.  The
         counters are added to ``self.lifetime`` and reset to zero
         (``lifetime_totals()`` keeps the whole view); drained uids become
         submittable again."""
         out = self.finished
         self.finished = {}
+        self.retired = []
         self.rejected = {}
         self.outcomes = {}
         self._seen_uids.difference_update(out)
+        for uid in out:
+            self._t_submit.pop(uid, None)
         for c in _WINDOW_COUNTERS:
             self.lifetime[c] += getattr(self, c)
             setattr(self, c, 0)

@@ -32,9 +32,11 @@ the pool; a copy of gpt-small's pool at capacity 8 and max_len 1024 is
 ``[pos, pos + n_feed)``, and the scratch K/V beyond it is never read: on
 the full layout every read stops at ``kv_len = position + 1`` and the next
 block's proposal j writes position ``pos + j`` before any step reads it.
-That holds for the full layout only; a ring-buffer window layout would
-overwrite committed ring sites, so the ring slice must restore them (the
-reference's ``spec_ring_restore``) or propose on a copy.
+That holds for the full layout only.  A recurrent draft's proposals
+advance its state irreversibly and a ring draft's overwrite committed ring
+sites, so such a family (griffin) exposes ``snapshot_slots`` /
+``restore_slots``: the block keeps the draft's O(1) recurrent state and the
+d ring sites the proposals write, and puts them back before the catch-up.
 
 ``make_speculative_loop(cfg_t, cfg_d, d, k)`` runs ``k`` whole
 draft→verify→commit blocks per dispatch as a Python loop that never reads
@@ -112,8 +114,10 @@ def make_draft_prefill(cfg_d):
     fam = get_family(cfg_d)
 
     def prefill_fn(params_d, tokens, plens, cache):
-        del plens  # full caches hide the pad tail behind each row's length
-        return fam.prefill_cache(params_d, tokens, cfg_d, cache)
+        # a recurrent state and a ring need each row's true length; a
+        # full cache hides the pad tail behind it
+        return fam.prefill_cache(params_d, tokens, cfg_d, cache,
+                                 plens=plens)
 
     return prefill_fn
 
@@ -156,6 +160,9 @@ def make_speculative_loop(cfg_t, cfg_d, d: int, k: int, sampling=None):
     target's distribution.
     """
     fam_t, fam_d = get_family(cfg_t), get_family(cfg_d)
+    # families whose proposals overwrite committed state (griffin's
+    # recurrence and rings); a full-KV draft has no such hook
+    snapshot = getattr(fam_d, "snapshot_slots", None)
     greedy = sampling_lib.is_greedy(sampling)
     S = d + 1
 
@@ -198,7 +205,10 @@ def make_speculative_loop(cfg_t, cfg_d, d: int, k: int, sampling=None):
             keys = torch.where(live0[:, None], advanced, keys)
         # draft proposals, written into the draft pool in place (module
         # docstring); done rows keep their token.  Sampled, draw j uses
-        # fold_in(kblock, j) and keeps its distribution q_j
+        # fold_in(kblock, j) and keeps its distribution q_j.  A draft with
+        # recurrent state or rings first keeps what the proposals
+        # overwrite, and gets it back before its catch-up
+        snap = None if snapshot is None else snapshot(pool_d, positions, d)
         tok, dbad, drafts, qs = tokens, torch.zeros_like(done), [], []
         for j in range(d):
             logits, pool_d = fam_d.decode_step_slots(
@@ -212,6 +222,8 @@ def make_speculative_loop(cfg_t, cfg_d, d: int, k: int, sampling=None):
                     qs[-1], sampling_lib.fold_in(kblock, j))
             tok = torch.where(done, tok, nxt)
             drafts.append(tok)
+        if snap is not None:
+            pool_d = fam_d.restore_slots(pool_d, snap, positions, d)
         chunk = torch.stack([tokens, *drafts], 1)  # (B, S)
         logits_t, pend_t = fam_t.verify_step_slots(
             params_t, chunk, positions, pool_t, cfg_t, done=done)

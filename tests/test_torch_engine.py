@@ -141,14 +141,21 @@ def test_rejections_are_recorded_and_serving_continues(gpt):
 
 
 @pytest.mark.parametrize("kw", [
-    # the paged pool, sampling, sampled speculation and the journal are
-    # ported; deadlines, load shedding, faults and meshes are not
-    dict(shed_age=1.0),
-    dict(deadline=1.0), dict(faults=object()),
+    # every engine mode but the mesh is ported: deadlines and load
+    # shedding refuse what the reference refuses (tests/test_torch_faults.py
+    # holds them to it), and a mesh still raises naming its slice
+    dict(shed_age=0.0),
+    dict(deadline=0.0), dict(deadline=-1.0),
     dict(mesh="1x1")])
 def test_unported_engine_modes_raise(gpt, kw):
     _, tcfg, _, tp = gpt
-    with pytest.raises(NotImplementedError, match="not ported"):
+    if "mesh" in kw:
+        with pytest.raises(NotImplementedError,
+                           match="not ported.*distributed slice"):
+            ContinuousBatchingEngine(tcfg, tp, max_len=MAX_LEN, **kw)
+        return
+    name = next(iter(kw))
+    with pytest.raises(ValueError, match=f"{name} must be > 0"):
         ContinuousBatchingEngine(tcfg, tp, max_len=MAX_LEN, **kw)
 
 

@@ -10,6 +10,7 @@ GPU machine without JAX:
 Without a card every test skips (decided in the ``cuda_device`` fixture,
 never at import or collection).
 """
+import dataclasses
 import warnings
 
 import numpy as np
@@ -1773,3 +1774,194 @@ def test_cuda_sampled_crash_resume_matches_uninterrupted(cuda_device,
             probs > 0, torch.log(probs.clamp_min(1e-38)), sampling.NEG_INF)
         top = scores.float().topk(2, dim=-1).values[0]
         assert float(top[0] - top[1]) < 1e-4, (r.uid, t)
+
+
+# ------------------------------------------ griffin speculation, the faults
+@pytest.mark.parametrize("pool", ["dense", "paged"])
+def test_cuda_griffin_spec_engine_matches_generate_with_exact_launches(
+        cuda_device, pool):
+    """Griffin drafting for griffin on the card (rings wrapping, window 16;
+    the paged pool under page pressure): tokens equal ``generate``; every
+    block runs the ring kernel (paged ring on a paged pool) once per
+    attention layer for each of the draft's d proposals, the target's S
+    verify steps and the draft's S catch-up steps, and admission the scan
+    once per recurrent layer of each model.  The model drafting for
+    itself accepts every proposal; a nudged copy of it, some."""
+    cfg, params = _griffin_hd64(cuda_device)
+    n_rec = griffin.block_pattern(cfg).count("rec")
+    n_attn = cfg.n_layers - n_rec
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+
+    def nudge(t):
+        if isinstance(t, dict):
+            return {k: nudge(v) for k, v in t.items()}
+        return t + 2e-3 * torch.randn(t.shape, generator=gen,
+                                      device=cuda_device)
+    d, k = 3, 2
+    reqs = [Request(uid=i, prompt=lm_batch(cfg.vocab_size, 1, p,
+                                           seed=90 + i)[0], max_new_tokens=g)
+            for i, (p, g) in enumerate([(4, 20), (21, 12), (9, 16),
+                                        (30, 9)])]
+    want = {r.uid: generate(cfg, params, torch.from_numpy(r.prompt)[None].to(
+        cuda_device), max_new_tokens=r.max_new_tokens,
+        max_len=64)[0].cpu().numpy() for r in reqs}
+    ring = "paged_ring_decode_attention" if pool == "paged" else \
+        "ring_decode_attention"
+    kern = ops.kernels()
+    for draft in (params, nudge(params)):
+        for fn in kern.values():
+            fn.launches = 0
+        eng = ContinuousBatchingEngine(
+            cfg, params, capacity=2, max_len=64, k=k, pool=pool,
+            pages=3 if pool == "paged" else None,
+            speculative=SpeculativeConfig(cfg, draft, d=d))
+        got = eng.run(reqs)
+        torch.cuda.synchronize()
+        expect = {name: 0 for name in kern}
+        expect.update({ring: n_attn * (3 * d + 2) * k
+                       * eng.n_decode_dispatches,
+                       "rglru_scan": n_rec * eng.n_prefills})
+        assert {name: fn.launches for name, fn in kern.items()} == expect
+        for r in reqs:
+            np.testing.assert_array_equal(got[r.uid], want[r.uid])
+        assert eng.n_spec_proposed > 0 and eng.n_spec_fallbacks == 0
+        if draft is params:
+            assert eng.acceptance_rate == 1.0
+        if pool == "paged":
+            assert eng.pages_in_use == 0 and eng.pages_highwater <= 3
+
+
+def test_cuda_poison_pool_on_a_cuda_arena(cuda_device):
+    """``poison_pool`` on the card: NaN in page ``pid`` of every layer's k
+    and v of a paged group, in the slot's rows of a dense float group;
+    block tables and every other byte untouched, in place."""
+    from repro_torch.serve import faults as faults_lib
+
+    cfg, params = _griffin_hd64(cuda_device)
+    eng = ContinuousBatchingEngine(cfg, params, capacity=3, max_len=64,
+                                   pool="paged", pages=5)
+    pool = eng.pool
+    for grp in pool.values():
+        for name, t in grp.items():
+            if t.is_floating_point():
+                t.uniform_()
+    before = {g: {n: t.clone() for n, t in grp.items()}
+              for g, grp in pool.items()}
+    assert faults_lib.poison_pool(pool, 1, 2) is pool
+    torch.cuda.synchronize()
+    for g, grp in pool.items():
+        for name, t in grp.items():
+            nan = torch.isnan(t)
+            if name == "bt":
+                assert torch.equal(t, before[g][name])
+                continue
+            hit = torch.zeros_like(nan)
+            if "bt" in grp:
+                hit[:, 2] = True
+            else:
+                hit[:, 1] = True
+            assert torch.equal(nan, hit), (g, name)
+            assert torch.equal(t[~hit], before[g][name][~hit])
+
+
+FAULT_SPECS = [(6, 12), (9, 10), (4, 14), (12, 8), (7, 9)]
+
+
+@pytest.mark.parametrize("plan,pool", [
+    ("nan@2", "dense"), ("nan@2", "paged"), ("oom@1:2", "dense"),
+    ("slow@2:0.01", "dense"), ("malformed@2", "dense"),
+    ("nan@2:0", "spec")])
+def test_cuda_fault_kinds_leave_survivors_exact(cuda_device, plan, pool):
+    """Each fault kind on the card, against the fault-free run: a NaN
+    quarantines exactly one request, whose tokens are a prefix of its
+    fault-free tokens (a paged pool then degrades to full reservation); a
+    draft-pool NaN demotes speculation without changing a token; oom,
+    slow and malformed cost no token; no page is left in use."""
+    from repro_torch.serve import FaultPlan
+
+    cfg = _gqa_hd64_cfg()
+    params = build_params(cfg, seed=0, device=cuda_device)
+    reqs = [Request(uid=i, prompt=lm_batch(cfg.vocab_size, 1, p,
+                                           seed=40 + i)[0], max_new_tokens=g)
+            for i, (p, g) in enumerate(FAULT_SPECS)]
+    kw = dict(capacity=2, max_len=64, k=2,
+              pool="paged" if pool == "paged" else "dense")
+    if pool == "spec":
+        plan = "nan@2:0"
+        kw["speculative"] = SpeculativeConfig(cfg, params, d=2)
+    plain = ContinuousBatchingEngine(cfg, params, **kw).run(reqs)
+    faults = FaultPlan.parse(plan)
+    if pool == "spec":
+        faults = FaultPlan([dataclasses.replace(faults.faults[0], pool=1)])
+    eng = ContinuousBatchingEngine(cfg, params, faults=faults, **kw)
+    got = eng.run(reqs)
+    assert eng.n_faults_injected == 1
+    bad = [u for u, o in eng.outcomes.items() if o != "finished"]
+    if plan.startswith("nan") and pool != "spec":
+        assert eng.n_quarantined == 1 and len(bad) == 1
+        n = len(got[bad[0]])
+        assert n < len(plain[bad[0]])
+        np.testing.assert_array_equal(got[bad[0]], plain[bad[0]][:n])
+    elif plan.startswith("malformed"):
+        assert bad == [-1002] and "empty prompt" in eng.rejected[-1002]
+        bad = []
+    else:
+        assert not bad and eng.n_quarantined == 0
+    if pool == "spec":
+        assert eng.n_spec_fallbacks == 1
+    if pool == "paged":
+        assert eng._arena_degraded and eng.n_degraded_admissions > 0
+        assert eng.pages_in_use == 0
+    for r in reqs:
+        if r.uid not in bad:
+            np.testing.assert_array_equal(got[r.uid], plain[r.uid])
+
+
+def test_cuda_hang_past_a_deadline_and_crash_resume(cuda_device, tmp_path,
+                                                    monkeypatch):
+    """On a fake clock (a hang advances it): a hang past the engine's
+    deadline expires every request at the next boundary; a plan crash at
+    dispatch 3 with a journal resumes to the uninterrupted tokens."""
+    from repro_torch.serve import (
+        EngineKilled,
+        Fault,
+        FaultPlan,
+        RequestJournal,
+        read_journal,
+        recovery_requests,
+    )
+    from repro_torch.serve import faults as faults_lib
+
+    now = [0.0]
+    monkeypatch.setattr(faults_lib, "_monotonic", lambda: now[0])
+    monkeypatch.setattr(faults_lib, "_sleep",
+                        lambda s: now.__setitem__(0, now[0] + s))
+    cfg = _gqa_hd64_cfg()
+    params = build_params(cfg, seed=0, device=cuda_device)
+
+    def reqs():
+        return [Request(uid=i, prompt=lm_batch(cfg.vocab_size, 1, p,
+                                               seed=40 + i)[0],
+                        max_new_tokens=g)
+                for i, (p, g) in enumerate(FAULT_SPECS)]
+    kw = dict(capacity=2, max_len=64, k=2)
+    eng = ContinuousBatchingEngine(cfg, params, deadline=0.5, faults=FaultPlan(
+        [Fault("hang", 2, duration=1.0)]), **kw)
+    got = eng.run(reqs())
+    assert eng.n_expired == len(FAULT_SPECS) == len(got)
+    assert set(eng.outcomes.values()) == {"expired"}
+    assert eng.n_decode_dispatches == 2
+    want = ContinuousBatchingEngine(cfg, params, **kw).run(reqs())
+    path = str(tmp_path / "j.jsonl")
+    j = RequestJournal(path)
+    eng = ContinuousBatchingEngine(cfg, params, journal=j, faults=FaultPlan(
+        [Fault("crash", 3)]), **kw)
+    with pytest.raises(EngineKilled):
+        eng.run(reqs())
+    j.close()
+    resumed, done = recovery_requests(read_journal(path))
+    assert any(r.n_committed for r in resumed)
+    got = {**done, **ContinuousBatchingEngine(cfg, params, **kw).run(
+        resumed)}
+    for uid in want:
+        np.testing.assert_array_equal(got[uid], want[uid])

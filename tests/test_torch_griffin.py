@@ -27,6 +27,7 @@ from repro.models import attention as jattn
 from repro.models import get_family as jax_family
 from repro.models import griffin as jgriffin
 from repro.models import rope as jrope
+from repro.models import spec_decode_supported as jax_spec_supported
 from repro.serve import ContinuousBatchingEngine as JaxEngine
 from repro.serve import Request as JaxRequest
 from repro_torch.configs import get_config
@@ -119,8 +120,10 @@ def test_family_protocol_and_probes():
     assert serve_supported(cfg) == (True, jgriffin.serve_supported(
         jax_get_config("griffin-micro"))[1])
     assert paged_groups(cfg) == {"attn": ("seq", ("k", "v"))}
-    ok, why = spec_decode_supported(cfg)
-    assert not ok and "chunk-verify" in why
+    # the chunk-verify hooks are ported: griffin speculates, as in JAX
+    assert spec_decode_supported(cfg) == jax_spec_supported(
+        jax_get_config("griffin-micro"))
+    assert spec_decode_supported(cfg)[0]
     rec_only = cfg.replace(block_pattern=("rec", "rec"), n_layers=2)
     assert paged_groups(rec_only) == {}
     assert griffin.slot_cache_layout(rec_only) == "recurrent"

@@ -50,7 +50,8 @@ def test_port_tree_is_what_the_rule_walks():
     assert len(PORT_FILES) > 15
     for module in ("serve/engine.py", "serve/speculative.py",
                    "serve/paged.py", "serve/sampling.py", "serve/recovery.py",
-                   "serve/upgrade.py", "kernels/decode_attention.py",
+                   "serve/faults.py", "serve/upgrade.py",
+                   "kernels/decode_attention.py",
                    "kernels/ops.py", "kernels/ref.py", "kernels/rglru_scan.py",
                    "kernels/build.py", "models/attention.py",
                    "models/transformer.py", "models/griffin.py",
@@ -93,13 +94,16 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(no_cuda, capsys):
 
 
 @pytest.mark.parametrize("argv,flag", [
-    (["--faults", "plan.json"], "--faults"), (["--mesh", "1x2"], "--mesh"),
-    (["--deadline", "1.5"], "--deadline"), (["--kernel=auto"], "--kernel"),
+    (["--mesh", "1x2"], "--mesh"), (["--mesh=2x1"], "--mesh"),
+    (["--kernel", "pallas"], "--kernel"), (["--kernel=auto"], "--kernel"),
 ])
 def test_unported_flags_exit_with_a_named_error(argv, flag):
+    """Only the mesh and the kernel switch still refuse (``--deadline``
+    and ``--faults`` run: ``tests/test_torch_faults.py``)."""
     with pytest.raises(SystemExit, match=f"error: {flag} .*not ported"):
         launch_serve.main(["--arch", "gpt-micro", "--engine", "continuous",
                            "--device", "cpu", *argv])
+    assert set(launch_serve.UNPORTED_FLAGS) == {"--mesh", "--kernel"}
 
 
 SERVE_CPU = ["--arch", "gpt-micro", "--engine", "continuous", "--batch",

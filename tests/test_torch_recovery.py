@@ -4,11 +4,11 @@ against the JAX package's (CPU, converted weights).
 
 The journal is JAX's format byte for byte: each package writes the same
 file for the same records and reads the other's to equal states (torn
-tail and repeated crashes included).  A crash is JAX's ``FaultPlan`` crash
-at dispatch N, or in the port (which has no fault module yet) N calls of
-``step()`` and the engine dropped: the journal is flushed and no block is
-left unread, as at JAX's crash.  Either package resumes the other's
-journal to the uninterrupted run's tokens: greedy exactly, sampled up to
+tail and repeated crashes included).  A crash is a ``FaultPlan`` crash at
+dispatch N in either package: the journal is flushed and the engine raises
+``EngineKilled`` before that dispatch launches.  Either package resumes the
+other's journal to the uninterrupted run's tokens: greedy exactly, sampled
+up to
 the near-tie rule of ``_torch_port.check_sampled`` with the resumed
 chains bit-equal to JAX's.  Snapshots restore across packages, and a
 pre-growth snapshot refuses a post-growth arch by name.
@@ -39,6 +39,9 @@ from repro.serve import restore_engine as jax_restore_engine
 from repro.serve import snapshot_engine as jax_snapshot_engine
 from repro_torch.checkpoint import CheckpointShapeError
 from repro_torch.convert import from_jax
+from repro_torch.serve import EngineKilled as PortEngineKilled
+from repro_torch.serve import Fault as PortFault
+from repro_torch.serve import FaultPlan as PortFaultPlan
 from repro_torch.serve import (
     ContinuousBatchingEngine,
     Request,
@@ -126,17 +129,16 @@ def _jax_crash(jcfg, jp, jreqs, crash, path, **kw):
     j.close()
 
 
-def _port_crash(cfg, tp, reqs, steps, path, **kw):
-    """The port's crash: ``steps`` engine iterations, then the engine is
-    dropped (the journal flushed at the last readback, nothing left in
-    flight)."""
+def _port_crash(cfg, tp, reqs, crash, path, **kw):
+    """The port's engine killed by its FaultPlan at dispatch ``crash``,
+    with its journal at ``path``."""
     j = RequestJournal(str(path))
-    eng = ContinuousBatchingEngine(cfg, tp, journal=j, **kw)
-    for r in reqs:
-        eng.submit(r)
-    for _ in range(steps):
-        eng.step()
-    assert not eng._inflight and (eng.waiting or eng.active)
+    eng = ContinuousBatchingEngine(
+        cfg, tp, journal=j, faults=PortFaultPlan([PortFault("crash", crash)]),
+        **kw)
+    with pytest.raises(PortEngineKilled, match=f"engine step {crash}"):
+        eng.run(reqs)
+    assert eng.waiting or eng.active
     j.close()
 
 
@@ -299,7 +301,7 @@ def test_port_resumes_a_jax_crash(name, crash, gpt, qwen, tmp_path):
 
 def test_port_crashes_twice_and_jax_resumes(gpt, tmp_path):
     """The other direction, through two crash cycles in one file: the port
-    dies after 1 step, its resume dies after 1 more, and JAX's engine
+    dies at dispatch 2, its resume at dispatch 2 again, and JAX's engine
     finishes the trace from the port's journal with its own uninterrupted
     tokens."""
     jcfg, cfg, jp, tp = gpt
@@ -307,10 +309,10 @@ def test_port_crashes_twice_and_jax_resumes(gpt, tmp_path):
     want = JaxEngine(jcfg, jp, **KW).run(_mixed(JaxRequest, cfg.vocab_size,
                                                 specs))
     path = tmp_path / "j.jsonl"
-    _port_crash(cfg, tp, _mixed(Request, cfg.vocab_size, specs), 1, path,
+    _port_crash(cfg, tp, _mixed(Request, cfg.vocab_size, specs), 2, path,
                 **KW)
     resumed, done = recovery_requests(read_journal(str(path)))
-    _port_crash(cfg, tp, resumed, 1, path, **KW)
+    _port_crash(cfg, tp, resumed, 2, path, **KW)
     jresumed, jdone = jax_recovery_requests(jax_read_journal(str(path)))
     assert any(r.n_committed > 0 for r in jresumed)
     jj = JaxJournal(str(path))
@@ -343,8 +345,8 @@ def test_port_crash_resume_is_token_exact(crash, gpt, tmp_path):
 
 def test_resume_contract_validation(gpt):
     """``n_committed`` must leave a real prompt token and lie below the
-    budget; a resume needs P - nc + max_new positions; a deadline is
-    refused naming the faults slice."""
+    budget; a resume needs P - nc + max_new positions; a deadline must be
+    positive, as in the reference, and a positive one serves."""
     _, cfg, _, tp = gpt
     eng = ContinuousBatchingEngine(cfg, tp, capacity=1, max_len=16)
     p = np.arange(1, 11, dtype=np.int32)
@@ -357,10 +359,13 @@ def test_resume_contract_validation(gpt):
     assert 5 not in eng.rejected
     eng.submit(Request(uid=6, prompt=p, max_new_tokens=11, n_committed=4))
     assert "prompt 6 + 11 new tokens exceeds max_len 16" in eng.rejected[6]
-    eng.submit(Request(uid=7, prompt=p, max_new_tokens=4, deadline=1.0))
-    assert "faults slice" in eng.rejected[7]
+    eng.submit(Request(uid=7, prompt=p, max_new_tokens=4, deadline=0.0))
+    assert "deadline must be > 0 (got 0.0)" in eng.rejected[7]
+    eng.submit(Request(uid=8, prompt=p, max_new_tokens=4, deadline=1e6))
+    assert 8 not in eng.rejected
     out = eng.run()
     assert len(out[5]) == 10 and list(out[5][:4]) == [7, 8, 9, 10]
+    assert eng.outcomes[8] == "finished" and len(out[8]) == 4
 
 
 # ------------------------------------------------------- snapshot/restore

@@ -492,3 +492,256 @@ def test_serve_launcher_speculate_errors(argv, msg):
     with pytest.raises(SystemExit, match=msg):
         launch_serve.main(["--arch", "gpt-micro-big", "--device", "cpu",
                            *argv])
+
+
+# ------------------------------------------------------- griffin speculation
+@pytest.fixture(scope="module")
+def griffin_micro():
+    """griffin-micro (window 16) with every matrix redrawn at std 0.2, so
+    greedy decoding varies (tests/test_torch_griffin.py), and a draft of
+    the same weights nudged by 2e-3: its acceptance lies strictly between
+    0 and 1 at d 2 and 4 in both packages."""
+    from test_torch_griffin import _params
+
+    jcfg = jax_get_config("griffin-micro")
+    jp, tp = _params(jcfg)
+    rng = np.random.default_rng(1)
+    jd = jax.tree.map(lambda a: (a + 2e-3 * rng.standard_normal(a.shape))
+                      .astype(a.dtype), jp)
+    return jcfg, port_config(jcfg), jp, tp, jd, from_jax(jd)
+
+
+GRIFFIN_LEN = 64  # four windows: the rings wrap under speculation
+GRIFFIN_SPECS = [(4, 20), (9, 16), (6, 18), (21, 12)]
+
+
+def test_griffin_spec_helpers_match_jax():
+    """``spec_commit_gather``, the ring restores (dense, and paged through
+    ``paged_ring_restore_sites``) equal the reference's on random trees;
+    the port restores only the chunk's sites, in place, from bytes taken
+    before the chunk."""
+    from repro.models import attention as jattn
+    from repro.models import common as jcommon
+    from repro_torch.models import attention as tattn
+    from repro_torch.models import common as tcommon
+
+    rng = np.random.default_rng(3)
+    L, B, S, ring, KV, hd = 2, 4, 5, 8, 1, 3
+    positions = np.array([0, 6, 13, 3], np.int32)
+    n_feed = np.array([0, 2, 5, 1], np.int32)
+    done = np.array([False, False, False, True])
+    # recurrent leaves: gather the stacked state at n_feed - 1
+    old = {"h": rng.standard_normal((L, B, 7)).astype(np.float32),
+           "conv": rng.standard_normal((L, B, 3, 7)).astype(np.float32)}
+    st = {k: rng.standard_normal((S,) + v.shape).astype(np.float32)
+          for k, v in old.items()}
+    want = jcommon.spec_commit_gather(old, st, jnp.asarray(n_feed),
+                                      done=jnp.asarray(done))
+    got = tcommon.spec_commit_gather(
+        {k: torch.from_numpy(v) for k, v in old.items()},
+        {k: torch.from_numpy(v) for k, v in st.items()},
+        torch.from_numpy(n_feed), done=torch.from_numpy(done))
+    for k in old:
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
+    # dense rings: the reference masks old against new over the whole ring
+    o = {n: rng.standard_normal((L, B, ring, KV, hd)).astype(np.float32)
+         for n in ("k", "v")}
+    nw = {n: rng.standard_normal(a.shape).astype(np.float32)
+          for n, a in o.items()}
+    want = jcommon.spec_ring_restore(o, nw, jnp.asarray(positions),
+                                     jnp.asarray(n_feed), S)
+    saved = tcommon.spec_ring_sites({n: torch.from_numpy(a)
+                                     for n, a in o.items()},
+                                    torch.from_numpy(positions), S)
+    assert saved["k"].shape == (L, B, S, KV, hd)
+    grp = {n: torch.from_numpy(a.copy()) for n, a in nw.items()}
+    assert tcommon.spec_ring_restore(saved, grp, torch.from_numpy(positions),
+                                     torch.from_numpy(n_feed), S) is grp
+    for n in o:
+        np.testing.assert_array_equal(grp[n].numpy(), np.asarray(want[n]))
+    # paged rings: 2 blocks of 4 a row, a never-allocated block at the
+    # sentinel; the port's arena has the scratch page at n_pages
+    n_pages, page = 9, 4
+    bt = np.array([[3, 7], [0, 5], [8, 9], [2, 1]], np.int32)
+    sites = jattn.paged_ring_restore_sites(
+        jnp.asarray(bt), jnp.asarray(positions), jnp.asarray(n_feed), S,
+        page, n_pages)
+    tsites = tattn.paged_ring_restore_sites(
+        torch.from_numpy(bt), torch.from_numpy(positions),
+        torch.from_numpy(n_feed), S, page, n_pages)
+    for g, w in zip(tsites, sites):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    old_a = {n: rng.standard_normal((L, n_pages, page, KV, hd)).astype(
+        np.float32) for n in ("k", "v")}
+    new_a = {n: rng.standard_normal(a.shape).astype(np.float32)
+             for n, a in old_a.items()}
+    bt_l = np.broadcast_to(bt, (L,) + bt.shape).copy()
+    want = jcommon.paged_spec_ring_restore(
+        {**old_a, "bt": bt_l}, {**new_a, "bt": bt_l}, jnp.asarray(positions),
+        jnp.asarray(n_feed), S)
+
+    def arena(a):  # the port's layout: one scratch page past the budget
+        return torch.from_numpy(np.concatenate(
+            [a, np.zeros((L, 1) + a.shape[2:], np.float32)], 1))
+    saved = tcommon.paged_spec_ring_sites(
+        {**{n: arena(a) for n, a in old_a.items()},
+         "bt": torch.from_numpy(bt_l)}, torch.from_numpy(positions), S)
+    grp = {**{n: arena(a) for n, a in new_a.items()},
+           "bt": torch.from_numpy(bt_l)}
+    tcommon.paged_spec_ring_restore(saved, grp, torch.from_numpy(positions),
+                                    torch.from_numpy(n_feed), S)
+    for n in old_a:
+        np.testing.assert_array_equal(grp[n][:, :n_pages].numpy(),
+                                      np.asarray(want[n]))
+
+
+def test_griffin_verify_and_commit_match_jax(griffin_micro):
+    """``verify_step_slots`` gives JAX's logits on live rows, and after
+    ``commit_slots`` the pool equals JAX's committed pool, leaf for leaf:
+    rows rolled back inside the chunk, a row with nothing to commit, a
+    done row, and chunks that wrap the 16-slot ring."""
+    from repro.models import griffin as jgriffin
+    from repro_torch.models import griffin as tgriffin
+
+    jcfg, cfg, jp, tp, _, _ = griffin_micro
+    jp = jax.tree.map(jnp.asarray, jp)  # traced by the reference's scan
+    B, S, P = 4, 5, 14
+    toks = lm_batch(jcfg.vocab_size, B, P, seed=8)
+    jcache = jgriffin.init_cache(jcfg, B, GRIFFIN_LEN)
+    _, jcache = jgriffin.prefill_full(jp, {"tokens": jnp.asarray(toks)},
+                                      jcfg, jcache)
+    tcache = tgriffin.init_cache(cfg, B, GRIFFIN_LEN)
+    tgriffin.prefill_full(tp, {"tokens": torch.from_numpy(toks)}, cfg,
+                          tcache)
+    chunk = np.random.default_rng(9).integers(
+        0, jcfg.vocab_size, (B, S)).astype(np.int32)
+    positions = np.full((B,), P, np.int32)
+    n_feed = np.array([3, 0, 5, 2], np.int32)
+    done = np.array([False, False, False, True])
+    want, jpend = jgriffin.verify_step_slots(
+        jp, jnp.asarray(chunk), jnp.asarray(positions), jcache, jcfg,
+        done=jnp.asarray(done))
+    jout = jgriffin.commit_slots(jp, jnp.asarray(chunk),
+                                 jnp.asarray(positions), jnp.asarray(n_feed),
+                                 jcache, jpend, jcfg, done=jnp.asarray(done))
+    args = (torch.from_numpy(chunk), torch.from_numpy(positions))
+    got, pend = tgriffin.verify_step_slots(tp, *args, tcache, cfg,
+                                           done=torch.from_numpy(done))
+    np.testing.assert_allclose(got.numpy()[~done], np.asarray(want)[~done],
+                               atol=F32_ATOL)
+    out = tgriffin.commit_slots(tp, *args, torch.from_numpy(n_feed), tcache,
+                                pend, cfg, done=torch.from_numpy(done))
+    assert out is tcache
+    for grp in ("rec", "attn"):
+        for name, t in out[grp].items():
+            np.testing.assert_allclose(t.numpy(), np.asarray(jout[grp][name]),
+                                       atol=F32_ATOL, err_msg=f"{grp}.{name}")
+
+
+def test_griffin_verify_stacks_only_o1_state(griffin_micro):
+    """Verify memory: only the O(1) recurrent leaves are kept per chunk
+    position; of the O(window) rings only the chunk's S write sites are
+    kept (the reference keeps the post-chunk rings, no S axis either)."""
+    from repro_torch.models import griffin as tgriffin
+
+    _, cfg, _, tp, _, _ = griffin_micro
+    cache = tgriffin.init_cache(cfg, 2, GRIFFIN_LEN)
+    tokens = torch.zeros((2, 5), dtype=torch.int32)
+    positions = torch.full((2,), 3, dtype=torch.int32)
+    _, pending = tgriffin.verify_step_slots(tp, tokens, positions, cache,
+                                            cfg)
+    assert pending["rec"]["h"].shape == (5,) + cache["rec"]["h"].shape
+    assert pending["rec"]["conv"].shape == (5,) + cache["rec"]["conv"].shape
+    L, B, ring, KV, hd = cache["attn"]["k"].shape
+    assert ring == 16
+    assert pending["ring_old"]["k"].shape == (L, B, 5, KV, hd)
+    ring_bytes = sum(t.numel() for t in cache["attn"].values())
+    kept = sum(t.numel() for t in pending["ring_old"].values())
+    assert kept * ring == ring_bytes * 5
+
+
+@pytest.mark.parametrize("pool", ["dense", "paged"])
+@pytest.mark.parametrize("d", [2, 4])
+def test_spec_griffin_matches_jax_and_generate(griffin_micro, d, pool):
+    """griffin-micro drafting for itself with nudged weights: partial
+    acceptance rolls the rglru state, the conv tails and the rings back to
+    each row's accepted boundary, and the draft's in-place proposals are
+    undone before its catch-up.  Generations run past the window, so the
+    rings wrap under speculation; the paged pool runs under page pressure.
+    Tokens equal JAX's speculative engine's and ``generate``'s; proposals,
+    acceptances, prefills, dispatches and host syncs equal JAX's, with an
+    acceptance strictly inside (0, 1) in both."""
+    jcfg, cfg, jp, tp, jd, td = griffin_micro
+    kw = dict(max_len=GRIFFIN_LEN, pool=pool)
+    if pool == "paged":
+        kw["pages"] = 3  # a slot's ring holds 2 pages of 8: admissions wait
+    jeng = _jax_spec_engine(jcfg, jp, jcfg, jd, d, **kw)
+    want = jeng.run(_requests(JaxRequest, jcfg.vocab_size, GRIFFIN_SPECS, 40))
+    eng = _spec_engine(cfg, tp, cfg, td, d, **kw)
+    got = eng.run(_requests(Request, cfg.vocab_size, GRIFFIN_SPECS, 40))
+    _assert_same(got, want)
+    _assert_same(got, _generate_each(cfg, tp, _requests(
+        Request, cfg.vocab_size, GRIFFIN_SPECS, 40), GRIFFIN_LEN))
+    _assert_same_counts(eng, jeng)
+    assert 0.0 < eng.acceptance_rate < 1.0
+    assert 0.0 < jeng.acceptance_rate < 1.0
+    assert eng.cache_layout == "recurrent+ring" and eng.pool_kind == pool
+    if pool == "paged":
+        assert eng.pages_highwater == jeng.pages_highwater <= 3
+        assert eng.pages_in_use == 0
+
+
+def test_spec_griffin_self_draft_and_sampled_match_jax(griffin_micro):
+    """The model drafting for itself accepts every proposal; rejection
+    sampling with the nudged draft gives JAX's sampled tokens and counts,
+    and every sampled token lies in the target's filtered support."""
+    from repro.serve import SamplingParams as JaxSamplingParams
+    from repro_torch.models import get_family
+    from repro_torch.serve import sampling
+
+    jcfg, cfg, jp, tp, jd, td = griffin_micro
+    specs = GRIFFIN_SPECS[:3]
+    kw = dict(max_len=GRIFFIN_LEN)
+    eng = _spec_engine(cfg, tp, cfg, tp, 3, **kw)
+    got = eng.run(_requests(Request, cfg.vocab_size, specs, 60))
+    assert eng.acceptance_rate == 1.0 and eng.n_spec_proposed > 0
+    _assert_same(got, _generate_each(cfg, tp, _requests(
+        Request, cfg.vocab_size, specs, 60), GRIFFIN_LEN))
+    sp = dict(temperature=0.9, top_k=8, seed=13)
+    eng = _spec_engine(cfg, tp, cfg, td, 3, sampling=SamplingParams(**sp),
+                       **kw)
+    reqs = _requests(Request, cfg.vocab_size, specs, 60)
+    got = eng.run(reqs)
+    jeng = _jax_spec_engine(jcfg, jp, jcfg, jd, 3,
+                            sampling=JaxSamplingParams(**sp), **kw)
+    _assert_same(got, jeng.run(_requests(JaxRequest, jcfg.vocab_size, specs,
+                                         60)))
+    _assert_same_counts(eng, jeng)
+    assert 0.0 < eng.acceptance_rate < 1.0
+    fam = get_family(cfg)
+    for r in reqs:
+        cache = fam.init_cache(cfg, 1, GRIFFIN_LEN)
+        logits, cache = fam.prefill(
+            tp, {"tokens": torch.from_numpy(r.prompt)[None]}, cfg, cache)
+        pos = len(r.prompt)
+        for t in got[r.uid]:
+            probs = sampling.filtered_probs(logits, SamplingParams(**sp))
+            assert float(probs[0, int(t)]) > 0
+            logits, cache = fam.decode_step(
+                tp, torch.tensor([int(t)], dtype=torch.int32), pos, cache,
+                cfg)
+            pos += 1
+
+
+def test_serve_launcher_speculates_griffin(capsys):
+    """``--speculate`` serves a griffin pair (the smoke config drafting for
+    itself): every proposal accepted."""
+    launch_serve.main(["--arch", "recurrentgemma-2b-smoke", "--engine",
+                       "continuous", "--speculate", "--draft",
+                       "recurrentgemma-2b-smoke", "--spec-d", "3", "--batch",
+                       "3", "--prompt-len", "20", "--gen", "6", "--capacity",
+                       "2", "--k", "2", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "[speculative] griffin/recurrent+ring" in out
+    assert "served 3 requests / 18 tokens" in out
+    assert "acceptance 1.000" in out

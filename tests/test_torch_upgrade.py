@@ -4,7 +4,8 @@ engine's hot swap) against the JAX package's (CPU, converted weights).
 Both engines serve gpt-micro and swap in gpt-micro-big (grown by JAX's
 Mango at noise 0 and converted) at dispatch 2, on the dense and the paged
 pool, and griffin-micro -> griffin-micro-big (the port has no griffin
-growth yet, so JAX's grown weights are converted): the same requests are
+growth yet, so JAX's grown weights are converted; the old griffin then
+drafts, as in JAX): the same requests are
 resumed (uid, prompt, ``n_committed``) and every token is equal to JAX's
 and to the split the swap promises -- the committed prefix is the
 source's greedy run, the rest the grown model's on prompt ‖ committed.
@@ -120,8 +121,7 @@ def _assert_split(pair, mgr, got, reqs):
         np.testing.assert_array_equal(out[nc:], post, err_msg=f"uid {r.uid}")
 
 
-def _against_jax(jax_pair, port_pair, specs, seed0=70, counters=True,
-                 **kw):
+def _against_jax(jax_pair, port_pair, specs, seed0=70, **kw):
     jeng, jmgr, want = _swap_run(JaxEngine, JaxUpgradeManager, JaxRequest,
                                  jax_pair, specs, seed0=seed0, **kw)
     eng, mgr, got = _swap_run(ContinuousBatchingEngine, UpgradeManager,
@@ -132,8 +132,7 @@ def _against_jax(jax_pair, port_pair, specs, seed0=70, counters=True,
     for uid in want:
         np.testing.assert_array_equal(got[uid], want[uid],
                                       err_msg=f"uid {uid}")
-    if counters:
-        assert eng.lifetime_totals() == jeng.lifetime_totals()
+    assert eng.lifetime_totals() == jeng.lifetime_totals()
     assert (mgr.pages_resident_at_swap, mgr.pages_reprefilled) == (
         jmgr.pages_resident_at_swap, jmgr.pages_reprefilled)
     assert eng.n_upgrades == 1 and eng.rejected == {}
@@ -159,16 +158,17 @@ def test_hot_swap_matches_jax(pool, gpt_pair):
 
 def test_hot_swap_griffin_matches_jax(griffin_pair):
     """griffin's recurrent state and local-attention rings are rebuilt
-    through the resume path, not migrated (JAX's grown weights).  JAX
-    turns the swapped engine speculative; the port cannot yet (griffin
-    speculation is not ported) and says why, so only the resumes and the
-    tokens compare, not the counters."""
+    through the resume path, not migrated (JAX's grown weights).  Both
+    engines turn speculative after the swap, griffin-micro drafting for
+    griffin-micro-big: resumes, tokens and every counter (proposals and
+    acceptances too) equal JAX's."""
     jax_pair, port_pair = griffin_pair
     specs = [(5, 10), (9, 10), (7, 10)]
-    eng, mgr, got = _against_jax(jax_pair, port_pair, specs, seed0=80,
-                                 counters=False)
+    eng, mgr, got = _against_jax(jax_pair, port_pair, specs, seed0=80)
     assert eng.cache_layout == "recurrent+ring"
-    assert eng.speculative is None and "griffin" in mgr.spec_reason
+    assert eng.speculative is not None and not mgr.spec_reason
+    assert eng.speculative.cfg.name == port_pair[0].name
+    assert eng.lifetime_totals()["n_spec_proposed"] > 0
     _assert_split(port_pair, mgr, got,
                   _requests(Request, port_pair[0].vocab_size, specs,
                             seed0=80))
