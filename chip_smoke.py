@@ -4,9 +4,10 @@ paper's growth and training loop, speculative serving of the grown model
 with its source drafting, both served from a paged pool,
 recurrentgemma-2b (griffin) served from a dense and a paged pool, and
 qwen3-0.6b (RoPE) served on every route; DeiT-S grown into DeiT-B
-with checkpoints, resume and the three examples; gpt-base sampled;
+with checkpoints, resume and the examples; gpt-base sampled;
 gpt-small grown live into gpt-base under traffic, and crash recovery;
-griffin speculation; the fault layer.
+griffin speculation; the fault layer; griffin growth, and
+recurrentgemma-2b trained at full width.
 
     python3 chip_smoke.py [--out report.json]
 
@@ -84,11 +85,14 @@ printed as it goes; a failed phase raises, so the exit code is not 0:
                 1990..2040 (rings wrap in decode) and 2100..2600 tokens
                 (rings filled at admission).  Tokens from the engine and
                 from ``generate`` (its first 4 requests) == the plain route
-                (the scalar ``decode_step`` over all rows at one shared
-                position, no kernel) up to reported near ties; exactly 8
+                (``griffin.prefill`` with the scan's plain version, then
+                ``decode_step``, a request at a time, no kernel) up to
+                reported near ties; for the 2 requests of the shortest
+                prompts, the engine's and the plain route's tokens ==
+                the scalar route (``decode_step`` over the prompt, no
+                prefill); exactly 8
                 ring launches a decode step and 18 scan launches an
-                admission group, no other kernel; a traced run of the
-                first 8 requests for the idle share;
+                admission group, no other kernel;
  10. griffin paged -- phase 9's model and its first 8 requests from a
                 160-page arena (5/8 of the dense rings' 256) beside the
                 dense pool: tokens
@@ -98,10 +102,10 @@ printed as it goes; a failed phase raises, so the exit code is not 0:
                 high-water as a CPU run of the same schedule (1-layer
                 model) predicted, no page left in use;
  10b. griffin speculation -- phase 9's model drafting for itself (d 4, K
-                2) on its first 8 requests, on the dense pool and on phase
-                10's 160-page pool: the model itself (acceptance exactly
-                1.0), then a copy nudged by seeded noise (1e-3 of each
-                leaf's std; acceptance strictly inside (0, 1)).  Tokens ==
+                2) on its first 8 requests: the model itself on the dense
+                pool (acceptance exactly 1.0), then a copy nudged by
+                seeded noise (1e-3 of each leaf's std; acceptance strictly
+                inside (0, 1)) on phase 10's 160-page pool.  Tokens ==
                 phase 9's plain route up to reported near ties; exact
                 launches of the ring (paged ring) kernel, 3d + 2 a block
                 and attention layer, and of the scan, each recurrent layer
@@ -116,9 +120,11 @@ printed as it goes; a failed phase raises, so the exit code is not 0:
                 64-page paged pool and speculatively with the model
                 drafting for itself (d 4, K 2), then ``generate`` for each
                 of the first 8 requests (B 1) and over 8 prompts of 512
-                (B 8).  Tokens ==
-                the plain route (a full forward per token) up to reported
-                near ties, paged == dense, exact launches (decode_attention
+                (B 8; its first 4 rows checked).  Tokens ==
+                the plain route (a full forward per token; the first 8
+                requests, and any later one where the engines disagree) up
+                to reported near ties, paged == dense and speculative ==
+                dense for all 16, exact launches (decode_attention
                 28 x 63 per ``generate`` call and never from the engine),
                 no page left in use, at least 512 distinct tokens from
                 the dense engine; tok/s, host syncs per token, peak
@@ -201,6 +207,33 @@ printed as it goes; a failed phase raises, so the exit code is not 0:
                 run); ``run(realtime=True)`` over seeded arrival offsets
                 (time to first token per request, gaps between block
                 readbacks).
+ 16. griffin growth and training -- (a) griffin-micro pretrained 100
+                steps and grown into griffin-micro-big by rank-1 Mango
+                after 10 operator steps (a sandwich a group, a scan and a
+                backward scan a recurrent layer: exact launches counted
+                from after the pretraining), the held-out margin scratch -
+                grown (> 0), the grown model trained 5 steps (the scan and
+                its backward, exact launches); the griffin
+                upgrade command through the serve launcher (``--arch
+                griffin-micro --grow-cfg griffin-micro-big --upgrade-at 1
+                --upgrade-sync``: agreement 1.000, griffin-micro drafting
+                after the swap) and a swap mid-flight whose grown model
+                verifies griffin-micro's proposals (ring kernels at head
+                dims 16 and 32); (b) recurrentgemma-2b at full width and
+                depth (26 x 2560, f32, seeded weights) trained 3 AdamW
+                steps at B 2 x S 512 (params and moments updated in
+                place): step 0's loss and gradient norm
+                against the plain route (the scan through its plain
+                version under autograd; 1e-5 and 1e-4 relative), 18
+                forward and 18 backward scan launches a step and no other
+                kernel, ms/step against the f32 FLOP bound, peak memory.
+
+Phase 3 also holds the scan's backward kernel against autograd through the
+scan's plain version (recurrentgemma-2b's training shape, f32 and bf16,
+with and without h0, and widths off 16 bytes), and every attention kernel
+at head dims 16, 20, 32 and 80 in both dtypes with done rows, timed beside
+its bound and SDPA.  Phase 12 also runs ``serve_continuous`` on the card
+(tokens == a CPU run of the example on the same weights).
 
 Each traced run prints the device time of each of the port's kernels.
 Each path's launch counters are set to 0 just before it runs and read just
@@ -605,6 +638,8 @@ def run_kernels():
     rows["chunk_verify_attention"] = run_chunk_cases(gen)
     rows.update(run_paged_cases(gen))
     rows.update(run_griffin_cases(gen))
+    rows.update(run_scan_bwd_cases(gen))
+    run_head_dims(rows, gen)
     for r in rows.values():  # the first bf16 case's numbers, on the row
         bf16 = [c for c in r.get("cases", ()) if c["dtype"] == "bfloat16"]
         if bf16 and "bf16_ms" not in r:
@@ -1253,6 +1288,290 @@ def run_griffin_cases(gen):
         rows["rglru_scan"]["cases"].append(case)
     return rows
 
+
+
+def scan_grads(fn, a, b, h0, g):
+    """Gradients of sum(fn(a, b, h0) * g) with respect to a, b (and h0)."""
+    import torch
+
+    ins = [a.clone().requires_grad_(), b.clone().requires_grad_()] + (
+        [] if h0 is None else [h0.clone().requires_grad_()])
+    with torch.enable_grad():
+        out = fn(ins[0], ins[1], None if h0 is None else ins[2])
+        return torch.autograd.grad(out, ins, g)
+
+
+def run_scan_bwd_cases(gen):
+    """Phase 3 for the scan's backward (no Pallas site: JAX differentiates
+    ``lax.associative_scan``): recurrentgemma-2b's training shape (B 2, S
+    512, W 2560) first (the kernels-line row), f32 and bf16, without and
+    with h0, the admission shape, and widths off 16 bytes (the per-lane
+    path).  Through ``ops.rglru_scan`` under autograd (one forward and one
+    backward launch a case) against autograd through
+    ``ref.rglru_scan_ref``: f32 within 1e-5 relative (and the plain
+    backward bit for bit), bf16 at most twice the plain bf16 route's error
+    against an f32 route.  Timed alone on the forward's f32 h beside its
+    byte bound and the plain backward; no one-call library counterpart."""
+    import torch
+
+    from repro_torch.kernels import ops, ref, rglru_scan
+
+    bwd, fwd = rglru_scan.rglru_scan_bwd, rglru_scan.rglru_scan
+    f32, bf16 = torch.float32, torch.bfloat16
+    row = None
+    for label, B, S, W, dt, with_h0 in (
+            ("recurrentgemma-2b train f32", 2, 512, 2560, f32, False),
+            ("recurrentgemma-2b train bf16", 2, 512, 2560, bf16, False),
+            ("train shape with h0 f32", 2, 512, 2560, f32, True),
+            ("train shape with h0 bf16", 2, 512, 2560, bf16, True),
+            ("admission shape f32", 8, 4096, 2560, f32, True),
+            ("off 16 bytes f32", 2, 300, 99, f32, True),
+            ("off 16 bytes bf16", 3, 37, 50, bf16, False)):
+        dname = str(dt).split(".")[1]
+        a = (torch.rand(B, S, W, generator=gen, device="cuda") * 0.5
+             + 0.5).to(dt)
+        b = (0.1 * torch.randn(B, S, W, generator=gen, device="cuda")).to(dt)
+        g = torch.randn(B, S, W, generator=gen, device="cuda").to(dt)
+        h0 = (torch.randn(B, W, generator=gen, device="cuda") if with_h0
+              else None)
+        n0 = (fwd.launches, bwd.launches)
+        got = scan_grads(ops.rglru_scan, a, b, h0, g)
+        torch.cuda.synchronize()
+        if (fwd.launches - n0[0], bwd.launches - n0[1]) != (1, 1):
+            raise AssertionError(f"rglru_scan_bwd [{label}]: the gradient "
+                                 "did not launch one forward and one "
+                                 "backward")
+        plain = scan_grads(ref.rglru_scan_ref, a, b, h0, g)
+        h32 = ref.rglru_scan_ref(a.float(), b.float(), h0)
+        if dt == f32:
+            errs = [((x - y).abs() / y.abs().clamp_min(1e-30)).max().item()
+                    for x, y in zip(got, plain)]
+            err = max((x - y).abs().max().item() for x, y in zip(got, plain))
+            want = ref.rglru_scan_bwd_ref(a, g, h32, h0)
+            exact = all(torch.equal(x, y) for x, y in zip(got, want))
+            if max(errs) > 1e-5 or not exact:
+                raise AssertionError(f"rglru_scan_bwd [{label}]: relative "
+                                     f"err {max(errs):.3g} against autograd "
+                                     f"(1e-5), bit-equal to the plain "
+                                     f"backward: {exact}")
+            note = f"max relative err {max(errs):.3g}, plain backward bit " \
+                "for bit"
+        else:
+            ref32 = scan_grads(ref.rglru_scan_ref, a.float(), b.float(), h0,
+                               g.float())
+            err = plain_err = 0.0
+            for x, y, z in zip(got, plain, ref32):
+                err = max(err, (x.float() - z).abs().max().item())
+                plain_err = max(plain_err, (y.float() - z).abs().max().item())
+            if err > 2 * plain_err + 1e-6:
+                raise AssertionError(f"rglru_scan_bwd [{label}]: err {err:.3g}"
+                                     f" against the f32 route, over twice "
+                                     f"the plain bf16 route's {plain_err:.3g}")
+            note = (f"max abs err against the f32 route {err:.3g} (plain "
+                    f"bf16 route {plain_err:.3g})")
+        item = a.element_size()
+        b_ms, b_by = bound_ms(
+            (4 * item + 4) * B * S * W + (0 if h0 is None else 8 * B * W),
+            3 * B * S * W, dname)
+        case = dict(label=label, dtype=dname, max_abs_err=err,
+                    ms=time_ms(lambda: bwd(a, g, h32, h0), 10),
+                    plain_ms=time_ms(
+                        lambda: ref.rglru_scan_bwd_ref(a, g, h32, h0), 2),
+                    bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                    shape=f"a, g ({B}, {S}, {W}) {dname} h0 {with_h0}",
+                    plan=rglru_scan.scan_plan(
+                        B, S, W, item, torch.cuda.get_device_properties(0)
+                        .multi_processor_count, bwd=True))
+        print(f"rglru_scan_bwd [{label}] {case['shape']}: {note}; plan "
+              f"(steps, blocks) {case['plan']}; kernel {case['ms']:.4f} ms, "
+              f"plain {case['plain_ms']:.4f} ms, no library call, bound "
+              f"{b_ms:.4f} ms ({b_by})", flush=True)
+        del a, b, g, h32, got, plain
+        if row is None:
+            row = dict(name="rglru_scan_bwd", route="cuda",
+                       source="src/repro_torch/kernels/csrc/rglru_scan.cu",
+                       replaces=("none: no Pallas site; JAX differentiates "
+                                 "lax.associative_scan "
+                                 "(src/repro/models/griffin.py:154)"),
+                       cases=[], **{key: case[key] for key in (
+                           "max_abs_err", "ms", "plain_ms", "bound_ms",
+                           "bound_by", "library_ms", "shape")})
+        row["cases"].append(case)
+    return {"rglru_scan_bwd": row}
+
+
+HEAD_DIMS = (16, 20, 32, 80)  # the repo's configs' head dims in buckets
+
+
+def head_dim_case(kind, hd, dt, gen):
+    """(call, plain, library, done, nbytes, flops) of one attention kernel
+    at head dim ``hd``: 8 rows (one done or idle), 8 query heads over 2 KV
+    heads, 512 positions (a 256-position ring); the library call is SDPA
+    over the same K/V (gathered for the paged kinds) with the band's
+    mask."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as kd
+    from repro_torch.kernels import flash_attention, ref
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dt)
+
+    B, H, KV, S, item = 8, 8, 2, 512, torch.finfo(dt).bits // 8
+    dev = "cuda"
+    if kind == "flash_attention":
+        B = 2
+        q = rnd(B, S, H, hd).transpose(1, 2)
+        k, v = (rnd(B, S, KV, hd).transpose(1, 2) for _ in range(2))
+        return (lambda: flash_attention.flash_attention(q, k, v),
+                lambda: ref.flash_attention_ref(q, k, v),
+                lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True),
+                None, 2 * B * (H + KV) * S * hd * item,
+                2 * B * H * S * S * hd)
+    page, nblk = 64, S // 64
+    paged = kind.startswith("paged")
+    perm = torch.randperm(B * nblk + 3, generator=torch.Generator()
+                          .manual_seed(hd), dtype=torch.int32)
+    bt = perm[:B * nblk].reshape(B, nblk).contiguous().to(dev)
+    if "ring" in kind:
+        ring, window = 256, 200
+        nblk_r = ring // page
+        bt = bt[:, :nblk_r].contiguous()
+        pos = torch.tensor([-1, 0, 37, 199, 255, 256, 600, 1000],
+                           dtype=torch.int32, device=dev)
+        q = rnd(B, H, hd)
+        if paged:
+            k, v = (rnd(B * nblk + 3, page, KV, hd) for _ in range(2))
+            kg, vg = (ref._paged_gather_ref(t, bt) for t in (k, v))
+            call = (lambda: kd.paged_ring_decode_attention(
+                q, k, v, bt, pos, window=window))
+            plain = (lambda: ref.paged_ring_decode_attention_ref(
+                q, k, v, bt, pos, window=window))
+        else:
+            k, v = (rnd(B, ring, KV, hd) for _ in range(2))
+            kg, vg = k, v
+            call = lambda: kd.ring_decode_attention(q, k, v, pos,  # noqa
+                                                    window=window)
+            plain = (lambda: ref.ring_decode_attention_ref(
+                q, k, v, pos, window=window))
+        kpos = ref._ring_kpos(pos + 1, ring)
+        mask = ((kpos >= 0) & (kpos > pos[:, None] - window)
+                & (pos[:, None] >= 0))
+        n_keys = int(mask.sum())
+        kh, vh = kg.transpose(1, 2), vg.transpose(1, 2)
+        lib = (lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kh, vh, attn_mask=mask[:, None, None],
+            enable_gqa=True))
+        return (call, plain, lib, pos < 0,
+                2 * n_keys * KV * hd * item + 2 * B * H * hd * item,
+                4 * n_keys * H * hd)
+    if "verify" in kind:
+        Sq = 5
+        off = torch.tensor([-1, 0, 1, 30, 100, 300, 507, 512],
+                           dtype=torch.int32, device=dev)
+        q = rnd(B, Sq, H, hd)
+        kc, vc = (rnd(B, Sq, KV, hd) for _ in range(2))
+        if paged:
+            ck, cv = (rnd(B * nblk + 3, page, KV, hd) for _ in range(2))
+            cg, vgc = (ref._paged_gather_ref(t, bt) for t in (ck, cv))
+            call = (lambda: kd.paged_chunk_verify_attention(
+                q, ck, cv, bt, kc, vc, off, ring=False))
+            plain = (lambda: ref.paged_chunk_verify_attention_ref(
+                q, ck, cv, bt, kc, vc, off, ring=False))
+        else:
+            ck, cv = (rnd(B, S, KV, hd) for _ in range(2))
+            cg, vgc = ck, cv
+            call = (lambda: kd.chunk_verify_attention(
+                q, ck, cv, kc, vc, off, ring=False))
+            plain = (lambda: ref.chunk_verify_attention_ref(
+                q, ck, cv, kc, vc, off, ring=False))
+        kk = torch.cat([cg, kc], 1).transpose(1, 2)
+        vv = torch.cat([vgc, vc], 1).transpose(1, 2)
+        i = torch.arange(Sq, device=dev)
+        cache = torch.arange(S, device=dev)[None, None] < off[:, None, None]
+        chunk = (i[None, :, None] >= i[None, None, :]) & (off >= 0)[
+            :, None, None]
+        mask = torch.cat([cache.expand(B, Sq, S), chunk.expand(B, Sq, Sq)],
+                         -1)
+        n_keys = int(off.clamp(0, S).sum()) + Sq * int((off >= 0).sum())
+        return (call, plain,
+                lambda: F.scaled_dot_product_attention(
+                    q.transpose(1, 2), kk, vv, attn_mask=mask[:, None],
+                    enable_gqa=True),
+                off < 0, n_keys * KV * hd * 2 * item + 2 * B * Sq * H * hd
+                * item, 4 * n_keys * Sq * H * hd)
+    # slot, decode_attention, paged slot: kv_len with a 0 (idle) row
+    kv_len = torch.tensor([0, 1, 31, 64, 200, 333, 511, 512],
+                          dtype=torch.int32, device=dev)
+    q = rnd(B, H, hd)
+    if paged:
+        k, v = (rnd(B * nblk + 3, page, KV, hd) for _ in range(2))
+        kg, vg = (ref._paged_gather_ref(t, bt) for t in (k, v))
+        call = lambda: kd.paged_slot_decode_attention(q, k, v, bt,  # noqa
+                                                      kv_len)
+        plain = (lambda: ref.paged_slot_decode_attention_ref(q, k, v, bt,
+                                                             kv_len))
+    elif kind == "decode_attention":
+        pool = [rnd(B, S, KV, hd) for _ in range(2)]
+        k, v = (t.transpose(1, 2) for t in pool)  # the pool's view
+        kg, vg = pool
+        call = lambda: kd.decode_attention(q, k, v, kv_len)  # noqa
+        plain = lambda: ref.decode_attention_ref(q, k, v, kv_len)  # noqa
+    else:
+        k, v = (rnd(B, S, KV, hd) for _ in range(2))
+        kg, vg = k, v
+        call = lambda: kd.slot_decode_attention(q, k, v, kv_len)  # noqa
+        plain = lambda: ref.slot_decode_attention_ref(q, k, v,  # noqa
+                                                      kv_len)
+    mask = torch.arange(S, device=dev)[None] < kv_len[:, None]
+    kh, vh = kg.transpose(1, 2), vg.transpose(1, 2)
+    n_kv = int(kv_len.sum())
+    return (call, plain,
+            lambda: F.scaled_dot_product_attention(
+                q[:, :, None], kh, vh, attn_mask=mask[:, None, None],
+                enable_gqa=True),
+            kv_len <= 0, 2 * n_kv * KV * hd * item + 2 * B * H * hd * item,
+            4 * n_kv * H * hd)
+
+
+def run_head_dims(rows, gen):
+    """Phase 3: each attention kernel at head dims 16, 20, 32 and 80 (run
+    in the 64 and 128 buckets; 20 in bf16 has 40-byte rows, which the
+    bodies copy a row at a time) in float32 and bfloat16, with done or
+    idle rows (exact zeros), held against its plain version and timed
+    beside its bound and SDPA; each kernel's row gets ``head_dims``."""
+    import torch
+
+    kinds = ("flash_attention", "slot_decode_attention", "decode_attention",
+             "chunk_verify_attention", "ring_decode_attention",
+             "paged_slot_decode_attention", "paged_ring_decode_attention",
+             "paged_chunk_verify_attention")
+    for kind in kinds:
+        cases = []
+        for hd in HEAD_DIMS:
+            for dt in (torch.float32, torch.bfloat16):
+                dname = str(dt).split(".")[1]
+                call, plain, lib, done, nbytes, flops = head_dim_case(
+                    kind, hd, dt, gen)
+                got = call()
+                torch.cuda.synchronize()
+                err = check_close(f"{kind} [hd {hd} {dname}]", got, plain(),
+                                  dname)
+                if done is not None and not bool((got[done] == 0).all()):
+                    raise AssertionError(f"{kind} [hd {hd} {dname}]: done "
+                                         "rows are not exact zeros")
+                b_ms, b_by = bound_ms(nbytes, flops, dname)
+                cases.append(dict(hd=hd, dtype=dname, max_abs_err=err,
+                                  ms=time_ms(call, 20),
+                                  library_ms=time_ms(lib, 20),
+                                  bound_ms=b_ms, bound_by=b_by))
+        rows[kind]["head_dims"] = cases
+        print(f"{kind} head dims: " + "; ".join(
+            f"hd {c['hd']} {c['dtype'][:4]} err {c['max_abs_err']:.2g} "
+            f"{c['ms']:.4f} ms (SDPA {c['library_ms']:.4f}, bound "
+            f"{c['bound_ms']:.4f})" for c in cases), flush=True)
 
 def timed_run(eng, reqs):
     """Serve fresh copies of ``reqs`` on ``eng`` between two device syncs.
@@ -2222,9 +2541,12 @@ GRIFFIN_PAGES = 160  # phase 10's arena: 5/8 of the dense rings' 256 pages
 # plain route (16 until PR 24, 8 until PR 25, cut to make room for phases
 # 14, 10b and 15)
 GRIFFIN_GENERATE_REQS = 4
-# phase 10 serves the first 8 of them, and phase 9's traced run traces
-# them (16 until PR 24, cut for the same reason; at 160 pages 9 of their
-# admissions still wait for pages)
+# phase 9 also holds its 2 requests of the shortest prompts against the
+# scalar route (``decode_step`` over the prompt: every prompt token a
+# step, so its cost grows with the longest prompt it takes)
+GRIFFIN_SCALAR_REQS = 2
+# phase 10 serves the first 8 of them (16 until PR 24, cut for the same
+# reason; at 160 pages 9 of their admissions still wait for pages)
 GRIFFIN_PAGED_REQS = 8
 EMBED_SCALE = 0.05  # phase 9's tied embedding, scaled down (see below)
 
@@ -2266,11 +2588,52 @@ def griffin_requests(vocab):
 
 
 def griffin_plain_route(cfg, params, reqs, n_new):
-    """Greedy tokens of the plain route: the scalar ``decode_step`` over
-    all rows at one shared position from an empty cache, each row fed its
-    prompt and then its own argmax.  It runs ``rglru_step`` and
-    ``_ring_window_attend``: no kernel of the port.  Returns {uid:
-    (tokens, top-2 gaps)}."""
+    """Greedy tokens of the plain route, a request at a time: its prompt
+    through ``griffin.prefill`` with the scan's plain version (the
+    prefill's attention is plain banded attention), then ``decode_step``
+    (``rglru_step`` and ``_ring_window_attend``): no kernel of the port,
+    and none of the engine's batching.  Returns {uid: (tokens, top-2
+    gaps)}.  (Every row running ``decode_step`` over its prompt token by
+    token, at one shared position, took 100-130 s.)"""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import griffin
+
+    out = {}
+    scan = ops.rglru_scan
+    ops.rglru_scan = ref.rglru_scan_ref
+    try:
+        for r in reqs:
+            P = len(r.prompt)
+            cache = griffin.init_cache(cfg, 1, P + n_new, device="cuda")
+            prompt = torch.from_numpy(r.prompt)[None].cuda()
+            logits, cache = griffin.prefill(params, {"tokens": prompt}, cfg,
+                                            cache)
+            nxts, gaps = [], []
+            for i in range(n_new):
+                top = logits.float().topk(2, dim=-1).values
+                nxt = logits.argmax(-1).to(torch.int32)
+                nxts.append(nxt)
+                gaps.append(top[:, 0] - top[:, 1])
+                if i + 1 < n_new:
+                    logits, cache = griffin.decode_step(params, nxt, P + i,
+                                                        cache, cfg)
+            out[r.uid] = (torch.cat(nxts).cpu().numpy().astype(np.int32),
+                          torch.cat(gaps).cpu().numpy())
+    finally:
+        ops.rglru_scan = scan
+    return out
+
+
+def griffin_scalar_route(cfg, params, reqs, n_new):
+    """Greedy tokens of the scalar route: ``decode_step`` over all rows at
+    one shared position from an empty cache, each row fed its prompt and
+    then its own argmax.  It runs ``rglru_step`` and
+    ``_ring_window_attend``: no kernel of the port, and no prefill, so it
+    shares nothing with the engine's admission but the blocks' weights.
+    Returns {uid: (tokens, top-2 gaps)}."""
     import numpy as np
     import torch
 
@@ -2371,8 +2734,23 @@ def run_griffin_serve(kernel_rows):
     t0 = time.perf_counter()
     plain = griffin_plain_route(cfg, params, reqs, 64)
     plain_s = time.perf_counter() - t0
+    short = sorted(reqs, key=lambda r: len(r.prompt))[:GRIFFIN_SCALAR_REQS]
+    t0 = time.perf_counter()
+    scalar = griffin_scalar_route(cfg, params, short, 64)
+    scalar_s = time.perf_counter() - t0
     if {name: fn.launches for name, fn in kern.items()} != before:
         raise AssertionError("the plain route launched a CUDA kernel")
+    scalar_ties = []
+    for uid, (toks, gaps) in scalar.items():
+        for what, got in (("engine", out[uid]), ("plain route", plain[uid][0])):
+            tie = check_against_plain(f"{what} (scalar route)", uid, got,
+                                      toks, gaps)
+            if tie is not None:
+                scalar_ties.append((what, *tie))
+    print(f"scalar route (decode_step over the prompt, no prefill, no "
+          f"kernel; {scalar_s:.1f} s) on uids {sorted(scalar)} (prompts "
+          f"{[len(r.prompt) for r in short]}): engine and plain route "
+          f"tokens equal it but for near ties {scalar_ties}", flush=True)
     ties = {"engine": [], "generate": []}
     distinct = set()
     t0 = time.perf_counter()
@@ -2394,8 +2772,9 @@ def run_griffin_serve(kernel_rows):
     gaps = np.concatenate([plain[r.uid][1] for r in reqs])
     exact = {"engine": len(reqs) - len(ties["engine"]),
              "generate": GRIFFIN_GENERATE_REQS - len(ties["generate"])}
-    print(f"tokens == plain route (scalar decode_step over all rows, no "
-          f"kernel; {plain_s:.1f} s) for {exact['engine']}/{len(reqs)} "
+    print(f"tokens == plain route (prefill with the plain scan, then "
+          f"decode_step, a request at a time, no kernel; {plain_s:.1f} s) "
+          f"for {exact['engine']}/{len(reqs)} "
           f"requests from the engine and {exact['generate']}/"
           f"{GRIFFIN_GENERATE_REQS} from generate ({generate_s:.1f} s for "
           f"the {GRIFFIN_GENERATE_REQS} calls); near ties "
@@ -2412,15 +2791,12 @@ def run_griffin_serve(kernel_rows):
                   plain_top2_gap=dict(median=float(np.median(gaps)),
                                       min=float(gaps.min())),
                   plain_route_seconds=plain_s, generate_seconds=generate_s,
+                  scalar_route=dict(uids=sorted(scalar), seconds=scalar_s,
+                                    near_ties=scalar_ties),
                   init_seconds=init_s, prompt_lens=[
                       len(r.prompt) for r in reqs])
-    # the traced run serves the first 8 requests (reading a trace costs
-    # ~0.2 ms a device op): their untraced time first
-    t0 = time.perf_counter()
-    traced = reqs[:GRIFFIN_PAGED_REQS]
-    _, traced_dt, _, _ = timed_run(engine(), traced)
-    report["profile"] = profile_serve(engine, traced, traced_dt, stages=())
-    report["profile"]["seconds"] = time.perf_counter() - t0
+    # no traced run (~30 s, reading ~125,000 device ops), cut to make room
+    # for phase 16: this path's breakdown stands in PERF.md section 5
     return report, (cfg, params, reqs, plain, out)
 
 
@@ -2579,6 +2955,10 @@ def run_griffin_paged(kernel_rows, model):
 
 GRIFFIN_SPEC_D, GRIFFIN_SPEC_K = 4, 2  # phase 10b: draft depth, blocks
 GRIFFIN_DRAFT_NOISE = 1e-3  # phase 10b's nudged draft: noise / leaf std
+# phase 10b's runs: the self-draft on the dense pool, the nudged draft on
+# the paged pool (cut from each draft on both pools to make room for
+# phase 16)
+GRIFFIN_SPEC_RUNS = (("self", ("dense",)), ("nudged", ("paged",)))
 
 
 def nudged_copy(params, scale, seed):
@@ -2601,10 +2981,10 @@ def nudged_copy(params, scale, seed):
 
 def run_griffin_spec(model, paged_report):
     """Phase 10b: griffin speculation.  recurrentgemma-2b drafting for
-    itself (d 4, K 2) on phase 9's first 8 requests, on the dense pool and
-    on phase 10's 160-page pool: first the model itself (every proposal
-    accepted), then a copy nudged by seeded noise (acceptance strictly
-    inside (0, 1)).  Tokens == phase 9's plain route up to reported near
+    itself (d 4, K 2) on phase 9's first 8 requests: the model itself on
+    the dense pool (every proposal accepted), then a copy nudged by seeded
+    noise on phase 10's 160-page pool (acceptance strictly inside (0,
+    1)).  Tokens == phase 9's plain route up to reported near
     ties; exact launches of the ring (or paged ring) kernel -- d proposals,
     S verify steps and S catch-up steps a block, each attention layer --
     and of the scan, each recurrent layer of each admission prefill (two a
@@ -2625,12 +3005,12 @@ def run_griffin_spec(model, paged_report):
     report = dict(d=d, k=k, plain_dense_tok_per_s=paged_report[
         "dense_tok_per_s"], plain_paged_tok_per_s=paged_report["tok_per_s"])
     ties = []
-    for label in ("self", "nudged"):
+    for label, pools in GRIFFIN_SPEC_RUNS:
         t0 = time.perf_counter()
         draft = params if label == "self" else nudged_copy(
             params, GRIFFIN_DRAFT_NOISE, seed=10)
         copy_s = time.perf_counter() - t0
-        for pool in ("dense", "paged"):
+        for pool in pools:
             eng = ContinuousBatchingEngine(
                 cfg, params, capacity=8, max_len=4096, k=k, pool=pool,
                 pages=GRIFFIN_PAGES if pool == "paged" else None,
@@ -2691,7 +3071,8 @@ def run_griffin_spec(model, paged_report):
             torch.cuda.empty_cache()
     report["near_ties"] = ties
     print(f"griffin speculation: tokens == plain route for every request "
-          f"of the 4 runs but near ties {ties}", flush=True)
+          f"of the {len(GRIFFIN_SPEC_RUNS)} runs but near ties {ties}",
+          flush=True)
     return report
 
 
@@ -2701,6 +3082,13 @@ QWEN_MATRIX_SCALE = 2.5  # phase 11: block matrices scaled up (see qwen_model)
 # phase 11 runs ``generate`` at B 1 on the first 8 of its 16 requests (16
 # until PR 24, cut to make room for phase 14)
 QWEN_GENERATE_REQS = 8
+# phase 11 holds the first 4 rows of ``generate`` at B 8 against the plain
+# route (8, cut to make room for phase 16)
+QWEN_GEN8_CHECKED = 4
+# phase 11 holds its first 8 requests' tokens (every route's) against the
+# plain route, and paged == dense for all 16 (16, cut to make room for
+# phase 16)
+QWEN_PLAIN_REQS = 8
 QWEN_MIN_DISTINCT = 512  # of the dense engine's 1024 tokens (see qwen_model)
 F32_LOGIT_RTOL = 1e-3  # f32 kernel route vs f32 full forward, of max |logit|
 
@@ -2799,7 +3187,7 @@ def run_qwen(kernel_rows):
     pool of QWEN_PAGES pages and the dense pool speculatively with the
     model drafting for itself; ``generate`` for the first
     QWEN_GENERATE_REQS requests (B 1) and over 8 prompts of 512 tokens
-    (B 8); all against the plain route; a
+    (B 8, its first QWEN_GEN8_CHECKED rows); all against the plain route; a
     traced run for the idle share; then the published bf16 through
     ``generate``."""
     import numpy as np
@@ -2900,32 +3288,50 @@ def run_qwen(kernel_rows):
     # the reference is the plain route alone (no kernel of the port)
     before = {name: fn.launches for name, fn in kern.items()}
     t0 = time.perf_counter()
-    plain = {r.uid: plain_greedy(cfg, params, r.prompt, 64) for r in reqs}
+    plain = {r.uid: plain_greedy(cfg, params, r.prompt, 64)
+             for r in reqs[:QWEN_PLAIN_REQS]}
     prompts8 = lm_batch(cfg.vocab_size, 8, 512, seed=1200)
-    plain8 = [plain_greedy(cfg, params, p, 64) for p in prompts8]
+    plain8 = [plain_greedy(cfg, params, p, 64)
+              for p in prompts8[:QWEN_GEN8_CHECKED]]
     plain_s = time.perf_counter() - t0
     if {name: fn.launches for name, fn in kern.items()} != before:
         raise AssertionError("the plain route launched a CUDA kernel")
 
     ties = {"dense": [], "paged": [], "speculative": [], "paged vs dense": [],
-            "generate": [], "generate B 8": []}
+            "speculative vs dense": [], "generate": [], "generate B 8": []}
     gen_launches, gen_s = 0, 0.0
     want_gen = {name: 0 for name in kern}
     want_gen.update(decode_attention=L * 63, flash_attention=L)
     for r in reqs:
+        if r.uid not in plain and any(
+                (runs[w]["out"][r.uid] != runs["dense"]["out"][r.uid]).any()
+                for w in ("paged", "speculative")):
+            # engines that disagree past the plain route's requests: the
+            # plain route decides whether at a near tie
+            t0 = time.perf_counter()
+            plain[r.uid] = plain_greedy(cfg, params, r.prompt, 64)
+            plain_s += time.perf_counter() - t0
+            if {name: fn.launches for name, fn in kern.items()} != before:
+                raise AssertionError("the plain route launched a CUDA "
+                                     "kernel")
         for what in ("dense", "paged", "speculative"):
             toks = runs[what]["out"][r.uid]
             if toks.shape != (64,) or toks.min() < 0 or \
                     toks.max() >= cfg.vocab_size:
                 raise AssertionError(f"uid {r.uid}: bad {what} output")
-            tie = check_against_plain(what, r.uid, toks, *plain[r.uid])
+            if r.uid in plain:
+                tie = check_against_plain(what, r.uid, toks, *plain[r.uid])
+                if tie is not None:
+                    ties[what].append(tie)
+        # past the plain route's requests the paged pool and the
+        # speculative engine must agree with the dense pool exactly
+        for what in ("paged", "speculative"):
+            tie = check_same_tokens(
+                f"{what} and dense engines", r.uid, runs[what]["out"][r.uid],
+                runs["dense"]["out"][r.uid],
+                plain[r.uid][1] if r.uid in plain else np.full(64, np.inf))
             if tie is not None:
-                ties[what].append(tie)
-        tie = check_same_tokens("paged and dense engines", r.uid,
-                                runs["paged"]["out"][r.uid],
-                                runs["dense"]["out"][r.uid], plain[r.uid][1])
-        if tie is not None:
-            ties["paged vs dense"].append(tie)
+                ties[f"{what} vs dense"].append(tie)
         if r.uid >= QWEN_GENERATE_REQS:
             continue
         for fn in kern.values():
@@ -2956,7 +3362,7 @@ def run_qwen(kernel_rows):
         raise AssertionError(f"generate at B 8 launched {got_l}, expected "
                              f"{want_gen}")
     gen_launches += got_l["decode_attention"]
-    for b in range(8):
+    for b in range(QWEN_GEN8_CHECKED):
         tie = check_against_plain("generate B 8", b, gen8[b], *plain8[b])
         if tie is not None:
             ties["generate B 8"].append(tie)
@@ -2965,13 +3371,18 @@ def run_qwen(kernel_rows):
     if len(distinct) < QWEN_MIN_DISTINCT:
         raise AssertionError(f"the dense engine's output nearly repeats: "
                              f"{len(distinct)} distinct tokens")
-    gaps = np.concatenate([plain[r.uid][1] for r in reqs])
+    gaps = np.concatenate([v[1] for v in plain.values()])
     print(f"qwen3 tokens == plain route (full forward per token, no kernel;"
           f" {plain_s:.1f} s): "
-          + ", ".join(f"{w} {len(reqs) - len(ties[w])}/{len(reqs)}"
+          + ", ".join(f"{w} {len(plain) - len(ties[w])}/{len(plain)}"
                       for w in ("dense", "paged", "speculative"))
+          + f", paged == dense {len(reqs) - len(ties['paged vs dense'])}/"
+          f"{len(reqs)}, speculative == dense "
+          f"{len(reqs) - len(ties['speculative vs dense'])}/{len(reqs)}"
           + f", generate {QWEN_GENERATE_REQS - len(ties['generate'])}/"
-          f"{QWEN_GENERATE_REQS}, generate B 8 {8 - len(ties['generate B 8'])}/8; near ties "
+          f"{QWEN_GENERATE_REQS}, generate B 8 "
+          f"{QWEN_GEN8_CHECKED - len(ties['generate B 8'])}/"
+          f"{QWEN_GEN8_CHECKED}; near ties "
           f"{ties}; {len(distinct)} distinct tokens from the dense engine; "
           f"plain top-2 gap median {np.median(gaps):.4g}, min "
           f"{gaps.min():.4g}", flush=True)
@@ -4296,6 +4707,350 @@ def run_faults(small, big):
     return report
 
 
+
+GRIFFIN_GROW_PRE, GRIFFIN_GROW_OP, GRIFFIN_GROW_TRAIN = 100, 10, 5  # 16a
+RG_TRAIN_B, RG_TRAIN_S, RG_TRAIN_STEPS = 2, 512, 3  # phase 16b
+
+
+def _launch_counts(kern, zero=False):
+    counts = {name: fn.launches for name, fn in kern.items()}
+    if zero:
+        for fn in kern.values():
+            fn.launches = 0
+    return counts
+
+
+def run_launcher(argv):
+    """``repro_torch.launch.serve.main(argv)`` in this process (on the
+    card); -> its standard output, also printed."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve as launch_serve
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        launch_serve.main(argv)
+    out = buf.getvalue()
+    print(out, end="", flush=True)
+    return out
+
+
+def run_griffin_grown_pair(kernel_rows):
+    """Phase 16a: griffin-micro pretrained GRIFFIN_GROW_PRE steps, grown
+    into griffin-micro-big by rank-1 Mango after GRIFFIN_GROW_OP operator
+    steps (exact launches: a sandwich a group, a scan and a backward scan
+    a recurrent layer), the held-out margin scratch - grown, the grown
+    model trained GRIFFIN_GROW_TRAIN steps (the scan and its backward,
+    exact launches); then the griffin upgrade command through the serve
+    launcher (griffin-micro grown live into griffin-micro-big, swapped at
+    dispatch 1, griffin-micro drafting after the swap; ring kernels at
+    head dims 16 and 32) and a longer run whose swap lands mid-flight, so
+    the grown model decodes and verifies griffin-micro's proposals."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import grow as growlib
+    from repro_torch.data import lm_data_iter
+    from repro_torch.kernels import ops
+    from repro_torch.models import get_family, griffin
+    from repro_torch.optim import OptimizerConfig, make_optimizer
+    from repro_torch.train.loss import loss_for
+    from repro_torch.train.steps import make_eval_step, make_train_step
+
+    kern = ops.kernels()
+    cfg_s, cfg_t = get_config("griffin-micro"), get_config("griffin-micro-big")
+    fam_s, fam_t = get_family(cfg_s), get_family(cfg_t)
+    n_rec_t = griffin.block_pattern(cfg_t).count("rec")
+
+    def on(b):
+        return {k: torch.as_tensor(v, device="cuda") for k, v in b.items()}
+
+    _launch_counts(kern, zero=True)
+    t0 = time.perf_counter()
+    small = fam_s.init(torch.Generator(device="cuda").manual_seed(0), cfg_s)
+    opt = OptimizerConfig(lr=3e-3)
+    init_fn, _ = make_optimizer(opt)
+    state, step = init_fn(small), make_train_step(cfg_s, opt)
+    data = lm_data_iter(cfg_s.vocab_size, 8, 64, seed=0)
+    pre = []
+    for i in range(GRIFFIN_GROW_PRE):
+        small, state, m = step(small, state, on(next(data)), i + 1)
+        if i in (0, GRIFFIN_GROW_PRE - 1):
+            pre.append(float(m["loss"]))
+    pre_s = time.perf_counter() - t0
+    pre_launches = _launch_counts(kern, zero=True)
+    n_rec_s = griffin.block_pattern(cfg_s).count("rec")
+    want = {name: 0 for name in kern}
+    want.update(rglru_scan=n_rec_s * GRIFFIN_GROW_PRE,
+                rglru_scan_bwd=n_rec_s * GRIFFIN_GROW_PRE)
+    if pre_launches != want:
+        raise AssertionError(f"griffin-micro pretraining launched "
+                             f"{pre_launches}, expected {want}")
+    lf = loss_for(cfg_t)
+
+    def op_loss(big, b):
+        logits, aux = fam_t.forward(big, b, cfg_t)
+        return lf(logits, aux, b, cfg_t)[0]
+
+    t0 = time.perf_counter()
+    gop, op = growlib.build("mango", cfg_s, cfg_t, rank=1, device="cuda")
+    op, op_losses = growlib.train_operator(
+        gop, op, small, op_loss, lm_data_iter(cfg_t.vocab_size, 8, 64,
+                                              seed=3),
+        steps=GRIFFIN_GROW_OP, lr=2e-3)
+    with torch.no_grad():
+        big = growlib.grow_params(gop, op, small)
+    torch.cuda.synchronize()
+    op_s = time.perf_counter() - t0
+    grow_launches = _launch_counts(kern, zero=True)
+    # an operator step grows the target (a sandwich a group) and runs its
+    # forward and backward (a scan and a backward scan a recurrent layer);
+    # grow_params after the last step is one more growth
+    n_groups = len(gop.op.plan_src.groups)
+    want = {name: 0 for name in kern}
+    want.update(tr_sandwich=n_groups * (GRIFFIN_GROW_OP + 1),
+                rglru_scan=n_rec_t * GRIFFIN_GROW_OP,
+                rglru_scan_bwd=n_rec_t * GRIFFIN_GROW_OP)
+    if grow_launches != want:
+        raise AssertionError(f"griffin growth ({GRIFFIN_GROW_OP} operator "
+                             f"steps, {n_groups} groups, {n_rec_t} "
+                             f"recurrent layers) launched {grow_launches}, "
+                             f"expected {want}")
+    scratch = fam_t.init(torch.Generator(device="cuda").manual_seed(99),
+                         cfg_t)
+    ev = make_eval_step(cfg_t)
+    held = on(next(lm_data_iter(cfg_t.vocab_size, 8, 64, seed=50)))
+    l_grown = float(ev(big, held)["loss"])
+    l_scratch = float(ev(scratch, held)["loss"])
+    if not l_grown < l_scratch:
+        raise AssertionError(f"grown griffin-micro-big ({l_grown:.4f}) does "
+                             f"not start below scratch ({l_scratch:.4f})")
+    state_t, step_t = init_fn(big), make_train_step(cfg_t, opt)
+    data_t = lm_data_iter(cfg_t.vocab_size, 8, 64, seed=4)
+    _launch_counts(kern, zero=True)
+    grown_losses = []
+    for i in range(GRIFFIN_GROW_TRAIN):
+        big, state_t, m = step_t(big, state_t, on(next(data_t)), i + 1)
+        grown_losses.append(float(m["loss"]))
+    got = _launch_counts(kern, zero=True)
+    want = {name: 0 for name in kern}
+    want.update(rglru_scan=n_rec_t * GRIFFIN_GROW_TRAIN,
+                rglru_scan_bwd=n_rec_t * GRIFFIN_GROW_TRAIN)
+    if got != want:
+        raise AssertionError(f"grown griffin training launched {got}, "
+                             f"expected {want}")
+    print(f"griffin-micro pretrained {GRIFFIN_GROW_PRE} steps ({pre[0]:.4f}"
+          f" -> {pre[1]:.4f}, {pre_s:.1f} s); Mango operator "
+          f"{GRIFFIN_GROW_OP} steps ({op_losses[0]:.4f} -> "
+          f"{op_losses[-1]:.4f}, {op_s:.1f} s; launches {grow_launches}, "
+          f"exact: {n_groups} sandwiches a growth, {n_rec_t} + {n_rec_t} "
+          f"scans a step; pretraining {pre_launches}); "
+          f"held-out loss grown {l_grown:.4f} vs scratch {l_scratch:.4f} "
+          f"(margin {l_scratch - l_grown:.4f}); grown trained "
+          f"{GRIFFIN_GROW_TRAIN} steps {[round(x, 4) for x in grown_losses]}"
+          f", launches {got}", flush=True)
+
+    f1 = ["--arch", "griffin-micro", "--engine", "continuous", "--batch",
+          "2", "--gen", "4", "--grow-cfg", "griffin-micro-big",
+          "--upgrade-at", "1", "--upgrade-sync"]
+    out = run_launcher(f1)
+    f1_launches = _launch_counts(kern, zero=True)
+    if "greedy agreement 1.000" not in out or \
+            "post-swap speculation draft=griffin-micro" not in out:
+        raise AssertionError("the griffin upgrade command did not swap "
+                             "with agreement 1.000 and griffin-micro "
+                             "drafting")
+    long = ["--arch", "griffin-micro", "--engine", "continuous", "--batch",
+            "4", "--gen", "24", "--k", "2", "--grow-cfg",
+            "griffin-micro-big", "--upgrade-at", "2", "--upgrade-sync"]
+    out_long = run_launcher(long)
+    long_launches = _launch_counts(kern, zero=True)
+    acc = out_long.split("acceptance ")[1].split(" ")[1].strip("(),")
+    accepted, proposed = (int(x) for x in acc.split("/"))
+    if "greedy agreement 1.000" not in out_long or not proposed or \
+            not long_launches["ring_decode_attention"]:
+        raise AssertionError(f"the mid-flight swap did not speculate on the "
+                             f"grown model: {proposed} proposals, launches "
+                             f"{long_launches}")
+    kernel_rows["rglru_scan_bwd"]["launches_16a"] = got["rglru_scan_bwd"]
+    return dict(pretrain_losses=pre, pretrain_seconds=pre_s,
+                operator_losses=op_losses, operator_seconds=op_s,
+                grown_loss=l_grown, scratch_loss=l_scratch,
+                margin=l_scratch - l_grown, grown_train_losses=grown_losses,
+                pretrain_launches=pre_launches,
+                grow_launches=grow_launches, train_launches=got,
+                f1_output=out, f1_launches=f1_launches,
+                long_output=out_long, long_launches=long_launches,
+                acceptance=(accepted, proposed))
+
+
+def run_griffin_train(kernel_rows):
+    """Phase 16b: recurrentgemma-2b at full width and depth (26 x 2560,
+    f32, seeded weights) trained RG_TRAIN_STEPS AdamW steps at B 2 x S
+    512 (params and moments updated in place): step 0's
+    loss and gradient norm against the plain route on the same weights and
+    batch (the scan through ``ref.rglru_scan_ref`` under autograd: 1e-5
+    and 1e-4 relative), exact scan launches (18 forward and 18 backward a
+    step, no other kernel), ms/step against the f32 FLOP bound, peak
+    memory."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import lm_batch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.serve import build_params
+    from repro_torch.models import get_family, griffin
+    from repro_torch.optim import OptimizerConfig, make_optimizer
+    from repro_torch.optim.adamw import global_norm
+    from repro_torch.train.loss import loss_for
+    from repro_torch.train.steps import make_train_step, value_and_grad
+
+    kern = ops.kernels()
+    cfg = get_config("recurrentgemma-2b").replace(param_dtype="float32",
+                                                 compute_dtype="float32")
+    fam, lf = get_family(cfg), loss_for(cfg)
+    pat = griffin.block_pattern(cfg)
+    n_rec, n_attn = pat.count("rec"), pat.count("attn")
+    t0 = time.perf_counter()
+    params = build_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = list(_leaves(params))
+    n_params = sum(t.numel() for t in leaves)
+    n_mm = sum(t.numel() for t in leaves if t.dim() >= 2)
+    batch = {"tokens": torch.from_numpy(lm_batch(
+        cfg.vocab_size, RG_TRAIN_B, RG_TRAIN_S, seed=16)).cuda()}
+
+    def fwd_loss(p, b):
+        logits, aux = fam.forward(p, b, cfg)
+        return lf(logits, aux, b, cfg)
+
+    # the plain route: step 0's gradient with the scan's plain version
+    orig = ops.rglru_scan
+    ops.rglru_scan = ref.rglru_scan_ref
+    try:
+        before = _launch_counts(kern)
+        t0 = time.perf_counter()
+        grads, pm = value_and_grad(fwd_loss, params, batch)
+        plain_loss, plain_norm = float(pm["loss"]), float(global_norm(grads))
+        plain_s = time.perf_counter() - t0
+        if _launch_counts(kern) != before:
+            raise AssertionError("the plain route launched a CUDA kernel")
+    finally:
+        ops.rglru_scan = orig
+    del grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the step updates params and moments in place, as the reference
+    # launcher's jitted step donates them: new trees would hold two copies
+    # of 10.7 GB of params and 21.4 GB of moments, past the card's 80 GB
+    opt = OptimizerConfig(lr=1e-4)
+    init_fn, _ = make_optimizer(opt)
+    state = init_fn(params)
+    step = make_train_step(cfg, opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _launch_counts(kern, zero=True)
+    ms, metrics = [], []
+    for i in range(RG_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch, i + 1)
+        m = {k: float(v) for k, v in m.items()}  # reads back: synchronises
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append(m)
+    peak = torch.cuda.max_memory_allocated()
+    got = _launch_counts(kern, zero=True)
+    want = {name: 0 for name in kern}
+    want.update(rglru_scan=n_rec * RG_TRAIN_STEPS,
+                rglru_scan_bwd=n_rec * RG_TRAIN_STEPS)
+    if got != want:
+        raise AssertionError(f"recurrentgemma-2b training launched {got}, "
+                             f"expected {want}")
+    loss_rel = abs(metrics[0]["loss"] - plain_loss) / abs(plain_loss)
+    norm_rel = abs(metrics[0]["grad_norm"] - plain_norm) / abs(plain_norm)
+    if loss_rel > 1e-5 or norm_rel > 1e-4:
+        raise AssertionError(f"step 0 against the plain route: loss "
+                             f"{metrics[0]['loss']} vs {plain_loss} "
+                             f"({loss_rel:.3g}), grad norm "
+                             f"{metrics[0]['grad_norm']} vs {plain_norm} "
+                             f"({norm_rel:.3g})")
+    if not all(torch.isfinite(t).all() for t in _leaves(params)):
+        raise AssertionError("recurrentgemma-2b training left a non-finite "
+                             "parameter")
+    tokens = RG_TRAIN_B * RG_TRAIN_S
+    hd, H = cfg.head_dim, cfg.n_heads
+    flops = (6 * tokens * n_mm
+             + 3 * n_attn * 2 * RG_TRAIN_B * H * RG_TRAIN_S ** 2 * hd)
+    # bytes: params, grads and AdamW's two moments, read and written
+    b_ms, b_by = bound_ms(9 * 4 * n_params, flops, "float32")
+    kernel_rows["rglru_scan_bwd"]["launches"] = got["rglru_scan_bwd"]
+    print(f"recurrentgemma-2b training: {n_params} params ({n_mm} in "
+          f"matrices; drawn in {init_s:.1f} s), B {RG_TRAIN_B} x S "
+          f"{RG_TRAIN_S}, AdamW f32: ms/step {[round(x, 1) for x in ms]} "
+          f"against the bound {b_ms:.1f} ms ({b_by}, {flops:.4g} FLOPs at "
+          f"67 TFLOP/s f32); peak memory {peak / 2**30:.2f} GiB; losses "
+          f"{[round(m['loss'], 5) for m in metrics]}; step 0 loss "
+          f"{metrics[0]['loss']:.6f} vs plain {plain_loss:.6f} (rel "
+          f"{loss_rel:.3g}), grad norm {metrics[0]['grad_norm']:.6f} vs "
+          f"plain {plain_norm:.6f} (rel {norm_rel:.3g}; plain route "
+          f"{plain_s:.1f} s); launches {got}", flush=True)
+    report = dict(n_params=n_params, n_matrix_params=n_mm, ms_per_step=ms,
+                  bound_ms=b_ms, bound_by=b_by, flops=flops,
+                  peak_gib=peak / 2**30, metrics=metrics,
+                  plain_loss=plain_loss, plain_grad_norm=plain_norm,
+                  loss_rel_err=loss_rel, grad_norm_rel_err=norm_rel,
+                  plain_route_seconds=plain_s, launches=got,
+                  init_seconds=init_s)
+    del params, state
+    return report
+
+
+def run_serve_continuous():
+    """Phase 12's addition: ``repro_torch.examples.serve_continuous`` on
+    the card (qwen1.5-0.5b-smoke, a Mango-grown gpt-micro-big and
+    recurrentgemma-2b-smoke: head dims 16, 16, 20) with the same weights
+    as a CPU run of the example; every request's tokens equal the CPU's,
+    and flash, the dense slot, the ring and the scan launch."""
+    import torch
+
+    from repro_torch.examples import serve_continuous as example
+    from repro_torch.kernels import ops
+    from repro_torch.utils.pytree import tree_map
+
+    kern = ops.kernels()
+    params = {name: example.model_params(name, "cuda")
+              for name, _, _ in example.MODELS}
+    cpu = {name: tree_map(lambda t: t.cpu(), p) for name, p in params.items()}
+    _launch_counts(kern, zero=True)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        got = example.main(["--device", "cuda"], params=params)
+    card_s = time.perf_counter() - t0
+    launches = _launch_counts(kern, zero=True)
+    for name in ("flash_attention", "slot_decode_attention",
+                 "ring_decode_attention", "rglru_scan"):
+        if not launches[name]:
+            raise AssertionError(f"serve_continuous never launched {name}: "
+                                 f"{launches}")
+    with torch.no_grad():
+        want = example.main(["--device", "cpu"], params=cpu)
+    for name in want:
+        for uid in want[name]:
+            a = got[name][uid]
+            a = a.cpu().numpy() if torch.is_tensor(a) else a
+            b = want[name][uid]
+            b = b.cpu().numpy() if torch.is_tensor(b) else b
+            if list(a) != list(b):
+                raise AssertionError(f"serve_continuous {name} uid {uid}: "
+                                     f"card {list(a)} != CPU {list(b)}")
+    print(f"serve_continuous on the card in {card_s:.1f} s, tokens == the "
+          f"CPU run's for {sum(len(v) for v in want.values())} requests; "
+          f"launches {launches}", flush=True)
+    return dict(seconds=card_s, launches=launches)
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4342,16 +5097,22 @@ def main(argv=None):
     secs = build.build_all()
     print(f"built {sorted(secs)} from {build.CSRC.relative_to(ROOT)} in "
           f"{time.perf_counter() - t0:.1f} s (per source: "
-          f"{ {k: round(v, 1) for k, v in secs.items()} })", flush=True)
+          f"{ {k: round(v, 1) for k, v in secs.items()} }; CPU s: "
+          f"{ {k: round(v, 1) for k, v in build.cpu_seconds.items()} })",
+          flush=True)
     for name, log in build.ptxas_log.items():
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
         print(f"ptxas {name}: {regs}", flush=True)
 
     phase("kernels vs plain versions")
+    t0 = time.perf_counter()
     rows = run_kernels()
+    print(f"phase 3 took {time.perf_counter() - t0:.1f} s", flush=True)
 
     phase("serve gpt-base")
+    t0 = time.perf_counter()
     serve = run_serve(rows)
+    print(f"phase 4 took {time.perf_counter() - t0:.1f} s", flush=True)
 
     phase("grow gpt-small -> gpt-base")
     t0 = time.perf_counter()
@@ -4403,6 +5164,7 @@ def main(argv=None):
     phase("grow deit-s -> deit-b: checkpoints, resume, the examples")
     t0 = time.perf_counter()
     deit = run_deit(rows)
+    deit["serve_continuous"] = run_serve_continuous()
     print(f"phase 12 took {time.perf_counter() - t0:.1f} s", flush=True)
     gc.collect()  # phase 12's models go before gpt-base
     torch.cuda.empty_cache()
@@ -4423,6 +5185,16 @@ def main(argv=None):
     faults = run_faults(small, grown)
     del small, grown
     print(f"phase 15 took {time.perf_counter() - t0:.1f} s", flush=True)
+    gc.collect()  # phase 15's models go before recurrentgemma-2b's training
+    torch.cuda.empty_cache()
+
+    phase("griffin growth and training: griffin-micro -> griffin-micro-big, "
+          "the griffin upgrade command, recurrentgemma-2b trained at full "
+          "width")
+    t0 = time.perf_counter()
+    griffin_growth = run_griffin_grown_pair(rows)
+    griffin_growth["train"] = run_griffin_train(rows)
+    print(f"phase 16 took {time.perf_counter() - t0:.1f} s", flush=True)
 
     # the contract's keys, then the tensor-core rows' 3xTF32 and bf16 ones
     kernels = [{key: r[key] for key in (
@@ -4440,7 +5212,8 @@ def main(argv=None):
              "griffin_dense": griffin_dense, "griffin_paged": griffin_paged,
              "griffin_speculative": griffin_spec, "faults": faults,
              "qwen": qwen, "deit": deit, "sampled": sampled,
-             "upgrade": upgrade, "build_seconds": secs}, indent=1))
+             "upgrade": upgrade, "griffin_growth": griffin_growth,
+             "build_seconds": secs}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}))

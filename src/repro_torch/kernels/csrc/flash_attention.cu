@@ -9,7 +9,7 @@
 // with its own (batch, head, position) strides and a contiguous last axis,
 // so the transformer's head-major view of its (B,S,H,hd) activations and
 // a slice of a longer cache need no copy.  float32 and bfloat16 inputs, hd
-// in {64, 128}; the running max, denominator and accumulator are float32.
+// up to 128; the running max, denominator and accumulator are float32.
 // NEG_INF = -1e30 as in the TPU kernel, so masked logits underflow to exact
 // zeros after the max shift; the denominator is max(l, 1e-30).
 //
@@ -44,8 +44,17 @@
 // swizzle that wgmma reads directly (K K-major, V MN-major through the
 // bf16 transpose), up to 4 (hd 64) or 2 (hd 128) tiles ahead, on "full"
 // and "empty" barriers, so the warpgroup never waits on a barrier of the
-// block.  P is rounded to bf16 before PV, as the TPU kernel does.  Rows of
-// q, k, v must start on 16 bytes (TMA); the wrapper checks.
+// block.  P is rounded to bf16 before PV, as the TPU kernel does.
+//
+// Head dims.  An instance's HD is a bucket, 64 or 128, and a head dim hd <=
+// HD runs in the smallest that holds it (the repo's 16, 20 and 32 in 64, 80
+// in 128): Q, K and V are staged HD wide with the columns past hd zero (a
+// chunk's copy stops at hd and zero-fills the rest), so QK^T is exact and
+// PV's columns past hd are zeros that are never written back.  In bf16,
+// where hd < HD or a row, base or stride of k, v is off 16 bytes (hd 20:
+// 40-byte rows), TMA cannot fill the tiles, and the producer warp writes
+// them itself, 16 bytes a lane in the 128-byte swizzle TMA would have
+// made, zeros past hd and past S, then arrives on the tile's barrier.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -99,7 +108,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  int group, long long qsb, long long qsh, long long qss,
                  long long ksb, long long ksh, long long kss, long long vsb,
                  long long vsh, long long vss, long long osb, long long osh,
-                 long long oss, float scale, int causal, int vec) {
+                 long long oss, float scale, int causal, int vec, int hd) {
   using C = Cfg<HD>;
   using T = float;
   constexpr int V = C::V, BK = C::BK, QST = C::QST, KB = C::KB;
@@ -127,10 +136,11 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int kend = causal ? min(S, q0 + BQ) : S;
   const int nt = (kend + BK - 1) / BK;
 
+  // a chunk's values below hd are copied, the rest zero-filled
   for (int c = tid; c < BQ * QC; c += NT) {
     const int r = c / QC, qq = c % QC, s = q0 + r;
     load_chunk<T>(Qs + r * QST + qq * V, qb + s * qss + qq * V,
-                  s < S ? V : 0, vc, q);
+                  s < S ? hd - qq * V : 0, vc, q);
   }
   auto load_tile = [&](int tt) {
     unsigned char* buf = ring + tt % C::RING * 2 * KB;
@@ -140,13 +150,13 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int qq = (c & 1) + 2 * (c / (2 * BK)), r = (c >> 1) % BK;
       const int s = k0 + r;
       load_chunk<T>(reinterpret_cast<T*>(buf + core_off(r, qq, BK)),
-                    kb + s * kss + qq * V, s < S ? V : 0, vc, k);
+                    kb + s * kss + qq * V, s < S ? hd - qq * V : 0, vc, k);
     }
     T* vr = reinterpret_cast<T*>(buf + KB);  // [BK][HD] as stored
     for (int c = tid; c < BK * QC; c += NT) {
       const int r = c / QC, qq = c % QC, s = k0 + r;
       load_chunk<T>(vr + r * HD + qq * V, vb + s * vss + qq * V,
-                    s < S ? V : 0, vc, v);
+                    s < S ? hd - qq * V : 0, vc, v);
     }
   };
   // split K in place (hi over the copy, lo to its plane) and transpose V
@@ -337,6 +347,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int col = 8 * j + 2 * t4 + e;
+        if (col >= hd) continue;
         if (r0 < S) store(&ob[r0 * oss + col], oacc[4 * j + e] / den0);
         if (r1 < S) store(&ob[r1 * oss + col], oacc[4 * j + 2 + e] / den1);
       }
@@ -355,9 +366,9 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
            oacc[4 * j + 3] / den1);
   }
   __syncthreads();
-  for (int c = tid; c < BQ * QC; c += NT) {
+  for (int c = tid; c < BQ * QC; c += NT) {  // hd is a multiple of V here
     const int r = c / QC, qq = c % QC, s = q0 + r;
-    if (s < S)
+    if (s < S && qq * V < hd)
       *reinterpret_cast<uint4*>(ob + s * oss + qq * V) =
           *reinterpret_cast<const uint4*>(Qs + r * QST + qq * V);
   }
@@ -385,12 +396,15 @@ struct BCfg {
 template <int HD>
 __global__ void __launch_bounds__(NTB)
 flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                  const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v,
                   __nv_bfloat16* __restrict__ o, int S, int group,
-                  long long qsb, long long qsh, long long qss, long long osb,
-                  long long osh, long long oss,
+                  long long qsb, long long qsh, long long qss, long long ksb,
+                  long long ksh, long long kss, long long vsb, long long vsh,
+                  long long vss, long long osb, long long osh, long long oss,
                   const __grid_constant__ CUtensorMap kmap,
-                  const __grid_constant__ CUtensorMap vmap, float scale,
-                  int causal, int vec) {
+                  const __grid_constant__ CUtensorMap vmap, int tma,
+                  float scale, int causal, int vec, int hd) {
   using C = BCfg<HD>;
   using T = __nv_bfloat16;
   constexpr int R = C::R, QST = C::QST, TILE = C::TILE;
@@ -417,6 +431,38 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   }
   __syncthreads();
 
+  if (tid >= 128 && !tma) {  // the producer warp writes the tiles itself
+    const int pl = tid - 128;
+    const T* kb = k + b * ksb + kvh * ksh;
+    const T* vb = v + b * vsb + kvh * vsh;
+    constexpr int CH = HD / 8;  // 16-byte chunks of a row
+    for (int t = 0; t < nt; ++t) {
+      unsigned char* kt = ring + t % R * 2 * TILE;
+      if (t >= R) mbar_wait(empty + t % R, (t / R - 1) & 1);
+      for (int c = pl; c < BKB * CH; c += 32) {
+        // key row r, chunk ch: box ch / 8 (64 columns), its 128-byte row r
+        // with the chunk at (ch % 8) ^ (r % 8), as SWIZZLE_128B stores it
+        const int r = c / CH, ch = c % CH, s = t * BKB + r;
+        const int off = ch / 8 * 8192 + r * 128 + ((ch % 8 ^ (r & 7)) << 4);
+        __align__(16) T kx[8], vx[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int d = ch * 8 + e;
+          const bool in = s < S && d < hd;
+          kx[e] = in ? kb[s * kss + d] : __float2bfloat16(0.f);
+          vx[e] = in ? vb[s * vss + d] : __float2bfloat16(0.f);
+        }
+        *reinterpret_cast<uint4*>(kt + off) =
+            *reinterpret_cast<const uint4*>(kx);
+        *reinterpret_cast<uint4*>(kt + TILE + off) =
+            *reinterpret_cast<const uint4*>(vx);
+      }
+      fence_proxy_async();  // the tile, visible to wgmma
+      __syncwarp();
+      if (pl == 0) mbar_arrive(full + t % R);
+    }
+    return;
+  }
   if (tid >= 128) {  // the producer warp: K and V tiles, R ahead
     if (tid == 128) {
       for (int t = 0; t < nt; ++t) {
@@ -441,7 +487,7 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   for (int c = tid; c < BQB * QC; c += 128) {
     const int r = c / QC, qq = c % QC, s = q0 + r;
     load_chunk<T>(Qs + r * QST + qq * 8, qb + s * qss + qq * 8,
-                  s < S ? 8 : 0, vec & 1, q);
+                  s < S ? hd - qq * 8 : 0, vec & 1, q);
   }
   cp_async_commit();
   cp_async_wait<0>();
@@ -560,6 +606,7 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int col = 8 * j + 2 * t4 + e;
+        if (col >= hd) continue;
         if (r0 < S) store(&ob[r0 * oss + col], oacc[4 * j + e] / den0);
         if (r1 < S) store(&ob[r1 * oss + col], oacc[4 * j + 2 + e] / den1);
       }
@@ -576,9 +623,9 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
            oacc[4 * j + 3] / den1);
   }
   __syncwarp();
-  for (int c = tid & 31; c < 16 * QC; c += 32) {
+  for (int c = tid & 31; c < 16 * QC; c += 32) {  // hd a multiple of 8 here
     const int r = warp * 16 + c / QC, qq = c % QC, s = q0 + r;
-    if (s < S)
+    if (s < S && qq * 8 < hd)
       *reinterpret_cast<uint4*>(ob + s * oss + qq * 8) =
           *reinterpret_cast<const uint4*>(Qs + r * QST + qq * 8);
   }
@@ -601,13 +648,15 @@ inline bool kv_map(CUtensorMap* map, const void* p, int B, int KV, int S,
 
 template <int HD>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
-                int H, int KV, int S, const long long* st, float scale,
-                int causal, cudaStream_t stream) {
+                int H, int KV, int S, int hd, const long long* st,
+                float scale, int causal, cudaStream_t stream) {
   using C = BCfg<HD>;
-  CUtensorMap kmap, vmap;
-  if (!kv_map(&kmap, k, B, KV, S, HD, st[3], st[4], st[5]) ||
-      !kv_map(&vmap, v, B, KV, S, HD, st[6], st[7], st[8]))
-    return (int)cudaErrorInvalidValue;
+  // TMA fills the tiles where a row is HD values on 16 bytes; else the
+  // producer warp writes them
+  CUtensorMap kmap{}, vmap{};
+  const int tma = hd == HD &&
+                  kv_map(&kmap, k, B, KV, S, HD, st[3], st[4], st[5]) &&
+                  kv_map(&vmap, v, B, KV, S, HD, st[6], st[7], st[8]);
   cudaError_t e = cudaFuncSetAttribute(
       flash_bf16_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       C::SMEM);
@@ -615,19 +664,22 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
   const bool vec = reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
                    st[0] % 8 == 0 && st[1] % 8 == 0 && st[2] % 8 == 0;
   const bool ovec = reinterpret_cast<uintptr_t>(o) % 16 == 0 &&
-                    st[11] % 8 == 0;
+                    st[11] % 8 == 0 && hd % 8 == 0;
   const dim3 grid((S + BQB - 1) / BQB, H, B);
   flash_bf16_kernel<HD><<<grid, NTB, C::SMEM, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<__nv_bfloat16*>(o),
-      S, H / KV, st[0], st[1], st[2], st[9], st[10], st[11], kmap, vmap,
-      scale, causal, (int)vec | (int)ovec << 1);
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      S, H / KV, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
+      st[8], st[9], st[10], st[11], kmap, vmap, tma, scale, causal,
+      (int)vec | (int)ovec << 1, hd);
   return (int)cudaGetLastError();
 }
 
 template <int HD>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
-               int H, int KV, int S, const long long* st, float scale,
-               int causal, cudaStream_t stream) {
+               int H, int KV, int S, int hd, const long long* st,
+               float scale, int causal, cudaStream_t stream) {
   using C = Cfg<HD>;
   using T = float;
   cudaError_t e = cudaFuncSetAttribute(
@@ -639,14 +691,14 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
               reinterpret_cast<uintptr_t>(v)) % 16 == 0;
   for (int i = 0; i < 9; ++i) vec = vec && st[i] % C::V == 0;
   // bit 1: the output's rows start on 16 bytes too
-  const bool ovec =
-      reinterpret_cast<uintptr_t>(o) % 16 == 0 && st[11] % C::V == 0;
+  const bool ovec = reinterpret_cast<uintptr_t>(o) % 16 == 0 &&
+                    st[11] % C::V == 0 && hd % C::V == 0;
   const dim3 grid((S + BQ - 1) / BQ, H, B);
   flash_f32_kernel<HD><<<grid, NT, C::SMEM, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), S, H / KV, st[0], st[1],
       st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
-      scale, causal, (int)vec | (int)ovec << 1);
+      scale, causal, (int)vec | (int)ovec << 1, hd);
   return (int)cudaGetLastError();
 }
 
@@ -662,17 +714,19 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    int causal, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (S <= 0 || B <= 0) return 0;
-  if (dtype == 0 && hd == 64)
-    return launch_f32<64>(q, k, v, o, B, H, KV, S, strides, scale, causal,
-                          st);
-  if (dtype == 0 && hd == 128)
-    return launch_f32<128>(q, k, v, o, B, H, KV, S, strides, scale, causal,
-                           st);
-  if (dtype == 1 && hd == 64)
-    return launch_bf16<64>(q, k, v, o, B, H, KV, S, strides, scale, causal,
-                           st);
-  if (dtype == 1 && hd == 128)
-    return launch_bf16<128>(q, k, v, o, B, H, KV, S, strides, scale, causal,
-                            st);
+  if (hd < 1 || hd > 128) return (int)cudaErrorInvalidValue;
+  // the bucket: the smaller of 64 and 128 that holds hd
+  if (dtype == 0 && hd <= 64)
+    return launch_f32<64>(q, k, v, o, B, H, KV, S, hd, strides, scale,
+                          causal, st);
+  if (dtype == 0)
+    return launch_f32<128>(q, k, v, o, B, H, KV, S, hd, strides, scale,
+                           causal, st);
+  if (dtype == 1 && hd <= 64)
+    return launch_bf16<64>(q, k, v, o, B, H, KV, S, hd, strides, scale,
+                           causal, st);
+  if (dtype == 1)
+    return launch_bf16<128>(q, k, v, o, B, H, KV, S, hd, strides, scale,
+                            causal, st);
   return (int)cudaErrorInvalidValue;
 }

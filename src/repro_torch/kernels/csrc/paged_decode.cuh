@@ -37,12 +37,27 @@
 //                                masked keys weigh exactly 0.
 // An empty band (kv_len <= 0, pos < 0, off < 0: an idle or finished slot)
 // writes exact zeros; the pools are never written.  float32 and bfloat16;
-// the ring takes hd in {64, 128, 256} and G = H / KV in 1..16, the slot hd
-// in {64, 128} and G up to 8, the verify hd in {64, 128}, G up to 16 and
-// any S: its chunk keys are further positions of the band, staged through
-// the same tile ring as the cache (a tile may hold both; a long chunk spans
-// tiles), so only the grid's z limit bounds it, B * tiles <= 65,535.
+// the ring takes hd up to 256 and G = H / KV in 1..16, the slot hd up to
+// 128 and G up to 8, the verify hd up to 128, G up to 16 and any S: its
+// chunk keys are further positions of the band, staged through the same
+// tile ring as the cache (a tile may hold both; a long chunk spans tiles),
+// so only the grid's z limit bounds it, B * tiles <= 65,535.
 // Softmax state and sums are float32, products float32 FMAs.
+//
+// Head dims.  An instance's HD is a bucket, 64, 128 or (ring) 256; a head
+// dim hd <= HD runs in the smallest bucket that holds it (the repo's 16,
+// 20 and 32 in 64, 80 in 128), its rows hd values wide in device memory
+// and HD wide in shared memory.  The columns past hd of every staged row
+// are zeroed once at the start and never copied into, and q's are zero, so
+// they add exact zeros to each logit; their P @ V columns are never
+// written.  No new instances: a 32 bucket would leave a bfloat16 row of
+// 4 chunks to the 8 logit threads of a row pair (C / L = 0), and every
+// bucket multiplies the instances of the slowest source.  Rows of hd *
+// itemsize bytes off 16 (hd 20 in bfloat16), or strides or bases off 16
+// bytes, cannot be bulk-copied: the producer warp then copies such a tile
+// itself, a row at a time, its lanes across the row's values, and arrives
+// on the stage's barrier (`vec` 0).  A run of contiguous rows is one copy,
+// and a tile one TMA box, only where hd == HD.
 //
 // Bound on the H100: bytes.  Each band position's K and V row is read
 // once, sum_b n_b * KV * hd * 2 * itemsize bytes, at ~2 * (query rows)
@@ -208,7 +223,8 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const int* __restrict__ rowarg, T* __restrict__ o,
                     const __grid_constant__ CUtensorMap kmap,
                     const __grid_constant__ CUtensorMap vmap, int tma,
-                    int n_pages, int page, int nblk, long long sb,
+                    int hd, int vec, int n_pages, int page, int nblk,
+                    long long sb,
                     long long skv, long long ss, int KV, int G, int slen,
                     int rows, int window, int ring, int chunk, int devcut,
                     float scale) {
@@ -216,6 +232,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr bool VER = KIND == VERIFY;
   constexpr int TR = Gm::TR, C = Gm::C, VALS = Gm::VALS;
   constexpr int S = Gm::S, NR = Gm::NR, SP = Gm::SP, R = Gm::R;
+  const int RB = hd * (int)sizeof(T);  // bytes of a row in device memory
   constexpr int PB = GC >= 8 ? 2 : 1;  // logit rows a thread (q reuse)
   constexpr int RS = TR / PB;          // ... RS apart
   constexpr int L = NC * PB / TR;      // logit threads a row group
@@ -276,20 +293,20 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   } else {
     n = min(rowarg[b], cap);
   }
-  // element i of the block's nq x HD query rows, in q and in o: (b, i, kvh
-  // * G + g) for row r0 + i / HD = i * G + g of a verify, else the group's
-  // rows (b, kvh * G + i / HD)
-  const long long grp = ((long long)b * KV * G + (long long)kvh * G) * HD;
+  // element i of the block's nq x hd query rows, in q and in o: (b, i, kvh
+  // * G + g) for row r0 + i / hd = i * G + g of a verify, else the group's
+  // rows (b, kvh * G + i / hd)
+  const long long grp = ((long long)b * KV * G + (long long)kvh * G) * hd;
   auto elem = [&](int i) -> long long {
     if constexpr (VER) {
-      const int rr = r0 + i / HD, qi = rr / G;
+      const int rr = r0 + i / hd, qi = rr / G;
       return (((long long)b * slen + qi) * KV * G + (long long)kvh * G + rr -
-              qi * G) * HD + i % HD;
+              qi * G) * hd + i % hd;
     } else {
       return grp + i;
     }
   };
-  const int GH = nq * HD;
+  const int GH = nq * hd;
   const int per = (GH + nsplit - 1) / nsplit;  // outputs this rank merges
   const int o0 = rank * per, o1 = min(GH, o0 + per);
   if (n <= 0) {  // empty band, the same for the whole cluster: zeros
@@ -315,14 +332,20 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  if (hd < HD) {  // the columns past hd of every staged K and V row: zeros
+    const int tail = HD - hd;
+    for (int i = tid; i < 2 * S * TR * tail; i += NT)
+      sK[(i / tail) * HD + hd + i % tail] = T(0.f);
+  }
   __syncthreads();  // the barriers; the producer starts without waiting for q
 
   if (warp == NCW) {
     // ---- producer: one lane per position of the tile -------------------
     const T* kb = k + kvh * skv;
     const T* vb = v + kvh * skv;
-    const bool contig = ss == HD;  // a page's rows are contiguous
-    const long long cs = (long long)KV * HD;  // a chunk key's row stride
+    // a page's rows are contiguous, and as wide as shared memory's
+    const bool contig = ss == hd && hd == HD;
+    const long long cs = (long long)KV * hd;  // a chunk key's row stride
     // the page holding block blk of row b: its own (dense), or its table
     // entry clamped into the arena
     auto page_of = [&](int blk) -> int {
@@ -338,6 +361,34 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (it >= S) tc::mbar_wait(empty + s, (it / S - 1) & 1);
       const int tp = p0 + it * TR;
       const int tv = min(TR, p1 - tp);
+      if (!vec) {  // rows off 16 bytes: the warp copies the tile itself
+        for (int t = 0; t < tv; ++t) {
+          const int p = tp + t;
+          const T* ks;
+          const T* vs;
+          if (!VER || p < ce) {
+            const int slot = p < cap ? p : p % cap;
+            const int blk = slot / page, off = slot - blk * page;
+            const long long src = page_of(blk) * sb + off * ss;
+            ks = kb + src;
+            vs = vb + src;
+          } else {
+            const long long src =
+                ((long long)b * slen + p - ce) * cs + (long long)kvh * hd;
+            ks = kc + src;
+            vs = vc + src;
+          }
+          T* dk = sK + (s * TR + t) * HD;
+          T* dv = sV + (s * TR + t) * HD;
+          for (int d = lane; d < hd; d += 32) {
+            dk[d] = ks[d];
+            dv[d] = vs[d];
+          }
+        }
+        __syncwarp();
+        if (lane == 0) tc::mbar_arrive(full + s);
+        continue;
+      }
       // the tile lies in one page (of the cache): one box of TR rows each
       if (tma && (!VER || tp + TR <= ce)) {
         if (lane == 0) {
@@ -350,7 +401,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
         continue;
       }
-      if (lane == 0) tc::mbar_expect(full + s, 2 * tv * R);
+      if (lane == 0) tc::mbar_expect(full + s, 2 * tv * RB);
       __syncwarp();
       if (lane < tv) {
         const int p = tp + lane;
@@ -364,18 +415,18 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
             int nrow = contig ? min(tv - lane, page - off) : 1;
             if (VER) nrow = min(nrow, ce - p);  // the cache part ends at ce
             const long long src = page_of(blk) * sb + off * ss;
-            tc::bulk_load(sK + dst, kb + src, nrow * R, full + s);
-            tc::bulk_load(sV + dst, vb + src, nrow * R, full + s);
+            tc::bulk_load(sK + dst, kb + src, nrow * RB, full + s);
+            tc::bulk_load(sV + dst, vb + src, nrow * RB, full + s);
           }
         } else {  // a verify's chunk row t: (b, t, kvh) of kc/vc
-          const bool start = KV != 1 || lane == 0 || p == ce;
-          if (start) {
-            const int nrow = KV != 1 ? 1 : tv - lane;
+          const bool one = KV != 1 || hd != HD;  // a copy a row
+          if (one || lane == 0 || p == ce) {
+            const int nrow = one ? 1 : tv - lane;
             const long long src = ((long long)b * slen + p - ce) * cs;
-            tc::bulk_load(sK + dst, kc + (long long)kvh * HD + src, nrow * R,
-                          full + s);
-            tc::bulk_load(sV + dst, vc + (long long)kvh * HD + src, nrow * R,
-                          full + s);
+            tc::bulk_load(sK + dst, kc + (long long)kvh * hd + src,
+                          nrow * RB, full + s);
+            tc::bulk_load(sV + dst, vc + (long long)kvh * hd + src,
+                          nrow * RB, full + s);
           }
         }
       }
@@ -383,9 +434,9 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   } else {
     // ---- consumers -----------------------------------------------------
     for (int i = tid; i < GC * HD; i += NC) {
-      const int d = i % HD, c = d / VALS, e = d % VALS;
+      const int g = i / HD, d = i - g * HD, c = d / VALS, e = d % VALS;
       sQ[i - d + (e / 4) * C * 4 + c * 4 + e % 4] =
-          i < GH ? to_f(q[elem(i)]) : 0.f;
+          g < nq && d < hd ? to_f(q[elem(g * hd + d)]) : 0.f;
     }
     for (int g = tid; g < GC; g += NC) {
       sM[g] = NEG_INF;
@@ -597,7 +648,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   cluster.sync();  // every piece's (m, l, acc) is in its shared memory
   const int nr = min(nsplit, (n + cut - 1) / cut);  // pieces with data
   for (int i = o0 + tid; i < o1; i += NT) {
-    const int g = i / HD;
+    const int g = i / hd, ia = g * HD + i - g * hd;  // its sAcc element
     float mr[CLUSTER_MAX], lr[CLUSTER_MAX], ar[CLUSTER_MAX];
 #pragma unroll
     for (int r = 0; r < CLUSTER_MAX; ++r) {  // all loads in flight at once
@@ -606,7 +657,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (r < nr) {
         mr[r] = *cluster.map_shared_rank(sM + g, r);
         lr[r] = *cluster.map_shared_rank(sL + g, r);
-        ar[r] = *cluster.map_shared_rank(sAcc + i, r);
+        ar[r] = *cluster.map_shared_rank(sAcc + ia, r);
       }
     }
     float M = NEG_INF;
@@ -639,6 +690,7 @@ struct Call {
   long long sb, skv, ss;
   int ring, devcut;
   float scale;
+  int hd;  // the head dim (<= the instance's bucket HD); set by run
 };
 
 // The strides of (n_pages, page, KV, hd) rows: an arena's, or a dense
@@ -683,6 +735,14 @@ int launch(const Call& c, cudaStream_t st, int* resident) {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
+  // rows bulk-copied: every row's bytes, base and stride on 16 bytes
+  const long long es = sizeof(T);
+  auto a16 = [](const void* p) {
+    return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  const int vec = c.hd * es % 16 == 0 && a16(c.k) && a16(c.v) && a16(c.kc) &&
+                  a16(c.vc) && c.sb * es % 16 == 0 && c.skv * es % 16 == 0 &&
+                  c.ss * es % 16 == 0;
   // bands whose tiles start on multiples of TR (the slot's, a full-layout
   // verify's without a window; chunk is one): with strided rows and pages
   // of whole tiles, one 4-d box (hd, 1 head, TR rows, 1 page) a cache
@@ -690,8 +750,8 @@ int launch(const Call& c, cudaStream_t st, int* resident) {
   CUtensorMap kmap{}, vmap{};
   int tma = 0;
   if (KIND != RING && (KIND == SLOT || (c.window == 0 && !c.ring)) &&
-      c.ss != HD && c.page % TR == 0 && c.chunk % TR == 0) {
-    const unsigned long long es = sizeof(T);
+      vec && c.hd == HD && c.ss != HD && c.page % TR == 0 &&
+      c.chunk % TR == 0) {
     const unsigned long long dims[4] = {
         (unsigned long long)HD, (unsigned long long)c.KV,
         (unsigned long long)c.page, (unsigned long long)c.n_pages};
@@ -705,7 +765,8 @@ int launch(const Call& c, cudaStream_t st, int* resident) {
       &cfg, kern, static_cast<const T*>(c.q), static_cast<const T*>(c.k),
       static_cast<const T*>(c.v), static_cast<const T*>(c.kc),
       static_cast<const T*>(c.vc), c.bt, c.rowarg, static_cast<T*>(c.o),
-      kmap, vmap, tma, c.n_pages, c.page, c.nblk, c.sb, c.skv, c.ss, c.KV,
+      kmap, vmap, tma, c.hd, vec, c.n_pages, c.page, c.nblk, c.sb, c.skv,
+      c.ss, c.KV,
       c.G, c.S, c.rows, c.window, c.ring, c.chunk, c.devcut, c.scale);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
@@ -729,18 +790,20 @@ int launch_g(const Call& c, cudaStream_t st, int* resident) {
   return (int)cudaErrorInvalidValue;
 }
 
-// The (dtype, hd) instance: hd 64 or 128, and 256 for the ring.
+// The (dtype, bucket) instance of head dim hd: the bucket 64, 128, or 256
+// for the ring, the smallest that holds hd.
 template <int KIND, bool DENSE>
 int launch_t(const Call& c, int dtype, int hd, cudaStream_t st,
              int* resident) {
 #define PDEC_TYPE(TT, HH) return launch_g<TT, HH, KIND, DENSE>(c, st, resident)
-  if (dtype == 0 && hd == 64) PDEC_TYPE(float, 64);
-  if (dtype == 0 && hd == 128) PDEC_TYPE(float, 128);
-  if (dtype == 1 && hd == 64) PDEC_TYPE(__nv_bfloat16, 64);
-  if (dtype == 1 && hd == 128) PDEC_TYPE(__nv_bfloat16, 128);
+  if (hd < 1) return (int)cudaErrorInvalidValue;
+  if (dtype == 0 && hd <= 64) PDEC_TYPE(float, 64);
+  if (dtype == 0 && hd <= 128) PDEC_TYPE(float, 128);
+  if (dtype == 1 && hd <= 64) PDEC_TYPE(__nv_bfloat16, 64);
+  if (dtype == 1 && hd <= 128) PDEC_TYPE(__nv_bfloat16, 128);
   if constexpr (KIND == RING) {
-    if (dtype == 0 && hd == 256) PDEC_TYPE(float, 256);
-    if (dtype == 1 && hd == 256) PDEC_TYPE(__nv_bfloat16, 256);
+    if (dtype == 0 && hd <= 256) PDEC_TYPE(float, 256);
+    if (dtype == 1 && hd <= 256) PDEC_TYPE(__nv_bfloat16, 256);
   }
 #undef PDEC_TYPE
   return (int)cudaErrorInvalidValue;
@@ -759,6 +822,7 @@ int run(Call c, int H, int dtype, int hd, void* stream) {
       c.window < 0 || (KIND == RING && c.window < 1))
     return (int)cudaErrorInvalidValue;
   c.G = H / c.KV;
+  c.hd = hd;
   if (KIND != VERIFY) {
     c.S = 1;
     c.rows = c.G;
@@ -792,6 +856,7 @@ int blocks_per_sm(int dtype, int hd, int rows, int* out) {
     return (int)cudaErrorInvalidValue;
   Call c = {};
   c.rows = rows;
+  c.hd = hd;
   return launch_t<KIND, DENSE>(c, dtype, hd, nullptr, out);
 }
 

@@ -41,6 +41,25 @@
 // tensors off 16 bytes, cannot be described to the TMA unit; they take the
 // first design instead: one thread per lane, in 128-thread blocks, loading
 // UNR steps ahead into registers.
+//
+// The backward (rglru_scan_bwd; the TPU kernel has none: JAX differentiates
+// lax.associative_scan, src/repro/models/griffin.py:154).  For upstream
+// g_t = dL/dh_t it walks the sequence backwards:
+//   dh_t = g_t + a_{t+1} * dh_{t+1}   (0 past the last step)
+//   db_t = dh_t,  da_t = dh_t * h_{t-1}  (h_{-1} = h0),  dh0 = a_0 * dh_0,
+// the carry in float32 with each product and sum rounded, as autograd
+// through the plain version rounds them (float32 results equal it bit for
+// bit).  It reads h_{t-1} from a float32 h: in float32 the forward's own
+// output is that h exactly; in bfloat16 the forward runs on float32 copies
+// of a and b and keeps its float32 h, since the bf16 output is rounded and
+// a product with it would be too.  Bound: bytes, a, g (itemsize) and h (4)
+// read once and da, db written once, 4 itemsize + 4 bytes a lane and step.
+// Same plan as the forward, walked in reverse: the producer warp issues the
+// stages last to first, each three boxes (a, g, and h one step back: row
+// coordinate it * steps - 1, which the TMA unit zero-fills at -1), the
+// consumer warp runs 32 chains from the end of each stage to its start and
+// stores da and db by two TMA boxes a stage; rows past S are zeros, so the
+// carry starts at 0 through them.  Rows off 16 bytes: one thread a lane.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -209,6 +228,194 @@ rglru_scan_lanes(const T* __restrict__ a, const T* __restrict__ b,
   }
 }
 
+// Shared memory of a backward TMA-path block: barriers, NS stages of h
+// (float32), a and g, and two output tiles each of da and db.
+__host__ __device__ constexpr int bwd_smem_bytes(int steps, int item) {
+  return 128 + (NS * (2 * item + 4) + 4 * item) * steps * LANES;
+}
+
+// Block x: tile (b, w0) as in the forward; maps view a, g, h, da and db as
+// (W, S, B) with boxes (LANES, steps, 1).  dh0 (B, W) float32 or null.
+template <typename T>
+__global__ void __launch_bounds__(NTT)
+rglru_scan_bwd_tma(const __grid_constant__ CUtensorMap amap,
+                   const __grid_constant__ CUtensorMap gmap,
+                   const __grid_constant__ CUtensorMap hmap,
+                   const __grid_constant__ CUtensorMap damap,
+                   const __grid_constant__ CUtensorMap dbmap,
+                   const float* __restrict__ h0, float* __restrict__ dh0,
+                   int S, int W, int wtiles, int steps) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);  // [NS]
+  uint64_t* empty = full + NS;                         // [NS]
+  const int te = steps * LANES;                        // elements a tile
+  float* sH = reinterpret_cast<float*>(smem + 128);    // [NS][steps][LANES]
+  T* sA = reinterpret_cast<T*>(sH + NS * te);          // [NS][steps][LANES]
+  T* sG = sA + NS * te;                                // [NS][steps][LANES]
+  T* sDA = sG + NS * te;                               // [2][steps][LANES]
+  T* sDB = sDA + 2 * te;                               // [2][steps][LANES]
+  const int bi = blockIdx.x / wtiles;
+  const int w0 = (blockIdx.x - bi * wtiles) * LANES;
+  const int nst = (S + steps - 1) / steps;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      tc::mbar_init(full + s, 1);
+      tc::mbar_init(empty + s, 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 1) {  // ---- producer: the stages, last to first -----------
+    if (lane == 0) {
+      for (int k = 0; k < nst; ++k) {
+        const int it = nst - 1 - k, s = k % NS;
+        if (k >= NS) tc::mbar_wait(empty + s, (k / NS - 1) & 1);
+        tc::mbar_expect(full + s, te * (2 * (int)sizeof(T) + 4));
+        tc::tma_load_3d(sA + s * te, &amap, w0, it * steps, bi, full + s);
+        tc::tma_load_3d(sG + s * te, &gmap, w0, it * steps, bi, full + s);
+        // h one step back: row j holds h_{it * steps + j - 1}
+        tc::tma_load_3d(sH + s * te, &hmap, w0, it * steps - 1, bi,
+                        full + s);
+      }
+    }
+    return;
+  }
+
+  // ---- consumer: lane l carries lane w0 + l backwards --------------------
+  const int w = w0 + lane;
+  const float hinit = h0 != nullptr && w < W ? h0[(long long)bi * W + w] : 0.f;
+  float carry = 0.f;  // a_{t+1} * dh_{t+1}
+  for (int k = 0; k < nst; ++k) {
+    const int it = nst - 1 - k, s = k % NS;
+    T* oa = sDA + (k & 1) * te + lane;
+    T* ob = sDB + (k & 1) * te + lane;
+    if (k >= 2) {  // the stores of stage k - 2 have read these tiles
+      if (lane == 0) bulk_wait_read<1>();
+      __syncwarp();
+    }
+    tc::mbar_wait(full + s, (k / NS) & 1);
+    const T* ta = sA + s * te + lane;
+    const T* tg = sG + s * te + lane;
+    const float* th = sH + s * te + lane;
+    for (int j = steps - 8; j >= 0; j -= 8) {
+      float av[8], gv[8], hv[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        av[u] = to_f(ta[(j + u) * LANES]);
+        gv[u] = to_f(tg[(j + u) * LANES]);
+        hv[u] = th[(j + u) * LANES];
+      }
+      if (it == 0 && j == 0) hv[0] = hinit;  // h_{-1}
+#pragma unroll
+      for (int u = 7; u >= 0; --u) {
+        const float dh = __fadd_rn(gv[u], carry);
+        store(ob + (j + u) * LANES, dh);
+        store(oa + (j + u) * LANES, __fmul_rn(dh, hv[u]));
+        carry = __fmul_rn(av[u], dh);
+      }
+    }
+    __syncwarp();  // every lane has read stage s and written its tiles
+    if (lane == 0) tc::mbar_arrive(empty + s);
+    tc::fence_proxy_async();  // this lane's da, db, visible to the stores
+    __syncwarp();
+    if (lane == 0) {
+      tma_store_3d(&damap, oa - lane, w0, it * steps, bi);
+      tma_store_3d(&dbmap, ob - lane, w0, it * steps, bi);
+      bulk_commit();
+    }
+  }
+  if (dh0 != nullptr && w < W) dh0[(long long)bi * W + w] = carry;
+  if (lane == 0) bulk_wait_all();
+}
+
+// The backward's per-lane path (rows off 16 bytes): one thread per lane.
+template <typename T>
+__global__ void __launch_bounds__(NT)
+rglru_scan_bwd_lanes(const T* __restrict__ a, const T* __restrict__ g,
+                     const float* __restrict__ h,
+                     const float* __restrict__ h0, T* __restrict__ da,
+                     T* __restrict__ db, float* __restrict__ dh0, int B,
+                     int S, int W) {
+  const long long lane = (long long)blockIdx.x * NT + threadIdx.x;
+  if (lane >= (long long)B * W) return;
+  const long long bi = lane / W, w = lane - bi * W;
+  const long long base = bi * S * W + w;
+  const float hinit = h0 != nullptr ? h0[lane] : 0.f;
+  float carry = 0.f;
+  for (int t = S - 1; t >= 0; --t) {
+    const long long i = base + (long long)t * W;
+    const float dh = __fadd_rn(to_f(g[i]), carry);
+    const float hp = t > 0 ? h[i - W] : hinit;
+    store(&db[i], dh);
+    store(&da[i], __fmul_rn(dh, hp));
+    carry = __fmul_rn(to_f(a[i]), dh);
+  }
+  if (dh0 != nullptr) dh0[lane] = carry;
+}
+
+template <typename T>
+int launch_bwd_tma(const void* a, const void* g, const float* h,
+                   const float* h0, void* da, void* db, float* dh0, int B,
+                   int S, int W, int steps, cudaStream_t st) {
+  auto kern = rglru_scan_bwd_tma<T>;
+  static int smem_max = 0;  // per type: the attributes, once
+  if (smem_max == 0) {
+    int dev = 0, optin = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&optin,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(
+          kern, cudaFuncAttributePreferredSharedMemoryCarveout, 100);
+    if (e != cudaSuccess) return (int)e;
+    smem_max = optin;
+  }
+  const int smem = bwd_smem_bytes(steps, (int)sizeof(T));
+  if (smem > smem_max) return (int)cudaErrorInvalidValue;
+  const unsigned long long es = sizeof(T);
+  const unsigned long long dims[3] = {(unsigned long long)W,
+                                      (unsigned long long)S,
+                                      (unsigned long long)B};
+  const unsigned long long strides[2] = {W * es, (unsigned long long)S * W *
+                                                     es};
+  const unsigned long long hstrides[2] = {W * 4ull,
+                                          (unsigned long long)S * W * 4ull};
+  const unsigned box[3] = {LANES, (unsigned)steps, 1};
+  CUtensorMap amap{}, gmap{}, hmap{}, damap{}, dbmap{};
+  if (!tc::tensor_map(&amap, a, (int)es, 3, dims, strides, box, false) ||
+      !tc::tensor_map(&gmap, g, (int)es, 3, dims, strides, box, false) ||
+      !tc::tensor_map(&hmap, h, 4, 3, dims, hstrides, box, false) ||
+      !tc::tensor_map(&damap, da, (int)es, 3, dims, strides, box, false) ||
+      !tc::tensor_map(&dbmap, db, (int)es, 3, dims, strides, box, false))
+    return (int)cudaErrorInvalidValue;  // the host's plan checks alignment
+  const int wtiles = (W + LANES - 1) / LANES;
+  const long long blocks = (long long)B * wtiles;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  kern<<<(unsigned)blocks, NTT, smem, st>>>(amap, gmap, hmap, damap, dbmap,
+                                             h0, dh0, S, W, wtiles, steps);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_bwd_lanes(const void* a, const void* g, const float* h,
+                     const float* h0, void* da, void* db, float* dh0, int B,
+                     int S, int W, cudaStream_t st) {
+  const long long blocks = ((long long)B * W + NT - 1) / NT;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  rglru_scan_bwd_lanes<T><<<(unsigned)blocks, NT, 0, st>>>(
+      static_cast<const T*>(a), static_cast<const T*>(g), h, h0,
+      static_cast<T*>(da), static_cast<T*>(db), dh0, B, S, W);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_tma(const void* a, const void* b, const float* h0, void* o, int B,
                int S, int W, int steps, cudaStream_t st) {
@@ -285,4 +492,39 @@ extern "C" int rglru_scan_fwd(const void* a, const void* b, const void* h0,
                : launch_tma<__nv_bfloat16>(a, b, hp, o, B, S, W, steps, st);
   return dtype == 0 ? launch_lanes<float>(a, b, hp, o, B, S, W, st)
                     : launch_lanes<__nv_bfloat16>(a, b, hp, o, B, S, W, st);
+}
+
+// The backward.  a, g (upstream dL/dh), da, db (B,S,W) contiguous in one
+// dtype (0 = float32, 1 = bfloat16); h (B,S,W) the forward's float32 h;
+// h0 (B,W) float32 or NULL (zeros); dh0 (B,W) float32 written when not
+// NULL.  steps as the forward's (the host's plan sizes it for this
+// kernel's shared memory; every pointer 16-byte aligned on the TMA path).
+// One launch; returns cudaGetLastError() after it; no synchronisation.
+extern "C" int rglru_scan_bwd(const void* a, const void* g, const void* h,
+                              const void* h0, void* da, void* db, void* dh0,
+                              int dtype, int B, int S, int W, int steps,
+                              void* stream) {
+  if (B < 0 || S < 0 || W < 0 || steps < 0 || steps > 256 || steps % 8 ||
+      (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  if ((long long)B * W == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* hp = static_cast<const float*>(h);
+  const float* h0p = static_cast<const float*>(h0);
+  float* dh0p = static_cast<float*>(dh0);
+  if (S == 0) {  // nothing to walk: dh0 = 0
+    if (dh0p != nullptr)
+      return (int)cudaMemsetAsync(dh0p, 0, (size_t)B * W * 4, st);
+    return 0;
+  }
+  if (steps > 0)
+    return dtype == 0 ? launch_bwd_tma<float>(a, g, hp, h0p, da, db, dh0p, B,
+                                              S, W, steps, st)
+                      : launch_bwd_tma<__nv_bfloat16>(a, g, hp, h0p, da, db,
+                                                      dh0p, B, S, W, steps,
+                                                      st);
+  return dtype == 0 ? launch_bwd_lanes<float>(a, g, hp, h0p, da, db, dh0p, B,
+                                              S, W, st)
+                    : launch_bwd_lanes<__nv_bfloat16>(a, g, hp, h0p, da, db,
+                                                      dh0p, B, S, W, st);
 }

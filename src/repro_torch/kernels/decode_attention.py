@@ -29,7 +29,9 @@ import torch
 from repro_torch.kernels import build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)
+# head dims: any hd up to the largest bucket (64 and 128; the ring also
+# 256), run in the smallest bucket that holds it (csrc/paged_decode.cuh)
+HEAD_DIM_MAX = 128
 GROUPS = (1, 2, 4, 8)
 NBLK_MAX = 2048  # block-table entries per row the paged kernels take
 
@@ -46,9 +48,10 @@ def _entry():
 def _check_tensors(what, floats, *ints):
     """Device, layout and dtype rules the kernels share: every tensor on
     the first one's CUDA device and contiguous; the float tensors
-    (``floats``, (name, tensor) pairs) share float32 or bfloat16 and are
-    16-byte aligned; ``ints`` are the (name, tensor) int tensors (per-row
-    lengths, block tables), checked by the caller for dtype and shape."""
+    (``floats``, (name, tensor) pairs) share float32 or bfloat16 (rows or
+    bases off 16 bytes take the body's row-at-a-time copies); ``ints`` are
+    the (name, tensor) int tensors (per-row lengths, block tables), checked
+    by the caller for dtype and shape."""
     first = floats[0][1]
     for name, t in (*floats, *ints):
         if t.device.type != "cuda" or t.device != first.device:
@@ -61,9 +64,6 @@ def _check_tensors(what, floats, *ints):
         if t.dtype != first.dtype or t.dtype not in DTYPES:
             raise TypeError(f"{what}: {name} has dtype {t.dtype}; {names} "
                             "must share float32 or bfloat16")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{what}: {name} must be 16-byte aligned "
-                             "(vector loads)")
 
 
 def _check_one_query(what, q, k, v, kv_len, *, pool):
@@ -93,11 +93,6 @@ def _check_one_query(what, q, k, v, kv_len, *, pool):
         if t.stride(-1) != 1:
             raise ValueError(f"{what}: {name} must have a contiguous head "
                              f"dim (stride 1, got {t.stride(-1)})")
-        item = t.element_size()
-        if t.data_ptr() % 16 or any(st * item % 16 for st in t.stride()[:3]):
-            raise ValueError(f"{what}: {name} must be 16-byte aligned, its "
-                             f"B, KV and S strides {t.stride()[:3]} too "
-                             "(vector loads)")
     if vh.stride() != kh.stride():
         raise ValueError(f"{what}: k and v must share strides (got "
                          f"{k.stride()} and {v.stride()})")
@@ -261,8 +256,8 @@ chunk_verify_attention.launches = 0
 def _check_heads(what, H, KV, hd):
     if KV < 1 or H % KV or H // KV not in GROUPS:
         raise ValueError(f"{what}: H/KV = {H}/{KV} must be one of {GROUPS}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"{what}: head_dim {hd} not in {HEAD_DIMS}")
+    if not 1 <= hd <= HEAD_DIM_MAX:
+        raise ValueError(f"{what}: head_dim {hd} not in 1..{HEAD_DIM_MAX}")
 
 
 def _check_arena(what, arenas, bt, B, KV, hd):
@@ -480,20 +475,21 @@ paged_chunk_verify_attention.launches = 0
 
 
 # ------------------------------------------------- ring-buffer window decode
-RING_HEAD_DIMS = (64, 128, 256)
+RING_HEAD_DIM_MAX = 256
 RING_GROUP_MAX = 16  # query heads per kv head the ring kernels take
 
 
 def _check_ring(what, q, KV, slot_positions, window, ring):
     """The ring kernels' own head, band and position rules (G 1..16, hd
-    64/128/256: recurrentgemma-2b has G = 10 and hd = 256).  Returns the
+    up to 256: recurrentgemma-2b has G = 10 and hd = 256).  Returns the
     longest band, min(window, ring), which the kernel cuts into pieces."""
     B, H, hd = q.shape
     if KV < 1 or H % KV or not 1 <= H // KV <= RING_GROUP_MAX:
         raise ValueError(f"{what}: H/KV = {H}/{KV} must be a whole number "
                          f"in 1..{RING_GROUP_MAX}")
-    if hd not in RING_HEAD_DIMS:
-        raise ValueError(f"{what}: head_dim {hd} not in {RING_HEAD_DIMS}")
+    if not 1 <= hd <= RING_HEAD_DIM_MAX:
+        raise ValueError(f"{what}: head_dim {hd} not in "
+                         f"1..{RING_HEAD_DIM_MAX}")
     if (slot_positions.dtype != torch.int32
             or slot_positions.shape != (B,)):
         raise ValueError(f"{what}: slot_positions must be ({B},) int32 (got "

@@ -13,7 +13,8 @@ import torch
 from repro_torch.kernels import build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)
+# any head dim up to 128, run in the smaller bucket (64 or 128) holding it
+HEAD_DIM_MAX = 128
 
 
 def _entry():
@@ -47,14 +48,9 @@ def _check(q, k, v):
     if KV < 1 or H % KV:
         raise ValueError(f"flash_attention: {H} query heads do not group "
                          f"over {KV} kv heads")
-    if hd not in HEAD_DIMS:
+    if not 1 <= hd <= HEAD_DIM_MAX:
         raise ValueError(f"flash_attention: head_dim {hd} not in "
-                         f"{HEAD_DIMS}")
-    if q.dtype == torch.bfloat16 and any(
-            t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3])
-            for t in (q, k, v)):
-        raise ValueError("flash_attention: bf16 q, k, v rows must start on "
-                         "16 bytes (the kernel copies them by TMA)")
+                         f"1..{HEAD_DIM_MAX}")
 
 
 def flash_attention(q, k, v, *, causal=True):

@@ -28,6 +28,7 @@ from repro_torch.kernels.decode_attention import ring_decode_attention as _ring
 from repro_torch.kernels.decode_attention import slot_decode_attention as _slot
 from repro_torch.kernels.flash_attention import flash_attention as _flash
 from repro_torch.kernels.rglru_scan import rglru_scan as _rglru
+from repro_torch.kernels.rglru_scan import rglru_scan_bwd as _rglru_bwd
 from repro_torch.kernels.tr_sandwich import tr_sandwich as _sandwich
 
 
@@ -102,12 +103,50 @@ def paged_ring_decode_attention(q, k, v, bt, slot_positions, *, window,
     return _paged_ring(q, k, v, bt, pos, window=window)
 
 
-def rglru_scan(a, b, h0=None):
-    """The linear recurrence ``h_t = a_t * h_{t-1} + b_t``: a, b (B, S,
-    W), h0 (B, W) float32 or None -> (B, S, W) in a's dtype."""
+def _scan_on_device(a, b, h0):
     if a.device.type == "cpu":
         return ref.rglru_scan_ref(a, b, h0)
     return _rglru(a, b, h0)
+
+
+class RglruScan(torch.autograd.Function):
+    """The scan with its backward, both on the device's route (the kernels
+    on CUDA, the plain versions on the CPU).  The backward reads h_{t-1}
+    in float32: in float32 the output is that h; in bfloat16 the forward
+    runs on float32 copies of a and b, keeps their float32 h and returns
+    its rounding (the bf16 kernel's own output, bit for bit)."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        if a.dtype == torch.float32:
+            h = h32 = _scan_on_device(a, b, h0)
+        else:
+            h32 = _scan_on_device(a.float(), b.float(), h0)
+            h = h32.to(a.dtype)
+        ctx.save_for_backward(a, h32, h0)
+        return h
+
+    @staticmethod
+    def backward(ctx, g):
+        a, h32, h0 = ctx.saved_tensors
+        g = g.to(a.dtype).contiguous()
+        need_dh0 = ctx.needs_input_grad[2]
+        if a.device.type == "cpu":
+            da, db, dh0 = ref.rglru_scan_bwd_ref(a, g, h32, h0)
+        else:
+            da, db, dh0 = _rglru_bwd(a, g, h32, h0, need_dh0=need_dh0)
+        return da, db, dh0 if need_dh0 else None
+
+
+def rglru_scan(a, b, h0=None):
+    """The linear recurrence ``h_t = a_t * h_{t-1} + b_t``: a, b (B, S,
+    W), h0 (B, W) float32 or None -> (B, S, W) in a's dtype.  Where an
+    input needs a gradient it runs as ``RglruScan`` (a forward and a
+    backward launch on CUDA)."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (a, b, h0)):
+        return RglruScan.apply(a, b, h0)
+    return _scan_on_device(a, b, h0)
 
 
 def chunk_verify_attention(q, ck, cv, k, v, offsets, *, ring, window=None,
@@ -207,4 +246,4 @@ def kernels():
             "paged_chunk_verify_attention": _paged_chunk,
             "ring_decode_attention": _ring,
             "paged_ring_decode_attention": _paged_ring,
-            "rglru_scan": _rglru}
+            "rglru_scan": _rglru, "rglru_scan_bwd": _rglru_bwd}

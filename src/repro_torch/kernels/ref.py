@@ -193,3 +193,23 @@ def rglru_scan_ref(a, b, h0=None):
         h = af[:, t] * h + bf[:, t]
         out[:, t] = h
     return out.to(a.dtype)
+
+
+def rglru_scan_bwd_ref(a, g, h, h0=None):
+    """The scan's backward, one step at a time from the end in float32: for
+    upstream g_t = dL/dh_t, dh_t = g_t + a_{t+1} * dh_{t+1}, db_t = dh_t,
+    da_t = dh_t * h_{t-1} (h_{-1} = h0, zeros when None) and dh0 = a_0 *
+    dh_0, each product and sum rounded as autograd through
+    ``rglru_scan_ref`` rounds them.  a, g: (B, S, W); h: (B, S, W), the
+    forward's h (float32 for an exact h_{t-1}) -> (da, db) in a's dtype and
+    dh0 (B, W) float32."""
+    af, gf, hf = a.float(), g.float(), h.float()
+    h_prev = torch.cat([(torch.zeros_like(hf[:, :1]) if h0 is None
+                         else h0.float()[:, None]), hf[:, :-1]], dim=1)
+    dh = torch.zeros_like(hf[:, 0])
+    db = torch.empty_like(hf)
+    for t in range(a.shape[1] - 1, -1, -1):
+        dh = gf[:, t] + (af[:, t + 1] * dh if t + 1 < a.shape[1] else dh)
+        db[:, t] = dh
+    dh0 = af[:, 0] * db[:, 0] if a.shape[1] else torch.zeros_like(dh)
+    return (db * h_prev).to(a.dtype), db.to(a.dtype), dh0

@@ -22,6 +22,14 @@ def trunc_normal(gen: torch.Generator, shape, std=0.02, dtype=torch.float32,
     return (std * t).to(dtype)
 
 
+def meta_shapes(init, cfg) -> dict:
+    """``init(gen, cfg, device)``'s tree with a ``torch.Size`` at every
+    leaf, computed on the meta device: nothing is drawn or allocated (the
+    reference package's ``jax.eval_shape`` of ``init``)."""
+    params = init(torch.Generator(), cfg, device="meta")
+    return tree_map(lambda t: t.shape, params)
+
+
 def rms_norm(x, scale, eps=1e-6):
     """``x / sqrt(mean(x^2) + eps) * scale`` with float32 statistics."""
     return F.rms_norm(x.float(), (x.shape[-1],), scale.float(),

@@ -40,6 +40,7 @@ from repro_torch.models.common import (
     freeze_rows,
     gelu,
     init_norm,
+    meta_shapes,
     pad_cache_len,
     paged_spec_ring_restore,
     paged_spec_ring_sites,
@@ -117,6 +118,11 @@ def init(gen: torch.Generator, cfg, device=None) -> dict:
     if not cfg.tie_embeddings:
         params["head"] = w(D, cfg.vocab_size)
     return params
+
+
+def param_shapes(cfg) -> dict:
+    """``init``'s shapes (``common.meta_shapes``)."""
+    return meta_shapes(init, cfg)
 
 
 # ------------------------------------------------------------------ RG-LRU

@@ -44,12 +44,12 @@ from repro_torch.models import rope as rope_lib
 from repro_torch.models.common import (
     apply_norm,
     init_norm,
+    meta_shapes,
     pad_cache_len,
     rms_norm,
     take_layer,
     trunc_normal,
 )
-from repro_torch.utils.pytree import tree_map
 
 
 def _unported(cfg):
@@ -134,11 +134,8 @@ def init(gen: torch.Generator, cfg, device=None) -> dict:
 
 
 def param_shapes(cfg) -> dict:
-    """``init``'s tree with a ``torch.Size`` at every leaf, computed on the
-    meta device: nothing is drawn or allocated (the reference package's
-    ``jax.eval_shape`` of ``init``)."""
-    params = init(torch.Generator(), cfg, device="meta")
-    return tree_map(lambda t: t.shape, params)
+    """``init``'s shapes (``common.meta_shapes``)."""
+    return meta_shapes(init, cfg)
 
 
 # ============================================================ forward pieces

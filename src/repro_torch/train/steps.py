@@ -61,6 +61,8 @@ def make_train_step(cfg, opt_cfg: OptimizerConfig, schedule=None,
     contiguous slices (along each input's first axis of the global batch
     size) and accumulates their grads sequentially.  ``grad_transform`` --
     optional hook applied to the averaged grads before the optimizer.
+    The step updates params and state in place and returns them, as the
+    reference launcher's jitted step donates their buffers.
     """
     fam = get_family(cfg)
     loss_fn = loss_for(cfg)
@@ -118,7 +120,8 @@ def make_grow_step(gop, cfg_tgt, opt_cfg: OptimizerConfig,
     operator tree (cores, layer and width maps).
 
     fn(op_params, opt_state, small_params, batch, step) ->
-        (op_params, opt_state, metrics)
+        (op_params, opt_state, metrics), op_params and opt_state updated in
+        place as in the train step.
 
     The big model is grown inside the step and dropped after it.  With
     ``n_microbatches`` > 1 the growth contraction is recomputed per

@@ -1,15 +1,25 @@
-"""The reference's three examples on the port, on the CPU:
+"""The reference's examples on the port, on the CPU:
 ``repro_torch.examples.quickstart`` at the example's own sizes,
-``grow_pipeline`` at a few steps a stage, and ``train_100m``'s configs and
-flags against ``examples/train_100m.py`` (loaded by path, not edited)."""
+``grow_pipeline`` at a few steps a stage, ``train_100m``'s configs and
+flags against ``examples/train_100m.py``, and ``serve_continuous``'s
+tokens against the reference example's engine runs (the examples loaded
+by path, not edited)."""
 import sys
 
+import jax
+import numpy as np
 import pytest
 
 from _torch_port import port_config, reference_example
 from repro.configs.base import get_config as jax_get_config
 from repro_torch.configs import get_config
-from repro_torch.examples import grow_pipeline, quickstart, train_100m
+from repro_torch.convert import from_jax
+from repro_torch.examples import (
+    grow_pipeline,
+    quickstart,
+    serve_continuous,
+    train_100m,
+)
 
 
 def test_quickstart_grown_beats_scratch_at_its_own_sizes(capsys):
@@ -61,3 +71,43 @@ def test_train_100m_flags_equal_the_reference_example(monkeypatch, argv):
         assert (pa, pkw) == (ra, rkw)
     if not argv:
         assert calls["port"][0][1]["ckpt_dir"] == "/tmp/repro_100m"
+
+
+def test_serve_continuous_serves_the_reference_examples_tokens(capsys):
+    """The three models of ``examples/serve_continuous.py`` with the
+    reference's weights (JAX's seed-0 inits, gpt-micro-big grown by JAX's
+    ``build_params``; converted) and its traces, requests and engine
+    sizes: every request's tokens equal the reference engine's."""
+    from repro.launch.serve import build_params as jax_build_params
+    from repro.models import get_family as jax_family
+    from repro.serve import ContinuousBatchingEngine as JaxEngine
+
+    ref_mod = reference_example("serve_continuous")
+    want, params = {}, {}
+    for name, n, max_len in serve_continuous.MODELS:
+        jcfg = jax_get_config(name)
+        if name in serve_continuous.GROWN_FROM:
+            jp = jax_build_params(jcfg, grow_from=serve_continuous.GROWN_FROM[
+                name], grow_method="mango", grow_steps=0,
+                log_fn=lambda *a, **k: None)
+        else:
+            jp = jax_family(jcfg).init(jax.random.PRNGKey(0), jcfg)
+        jp = jax.tree.map(np.asarray, jp)
+        params[name] = from_jax(jp)
+        reqs = ref_mod.mixed_trace(jcfg, n)
+        ours = serve_continuous.mixed_trace(get_config(name), n)
+        assert [(r.uid, r.max_new_tokens, list(r.prompt)) for r in ours] == \
+            [(r.uid, r.max_new_tokens, list(r.prompt)) for r in reqs]
+        want[name] = JaxEngine(jcfg, jp, capacity=4, max_len=max_len).run(
+            reqs)
+    got = serve_continuous.main(["--device", "cpu"], params=params)
+    assert got.keys() == want.keys()
+    for name in want:
+        assert got[name].keys() == want[name].keys()
+        for uid in want[name]:
+            np.testing.assert_array_equal(np.asarray(got[name][uid]),
+                                          np.asarray(want[name][uid]),
+                                          err_msg=f"{name} uid {uid}")
+    out = capsys.readouterr().out
+    assert "recurrent+ring slots, attn ring=32 of window=32" in out
+    assert "on Mango-grown params from gpt-micro" in out

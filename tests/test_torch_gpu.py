@@ -47,6 +47,7 @@ from repro_torch.kernels.decode_attention import (
 )
 from repro_torch.kernels.flash_attention import flash_attention as cuda_flash
 from repro_torch.kernels.rglru_scan import rglru_scan as cuda_scan
+from repro_torch.kernels.rglru_scan import rglru_scan_bwd as cuda_scan_bwd
 from repro_torch.kernels.tr_sandwich import tr_sandwich as cuda_sandwich
 from repro_torch.launch.serve import build_params, generate
 from repro_torch.models import griffin, transformer
@@ -92,6 +93,11 @@ def _tol(dtype):
     (2, 8, 2, 100, 64, torch.float32, False),
     (2, 12, 12, 256, 64, torch.bfloat16, True),
     (1, 8, 2, 33, 128, torch.bfloat16, True),
+    # head dims in buckets; one kv head of 20: 40-byte bf16 rows
+    (2, 4, 1, 77, 20, torch.bfloat16, True),
+    (2, 4, 1, 77, 20, torch.float32, True),
+    (2, 8, 4, 130, 16, torch.bfloat16, False),
+    (2, 8, 2, 200, 80, torch.float32, True),
 ])
 def test_cuda_flash_matches_plain(cuda_device, B, H, KV, S, hd, dtype,
                                   causal):
@@ -107,7 +113,7 @@ def test_cuda_flash_matches_plain(cuda_device, B, H, KV, S, hd, dtype,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [16, 20, 32, 64, 80, 128])
 @pytest.mark.parametrize("S", [63, 65, 129])
 def test_cuda_flash_tile_edges_match_plain(cuda_device, S, hd, dtype):
     """Query and key tiles that end one short of or one past a 64-row (and
@@ -165,6 +171,10 @@ def test_cuda_slot_decode_matches_plain(cuda_device, B, S, H, KV, hd, dtype):
     (4, 300, 32, 4, 128, torch.float32),    # GQA G 8, hd 128, ragged pool
     (6, 100, 16, 2, 128, torch.bfloat16),   # G 8 bf16, row copies
     (3, 64, 8, 1, 64, torch.bfloat16),      # one kv head: bulk runs
+    (8, 96, 8, 2, 16, torch.float32),       # head dims in buckets
+    (8, 96, 8, 1, 20, torch.bfloat16),      # 40-byte rows: the warp copies
+    (8, 64, 4, 4, 32, torch.bfloat16),
+    (5, 130, 8, 1, 80, torch.float32),
 ])
 def test_cuda_slot_decode_on_the_decode_body_matches_plain(
         cuda_device, monkeypatch, B, S, H, KV, hd, dtype, on_device):
@@ -187,15 +197,20 @@ def test_cuda_slot_decode_on_the_decode_body_matches_plain(
 
 
 def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
-    q = _cuda_rand(cuda_device, torch.float32, 1, 2, 8, 32)
+    q = _cuda_rand(cuda_device, torch.float32, 1, 2, 8, 144)
     with pytest.raises(ValueError, match="head_dim"):
-        cuda_flash(q, q, q)
+        cuda_flash(q, q, q)  # past the 128 bucket
     h = _cuda_rand(cuda_device, torch.float16, 1, 2, 8, 64)
     with pytest.raises(TypeError, match="dtype"):
         cuda_flash(h, h, h)
+    # bf16 rows one element off 16 bytes: the producer warp fills the
+    # tiles TMA cannot
     b = _cuda_rand(cuda_device, torch.bfloat16, 1, 2, 8, 72)[..., 1:65]
-    with pytest.raises(ValueError, match="16 bytes"):
-        cuda_flash(b, b, b)  # rows one element off 16 bytes
+    got = cuda_flash(b, b, b)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(),
+                               ref.flash_attention_ref(b, b, b).float(),
+                               **BF16_TOL)
     q = _cuda_rand(cuda_device, torch.float32, 2, 6, 64)
     pool = _cuda_rand(cuda_device, torch.float32, 2, 16, 2, 64)
     lens = torch.tensor([3, 4], dtype=torch.int32, device=cuda_device)
@@ -492,9 +507,9 @@ def test_cuda_chunk_verify_refuses_what_it_does_not_take(cuda_device):
                                        2, 32, 64, [3, 9])
     kw = dict(ring=False)
     with pytest.raises(ValueError, match="head_dim"):
-        cuda_chunk(q[..., :32].contiguous(), ck[..., :32].contiguous(),
-                   cv[..., :32].contiguous(), k[..., :32].contiguous(),
-                   v[..., :32].contiguous(), off, **kw)
+        wide = [torch.cat([t, t, t], -1)[..., :144].contiguous()
+                for t in (q, ck, cv, k, v)]
+        cuda_chunk(*wide[:5], off, **kw)
     with pytest.raises(TypeError, match="dtype"):
         cuda_chunk(q, ck.bfloat16(), cv, k, v, off, **kw)
     with pytest.raises(ValueError, match="H/KV"):
@@ -1008,7 +1023,15 @@ PAGED_EDGE_GRID = [(kind, G, hd, dtype, page)
     ("decode", 8, 128, torch.float32, 300),
     ("decode", 4, 64, torch.bfloat16, 37),
     ("decode", 1, 128, torch.float32, 200),
-]
+] + [  # head dims run in the 64 and 128 buckets (20 in bf16: 40-byte rows)
+    (kind, G, hd, dtype, page)
+    for hd in (16, 20, 32, 80)
+    for dtype in (torch.float32, torch.bfloat16)
+    for kind, G, page in (("slot", 8, 24), ("ring", 10, 8), ("ring", 8, 64),
+                          ("dense_ring", 4, 200), ("verify", 4, 24),
+                          ("verify", 8, 64), ("dense_verify", 4, 40),
+                          ("dense_verify", 1, 1024), ("decode", 8, 300),
+                          ("decode", 1, 200))]
 
 
 def _paged_edge_case(dev, kind, G, hd, dtype, page):
@@ -1331,15 +1354,114 @@ def test_cuda_rglru_scan_is_one_kernel_and_one_allocation(cuda_device, W):
     assert torch.equal(out, ref.rglru_scan_ref(a, b, h0))
 
 
+def _scan_grads(fn, a, b, h0, g):
+    ins = [a.clone().requires_grad_(), b.clone().requires_grad_()] + (
+        [] if h0 is None else [h0.clone().requires_grad_()])
+    with torch.enable_grad():
+        out = fn(ins[0], ins[1], None if h0 is None else ins[2])
+        return out, torch.autograd.grad(out, ins, g)
+
+
+@pytest.mark.parametrize("B,S,W", [(2, 512, 2560), (2, 2101, 2560),
+                                   (1, 1, 2560), (4, 31, 100), (3, 37, 50),
+                                   (2, 300, 99)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_h0", [True, False])
+def test_cuda_rglru_scan_bwd_matches_plain(cuda_device, B, S, W, dtype,
+                                           with_h0):
+    """The backward kernel on both paths (TMA boxes where W * itemsize is
+    on 16 bytes: W 2560, and W 100 in float32; one thread a lane
+    otherwise), frozen tails included.  float32: da, db and dh0 equal the
+    plain backward bit for bit and autograd through the plain forward
+    within 1e-5; bfloat16: the error against a float32 route at most
+    twice the plain bf16 route's."""
+    dev = cuda_device
+    g = torch.Generator(device=dev).manual_seed(S + W + 1)
+    a = torch.rand(B, S, W, generator=g, device=dev) * 0.5 + 0.5
+    b = torch.randn(B, S, W, generator=g, device=dev) * 0.1
+    up = torch.randn(B, S, W, generator=g, device=dev)
+    a[:, S // 2:], b[:, S // 2:] = 1.0, 0.0
+    h0 = torch.randn(B, W, generator=g, device=dev) if with_h0 else None
+    a, b, up = a.to(dtype), b.to(dtype), up.to(dtype)
+    n0 = (cuda_scan.launches, cuda_scan_bwd.launches)
+    out, got = _scan_grads(ops.rglru_scan, a, b, h0, up)
+    torch.cuda.synchronize()
+    assert (cuda_scan.launches, cuda_scan_bwd.launches) == (n0[0] + 1,
+                                                            n0[1] + 1)
+    assert [t.dtype for t in got] == [dtype, dtype] + (
+        [torch.float32] if with_h0 else [])
+    _, plain = _scan_grads(ref.rglru_scan_ref, a, b, h0, up)
+    if dtype == torch.float32:
+        h = ref.rglru_scan_ref(a, b, h0)
+        da, db, dh0 = ref.rglru_scan_bwd_ref(a, up, h, h0)
+        assert torch.equal(got[0], da) and torch.equal(got[1], db)
+        if with_h0:
+            assert torch.equal(got[2], dh0)
+        for x, y in zip(got, plain):
+            torch.testing.assert_close(x, y, atol=0.0, rtol=1e-5)
+    else:
+        _, f32 = _scan_grads(ref.rglru_scan_ref, a.float(), b.float(), h0,
+                             up.float())
+        for x, y, z in zip(got, plain, f32):
+            err = (x.float() - z).abs().max().item()
+            plain_err = (y.float() - z).abs().max().item()
+            assert err <= 2 * plain_err + 1e-6, (err, plain_err)
+
+
+def test_cuda_rglru_scan_bwd_refuses_what_it_does_not_take(cuda_device):
+    dev = cuda_device
+    a = torch.ones(1, 3, 32, device=dev)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cuda_scan_bwd(a.cpu(), a.cpu(), a.cpu())
+    with pytest.raises(TypeError, match="h must be float32"):
+        cuda_scan_bwd(a.bfloat16(), a.bfloat16(), a.bfloat16())
+    with pytest.raises(ValueError, match="shape"):
+        cuda_scan_bwd(a, a[:, :2], a)
+    with pytest.raises(ValueError, match="h0"):
+        cuda_scan_bwd(a, a, a, torch.ones(1, 31, device=dev))
+
+
+def test_cuda_griffin_train_step_runs_the_scan_kernels(cuda_device):
+    """griffin-micro's train step on the card: its two recurrent layers
+    launch the forward and the backward scan once each, and step 0's loss
+    and gradient norm equal the CPU's plain route on the same weights
+    (1e-5 and 1e-4 relative)."""
+    from repro_torch.optim import OptimizerConfig, make_optimizer
+    from repro_torch.train.steps import make_train_step
+    from repro_torch.utils.pytree import tree_map
+    cfg = get_config("griffin-micro")
+    params = griffin.init(torch.Generator().manual_seed(0), cfg)
+    tokens = torch.from_numpy(lm_batch(cfg.vocab_size, 4, 64, seed=1))
+    opt = OptimizerConfig(lr=1e-3)
+    init_fn, _ = make_optimizer(opt)
+    step = make_train_step(cfg, opt)
+
+    def run(dev):
+        p = tree_map(lambda t: t.to(dev), params)
+        return step(p, init_fn(p), {"tokens": tokens.to(dev)}, 1)[2]
+
+    n0 = (cuda_scan.launches, cuda_scan_bwd.launches)
+    got = run(cuda_device)
+    torch.cuda.synchronize()
+    assert (cuda_scan.launches - n0[0], cuda_scan_bwd.launches - n0[1]) == \
+        (2, 2)
+    want = run(torch.device("cpu"))
+    np.testing.assert_allclose(float(got["loss"]), float(want["loss"]),
+                               rtol=1e-5)
+    np.testing.assert_allclose(float(got["grad_norm"]),
+                               float(want["grad_norm"]), rtol=1e-4)
+
+
 def test_cuda_griffin_kernels_refuse_what_they_do_not_take(cuda_device):
     dev = cuda_device
     pos = torch.zeros(2, dtype=torch.int32, device=dev)
     k = torch.zeros(2, 8, 1, 64, device=dev)
     with pytest.raises(ValueError, match="CUDA tensor"):
         cuda_ring(torch.zeros(2, 4, 64), k, k, pos, window=4)
-    with pytest.raises(ValueError, match="head_dim 32"):
-        k32 = torch.zeros(2, 8, 1, 32, device=dev)
-        cuda_ring(torch.zeros(2, 4, 32, device=dev), k32, k32, pos, window=4)
+    with pytest.raises(ValueError, match="head_dim 320"):
+        k320 = torch.zeros(2, 8, 1, 320, device=dev)
+        cuda_ring(torch.zeros(2, 4, 320, device=dev), k320, k320, pos,
+                  window=4)
     with pytest.raises(ValueError, match="H/KV = 17/1"):
         cuda_ring(torch.zeros(2, 17, 64, device=dev), k, k, pos, window=4)
     with pytest.raises(ValueError, match="window"):
@@ -1348,9 +1470,9 @@ def test_cuda_griffin_kernels_refuse_what_they_do_not_take(cuda_device):
         cuda_ring(torch.zeros(2, 4, 64, device=dev), k, k, pos.long(),
                   window=4)
     bt = torch.zeros(2, 1, dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="head_dim 32"):
-        a32 = torch.zeros(3, 8, 1, 32, device=dev)
-        cuda_paged_ring(torch.zeros(2, 4, 32, device=dev), a32, a32, bt,
+    with pytest.raises(ValueError, match="head_dim 320"):
+        a320 = torch.zeros(3, 8, 1, 320, device=dev)
+        cuda_paged_ring(torch.zeros(2, 4, 320, device=dev), a320, a320, bt,
                         pos, window=4)
     with pytest.raises(ValueError, match="nblk"):
         a = torch.zeros(3, 1, 1, 64, device=dev)
@@ -1366,9 +1488,11 @@ def test_cuda_griffin_kernels_refuse_what_they_do_not_take(cuda_device):
         cuda_scan(torch.ones(1, 3, 2, device=dev),
                   torch.zeros(1, 3, 2, device=dev),
                   torch.zeros(1, 3, device=dev))
-    with pytest.raises(NotImplementedError, match="no backward"):
-        cuda_scan(torch.ones(1, 3, 2, device=dev, requires_grad=True),
-                  torch.zeros(1, 3, 2, device=dev))
+    # the raw wrapper carries no graph; ops binds it to its backward
+    a = torch.ones(1, 3, 2, device=dev, requires_grad=True)
+    assert cuda_scan(a, torch.zeros(1, 3, 2, device=dev)).grad_fn is None
+    assert ops.rglru_scan(a, torch.zeros(1, 3, 2, device=dev)).grad_fn \
+        is not None
 
 
 def _griffin_hd64(dev):
@@ -1493,17 +1617,21 @@ def test_cuda_decode_attention_refuses_what_it_does_not_take(cuda_device):
         cuda_decode(q.cpu(), k.cpu(), k.cpu(), lens.cpu())
     with pytest.raises(ValueError, match="CUDA tensor"):
         cuda_decode(q, k.cpu(), k, lens)
-    q80 = _cuda_rand(cuda_device, torch.float32, 2, 4, 80)
-    k80 = _cuda_rand(cuda_device, torch.float32, 2, 2, 40, 80)
-    with pytest.raises(ValueError, match="head_dim 80"):
-        cuda_decode(q80, k80, k80, lens)
+    q144 = _cuda_rand(cuda_device, torch.float32, 2, 4, 144)
+    k144 = _cuda_rand(cuda_device, torch.float32, 2, 2, 40, 144)
+    with pytest.raises(ValueError, match="head_dim 144"):
+        cuda_decode(q144, k144, k144, lens)
     wide = _cuda_rand(cuda_device, torch.float32, 2, 2, 40, 128)
     with pytest.raises(ValueError, match="stride 1"):
         cuda_decode(q, wide[..., ::2], wide[..., ::2], lens)
+    # a cache off 16 bytes: the body copies its rows a row at a time
     flat = _cuda_rand(cuda_device, torch.float32, 2 * 2 * 40 * 64 + 1)
     odd = flat[1:].view(2, 2, 40, 64)
-    with pytest.raises(ValueError, match="aligned"):
-        cuda_decode(q, odd, odd, lens)
+    got = cuda_decode(q, odd, odd, lens)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref.decode_attention_ref(q, odd, odd,
+                                                             lens),
+                               atol=F32_ATOL, rtol=1e-4)
     with pytest.raises(ValueError, match="H/KV"):
         cuda_decode(_cuda_rand(cuda_device, torch.float32, 2, 6, 64), k, k,
                     lens)

@@ -251,8 +251,10 @@ def test_rglru_scan_ragged_and_frozen_positions():
 
 
 def test_cpu_tensors_take_the_plain_versions_and_wrappers_refuse_them():
-    """On the CPU ``ops`` runs the plain versions; the CUDA wrappers refuse
-    a CPU tensor and name what they do not take (G > 16, hd 32)."""
+    """On the CPU ``ops`` runs the plain versions (the scan's gradient
+    through its plain backward); the CUDA wrappers refuse a CPU tensor,
+    one that needs a gradient too, and name what they do not take (G >
+    16, hd past the 256 bucket)."""
     q = torch.zeros(2, 4, 64)
     k = torch.zeros(2, 8, 1, 64)
     pos = torch.tensor([3, 5], dtype=torch.int32)
@@ -273,15 +275,19 @@ def test_cpu_tensors_take_the_plain_versions_and_wrappers_refuse_them():
                         window=4)
     with pytest.raises(ValueError, match="CUDA tensor"):
         cuda_scan(torch.ones(1, 3, 2), torch.zeros(1, 3, 2))
-    with pytest.raises(NotImplementedError, match="no backward"):
+    with pytest.raises(ValueError, match="CUDA tensor"):
         cuda_scan(torch.ones(1, 3, 2, requires_grad=True),
                   torch.zeros(1, 3, 2))
+    h = ops.rglru_scan(torch.ones(1, 3, 2, requires_grad=True),
+                       torch.zeros(1, 3, 2))
+    assert type(h.grad_fn).__name__ == "RglruScanBackward"
+    assert cuda_scan.launches == 0
     from repro_torch.kernels import decode_attention
     with pytest.raises(ValueError, match="H/KV = 17/1"):
         decode_attention._check_ring("ring", torch.zeros(2, 17, 64), 1, pos,
                                      4, 8)
-    with pytest.raises(ValueError, match="head_dim 32"):
-        decode_attention._check_ring("ring", torch.zeros(2, 4, 32), 1, pos,
+    with pytest.raises(ValueError, match="head_dim 320"):
+        decode_attention._check_ring("ring", torch.zeros(2, 4, 320), 1, pos,
                                      4, 8)
     # the longest band, which both ring kernels cut into pieces
     assert decode_attention._check_ring(

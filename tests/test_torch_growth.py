@@ -33,7 +33,11 @@ from repro_torch.optim import OptimizerConfig, make_optimizer
 from repro_torch.train.loss import loss_for
 from repro_torch.train.steps import make_eval_step, make_grow_step, \
     make_train_step
-from repro_torch.utils.pytree import tree_flatten_with_paths, tree_leaves
+from repro_torch.utils.pytree import (
+    tree_flatten_with_paths,
+    tree_leaves,
+    tree_map,
+)
 
 SRC, TGT = "gpt-micro", "gpt-micro-big"
 
@@ -274,7 +278,9 @@ def test_grow_step_follows_jax():
 
 
 def test_grow_step_microbatches_match_one_batch():
-    """Two microbatches average to the one-batch grads (f32, 1e-5)."""
+    """Two microbatches average to the one-batch grads (f32, 1e-5).  The
+    step updates the operator in place, so each run starts from its own
+    copy of it."""
     _, _, ts, tt = _cfgs()
     gop, op0 = grow.build("mango", ts, tt, rank=1, device="cpu")
     src = from_jax(jax_params(jax_get_config(SRC), seed=3))
@@ -282,8 +288,11 @@ def test_grow_step_microbatches_match_one_batch():
                                     ["tokens"])}
     opt = OptimizerConfig(lr=1e-3, clip_norm=None)
     init_fn, _ = make_optimizer(opt)
-    outs = [make_grow_step(gop, tt, opt, n_microbatches=n)(
-        op0, init_fn(op0), src, b, 1) for n in (1, 2)]
+    outs = []
+    for n in (1, 2):
+        op = tree_map(torch.clone, op0)
+        outs.append(make_grow_step(gop, tt, opt, n_microbatches=n)(
+            op, init_fn(op), src, b, 1))
     np.testing.assert_allclose(float(outs[1][2]["grad_norm"]),
                                float(outs[0][2]["grad_norm"]), rtol=1e-5)
     _assert_trees_close(outs[1][0], to_numpy(outs[0][0]), atol=1e-5)

@@ -33,6 +33,11 @@ def _rand(rng, *shape):
     (1, 8, 2, 32, 16, True),  # GQA 4:1
     (2, 6, 3, 24, 8, True),   # GQA 2:1, three key blocks
     (1, 4, 2, 16, 8, False),  # non-causal
+    # the head dims of the repo's configs that the kernels run in buckets
+    (1, 4, 2, 16, 16, True),
+    (1, 4, 1, 16, 20, True),
+    (2, 4, 2, 24, 32, False),
+    (1, 2, 1, 16, 80, True),
 ])
 def test_flash_plain_matches_pallas(B, H, KV, S, hd, causal):
     rng = np.random.default_rng(S + H)
@@ -46,7 +51,9 @@ def test_flash_plain_matches_pallas(B, H, KV, S, hd, causal):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=F32_ATOL)
 
 
-@pytest.mark.parametrize("B,H,KV,S,hd", [(4, 4, 4, 24, 8), (3, 8, 2, 32, 16)])
+@pytest.mark.parametrize("B,H,KV,S,hd", [(4, 4, 4, 24, 8), (3, 8, 2, 32, 16),
+                                         (4, 4, 2, 24, 20), (4, 4, 4, 16, 32),
+                                         (3, 2, 1, 16, 80)])
 def test_slot_decode_plain_matches_pallas(B, H, KV, S, hd):
     """Per-row kv_len including 0 and the full length, plus a ``done`` row:
     both fold to exact zeros."""
@@ -297,3 +304,36 @@ def test_scan_plan_takes_the_per_lane_path_off_16_bytes():
     cannot be described to the TMA unit either, whatever its width."""
     assert scan_plan(8, 64, 2560, 4, 132, ptrs=(0, 256, 512))[0] == 32
     assert scan_plan(8, 64, 2560, 4, 132, ptrs=(0, 260, 512)) == (0, 160)
+
+
+def test_build_runs_every_nvcc_at_once_whatever_its_report(tmp_path,
+                                                           monkeypatch):
+    """``build_all`` starts one compiler a source and reads each report
+    from a file: a report past a pipe's 64 KiB buffer does not hold its
+    compiler until the reader gets to it.  A stand-in compiler prints a
+    200 KB report and then works a second; ten of them end in well under
+    the ten seconds they would take one after another."""
+    import sys
+    import time
+
+    from repro_torch.kernels import build
+    fake = tmp_path / "nvcc"
+    fake.write_text(
+        f"#!{sys.executable}\n"
+        "import sys, time\n"
+        "sys.stdout.write('x' * 200000)\n"
+        "sys.stdout.flush()\n"
+        "time.sleep(1.0)\n"
+        "open(sys.argv[sys.argv.index('-o') + 1], 'w').write('lib')\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(build, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "kernels")
+    t0 = time.perf_counter()
+    secs = build.build_all()
+    assert time.perf_counter() - t0 < 5.0
+    assert secs.keys() == set(build.SOURCES)
+    for name in build.SOURCES:
+        assert len(build.ptxas_log[name]) == 200000
+        assert build.cpu_seconds[name] >= 0.0
+        assert build._target(name).read_text() == "lib"
+    assert build.build_all() == {name: 0.0 for name in build.SOURCES}

@@ -230,7 +230,8 @@ def test_decode_attention_plain_matches_jax_ref_and_pallas(G, hd, S, dtype,
 
 def test_decode_attention_wrapper_refuses_and_splits():
     """On the CPU ``ops`` runs the plain version and the CUDA wrapper
-    refuses the tensors; the cache axis is cut as the paged-decode body's
+    refuses the tensors and head dims past 128 (80 runs in the 128
+    bucket); the cache axis is cut as the paged-decode body's
     bands are (``paged_decode_splits`` at the instance's blocks an SM,
     here 3: float32 at hd 64 and 128), in pieces of whole 32-position
     tiles, one thread-block cluster of at most 16 a band."""
@@ -241,8 +242,9 @@ def test_decode_attention_wrapper_refuses_and_splits():
     with pytest.raises(ValueError, match="CUDA tensor"):
         kda.decode_attention(q, k, k, torch.tensor([5, 5],
                                                    dtype=torch.int32))
-    with pytest.raises(ValueError, match="head_dim 80"):
-        kda._check_heads("decode_attention", 4, 2, 80)
+    kda._check_heads("decode_attention", 4, 2, 80)  # the 128 bucket
+    with pytest.raises(ValueError, match="head_dim 144"):
+        kda._check_heads("decode_attention", 4, 2, 144)
     with pytest.raises(ValueError, match="H/KV = 12/1"):
         kda._check_heads("decode_attention", 12, 1, 64)
     # gpt-base generate (B 1, 12 KV heads, 1024 positions): 16 pieces

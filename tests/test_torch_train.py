@@ -239,3 +239,53 @@ def test_train_launcher_runs_on_cpu_and_history_drops():
         grow_steps=2, device="cpu", log_fn=lambda *_: None)
     assert params["embed"].shape == (997, 128)
     assert np.isfinite(hist[-1]["loss"])
+
+
+@pytest.mark.parametrize("opt_kw", [{}, {"clip_norm": None},
+                                    {"moment_dtype": "bfloat16",
+                                     "master_weights": True}])
+def test_train_step_updates_in_place_as_jax_donates(opt_kw):
+    """The step updates params and moments in place and returns the trees
+    it was given (the reference launcher's step donates them), leaves the
+    grads it saw unscaled, and follows JAX's step over four steps of
+    warmup-cosine: metrics 1e-5 relative, params 1e-4 (as in
+    ``test_train_step_follows_jax``), moments 1e-4 (bf16 moments 1e-2,
+    one bf16 rounding)."""
+    jcfg = jax_get_config("gpt-micro")
+    cfg = port_config(jcfg)
+    params = jax_params(jcfg, seed=11)
+    jopt, opt = JaxOptimizerConfig(lr=3e-3, **opt_kw), \
+        OptimizerConfig(lr=3e-3, **opt_kw)
+    jsched = jschedules.linear_warmup_cosine(3e-3, 2, 4)
+    sched = schedules.linear_warmup_cosine(3e-3, 2, 4)
+    jinit, _ = jadamw.make_optimizer(jopt, jsched)
+    init, _ = adamw.make_optimizer(opt, sched)
+    jstep = jax.jit(jax_make_train_step(jcfg, jopt, jsched))
+    seen = []
+
+    def keep(grads):
+        seen.append(tree_map(torch.clone, grads))
+        seen.append(grads)
+        return grads
+
+    step = make_train_step(cfg, opt, sched, grad_transform=keep)
+    jp, js = params, jinit(params)
+    tp = from_jax(params)
+    ts = init(tp)
+    data = lm_data_iter(cfg.vocab_size, 4, 16, seed=12)
+    for i in range(4):
+        b = next(data)
+        jp, js, jm = jstep(jp, js, {"tokens": jnp.asarray(b["tokens"])},
+                           jnp.int32(i + 1))
+        new_p, new_s, tm = step(tp, ts, {"tokens": torch.from_numpy(
+            b["tokens"])}, i + 1)
+        assert new_p is tp and new_s is ts
+        before, after = seen[-2:]
+        for path, g in tree_flatten_with_paths(before):
+            assert torch.equal(g, dict(tree_flatten_with_paths(after))[path])
+        for k in jm:
+            np.testing.assert_allclose(float(tm[k]), float(jm[k]),
+                                       rtol=1e-5, err_msg=f"step {i} {k}")
+    _close_trees(tp, jp, atol=1e-4)
+    tol = 1e-2 if "moment_dtype" in opt_kw else 1e-4
+    _close_trees(ts, js, atol=tol, rtol=tol)

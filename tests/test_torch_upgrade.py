@@ -3,16 +3,17 @@ engine's hot swap) against the JAX package's (CPU, converted weights).
 
 Both engines serve gpt-micro and swap in gpt-micro-big (grown by JAX's
 Mango at noise 0 and converted) at dispatch 2, on the dense and the paged
-pool, and griffin-micro -> griffin-micro-big (the port has no griffin
-growth yet, so JAX's grown weights are converted; the old griffin then
-drafts, as in JAX): the same requests are
+pool, and griffin-micro -> griffin-micro-big (grown by the port's Mango
+from the converted source, held against JAX's grown weights; the old
+griffin then drafts, as in JAX): the same requests are
 resumed (uid, prompt, ``n_committed``) and every token is equal to JAX's
 and to the split the swap promises -- the committed prefix is the
 source's greedy run, the rest the grown model's on prompt ‖ committed.
 Then draft-after-swap, a submit held across the swap, the prewarm's
 (group, bucket) set against JAX's, the eager named errors (JAX's text),
-a failed growth, the manager's own growth against JAX's, and the
-launcher's upgrade refusals in JAX's words.
+a failed growth, the manager's own growth against JAX's, the launcher's
+upgrade refusals in JAX's words, and the launcher swapping a griffin pair
+grown by the port as JAX's swaps it.
 """
 import sys
 
@@ -31,6 +32,7 @@ from repro.serve import Request as JaxRequest
 from repro.serve import UpgradeError as JaxUpgradeError
 from repro.serve import UpgradeManager as JaxUpgradeManager
 from repro_torch.convert import from_jax, to_numpy
+from repro_torch.core import grow as port_grow
 from repro_torch.launch import serve as launch_serve
 from repro_torch.launch.serve import generate
 from repro_torch.serve import (
@@ -65,7 +67,27 @@ def gpt_pair():
 
 @pytest.fixture(scope="module")
 def griffin_pair():
-    return _pair("griffin-micro", "griffin-micro-big")
+    """The griffin pair with the port's side grown by the port (Mango
+    rank 1, noise 0) from the converted source."""
+    jax_pair, port_pair = _pair("griffin-micro", "griffin-micro-big")
+    cfg_src, params_src, cfg_tgt, _ = port_pair
+    grown = port_grow.grow_from_source(cfg_src, cfg_tgt,
+                                       params_src=params_src, noise=0.0,
+                                       device="cpu",
+                                       log_fn=lambda *a, **k: None)
+    return jax_pair, (cfg_src, params_src, cfg_tgt, grown)
+
+
+def test_griffin_pair_grown_in_port_equals_jax_growth(griffin_pair):
+    """The port's griffin growth (``griffin.param_shapes`` on the meta
+    device) gives JAX's grown weights leaf for leaf within 2e-5."""
+    jax_pair, port_pair = griffin_pair
+    got = dict(tree_flatten_with_paths(to_numpy(port_pair[3])))
+    want = dict(tree_flatten_with_paths(jax_pair[3]))
+    assert set(got) == set(want)
+    for path in want:
+        np.testing.assert_allclose(got[path], want[path], atol=F32_ATOL,
+                                   err_msg=path)
 
 
 def _requests(make, vocab, specs, *, uid0=0, seed0=70):
@@ -158,7 +180,8 @@ def test_hot_swap_matches_jax(pool, gpt_pair):
 
 def test_hot_swap_griffin_matches_jax(griffin_pair):
     """griffin's recurrent state and local-attention rings are rebuilt
-    through the resume path, not migrated (JAX's grown weights).  Both
+    through the resume path, not migrated (the port's grown weights
+    against JAX's own).  Both
     engines turn speculative after the swap, griffin-micro drafting for
     griffin-micro-big: resumes, tokens and every counter (proposals and
     acceptances too) equal JAX's."""
@@ -387,3 +410,46 @@ def test_launcher_upgrade_refusals_match_the_reference_text(monkeypatch,
         jax_serve.main()
     assert str(port.value) == str(reference.value)
     assert str(port.value).startswith("error: --")
+
+
+@pytest.mark.parametrize("sync", [True, False])
+def test_launcher_swaps_a_griffin_pair_grown_by_the_port(monkeypatch,
+                                                         capsys, sync):
+    """The griffin upgrade command on both launchers: griffin-micro (JAX's
+    seed-0 weights, converted for the port) grown into griffin-micro-big by
+    each package's own upgrade manager and swapped at dispatch 1, synchronously
+    or in the background: the swap, the greedy agreement and the
+    post-swap draft are JAX's, and synchronously the served tokens too."""
+    from repro.launch import serve as jax_serve
+
+    argv = ["--arch", "griffin-micro", "--engine", "continuous", "--batch",
+            "2", "--gen", "4", "--grow-cfg", "griffin-micro-big",
+            "--upgrade-at", "1"] + (["--upgrade-sync"] if sync else [])
+    jparams = jax.tree.map(np.asarray, jax_serve.build_params(
+        jax_get_config("griffin-micro")))
+    monkeypatch.setattr(launch_serve, "build_params",
+                        lambda cfg, **kw: (from_jax(jparams), None, None))
+    launch_serve.main([*argv, "--device", "cpu"])
+    port = capsys.readouterr().out
+    monkeypatch.setattr(sys, "argv", ["serve.py", *argv])
+    jax_serve.main()
+    reference = capsys.readouterr().out
+
+    def facts(out):
+        swap = [ln for ln in out.splitlines() if "upgrade SWAPPED" in ln]
+        assert len(swap) == 1, out
+        tail = swap[0].split("greedy agreement")[1]
+        tokens = [ln for ln in out.splitlines() if ln[:1].isdigit()]
+        served = [ln.split(" in ")[0].split("served")[1]
+                  for ln in out.splitlines() if "served" in ln]
+        return tail, tokens, served
+
+    got, want = facts(port), facts(reference)
+    # in the background the growth may outlive the trace in one package and
+    # not the other: then the swap lands after it, and the tokens are the
+    # source's; synchronously it lands at dispatch 1 in both
+    assert got[0] == want[0]
+    if sync:
+        assert got == want
+    assert "greedy agreement 1.000; post-swap speculation " \
+        "draft=griffin-micro d=4" in port
