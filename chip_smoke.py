@@ -7,7 +7,8 @@ qwen3-0.6b (RoPE) served on every route; DeiT-S grown into DeiT-B
 with checkpoints, resume and the examples; gpt-base sampled;
 gpt-small grown live into gpt-base under traffic, and crash recovery;
 griffin speculation; the fault layer; griffin growth, and
-recurrentgemma-2b trained at full width.
+recurrentgemma-2b trained at full width; qwen3-0.6b with a sliding window
+served from ring caches on every route.
 
     python3 chip_smoke.py [--out report.json]
 
@@ -28,7 +29,10 @@ printed as it goes; a failed phase raises, so the exit code is not 0:
                 one, qwen3-0.6b's and gpt-base's ``generate`` decode over
                 the pool's transposed view) plus GQA, bfloat16, ragged,
                 ring and window cases, gpt-base's verify at d 16 (S 17)
-                dense and paged, the dense slot and ``decode_attention``
+                dense and paged, the paged verify's ring layout (phase
+                17's shape, and hd 64 and 80 with done rows, offsets up
+                to eight laps around the ring and sentinel table
+                entries), the dense slot and ``decode_attention``
                 with their bands cut on the device and by the host (the
                 sandwich's gradients too), then
                 CUDA-event times of kernel, plain version and one PyTorch
@@ -72,7 +76,10 @@ printed as it goes; a failed phase raises, so the exit code is not 0:
                 engine (near ties reported), prefix hits, admissions that
                 waited for pages, exact launches of the paged slot kernel
                 (one per layer per decode step, the dense one never), no
-                page left in use; a traced run for the idle share;
+                page left in use; a traced run of the last 8 requests
+                (two of them prefix hits) for the idle share and the host
+                time per engine stage (admission, hit admission, dispatch,
+                processing);
   8. paged speculate -- phase 6's pair and requests with both pools on
                 one arena of 64 pages, beside the dense speculative engine:
                 tokens == phase 6's plain route, exact launches of the
@@ -119,9 +126,9 @@ printed as it goes; a failed phase raises, so the exit code is not 0:
                 (capacity 8, max_len 1024, K 8) on the dense pool, a
                 64-page paged pool and speculatively with the model
                 drafting for itself (d 4, K 2), then ``generate`` for each
-                of the first 8 requests (B 1) and over 8 prompts of 512
+                of the first 4 requests (B 1) and over 8 prompts of 512
                 (B 8; its first 4 rows checked).  Tokens ==
-                the plain route (a full forward per token; the first 8
+                the plain route (a full forward per token; the first 4
                 requests, and any later one where the engines disagree) up
                 to reported near ties, paged == dense and speculative ==
                 dense for all 16, exact launches (decode_attention
@@ -227,6 +234,24 @@ printed as it goes; a failed phase raises, so the exit code is not 0:
                 version under autograd; 1e-5 and 1e-4 relative), 18
                 forward and 18 backward scan launches a step and no other
                 kernel, ms/step against the f32 FLOP bound, peak memory.
+ 17. window  -- phase 11's qwen3-0.6b weights with a window of 1,025
+                (rings of 1,088 slots, 17 pages of 64) on 8 requests of
+                1,100..1,600 prompt tokens (4 opening with the same 1,280)
+                and 64 new tokens each, capacity 8, max_len 2,048: (a) the
+                dense pool (the ring kernel), (b) a paged pool of 84 pages
+                with ring prefix sharing (the paged ring kernel; prefix
+                hits, misses, refused admissions, prefills, macro-steps
+                and the pages high-water as a CPU run of the schedule
+                predicts, 3 hits), (c) the paged pool speculating with a
+                copy nudged by 1e-3 of each leaf's std drafting (d 4, K 2:
+                the paged ring kernel and the paged verify's ring layout),
+                (d) the same on the dense pool (the dense verify's ring
+                layout).  Tokens of (a)-(d) equal for all 8 requests and
+                the plain route's for the first 4 (near ties reported),
+                exact launches, acceptance strictly inside (0, 1), 0 pages
+                in use at the end; tok/s, acceptance, hits, pages
+                high-water and peak memory beside the card's name and
+                power limit.
 
 Phase 3 also holds the scan's backward kernel against autograd through the
 scan's plain version (recurrentgemma-2b's training shape, f32 and bf16,
@@ -926,67 +951,92 @@ def run_chunk_cases(gen):
                     "library_ms", "shape")})
 
 
+# phase 17's verify: B 8, S 5 (d 4), qwen3-0.6b's 16 heads over 8 KV heads
+# of 128, a ring of 1,088 (window 1,025) in pages of 64, offsets of its
+# requests near their end (prompts of 1,100..1,600 and 64 new tokens)
+WIN_RING_OFFSETS = [1105, 1180, 1290, 1305, 1320, 1335, 1450, 1600]
+
+
 def paged_cases(gen):
     """Phase 3's paged cases: (kernel, label, L, B, S, H, KV, hd, n_pages,
-    page, nblk, dtype, lens), gpt-base's shapes first.  Tables are a seeded
-    permutation of the arena's pages (not contiguous), and one block
-    inside a row's attended range holds the sentinel (a draft past its
-    budget reads through it)."""
+    page, nblk, dtype, lens, window), gpt-base's shapes first, then the
+    verify's ring layout ("ring"): phase 17's shape in f32 and bf16, hd 64
+    and an in-bucket hd 80 with done rows and offsets that wrap the ring
+    up to eight times.  Tables are a seeded permutation of the arena's
+    pages (not contiguous), and blocks inside a row's attended range hold
+    the sentinel (a draft past its budget reads through it)."""
     import torch
 
     f32, bf16 = torch.float32, torch.bfloat16
     kv_lens = [0, 97, 200, 333, 451, 576, 800, 1024]
     spread = [-1, 64, 137, 210, 283, 356, 430, 576]
+    wrap = [-1, 0, 100, 255, 256, 700, 1024, 1999]
     return [
         ("slot", "gpt-base paged f32", 12, 8, 1, 12, 12, 64, 128, 64, 16,
-         f32, kv_lens),
+         f32, kv_lens, None),
         ("slot", "gpt-small paged f32", 12, 8, 1, 8, 8, 64, 128, 64, 16, f32,
-         kv_lens),
+         kv_lens, None),
         ("slot", "gpt-base paged bf16", 2, 8, 1, 12, 12, 64, 128, 64, 16,
-         bf16, kv_lens),
+         bf16, kv_lens, None),
         ("chunk", "gpt-base verify paged f32", 12, 8, 5, 12, 12, 64, 128, 64,
-         16, f32, spread),
+         16, f32, spread, None),
         ("chunk", "gpt-small catch-up paged f32", 12, 8, 5, 8, 8, 64, 128, 64,
-         16, f32, spread),
+         16, f32, spread, None),
         ("chunk", "gpt-base verify paged bf16", 2, 8, 5, 12, 12, 64, 128, 64,
-         16, bf16, spread),
+         16, bf16, spread, None),
         ("chunk", "gpt-base verify S 17 paged f32", 2, 8, 17, 12, 12, 64, 128,
-         64, 16, f32, spread),
+         64, 16, f32, spread, None),
+        ("ring", "qwen3-0.6b window ring f32", 4, 8, 5, 16, 8, 128, 136, 64,
+         17, f32, WIN_RING_OFFSETS, 1025),
+        ("ring", "qwen3-0.6b window ring bf16", 4, 8, 5, 16, 8, 128, 136, 64,
+         17, bf16, WIN_RING_OFFSETS, 1025),
+        ("ring", "ring hd 64 G 2 wrap f32", 1, 8, 5, 4, 2, 64, 29, 64, 4, f32,
+         wrap, 200),
+        ("ring", "ring hd 64 G 2 wrap bf16", 1, 8, 5, 4, 2, 64, 29, 64, 4,
+         bf16, wrap, 200),
+        ("ring", "ring hd 80 G 4 wrap f32", 1, 8, 9, 16, 4, 80, 37, 32, 8, f32,
+         wrap, None),
+        ("ring", "ring hd 80 G 4 wrap bf16", 1, 8, 9, 16, 4, 80, 37, 32, 8,
+         bf16, wrap, None),
     ]
 
 
 def run_paged_cases(gen):
-    """Phase 3 for the two paged kernels: every case against its plain
-    version (``check_close``), then timed beside its bound, the plain
-    version and SDPA over K/V gathered from the arena ahead of the timing.
-    The first case of each kernel is its kernels-line row."""
+    """Phase 3 for the two paged kernels and the verify's ring layout:
+    every case against its plain version (``check_close``; done rows exact
+    zeros), then timed beside its bound, the plain version and SDPA over
+    K/V gathered from the arena ahead of the timing.  The first case of
+    each kernel (and of the ring layout) is its kernels-line row."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import decode_attention, ref
 
-    fns = {"slot": decode_attention.paged_slot_decode_attention,
-           "chunk": decode_attention.paged_chunk_verify_attention}
+    names = {"slot": "paged_slot_decode_attention",
+             "chunk": "paged_chunk_verify_attention",
+             "ring": "paged_chunk_verify_attention[ring]"}
     rows = {}
     for (kind, label, L, B, S, H, KV, hd, n_pages, page, nblk, dt,
-         lens) in paged_cases(gen):
+         lens, window) in paged_cases(gen):
         def rnd(*s):
             return torch.randn(*s, generator=gen, device="cuda").to(dt)
         perm = torch.randperm(n_pages, generator=torch.Generator().manual_seed(
             n_pages + B), dtype=torch.int32)
         bt = perm[:B * nblk].reshape(B, nblk) if B * nblk <= n_pages else \
             perm[torch.arange(B * nblk) % n_pages].reshape(B, nblk)
-        bt[7, 6] = n_pages  # row 7 attends blocks 0..9 or all 16
+        if kind == "ring":  # rows 3 and 6 wrap past these blocks
+            bt[3, 1] = bt[6, nblk - 1] = n_pages
+        else:
+            bt[7, 6] = n_pages  # row 7 attends blocks 0..9 or all 16
         bt = bt.contiguous().cuda()
         ka, va = rnd(L, n_pages, page, KV, hd), rnd(L, n_pages, page, KV, hd)
         ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
         dname = str(dt).split(".")[1]
-        name = f"paged_{kind}_" + ("decode_attention" if kind == "slot"
-                                   else "verify_attention")
-        fn = fns[kind]
+        name = names[kind]
         item = ka.element_size()
         cap = nblk * page
         if kind == "slot":
+            fn = decode_attention.paged_slot_decode_attention
             q = rnd(B, H, hd)
 
             def kern(j):
@@ -1001,23 +1051,37 @@ def run_paged_cases(gen):
                 :, None, None]
             qt = q[:, :, None]
         else:
+            fn = decode_attention.paged_chunk_verify_attention
+            ring = kind == "ring"
+            kw = dict(ring=ring, window=window)
             q, kc, vc = rnd(B, S, H, hd), rnd(B, S, KV, hd), rnd(B, S, KV, hd)
 
             def kern(j):
-                return fn(q, ka[j], va[j], bt, kc, vc, ln, ring=False)
+                return fn(q, ka[j], va[j], bt, kc, vc, ln, **kw)
 
             def plain(j):
                 return ref.paged_chunk_verify_attention_ref(
-                    q, ka[j], va[j], bt, kc, vc, ln, ring=False)
-            n_keys = sum(min(o, cap) + S for o in lens if o >= 0)
+                    q, ka[j], va[j], bt, kc, vc, ln, **kw)
+            n_keys = 0
+            for o in lens:  # each row's attended positions and its chunk
+                if o >= 0:
+                    lo = max(0, o - cap) if ring else 0
+                    if window:
+                        lo = max(lo, o - window + 1)
+                    n_keys += (o if ring else min(o, cap)) - lo + S
             qkv = 2 * B * S * H * hd * item
             steps = torch.arange(S, device="cuda")[None]
-            pos = torch.arange(cap, device="cuda")[None]
-            kpos = torch.cat([torch.where(pos < ln[:, None], pos, -1),
-                              ln[:, None] + steps], 1)
+            if ring:
+                kpos_c = ref._ring_kpos(ln, cap)
+            else:
+                pos = torch.arange(cap, device="cuda")[None]
+                kpos_c = torch.where(pos < ln[:, None], pos, -1)
+            kpos = torch.cat([kpos_c, ln[:, None] + steps], 1)
             qpos = ln[:, None] + steps
-            mask = ((kpos[:, None] >= 0) & (kpos[:, None] <= qpos[:, :, None])
-                    )[:, None]
+            mask = (kpos[:, None] >= 0) & (kpos[:, None] <= qpos[:, :, None])
+            if window:
+                mask &= kpos[:, None] > qpos[:, :, None] - window
+            mask = mask[:, None]
             qt = q.transpose(1, 2)
         got = kern(0)
         torch.cuda.synchronize()
@@ -1028,14 +1092,14 @@ def run_paged_cases(gen):
                                  "offset -1 are not exact zeros")
         b_ms, b_by = bound_ms(
             n_keys * KV * hd * 2 * item + qkv + 4 * B * nblk + 4 * B,
-            4 * n_keys * H * hd * (S if kind == "chunk" else 1), dname)
+            4 * n_keys * H * hd * (1 if kind == "slot" else S), dname)
         # library yardstick: SDPA over each layer's K/V gathered from the
         # arena (and, for a verify, the chunk appended) ahead of the timing
         k_all, v_all = [], []
         for j in range(L):
             kd = ref._paged_gather_ref(ka[j], bt)
             vd = ref._paged_gather_ref(va[j], bt)
-            if kind == "chunk":
+            if kind != "slot":
                 kd, vd = torch.cat([kd, kc], 1), torch.cat([vd, vc], 1)
             k_all.append(kd.transpose(1, 2).contiguous())
             v_all.append(vd.transpose(1, 2).contiguous())
@@ -1057,13 +1121,14 @@ def run_paged_cases(gen):
                     enable_gqa=H != KV)), 10 * L),
             shape=(f"q{tuple(q.shape)} arena{tuple(ka.shape[1:])} bt"
                    f"{tuple(bt.shape)} {dname} "
-                   f"{'kv_len' if kind == 'slot' else 'offsets'} {lens}"))
+                   + (f"ring {cap} window {window} " if kind == "ring" else "")
+                   + f"{'kv_len' if kind == 'slot' else 'offsets'} {lens}"))
         # the band's pieces: (positions, a cluster of); a verify's rows a
         # tile and tiles first
         case["splits"] = (
             decode_attention._paged_splits(name, q, KV, cap)
             if kind == "slot" else
-            decode_attention._verify_plan(q, KV, cap, None))
+            decode_attention._verify_plan(q, KV, cap, window))
         split = f", pieces {case['splits']}"
         print(f"{name} [{label}] {case['shape']}: max abs err {err:.3g}"
               f"{split}; kernel {case['ms']:.4f} ms, plain "
@@ -1073,7 +1138,8 @@ def run_paged_cases(gen):
         if name not in rows:
             rows[name] = dict(
                 name=name, route="cuda",
-                source=f"src/repro_torch/kernels/csrc/{name}.cu",
+                source=("src/repro_torch/kernels/csrc/"
+                        f"{name.split('[')[0]}.cu"),
                 replaces=("src/repro/kernels/decode_attention.py:366"
                           if kind == "slot" else
                           "src/repro/kernels/decode_attention.py:451"),
@@ -1750,6 +1816,7 @@ def run_serve(kernel_rows):
                   peak_mib=peak / 2**20, launches=launches,
                   generate_decode_attention_launches=gen_launches,
                   exact_requests=exact, near_ties=near_ties)
+    # the device only: phase 7's paged run traces the engine's stages
     report["profile"] = profile_serve(engine, reqs, dt)
     return report
 
@@ -1833,16 +1900,15 @@ def profile_step(label, fn):
     return out, report
 
 
-def profile_serve(make_engine, reqs, untraced_wall,
-                  stages=("_admit_group", "_dispatch", "_process")):
+def profile_serve(make_engine, reqs, untraced_wall, stages=()):
     """A second, traced run of the same requests under torch.profiler:
     device busy time, host time per engine stage (``stages``, engine
-    methods), and the kernels that take the device time.  Tracing slows
-    the host, so the idle share is given against both the traced wall
-    time and the untraced run's.  ``decode_steps`` counts K per dispatch:
-    decode steps, or speculative blocks.  With no ``stages`` only the
-    device is traced: the host's events are what makes reading a trace of
-    a quarter million device ops take minutes."""
+    methods; phase 7 names them), and the kernels that take the device
+    time.  Tracing slows the host, so the idle share is given against both
+    the traced wall time and the untraced run's.  ``decode_steps`` counts
+    K per dispatch: decode steps, or speculative blocks.  With no
+    ``stages`` only the device is traced: the host's events are what
+    makes reading a trace of a quarter million device ops take minutes."""
     import dataclasses
 
     import torch
@@ -2242,7 +2308,7 @@ def run_speculative(kernel_rows, small, big):
     # of ~240,000 device ops, the 16 requests' trace, take minutes to read
     # (16 until PR 25, cut to make room for phases 10b and 15)
     report["profile"] = profile_serve(lambda: engine(cfg_s, small),
-                                      reqs[:8], dt / 2, stages=())
+                                      reqs[:8], dt / 2)
     report["profile"]["note"] = (
         "8 of the 16 requests (one wave); the untraced idle share uses "
         "half the 16-request run's wall time")
@@ -2435,9 +2501,19 @@ def run_paged_serve(kernel_rows):
           f"{len(reqs) - len(ties['dense'])}/{len(reqs)} (dense); paged == "
           f"dense for {len(reqs) - len(ties['paged vs dense'])}/{len(reqs)}; "
           f"near ties {ties}", flush=True)
+    # the port's one breakdown of host time by engine stage, on the last 8
+    # requests (2 prefix hits, 10 of the 27 macro-steps, as a CPU run of
+    # the schedule shows): with the host's events, a trace of all 16 took
+    # ~40 s to read
+    tail = reqs[8:]
+    _, dt_tail, _, _ = timed_run(engine("paged"), tail)
     report["profile"] = profile_serve(
-        lambda: engine("paged"), reqs, dt,
+        lambda: engine("paged"), tail, dt_tail,
         stages=("_admit_group", "_admit_hits", "_dispatch", "_process"))
+    report["profile"]["note"] = ("the last 8 of the 16 requests, traced "
+                                 "and untraced")
+    if not report["profile"]["stages"]["engine_admit_hits"]["calls"]:
+        raise AssertionError("the traced paged run admitted no prefix hit")
     return report
 
 
@@ -3079,16 +3155,16 @@ def run_griffin_spec(model, paged_report):
 QWEN_PAGES = 64  # phase 11's arena: half the dense pool's 128 pages of 64
 QWEN_D, QWEN_K = 4, 2  # phase 11's self-draft depth and blocks a dispatch
 QWEN_MATRIX_SCALE = 2.5  # phase 11: block matrices scaled up (see qwen_model)
-# phase 11 runs ``generate`` at B 1 on the first 8 of its 16 requests (16
-# until PR 24, cut to make room for phase 14)
-QWEN_GENERATE_REQS = 8
+# phase 11 runs ``generate`` at B 1 on the first 4 of its 16 requests (16
+# at first, then 8, cut to make room for phases 14 and 17)
+QWEN_GENERATE_REQS = 4
 # phase 11 holds the first 4 rows of ``generate`` at B 8 against the plain
 # route (8, cut to make room for phase 16)
 QWEN_GEN8_CHECKED = 4
-# phase 11 holds its first 8 requests' tokens (every route's) against the
-# plain route, and paged == dense for all 16 (16, cut to make room for
-# phase 16)
-QWEN_PLAIN_REQS = 8
+# phase 11 holds its first 4 requests' tokens (every route's) against the
+# plain route, and paged == dense for all 16 (16, then 8, cut to make
+# room for phases 16 and 17)
+QWEN_PLAIN_REQS = 4
 QWEN_MIN_DISTINCT = 512  # of the dense engine's 1024 tokens (see qwen_model)
 F32_LOGIT_RTOL = 1e-3  # f32 kernel route vs f32 full forward, of max |logit|
 
@@ -3394,8 +3470,7 @@ def run_qwen(kernel_rows):
 
     t0 = time.perf_counter()
     profile = profile_serve(lambda: engine("dense"), reqs[:8],
-                            untraced_wall=runs["dense"]["seconds"] / 2,
-                            stages=())
+                            untraced_wall=runs["dense"]["seconds"] / 2)
     profile["seconds"] = time.perf_counter() - t0
     profile["note"] = ("8 of the 16 requests (one wave); the untraced idle "
                        "share uses half the 16-request run's wall time")
@@ -3987,7 +4062,7 @@ def run_sampled():
     prof = {}
     for label, sampling in (("greedy", None), ("sampled", sp)):
         r = profile_serve(lambda: engine(sampling), reqs,
-                          runs[label]["seconds"], stages=())
+                          runs[label]["seconds"])
         prof[label] = dict(r, ops_per_decode_step=r["device_ops"]
                            / r["decode_steps"])
     print(f"device ops per decode step: sampled "
@@ -5051,6 +5126,249 @@ def run_serve_continuous():
           f"launches {launches}", flush=True)
     return dict(seconds=card_s, launches=launches)
 
+WIN_WINDOW = 1025  # phase 17: qwen3-0.6b's window; its ring pads to 1,088
+WIN_MAX_LEN = 2048
+# phase 17b's arena: 4 requests' 17 pages and one donor's 16 registry
+# copies, so the shared-prefix requests of the second wave hit
+WIN_PAGES = 84
+WIN_D, WIN_K = 4, 2  # phase 17c/d: draft depth, blocks a dispatch
+WIN_DRAFT_NOISE = 1e-3  # phase 17c/d's nudged draft: noise / leaf std
+WIN_PLAIN_REQS = 4  # phase 17 holds its first 4 requests against plain
+WIN_SHARED = 1280  # tokens (20 pages) the shared-prefix requests open with
+
+
+def window_requests(vocab):
+    """Phase 17's 8 requests, 64 new tokens each, every prompt past the
+    window.  Uids 0, 4, 5, 6 open with the same 1,280 tokens, then 10, 25,
+    40, 55 of their own (prompts 1,290..1,335); uids 1, 2, 3, 7 have
+    prompts of 1,100, 1,180, 1,250 and 1,600 tokens of their own.  At
+    WIN_PAGES the first wave holds uids 0..3 and each registers its ring's
+    last 16 full pages, in the order of their prefill buckets: each
+    registration reclaims the one before it, so uid 0, whose prompt is
+    the wave's longest, registers last and keeps its pages; uids 4..6 hit
+    them in the second wave."""
+    import numpy as np
+
+    from repro_torch.data import lm_batch
+    from repro_torch.serve import Request
+
+    shared = lm_batch(vocab, 1, WIN_SHARED, seed=1700)[0]
+    own = iter([1100, 1180, 1250, 1600])
+    tails = iter([10, 25, 40, 55])
+    out = []
+    for uid in range(8):
+        if uid in (0, 4, 5, 6):
+            prompt = np.concatenate([shared, lm_batch(
+                vocab, 1, next(tails), seed=1710 + uid)[0]])
+        else:
+            prompt = lm_batch(vocab, 1, next(own), seed=1720 + uid)[0]
+        out.append(Request(uid=uid, prompt=prompt, max_new_tokens=64))
+    return out
+
+
+def predict_window_schedule(cfg, reqs):
+    """The paged engine's schedule does not depend on the weights (no eos,
+    fixed budgets): run phase 17b's on the CPU with a 1-layer model of the
+    same paging geometry (window 1,025, max_len 2,048: a ring of 17 pages
+    of 64) and count the prefix hits and misses, the admissions refused
+    for want of pages, the prefill groups, the macro-steps and the pages
+    high-water."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.launch.serve import build_params
+    from repro_torch.serve import ContinuousBatchingEngine
+
+    tiny = cfg.replace(n_layers=1, d_model=8, n_heads=2, n_kv_heads=1,
+                       head_dim=8, d_ff=8)
+    params = build_params(tiny, seed=0, device="cpu")
+    eng = ContinuousBatchingEngine(tiny, params, capacity=8,
+                                   max_len=WIN_MAX_LEN, k=8, pool="paged",
+                                   pages=WIN_PAGES)
+    waits = []
+    alloc = eng._alloc_request
+
+    def counted(req):
+        info = alloc(req)
+        waits.append(info is None)
+        return info
+    eng._alloc_request = counted
+    with torch.no_grad():
+        eng.run([dataclasses.replace(r) for r in reqs])
+    return dict(hits=eng.n_prefix_hits, misses=eng.n_prefix_misses,
+                refused=sum(waits), n_prefills=eng.n_prefills,
+                n_decode_dispatches=eng.n_decode_dispatches,
+                pages_highwater=eng.pages_highwater)
+
+
+def run_window(kernel_rows, smi):
+    """Phase 17: qwen3-0.6b (phase 11's weights) with a window of 1,025
+    over rings of 1,088 slots, 8 requests past the window: (a) the dense
+    pool (the ring kernel), (b) a paged pool of WIN_PAGES pages with ring
+    prefix sharing (the paged ring kernel; registry copies at admission,
+    hits rebuilding their ring; hits as a CPU run of the schedule
+    predicts), (c) the paged pool speculating with a nudged copy drafting
+    (d 4, K 2: the paged ring decode and the paged verify's ring layout),
+    (d) the same on the dense pool (the dense verify's ring layout).
+    Tokens of (a)-(d) equal for all 8 requests and the plain route's for
+    the first WIN_PLAIN_REQS (near ties reported), exact launches,
+    acceptance strictly inside (0, 1), 0 pages in use at the end."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ContinuousBatchingEngine, SpeculativeConfig
+
+    t0 = time.perf_counter()
+    cfg, params = qwen_model()
+    cfg = cfg.replace(name="qwen3-0.6b-window", window=WIN_WINDOW)
+    draft = nudged_copy(params, WIN_DRAFT_NOISE, seed=17)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    L, d, k = cfg.n_layers, WIN_D, WIN_K
+    reqs = window_requests(cfg.vocab_size)
+    t0 = time.perf_counter()
+    predicted = predict_window_schedule(cfg, reqs)
+    predict_s = time.perf_counter() - t0
+    print(f"qwen3-0.6b window {WIN_WINDOW} (weights and a copy nudged by "
+          f"{WIN_DRAFT_NOISE:g} of each leaf's std drawn in {init_s:.1f} s): "
+          f"prompts {[len(r.prompt) for r in reqs]}; phase 17b's schedule "
+          f"as a CPU run predicts it ({predict_s:.1f} s, 1-layer model): "
+          f"{predicted}", flush=True)
+    if predicted["hits"] < 1:
+        raise AssertionError(f"the schedule predicts no prefix hit: "
+                             f"{predicted}")
+
+    def engine(pool, spec=False):
+        return ContinuousBatchingEngine(
+            cfg, params, capacity=8, max_len=WIN_MAX_LEN,
+            k=k if spec else 8, pool=pool,
+            pages=WIN_PAGES if pool == "paged" and not spec else None,
+            speculative=SpeculativeConfig(cfg, draft, d=d) if spec else None)
+
+    engine("dense").run([dataclasses.replace(reqs[1], max_new_tokens=2)])
+    kern = ops.kernels()
+    gc.collect()
+    held = torch.cuda.memory_allocated()
+    runs = {}
+    for label, pool, spec in (("dense", "dense", False),
+                              ("paged", "paged", False),
+                              ("paged speculative", "paged", True),
+                              ("dense speculative", "dense", True)):
+        eng = engine(pool, spec)
+        if eng.cache_layout != "ring" or eng.pool["dense"]["k"].shape[
+                -3] != (64 if pool == "paged" else 1088):
+            raise AssertionError(f"{label}: not a ring pool "
+                                 f"({eng.cache_layout})")
+        torch.cuda.reset_peak_memory_stats()
+        for fn in kern.values():
+            fn.launches = 0
+        out, dt, tps, waits = timed_run(eng, reqs)
+        launches = {name: fn.launches for name, fn in kern.items()}
+        peak = torch.cuda.max_memory_allocated()
+        steps = eng.k * eng.n_decode_dispatches
+        ring = ("paged_ring_decode_attention" if pool == "paged"
+                else "ring_decode_attention")
+        want = {name: 0 for name in kern}
+        if spec:
+            verify = ("paged_chunk_verify_attention" if pool == "paged"
+                      else "chunk_verify_attention")
+            want.update({ring: L * d * steps, verify: 2 * L * steps})
+        else:
+            want[ring] = L * (steps + eng.n_prefix_tail_steps)
+        if launches != want or eng.n_spec_fallbacks:
+            raise AssertionError(
+                f"window {label} engine launched {launches}, expected "
+                f"{want} ({steps} decode steps or blocks, "
+                f"{eng.n_prefix_tail_steps} tail steps, "
+                f"{eng.n_spec_fallbacks} fallbacks)")
+        acc = eng.acceptance_rate
+        if spec and not 0.0 < acc < 1.0:
+            raise AssertionError(f"window {label}: acceptance {acc} "
+                                 f"({eng.n_spec_accepted}/"
+                                 f"{eng.n_spec_proposed}) not inside (0, 1)")
+        if pool == "paged" and eng.pages_in_use:
+            raise AssertionError(f"window {label}: {eng.pages_in_use} pages "
+                                 "left in use")
+        sched = dict(hits=eng.n_prefix_hits, misses=eng.n_prefix_misses,
+                     refused=waits, n_prefills=eng.n_prefills,
+                     n_decode_dispatches=eng.n_decode_dispatches,
+                     pages_highwater=eng.pages_highwater)
+        if label == "paged" and sched != predicted:
+            raise AssertionError(f"paged window schedule {sched} differs "
+                                 f"from the CPU prediction {predicted}")
+        n_tok = sum(len(v) for v in out.values())
+        runs[label] = dict(
+            out=out, tok_per_s=tps, seconds=dt, tokens=n_tok,
+            acceptance=acc, proposed=eng.n_spec_proposed,
+            accepted=eng.n_spec_accepted, schedule=sched,
+            prefix_tail_steps=eng.n_prefix_tail_steps,
+            pages_budget=eng.pages_budget,
+            peak_above_held_mib=(peak - held) / 2**20,
+            pool_bytes=_pool_bytes(eng.pool),
+            host_syncs_per_token=eng.n_host_syncs / n_tok,
+            launches={n: v for n, v in launches.items() if v})
+        print(f"window {label}: {n_tok} tokens in {dt:.3f} s: {tps:.1f} "
+              f"tok/s; acceptance {acc:.4f} ({eng.n_spec_accepted}/"
+              f"{eng.n_spec_proposed}); prefix hits {eng.n_prefix_hits}, "
+              f"misses {eng.n_prefix_misses}, tail steps "
+              f"{eng.n_prefix_tail_steps}; pages budget {eng.pages_budget}"
+              f", high-water {eng.pages_highwater}; pool "
+              f"{runs[label]['pool_bytes'] / 2**20:.1f} MiB; peak "
+              f"{(peak - held) / 2**20:.1f} MiB above the "
+              f"{held / 2**20:.1f} MiB held; {eng.n_decode_dispatches} "
+              f"dispatches, {eng.n_prefills} prefills; launches "
+              f"{runs[label]['launches']} ({smi})", flush=True)
+        if label == "paged speculative":
+            kernel_rows["paged_chunk_verify_attention[ring]"]["launches"] = \
+                launches["paged_chunk_verify_attention"]
+        del eng
+    del draft
+
+    # the reference is the plain route alone (no kernel of the port)
+    before = {name: fn.launches for name, fn in kern.items()}
+    t0 = time.perf_counter()
+    plain = {r.uid: plain_greedy(cfg, params, r.prompt, 64)
+             for r in reqs[:WIN_PLAIN_REQS]}
+    ties = {w: [] for w in runs}
+    for r in reqs:
+        dense = runs["dense"]["out"][r.uid]
+        if r.uid not in plain and any(
+                (runs[w]["out"][r.uid] != dense).any() for w in runs):
+            # engines that disagree past the plain route's requests: the
+            # plain route decides whether at a near tie
+            plain[r.uid] = plain_greedy(cfg, params, r.prompt, 64)
+        for what, run in runs.items():
+            toks = run["out"][r.uid]
+            if toks.shape != (64,) or toks.min() < 0 or \
+                    toks.max() >= cfg.vocab_size:
+                raise AssertionError(f"uid {r.uid}: bad {what} output")
+            if r.uid in plain:
+                tie = check_against_plain(f"window {what}", r.uid, toks,
+                                          *plain[r.uid])
+            else:
+                tie = check_same_tokens(f"window {what} and dense", r.uid,
+                                        toks, dense, np.full(64, np.inf))
+            if tie is not None:
+                ties[what].append(tie)
+    plain_s = time.perf_counter() - t0
+    if {name: fn.launches for name, fn in kern.items()} != before:
+        raise AssertionError("the plain route launched a CUDA kernel")
+    print(f"window: tokens of the {len(runs)} runs equal for all "
+          f"{len(reqs)} requests and the plain route's for "
+          f"{sorted(plain)} ({plain_s:.1f} s) but near ties {ties}",
+          flush=True)
+    for run in runs.values():
+        del run["out"]
+    return dict(runs=runs, near_ties=ties, predicted=predicted,
+                plain_route_seconds=plain_s, init_seconds=init_s,
+                window=WIN_WINDOW, max_len=WIN_MAX_LEN, nvidia_smi=smi,
+                prompts=[len(r.prompt) for r in reqs])
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -5195,6 +5513,14 @@ def main(argv=None):
     griffin_growth = run_griffin_grown_pair(rows)
     griffin_growth["train"] = run_griffin_train(rows)
     print(f"phase 16 took {time.perf_counter() - t0:.1f} s", flush=True)
+    gc.collect()  # phase 16's models go before qwen3-0.6b's window
+    torch.cuda.empty_cache()
+
+    phase("windowed qwen3-0.6b: ring caches dense and paged, ring prefix "
+          "sharing, ring speculation on both pools")
+    t0 = time.perf_counter()
+    window = run_window(rows, smi[0] if smi else "nvidia-smi: no output")
+    print(f"phase 17 took {time.perf_counter() - t0:.1f} s", flush=True)
 
     # the contract's keys, then the tensor-core rows' 3xTF32 and bf16 ones
     kernels = [{key: r[key] for key in (
@@ -5213,7 +5539,7 @@ def main(argv=None):
              "griffin_speculative": griffin_spec, "faults": faults,
              "qwen": qwen, "deit": deit, "sampled": sampled,
              "upgrade": upgrade, "griffin_growth": griffin_growth,
-             "build_seconds": secs}, indent=1))
+             "window": window, "build_seconds": secs}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}))

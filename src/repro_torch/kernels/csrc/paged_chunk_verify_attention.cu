@@ -9,24 +9,26 @@
 //   out[b,i,h,:] = softmax_j(q[b,i,h,:] . key_j * hd^-0.5) @ value_j
 // over the keys of [cache ‖ chunk] of kv head h/G: the read-only cache
 // held in the page arenas ck/cv (n_pages, page, KV, hd) through row b's
-// block table bt (B, nblk) int32 -- cache position p lives at
-// arena[bt[b, p / page], p % page], written iff p < off (full layout;
-// the logical cache length is nblk * page) -- and the chunk's own k/v
-// (B,S,KV,hd) at positions off .. off+S-1.  A key at position kpos is
-// attended iff kpos <= qpos (causal) and, when a window is given,
-// kpos > qpos - window.  A table entry outside [0, n_pages) (the
-// sentinel of a block with no page, which a draft's catch-up past its
-// budget can reach) clamps to page n_pages - 1 as in the reference, so
-// no read leaves the arena.  Rows with off < 0 (done slots) write exact
-// zeros.  float32 and bfloat16, hd in {64, 128}, G = H/KV in 1..16, any S
-// and page size; softmax state and sums are float32.  The arenas
-// are never written.  The ring-buffer layout is not taken here (the ring
-// slice).
+// block table bt (B, nblk) int32 and the chunk's own k/v (B,S,KV,hd) at
+// positions off .. off+S-1.  With cap = nblk * page, the cache's key
+// positions follow its layout:
+//   full: position p lives at slot p, written iff p < off;
+//   ring: slot s holds the largest p < off with p % cap == s (p >= 0),
+// and slot s lives at arena[bt[b, s / page], s % page].  A key at
+// position kpos is attended iff kpos <= qpos (causal) and, when a window
+// is given, kpos > qpos - window.  A table entry outside [0, n_pages)
+// (the sentinel of a block with no page, which a draft's catch-up past
+// its budget can reach) clamps to page n_pages - 1 as in the reference,
+// so no read leaves the arena.  Rows with off < 0 (done slots) write
+// exact zeros.  float32 and bfloat16, hd up to 128, G = H/KV in 1..16,
+// any S and page size; softmax state and sums are float32.  The arenas
+// are never written.
 //
 // Bound on the H100: bytes, as the dense chunk kernel: each row's
-// attended cache positions and its S chunk keys once,
-// sum_b (min(off_b, nblk * page) + S) * KV * hd * 2 * itemsize bytes,
-// plus q, out and the table, far below the ridge point.
+// attended cache positions (full: min(off_b, cap) less the window's cut;
+// ring: at most min(cap, window - 1) below off_b) and its S chunk keys
+// once, times KV * hd * 2 * itemsize bytes, plus q, out and the table,
+// far below the ridge point.
 //
 // Design: the verify band of the decode body, paged_decode.cuh (shared
 // with the paged slot and the ring kernels).  A verify reads the same band
@@ -46,21 +48,27 @@
 // each when pages hold whole tiles.  Each row masks at the window's low
 // edge and in the chunk tile only; masked keys weigh exactly 0.  What is
 // left is the launch, the cluster barriers and the merge, and float32 FMAs
-// over the block's rows (zero rows included).
+// over the block's rows (zero rows included).  The ring layout is a
+// run-time flag of the same instances, as in the dense verify: its band
+// [max(lo, off - cap), off) is walked by position, slot p % cap (so no
+// negative number is divided), through the table; its tiles need not
+// start on multiples of 32, so it takes the bulk copies, not the TMA box.
 #include "paged_decode.cuh"
 
 // q (B,S,H,hd), ck/cv (n_pages,page,KV,hd) arenas, bt (B,nblk) int32, k/v
 // (B,S,KV,hd), offsets (B,) int32, o (B,S,H,hd); all contiguous on the
-// device.  dtype: 0 = float32, 1 = bfloat16; window: 0 = none.  The S * G
-// query rows of a (b, kv head) come in tiles of `rows` (1..16); each band
-// is cut into nsplit (1..16) pieces of chunk positions, chunk * nsplit >=
-// min(window - 1, nblk * page) + S.  One launch; returns
-// cudaGetLastError() after it (0 on success); no synchronisation.
+// device.  dtype: 0 = float32, 1 = bfloat16; ring: 0 full layout, 1 ring
+// buffer; window: 0 = none.  The S * G query rows of a (b, kv head) come
+// in tiles of `rows` (1..16); each band is cut into nsplit (1..16) pieces
+// of chunk positions, chunk * nsplit >= min(window - 1, nblk * page) + S.
+// One launch; returns cudaGetLastError() after it (0 on success); no
+// synchronisation.
 extern "C" int paged_chunk_verify_attention_fwd(
     const void* q, const void* ck, const void* cv, const void* bt,
     const void* k, const void* v, const void* offsets, void* o, int dtype,
     int B, int S, int n_pages, int page, int nblk, int KV, int H, int hd,
-    int window, int rows, int chunk, int nsplit, float scale, void* stream) {
+    int ring, int window, int rows, int chunk, int nsplit, float scale,
+    void* stream) {
   pdec::Call c = {};
   c.q = q;
   c.k = ck;
@@ -78,6 +86,7 @@ extern "C" int paged_chunk_verify_attention_fwd(
   pdec::own_strides(c, hd);
   c.S = S;
   c.rows = rows;
+  c.ring = ring != 0;
   c.window = window;
   c.chunk = chunk;
   c.nsplit = nsplit;

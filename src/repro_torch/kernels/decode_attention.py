@@ -418,7 +418,7 @@ def _paged_chunk_entry():
     fn = build.load("paged_chunk_verify_attention"
                     ).paged_chunk_verify_attention_fwd
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 13
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 14
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -428,14 +428,13 @@ def paged_chunk_verify_attention(q, ck, cv, bt, k, v, offsets, *, ring,
                                  window=None):
     """q: (B, S, H, hd); ck, cv: (n_pages, page, KV, hd) read-only cache
     arenas; bt: (B, nblk) int32 block tables (logical cache length
-    ``nblk * page``, full layout); k, v: (B, S, KV, hd) the chunk's own
-    K/V; offsets: (B,) int32 committed lengths -> (B, S, H, hd).  Offsets
-    < 0 give exact zeros; the arenas are never written."""
+    ``cap = nblk * page``: slot s of row b is ``arena[bt[b, s // page],
+    s % page]``), full (``ring`` False: slot p holds position p) or
+    ring-buffer layout (slot s holds the largest position p < offset with
+    ``p % cap == s``); k, v: (B, S, KV, hd) the chunk's own K/V; offsets:
+    (B,) int32 committed lengths -> (B, S, H, hd).  Offsets < 0 give
+    exact zeros; the arenas are never written."""
     what = "paged_chunk_verify_attention"
-    if ring:
-        raise NotImplementedError(
-            f"{what}: the paged ring-buffer layout is not ported to "
-            "repro_torch yet (the ring slice, ROADMAP.md)")
     _check_tensors(what, (("q", q), ("ck", ck), ("cv", cv), ("k", k),
                           ("v", v)), ("bt", bt), ("offsets", offsets))
     if q.dim() != 4:
@@ -463,7 +462,7 @@ def paged_chunk_verify_attention(q, ck, cv, bt, k, v, offsets, *, ring,
             q.data_ptr(), ck.data_ptr(), cv.data_ptr(), bt.data_ptr(),
             k.data_ptr(), v.data_ptr(), offsets.data_ptr(), out.data_ptr(),
             DTYPES[q.dtype], B, S, n_pages, page, nblk, KV, H, hd,
-            window or 0, rows, chunk, nsplit, hd ** -0.5,
+            int(ring), window or 0, rows, chunk, nsplit, hd ** -0.5,
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")

@@ -20,12 +20,13 @@ and, to run as a speculative draft or target, the chunk-verify hooks
 and, to serve from a paged pool (``serve/paged.py``), the declaration of
 its pageable cache groups:
   paged_groups(cfg) -> {group key: (kind, leaf names)}
-A family whose slot-decode steps overwrite state a proposal must not
-keep (griffin's recurrence and rings) adds
+A family whose slot-decode steps can overwrite state a proposal must not
+keep (griffin's recurrence and rings, a windowed transformer's ring) adds
   snapshot_slots(cache, positions, n) / restore_slots(cache, snap,
                                                      positions, n)
-so a speculative draft can propose in place.  The transformer and griffin
-families are ported so far.
+so a speculative draft whose ``slot_cache_layout`` is not "full" can
+propose in place.  The transformer and griffin families are ported so
+far.
 """
 from __future__ import annotations
 

@@ -3,11 +3,25 @@
 Covers the paper's GPT/BERT/DeiT configs and the RoPE decoders (qwen1.5,
 qwen3, stablelm, yi): LayerNorm or RMSNorm, GELU or gated MLPs, learned
 absolute positions or standard (optionally partial) RoPE, qkv bias and
-per-head q/k norms, MHA or GQA attention, separate or tied LM head.
-Params are nested dicts stacked over a leading layer axis, as in the
-reference package.  Configs with MLA, MoE, a sliding window, multimodal
-RoPE or an MTP head raise ``NotImplementedError`` (ROADMAP.md lists the
-slices that bring them).
+per-head q/k norms, MHA or GQA attention, separate or tied LM head, and
+a causal sliding window.  Params are nested dicts stacked over a leading
+layer axis, as in the reference package.  Configs with MLA, MoE,
+multimodal RoPE or an MTP head raise ``NotImplementedError`` (ROADMAP.md
+lists the slices that bring them).
+
+A windowed config (``cfg.window``) attends ``(qpos - window, qpos]``.
+Its forward and prefill take the plain windowed attention (no flash
+kernel, as in the reference); its slot cache is a ring of
+``pad_cache_len(min(max_len, window))`` slots once that reaches the
+window (``_is_ring``): position ``p`` lives at slot ``p % ring`` and every
+read reconstructs each slot's absolute position.  The admission prefill
+fills each row's ring from its true prompt length (``ring_fill_rows``),
+the slot decode writes ``pos % ring`` and attends through
+``ops.ring_decode_attention`` or, on a paged pool (ring modulus ``nblk *
+page``), ``ops.paged_ring_decode_attention``; the verify passes
+``ring=True`` to the chunk kernels and ``commit_slots`` writes the
+accepted prefix at its ring slots.  A shorter cache never wraps and keeps
+the full layout (every cached position then lies inside the window).
 
 RoPE rotates q and k after the q/k norms and before any cache write, at
 each token's absolute position: ``q_offset + arange(S)`` on the scalar
@@ -17,16 +31,19 @@ One (cos, sin) table per forward serves every layer.
 
 Four call sites reach the hand-written kernels through ``kernels.ops``,
 which picks kernel or plain version by the tensor's device:
-  * causal cached prefill at ``q_offset == 0`` -> ``ops.flash_attention``
-    (the kernel masks ragged tiles, so every prefill length takes it);
+  * causal cached prefill at ``q_offset == 0`` without a window ->
+    ``ops.flash_attention`` (the kernel masks ragged tiles, so every
+    prefill length takes it);
   * the scalar cached decode step (``decode_step``: S == 1 at one shared
     position) -> ``ops.decode_attention`` over the cache's head-major
     ``transpose(1, 2)`` view (strides, no copy);
   * continuous-batching slot decode -> ``ops.slot_decode_attention``, or
-    ``ops.paged_slot_decode_attention`` over a paged pool;
+    ``ops.paged_slot_decode_attention`` over a paged pool (a ring: the
+    two ring kernels above);
   * speculative verify of a chunk per slot -> ``ops.chunk_verify_attention``
-    or ``ops.paged_chunk_verify_attention`` (``verify_step_slots``;
-    ``commit_slots`` then writes the accepted prefix).
+    or ``ops.paged_chunk_verify_attention``, full or ring layout
+    (``verify_step_slots``; ``commit_slots`` then writes the accepted
+    prefix).
 A paged cache group (``serve/paged.py``) carries a block table ``"bt"``
 beside its page arenas; the slot-decode and verify paths detect it by
 ``"bt" in cache``.  Caches are updated in place (the reference package
@@ -46,7 +63,11 @@ from repro_torch.models.common import (
     init_norm,
     meta_shapes,
     pad_cache_len,
+    paged_spec_ring_restore,
+    paged_spec_ring_sites,
     rms_norm,
+    spec_ring_restore,
+    spec_ring_sites,
     take_layer,
     trunc_normal,
 )
@@ -57,7 +78,6 @@ def _unported(cfg):
     if cfg.family != "transformer":
         return f"family {cfg.family!r}"
     for flag, what in ((cfg.mla, "MLA attention"), (cfg.moe, "MoE layers"),
-                       (cfg.window, "sliding-window attention"),
                        (cfg.mtp, "the MTP head"),
                        (cfg.rope not in ("none", "standard"),
                         f"RoPE ({cfg.rope})")):
@@ -148,6 +168,15 @@ def _slot_kv_len(slot_positions, slot_done):
     return torch.where(slot_done, 0, kv)
 
 
+def _is_ring(cache_len, window):
+    """A window cache whose length reaches the window is a wrapping ring
+    (slot = pos % cache_len); a shorter one never wraps and keeps the full
+    layout.  ``>=``: the pool pads the cache axis, which may push a ring
+    past the window, and masking by absolute position keeps a larger ring
+    attend-identical."""
+    return window is not None and cache_len >= window
+
+
 def _cache_seq_len(cache):
     """Logical sequence length of a slot cache group: the cache axis of the
     dense layout, ``nblk * page`` through the block table of a paged group
@@ -158,8 +187,9 @@ def _cache_seq_len(cache):
 
 
 def _paged_slot_forward(q, cache, k, v, slot_positions, slot_kv_len,
-                        slot_done, cdt):
-    """Slot-decode step over one layer of a PAGED cache group.
+                        slot_done, window, cdt):
+    """Slot-decode step over one layer of a PAGED cache group (a ring:
+    ``attention.paged_ring_slot_update_attend``).
 
     cache: {"k"/"v": (n_pages + 1, page, KV, hd), "bt": (B, nblk)}.  The
     write of row b resolves through its table: page ``bt[b, pos // page]``
@@ -170,6 +200,9 @@ def _paged_slot_forward(q, cache, k, v, slot_positions, slot_kv_len,
     sees (``serve/paged.py``).  Reads go to the paged slot kernel over the
     real pages only.  Returns (B, 1, H, hd).
     """
+    if _is_ring(_cache_seq_len(cache), window):
+        return attn_lib.paged_ring_slot_update_attend(
+            q, cache, k, v, slot_positions, window=window, done=slot_done)
     ck, cv, bt = cache["k"], cache["v"], cache["bt"]
     n_pages, page = ck.shape[0] - 1, ck.shape[1]
     nblk = bt.shape[1]
@@ -189,7 +222,7 @@ def _paged_slot_forward(q, cache, k, v, slot_positions, slot_kv_len,
 
 def _attn_forward(x, p, cfg, *, rope=None, cache=None, q_offset=0,
                   slot_positions=None, slot_kv_len=None, chunk_offsets=None,
-                  slot_done=None, decode_kv_len=None):
+                  slot_done=None, decode_kv_len=None, plens=None):
     """Returns (out, cache). x: (B,S,D).
 
     ``rope`` -- the (cos, sin) table of ``rope_lib.rope_tables`` at this
@@ -220,6 +253,12 @@ def _attn_forward(x, p, cfg, *, rope=None, cache=None, q_offset=0,
     Both routes take a paged cache group too (``"bt" in cache``): the
     slot route through ``_paged_slot_forward``, the verify route through
     the paged chunk kernel over the arenas' real pages.
+
+    A ring cache (``_is_ring``; module docstring) writes slot ``pos %
+    ring`` on every route; ``plens`` (B,), the true prompt lengths of a
+    tail-padded admission prefill, fills each row's ring from its own
+    length (a full cache hides the pad tail behind each row's length and
+    ignores it).
     """
     B, S, D = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -241,22 +280,32 @@ def _attn_forward(x, p, cfg, *, rope=None, cache=None, q_offset=0,
         q = rope_lib.rotate(q, rope)
         k = rope_lib.rotate(k, rope)
 
+    window = cfg.window
     if chunk_offsets is not None:
         # the pool leaves as they are: no [cache ‖ chunk] copy
+        ring = _is_ring(_cache_seq_len(cache), window)
         if "bt" in cache:
             n_pages = cache["k"].shape[0] - 1  # the scratch page stays unread
             out = ops.paged_chunk_verify_attention(
                 q, cache["k"][:n_pages].to(cdt), cache["v"][:n_pages].to(cdt),
-                cache["bt"], k, v, chunk_offsets, ring=False, done=slot_done)
+                cache["bt"], k, v, chunk_offsets, ring=ring, window=window,
+                done=slot_done)
         else:
             out = ops.chunk_verify_attention(q, cache["k"].to(cdt),
                                              cache["v"].to(cdt), k, v,
-                                             chunk_offsets, ring=False,
-                                             done=slot_done)
+                                             chunk_offsets, ring=ring,
+                                             window=window, done=slot_done)
         return _attn_out(out, p, cfg, cdt), {"k": k, "v": v}
     if slot_positions is not None and "bt" in cache:
         out = _paged_slot_forward(q, cache, k, v, slot_positions,
-                                  slot_kv_len, slot_done, cdt)
+                                  slot_kv_len, slot_done, window, cdt)
+        return _attn_out(out, p, cfg, cdt), cache
+    if slot_positions is not None and _is_ring(cache["k"].shape[1], window):
+        # each row writes its ring slot ``pos % ring`` (done rows keep
+        # their bytes) and attends by absolute position
+        out = attn_lib.ring_slot_update_attend(q, cache, k, v,
+                                               slot_positions, window=window,
+                                               done=slot_done)
         return _attn_out(out, p, cfg, cdt), cache
     if slot_positions is not None:
         ck, cv = cache["k"], cache["v"]
@@ -268,13 +317,37 @@ def _attn_forward(x, p, cfg, *, rope=None, cache=None, q_offset=0,
                                         slot_kv_len)[:, None]
         return _attn_out(out, p, cfg, cdt), cache
     kv_len = None
+    if cache is not None and _is_ring(cache["k"].shape[1], window):
+        ck, cv = cache["k"], cache["v"]
+        ring = ck.shape[1]  # the ring modulus (>= window once padded)
+        if plens is not None and S > 1:
+            # admission prefill of tail-padded prompts: each row's ring
+            # from its TRUE length, by absolute position
+            ck.copy_(attn_lib.ring_fill_rows(k, plens, ring, ck.dtype))
+            cv.copy_(attn_lib.ring_fill_rows(v, plens, ring, cv.dtype))
+        else:
+            w_eff = min(S, ring)
+            idx = (q_offset + S - w_eff
+                   + torch.arange(w_eff, device=x.device)) % ring
+            ck[:, idx] = k[:, -w_eff:].to(ck.dtype)
+            cv[:, idx] = v[:, -w_eff:].to(cv.dtype)
+        if S > 1:
+            # prefill: windowed attention over the in-flight k/v
+            out = attn_lib.attention(q, k, v, causal=cfg.causal,
+                                     window=window, q_offset=q_offset,
+                                     chunk_q=cfg.attn_chunk)
+        else:
+            kpos_abs = _ring_positions(q_offset + S, ring, x.device)
+            out = _ring_window_attend(q, ck.to(cdt), cv.to(cdt), kpos_abs,
+                                      q_offset, cfg)
+        return _attn_out(out, p, cfg, cdt), cache
     if cache is not None:
         ck, cv = cache["k"], cache["v"]
         ck[:, q_offset:q_offset + S] = k.to(ck.dtype)
         cv[:, q_offset:q_offset + S] = v.to(cv.dtype)
         k, v = ck.to(cdt), cv.to(cdt)
         kv_len = q_offset + S
-        if S > 1 and cfg.causal and q_offset == 0:
+        if S > 1 and cfg.causal and q_offset == 0 and window is None:
             # Cached prefill from position 0: causal flash attention over
             # exactly the S in-flight positions (kv_len == S masks nothing
             # beyond the causal band).  K/V are read back from the cache
@@ -292,8 +365,9 @@ def _attn_forward(x, p, cfg, *, rope=None, cache=None, q_offset=0,
                 q[:, 0], k.transpose(1, 2), v.transpose(1, 2),
                 kv_len if decode_kv_len is None else decode_kv_len)
             return _attn_out(od[:, None], p, cfg, cdt), cache
-    out = attn_lib.attention(q, k, v, causal=cfg.causal, q_offset=q_offset,
-                             kv_len=kv_len, chunk_q=cfg.attn_chunk)
+    out = attn_lib.attention(q, k, v, causal=cfg.causal, window=window,
+                             q_offset=q_offset, kv_len=kv_len,
+                             chunk_q=cfg.attn_chunk)
     return _attn_out(out, p, cfg, cdt), cache
 
 
@@ -428,13 +502,16 @@ def _head(params, x, cfg):
 
 # ============================================================== serve (KV)
 def init_cache(cfg, batch_size, max_len, dtype=None, device="cpu"):
-    """{"dense": {"k", "v": (L, B, pad_cache_len(max_len), KV, hd)}} zeros.
-    The cache axis keeps the reference pool's padding; the padded tail is
-    masked by each row's valid length."""
+    """{"dense": {"k", "v": (L, B, pad_cache_len(n), KV, hd)}} zeros, n =
+    max_len, or min(max_len, window) with a window.  The cache axis keeps
+    the reference pool's padding: a full layout masks the padded tail by
+    each row's valid length, a ring takes the padded length as its
+    modulus."""
     _require_ported(cfg)
     dtype = dtype or getattr(torch, cfg.compute_dtype)
-    shape = (cfg.n_layers, batch_size, pad_cache_len(max_len),
-             cfg.n_kv_heads, cfg.head_dim)
+    n = min(max_len, cfg.window) if cfg.window else max_len
+    shape = (cfg.n_layers, batch_size, pad_cache_len(n), cfg.n_kv_heads,
+             cfg.head_dim)
     return {"dense": {"k": torch.zeros(shape, dtype=dtype, device=device),
                       "v": torch.zeros(shape, dtype=dtype, device=device)}}
 
@@ -481,11 +558,12 @@ def decode_step(params, tokens, pos, cache, cfg):
 
 def prefill_full(params, batch, cfg, cache):
     """Prefill returning logits at EVERY prompt position: (B, S, V).
-    ``batch["plens"]`` (true prompt lengths of bucket-padded rows) is
-    accepted and ignored: full caches hide the pad tail behind each row's
-    valid length."""
+    ``batch["plens"]`` (true prompt lengths of bucket-padded rows) fills a
+    ring cache per row; full caches hide the pad tail behind each row's
+    valid length and ignore it."""
+    plens = batch.get("plens")
     batch = {k: v for k, v in batch.items() if k != "plens"}
-    return _forward_cached(params, batch, cfg, cache, 0)
+    return _forward_cached(params, batch, cfg, cache, 0, plens=plens)
 
 
 def prefill_last(params, tokens, plens, cfg, cache):
@@ -493,7 +571,7 @@ def prefill_last(params, tokens, plens, cfg, cache):
     position, (B, V) -- the rows ``prefill_full`` would be gathered at,
     without the (B, S, V) logits tensor."""
     return _forward_cached(params, {"tokens": tokens}, cfg, cache, 0,
-                           at=plens.long() - 1)
+                           at=plens.long() - 1, plens=plens)
 
 
 def decode_step_slots(params, tokens, positions, cache, cfg, done=None):
@@ -518,14 +596,13 @@ def decode_step_slots(params, tokens, positions, cache, cfg, done=None):
 def prefill_cache(params, tokens, cfg, cache, plens=None):
     """Admission prefill that only fills the cache (no final norm, no
     head): a speculative draft's admission, whose logits nobody reads.
-    ``plens`` is not needed: a full cache hides each row's pad tail behind
-    its length.  Returns the cache, updated in place."""
-    del plens
+    ``plens`` fills a ring cache per row (a full cache hides each row's
+    pad tail behind its length).  Returns the cache, updated in place."""
     _require_ported(cfg)
     batch = {"tokens": tokens}
     x = embed_inputs(params, batch, cfg)
     _layer_stack(x, params, cfg, _positions_from_batch(batch, x, cfg),
-                 cache=cache, q_offset=0)
+                 cache=cache, q_offset=0, plens=plens)
     return cache
 
 
@@ -569,18 +646,21 @@ def commit_slots(params, tokens, positions, n_feed, cache, pending, cfg,
     indices ``j < n_feed[b]`` go to ``positions[b] + j``; the rest is
     dropped, so rejected speculative positions never reach the cache.
     Rows with ``n_feed == 0`` (or ``done``) keep their pool rows
-    bit-for-bit.  Full layouts only; committed positions must lie inside
-    the cache (the engine's ``max_len`` bound keeps them below it).
+    bit-for-bit.  A ring writes position ``pos`` at slot ``pos % ring``
+    (a chunk fits the ring, ``spec_pair_supported``, so no slot is
+    written twice); in a full layout committed positions lie inside the
+    cache (the engine's ``max_len`` bound keeps them below it).
 
     The reference scatters uncommitted entries to an out-of-range index
     and lets the scatter drop them; PyTorch refuses such an index (on the
     card, a device-side assert).  Dense pool: every chunk entry j writes
     the committed entry ``min(j, n_feed - 1)`` again -- the same value at
     the same place -- and a row with nothing to commit writes back the
-    old value of its position ``positions[b]`` (clamped into the cache).
-    Paged pool: position ``pos`` resolves to page ``bt[b, pos // page]``
-    and an uncommitted entry goes to the scratch page (``serve/paged.py``).
-    No boolean-mask indexing and no host sync either way.
+    old value of its position ``positions[b]`` (clamped into the cache,
+    or at its ring slot).  Paged pool: slot ``s`` resolves to page
+    ``bt[b, s // page]`` and an uncommitted entry goes to the scratch page
+    (``serve/paged.py``).  No boolean-mask indexing and no host sync
+    either way.
     """
     del params, tokens
     if done is not None:
@@ -588,7 +668,8 @@ def commit_slots(params, tokens, positions, n_feed, cache, pending, cfg,
     n_feed = n_feed.long()
     group = cache["dense"]
     if "bt" in group:
-        _commit_paged(group, pending["dense"], positions, n_feed)
+        _commit_paged(group, pending["dense"], positions, n_feed,
+                      cfg.window)
         return cache
     for name, cl in group.items():
         pl = pending["dense"][name]  # (L, B, S, KV, hd)
@@ -596,7 +677,8 @@ def commit_slots(params, tokens, positions, n_feed, cache, pending, cfg,
         S = pl.shape[2]
         steps = torch.arange(S, device=cl.device)[None]
         src = torch.minimum(steps, (n_feed - 1).clamp(min=0)[:, None])
-        idx = (positions.long()[:, None] + src).clamp(max=Sc - 1)
+        idx = positions.long()[:, None] + src
+        idx = idx % Sc if _is_ring(Sc, cfg.window) else idx.clamp(max=Sc - 1)
         rows = torch.arange(B, device=cl.device)[:, None]
         new = torch.where((n_feed > 0)[None, :, None, None, None],
                           pl[:, rows, src].to(cl.dtype), cl[:, rows, idx])
@@ -604,18 +686,21 @@ def commit_slots(params, tokens, positions, n_feed, cache, pending, cfg,
     return cache
 
 
-def _commit_paged(group, pending, positions, n_feed):
+def _commit_paged(group, pending, positions, n_feed, window):
     """``commit_slots`` for a paged group {arenas (L, n_pages + 1, page,
     KV, hd), "bt": (L, B, nblk)}; pending leaves are (L, B, S, KV, hd) and
-    never carry a table.  Entry j of row b goes to page ``bt[b, (pos + j)
-    // page]``, or to the scratch page when it is not committed (or lies
-    past the table)."""
+    never carry a table.  Entry j of row b, at position pos = positions[b]
+    + j, goes to slot s = pos (a ring: pos % (nblk * page)) on page
+    ``bt[b, s // page]``, or to the scratch page when it is not committed
+    (or lies past the table)."""
     bt = group["bt"][0]  # layers share one table
     n_pages, page = group["k"].shape[1] - 1, group["k"].shape[2]
     nblk = bt.shape[1]
     S = pending["k"].shape[2]
     steps = torch.arange(S, device=bt.device)[None]
     pos = positions.long()[:, None] + steps  # (B, S)
+    if _is_ring(nblk * page, window):
+        pos = pos % (nblk * page)
     blk = pos // page
     pid = bt.gather(1, blk.clamp(max=nblk - 1)).long()
     keep = (steps < n_feed[:, None]) & (blk < nblk)
@@ -637,6 +722,8 @@ def serve_supported(cfg):
     if why is not None:
         return False, (f"{why} is not ported to repro_torch yet (see "
                        "ROADMAP.md)")
+    if cfg.window:
+        return True, "ring-buffer window KV cache (O(window) per slot)"
     return True, "full KV cache (O(max_len) per slot)"
 
 
@@ -650,4 +737,32 @@ def paged_groups(cfg):
 
 def slot_cache_layout(cfg):
     """Slot-pool layout tag for telemetry."""
-    return "full" if serve_supported(cfg)[0] else "unsupported"
+    if not serve_supported(cfg)[0]:
+        return "unsupported"
+    return "ring" if cfg.window else "full"
+
+
+# ------------------------------------------------------------ speculation
+def snapshot_slots(cache, positions, n):
+    """What a run of ``n`` slot-decode steps from ``positions`` overwrites
+    in a ring cache: the ring bytes at the sites ``(positions + j) %
+    ring`` it writes (``spec_ring_sites``, through the block table on a
+    paged pool).  The speculative loop asks for it only for a windowed
+    draft (``slot_cache_layout`` "ring"); a full layout's steps write only
+    past each row's committed length.  A speculative draft takes one
+    before it proposes in place and ``restore_slots`` puts it back, so its
+    catch-up verify reads the committed ring (the reference proposes on a
+    copy)."""
+    grp = cache["dense"]
+    if "bt" in grp:
+        return paged_spec_ring_sites(grp, positions, n)
+    return spec_ring_sites(grp, positions, n)
+
+
+def restore_slots(cache, snap, positions, n):
+    """Put the ring sites of ``snapshot_slots`` back in place (every one
+    of the ``n`` steps rejected).  Returns the cache."""
+    grp = cache["dense"]
+    restore = paged_spec_ring_restore if "bt" in grp else spec_ring_restore
+    restore(snap, grp, positions, torch.zeros_like(positions), n)
+    return cache

@@ -32,7 +32,12 @@ pool, on the dense pool layout of the reference package:
                          prompt that opens with the same full pages
                          aliases them (refcounted) and runs only its
                          private tail through masked decode steps, with no
-                         prefill; ``pages`` sets the arena's page budget;
+                         prefill; a windowed (ring) target instead copies
+                         its last intact full prompt pages into
+                         registry-only pages at admission, and a hit
+                         rebuilds its private ring from them before the
+                         tail steps; ``pages`` sets the arena's page
+                         budget;
   * speculative mode  -- a ``SpeculativeConfig`` swaps the macro loop for
                          ``make_speculative_loop``: a small DRAFT model
                          proposes d tokens per slot and the target
@@ -63,8 +68,9 @@ out-of-range index ``capacity``, which XLA drops and PyTorch indexing
 would refuse, so only the first ``n`` rows are copied.
 
 The engine serves any family of the slot-state protocol: the transformer
-(full KV) and griffin (recurrent state, dense per slot, beside ring-window
-local-attention caches, which page on a paged pool).  Greedy tokens are
+(full KV, or a ring-window KV cache with a window) and griffin (recurrent
+state, dense per slot, beside ring-window local-attention caches); rings
+page on a paged pool.  Greedy tokens are
 the sequential ``generate()`` tokens for every request, for any
 interleaving, any K, any speculation depth and either pool, up to float
 near-ties between the routes' arithmetic; sampled tokens are a function
@@ -95,8 +101,7 @@ full block table.  A ``serve.faults.FaultPlan`` (``faults=``) injects
 NaN, oom, slow, hang, malformed and crash faults at dispatch boundaries.
 Each fault is reported by counters and outcomes, never hidden.  Every
 clock read and sleep goes through ``serve.faults.monotonic`` / ``sleep``.
-Meshes are not ported (the distributed slice), nor a windowed
-transformer's paged rings.
+Meshes are not ported (the distributed slice).
 """
 from __future__ import annotations
 
@@ -301,10 +306,6 @@ class ContinuousBatchingEngine:
         quiescing, which is the swap's pool re-layout; every host-side
         queue and counter lives in ``__init__`` and survives."""
         capacity, max_len = self.capacity, self.max_len
-        if self._pool_arg == "paged":
-            for c in (cfg, *([] if speculative is None
-                             else [speculative.cfg])):
-                paged_lib.require_full_layout(c)
         ok, why = serve_supported(cfg)
         if not ok:
             raise NotImplementedError(
@@ -420,13 +421,22 @@ class ContinuousBatchingEngine:
         # unpin, a flushed registry), zeroed with the next eviction
         self._zero_pending: List[int] = []
         # prefix sharing: full-KV target pages are addressed by absolute
-        # position; off under speculation and for every family but the
-        # transformer (a recurrent state has no pages to share), as in the
-        # reference
+        # position, and a ring is rebuilt from copies when it keeps at
+        # least one page of slack over the window (the admission prefill's
+        # partial tail page always clobbers the oldest ring page, so a
+        # slack-less ring has no intact shareable page); off under
+        # speculation and for every family but the transformer (a
+        # recurrent state has no pages to share), as in the reference
+        window = self.cfg.window
+        self._windowed = bool(window)
+        ring_ok = True
+        if window and metas[0] is not None:
+            ring_ok = ((metas[0].nblk - 1) * metas[0].page + 1 >= window
+                       and metas[0].nblk > 1)
         self._prefix_ok = (metas[0] is not None
                            and self.speculative is None
                            and self.cfg.family == "transformer"
-                           and metas[0].page > 0)
+                           and metas[0].page > 0 and ring_ok)
 
     @property
     def pool(self):
@@ -584,19 +594,29 @@ class ContinuousBatchingEngine:
         probed first: every full page strictly before the prompt's last
         token must resolve (the whole chain or nothing); a hit increfs
         the resident pages, allocates only its private tail and takes the
-        no-prefill admission path.
+        no-prefill admission path.  A ring cannot alias resident pages
+        (the slot's ring keeps wrapping over them): a ring hit looks up
+        only the last ``nblk - 1`` full pages (the chained digest of the
+        last commits to the whole prefix), pins those copies until
+        ``_admit_hits`` has copied them into its own ring pages, and
+        allocates all its pages privately.
         """
         P = len(req.prompt)
         n_new = req.max_new_tokens - req.n_committed
         alloc = self._alloc
         ns_all = tuple(self._ns_of.values())
-        info = {"hit": False, "share": 0, "digests": None, "pids": None}
+        info = {"hit": False, "share": 0, "nreg": 0, "digests": None,
+                "pids": None, "resident": None}
         if self._prefix_ok and not self._arena_degraded:
             meta = self._metas[0]
             digests = paged_lib.prefix_digests(req.prompt, meta.page)
             info["digests"] = digests
             share = (P - 1) // meta.page  # >= 1 private tail token stays
-            resident = alloc.lookup(digests[:share]) if share > 0 else None
+            # a ring rebuilds from its last nblk - 1 full pages only (the
+            # prefill's tail page clobbered the oldest ring page)
+            nreg = min(share, meta.nblk - 1) if self._windowed else share
+            resident = alloc.lookup(digests[share - nreg:share]) \
+                if nreg > 0 else None
             if resident is not None:
                 # pin the resident pages BEFORE the tail alloc: alloc()
                 # reclaims zero-ref retained pages when the free list runs
@@ -604,19 +624,25 @@ class ContinuousBatchingEngine:
                 # up as this slot's private tail
                 alloc.incref(resident)
                 total = paged_lib.pages_needed(P, n_new, meta)
-                tail = alloc.alloc(total - share, ns=ns_all)
+                # a ring hit's pages are ALL private (the resident copies
+                # are sources of its rebuild, not aliased)
+                tail = alloc.alloc(total if self._windowed
+                                   else total - share, ns=ns_all)
                 if tail is None:
                     # tail backpressure, not a registry miss: unpin and
                     # wait for the next eviction wave
                     self._zero_pending.extend(alloc.release(resident))
                     self.n_prefix_stalls += 1
                     return None
-                info.update(hit=True, share=share,
-                            pids=list(resident) + tail)
+                info.update(hit=True, share=share, nreg=nreg)
+                if self._windowed:
+                    info.update(pids=tail, resident=list(resident))
+                else:
+                    info["pids"] = list(resident) + tail
                 self.n_prefix_hits += 1
                 self.n_pages_allocated += len(tail)
                 return info
-            if share > 0:
+            if nreg > 0:
                 self.n_prefix_misses += 1
         paged_metas = [m for m in self._metas if m is not None]
         # degradation ladder: once the arena has held a poisoned slot,
@@ -767,6 +793,8 @@ class ContinuousBatchingEngine:
                 torch.from_numpy(skips))
             keys = keys[:n]
         idx = self._to_device(slots)
+        if self._windowed and self._prefix_ok and not self._arena_degraded:
+            self._register_ring_pages(group, rows, n)
         self._scatter_rows(self.pool, rows, idx, n, bt_rows[0],
                            self._metas[0])
         if self.speculative is not None:
@@ -789,16 +817,54 @@ class ContinuousBatchingEngine:
         t = faults_lib.monotonic()
         for j, (r, a) in enumerate(group):
             seq = self._admitted(r, int(slots[j]), int(first_host[j]), t)
-            if a is not None and a["digests"]:
+            if a is not None and a["digests"] and not self._windowed:
                 # the pages the prompt covers in full now hold its
                 # prefill-built KV: make them shareable (tail pages built
-                # by the hit path's decode steps are never registered)
+                # by the hit path's decode steps are never registered;
+                # rings registered their copies before the scatter)
                 reg = len(r.prompt) // self._metas[0].page
                 if reg:
                     self._alloc.register(a["digests"][:reg], a["pids"][:reg])
             self._finish_if_done(seq, seq.tokens[-1])
         if self.journal is not None:
             self.journal.flush()  # rides the admission sync just paid
+
+    def _register_ring_pages(self, group, rows, n):
+        """Ring prefix cache, at a miss admission: the admit scatter is
+        about to write ring-wrapped pages, which the slot keeps
+        overwriting, so first copy each prompt's last intact full pages
+        (at most ``nblk - 1``) out of the prefill rows into fresh
+        registry-only pages and register them.  Best effort: a request
+        whose copy pages are not free is admitted without registering.
+        The registered pages retire to the LRU at once, their bytes kept;
+        a first-writer-wins loser comes back on the zero list."""
+        meta = self._metas[0]
+        reg_pids = np.full((n, meta.nblk), meta.sentinel, np.int64)
+        reg_blk = np.zeros((n, meta.nblk), np.int64)
+        records = []
+        for j, (r, a) in enumerate(group):
+            if a is None or not a["digests"]:
+                continue
+            share = (len(r.prompt) - 1) // meta.page
+            nreg = min(share, meta.nblk - 1)
+            if nreg <= 0:
+                continue
+            got = self._alloc.alloc(nreg)
+            if got is None:
+                continue
+            for t, ab in enumerate(range(share - nreg, share)):
+                reg_pids[j, t] = got[t]
+                reg_blk[j, t] = ab % meta.nblk  # absolute page ab's block
+            records.append((a["digests"][share - nreg:share], got))
+        if not records:
+            return
+        real = {key: {name: leaf[:, :n] for name, leaf in grp.items()}
+                for key, grp in rows.items()}
+        paged_lib.register_copy(self.pool, self._to_device(reg_pids),
+                                self._to_device(reg_blk), real, meta)
+        for digests, got in records:
+            self._alloc.register(digests, got)
+            self._zero_pending.extend(self._alloc.release(got))
 
     def _admitted(self, r: Request, slot: int, first: int,
                   t: float) -> _Sequence:
@@ -828,7 +894,10 @@ class ContinuousBatchingEngine:
 
     def _admit_hits(self, pairs):
         """No-prefill admission of prefix hits: point the slots' leading
-        block-table entries at the resident shared pages, then run only
+        block-table entries at the resident shared pages (a ring: copy the
+        resident registry pages into the slot's own ring pages, absolute
+        page ``ab`` into the page of block ``ab % nblk``, where a
+        sequential fill of the ring would have left it), then run only
         the private tail tokens (at most one page of them) through masked
         decode steps over the whole pool -- rows outside the wave are
         ``done``, so their writes go to the scratch page and nothing of
@@ -849,9 +918,16 @@ class ContinuousBatchingEngine:
         plens = np.zeros((len(pairs),), np.int32)
         uids = np.zeros((cap,), np.int64)
         skips = np.zeros((cap,), np.int64)
+        src_pids = np.full((len(pairs), meta.nblk), meta.sentinel, np.int64)
+        dst_pids = np.full((len(pairs), meta.nblk), meta.sentinel, np.int64)
         for j, (r, a) in enumerate(pairs):
             slot = slots[j]
             p0 = a["share"] * meta.page
+            if self._windowed:
+                for t, ab in enumerate(range(a["share"] - a["nreg"],
+                                             a["share"])):
+                    src_pids[j, t] = a["resident"][t]
+                    dst_pids[j, t] = a["pids"][ab % meta.nblk]
             tail = np.asarray(r.prompt[p0:], np.int32)
             wave[slot] = True
             pos0[slot] = p0
@@ -863,6 +939,9 @@ class ContinuousBatchingEngine:
         idx = self._to_device(slots)
         paged_lib.set_block_tables(self.pool, idx,
                                    self._to_device(bt_rows[0]), meta)
+        if self._windowed:
+            paged_lib.ring_restore_copy(self.pool, self._to_device(src_pids),
+                                        self._to_device(dst_pids), meta)
         wave_d, tl_d, p0_d, toks_d = (self._to_device(a) for a in (
             wave, tail_len, pos0, tail_tokens))
         first = torch.zeros(cap, dtype=torch.int32, device=dev)
@@ -895,6 +974,11 @@ class ContinuousBatchingEngine:
                 continue  # no row's tail ends at this step: no draw
             first = torch.where(last, nxt, first)
         self._pools = (pool,) + self._pools[1:]
+        if self._windowed:
+            # the rebuild has read the resident copies: unpin them (still
+            # registered, they retire to the LRU with their bytes)
+            for _, a in pairs:
+                self._zero_pending.extend(self._alloc.release(a["resident"]))
         first_n = first[idx]
         self._set_state(idx, first_n, plens, *self._budgets(pairs),
                         None if chain is None else chain[idx])

@@ -14,13 +14,12 @@ above).  The block table rides inside the group dict, the same table for
 every layer, so the layer loop hands layer ``i`` its ``bt[i]`` with no
 extra plumbing; model code detects a paged group by ``"bt" in cache``.
 A ``"seq"`` group pages a full-KV cache (the transformer's) or a ring
-window cache (griffin's local attention, whose ring modulus is then
-``nblk * page``).  Groups a family does not declare stay dense per slot
-beside the paged ones (griffin's recurrent state: conv tails and RG-LRU
-h, O(1) per slot) and ride the same admission and eviction scatters.
-A windowed transformer's paged rings with prefix sharing
-(``register_copy``, ``ring_restore_copy``) wait for their slice, and
-``"slot"`` groups (xlstm tails) for the xlstm slice.
+window cache (a windowed transformer's, griffin's local attention; the
+ring modulus is then ``nblk * page``).  Groups a family does not declare
+stay dense per slot beside the paged ones (griffin's recurrent state:
+conv tails and RG-LRU h, O(1) per slot) and ride the same admission and
+eviction scatters.  ``"slot"`` groups (xlstm tails) wait for the xlstm
+slice.
 
 Page-id conventions
 -------------------
@@ -53,7 +52,11 @@ refcounts (one namespace per pool sharing the arena), and the prefix
 registry (rolling blake2b chain hashes of full prompt pages).  Prefix
 sharing needs no copy for full layouts: shared pages cover only FULL
 pages strictly before a prompt's last token, and every write a slot
-performs lands in its private tail pages.
+performs lands in its private tail pages.  Ring layouts cannot alias (a
+donor wraps and overwrites its own ring pages): their admission copies
+the prompt's last intact full pages into registry-only pages
+(``register_copy``), and a hit rebuilds the new slot's private ring from
+them (``ring_restore_copy``; ``serve/engine.py``).
 
 The scatters below update the pool in place (``index_copy_`` /
 ``index_fill_``), where the reference returns new buffers that XLA
@@ -68,11 +71,6 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
-
-RING_SLICE = ("paged ring caches of a windowed transformer (with their "
-              "prefix sharing) are not ported to repro_torch yet (the "
-              "windowed-transformer ring slice, ROADMAP.md)")
-
 
 @dataclasses.dataclass(frozen=True)
 class GroupMeta:
@@ -109,13 +107,6 @@ def page_quantum(padded_len: int) -> int:
     return 8 if padded_len <= 256 else 64
 
 
-def require_full_layout(cfg):
-    """Raise for a windowed transformer, whose paged rings (and their
-    prefix sharing) are not ported; griffin's rings page."""
-    if cfg.family == "transformer" and getattr(cfg, "window", None):
-        raise NotImplementedError(f"{cfg.name}: {RING_SLICE}")
-
-
 def pool_meta(cfg, cache_shapes: Any, pages: Optional[int] = None
               ) -> Optional[PoolMeta]:
     """Paging geometry for a pool, from a concrete pool or one built on
@@ -125,7 +116,6 @@ def pool_meta(cfg, cache_shapes: Any, pages: Optional[int] = None
     or its seq groups disagree on the padded sequence length."""
     from repro_torch import models
 
-    require_full_layout(cfg)
     decl = models.paged_groups(cfg)
     groups = []
     seq_geom = set()
@@ -178,7 +168,6 @@ def build_paged_pool(fam, cfg, capacity: int, max_len: int,
     dropped writes (module docstring).  Groups the family does not
     declare pageable are the dense pool's, zeroed.
     """
-    require_full_layout(cfg)
     shapes = fam.init_cache(cfg, capacity, max_len, device="meta")
     meta = pool_meta(cfg, shapes, pages)
     if meta is None:
@@ -257,13 +246,52 @@ def admit_scatter(pool, rows, slots, bt_rows, meta: PoolMeta):
 
 
 def register_copy(pool, reg_pids, reg_blk, rows, meta: PoolMeta):
-    """Ring prefix cache: copy prefill pages into registry-only pages."""
-    raise NotImplementedError(f"register_copy: {RING_SLICE}")
+    """Copy prefill scratch pages into REGISTRY-ONLY pages, in place: the
+    ring prefix cache.  Ring block tables wrap, so a later hit rebuilds
+    its ring from these absolute-position copies instead of aliasing the
+    donor's live ring pages (which the donor keeps overwriting).
+
+    rows: the DENSE tree of (L, n, S, ...) prefill rows handed to
+    ``admit_scatter`` (ring layout: the caller passes the ring block of
+    each wanted absolute page in ``reg_blk``); reg_pids, reg_blk: (n,
+    nreg) int -- the destination page and the source block of each copy.
+    A sentinel destination goes to the scratch page (the reference drops
+    it).  Every seq group takes part.
+    """
+    n, nreg = reg_pids.shape
+    flat_pid = reg_pids.reshape(-1).long()
+    rows_n = torch.arange(n, device=flat_pid.device)[:, None]
+    blk = reg_blk.long()
+    for g in meta.groups:
+        grp = pool[g.path[0]]
+        for lk in g.leaves:
+            arena = grp[lk]
+            r = rows[g.path[0]][lk]  # (L, n, S, ...)
+            L = r.shape[0]
+            rp = r.reshape((L, n, r.shape[2] // g.page, g.page)
+                           + tuple(r.shape[3:]))
+            src = rp[:, rows_n, blk.clamp(max=rp.shape[2] - 1)]
+            arena.index_copy_(1, flat_pid, src.reshape(
+                (L, n * nreg, g.page) + tuple(r.shape[3:])).to(arena.dtype))
+    return pool
 
 
 def ring_restore_copy(pool, src_pids, dst_pids, meta: PoolMeta):
-    """Ring prefix hit: rebuild a slot's ring from registered pages."""
-    raise NotImplementedError(f"ring_restore_copy: {RING_SLICE}")
+    """Arena-to-arena page copy, in place: a ring prefix hit rebuilds each
+    admitted row's private ring by copying registry page ``src_pids[i,
+    j]`` into its ring page ``dst_pids[i, j]`` (both (n, nblk) int).  A
+    sentinel destination goes to the scratch page; a sentinel source
+    (whose destination is the sentinel too) clamps to the last real page.
+    Every seq group takes part (they share the page ids and geometry).
+    """
+    flat_src = src_pids.reshape(-1).long().clamp(max=meta.n_pages - 1)
+    flat_dst = dst_pids.reshape(-1).long()
+    for g in meta.groups:
+        grp = pool[g.path[0]]
+        for lk in g.leaves:
+            arena = grp[lk]
+            arena.index_copy_(1, flat_dst, arena[:, flat_src])
+    return pool
 
 
 def evict_clear(pool, slots, zero_pids, meta: PoolMeta):
@@ -425,7 +453,9 @@ class PageAllocator:
     def lookup(self, digests) -> Optional[list]:
         """Resolve a chain of share digests to resident pages.  A partial
         chain is a miss: every looked-up position's bytes must be
-        resident."""
+        resident.  A full-KV share looks up the whole prefix, a ring share
+        only the tail pages that can feed the ring (the chained digest of
+        the last one already commits to the entire prefix)."""
         out = []
         for d in digests:
             pid = self.registry.get(d)

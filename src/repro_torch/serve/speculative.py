@@ -34,7 +34,8 @@ the full layout every read stops at ``kv_len = position + 1`` and the next
 block's proposal j writes position ``pos + j`` before any step reads it.
 That holds for the full layout only.  A recurrent draft's proposals
 advance its state irreversibly and a ring draft's overwrite committed ring
-sites, so such a family (griffin) exposes ``snapshot_slots`` /
+sites, so such a family (griffin; the transformer, for a windowed draft)
+exposes ``snapshot_slots`` /
 ``restore_slots``: the block keeps the draft's O(1) recurrent state and the
 d ring sites the proposals write, and puts them back before the catch-up.
 
@@ -161,8 +162,10 @@ def make_speculative_loop(cfg_t, cfg_d, d: int, k: int, sampling=None):
     """
     fam_t, fam_d = get_family(cfg_t), get_family(cfg_d)
     # families whose proposals overwrite committed state (griffin's
-    # recurrence and rings); a full-KV draft has no such hook
-    snapshot = getattr(fam_d, "snapshot_slots", None)
+    # recurrence and rings, a windowed transformer's ring); a full-KV
+    # draft keeps nothing
+    snapshot = (None if fam_d.slot_cache_layout(cfg_d) == "full"
+                else getattr(fam_d, "snapshot_slots", None))
     greedy = sampling_lib.is_greedy(sampling)
     S = d + 1
 

@@ -528,7 +528,8 @@ def test_cuda_chunk_verify_refuses_what_it_does_not_take(cuda_device):
         cuda_chunk(q, ck, cv, k, v, off.cpu(), **kw)
 
 
-VERIFY_LONG_GRID = [(kind, S, G, dtype) for kind in ("full", "ring", "paged")
+VERIFY_LONG_GRID = [(kind, S, G, dtype)
+                    for kind in ("full", "ring", "paged", "paged ring")
                     for S in (17, 33, 65) for G in (1, 8)
                     for dtype in (torch.float32, torch.bfloat16)]
 
@@ -542,16 +543,16 @@ def test_cuda_verify_past_16_keys_matches_plain(cuda_device, kind, S, G,
     (S 65 x G 8).  The dense cache in the full layout (320 positions: TMA
     boxes for whole cache tiles, row copies for the mixed ones) and the
     ring layout (300, wrapped offsets), and the paged verify over pages
-    of 64 (a cap of 320, sentinel blocks)."""
+    of 64 (a cap of 320, sentinel blocks) in either layout."""
     B, KV, hd = 6, 2, 64
-    if kind == "ring":
+    if kind.endswith("ring"):
         Sc, offsets = 300, [-1, 0, 37, 297, 305, 941]
     else:
         Sc, offsets = 320, [-1, 0, 37, 100, 320 - S, 330]
     q, ck, cv, k, v, off = _chunk_case(cuda_device, dtype, B, S, G * KV, KV,
                                        Sc, hd, offsets)
-    if kind == "paged":
-        fn, kw = cuda_paged_chunk, dict(ring=False)
+    if kind.startswith("paged"):
+        fn, kw = cuda_paged_chunk, dict(ring=kind == "paged ring")
         ck, cv, bt = _paged_case(cuda_device, dtype, B, KV, hd, 11, 64, 5,
                                  seed=S + G)
         args = (q, ck, cv, bt, k, v, off)
@@ -730,6 +731,65 @@ def test_cuda_paged_chunk_verify_matches_plain(cuda_device, window, G,
     assert (got[0] == 0).all()
 
 
+PAGED_RING_GRID = [(window, G, hd, dtype) for window in (None, 20)
+                   for G in (1, 2, 4, 8) for hd in (64, 80, 128)
+                   for dtype in (torch.float32, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("window,G,hd,dtype", PAGED_RING_GRID)
+def test_cuda_paged_chunk_verify_ring_matches_plain(cuda_device, window, G,
+                                                    hd, dtype):
+    """The ring layout over pages of 8 (a ring of 48): offsets -1 (and a
+    done row), 0, inside the first lap, at the wrap and up to four laps
+    in, through tables with sentinel entries; head dims of both buckets
+    and one inside the 128 bucket.  Done rows are exact zeros."""
+    n_pages, page, nblk, KV = 17, 8, 6, 2
+    B, S = 8, 5
+    ck, cv, bt = _paged_case(cuda_device, dtype, B, KV, hd, n_pages, page,
+                             nblk, seed=G + hd)
+    q = _cuda_rand(cuda_device, dtype, B, S, G * KV, hd)
+    k = _cuda_rand(cuda_device, dtype, B, S, KV, hd)
+    v = _cuda_rand(cuda_device, dtype, B, S + 1, KV, hd)[:, :S].contiguous()
+    off = torch.tensor([-1, 0, 21, 47, 48, 100, 150, 199], dtype=torch.int32,
+                       device=cuda_device)
+    done = torch.zeros(B, dtype=torch.bool, device=cuda_device)
+    done[5] = True
+    n0 = cuda_paged_chunk.launches
+    got = ops.paged_chunk_verify_attention(q, ck, cv, bt, k, v, off,
+                                           ring=True, window=window,
+                                           done=done)
+    torch.cuda.synchronize()
+    assert cuda_paged_chunk.launches == n0 + 1
+    want = ref.paged_chunk_verify_attention_ref(
+        q, ck, cv, bt, k, v, torch.where(done, -1, off), ring=True,
+        window=window)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+    assert (got[0] == 0).all() and (got[5] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_paged_chunk_verify_ring_phase17_shape(cuda_device, dtype):
+    """The windowed qwen3-0.6b's verify (chip_smoke.py phase 17): B 8, S 5,
+    16 heads over 8 KV heads of 128, a ring of 1,088 in pages of 64
+    (nblk 17), window 1,025, offsets past the ring."""
+    B, S, KV, hd, page, nblk = 8, 5, 8, 128, 64, 17
+    ck, cv, bt = _paged_case(cuda_device, dtype, B, KV, hd, B * nblk, page,
+                             nblk, seed=17)
+    bt = torch.arange(B * nblk, dtype=torch.int32,
+                      device=cuda_device).reshape(B, nblk)
+    q = _cuda_rand(cuda_device, dtype, B, S, 2 * KV, hd)
+    k = _cuda_rand(cuda_device, dtype, B, S, KV, hd)
+    v = _cuda_rand(cuda_device, dtype, B, S + 1, KV, hd)[:, :S].contiguous()
+    off = torch.tensor([-1, 1100, 1150, 1300, 1500, 1600, 2100, 3333],
+                       dtype=torch.int32, device=cuda_device)
+    got = ops.paged_chunk_verify_attention(q, ck, cv, bt, k, v, off,
+                                           ring=True, window=1025)
+    want = ref.paged_chunk_verify_attention_ref(q, ck, cv, bt, k, v, off,
+                                                ring=True, window=1025)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+    assert (got[0] == 0).all()
+
+
 @pytest.mark.parametrize("B,S,H,KV,n_pages,dtype", [
     (8, 5, 12, 12, 64, torch.float32),    # gpt-base verify, --pages 64
     (8, 5, 8, 8, 64, torch.float32),      # gpt-small catch-up
@@ -772,8 +832,8 @@ def test_cuda_paged_wrappers_refuse_what_the_kernels_do_not_take(
         cuda_paged_slot(q, k, v, bt.t().contiguous().t(), lens)
     qc = _cuda_rand(cuda_device, torch.float32, 2, 3, 4, 64)
     kc = _cuda_rand(cuda_device, torch.float32, 2, 3, 2, 64)
-    with pytest.raises(NotImplementedError, match="ring slice"):
-        cuda_paged_chunk(qc, k, v, bt, kc, kc, lens, ring=True)
+    with pytest.raises(ValueError, match="window"):
+        cuda_paged_chunk(qc, k, v, bt, kc, kc, lens, ring=True, window=0)
     with pytest.raises(TypeError, match="dtype"):
         cuda_paged_chunk(qc, k.bfloat16(), v, bt, kc, kc, lens, ring=False)
     with pytest.raises(ValueError, match="CUDA tensor"):
@@ -1720,6 +1780,54 @@ def test_cuda_rope_engine_matches_generate_with_exact_launches(cuda_device,
             cuda_device), max_new_tokens=r.max_new_tokens, max_len=64)
         assert cuda_decode.launches == n0 + cfg.n_layers * (
             r.max_new_tokens - 1)
+        np.testing.assert_array_equal(got[r.uid], gen[0].cpu().numpy())
+        np.testing.assert_array_equal(got_spec[r.uid], gen[0].cpu().numpy())
+
+
+@pytest.mark.parametrize("pool", ["dense", "paged"])
+def test_cuda_windowed_engine_matches_generate_with_exact_launches(
+        cuda_device, pool):
+    """qwen3 (head_dim 128) with a window of 24 over a ring of 24: the
+    engine's slot decode launches its pool's ring kernel once per layer
+    and step, a self-drafting engine the dense ring verify (dense pool)
+    or the paged ring verify (paged pool) twice per layer and block; no
+    flash prefill (a window takes the plain windowed attention).  Tokens
+    equal ``generate`` far past the window."""
+    cfg, params = _qwen3_hd128(cuda_device)
+    cfg = cfg.replace(name="qwen3-win", window=24)
+    reqs = [Request(uid=i, prompt=lm_batch(cfg.vocab_size, 1, p,
+                                           seed=95 + i)[0], max_new_tokens=g)
+            for i, (p, g) in enumerate([(30, 12), (9, 30), (20, 16)])]
+    kern = ops.kernels()
+    ring = ("paged_ring_decode_attention" if pool == "paged"
+            else "ring_decode_attention")
+    verify = ("paged_chunk_verify_attention" if pool == "paged"
+              else "chunk_verify_attention")
+    for fn in kern.values():
+        fn.launches = 0
+    kw = dict(capacity=2, max_len=64, k=4, pool=pool)
+    eng = ContinuousBatchingEngine(cfg, params, **kw)
+    got = eng.run(reqs)
+    torch.cuda.synchronize()
+    steps = eng.k * eng.n_decode_dispatches + eng.n_prefix_tail_steps
+    want = {name: 0 for name in kern}
+    want[ring] = cfg.n_layers * steps
+    assert {name: fn.launches for name, fn in kern.items()} == want
+    for fn in kern.values():
+        fn.launches = 0
+    spec = ContinuousBatchingEngine(
+        cfg, params, speculative=SpeculativeConfig(cfg, params, d=3), **kw)
+    got_spec = spec.run([dataclasses.replace(r) for r in reqs])
+    torch.cuda.synchronize()
+    blocks = spec.k * spec.n_decode_dispatches
+    want = {name: 0 for name in kern}
+    want.update({ring: cfg.n_layers * 3 * blocks,
+                 verify: 2 * cfg.n_layers * blocks})
+    assert {name: fn.launches for name, fn in kern.items()} == want
+    assert spec.n_spec_accepted == spec.n_spec_proposed > 0
+    for r in reqs:
+        gen = generate(cfg, params, torch.from_numpy(r.prompt)[None].to(
+            cuda_device), max_new_tokens=r.max_new_tokens, max_len=64)
         np.testing.assert_array_equal(got[r.uid], gen[0].cpu().numpy())
         np.testing.assert_array_equal(got_spec[r.uid], gen[0].cpu().numpy())
 

@@ -645,12 +645,25 @@ def test_paged_pool_geometry_scatter_and_evict_match_jax(micro):
 
 
 def test_windowed_transformer_still_refuses_the_paged_pool():
-    windowed = port_config(JaxConfig(name="win", n_layers=1, d_model=32,
-                                     n_heads=2, n_kv_heads=2, d_ff=64,
-                                     vocab_size=50, window=8, rope="none"))
-    with pytest.raises(NotImplementedError, match="windowed-transformer"):
-        paged.require_full_layout(windowed)
-    paged.require_full_layout(get_config("griffin-micro"))  # pages
+    """A windowed transformer's ring pages as griffin's does: its paged
+    pool has JAX's geometry (a ring of 16 in pages of 8), and both
+    families declare their ring group."""
+    from repro.serve import paged as jpaged
+    jcfg = JaxConfig(name="win", n_layers=1, d_model=32, n_heads=2,
+                     n_kv_heads=2, d_ff=64, vocab_size=50, window=9,
+                     rope="none")
+    windowed = port_config(jcfg)
+    pool, meta = paged.build_paged_pool(get_family(windowed), windowed, 3,
+                                        64, pages=5)
+    jpool, jmeta = jpaged.build_paged_pool(jax_family(jcfg), jcfg, 3, 64,
+                                           pages=5)
+    assert (meta.page, meta.nblk, meta.n_pages) == (
+        jmeta.page, jmeta.nblk, jmeta.n_pages) == (8, 2, 5)
+    assert pool["dense"]["bt"].shape == jpool["dense"]["bt"].shape
+    assert pool["dense"]["k"].shape[1] == 6  # five pages and the scratch
+    assert paged_groups(windowed) == {"dense": ("seq", ("k", "v"))}
+    assert paged_groups(get_config("griffin-micro")) == {
+        "attn": ("seq", ("k", "v"))}
 
 
 # ----------------------------------------------------------- the launcher

@@ -231,19 +231,45 @@ def test_paged_gather_bit_equal_jax():
 
 
 def test_register_copy_and_ring_restore_raise_for_the_ring_slice(gqa):
-    _, tcfg = gqa[:2]
-    with pytest.raises(NotImplementedError, match="ring slice"):
-        paged.register_copy(None, None, None, None, None)
-    with pytest.raises(NotImplementedError, match="ring slice"):
-        paged.ring_restore_copy(None, None, None, None)
-    windowed = port_config(tiny_gqa(window=8))
-    with pytest.raises(NotImplementedError, match="ring slice"):
-        paged.build_paged_pool(transformer, windowed, 2, MAX_LEN)
-    with pytest.raises(NotImplementedError, match="ring slice"):
-        ContinuousBatchingEngine(windowed, {}, max_len=MAX_LEN, pool="paged")
+    """The ring side of the paged pool: a windowed tiny GQA model (a ring
+    of 16, pages of 8) builds JAX's paged pool and engine; the ring
+    prefix cache's copies (prefill blocks into registry pages, registry
+    pages into ring pages) leave every real page as JAX's do; the CUDA
+    wrapper takes the ring layout and refuses only CPU tensors."""
+    jwin = tiny_gqa(window=9)
+    windowed = port_config(jwin)
+    pool, meta = paged.build_paged_pool(transformer, windowed, 2, MAX_LEN,
+                                        pages=6)
+    jpool, jmeta = jpaged.build_paged_pool(jax_family(jwin), jwin, 2,
+                                           MAX_LEN, pages=6)
+    assert (meta.page, meta.nblk) == (jmeta.page, jmeta.nblk) == (8, 2)
+    eng = ContinuousBatchingEngine(windowed, {"embed": torch.zeros(1)},
+                                   max_len=MAX_LEN, pool="paged")
+    assert eng.pool_kind == "paged" and eng.cache_layout == "ring"
+    assert eng._prefix_ok and eng._windowed
+    rng = np.random.default_rng(8)
+    shape = tuple(jpool["dense"]["k"].shape)
+    for name in ("k", "v"):
+        a = rng.standard_normal(shape).astype(np.float32)
+        jpool["dense"][name] = jnp.asarray(a)
+        pool["dense"][name][:, :6] = torch.from_numpy(a)
+    rows = rng.standard_normal((2, 1, 16) + shape[3:]).astype(np.float32)
+    reg = (np.array([[4, 6]], np.int32), np.array([[1, 0]], np.int32))
+    jpool = jpaged.register_copy(
+        jpool, *map(jnp.asarray, reg),
+        {"dense": {"k": jnp.asarray(rows), "v": jnp.asarray(-rows)}}, jmeta)
+    paged.register_copy(
+        pool, *map(torch.from_numpy, reg),
+        {"dense": {"k": torch.from_numpy(rows),
+                   "v": torch.from_numpy(-rows)}}, meta)
+    copy = (np.array([[4, 6], [1, 2]], np.int32),
+            np.array([[0, 6], [5, 3]], np.int32))
+    jpool = jpaged.ring_restore_copy(jpool, *map(jnp.asarray, copy), jmeta)
+    paged.ring_restore_copy(pool, *map(torch.from_numpy, copy), meta)
+    _assert_pool_equal(pool, jpool, 6)
     q = torch.zeros(2, 3, 4, 64)
-    with pytest.raises(NotImplementedError, match="ring slice"):
-        cuda_paged_chunk(q, None, None, None, None, None, None, ring=True)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cuda_paged_chunk(q, q, q, q.int(), q, q, q.int(), ring=True)
 
 
 # ----------------------------------------------------- the plain kernels

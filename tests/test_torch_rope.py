@@ -136,7 +136,18 @@ def test_rope_configs_equal_the_reference_and_serve():
     (dict(window=8), "sliding-window"),
     (dict(mtp=True), "MTP")])
 def test_unported_variants_still_refused(kw, what):
+    """M-RoPE, MoE, MLA and the MTP head are refused; a sliding window on
+    qwen3 is ported (its ring cache has JAX's shape and it serves)."""
     cfg = get_config("qwen3-0.6b-smoke").replace(**kw)
+    if "window" in kw:
+        jcfg = jax_get_config("qwen3-0.6b-smoke").replace(**kw)
+        want = jax_family(jcfg).init_cache(jcfg, 1, 40)
+        got = transformer.init_cache(cfg, 1, 40)
+        assert got["dense"]["k"].shape == want["dense"]["k"].shape
+        assert got["dense"]["k"].shape[2] == 8
+        ok, why = serve_supported(cfg)
+        assert ok and "ring-buffer window" in why
+        return
     with pytest.raises(NotImplementedError, match=what):
         transformer.init_cache(cfg, 1, 8)
     ok, why = serve_supported(cfg)

@@ -370,8 +370,9 @@ def test_spec_eos_mid_chunk(gpt):
 
 
 def test_spec_pair_probe_rejections(gpt, gqa):
-    """Vocab mismatch, d < 1 and a window config are refused, naming the
-    failing side; the engine refuses before allocating anything, and a
+    """Vocab mismatch, d < 1 and a chunk that overruns a ring are refused,
+    naming the failing side (a windowed pair within its ring serves, in
+    JAX's words); the engine refuses before allocating anything, and a
     draft in another compute dtype raises instead of being cast."""
     _, cfg_t, _, params = gpt
     _, cfg_g, _, _ = gqa
@@ -379,10 +380,16 @@ def test_spec_pair_probe_rejections(gpt, gqa):
     assert not ok and "vocab" in why
     ok, why = spec_pair_supported(cfg_t, cfg_t, d=0)
     assert not ok and "d must be >= 1" in why
-    windowed = port_config(tiny_gqa(window=8))
+    jwin = tiny_gqa(window=8)
+    windowed = port_config(jwin)
     ok, why = spec_pair_supported(cfg_g, windowed)
-    assert not ok and "draft 'tiny-gqa': NOT SERVABLE" in why
-    assert "target 'tiny-gqa': ok" in why and "sliding-window" in why
+    assert ok and "draft 'tiny-gqa': ok" in why
+    assert "ring-buffer window" in why
+    from repro.serve.speculative import spec_pair_supported as jax_pair
+    assert (ok, why) == jax_pair(tiny_gqa(), jwin)
+    ok, why = spec_pair_supported(windowed, windowed, d=8, max_len=32)
+    assert not ok and "overruns its ring-buffer window (8)" in why
+    assert (ok, why) == jax_pair(jwin, jwin, d=8, max_len=32)
     with pytest.raises(NotImplementedError, match="vocab"):
         _spec_engine(cfg_t, {}, cfg_g, {}, d=2)
     with pytest.raises(ValueError, match="compute_dtype"):

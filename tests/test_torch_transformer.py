@@ -126,7 +126,21 @@ def test_port_init_matches_reference_layout():
     (dict(window=8), "sliding-window"),
 ])
 def test_unported_configs_raise_naming_roadmap(kw, what):
+    """MLA, MoE and multimodal RoPE raise, naming ROADMAP.md; a sliding
+    window is ported: its slot cache is JAX's ring of
+    pad_cache_len(min(max_len, window)) slots and it serves."""
     cfg = ModelConfig(name="x", rope="none", learned_pos=16).replace(**kw)
+    if "window" in kw:
+        jcfg = jax_get_config("gpt-micro").replace(
+            name="x", rope="none", learned_pos=16, **kw)
+        for max_len in (8, 20):
+            want = jax_family(jcfg).init_cache(jcfg, 1, max_len)
+            got = transformer.init_cache(port_config(jcfg), 1, max_len)
+            assert got["dense"]["k"].shape == want["dense"]["k"].shape
+        ok, why = serve_supported(cfg)
+        assert ok and "ring-buffer window" in why
+        assert transformer.slot_cache_layout(cfg) == "ring"
+        return
     with pytest.raises(NotImplementedError, match=what) as e:
         transformer.init_cache(cfg, 1, 8)
     assert "ROADMAP" in str(e.value)
