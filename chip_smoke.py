@@ -8,7 +8,8 @@ with checkpoints, resume and the examples; gpt-base sampled;
 gpt-small grown live into gpt-base under traffic, and crash recovery;
 griffin speculation; the fault layer; griffin growth, and
 recurrentgemma-2b trained at full width; qwen3-0.6b with a sliding window
-served from ring caches on every route.
+served from ring caches on every route; xlstm-1.3b served dense, paged and
+speculative, grown into and trained at full width.
 
     python3 chip_smoke.py [--out report.json]
 
@@ -90,12 +91,13 @@ printed as it goes; a failed phase raises, so the exit code is not 0:
                 through the engine on the dense pool: capacity 8, max_len
                 4096, K 8, 16 requests of 64 new tokens, prompts of 64..512,
                 1990..2040 (rings wrap in decode) and 2100..2600 tokens
-                (rings filled at admission).  Tokens from the engine and
+                (rings filled at admission).  Tokens from the engine (its
+                first 8 requests, every kind of prompt among them) and
                 from ``generate`` (its first 4 requests) == the plain route
                 (``griffin.prefill`` with the scan's plain version, then
                 ``decode_step``, a request at a time, no kernel) up to
-                reported near ties; for the 2 requests of the shortest
-                prompts, the engine's and the plain route's tokens ==
+                reported near ties; for the request of the shortest
+                prompt, the engine's and the plain route's tokens ==
                 the scalar route (``decode_step`` over the prompt, no
                 prefill); exactly 8
                 ring launches a decode step and 18 scan launches an
@@ -126,9 +128,9 @@ printed as it goes; a failed phase raises, so the exit code is not 0:
                 (capacity 8, max_len 1024, K 8) on the dense pool, a
                 64-page paged pool and speculatively with the model
                 drafting for itself (d 4, K 2), then ``generate`` for each
-                of the first 4 requests (B 1) and over 8 prompts of 512
-                (B 8; its first 4 rows checked).  Tokens ==
-                the plain route (a full forward per token; the first 4
+                of the first 2 requests (B 1) and over 8 prompts of 512
+                (B 8; its first 2 rows checked).  Tokens ==
+                the plain route (a full forward per token; the first 2
                 requests, and any later one where the engines disagree) up
                 to reported near ties, paged == dense and speculative ==
                 dense for all 16, exact launches (decode_attention
@@ -166,9 +168,10 @@ printed as it goes; a failed phase raises, so the exit code is not 0:
                 ``filtered_probs`` within 1e-6; the sampled dense engine
                 beside the greedy one (tok/s of both; host syncs, prefill
                 groups, macro-steps and every kernel's launches equal);
-                tokens == a sequential sampled replay (``fam.prefill`` and
-                ``decode_step`` along the same (seed, uid) chain) up to
-                reported near ties of the perturbed scores, and not all
+                tokens of the first 8 == a sequential sampled replay
+                (``fam.prefill`` and ``decode_step`` along the same (seed,
+                uid) chain) up to reported near ties of the perturbed
+                scores, and not all
                 equal to greedy's; the paged pool of 48 pages with prefix
                 hits == dense, no page left in use; gpt-base drafting for
                 itself (d 4, K 2, 8 requests) at acceptance 1.0 with equal
@@ -247,18 +250,48 @@ printed as it goes; a failed phase raises, so the exit code is not 0:
                 the paged ring kernel and the paged verify's ring layout),
                 (d) the same on the dense pool (the dense verify's ring
                 layout).  Tokens of (a)-(d) equal for all 8 requests and
-                the plain route's for the first 4 (near ties reported),
+                the plain route's for the first 2 (near ties reported),
                 exact launches, acceptance strictly inside (0, 1), 0 pages
                 in use at the end; tok/s, acceptance, hits, pages
                 high-water and peak memory beside the card's name and
                 power limit.
+ 18. xlstm   -- xlstm-1.3b at full width and depth (48 x 2048: 42 mLSTM
+                and 6 sLSTM blocks, mLSTM head dim 1,024; 3,606,139,216
+                params, f32, seeded weights; no kernel of the port on its
+                serving path) on 8 requests of 64..512 prompt tokens and
+                64 new each, capacity 8, max_len 640: (a) the dense pool,
+                and the sequential route (``generate``'s prefill and
+                decode steps) on the first 4 (near ties reported); (b) a
+                512-token prompt through the chunkwise prefill (two chunks
+                of 256) and through the mLSTM recurrence stepped token by
+                token: the last logits and the carried C/n/m within the
+                stated f32 limits; (c) a paged pool of 6 pages (the conv
+                tails as slot groups, one page a request): tokens == (a)'s,
+                refused admissions, prefills, macro-steps and the pages
+                high-water as a CPU run of the schedule predicts, 0 pages
+                in use; (d) a copy nudged by 1e-3 of each leaf's std
+                drafting (d 3, K 2, capacity 4) for the 4 shortest prompts
+                on the dense pool and a 4-page pool: tokens == (a)'s,
+                acceptance strictly inside (0, 1), peak memory; (e)
+                xlstm-1.3b-smoke pretrained and grown into an 8 x 128
+                xlstm by rank-1 Mango after a few operator steps: the
+                sandwich launched exactly as often as a CPU run counts, the
+                grown params == the plain version's route, the held-out
+                margin scratch - grown; (f) xlstm-1.3b trained 2 in-place
+                AdamW steps at B 1 x S 256 (no kernel launched): ms/step
+                against the f32 FLOP bound and peak memory.  Tok/s,
+                acceptance and memory beside the card's name and power
+                limit.
 
 Phase 3 also holds the scan's backward kernel against autograd through the
 scan's plain version (recurrentgemma-2b's training shape, f32 and bf16,
 with and without h0, and widths off 16 bytes), and every attention kernel
 at head dims 16, 20, 32 and 80 in both dtypes with done rows, timed beside
-its bound and SDPA.  Phase 12 also runs ``serve_continuous`` on the card
-(tokens == a CPU run of the example on the same weights).
+its bound and SDPA.  Phase 12 also runs ``serve_continuous`` and
+``serve_batched`` on the card (tokens == a CPU run of each example on the
+same weights).  Phase 9 also checks recurrentgemma-2b's bf16 route (prefill
+and 8 decode steps) against f32 on the same bf16-cast weights: within 2x
+the bf16 plain route's error.
 
 Each traced run prints the device time of each of the port's kernels.
 Each path's launch counters are set to 0 just before it runs and read just
@@ -2617,13 +2650,19 @@ GRIFFIN_PAGES = 160  # phase 10's arena: 5/8 of the dense rings' 256 pages
 # plain route (16 until PR 24, 8 until PR 25, cut to make room for phases
 # 14, 10b and 15)
 GRIFFIN_GENERATE_REQS = 4
-# phase 9 also holds its 2 requests of the shortest prompts against the
+# phase 9 also holds its request of the shortest prompt against the
 # scalar route (``decode_step`` over the prompt: every prompt token a
-# step, so its cost grows with the longest prompt it takes)
-GRIFFIN_SCALAR_REQS = 2
+# step, so its cost grows with the longest prompt it takes; 2 until PR 28,
+# cut to make room for phase 18)
+GRIFFIN_SCALAR_REQS = 1
 # phase 10 serves the first 8 of them (16 until PR 24, cut for the same
 # reason; at 160 pages 9 of their admissions still wait for pages)
 GRIFFIN_PAGED_REQS = 8
+# phase 9 holds the engine's tokens of those first 8 against the plain
+# route (all 16 until PR 28, cut to make room for phase 18; the 8 hold
+# each kind of prompt: 3 past the window, 2 that wrap during decode and
+# 3 short ones); the other 8 are checked for shape and range
+GRIFFIN_PLAIN_REQS = GRIFFIN_PAGED_REQS
 EMBED_SCALE = 0.05  # phase 9's tied embedding, scaled down (see below)
 
 
@@ -2808,9 +2847,10 @@ def run_griffin_serve(kernel_rows):
 
     before = {name: fn.launches for name, fn in kern.items()}
     t0 = time.perf_counter()
-    plain = griffin_plain_route(cfg, params, reqs, 64)
+    plain = griffin_plain_route(cfg, params, reqs[:GRIFFIN_PLAIN_REQS], 64)
     plain_s = time.perf_counter() - t0
-    short = sorted(reqs, key=lambda r: len(r.prompt))[:GRIFFIN_SCALAR_REQS]
+    short = sorted(reqs[:GRIFFIN_PLAIN_REQS],
+                   key=lambda r: len(r.prompt))[:GRIFFIN_SCALAR_REQS]
     t0 = time.perf_counter()
     scalar = griffin_scalar_route(cfg, params, short, 64)
     scalar_s = time.perf_counter() - t0
@@ -2835,6 +2875,8 @@ def run_griffin_serve(kernel_rows):
         if got.shape != (64,) or got.min() < 0 or got.max() >= cfg.vocab_size:
             raise AssertionError(f"uid {r.uid}: bad output {got}")
         distinct.update(int(t) for t in got)
+        if r.uid not in plain:
+            continue
         runs = [("engine", got)]
         if r.uid < GRIFFIN_GENERATE_REQS:
             runs.append(("generate", generate(
@@ -2845,13 +2887,14 @@ def run_griffin_serve(kernel_rows):
             if tie is not None:
                 ties[what].append(tie)
     generate_s = time.perf_counter() - t0
-    gaps = np.concatenate([plain[r.uid][1] for r in reqs])
-    exact = {"engine": len(reqs) - len(ties["engine"]),
+    gaps = np.concatenate([v[1] for v in plain.values()])
+    exact = {"engine": len(plain) - len(ties["engine"]),
              "generate": GRIFFIN_GENERATE_REQS - len(ties["generate"])}
     print(f"tokens == plain route (prefill with the plain scan, then "
           f"decode_step, a request at a time, no kernel; {plain_s:.1f} s) "
-          f"for {exact['engine']}/{len(reqs)} "
-          f"requests from the engine and {exact['generate']}/"
+          f"for {exact['engine']}/{len(plain)} "
+          f"requests from the engine (of {len(reqs)}) and "
+          f"{exact['generate']}/"
           f"{GRIFFIN_GENERATE_REQS} from generate ({generate_s:.1f} s for "
           f"the {GRIFFIN_GENERATE_REQS} calls); near ties "
           f"{ties}; {len(distinct)} distinct "
@@ -2873,7 +2916,84 @@ def run_griffin_serve(kernel_rows):
                       len(r.prompt) for r in reqs])
     # no traced run (~30 s, reading ~125,000 device ops), cut to make room
     # for phase 16: this path's breakdown stands in PERF.md section 5
+    report["bf16"] = griffin_bf16_check(cfg, params)
     return report, (cfg, params, reqs, plain, out)
+
+
+GRIFFIN_BF16_B, GRIFFIN_BF16_P, GRIFFIN_BF16_STEPS = 2, 128, 8  # phase 9
+
+
+def griffin_bf16_check(cfg32, params32):
+    """Phase 9's bf16 check (ROADMAP 1.3): recurrentgemma-2b in its
+    published bf16 against an f32 route on the same bf16-cast weights.
+    Tokens: the f32 route's greedy ones (prefill through the scan kernel,
+    then GRIFFIN_BF16_STEPS decode steps).  Reference: the f32 full
+    forward over prompt + those tokens.  The bf16 route (prefill through
+    the scan kernel, then ``decode_step`` fed the same tokens) must lie
+    within 2x the bf16 plain route's max |logit| error (one full forward,
+    the scan through its plain version: no kernel), phase 11's rule.  No
+    bf16 engine run."""
+    import torch
+
+    from repro_torch.data import lm_batch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import griffin
+    from repro_torch.utils.pytree import tree_map
+
+    t0 = time.perf_counter()
+    B, P, n = GRIFFIN_BF16_B, GRIFFIN_BF16_P, GRIFFIN_BF16_STEPS
+    prompts = torch.from_numpy(lm_batch(cfg32.vocab_size, B, P,
+                                        seed=19)).cuda()
+    cfg16 = cfg32.replace(param_dtype="bfloat16", compute_dtype="bfloat16")
+    params16 = tree_map(lambda t: t.bfloat16(), params32)
+    p32 = tree_map(lambda t: t.float(), params16)
+    kern = ops.kernels()
+    with torch.no_grad():
+        cache = griffin.init_cache(cfg32, B, P + n, device="cuda")
+        logits, cache = griffin.prefill(p32, {"tokens": prompts}, cfg32,
+                                        cache)
+        toks = [logits.argmax(-1).to(torch.int32)]
+        for i in range(n - 1):
+            logits, cache = griffin.decode_step(p32, toks[-1], P + i, cache,
+                                                cfg32)
+            toks.append(logits.argmax(-1).to(torch.int32))
+        fed = torch.stack(toks, 1)  # (B, n): the decode steps' inputs
+        full = torch.cat([prompts, fed], 1)
+        ref32 = griffin.forward(p32, {"tokens": full}, cfg32)[0][
+            :, P:].float()
+        before = _launch_counts(kern)
+        orig = ops.rglru_scan
+        ops.rglru_scan = ref.rglru_scan_ref
+        try:
+            plain16 = griffin.forward(params16, {"tokens": full}, cfg16)[0][
+                :, P:].float()
+        finally:
+            ops.rglru_scan = orig
+        if _launch_counts(kern) != before:
+            raise AssertionError("the plain bf16 route launched a kernel")
+        cache = griffin.init_cache(cfg16, B, P + n, device="cuda")
+        _, cache = griffin.prefill(params16, {"tokens": prompts}, cfg16,
+                                   cache)
+        route16 = []
+        for i in range(n):
+            logits, cache = griffin.decode_step(params16, fed[:, i], P + i,
+                                                cache, cfg16)
+            route16.append(logits.float())
+        route16 = torch.stack(route16, 1)
+    err16 = float((route16 - ref32).abs().max())
+    plain_err = float((plain16 - ref32).abs().max())
+    scale = float(ref32.abs().max())
+    del params16, p32, cache
+    print(f"recurrentgemma-2b bf16 (B {B}, prompt {P}, {n} decode steps) "
+          f"against f32 on the same bf16-cast weights: max |logit| error "
+          f"{err16:.4g} (the bf16 plain route's {plain_err:.4g}, limit 2x; "
+          f"max |logit| {scale:.4g}; {time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    if not (err16 <= 2 * plain_err and err16 > 0):
+        raise AssertionError(f"recurrentgemma-2b bf16 error {err16} is past "
+                             f"2x the plain bf16 route's {plain_err}")
+    return dict(err=err16, plain_err=plain_err, max_logit=scale,
+                seconds=time.perf_counter() - t0)
 
 
 def predict_griffin_schedule(reqs, pages):
@@ -3043,7 +3163,8 @@ def nudged_copy(params, scale, seed):
     theirs): a draft that agrees with its target most of the time."""
     import torch
 
-    gen = torch.Generator(device="cuda").manual_seed(seed)
+    gen = torch.Generator(device=next(_leaves(params)).device).manual_seed(
+        seed)
 
     def nudge(t):
         if isinstance(t, dict):
@@ -3155,16 +3276,19 @@ def run_griffin_spec(model, paged_report):
 QWEN_PAGES = 64  # phase 11's arena: half the dense pool's 128 pages of 64
 QWEN_D, QWEN_K = 4, 2  # phase 11's self-draft depth and blocks a dispatch
 QWEN_MATRIX_SCALE = 2.5  # phase 11: block matrices scaled up (see qwen_model)
-# phase 11 runs ``generate`` at B 1 on the first 4 of its 16 requests (16
-# at first, then 8, cut to make room for phases 14 and 17)
-QWEN_GENERATE_REQS = 4
-# phase 11 holds the first 4 rows of ``generate`` at B 8 against the plain
-# route (8, cut to make room for phase 16)
-QWEN_GEN8_CHECKED = 4
-# phase 11 holds its first 4 requests' tokens (every route's) against the
-# plain route, and paged == dense for all 16 (16, then 8, cut to make
-# room for phases 16 and 17)
-QWEN_PLAIN_REQS = 4
+# phase 11 runs ``generate`` at B 1 on the first 2 of its 16 requests (16
+# at first, then 8, then 4, cut to make room for phases 14, 17 and 18)
+QWEN_GENERATE_REQS = 2
+# phase 11 holds the first 2 rows of ``generate`` at B 8 against the plain
+# route (8, then 4, cut to make room for phases 16 and 18)
+QWEN_GEN8_CHECKED = 2
+# phase 11 holds its first 2 requests' tokens (every route's) against the
+# plain route, and paged == dense for all 16 (16, then 8, then 4, cut to
+# make room for phases 16, 17 and 18)
+QWEN_PLAIN_REQS = 2
+# phase 11's traced engine run serves its first 4 requests (one wave of 8
+# until PR 28, cut to make room for phase 18)
+QWEN_TRACED_REQS = 4
 QWEN_MIN_DISTINCT = 512  # of the dense engine's 1024 tokens (see qwen_model)
 F32_LOGIT_RTOL = 1e-3  # f32 kernel route vs f32 full forward, of max |logit|
 
@@ -3469,11 +3593,13 @@ def run_qwen(kernel_rows):
           f"{QWEN_GENERATE_REQS + 1} calls)", flush=True)
 
     t0 = time.perf_counter()
-    profile = profile_serve(lambda: engine("dense"), reqs[:8],
-                            untraced_wall=runs["dense"]["seconds"] / 2)
+    profile = profile_serve(
+        lambda: engine("dense"), reqs[:QWEN_TRACED_REQS],
+        untraced_wall=runs["dense"]["seconds"] * QWEN_TRACED_REQS / 16)
     profile["seconds"] = time.perf_counter() - t0
-    profile["note"] = ("8 of the 16 requests (one wave); the untraced idle "
-                       "share uses half the 16-request run's wall time")
+    profile["note"] = (f"{QWEN_TRACED_REQS} of the 16 requests; the "
+                       "untraced idle share uses that share of the "
+                       "16-request run's wall time")
 
     # the published bf16, weights cast from the f32 ones
     err_32, err_k, err_p, top, cfg16, params16 = _bf16_logit_errors(
@@ -3863,6 +3989,10 @@ def run_deit(kernel_rows, device="cuda"):
 
 SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.95, seed=5)  # phase 13
 SAMPLED_SPEC_REQS = 8  # phase 13's self-draft runs serve the first 8
+# phase 13 replays its first 8 requests' chains sequentially (all 16 until
+# PR 28, cut to make room for phase 18); the paged pool's tokens equal the
+# dense pool's exactly past them
+SAMPLED_REPLAY_REQS = 8
 
 
 def check_sampling_on_card(sp, vocab):
@@ -4014,6 +4144,9 @@ def run_sampled():
         if toks.shape != (64,) or toks.min() < 0 or toks.max() >= \
                 cfg.vocab_size:
             raise AssertionError(f"uid {r.uid}: bad output {toks}")
+        if r.uid >= SAMPLED_REPLAY_REQS:
+            gaps[r.uid] = np.full(64, np.inf)
+            continue
         drawn, gaps[r.uid] = sampled_replay_on_card(cfg, params, r, sp, toks)
         tie = check_same_tokens("the sampled engine and its replay", r.uid,
                                 toks, drawn, gaps[r.uid])
@@ -4037,9 +4170,9 @@ def run_sampled():
             ties["paged vs dense"].append(tie)
     print(f"sampled tokens == the sequential replay (fam.prefill + "
           f"decode_step, {replay_s:.1f} s) for "
-          f"{len(reqs) - len(ties['engine vs replay'])}/{len(reqs)} "
-          f"requests; paged ({PAGED_PAGES} pages, {peng.n_prefix_hits} "
-          f"prefix hits, {waits} admissions refused for pages, "
+          f"{SAMPLED_REPLAY_REQS - len(ties['engine vs replay'])}/"
+          f"{SAMPLED_REPLAY_REQS} requests; paged ({PAGED_PAGES} pages, "
+          f"{peng.n_prefix_hits} prefix hits, {waits} admissions refused for pages, "
           f"{ptps:.1f} tok/s, 0 pages in use at the end) == dense for "
           f"{len(reqs) - len(ties['paged vs dense'])}/{len(reqs)}; paged "
           f"launches {p_launches}; near ties {ties}", flush=True)
@@ -5083,6 +5216,48 @@ def run_griffin_train(kernel_rows):
     return report
 
 
+def run_serve_batched():
+    """Phase 12's addition: ``repro_torch.examples.serve_batched`` on the
+    card (qwen3-0.6b-smoke, recurrentgemma-2b-smoke, xlstm-1.3b-smoke
+    through ``generate``) with the same weights as a CPU run of the
+    example: every row's tokens equal the CPU's; flash and
+    decode_attention (qwen3) and the scan (griffin) launch."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.examples import serve_batched as example
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import build_params
+    from repro_torch.utils.pytree import tree_map
+
+    kern = ops.kernels()
+    params = {a: build_params(get_config(a), seed=0, device="cuda")
+              for a in example.ARCHS}
+    cpu = {a: tree_map(lambda t: t.cpu(), p) for a, p in params.items()}
+    _launch_counts(kern, zero=True)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        got = example.main(["--device", "cuda"], params=params)
+    card_s = time.perf_counter() - t0
+    launches = _launch_counts(kern, zero=True)
+    for name in ("flash_attention", "decode_attention", "rglru_scan"):
+        if not launches[name]:
+            raise AssertionError(f"serve_batched never launched {name}: "
+                                 f"{launches}")
+    with torch.no_grad():
+        want = example.main(["--device", "cpu"], params=cpu)
+    for arch in want:
+        if not np.array_equal(got[arch], want[arch]):
+            raise AssertionError(f"serve_batched {arch}: card "
+                                 f"{got[arch].tolist()} != CPU "
+                                 f"{want[arch].tolist()}")
+    print(f"serve_batched on the card in {card_s:.1f} s, tokens == the "
+          f"CPU run's for {len(want)} configs; launches {launches}",
+          flush=True)
+    return dict(seconds=card_s, launches=launches)
+
+
 def run_serve_continuous():
     """Phase 12's addition: ``repro_torch.examples.serve_continuous`` on
     the card (qwen1.5-0.5b-smoke, a Mango-grown gpt-micro-big and
@@ -5133,7 +5308,9 @@ WIN_MAX_LEN = 2048
 WIN_PAGES = 84
 WIN_D, WIN_K = 4, 2  # phase 17c/d: draft depth, blocks a dispatch
 WIN_DRAFT_NOISE = 1e-3  # phase 17c/d's nudged draft: noise / leaf std
-WIN_PLAIN_REQS = 4  # phase 17 holds its first 4 requests against plain
+# phase 17 holds its first 2 requests against the plain route (4 until PR
+# 28, cut to make room for phase 18)
+WIN_PLAIN_REQS = 2
 WIN_SHARED = 1280  # tokens (20 pages) the shared-prefix requests open with
 
 
@@ -5369,6 +5546,603 @@ def run_window(kernel_rows, smi):
                 prompts=[len(r.prompt) for r in reqs])
 
 
+XL_ARCH = "xlstm-1.3b"
+XL_N_PARAMS = 3_606_139_216  # the reference's init, counted by eval_shape
+XL_CAPACITY, XL_MAX_LEN, XL_NEW = 8, 640, 64  # phase 18a-c
+XL_PROMPTS = (64, 512, 200, 333, 128, 450, 96, 270)  # phase 18's prompts
+XL_PAGES = 6  # phase 18c's arena: a page a request, fewer than the slots
+XL_GENERATE_REQS = 4  # phase 18a holds its first 4 against the sequential
+XL_SPEC_D, XL_SPEC_K, XL_SPEC_CAP = 3, 2, 4  # phase 18d
+XL_SPEC_PAGES = 4  # phase 18d's paged pool, shared by target and draft
+XL_DRAFT_NOISE = 1e-3  # phase 18d's nudged draft: noise / leaf std
+XL_GROW_PRE, XL_GROW_OP = 20, 5  # phase 18e: pretraining, operator steps
+XL_GROW_SEQ = 32  # phase 18e's batches: 8 x 32 tokens (two chunks of 16)
+XL_BUCKET = 128  # phase 18's admission buckets: fewer prefill groups
+XL_TRAIN_S, XL_TRAIN_STEPS = 256, 2  # phase 18f at B 1
+# phase 18b: chunkwise against the stepped recurrence at head dim 1,024, f32.
+# The two sum the same terms in other orders.  The first mLSTM block sees
+# the same input on both routes: its carried C/n/m must agree within
+# XL_CHUNK_FIRST_RTOL of each leaf's largest entry (6e-6 on the CPU at full
+# width).  Deeper blocks see inputs that already differ, and the rounding
+# grows with depth (on the CPU at full width: 6e-6 at block 0, 3.5e-5 at
+# block 7, logits 1.4e-4 after 9 blocks; on the card after 48 blocks: C
+# 2.6e-4, logits 1.05e-3), so the whole stack is held to these:
+XL_CHUNK_FIRST_RTOL = 1e-4
+XL_CHUNK_STATE_RTOL = 2e-3  # every block's C/n/m, of its largest entry
+XL_CHUNK_LOGIT_ATOL = 5e-3  # the last logits (max |logit| ~3.4)
+
+
+def xlstm_requests(vocab):
+    """Phase 18's 8 requests: prompts of 64..512 tokens, 64 new each."""
+    from repro_torch.data import lm_batch
+    from repro_torch.serve import Request
+
+    return [Request(uid=uid, prompt=lm_batch(vocab, 1, n,
+                                             seed=1800 + uid)[0],
+                    max_new_tokens=XL_NEW)
+            for uid, n in enumerate(XL_PROMPTS)]
+
+
+def xlstm_sequential(cfg, params, prompt, n, dev):
+    """Greedy tokens of the sequential route, ``generate``'s own (the
+    prompt's prefill, then one ``decode_step`` a token, B 1), and each
+    step's top-2 logit gap."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import xlstm
+
+    cache = xlstm.init_cache(cfg, 1, len(prompt) + n, device=dev)
+    x = torch.as_tensor(np.asarray(prompt, np.int32), device=dev)[None]
+    with torch.no_grad():
+        logits, cache = xlstm.prefill(params, {"tokens": x}, cfg, cache)
+        toks, gaps = [], []
+        for i in range(n):
+            top = logits[0].float().topk(2).values
+            toks.append(logits[0].argmax().to(torch.int32))
+            gaps.append(top[0] - top[1])
+            if i + 1 < n:
+                logits, cache = xlstm.decode_step(params, toks[-1][None],
+                                                  len(prompt) + i, cache,
+                                                  cfg)
+    return (torch.stack(toks).cpu().numpy(),
+            torch.stack(gaps).cpu().numpy())
+
+
+def xlstm_graph_check(cfg, params, reqs, dev):
+    """The CUDA-graph routes against the eager ones at full width: two
+    prompts admitted into a 2-row pool (the sLSTM loop eager, then
+    graphed), then 3 slot-decode steps with row 1 done on each pool, one
+    eager and one replayed from its graph.  The logits and every pool leaf
+    agree within the f32 limits (the same kernels on the same inputs; bit
+    equality is reported)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import xlstm
+    from repro_torch.utils.pytree import tree_leaves, tree_map
+
+    plens = np.array([len(reqs[0].prompt), len(reqs[4].prompt)], np.int32)
+    toks = np.zeros((2, int(plens.max())), np.int32)
+    for j, r in enumerate((reqs[0], reqs[4])):
+        toks[j, :len(r.prompt)] = r.prompt
+    errs, bitwise = [], True
+
+    def compare(got, want):
+        nonlocal bitwise
+        for a, b in [(got, want)] + list(zip(tree_leaves(graphed),
+                                             tree_leaves(eager))):
+            errs.append(check_close("xlstm graphed step", a, b, "float32"))
+            bitwise = bitwise and torch.equal(a, b)
+
+    with torch.no_grad():
+        # the admission prefill (sLSTM loop graphed a position at a time)
+        caches = []
+        for graph in (False, True):
+            xlstm.CUDA_GRAPHS = graph
+            try:
+                c = xlstm.init_cache(cfg, 2, XL_MAX_LEN, device=dev)
+                caches.append(xlstm.prefill_last(
+                    params, torch.as_tensor(toks, device=dev),
+                    torch.as_tensor(plens, device=dev), cfg, c))
+            finally:
+                xlstm.CUDA_GRAPHS = True
+        (want, eager), (got, graphed) = caches
+        compare(got, want)
+        done = torch.tensor([False, True], device=dev)
+        nxt = torch.tensor([5, 7], dtype=torch.int32, device=dev)
+        for _ in range(3):
+            xlstm.CUDA_GRAPHS = False
+            try:
+                want, _ = xlstm.decode_step_slots(params, nxt, nxt, eager,
+                                                  cfg, done=done)
+            finally:
+                xlstm.CUDA_GRAPHS = True
+            got, _ = xlstm.decode_step_slots(params, nxt, nxt, graphed, cfg,
+                                             done=done)
+            compare(got, want)
+            nxt = want.argmax(-1).to(torch.int32)
+    print(f"xlstm graphed admission prefill (2 rows of {plens.tolist()} "
+          f"tokens) and slot-decode steps (one row done, 3 steps) against "
+          f"the eager ones: max abs err {max(errs):.3g} (limits "
+          f"{TOL['float32']}), bit for bit: {bitwise}", flush=True)
+    return dict(max_abs_err=max(errs), bitwise=bitwise)
+
+
+def predict_xlstm_schedule(cfg, reqs, **engine_kw):
+    """The engine's schedule does not depend on the weights (no eos, fixed
+    budgets): run it on the CPU with a 2-block xlstm of width 8 (an mLSTM
+    and an sLSTM block, so both slot groups page) and count the admissions
+    refused for want of pages, the prefill groups, the macro-steps and the
+    pages high-water."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.launch.serve import build_params
+    from repro_torch.serve import ContinuousBatchingEngine
+
+    tiny = cfg.replace(n_layers=2, d_model=8, n_heads=2,
+                       block_pattern=("m", "s"))
+    eng = ContinuousBatchingEngine(tiny, build_params(tiny, seed=0,
+                                                      device="cpu"),
+                                   **engine_kw)
+    waits = []
+    alloc = eng._alloc_request
+
+    def counted(req):
+        info = alloc(req)
+        waits.append(info is None)
+        return info
+    eng._alloc_request = counted
+    with torch.no_grad():
+        eng.run([dataclasses.replace(r) for r in reqs])
+    return dict(refused=sum(waits), n_prefills=eng.n_prefills,
+                n_decode_dispatches=eng.n_decode_dispatches,
+                pages_highwater=eng.pages_highwater)
+
+
+def _xlstm_check_tokens(label, runs, reqs, seq, cfg, params, dev):
+    """Every run's tokens well formed and equal to the sequential route's
+    for the requests in ``seq`` ({uid: (tokens, gaps)}, near ties
+    reported); a request outside it where a run disagrees with the dense
+    pool gets the sequential route too, which decides whether at a near
+    tie.  Returns the near ties by run."""
+    import numpy as np
+
+    ties = {w: [] for w in runs}
+    dense = runs["dense"]
+    for r in reqs:
+        if r.uid not in seq and any((run[r.uid] != dense[r.uid]).any()
+                                    for run in runs.values() if r.uid in run):
+            seq[r.uid] = xlstm_sequential(cfg, params, r.prompt, XL_NEW, dev)
+        for what, run in runs.items():
+            if r.uid not in run:
+                continue
+            toks = run[r.uid]
+            if toks.shape != (XL_NEW,) or toks.min() < 0 or \
+                    toks.max() >= cfg.vocab_size:
+                raise AssertionError(f"uid {r.uid}: bad {label} {what} "
+                                     "output")
+            if r.uid in seq:
+                tie = check_against_plain(f"{label} {what}", r.uid, toks,
+                                          *seq[r.uid])
+            else:
+                tie = check_same_tokens(f"{label} {what} and dense", r.uid,
+                                        toks, dense[r.uid],
+                                        np.full(XL_NEW, np.inf))
+            if tie is not None:
+                ties[what].append(tie)
+    return ties
+
+
+def run_xlstm(kernel_rows, smi, cfg=None, dev="cuda"):
+    """Phase 18: xlstm-1.3b at full width and depth in f32 (``cfg`` and
+    ``dev`` replace it for a rehearsal at a small size on the CPU):
+    (a) the dense pool, and the sequential route on the first
+    XL_GENERATE_REQS requests; (b) chunkwise against the stepped
+    recurrence over a 512-token prompt; (c) a paged pool of XL_PAGES pages
+    (refusals, prefills, macro-steps and high-water as a CPU run of the
+    schedule predicts); (d) a nudged copy drafting on the dense pool and a
+    paged pool; (e) xlstm-1.3b-smoke grown into an 8 x 128 xlstm (exact
+    sandwich launches, the plain version's route, the held-out margin);
+    (f) 2 in-place AdamW steps at B 1 x S 256.  No kernel of the port runs
+    on (a)-(d) or (f): every launch counter stays 0 there."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import build_params
+    from repro_torch.models import xlstm
+    from repro_torch.serve import ContinuousBatchingEngine, SpeculativeConfig
+    from repro_torch.utils.pytree import tree_param_count, tree_size_bytes
+
+    t_phase = time.perf_counter()
+    full = cfg is None
+    cfg = cfg or get_config(XL_ARCH).replace(param_dtype="float32",
+                                             compute_dtype="float32")
+    kern = ops.kernels()
+    none = {name: 0 for name in kern}
+    t0 = time.perf_counter()
+    params = build_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = tree_param_count(params)
+    if full and n_params != XL_N_PARAMS:
+        raise AssertionError(f"xlstm-1.3b has {n_params} params, not "
+                             f"{XL_N_PARAMS}")
+    types = xlstm.block_types(cfg)
+    reqs = xlstm_requests(cfg.vocab_size)
+    pool_kw = dict(capacity=XL_CAPACITY, max_len=XL_MAX_LEN, k=8,
+                   prefill_bucket=XL_BUCKET)
+    t0 = time.perf_counter()
+    predicted = predict_xlstm_schedule(cfg, reqs, pool="paged",
+                                       pages=XL_PAGES, **pool_kw)
+    predict_s = time.perf_counter() - t0
+    print(f"xlstm-1.3b: {n_params} params ({types.count('m')} mLSTM, "
+          f"{types.count('s')} sLSTM blocks, f32, drawn in {init_s:.1f} s); "
+          f"prompts {list(XL_PROMPTS)}; phase 18c's schedule as a CPU run "
+          f"predicts it ({predict_s:.1f} s): {predicted} ({smi})",
+          flush=True)
+    report = dict(n_params=n_params, init_seconds=init_s,
+                  predicted=predicted, nvidia_smi=smi)
+
+    def serve(label, make_engine, rs):
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        eng = make_engine()
+        _launch_counts(kern, zero=True)
+        out, dt, tps, waits = timed_run(eng, rs)
+        launches = _launch_counts(kern, zero=True)
+        if launches != none:
+            raise AssertionError(f"xlstm {label} launched {launches}: the "
+                                 "xlstm path runs no kernel of the port")
+        peak = torch.cuda.max_memory_allocated() - held
+        n_tok = sum(len(v) for v in out.values())
+        sched = dict(refused=waits, n_prefills=eng.n_prefills,
+                     n_decode_dispatches=eng.n_decode_dispatches,
+                     pages_highwater=eng.pages_highwater)
+        rec = dict(tok_per_s=tps, seconds=dt, tokens=n_tok, schedule=sched,
+                   acceptance=eng.acceptance_rate,
+                   proposed=eng.n_spec_proposed,
+                   accepted=eng.n_spec_accepted,
+                   pool_bytes=_pool_bytes(eng.pool)
+                   + (_pool_bytes(eng.pool_d) if eng.pool_d else 0),
+                   peak_above_held_gib=peak / 2**30,
+                   host_syncs_per_token=eng.n_host_syncs / n_tok)
+        print(f"xlstm {label}: {n_tok} tokens in {dt:.3f} s: {tps:.1f} tok/s"
+              f"; acceptance {eng.acceptance_rate:.4f} "
+              f"({eng.n_spec_accepted}/{eng.n_spec_proposed}); pools "
+              f"{rec['pool_bytes'] / 2**30:.2f} GiB, peak "
+              f"{peak / 2**30:.2f} GiB above the {held / 2**30:.2f} GiB held;"
+              f" {sched}; launches none ({smi})", flush=True)
+        return out, rec, eng
+
+    # (a) the dense pool, and the sequential route on the first requests
+    with torch.no_grad():
+        out_a, report["dense"], eng = serve(
+            "dense", lambda: ContinuousBatchingEngine(cfg, params, **pool_kw),
+            reqs)
+        # where a decode step's time goes: one slot-decode step, 8 live
+        # rows, eager and replayed from its CUDA graph
+        zeros = torch.zeros(XL_CAPACITY, dtype=torch.int32, device=dev)
+        for graphed in (False, True):
+            xlstm.CUDA_GRAPHS = graphed
+            try:
+                _, report[f"decode_profile_graph_{graphed}"] = profile_step(
+                    f"xlstm-1.3b slot decode step (B 8, "
+                    f"{'CUDA graph' if graphed else 'eager'})",
+                    lambda: xlstm.decode_step_slots(
+                        params, zeros, zeros, eng.pool, cfg,
+                        done=zeros.bool()))
+            finally:
+                xlstm.CUDA_GRAPHS = True
+        del eng  # its 5.7 GB pool goes before the sequential route
+        report["graph_check"] = xlstm_graph_check(cfg, params, reqs, dev)
+        t0 = time.perf_counter()
+        seq = {r.uid: xlstm_sequential(cfg, params, r.prompt, XL_NEW, dev)
+               for r in reqs[:XL_GENERATE_REQS]}
+        report["sequential_seconds"] = time.perf_counter() - t0
+
+    # (b) chunkwise against the recurrence stepped token by token
+    r512 = next(r for r in reqs if len(r.prompt) == 512)
+    x = torch.as_tensor(r512.prompt, device=dev)[None]
+    with torch.no_grad():
+        got = {}
+        for chunkwise in (True, False):
+            cache = xlstm.init_cache(cfg, 1, XL_MAX_LEN, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = xlstm.prefill(params, {"tokens": x}, cfg, cache,
+                                          chunkwise=chunkwise)
+            torch.cuda.synchronize()
+            got[chunkwise] = (logits, cache["m"],
+                              time.perf_counter() - t0)
+        (lc, mc, tc), (ls, ms, ts) = got[True], got[False]
+        logit_err = float((lc - ls).abs().max())
+        _, report["prefill_profile"] = profile_step(
+            "xlstm-1.3b 512-token chunkwise prefill (B 1)",
+            lambda: xlstm.prefill(params, {"tokens": x}, cfg,
+                                  xlstm.init_cache(cfg, 1, XL_MAX_LEN,
+                                                   device=dev)))
+
+        def rel(k, sl=slice(None)):  # m: of max(1, |m|), it is a log scale
+            a, b = mc[k][sl], ms[k][sl]
+            return float((a - b).abs().max() / b.abs().max().clamp_min(
+                1.0 if k == "m" else 1e-30))
+        first = {k: rel(k, 0) for k in ("C", "n", "m")}
+        state_err = {k: rel(k) for k in ("C", "n", "m")}
+        finite = all(bool(torch.isfinite(t).all())
+                     for t in (lc, ls, mc["C"], mc["n"], mc["m"]))
+        del got, mc, ms, cache
+    print(f"xlstm chunkwise (2 chunks of 256, {tc:.2f} s) against the "
+          f"recurrence stepped over 512 tokens ({ts:.2f} s): the first "
+          f"mLSTM block's carried C/n/m max err {first} of each leaf's "
+          f"largest entry (limit {XL_CHUNK_FIRST_RTOL}); every block's "
+          f"{state_err} (limit {XL_CHUNK_STATE_RTOL}); last logits max err "
+          f"{logit_err:.3g} (limit {XL_CHUNK_LOGIT_ATOL})", flush=True)
+    if not (finite and max(first.values()) <= XL_CHUNK_FIRST_RTOL
+            and max(state_err.values()) <= XL_CHUNK_STATE_RTOL
+            and logit_err <= XL_CHUNK_LOGIT_ATOL):
+        raise AssertionError("xlstm chunkwise disagrees with the sequential "
+                             f"recurrence: first block {first}, every block "
+                             f"{state_err}, logits {logit_err}, finite "
+                             f"{finite}")
+    report["chunkwise"] = dict(logit_err=logit_err, first_rel_err=first,
+                               state_rel_err=state_err,
+                               chunkwise_seconds=tc, sequential_seconds=ts)
+
+    # (c) the paged pool: a page a request, fewer pages than slots
+    with torch.no_grad():
+        out_c, report["paged"], eng = serve(
+            "paged", lambda: ContinuousBatchingEngine(
+                cfg, params, pool="paged", pages=XL_PAGES, **pool_kw), reqs)
+        if eng.pool_kind != "paged" or sorted(
+                k for k, g in eng.pool.items() if "bt" in g) != ["m", "s"]:
+            raise AssertionError("xlstm's conv tails did not page")
+        if report["paged"]["schedule"] != predicted:
+            raise AssertionError(f"paged xlstm schedule "
+                                 f"{report['paged']['schedule']} differs from "
+                                 f"the CPU prediction {predicted}")
+        if eng.pages_in_use:
+            raise AssertionError(f"{eng.pages_in_use} pages left in use")
+        del eng
+
+    # (d) a nudged copy drafting, dense and paged
+    draft = nudged_copy(params, XL_DRAFT_NOISE, seed=18)
+    # the 4 shortest prompts: every prefill runs twice here (target, draft)
+    spec_reqs = sorted(reqs, key=lambda r: len(r.prompt))[:XL_SPEC_CAP]
+    out_d = {}
+    with torch.no_grad():
+        for pool in ("dense", "paged"):
+            label = f"{pool} speculative"
+            out_d[label], report[label], eng = serve(
+                label, lambda: ContinuousBatchingEngine(
+                    cfg, params, capacity=XL_SPEC_CAP, max_len=XL_MAX_LEN,
+                    k=XL_SPEC_K, pool=pool, prefill_bucket=XL_BUCKET,
+                    pages=XL_SPEC_PAGES if pool == "paged" else None,
+                    speculative=SpeculativeConfig(cfg, draft, d=XL_SPEC_D)),
+                spec_reqs)
+            acc = eng.acceptance_rate
+            if not 0.0 < acc < 1.0 or eng.n_spec_fallbacks:
+                raise AssertionError(f"xlstm {label}: acceptance {acc}, "
+                                     f"{eng.n_spec_fallbacks} fallbacks")
+            if pool == "paged" and eng.pages_in_use:
+                raise AssertionError(f"{eng.pages_in_use} pages left in use")
+            del eng
+    del draft
+    ties = _xlstm_check_tokens("xlstm", {"dense": out_a, "paged": out_c,
+                                         **out_d}, reqs, seq, cfg, params,
+                               dev)
+    print(f"xlstm: tokens of the dense, paged and speculative runs equal "
+          f"and equal to the sequential route's for {sorted(seq)} "
+          f"({report['sequential_seconds']:.1f} s) but near ties {ties}",
+          flush=True)
+    report["near_ties"] = ties
+
+    # (e) growth into an xlstm, then (f) training at full width
+    report["grow"] = run_xlstm_grow(kernel_rows, dev)
+    report["train"] = run_xlstm_train(cfg, params, kern, dev)
+    del params
+    report["seconds"] = time.perf_counter() - t_phase
+    print(f"xlstm phase: {report['seconds']:.1f} s ({smi})", flush=True)
+    return report
+
+
+def _count_sandwich_calls(fn):
+    """Run ``fn()`` counting its calls of ``ops.tr_sandwich``."""
+    from repro_torch.kernels import ops
+
+    calls = [0]
+    orig = ops.tr_sandwich
+
+    def counted(*a):
+        calls[0] += 1
+        return orig(*a)
+    ops.tr_sandwich = counted
+    try:
+        out = fn()
+    finally:
+        ops.tr_sandwich = orig
+    return out, calls[0]
+
+
+def run_xlstm_grow(kernel_rows, dev="cuda"):
+    """Phase 18e: xlstm-1.3b-smoke (4 x 64) pretrained XL_GROW_PRE steps
+    (no kernel launches), grown into an 8 x 128 xlstm with an sLSTM block
+    every 4 (the pair the reference grows) by rank-1 Mango after
+    XL_GROW_OP operator steps.  The sandwich must launch exactly as often
+    as a CPU run of one growth counts its calls, times the growths (one an
+    operator step, one more for ``grow_params``); the grown params equal
+    the plain version's route (the sandwich swapped for its plain version)
+    within 1e-5 of each leaf's largest entry; the held-out margin scratch
+    - grown is printed."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import grow as growlib
+    from repro_torch.data import lm_data_iter
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import get_family
+    from repro_torch.optim import OptimizerConfig, make_optimizer
+    from repro_torch.train.loss import loss_for
+    from repro_torch.train.steps import make_eval_step, make_train_step
+    from repro_torch.utils.pytree import tree_flatten_with_paths
+
+    kern = ops.kernels()
+    cfg_s = get_config("xlstm-1.3b-smoke")
+    cfg_t = cfg_s.replace(name="xlstm-smoke-big", n_layers=8, d_model=128,
+                          slstm_every=4)
+    fam_s, fam_t = get_family(cfg_s), get_family(cfg_t)
+
+    def on(b):
+        return {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+
+    # a CPU run of one growth counts the sandwich calls
+    gop_cpu, op_cpu = growlib.build("mango", cfg_s, cfg_t, rank=1,
+                                    device="cpu")
+    small_cpu = fam_s.init(torch.Generator().manual_seed(0), cfg_s)
+    with torch.no_grad():
+        _, per_growth = _count_sandwich_calls(
+            lambda: growlib.grow_params(gop_cpu, op_cpu, small_cpu))
+    del gop_cpu, op_cpu, small_cpu
+
+    _launch_counts(kern, zero=True)
+    t0 = time.perf_counter()
+    small = fam_s.init(torch.Generator(device=dev).manual_seed(0), cfg_s)
+    opt = OptimizerConfig(lr=3e-3)
+    init_fn, _ = make_optimizer(opt)
+    state, step = init_fn(small), make_train_step(cfg_s, opt)
+    data = lm_data_iter(cfg_s.vocab_size, 8, XL_GROW_SEQ, seed=0)
+    pre = []
+    for i in range(XL_GROW_PRE):
+        small, state, m = step(small, state, on(next(data)), i + 1)
+        if i in (0, XL_GROW_PRE - 1):
+            pre.append(float(m["loss"]))
+    pre_s = time.perf_counter() - t0
+    if _launch_counts(kern, zero=True) != {name: 0 for name in kern}:
+        raise AssertionError("xlstm pretraining launched a kernel")
+    lf = loss_for(cfg_t)
+
+    def op_loss(big, b):
+        logits, aux = fam_t.forward(big, b, cfg_t)
+        return lf(logits, aux, b, cfg_t)[0]
+
+    t0 = time.perf_counter()
+    gop, op = growlib.build("mango", cfg_s, cfg_t, rank=1, device=dev)
+    op, op_losses = growlib.train_operator(
+        gop, op, small, op_loss, lm_data_iter(cfg_t.vocab_size, 8,
+                                              XL_GROW_SEQ, seed=3),
+        steps=XL_GROW_OP, lr=2e-3)
+    with torch.no_grad():
+        big = growlib.grow_params(gop, op, small)
+    torch.cuda.synchronize()
+    op_s = time.perf_counter() - t0
+    launches = _launch_counts(kern, zero=True)
+    want = {name: 0 for name in kern}
+    if dev == "cuda":  # a wrapper counts its kernel's launches only
+        want["tr_sandwich"] = per_growth * (XL_GROW_OP + 1)
+    if launches != want:
+        raise AssertionError(f"xlstm growth ({XL_GROW_OP} operator steps, "
+                             f"{per_growth} sandwiches a growth on the CPU) "
+                             f"launched {launches}, expected {want}")
+    # the plain version's route on the same operator
+    orig = ops.tr_sandwich
+    ops.tr_sandwich = ref.tr_sandwich_ref
+    try:
+        with torch.no_grad():
+            plain = growlib.grow_params(gop, op, small)
+    finally:
+        ops.tr_sandwich = orig
+    if _launch_counts(kern, zero=True) != {name: 0 for name in kern}:
+        raise AssertionError("the plain route launched a kernel")
+    pw = dict(tree_flatten_with_paths(plain))
+    rel = max(float((t - pw[p]).abs().max() / pw[p].abs().max().clamp_min(
+        1e-30)) for p, t in tree_flatten_with_paths(big))
+    if not rel <= 1e-5:
+        raise AssertionError(f"grown xlstm params disagree with the plain "
+                             f"route: {rel:.3g} of a leaf's largest entry")
+    scratch = fam_t.init(torch.Generator(device=dev).manual_seed(99), cfg_t)
+    ev = make_eval_step(cfg_t)
+    held = on(next(lm_data_iter(cfg_t.vocab_size, 8, XL_GROW_SEQ,
+                                seed=50)))
+    l_grown = float(ev(big, held)["loss"])
+    l_scratch = float(ev(scratch, held)["loss"])
+    if not (np.isfinite(l_grown) and np.isfinite(l_scratch)):
+        raise AssertionError("xlstm growth gave a non-finite loss")
+    kernel_rows["tr_sandwich"]["launches_18e"] = launches["tr_sandwich"]
+    print(f"xlstm-1.3b-smoke pretrained {XL_GROW_PRE} steps ({pre[0]:.4f} "
+          f"-> {pre[1]:.4f}, {pre_s:.1f} s, no kernel); Mango operator into "
+          f"8 x 128 {XL_GROW_OP} steps ({op_losses[0]:.4f} -> "
+          f"{op_losses[-1]:.4f}, {op_s:.1f} s; launches {launches}: "
+          f"{per_growth} sandwiches a growth as the CPU counts, x "
+          f"{XL_GROW_OP + 1}); grown vs the plain route {rel:.3g} of a "
+          f"leaf's largest entry (limit 1e-5); held-out loss grown "
+          f"{l_grown:.4f} vs scratch {l_scratch:.4f} (margin "
+          f"{l_scratch - l_grown:.4f})", flush=True)
+    return dict(pretrain_losses=pre, pretrain_seconds=pre_s,
+                operator_losses=op_losses, operator_seconds=op_s,
+                sandwiches_per_growth=per_growth, launches=launches,
+                plain_rel_err=rel, grown_loss=l_grown,
+                scratch_loss=l_scratch, margin=l_scratch - l_grown)
+
+
+def run_xlstm_train(cfg, params, kern, dev="cuda"):
+    """Phase 18f: ``params`` (xlstm-1.3b, f32) trained XL_TRAIN_STEPS
+    AdamW steps at B 1 x S XL_TRAIN_S, params and moments updated in place
+    (no kernel launches): finite losses and params, ms/step against the
+    f32 FLOP bound, peak memory."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data import lm_batch
+    from repro_torch.optim import OptimizerConfig, make_optimizer
+    from repro_torch.train.steps import make_train_step
+    from repro_torch.utils.pytree import tree_param_count
+
+    n_params = tree_param_count(params)
+    batch = {"tokens": torch.from_numpy(lm_batch(
+        cfg.vocab_size, 1, XL_TRAIN_S, seed=18)).to(dev)}
+    opt = OptimizerConfig(lr=1e-4)
+    init_fn, _ = make_optimizer(opt)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_fn(params)
+    step = make_train_step(cfg, opt)
+    _launch_counts(kern, zero=True)
+    ms, metrics = [], []
+    for i in range(XL_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch, i + 1)
+        m = {k: float(v) for k, v in m.items()}  # reads back: synchronises
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append(m)
+    peak = torch.cuda.max_memory_allocated()
+    launches = _launch_counts(kern, zero=True)
+    if launches != {name: 0 for name in kern}:
+        raise AssertionError(f"xlstm training launched {launches}")
+    if not all(np.isfinite(m["loss"]) for m in metrics) or not all(
+            bool(torch.isfinite(t).all()) for t in _leaves(params)):
+        raise AssertionError("xlstm training went non-finite")
+    flops = 6 * n_params * XL_TRAIN_S
+    b_ms, b_by = bound_ms(9 * 4 * n_params, flops, "float32")
+    print(f"xlstm-1.3b training: B 1 x S {XL_TRAIN_S}, AdamW f32, "
+          f"{n_params} params: ms/step {[round(x, 1) for x in ms]} against "
+          f"the bound {b_ms:.1f} ms ({b_by}, {flops:.4g} FLOPs at 67 TFLOP/s"
+          f" f32); peak memory {peak / 2**30:.2f} GiB; losses "
+          f"{[round(m['loss'], 5) for m in metrics]}; no kernel launched",
+          flush=True)
+    del state
+    return dict(ms_per_step=ms, bound_ms=b_ms, bound_by=b_by, flops=flops,
+                peak_gib=peak / 2**30, metrics=metrics)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -5483,6 +6257,7 @@ def main(argv=None):
     t0 = time.perf_counter()
     deit = run_deit(rows)
     deit["serve_continuous"] = run_serve_continuous()
+    deit["serve_batched"] = run_serve_batched()
     print(f"phase 12 took {time.perf_counter() - t0:.1f} s", flush=True)
     gc.collect()  # phase 12's models go before gpt-base
     torch.cuda.empty_cache()
@@ -5521,6 +6296,15 @@ def main(argv=None):
     t0 = time.perf_counter()
     window = run_window(rows, smi[0] if smi else "nvidia-smi: no output")
     print(f"phase 17 took {time.perf_counter() - t0:.1f} s", flush=True)
+    gc.collect()  # phase 17's models go before xlstm-1.3b
+    torch.cuda.empty_cache()
+
+    phase("xlstm-1.3b: dense, paged and speculative serving, chunkwise "
+          "against the recurrence, growth into an xlstm, training at full "
+          "width")
+    t0 = time.perf_counter()
+    xl = run_xlstm(rows, smi[0] if smi else "nvidia-smi: no output")
+    print(f"phase 18 took {time.perf_counter() - t0:.1f} s", flush=True)
 
     # the contract's keys, then the tensor-core rows' 3xTF32 and bf16 ones
     kernels = [{key: r[key] for key in (
@@ -5539,7 +6323,8 @@ def main(argv=None):
              "griffin_speculative": griffin_spec, "faults": faults,
              "qwen": qwen, "deit": deit, "sampled": sampled,
              "upgrade": upgrade, "griffin_growth": griffin_growth,
-             "window": window, "build_seconds": secs}, indent=1))
+             "window": window, "xlstm": xl, "build_seconds": secs},
+            indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}))

@@ -4,7 +4,8 @@
 So far the RoPE dense decoders -- stablelm-3b [hf, unverified],
 qwen1.5-0.5b [hf], qwen3-0.6b [hf], yi-9b [arXiv:2403.04652] and yi-9b's
 Mango source ``yi-9b-half`` -- and the griffin family: recurrentgemma-2b
-[arXiv:2402.19427], each at its published widths with a reduced
+[arXiv:2402.19427], and the xlstm family: xlstm-1.3b
+[arXiv:2405.04517], each at its published widths with a reduced
 ``-smoke`` twin, plus the CPU-sized ``griffin-micro`` pair.  The
 reference's TPU-only ``remat`` knob is left out, as in ``configs/base.py``.
 """
@@ -137,3 +138,20 @@ def griffin_micro_big():
     return griffin_micro().replace(
         name="griffin-micro-big", n_layers=6, d_model=128, n_heads=4,
         head_dim=32, d_ff=384, lru_width=128)
+
+
+@register_named("xlstm-1.3b")
+def xlstm_13b():
+    return ModelConfig(
+        name="xlstm-1.3b", family="xlstm",
+        n_layers=48, d_model=2048, n_heads=4, n_kv_heads=4, d_ff=0,
+        vocab_size=50304, proj_factor=2.0, slstm_every=8, conv_width=4,
+        norm="ln", max_seq_len=1048576, **_SCALE)
+
+
+@register_named("xlstm-1.3b-smoke")
+def xlstm_13b_smoke():
+    return xlstm_13b().replace(
+        name="xlstm-1.3b-smoke", n_layers=4, d_model=64, n_heads=4,
+        d_ff=0, vocab_size=256, slstm_every=4, max_seq_len=256,
+        param_dtype="float32", compute_dtype="float32", attn_chunk=16)

@@ -57,6 +57,15 @@ asked for and absent:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt-base \
       --engine continuous --journal j.jsonl --resume
 
+  # xlstm (xlstm-1.3b): O(1) recurrent state per slot (mLSTM C/n/m, sLSTM
+  # carries); on a paged pool the conv tails page, one page a slot; a
+  # nudged or self draft speculates through per-step state snapshots
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b \
+      --engine continuous --batch 8 --capacity 8 --prompt-len 512 \
+      --gen 64 --max-len 640 --pool paged --pages 6
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b \
+      --engine continuous --speculate --draft xlstm-1.3b --spec-d 3 --k 2
+
   # griffin speculation: recurrentgemma-2b drafting for itself (the
   # verify runs the slot decode over each chunk; d + 1 must fit the window)
   PYTHONPATH=src python -m repro_torch.launch.serve \
@@ -88,7 +97,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, list_configs
 from repro_torch.data import lm_batch
 from repro_torch.models import get_family, serve_supported
 from repro_torch.serve import (
@@ -194,10 +203,29 @@ def trace_requests(cfg, n, prompt_len, gen, eos_id=None, skip=()):
 
 
 def require_servable(cfg):
+    """Refuse a config the continuous engine cannot serve, naming the
+    families and registered configs it can (the reference's text)."""
     ok, why = serve_supported(cfg)
-    if not ok:
-        raise SystemExit(
-            f"error: --engine continuous cannot serve {cfg.name!r}: {why}")
+    if ok:
+        return
+
+    def probe(name):
+        try:
+            return serve_supported(get_config(name))[0]
+        except Exception:
+            return False
+
+    servable = [n for n in list_configs() if probe(n)]
+    raise SystemExit(
+        f"error: --engine continuous cannot serve {cfg.name!r}: {why}\n"
+        "The slot-decode protocol serves causal decoder configs of every "
+        "family in the zoo:\n"
+        "  transformer — full KV and ring-buffer window caches;\n"
+        "  griffin     — rglru/conv recurrent state + local-attention "
+        "rings;\n"
+        "  xlstm       — mLSTM/sLSTM recurrent state.\n"
+        f"Servable registered configs: {', '.join(servable)}\n"
+        "(--engine naive runs any decoder config lock-step.)")
 
 
 def require_spec_servable(cfg_tgt, cfg_draft, d, max_len):

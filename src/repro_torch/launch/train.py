@@ -11,6 +11,8 @@ asked for and absent:
       --device cpu --steps 20 --ckpt-dir ckpt/gpt-micro --ckpt-every 5
   PYTHONPATH=src python -m repro_torch.launch.train --arch gpt-micro \
       --device cpu --steps 40 --ckpt-dir ckpt/gpt-micro --resume
+  PYTHONPATH=src python -m repro_torch.launch.train \
+      --arch xlstm-1.3b-smoke --device cpu --steps 20 --seq 64
 
 Checkpoints are in the reference package's on-disk format
 (``repro_torch.checkpoint``), so either package resumes what the other

@@ -21,12 +21,13 @@ and, to serve from a paged pool (``serve/paged.py``), the declaration of
 its pageable cache groups:
   paged_groups(cfg) -> {group key: (kind, leaf names)}
 A family whose slot-decode steps can overwrite state a proposal must not
-keep (griffin's recurrence and rings, a windowed transformer's ring) adds
+keep (griffin's recurrence and rings, xlstm's recurrence, a windowed
+transformer's ring) adds
   snapshot_slots(cache, positions, n) / restore_slots(cache, snap,
                                                      positions, n)
 so a speculative draft whose ``slot_cache_layout`` is not "full" can
-propose in place.  The transformer and griffin families are ported so
-far.
+propose in place.  The transformer, griffin and xlstm families are
+ported so far.
 """
 from __future__ import annotations
 
@@ -35,6 +36,7 @@ import importlib
 _FAMILIES = {
     "transformer": "repro_torch.models.transformer",
     "griffin": "repro_torch.models.griffin",
+    "xlstm": "repro_torch.models.xlstm",
 }
 
 
@@ -58,10 +60,11 @@ def serve_supported(cfg):
 
 def paged_groups(cfg):
     """Slot-state protocol: which slot-cache groups page under a paged
-    pool, ``{top-level cache key: ("seq", leaf names)}`` ("seq": the named
-    (L, B, S, ...) leaves share one sequence axis that splits into pages,
-    and every slot holds a block table).  An empty dict means nothing
-    pages."""
+    pool, ``{top-level cache key: (kind, leaf names)}``: ``"seq"``, the
+    named (L, B, S, ...) leaves share one sequence axis that splits into
+    pages; ``"slot"``, each slot's named (L, B, ...) leaves are one page
+    (xlstm's conv tails).  Every slot of a paged group holds a block
+    table.  An empty dict means nothing pages."""
     fam = get_family(cfg)
     probe = getattr(fam, "paged_groups", None)
     return probe(cfg) if probe else {}

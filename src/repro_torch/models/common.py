@@ -124,14 +124,16 @@ def spec_verify_scan(step_fn, params, tokens, positions, cache, cfg,
     is the state after each row fed its first ``j + 1`` chunk tokens --
     and ``cache`` is the post-chunk cache (the same dict, updated).
     """
-    logits, states = [], []
-    for j in range(tokens.shape[1]):
+    S = tokens.shape[1]
+    logits, stacked = [], None
+    for j in range(S):
         out, cache = step_fn(params, tokens[:, j].contiguous(),
                              positions + j, cache, cfg, done=done)
         logits.append(out)
         ys = cache if stack_filter is None else stack_filter(cache)
-        states.append(tree_map(lambda t: t.clone(), ys))
-    stacked = tree_map(lambda *ts: torch.stack(ts), *states)
+        if stacked is None:  # each step's state is copied once, into place
+            stacked = tree_map(lambda t: t.new_empty((S,) + t.shape), ys)
+        tree_map(lambda buf, t: buf[j].copy_(t), stacked, ys)
     if logits[0] is None:
         return None, stacked, cache
     return torch.stack(logits, 1), stacked, cache

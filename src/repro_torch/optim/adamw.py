@@ -12,7 +12,12 @@ computes them, so the two packages' trajectories agree to rounding.
 a time, as the reference launcher's jitted step donates their buffers
 (``donate_argnums=(0, 1)``): a step holds no second copy of params and
 moments (recurrentgemma-2b's 10.7 GB of f32 params and 21.4 GB of
-moments would not fit an 80 GB card twice).
+moments would not fit an 80 GB card twice).  A leaf larger than
+``SLICE_ELEMS`` is updated a slice of its leading (layer) axis at a time:
+the update is elementwise, so the result is the same, and its f32
+temporaries stay small (xlstm-1.3b's largest leaves are 2.8 GB, and a
+whole-leaf update holds several of them beside 57.7 GB of params,
+grads and moments).
 """
 from __future__ import annotations
 
@@ -34,6 +39,18 @@ class OptimizerConfig:
     clip_norm: Optional[float] = 1.0
     moment_dtype: str = "float32"  # bfloat16 at scale
     master_weights: bool = False   # keep f32 master copy of bf16 params
+
+
+SLICE_ELEMS = 1 << 26  # 256 MB of f32: larger leaves update in slices
+
+
+def _slices(p):
+    """Indices of the leading axis that cut ``p`` into pieces of at most
+    ~SLICE_ELEMS elements (one, the whole leaf, when it is small)."""
+    if p.dim() == 0 or p.numel() <= SLICE_ELEMS:
+        return [...]
+    step = max(1, SLICE_ELEMS // max(1, p[0].numel()))
+    return [slice(i, i + step) for i in range(0, p.shape[0], step)]
 
 
 def _corrections(step, b1, b2, device):
@@ -108,16 +125,18 @@ def make_optimizer(cfg: OptimizerConfig, schedule=None):
                                     tree_leaves(state["m"]),
                                     tree_leaves(state["v"]),
                                     tree_leaves(grads), bases):
-            if scale is not None:
-                g = (g.float() * scale).to(g.dtype)
-            p32, m32, v32 = _leaf_update(
-                base, m, v, g, lr=lr, b1=cfg.b1, b2=cfg.b2, eps=cfg.eps,
-                weight_decay=cfg.weight_decay, c1=c1, c2=c2)
-            m.copy_(m32)
-            v.copy_(v32)
-            if master is not None:
-                base.copy_(p32)
-            p.copy_(p32)
+            for sl in _slices(p):
+                gs = g[sl]
+                if scale is not None:
+                    gs = (gs.float() * scale).to(gs.dtype)
+                p32, m32, v32 = _leaf_update(
+                    base[sl], m[sl], v[sl], gs, lr=lr, b1=cfg.b1, b2=cfg.b2,
+                    eps=cfg.eps, weight_decay=cfg.weight_decay, c1=c1, c2=c2)
+                m[sl] = m32
+                v[sl] = v32
+                if master is not None:
+                    base[sl] = p32
+                p[sl] = p32
         return params, state, metrics
 
     return init_fn, update_fn

@@ -68,9 +68,11 @@ out-of-range index ``capacity``, which XLA drops and PyTorch indexing
 would refuse, so only the first ``n`` rows are copied.
 
 The engine serves any family of the slot-state protocol: the transformer
-(full KV, or a ring-window KV cache with a window) and griffin (recurrent
-state, dense per slot, beside ring-window local-attention caches); rings
-page on a paged pool.  Greedy tokens are
+(full KV, or a ring-window KV cache with a window), griffin (recurrent
+state, dense per slot, beside ring-window local-attention caches) and
+xlstm (mLSTM/sLSTM recurrent state, dense per slot); rings page on a
+paged pool, and so do xlstm's conv tails, one page a slot.  Prefix
+sharing is the transformer's alone.  Greedy tokens are
 the sequential ``generate()`` tokens for every request, for any
 interleaving, any K, any speculation depth and either pool, up to float
 near-ties between the routes' arithmetic; sampled tokens are a function

@@ -177,6 +177,10 @@ def poison_pool(pool, slot: int, pid: int):
     leaves poison the slot's whole row.  Integer leaves (block tables,
     counters) are untouched -- the fault model is corrupted VALUES, not
     corrupted indices.  Returns ``pool``.
+
+    A paged group without ``k`` (xlstm's slot groups: conv tails and
+    carries) raises ``KeyError('k')``, as the reference's does: its
+    ``poison_pool`` assumes every paged group is attention K/V.
     """
     for grp in pool.values():
         if "bt" in grp:

@@ -9,17 +9,23 @@ page arena plus per-slot block tables:
           paged {"k": (L, n_pages + 1, page, KV, hd), "v": ...,
                  "bt": (L, B, nblk) int32}          nblk = S // page
 
+    slot  dense {"conv": (L, B, K-1, d), "C": (L, B, ...), ...}
+          paged {"conv": (L, n_pages + 1, K-1, d), "C": (L, B, ...), ...,
+                 "bt": (L, B, 1) int32}             nblk = 1
+
 with ``page`` the ``pad_cache_len`` quantum for ``S`` (8 up to 256, 64
 above).  The block table rides inside the group dict, the same table for
 every layer, so the layer loop hands layer ``i`` its ``bt[i]`` with no
 extra plumbing; model code detects a paged group by ``"bt" in cache``.
 A ``"seq"`` group pages a full-KV cache (the transformer's) or a ring
 window cache (a windowed transformer's, griffin's local attention; the
-ring modulus is then ``nblk * page``).  Groups a family does not declare
-stay dense per slot beside the paged ones (griffin's recurrent state:
-conv tails and RG-LRU h, O(1) per slot) and ride the same admission and
-eviction scatters.  ``"slot"`` groups (xlstm tails) wait for the xlstm
-slice.
+ring modulus is then ``nblk * page``).  A ``"slot"`` group (xlstm's conv
+tails) pages each slot's whole leaf as one page; the leaves it does not
+name (xlstm's mLSTM C/n/m and sLSTM carries) stay dense per slot inside
+the same dict.  Groups a family does not declare stay dense per slot
+beside the paged ones (griffin's recurrent state: conv tails and RG-LRU
+h, O(1) per slot).  Dense leaves, in a paged group or not, ride the same
+admission and eviction scatters.
 
 Page-id conventions
 -------------------
@@ -36,10 +42,14 @@ Page-id conventions
   (its table entry is the sentinel), a position at or past ``nblk *
   page``, a padding block of an admission, an uncommitted chunk entry.
   This takes no host sync and no boolean-mask indexing (a ``torch.where``
-  on the page id).  The scratch page is never read: reads see the arena
-  without it (``arena[:n_pages]``), so the sentinel clamps to page
-  ``n_pages - 1`` as in the reference.  The budget, ``pages_in_use`` and
-  ``--pages`` count real pages only.
+  on the page id).  A seq group never reads the scratch page: reads see
+  the arena without it (``arena[:n_pages]``), so the sentinel clamps to
+  page ``n_pages - 1`` as in the reference.  A slot group's gather reads
+  a sentinel row's tail from the scratch page itself (the reference
+  clamps it to page ``n_pages - 1``): only idle rows hold the sentinel,
+  their logits are masked and their writes dropped, so no token depends
+  on those bytes.  The budget, ``pages_in_use`` and ``--pages`` count
+  real pages only.
 * ONE page-id space spans every group of a pool and, for a speculative
   pair, both the target and draft pools: page ``p`` is row ``p`` of
   every arena of every engine sharing the allocator.  A request
@@ -76,10 +86,10 @@ import torch
 class GroupMeta:
     """Static paging geometry of one declared cache group."""
     path: tuple      # key path to the group dict from the pool root
-    kind: str        # "seq" (paged sequence axis)
+    kind: str        # "seq" (paged sequence axis) or "slot" (a page a slot)
     leaves: tuple    # arena leaf names inside the group dict
-    page: int        # positions per page
-    nblk: int        # block-table entries per slot
+    page: int        # positions per page (seq); the tail length (slot)
+    nblk: int        # block-table entries per slot (1 for a slot group)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,9 +97,10 @@ class PoolMeta:
     """Static paging geometry of one pool.
 
     ``page``/``nblk`` summarize the pool for the engine: ``page`` is the
-    shared sequence-group quantum, ``nblk`` the per-request allocation
-    bound (max over groups).  ``groups`` carries the per-group layout; an
-    empty tuple is the single-group geometry the allocator tests build.
+    shared sequence-group quantum (0 when only slot groups page), ``nblk``
+    the per-request allocation bound (max over groups).  ``groups`` carries
+    the per-group layout; an empty tuple is the single-group geometry the
+    allocator tests build.
     """
     page: int
     nblk: int
@@ -124,22 +135,25 @@ def pool_meta(cfg, cache_shapes: Any, pages: Optional[int] = None
         kind, leaves = decl[key]
         if key not in cache_shapes:
             continue
-        if kind != "seq":
-            raise NotImplementedError(
-                f"{cfg.name}: paged {kind!r} cache groups are not ported to "
-                "repro_torch yet (the xlstm slice, ROADMAP.md)")
         lead = cache_shapes[key][leaves[0]]
-        B, S = lead.shape[1], lead.shape[2]
-        page = page_quantum(S)
-        if S % page:
-            return None
-        seq_geom.add((page, S // page))
-        groups.append(GroupMeta(path=(key,), kind="seq",
-                                leaves=tuple(leaves), page=page,
-                                nblk=S // page))
+        B = lead.shape[1]
+        if kind == "seq":
+            S = lead.shape[2]
+            page = page_quantum(S)
+            if S % page:
+                return None
+            seq_geom.add((page, S // page))
+            groups.append(GroupMeta(path=(key,), kind="seq",
+                                    leaves=tuple(leaves), page=page,
+                                    nblk=S // page))
+        else:  # a slot group: each slot's whole (tail) leaf is one page
+            groups.append(GroupMeta(path=(key,), kind="slot",
+                                    leaves=tuple(leaves),
+                                    page=int(lead.shape[2]), nblk=1))
     if not groups or len(seq_geom) > 1:
         return None
-    page, nblk = seq_geom.pop()
+    page = seq_geom.pop()[0] if seq_geom else 0
+    nblk = max(g.nblk for g in groups)
     return PoolMeta(page=page, nblk=nblk,
                     n_pages=int(pages) if pages else B * nblk,
                     groups=tuple(groups))
@@ -166,7 +180,8 @@ def build_paged_pool(fam, cfg, capacity: int, max_len: int,
     space, so both pools are built to the same depth).  Each arena holds
     ``n_pages + 1`` pages: the last is the scratch page that absorbs
     dropped writes (module docstring).  Groups the family does not
-    declare pageable are the dense pool's, zeroed.
+    declare pageable, and the leaves a paged group does not name, are the
+    dense pool's, zeroed.
     """
     shapes = fam.init_cache(cfg, capacity, max_len, device="meta")
     meta = pool_meta(cfg, shapes, pages)
@@ -174,23 +189,25 @@ def build_paged_pool(fam, cfg, capacity: int, max_len: int,
         return fam.init_cache(cfg, capacity, max_len, device=device), None
     if n_pages is not None and n_pages != meta.n_pages:
         meta = dataclasses.replace(meta, n_pages=int(n_pages))
-    # undeclared groups (griffin's recurrent state) stay dense per slot
-    out = {key: {lk: torch.zeros(leaf.shape, dtype=leaf.dtype, device=device)
-                 for lk, leaf in grp.items()}
-           for key, grp in _dense_groups(shapes, meta)}
-    for g in meta.groups:
-        grp = shapes[g.path[0]]
-        if set(grp) != set(g.leaves):
-            raise NotImplementedError(
-                f"{cfg.name}: dense leaves inside a paged group are not "
-                "ported to repro_torch yet (the xlstm slice, ROADMAP.md)")
-        # (L, B, S, ...) -> (L, n_pages + 1, page, ...)
-        og = {lk: torch.zeros((leaf.shape[0], meta.n_pages + 1, g.page)
-                              + tuple(leaf.shape[3:]), dtype=leaf.dtype,
-                              device=device) for lk, leaf in grp.items()}
-        og["bt"] = torch.full((grp[g.leaves[0]].shape[0], capacity, g.nblk),
-                              meta.sentinel, dtype=torch.int32, device=device)
-        out[g.path[0]] = og
+    paged = {g.path[0]: g for g in meta.groups}
+    out = {}
+    for key, grp in shapes.items():
+        g = paged.get(key)
+        og = {}
+        for lk, leaf in grp.items():
+            shape = tuple(leaf.shape)
+            if g is not None and lk in g.leaves:
+                # seq: (L, B, S, ...) -> (L, n_pages + 1, page, ...);
+                # slot: (L, B, tail...) -> (L, n_pages + 1, tail...)
+                tail = ((g.page,) + shape[3:] if g.kind == "seq"
+                        else shape[2:])
+                shape = (shape[0], meta.n_pages + 1) + tail
+            og[lk] = torch.zeros(shape, dtype=leaf.dtype, device=device)
+        if g is not None:
+            og["bt"] = torch.full((shape[0], capacity, g.nblk),
+                                  meta.sentinel, dtype=torch.int32,
+                                  device=device)
+        out[key] = og
     return out, meta
 
 
@@ -201,19 +218,32 @@ def pages_needed(prompt_len: int, max_new: int, meta: PoolMeta) -> int:
     clamp covers both layouts: a full cache fits ``prompt + max_new``
     inside ``nblk`` pages by the engine's admission check, and a ring
     wraps at ``nblk * page``, so a long request needs every block of it
-    and no more."""
+    and no more.  A slot group needs exactly its one block."""
     if not meta.groups:  # single-seq-group geometry
         return min(-(-(prompt_len + max_new) // meta.page), meta.nblk)
     return max(min(-(-(prompt_len + max_new) // g.page), g.nblk)
-               for g in meta.groups)
+               if g.kind == "seq" else 1 for g in meta.groups)
 
 
 # ------------------------------------------------------------- scatters
-def _dense_groups(pool, meta: PoolMeta):
-    """(key, group) of the pool's groups that the family did not declare
-    pageable: they stay dense per slot."""
-    paged_keys = {g.path[0] for g in meta.groups}
-    return [(key, grp) for key, grp in pool.items() if key not in paged_keys]
+def _dense_leaves(pool, meta: PoolMeta):
+    """(key, {leaf name: leaf}) of every leaf that stays dense per slot:
+    the groups the family did not declare pageable, and the leaves a paged
+    group does not name (xlstm's carries beside its paged conv tails)."""
+    paged = {g.path[0]: g for g in meta.groups}
+    out = []
+    for key, grp in pool.items():
+        g = paged.get(key)
+        dense = grp if g is None else {
+            lk: leaf for lk, leaf in grp.items()
+            if lk != "bt" and lk not in g.leaves}
+        if dense:
+            out.append((key, dense))
+    return out
+
+
+def _seq_groups(meta: PoolMeta):
+    return [g for g in meta.groups if g.kind == "seq"]
 
 
 def admit_scatter(pool, rows, slots, bt_rows, meta: PoolMeta):
@@ -223,12 +253,13 @@ def admit_scatter(pool, rows, slots, bt_rows, meta: PoolMeta):
     "bt"); slots: (n,) int64 slot ids; bt_rows: (n, meta.nblk) int32 page
     ids per admitted row, each group consuming its leading ``nblk_g``
     columns; unallocated blocks carry the sentinel, so their chunks land
-    in the scratch page.  Dense groups copy the rows into their slots.
-    Only real rows are passed: PyTorch has no out-of-range drop for the
-    reference's padding rows.
+    in the scratch page.  Dense leaves (dense groups, and the leaves a
+    paged group does not name) copy the rows into their slots.  Only real
+    rows are passed: PyTorch has no out-of-range drop for the reference's
+    padding rows.
     """
     n = slots.shape[0]
-    for key, grp in _dense_groups(pool, meta):
+    for key, grp in _dense_leaves(pool, meta):
         for lk, leaf in grp.items():
             leaf.index_copy_(1, slots, rows[key][lk].to(leaf.dtype))
     for g in meta.groups:
@@ -256,13 +287,13 @@ def register_copy(pool, reg_pids, reg_blk, rows, meta: PoolMeta):
     each wanted absolute page in ``reg_blk``); reg_pids, reg_blk: (n,
     nreg) int -- the destination page and the source block of each copy.
     A sentinel destination goes to the scratch page (the reference drops
-    it).  Every seq group takes part.
+    it).  Every seq group takes part (slot tails are never shared).
     """
     n, nreg = reg_pids.shape
     flat_pid = reg_pids.reshape(-1).long()
     rows_n = torch.arange(n, device=flat_pid.device)[:, None]
     blk = reg_blk.long()
-    for g in meta.groups:
+    for g in _seq_groups(meta):
         grp = pool[g.path[0]]
         for lk in g.leaves:
             arena = grp[lk]
@@ -286,7 +317,7 @@ def ring_restore_copy(pool, src_pids, dst_pids, meta: PoolMeta):
     """
     flat_src = src_pids.reshape(-1).long().clamp(max=meta.n_pages - 1)
     flat_dst = dst_pids.reshape(-1).long()
-    for g in meta.groups:
+    for g in _seq_groups(meta):
         grp = pool[g.path[0]]
         for lk in g.leaves:
             arena = grp[lk]
@@ -295,14 +326,14 @@ def ring_restore_copy(pool, src_pids, dst_pids, meta: PoolMeta):
 
 
 def evict_clear(pool, slots, zero_pids, meta: PoolMeta):
-    """Clear evicted slots in place.  Dense groups zero the slots' rows
+    """Clear evicted slots in place.  Dense leaves zero the slots' rows
     (a retired request's recurrent state does not outlive it); paged
     groups zero the handed-back pages listed in ``zero_pids``
     (prefix-registered pages are retained, so they are simply absent; a
     sentinel entry zeroes the scratch page) and reset the rows' block
     tables to the sentinel."""
     zero_pids = zero_pids.long()
-    for _, grp in _dense_groups(pool, meta):
+    for _, grp in _dense_leaves(pool, meta):
         for leaf in grp.values():
             leaf.index_fill_(1, slots, 0)
     for g in meta.groups:

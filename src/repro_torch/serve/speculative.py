@@ -34,10 +34,11 @@ the full layout every read stops at ``kv_len = position + 1`` and the next
 block's proposal j writes position ``pos + j`` before any step reads it.
 That holds for the full layout only.  A recurrent draft's proposals
 advance its state irreversibly and a ring draft's overwrite committed ring
-sites, so such a family (griffin; the transformer, for a windowed draft)
-exposes ``snapshot_slots`` /
-``restore_slots``: the block keeps the draft's O(1) recurrent state and the
-d ring sites the proposals write, and puts them back before the catch-up.
+sites, so such a family (griffin, xlstm; the transformer, for a windowed
+draft) exposes ``snapshot_slots`` / ``restore_slots``: the block keeps the
+draft's O(1) recurrent state (xlstm's whole slot state: C/n/m, sLSTM
+carries, conv tails) and the d ring sites the proposals write, and puts
+them back before the catch-up.
 
 ``make_speculative_loop(cfg_t, cfg_d, d, k)`` runs ``k`` whole
 draft→verify→commit blocks per dispatch as a Python loop that never reads
@@ -162,8 +163,8 @@ def make_speculative_loop(cfg_t, cfg_d, d: int, k: int, sampling=None):
     """
     fam_t, fam_d = get_family(cfg_t), get_family(cfg_d)
     # families whose proposals overwrite committed state (griffin's
-    # recurrence and rings, a windowed transformer's ring); a full-KV
-    # draft keeps nothing
+    # recurrence and rings, xlstm's recurrence, a windowed transformer's
+    # ring); a full-KV draft keeps nothing
     snapshot = (None if fam_d.slot_cache_layout(cfg_d) == "full"
                 else getattr(fam_d, "snapshot_slots", None))
     greedy = sampling_lib.is_greedy(sampling)
@@ -227,6 +228,7 @@ def make_speculative_loop(cfg_t, cfg_d, d: int, k: int, sampling=None):
             drafts.append(tok)
         if snap is not None:
             pool_d = fam_d.restore_slots(pool_d, snap, positions, d)
+            del snap  # an xlstm draft's is its whole state: free it now
         chunk = torch.stack([tokens, *drafts], 1)  # (B, S)
         logits_t, pend_t = fam_t.verify_step_slots(
             params_t, chunk, positions, pool_t, cfg_t, done=done)
@@ -267,6 +269,9 @@ def make_speculative_loop(cfg_t, cfg_d, d: int, k: int, sampling=None):
         n_feed = torch.where(done | bad, 0, n_out)
         pool_t = fam_t.commit_slots(params_t, chunk, positions, n_feed,
                                     pool_t, pend_t, cfg_t, done=done)
+        # a recurrent target's pending state is d + 2 copies of its pool:
+        # freed before the draft's catch-up stacks its own
+        del pend_t
         # draft catch-up: the draft consumes the same committed chunk
         # through its own verify, including the position its proposals
         # never fed

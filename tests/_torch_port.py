@@ -150,3 +150,75 @@ def check_sampled(what, uid, got, want, gaps):
                             f"the top-2 perturbed-score gap is {gap:.3g}")
     print(f"near tie: uid {uid} {what} differ at step {t} (gap {gap:.3g})")
     return uid, t, gap
+
+
+# --------------------------------------------------------------- bf16 check
+def bf16_logit_errors(jcfg, params, prompts, n_steps=8):
+    """How far each package's bf16 route lies from the f32 route, on the
+    same bf16-cast weights (ROADMAP 1.3).
+
+    ``params``: the JAX family's numpy tree for ``jcfg``; ``prompts``: (B,
+    P) int32.  The weights are cast to bf16 once; the f32 route runs them
+    upcast.  Tokens: JAX's f32 greedy route (prefill, then ``n_steps - 1``
+    decode steps).  Reference: JAX's f32 full forward over the prompt and
+    those tokens.  Each bf16 route runs ``prefill`` and ``n_steps`` decode
+    steps fed the same tokens, in its own package with the config at
+    ``bfloat16`` params and compute.  Returns (port error, JAX error,
+    max |reference logit|), the errors the max |logit| difference over the
+    ``n_steps`` decode steps."""
+    import jax.numpy as jnp
+
+    from repro_torch.models import get_family
+
+    jfam = jax_family(jcfg)
+    jcfg32 = jcfg.replace(param_dtype="float32", compute_dtype="float32")
+    jcfg16 = jcfg.replace(param_dtype="bfloat16", compute_dtype="bfloat16")
+    p16 = jax.tree.map(lambda a: np.asarray(jnp.asarray(a, jnp.bfloat16)),
+                       params)
+    p32 = jax.tree.map(lambda a: np.asarray(a, np.float32), p16)
+    B, P = prompts.shape
+    max_len = P + n_steps + 1
+
+    def jax_route(cfg, p):
+        prefill = jax.jit(lambda p_, t, c: jfam.prefill(p_, {"tokens": t},
+                                                        cfg, c))
+        decode = jax.jit(lambda p_, t, pos, c: jfam.decode_step(
+            p_, t, pos, c, cfg))
+        return prefill, decode
+
+    prefill32, decode32 = jax_route(jcfg32, p32)
+    cache = jfam.init_cache(jcfg32, B, max_len)
+    logits, cache = prefill32(p32, jnp.asarray(prompts), cache)
+    fed = []
+    for i in range(n_steps):
+        fed.append(np.asarray(logits).argmax(-1).astype(np.int32))
+        logits, cache = decode32(p32, jnp.asarray(fed[-1]), P + i, cache)
+    fed = np.stack(fed, 1)  # (B, n_steps): the decode steps' inputs
+    full = np.concatenate([prompts, fed], 1)
+    ref = np.asarray(jfam.forward(p32, {"tokens": jnp.asarray(full)},
+                                  jcfg32)[0], np.float32)[:, P:]
+
+    prefill16, decode16 = jax_route(jcfg16, p16)
+    cache = jfam.init_cache(jcfg16, B, max_len)
+    _, cache = prefill16(p16, jnp.asarray(prompts), cache)
+    got_jax = []
+    for i in range(n_steps):
+        logits, cache = decode16(p16, jnp.asarray(fed[:, i]), P + i, cache)
+        got_jax.append(np.asarray(logits, np.float32))
+
+    cfg16 = port_config(jcfg16)
+    fam = get_family(cfg16)
+    tp16 = from_jax(p16)
+    with torch.no_grad():
+        tcache = fam.init_cache(cfg16, B, max_len)
+        _, tcache = fam.prefill(tp16, {"tokens": torch.from_numpy(prompts)},
+                                cfg16, tcache)
+        got_port = []
+        for i in range(n_steps):
+            logits, tcache = fam.decode_step(
+                tp16, torch.from_numpy(fed[:, i].copy()), P + i, tcache,
+                cfg16)
+            got_port.append(logits.float().numpy())
+    port_err = float(np.abs(np.stack(got_port, 1) - ref).max())
+    jax_err = float(np.abs(np.stack(got_jax, 1) - ref).max())
+    return port_err, jax_err, float(np.abs(ref).max())

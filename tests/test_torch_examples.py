@@ -1,9 +1,10 @@
 """The reference's examples on the port, on the CPU:
 ``repro_torch.examples.quickstart`` at the example's own sizes,
 ``grow_pipeline`` at a few steps a stage, ``train_100m``'s configs and
-flags against ``examples/train_100m.py``, and ``serve_continuous``'s
-tokens against the reference example's engine runs (the examples loaded
-by path, not edited)."""
+flags against ``examples/train_100m.py``, ``serve_continuous``'s tokens
+against the reference example's engine runs and ``serve_batched``'s
+against the reference example's ``generate`` (the examples loaded by
+path, not edited)."""
 import sys
 
 import jax
@@ -17,6 +18,7 @@ from repro_torch.convert import from_jax
 from repro_torch.examples import (
     grow_pipeline,
     quickstart,
+    serve_batched,
     serve_continuous,
     train_100m,
 )
@@ -111,3 +113,36 @@ def test_serve_continuous_serves_the_reference_examples_tokens(capsys):
     out = capsys.readouterr().out
     assert "recurrent+ring slots, attn ring=32 of window=32" in out
     assert "on Mango-grown params from gpt-micro" in out
+
+
+def test_serve_batched_generates_the_reference_examples_tokens(capsys):
+    """The three configs of ``examples/serve_batched.py`` with the
+    reference's weights (JAX's seed-0 inits, converted) and prompts: every
+    row's 12 tokens equal JAX's ``generate``, and each printed sample row
+    equals the reference example's."""
+    from repro.data.synthetic import lm_batch as jax_lm_batch
+    from repro.launch.serve import generate as jax_generate
+    from repro.models import get_family as jax_family
+
+    ref_mod = reference_example("serve_batched")
+    ref_mod.main()
+    ref_rows = [ln.split("sample row:")[1].strip()
+                for ln in capsys.readouterr().out.splitlines()
+                if "sample row:" in ln]
+    want, params = {}, {}
+    for name in serve_batched.ARCHS:
+        jcfg = jax_get_config(name)
+        jp = jax.tree.map(np.asarray, jax_family(jcfg).init(
+            jax.random.PRNGKey(0), jcfg))
+        params[name] = from_jax(jp)
+        want[name] = np.asarray(jax_generate(
+            jcfg, jp, jax_lm_batch(jcfg.vocab_size, 4, 24),
+            max_new_tokens=12))
+    got = serve_batched.main(["--device", "cpu"], params=params)
+    assert got.keys() == want.keys()
+    for name in want:
+        np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+    rows = [ln.split("sample row:")[1].strip()
+            for ln in capsys.readouterr().out.splitlines()
+            if "sample row:" in ln]
+    assert rows == ref_rows

@@ -1,6 +1,6 @@
 """Card-only tests of the port (``-m gpu``): each CUDA kernel against its
 plain version, the wrappers' refusals, the engine (plain and speculative,
-dense and paged pools; the transformer and griffin), the growth
+dense and paged pools; the transformer, griffin and xlstm), the growth
 contraction and the sampling chains on the card.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
@@ -50,7 +50,7 @@ from repro_torch.kernels.rglru_scan import rglru_scan as cuda_scan
 from repro_torch.kernels.rglru_scan import rglru_scan_bwd as cuda_scan_bwd
 from repro_torch.kernels.tr_sandwich import tr_sandwich as cuda_sandwich
 from repro_torch.launch.serve import build_params, generate
-from repro_torch.models import griffin, transformer
+from repro_torch.models import griffin, transformer, xlstm
 from repro_torch.serve import (
     ContinuousBatchingEngine,
     Request,
@@ -2201,3 +2201,224 @@ def test_cuda_hang_past_a_deadline_and_crash_resume(cuda_device, tmp_path,
         resumed)}
     for uid in want:
         np.testing.assert_array_equal(got[uid], want[uid])
+
+
+# ------------------------------------------------------------------- xlstm
+XLSTM_SPECS = [(3, 12), (21, 6), (9, 10), (30, 8), (5, 14)]
+
+
+def _xlstm_smoke(dev):
+    cfg = get_config("xlstm-1.3b-smoke")
+    return cfg, build_params(cfg, seed=0, device=dev)
+
+
+def _xlstm_reqs(cfg, specs, seed0=110):
+    return [Request(uid=i, prompt=lm_batch(cfg.vocab_size, 1, p,
+                                           seed=seed0 + i)[0],
+                    max_new_tokens=g) for i, (p, g) in enumerate(specs)]
+
+
+def _generate_on(dev, cfg, params, reqs):
+    return {r.uid: generate(cfg, params, torch.from_numpy(r.prompt)[None].to(
+        dev), max_new_tokens=r.max_new_tokens, max_len=64)[0].cpu().numpy()
+        for r in reqs}
+
+
+@pytest.mark.parametrize("pool", ["dense", "paged"])
+def test_cuda_xlstm_engine_matches_generate_and_launches_nothing(
+        cuda_device, pool):
+    """xlstm-1.3b-smoke served on the card (the paged pool under page
+    pressure: its conv tails page, one page a request, 2 pages for 3
+    slots): tokens equal ``generate``'s; the path runs no kernel of the
+    port (the mLSTM and sLSTM are plain PyTorch, as in the reference)."""
+    cfg, params = _xlstm_smoke(cuda_device)
+    reqs = _xlstm_reqs(cfg, XLSTM_SPECS)
+    kern = ops.kernels()
+    for fn in kern.values():
+        fn.launches = 0
+    eng = ContinuousBatchingEngine(cfg, params, capacity=3, max_len=64, k=4,
+                                   pool=pool,
+                                   pages=2 if pool == "paged" else None)
+    got = eng.run(reqs)
+    torch.cuda.synchronize()
+    assert {name: fn.launches for name, fn in kern.items()} == {
+        name: 0 for name in kern}
+    want = _generate_on(cuda_device, cfg, params, reqs)
+    for uid in want:
+        np.testing.assert_array_equal(got[uid], want[uid])
+    assert eng.pool_kind == pool
+    if pool == "paged":
+        assert eng.pages_in_use == 0 and eng.pages_highwater == 2
+        assert eng.pool["m"]["conv"].shape[1] == 3  # 2 pages + scratch
+
+
+@pytest.mark.parametrize("pool", ["dense", "paged"])
+def test_cuda_xlstm_spec_engine_matches_generate(cuda_device, pool):
+    """xlstm drafting for xlstm on the card (the paged pool shared by
+    target and draft, 3 pages for 2 slots): tokens equal ``generate``'s;
+    the model drafting for itself accepts every proposal, a nudged copy
+    some but not all."""
+    cfg, params = _xlstm_smoke(cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+
+    def nudge(t):
+        if isinstance(t, dict):
+            return {k: nudge(v) for k, v in t.items()}
+        return t + 1e-2 * torch.randn(t.shape, generator=gen,
+                                      device=cuda_device)
+    reqs = _xlstm_reqs(cfg, [(4, 16), (21, 12), (9, 14)], seed0=120)
+    want = _generate_on(cuda_device, cfg, params, reqs)
+    for draft in (params, nudge(params)):
+        eng = ContinuousBatchingEngine(
+            cfg, params, capacity=2, max_len=64, k=2, pool=pool,
+            pages=3 if pool == "paged" else None,
+            speculative=SpeculativeConfig(cfg, draft, d=3))
+        got = eng.run(reqs)
+        for uid in want:
+            np.testing.assert_array_equal(got[uid], want[uid])
+        assert eng.n_spec_proposed > 0 and eng.n_spec_fallbacks == 0
+        if draft is params:
+            assert eng.acceptance_rate == 1.0
+        else:
+            assert 0.0 < eng.acceptance_rate < 1.0
+        if pool == "paged":
+            assert eng.pages_in_use == 0
+
+
+@pytest.mark.parametrize("plens", [None, [512, 300]])
+def test_cuda_mlstm_chunkwise_matches_sequential_and_the_cpu(cuda_device,
+                                                            plens):
+    """xlstm-1.3b's mLSTM cell shape (4 heads of 1,024) over 512
+    positions in chunks of 256, with bucketed pads (row 1: its second
+    chunk holds pads only after position 300): the chunkwise form against
+    the stepped recurrence on the card (1e-4 of the largest entry) and
+    against the CPU's chunkwise form (F32_ATOL scaled the same way)."""
+    B, NH, S, dh = 2, 4, 512, 1024
+    g = torch.Generator().manual_seed(7)
+    q, k, v = (torch.randn((B, NH, S, dh), generator=g) for _ in range(3))
+    q = q * dh ** -0.5
+    log_i = torch.randn((B, NH, S), generator=g)
+    log_f = torch.nn.functional.logsigmoid(
+        3.0 + torch.randn((B, NH, S), generator=g))
+    if plens is not None:
+        valid = (torch.arange(S)[None] < torch.tensor(plens)[:, None])[
+            :, None]
+        log_i = torch.where(valid, log_i, float("-inf"))
+        log_f = torch.where(valid, log_f, 0.0)
+    ins = (q, k, v, log_i, log_f)
+    h_cpu, s_cpu = xlstm.mlstm_chunkwise(*ins, chunk=256)
+    dev_ins = [t.to(cuda_device) for t in ins]
+    h, st = xlstm.mlstm_chunkwise(*dev_ins, chunk=256)
+    h_seq, st_seq = xlstm.mlstm_sequential(*dev_ins)
+
+    def rel(a, b):
+        return float((a.cpu() - b.cpu()).abs().max()
+                     / b.abs().max().clamp_min(1.0).cpu())
+    assert rel(h, h_seq) <= 1e-4
+    assert rel(h, h_cpu) <= 1e-4
+    for a, b, c in zip(st, st_seq, s_cpu):
+        assert torch.isfinite(a).all()
+        assert rel(a, b) <= 1e-4 and rel(a, c) <= 1e-4
+
+
+def test_cuda_xlstm_growth_launches_the_sandwich_exactly(cuda_device):
+    """xlstm-1.3b-smoke grown into an 8 x 128 xlstm by rank-1 Mango on the
+    card: one sandwich a block group (m_blocks, s_blocks) a growth, and
+    the grown params equal the CPU's growth of the same weights and
+    operator (1e-5 of each leaf's largest entry)."""
+    from repro_torch.utils.pytree import tree_flatten_with_paths, tree_map
+
+    cfg_s = get_config("xlstm-1.3b-smoke")
+    cfg_t = cfg_s.replace(name="xlstm-smoke-big", n_layers=8, d_model=128,
+                          slstm_every=4)
+    small = xlstm.init(torch.Generator().manual_seed(0), cfg_s)
+    gop, op = growlib.build("mango", cfg_s, cfg_t, rank=1, device="cpu")
+    with torch.no_grad():
+        want = growlib.grow_params(gop, op, small)
+    gop_d, _ = growlib.build("mango", cfg_s, cfg_t, rank=1,
+                             device=cuda_device)
+    kern = ops.kernels()
+    for fn in kern.values():
+        fn.launches = 0
+    with torch.no_grad():
+        got = growlib.grow_params(
+            gop_d, tree_map(lambda t: t.to(cuda_device), op),
+            tree_map(lambda t: t.to(cuda_device), small))
+    torch.cuda.synchronize()
+    expect = {name: 0 for name in kern}
+    expect["tr_sandwich"] = 2
+    assert {name: fn.launches for name, fn in kern.items()} == expect
+    w = dict(tree_flatten_with_paths(want))
+    for path, t in tree_flatten_with_paths(got):
+        err = (t.cpu() - w[path]).abs().max() / w[path].abs().max().clamp_min(
+            1e-30)
+        assert float(err) <= 1e-5, path
+
+
+@pytest.mark.parametrize("pool", ["dense", "paged"])
+def test_cuda_xlstm_graphed_step_equals_the_eager_step(cuda_device, pool):
+    """The single-token step replayed from its CUDA graph against the same
+    step run eagerly, on two copies of an engine's pool mid-run (a done
+    row among the live ones; on the paged pool the conv tails go through
+    the block tables, the done row's to the scratch page): logits and
+    every pool leaf equal bit for bit, over several replays, with and
+    without the head."""
+    from repro_torch.utils.pytree import tree_leaves, tree_map
+
+    cfg, params = _xlstm_smoke(cuda_device)
+    eng = ContinuousBatchingEngine(cfg, params, capacity=3, max_len=64,
+                                   k=2, pool=pool,
+                                   pages=3 if pool == "paged" else None)
+    for r in _xlstm_reqs(cfg, [(9, 30), (21, 30), (5, 30)]):
+        eng.submit(r)
+    eng.step()
+    eager = tree_map(lambda t: t.clone(), eng.pool)
+    graphed = tree_map(lambda t: t.clone(), eng.pool)
+    done = torch.tensor([False, True, False], device=cuda_device)
+    nxt = torch.tensor([3, 4, 5], dtype=torch.int32, device=cuda_device)
+    try:
+        for i in range(4):
+            step = xlstm.decode_step_slots if i % 2 == 0 else \
+                xlstm._slot_state_step
+            xlstm.CUDA_GRAPHS = False
+            want, _ = step(params, nxt, nxt, eager, cfg, done=done)
+            xlstm.CUDA_GRAPHS = True
+            got, _ = step(params, nxt, nxt, graphed, cfg, done=done)
+            assert (got is None) == (want is None)
+            if got is not None:
+                assert torch.equal(got, want)
+            for a, b in zip(tree_leaves(graphed), tree_leaves(eager)):
+                assert torch.equal(a, b)
+    finally:
+        xlstm.CUDA_GRAPHS = True
+
+
+@pytest.mark.parametrize("plens", [None, [24, 9, 17]])
+def test_cuda_xlstm_graphed_slstm_loop_equals_the_eager_loop(cuda_device,
+                                                             plens):
+    """A 24-token prefill of 3 rows without grad, its sLSTM loop replayed
+    a position at a time from a CUDA graph, against the eager loop (with
+    and without bucketed pads): logits and every cache leaf bit for bit;
+    under grad the loop stays eager (the train step differentiates it)."""
+    from repro_torch.utils.pytree import tree_leaves
+
+    cfg, params = _xlstm_smoke(cuda_device)
+    toks = torch.from_numpy(lm_batch(cfg.vocab_size, 3, 24, seed=7)).to(
+        cuda_device)
+    lens = None if plens is None else torch.tensor(plens, device=cuda_device)
+    out = []
+    try:
+        for graph in (False, True):
+            xlstm.CUDA_GRAPHS = graph
+            cache = xlstm.init_cache(cfg, 3, 64, device=cuda_device)
+            with torch.no_grad():
+                logits, cache = xlstm.prefill_full(
+                    params, {"tokens": toks, "plens": lens}, cfg, cache)
+            out.append((logits, cache))
+    finally:
+        xlstm.CUDA_GRAPHS = True
+    (la, ca), (lb, cb) = out
+    assert torch.equal(la, lb)
+    for a, b in zip(tree_leaves(ca), tree_leaves(cb)):
+        assert torch.equal(a, b)
+    assert xlstm._SLSTM_GRAPHS

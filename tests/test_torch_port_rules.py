@@ -55,11 +55,13 @@ def test_port_tree_is_what_the_rule_walks():
                    "kernels/ops.py", "kernels/ref.py", "kernels/rglru_scan.py",
                    "kernels/build.py", "models/attention.py",
                    "models/transformer.py", "models/griffin.py",
-                   "models/rope.py", "models/common.py", "configs/archs.py",
+                   "models/rope.py", "models/common.py", "models/xlstm.py",
+                   "configs/archs.py",
                    "launch/serve.py", "launch/train.py",
                    "checkpoint/manager.py", "data/synthetic.py",
                    "examples/quickstart.py", "examples/grow_pipeline.py",
-                   "examples/train_100m.py"):
+                   "examples/train_100m.py", "examples/serve_continuous.py",
+                   "examples/serve_batched.py"):
         assert ROOT / "src/repro_torch" / module in PORT_FILES
 
 

@@ -134,6 +134,35 @@ def test_make_optimizer_equals_jax(kind):
     _close_trees(ts, js, **tol)
 
 
+@pytest.mark.parametrize("kind", ["clip+schedule", "bf16 moments+master"])
+def test_sliced_update_equals_the_whole_leaf_update(monkeypatch, kind):
+    """A leaf past ``SLICE_ELEMS`` updates a slice of its leading axis at
+    a time (the largest xlstm-1.3b leaves would otherwise hold several
+    2.8 GB temporaries): three updates equal the whole-leaf route bit for
+    bit, clipped and with bf16 moments and a master copy alike; 0-d and
+    1-d leaves update whole."""
+    kw = {"clip+schedule": dict(clip_norm=0.5),
+          "bf16 moments+master": dict(moment_dtype="bfloat16",
+                                      master_weights=True)}[kind]
+    params, grads = _opt_inputs(4)
+    runs = []
+    for limit in (adamw.SLICE_ELEMS, 7):
+        monkeypatch.setattr(adamw, "SLICE_ELEMS", limit)
+        init, upd = adamw.make_optimizer(
+            OptimizerConfig(lr=1e-2, **kw),
+            schedules.linear_warmup_cosine(1e-2, 2, 10))
+        tp = from_jax(params)
+        ts = init(tp)
+        for step, g in enumerate(grads, 1):
+            tp, ts, _ = upd(tp, ts, from_jax(g), step)
+        runs.append({"params": tp, "state": ts})
+    assert any(len(adamw._slices(t)) > 1
+               for _, t in tree_flatten_with_paths(runs[1]["params"]))
+    for (pa, a), (pb, b) in zip(tree_flatten_with_paths(runs[0]),
+                                tree_flatten_with_paths(runs[1])):
+        assert pa == pb and torch.equal(a, b), pa
+
+
 def test_bare_adamw_equals_jax():
     params, grads = _opt_inputs(3)
     jp, js = params, jadamw.adamw_init(params)
