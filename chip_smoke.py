@@ -9,7 +9,9 @@ gpt-small grown live into gpt-base under traffic, and crash recovery;
 griffin speculation; the fault layer; griffin growth, and
 recurrentgemma-2b trained at full width; qwen3-0.6b with a sliding window
 served from ring caches on every route; xlstm-1.3b served dense, paged and
-speculative, grown into and trained at full width.
+speculative, grown into and trained at full width; phi3.5-moe-42b (mixture
+of experts) at full width, cut in depth, served at two capacity factors,
+grown into and trained.
 
     python3 chip_smoke.py [--out report.json]
 
@@ -47,11 +49,11 @@ printed as it goes; a failed phase raises, so the exit code is not 0:
                 64..512 prompt tokens and 64 new tokens each.  Both kernels'
                 launch counters must move, each ``generate`` call must
                 launch decode_attention exactly 12 x 63 times (and the
-                engine never), and every request's tokens,
-                from the engine and from ``generate``, must equal the plain
-                route's (a full forward per step, which runs no kernel of
-                the port) except where its top-2 logit gap is below 1e-4
-                (an f32 near tie, reported).
+                engine never), and the first 4 requests' tokens, from the
+                engine and from ``generate``, must equal the plain route's
+                (a full forward per step, which runs no kernel of the
+                port) except where its top-2 logit gap is below 1e-4 (an
+                f32 near tie, reported).
   5. grow    -- the paper's loop at full width: pretrain gpt-small (12 x
                 512), train the rank-1 Mango operator into gpt-base (Eq. 7;
                 the sandwich kernel must launch every step), grow and hold
@@ -73,8 +75,9 @@ printed as it goes; a failed phase raises, so the exit code is not 0:
                 the dense pool's 128), capacity 8, max_len 1024 (page 64),
                 K 8: 16 requests of 64 new tokens, 12 opening with one
                 256-token prefix, beside the dense pool (dense, paged,
-                paged, dense): tokens == the plain route and the dense
-                engine (near ties reported), prefix hits, admissions that
+                paged, dense): tokens == the dense engine, and the first
+                4 requests' == the plain route (near ties reported),
+                prefix hits, admissions that
                 waited for pages, exact launches of the paged slot kernel
                 (one per layer per decode step, the dense one never), no
                 page left in use; a traced run of the last 8 requests
@@ -92,8 +95,9 @@ printed as it goes; a failed phase raises, so the exit code is not 0:
                 4096, K 8, 16 requests of 64 new tokens, prompts of 64..512,
                 1990..2040 (rings wrap in decode) and 2100..2600 tokens
                 (rings filled at admission).  Tokens from the engine (its
-                first 8 requests, every kind of prompt among them) and
-                from ``generate`` (its first 4 requests) == the plain route
+                first 3 requests and the shortest of its first 8, every
+                kind of prompt among them) and from ``generate`` (its
+                first 2 requests) == the plain route
                 (``griffin.prefill`` with the scan's plain version, then
                 ``decode_step``, a request at a time, no kernel) up to
                 reported near ties; for the request of the shortest
@@ -105,7 +109,9 @@ printed as it goes; a failed phase raises, so the exit code is not 0:
  10. griffin paged -- phase 9's model and its first 8 requests from a
                 160-page arena (5/8 of the dense rings' 256) beside the
                 dense pool: tokens
-                == the plain route and the dense engine, exact launches of
+                == the plain route (phase 9's dense engine exactly where
+                it has none, ``griffin_reference``) and the dense engine,
+                exact launches of
                 the paged ring kernel (the dense one never), the refused
                 admissions, prefill groups, macro-steps and pages
                 high-water as a CPU run of the same schedule (1-layer
@@ -178,7 +184,7 @@ printed as it goes; a failed phase raises, so the exit code is not 0:
                 tokens in two runs; device ops per decode step of two
                 device-only traced runs, sampled and greedy.
  14. upgrade -- phase 5's pretrained gpt-small served (capacity 8, max_len
-                512, K 8, prefill bucket 16; 16 requests of 64 new tokens,
+                512, K 8, prefill bucket 64; 16 requests of 64 new tokens,
                 prompts of 64..384 tokens from the 1024-id chain) and grown
                 LIVE into gpt-base (rank-1 Mango, noise 0) with gpt-small
                 drafting after the swap (d 4): first growing on a
@@ -282,6 +288,39 @@ printed as it goes; a failed phase raises, so the exit code is not 0:
                 against the f32 FLOP bound and peak memory.  Tok/s,
                 acceptance and memory beside the card's name and power
                 limit.
+ 19. phi     -- phi3.5-moe-42b at full width (d_model 4,096, 32 heads
+                over 8 KV heads of 128, 16 experts of 6,400 at top 2,
+                vocab 32,064; f32, seeded weights) cut to 4 of 32 layers
+                (5,463,904,256 params), 8 requests of 64..448 prompt tokens
+                and 64 new each, capacity 8, max_len 512, K 8, buckets of
+                16 (a whole sequence is one dispatch group): (a) at the
+                published capacity factor 1.25, where prefills drop
+                choices (counted), the dense pool and a 32-page pool, in
+                f32 and in bf16 (weights cast): paged == dense, a
+                disagreement decided by the same route replayed with
+                plain attention (bf16: the limits are twice the logit
+                and router-gap differences of that bf16 replay and the
+                kernels' one, the arithmetic dense and paged differ in);
+                (b) at
+                capacity factor 8.0 = E / K, where nothing can drop: the
+                dense pool, the 32-page pool with 4 requests opening on
+                the same 256 tokens (hits, misses, refusals, prefills,
+                macro-steps, tail steps and the pages high-water as a
+                CPU run of the schedule predicts), a copy nudged by 1e-3
+                of each leaf's std drafting (d 4, K 2) on both pools
+                (acceptance strictly inside (0, 1)), and ``generate`` at
+                B 1 on the first 2: all == the dense run, and the first 2
+                == the plain route (a full forward a token), near ties
+                (a top-2 logit gap below 1e-4 or a router top-K boundary
+                gap below 1e-5, at or before the step) reported; exact
+                launches of the six attention kernels throughout, 0
+                pages in use; (c) phi3.5-moe-42b-smoke grown into a 4 x
+                128 MoE by rank-1 Mango after 5 operator steps (the
+                sandwich over the ``"expert"`` slots launched exactly as
+                a CPU run counts, the plain route's params, the held-out
+                margin); (d) phi3.5-moe-42b cut to 2 layers trained 2
+                AdamW steps at B 1 x S 256: loss, moe_aux, ms/step
+                against the bound, peak memory.
 
 Phase 3 also holds the scan's backward kernel against autograd through the
 scan's plain version (recurrentgemma-2b's training shape, f32 and bf16,
@@ -296,13 +335,15 @@ the bf16 plain route's error.
 Each traced run prints the device time of each of the port's kernels.
 Each path's launch counters are set to 0 just before it runs and read just
 after; a kernel of the path that was never launched fails the run.  The
-line before the last is the kernels JSON; the last line is
+line before the last is the kernels JSON (``launches_p19``: phase 19's
+launches of each kernel it runs); the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
 beside this file, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import subprocess
@@ -329,6 +370,14 @@ NEAR_TIE = 1e-4  # top-2 logit gap below which f32 routes may disagree
 
 def phase(name):
     print(f"== {name}", flush=True)
+
+
+def _sync():
+    """Wait for the card where there is one (a CPU rehearsal has none)."""
+    import torch
+
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
 
 
 def time_ms(fn, iters, warmup=3):
@@ -1678,8 +1727,6 @@ def timed_run(eng, reqs):
     pages); fails if a request is missing or was rejected."""
     import dataclasses
 
-    import torch
-
     waits = []  # admissions refused for want of pages (backpressure)
     alloc = eng._alloc_request
 
@@ -1688,11 +1735,11 @@ def timed_run(eng, reqs):
         waits.append(info is None)
         return info
     eng._alloc_request = counted
-    torch.cuda.synchronize()
+    _sync()
     t0 = time.perf_counter()
     try:
         out = eng.run([dataclasses.replace(r) for r in reqs])
-        torch.cuda.synchronize()
+        _sync()
     finally:
         # the wrapper holds the engine: drop it, so the engine (and its
         # pool) is freed with the caller's last reference
@@ -1712,7 +1759,8 @@ def plain_greedy(cfg, params, prompt, n):
 
     from repro_torch.models import transformer
 
-    seq = torch.tensor(prompt, dtype=torch.int32, device="cuda")[None]
+    seq = torch.tensor(prompt, dtype=torch.int32,
+                       device=next(_leaves(params)).device)[None]
     toks, gaps = [], []
     for _ in range(n):
         logits, _ = transformer.forward(params, {"tokens": seq}, cfg)
@@ -1744,6 +1792,12 @@ def check_against_plain(what, uid, got, want, gaps):
     print(f"near tie: uid {uid} {what} diverges at step {t}, plain top-2 "
           f"gap {gap:.3g}", flush=True)
     return (uid, t, gap)
+
+
+# phase 4 holds the engine's and generate's tokens of its first 4 requests
+# against the plain route (all 16 until PR 29, cut to make room for phase
+# 19; phase 7 holds its own dense and paged engines on 16 requests)
+SERVE_PLAIN_REQS = 4
 
 
 def run_serve(kernel_rows):
@@ -1810,7 +1864,8 @@ def run_serve(kernel_rows):
     # in it (asserted through the launch counters)
     before = {name: fn.launches for name, fn in kern.items()}
     t0 = time.perf_counter()
-    plain = {r.uid: plain_greedy(cfg, params, r.prompt, 64) for r in reqs}
+    plain = {r.uid: plain_greedy(cfg, params, r.prompt, 64)
+             for r in reqs[:SERVE_PLAIN_REQS]}
     plain_s = time.perf_counter() - t0
     if {name: fn.launches for name, fn in kern.items()} != before:
         raise AssertionError("the plain reference launched a CUDA kernel")
@@ -1820,6 +1875,8 @@ def run_serve(kernel_rows):
         got = out[r.uid]
         if got.shape != (64,) or got.min() < 0 or got.max() >= cfg.vocab_size:
             raise AssertionError(f"uid {r.uid}: bad output {got}")
+        if r.uid not in plain:
+            continue
         for fn in kern.values():
             fn.launches = 0
         gen = generate(cfg, params, torch.from_numpy(r.prompt)[None].cuda(),
@@ -1838,10 +1895,11 @@ def run_serve(kernel_rows):
             tie = check_against_plain(what, r.uid, toks, *plain[r.uid])
             if tie is not None:
                 near_ties[what].append(tie)
-    exact = {what: len(reqs) - len(t) for what, t in near_ties.items()}
+    exact = {what: len(plain) - len(t) for what, t in near_ties.items()}
     print(f"tokens == plain route (full forward, no kernel; {plain_s:.1f} s) "
-          f"for {exact['engine']}/{len(reqs)} requests from the engine and "
-          f"{exact['generate']}/{len(reqs)} from generate; near-tie "
+          f"for {exact['engine']}/{len(plain)} requests from the engine (of "
+          f"{len(reqs)}) and {exact['generate']}/{len(plain)} from generate; "
+          f"near-tie "
           f"divergences: {near_ties}; decode_attention launches per "
           f"generate call {sorted(set(gen_launches))} (12 x 63)", flush=True)
     report = dict(tok_per_s=n_tok / dt, seconds=dt, tokens=n_tok,
@@ -2371,6 +2429,11 @@ def run_speculative(kernel_rows, small, big):
 
 
 PAGED_PAGES = 48  # phase 7's arena: 3/8 of the dense pool's 128 pages
+# phase 7 holds its dense and paged engines' tokens of its first 4 requests
+# against the plain route (all 16 until PR 29, cut to make room for phase
+# 19); paged == dense for all 16, exactly unless the plain route, run for
+# a request where they differ, finds a near tie
+PAGED_PLAIN_REQS = 4
 SPEC_PAGES = 64  # phase 8's arena, shared by target and draft
 
 
@@ -2513,14 +2576,18 @@ def run_paged_serve(kernel_rows):
           f"launches {launches}", flush=True)
 
     before = {name: fn.launches for name, fn in kern.items()}
-    plain = {r.uid: plain_greedy(cfg, params, r.prompt, 64) for r in reqs}
-    if {name: fn.launches for name, fn in kern.items()} != before:
-        raise AssertionError("the plain reference launched a CUDA kernel")
+    plain = {r.uid: plain_greedy(cfg, params, r.prompt, 64)
+             for r in reqs[:PAGED_PLAIN_REQS]}
     ties = {"paged": [], "dense": [], "paged vs dense": []}
     for r in reqs:
         for what, toks in (("paged", out[r.uid]), ("dense", dense_a[r.uid])):
             if toks.shape != (64,):
                 raise AssertionError(f"uid {r.uid}: bad {what} output {toks}")
+        if r.uid not in plain and (out[r.uid] != dense_a[r.uid]).any():
+            plain[r.uid] = plain_greedy(cfg, params, r.prompt, 64)
+        if r.uid not in plain:
+            continue  # paged == dense exactly
+        for what, toks in (("paged", out[r.uid]), ("dense", dense_a[r.uid])):
             tie = check_against_plain(what, r.uid, toks, *plain[r.uid])
             if tie is not None:
                 ties[what].append(tie)
@@ -2528,11 +2595,14 @@ def run_paged_serve(kernel_rows):
                                 dense_a[r.uid], plain[r.uid][1])
         if tie is not None:
             ties["paged vs dense"].append(tie)
+    if {name: fn.launches for name, fn in kern.items()} != before:
+        raise AssertionError("the plain reference launched a CUDA kernel")
     report["near_ties"] = ties
-    print(f"tokens == plain route for {len(reqs) - len(ties['paged'])}/"
-          f"{len(reqs)} requests (paged), "
-          f"{len(reqs) - len(ties['dense'])}/{len(reqs)} (dense); paged == "
-          f"dense for {len(reqs) - len(ties['paged vs dense'])}/{len(reqs)}; "
+    print(f"tokens == plain route for {len(plain) - len(ties['paged'])}/"
+          f"{len(plain)} requests (paged), "
+          f"{len(plain) - len(ties['dense'])}/{len(plain)} (dense) (of "
+          f"{len(reqs)}); paged == dense for "
+          f"{len(reqs) - len(ties['paged vs dense'])}/{len(reqs)}; "
           f"near ties {ties}", flush=True)
     # the port's one breakdown of host time by engine stage, on the last 8
     # requests (2 prefix hits, 10 of the 27 macro-steps, as a CPU run of
@@ -2646,10 +2716,10 @@ def run_paged_speculative(kernel_rows, small, big, reqs, plain):
 
 
 GRIFFIN_PAGES = 160  # phase 10's arena: 5/8 of the dense rings' 256 pages
-# phase 9 holds ``generate`` of the first 4 of its 16 requests against the
-# plain route (16 until PR 24, 8 until PR 25, cut to make room for phases
-# 14, 10b and 15)
-GRIFFIN_GENERATE_REQS = 4
+# phase 9 holds ``generate`` of the first 2 of its 16 requests against the
+# plain route (cut from all 16 to make room for later phases; the first 2
+# are one prompt past the window and one that wraps in decode)
+GRIFFIN_GENERATE_REQS = 2
 # phase 9 also holds its request of the shortest prompt against the
 # scalar route (``decode_step`` over the prompt: every prompt token a
 # step, so its cost grows with the longest prompt it takes; 2 until PR 28,
@@ -2658,11 +2728,16 @@ GRIFFIN_SCALAR_REQS = 1
 # phase 10 serves the first 8 of them (16 until PR 24, cut for the same
 # reason; at 160 pages 9 of their admissions still wait for pages)
 GRIFFIN_PAGED_REQS = 8
-# phase 9 holds the engine's tokens of those first 8 against the plain
-# route (all 16 until PR 28, cut to make room for phase 18; the 8 hold
-# each kind of prompt: 3 past the window, 2 that wrap during decode and
-# 3 short ones); the other 8 are checked for shape and range
-GRIFFIN_PLAIN_REQS = GRIFFIN_PAGED_REQS
+# phase 9 holds the engine's tokens of its first 3 requests, of the
+# shortest of the first 8 (the scalar route's) and of the first later one
+# among those 8 whose ring wraps during decode against the plain route
+# (cut from all 16 to make room for later phases; the 5 hold each kind of
+# prompt: 2,558 tokens past the window, 2,024 and 2,020 wrapping during
+# decode, 495 and 192 short); the rest must equal phase 9's dense engine
+# exactly in phases 10 and 10b unless the plain route, run for them then,
+# finds a near tie (``griffin_reference``), and are checked for shape and
+# range here
+GRIFFIN_PLAIN_REQS = 3
 EMBED_SCALE = 0.05  # phase 9's tied embedding, scaled down (see below)
 
 
@@ -2740,6 +2815,23 @@ def griffin_plain_route(cfg, params, reqs, n_new):
     finally:
         ops.rglru_scan = scan
     return out
+
+
+def griffin_reference(model, r, *outs):
+    """What phases 10 and 10b hold request ``r``'s tokens ``outs`` to:
+    phase 9's plain route where it ran; elsewhere phase 9's dense engine
+    tokens exactly (no near tie), unless one of ``outs`` disagrees with
+    them: then the plain route runs for ``r`` (kept in ``model`` for later
+    phases) and decides up to near ties.  Returns (tokens, gaps)."""
+    import numpy as np
+
+    cfg, params, _, plain, dense_out = model
+    if r.uid not in plain and any((t != dense_out[r.uid]).any()
+                                  for t in outs):
+        plain.update(griffin_plain_route(cfg, params, [r], 64))
+    if r.uid in plain:
+        return plain[r.uid]
+    return dense_out[r.uid], np.full(64, np.inf)
 
 
 def griffin_scalar_route(cfg, params, reqs, n_new):
@@ -2846,11 +2938,14 @@ def run_griffin_serve(kernel_rows):
           f"MiB held); kernel launches {launches}", flush=True)
 
     before = {name: fn.launches for name, fn in kern.items()}
-    t0 = time.perf_counter()
-    plain = griffin_plain_route(cfg, params, reqs[:GRIFFIN_PLAIN_REQS], 64)
-    plain_s = time.perf_counter() - t0
-    short = sorted(reqs[:GRIFFIN_PLAIN_REQS],
+    short = sorted(reqs[:GRIFFIN_PAGED_REQS],
                    key=lambda r: len(r.prompt))[:GRIFFIN_SCALAR_REQS]
+    t0 = time.perf_counter()
+    wraps = [r for r in reqs[GRIFFIN_PLAIN_REQS:GRIFFIN_PAGED_REQS]
+             if len(r.prompt) < cfg.window <= len(r.prompt) + 64][:1]
+    plain = griffin_plain_route(cfg, params, reqs[:GRIFFIN_PLAIN_REQS] + [
+        r for r in short if r.uid >= GRIFFIN_PLAIN_REQS] + wraps, 64)
+    plain_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     scalar = griffin_scalar_route(cfg, params, short, 64)
     scalar_s = time.perf_counter() - t0
@@ -3044,7 +3139,7 @@ def run_griffin_paged(kernel_rows, model):
     from repro_torch.models import griffin
     from repro_torch.serve import ContinuousBatchingEngine, Request
 
-    cfg, params, reqs, plain, dense_out = model
+    cfg, params, reqs, _, dense_out = model
     reqs = reqs[:GRIFFIN_PAGED_REQS]
     pat = griffin.block_pattern(cfg)
     n_rec, n_attn = pat.count("rec"), pat.count("attn")
@@ -3117,14 +3212,15 @@ def run_griffin_paged(kernel_rows, model):
         for what, toks in (("paged", out[r.uid]), ("dense", dense_a[r.uid])):
             if toks.shape != (64,):
                 raise AssertionError(f"uid {r.uid}: bad {what} output {toks}")
-            tie = check_against_plain(what, r.uid, toks, *plain[r.uid])
+        ref = griffin_reference(model, r, out[r.uid], dense_a[r.uid])
+        for what, toks in (("paged", out[r.uid]), ("dense", dense_a[r.uid])):
+            tie = check_against_plain(what, r.uid, toks, *ref)
             if tie is not None:
                 ties[what].append(tie)
         for what, a, b in (("paged and dense engines", out, dense_a),
                            ("dense engines of phases 9 and 10", dense_a,
                             dense_out)):
-            tie = check_same_tokens(what, r.uid, a[r.uid], b[r.uid],
-                                    plain[r.uid][1])
+            tie = check_same_tokens(what, r.uid, a[r.uid], b[r.uid], ref[1])
             if tie is not None:
                 ties["paged vs dense" if a is out
                      else "dense vs phase 9"].append(tie)
@@ -3143,9 +3239,10 @@ def run_griffin_paged(kernel_rows, model):
           f"groups); peak memory {(peak - held) / 2**20:.1f} MiB paged vs "
           f"{(peak_dense - held) / 2**20:.1f} MiB dense above the "
           f"{held / 2**20:.1f} MiB held; kernel launches {launches}; tokens "
-          f"== plain route for {len(reqs) - len(ties['paged'])}/{len(reqs)} "
-          f"(paged), {len(reqs) - len(ties['dense'])}/{len(reqs)} (dense); "
-          f"near ties {ties}", flush=True)
+          f"== plain route (or phase 9's dense engine: griffin_reference) "
+          f"for {len(reqs) - len(ties['paged'])}/{len(reqs)} (paged), "
+          f"{len(reqs) - len(ties['dense'])}/{len(reqs)} (dense); near ties "
+          f"{ties}", flush=True)
     return report
 
 
@@ -3193,7 +3290,7 @@ def run_griffin_spec(model, paged_report):
     from repro_torch.models import griffin
     from repro_torch.serve import ContinuousBatchingEngine, SpeculativeConfig
 
-    cfg, params, reqs, plain, _ = model
+    cfg, params, reqs, _, _ = model
     reqs = reqs[:GRIFFIN_PAGED_REQS]
     pat = griffin.block_pattern(cfg)
     n_rec, n_attn = pat.count("rec"), pat.count("attn")
@@ -3239,8 +3336,9 @@ def run_griffin_spec(model, paged_report):
             for r in reqs:
                 if out[r.uid].shape != (64,):
                     raise AssertionError(f"uid {r.uid}: {out[r.uid]}")
-                tie = check_against_plain(f"griffin spec {label} {pool}",
-                                          r.uid, out[r.uid], *plain[r.uid])
+                tie = check_against_plain(
+                    f"griffin spec {label} {pool}", r.uid, out[r.uid],
+                    *griffin_reference(model, r, out[r.uid]))
                 if tie is not None:
                     ties.append((label, pool) + tie)
             n_tok = sum(len(v) for v in out.values())
@@ -3652,6 +3750,9 @@ DEIT_SRC, DEIT_TGT = "deit-s", "deit-b"  # phase 12's pair, full width
 DEIT_CLASSES = 16  # phase 12's labels: the first 16 of DeiT's 1000 classes
 DEIT_BATCH = 32
 DEIT_PRETRAIN, DEIT_OP_STEPS = 40, 10
+# the launcher's operator steps in phase 12 (its default is 50; 10 keep
+# the phase short: each step makes a 32-image batch on the host, ~0.22 s)
+DEIT_LAUNCHER_OP_STEPS = 10
 CKPT_ROOT = ROOT / "build" / "chip_ckpt"
 
 
@@ -3911,6 +4012,7 @@ def run_deit(kernel_rows, device="cuda"):
             _, hist = launch_train.train(
                 DEIT_TGT, ckpt_dir=str(ckpt), ckpt_every=3, steps=6,
                 batch=DEIT_BATCH, log_every=1, device=device,
+                grow_steps=DEIT_LAUNCHER_OP_STEPS,
                 log_fn=lambda msg, _l=logs: (_l.append(msg),
                                              print(msg, flush=True)), **kw)
             runs[run] = dict(seconds=time.perf_counter() - t0, logs=logs,
@@ -4222,6 +4324,10 @@ UPGRADE_K, UPGRADE_D = 8, 4  # phase 14: macro-step, post-swap draft depth
 # model grows, at most this many; a growth that outlives them swaps at the
 # boundary after the last one
 UPGRADE_WAVES = 10
+# phase 14's prefill buckets: the swap's prewarm admits every (group size,
+# bucket) shape, 4 x 8 = 32 at buckets of 64 (4 x 32 = 128 at buckets of
+# 16 took 29.8-41.0 s of prewarm in the background run alone on an H100)
+UPGRADE_BUCKET = 64
 
 
 def upgrade_requests(uid0=0):
@@ -4320,7 +4426,7 @@ def run_upgrade(small):
     def engine(pool):
         return ContinuousBatchingEngine(
             cfg_s, small, capacity=8, max_len=512, k=UPGRADE_K,
-            prefill_bucket=16, pool=pool,
+            prefill_bucket=UPGRADE_BUCKET, pool=pool,
             pages=PAGED_PAGES if pool == "paged" else None)
 
     def manager(eng, background):
@@ -5943,7 +6049,12 @@ def run_xlstm(kernel_rows, smi, cfg=None, dev="cuda"):
     report["near_ties"] = ties
 
     # (e) growth into an xlstm, then (f) training at full width
-    report["grow"] = run_xlstm_grow(kernel_rows, dev)
+    cfg_s = get_config("xlstm-1.3b-smoke")
+    report["grow"] = run_small_growth(
+        kernel_rows, "xlstm", cfg_s,
+        cfg_s.replace(name="xlstm-smoke-big", n_layers=8, d_model=128,
+                      slstm_every=4), "launches_18e", XL_GROW_PRE,
+        XL_GROW_OP, XL_GROW_SEQ, dev)
     report["train"] = run_xlstm_train(cfg, params, kern, dev)
     del params
     report["seconds"] = time.perf_counter() - t_phase
@@ -5969,20 +6080,20 @@ def _count_sandwich_calls(fn):
     return out, calls[0]
 
 
-def run_xlstm_grow(kernel_rows, dev="cuda"):
-    """Phase 18e: xlstm-1.3b-smoke (4 x 64) pretrained XL_GROW_PRE steps
-    (no kernel launches), grown into an 8 x 128 xlstm with an sLSTM block
-    every 4 (the pair the reference grows) by rank-1 Mango after
-    XL_GROW_OP operator steps.  The sandwich must launch exactly as often
-    as a CPU run of one growth counts its calls, times the growths (one an
-    operator step, one more for ``grow_params``); the grown params equal
-    the plain version's route (the sandwich swapped for its plain version)
-    within 1e-5 of each leaf's largest entry; the held-out margin scratch
-    - grown is printed."""
+def run_small_growth(kernel_rows, label, cfg_s, cfg_t, row_key, n_pre, n_op,
+                     seq, dev="cuda"):
+    """Phases 18e and 19c: ``cfg_s`` pretrained ``n_pre`` steps at B 8 x
+    ``seq`` (no kernel launches), grown into ``cfg_t`` by rank-1 Mango
+    after ``n_op`` operator steps.  The sandwich must launch exactly as
+    often as a CPU run of one growth counts its calls, times the growths
+    (one an operator step, one more for ``grow_params``); the grown params
+    equal the plain version's route (the sandwich swapped for its plain
+    version) within 1e-5 of each leaf's largest entry; the held-out margin
+    scratch - grown is printed.  The sandwich's launches go to
+    ``kernel_rows["tr_sandwich"][row_key]``."""
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.core import grow as growlib
     from repro_torch.data import lm_data_iter
     from repro_torch.kernels import ops, ref
@@ -5993,9 +6104,6 @@ def run_xlstm_grow(kernel_rows, dev="cuda"):
     from repro_torch.utils.pytree import tree_flatten_with_paths
 
     kern = ops.kernels()
-    cfg_s = get_config("xlstm-1.3b-smoke")
-    cfg_t = cfg_s.replace(name="xlstm-smoke-big", n_layers=8, d_model=128,
-                          slstm_every=4)
     fam_s, fam_t = get_family(cfg_s), get_family(cfg_t)
 
     def on(b):
@@ -6016,15 +6124,15 @@ def run_xlstm_grow(kernel_rows, dev="cuda"):
     opt = OptimizerConfig(lr=3e-3)
     init_fn, _ = make_optimizer(opt)
     state, step = init_fn(small), make_train_step(cfg_s, opt)
-    data = lm_data_iter(cfg_s.vocab_size, 8, XL_GROW_SEQ, seed=0)
+    data = lm_data_iter(cfg_s.vocab_size, 8, seq, seed=0)
     pre = []
-    for i in range(XL_GROW_PRE):
+    for i in range(n_pre):
         small, state, m = step(small, state, on(next(data)), i + 1)
-        if i in (0, XL_GROW_PRE - 1):
+        if i in (0, n_pre - 1):
             pre.append(float(m["loss"]))
     pre_s = time.perf_counter() - t0
     if _launch_counts(kern, zero=True) != {name: 0 for name in kern}:
-        raise AssertionError("xlstm pretraining launched a kernel")
+        raise AssertionError(f"{label} pretraining launched a kernel")
     lf = loss_for(cfg_t)
 
     def op_loss(big, b):
@@ -6034,19 +6142,19 @@ def run_xlstm_grow(kernel_rows, dev="cuda"):
     t0 = time.perf_counter()
     gop, op = growlib.build("mango", cfg_s, cfg_t, rank=1, device=dev)
     op, op_losses = growlib.train_operator(
-        gop, op, small, op_loss, lm_data_iter(cfg_t.vocab_size, 8,
-                                              XL_GROW_SEQ, seed=3),
-        steps=XL_GROW_OP, lr=2e-3)
+        gop, op, small, op_loss, lm_data_iter(cfg_t.vocab_size, 8, seq,
+                                              seed=3),
+        steps=n_op, lr=2e-3)
     with torch.no_grad():
         big = growlib.grow_params(gop, op, small)
-    torch.cuda.synchronize()
+    _sync()
     op_s = time.perf_counter() - t0
     launches = _launch_counts(kern, zero=True)
     want = {name: 0 for name in kern}
     if dev == "cuda":  # a wrapper counts its kernel's launches only
-        want["tr_sandwich"] = per_growth * (XL_GROW_OP + 1)
+        want["tr_sandwich"] = per_growth * (n_op + 1)
     if launches != want:
-        raise AssertionError(f"xlstm growth ({XL_GROW_OP} operator steps, "
+        raise AssertionError(f"{label} growth ({n_op} operator steps, "
                              f"{per_growth} sandwiches a growth on the CPU) "
                              f"launched {launches}, expected {want}")
     # the plain version's route on the same operator
@@ -6063,23 +6171,23 @@ def run_xlstm_grow(kernel_rows, dev="cuda"):
     rel = max(float((t - pw[p]).abs().max() / pw[p].abs().max().clamp_min(
         1e-30)) for p, t in tree_flatten_with_paths(big))
     if not rel <= 1e-5:
-        raise AssertionError(f"grown xlstm params disagree with the plain "
+        raise AssertionError(f"grown {label} params disagree with the plain "
                              f"route: {rel:.3g} of a leaf's largest entry")
     scratch = fam_t.init(torch.Generator(device=dev).manual_seed(99), cfg_t)
     ev = make_eval_step(cfg_t)
-    held = on(next(lm_data_iter(cfg_t.vocab_size, 8, XL_GROW_SEQ,
-                                seed=50)))
+    held = on(next(lm_data_iter(cfg_t.vocab_size, 8, seq, seed=50)))
     l_grown = float(ev(big, held)["loss"])
     l_scratch = float(ev(scratch, held)["loss"])
     if not (np.isfinite(l_grown) and np.isfinite(l_scratch)):
-        raise AssertionError("xlstm growth gave a non-finite loss")
-    kernel_rows["tr_sandwich"]["launches_18e"] = launches["tr_sandwich"]
-    print(f"xlstm-1.3b-smoke pretrained {XL_GROW_PRE} steps ({pre[0]:.4f} "
-          f"-> {pre[1]:.4f}, {pre_s:.1f} s, no kernel); Mango operator into "
-          f"8 x 128 {XL_GROW_OP} steps ({op_losses[0]:.4f} -> "
-          f"{op_losses[-1]:.4f}, {op_s:.1f} s; launches {launches}: "
-          f"{per_growth} sandwiches a growth as the CPU counts, x "
-          f"{XL_GROW_OP + 1}); grown vs the plain route {rel:.3g} of a "
+        raise AssertionError(f"{label} growth gave a non-finite loss")
+    kernel_rows["tr_sandwich"][row_key] = launches["tr_sandwich"]
+    print(f"{cfg_s.name} pretrained {n_pre} steps ({pre[0]:.4f} -> "
+          f"{pre[1]:.4f}, {pre_s:.1f} s, no kernel); Mango operator into "
+          f"{cfg_t.n_layers} x {cfg_t.d_model} {n_op} steps "
+          f"({op_losses[0]:.4f} -> {op_losses[-1]:.4f}, {op_s:.1f} s; "
+          f"launches {launches}: {per_growth} sandwiches a growth as the "
+          f"CPU counts, x {n_op + 1}); grown vs the plain route {rel:.3g} "
+          f"of a "
           f"leaf's largest entry (limit 1e-5); held-out loss grown "
           f"{l_grown:.4f} vs scratch {l_scratch:.4f} (margin "
           f"{l_scratch - l_grown:.4f})", flush=True)
@@ -6141,6 +6249,762 @@ def run_xlstm_train(cfg, params, kern, dev="cuda"):
     del state
     return dict(ms_per_step=ms, bound_ms=b_ms, bound_by=b_by, flops=flops,
                 peak_gib=peak / 2**30, metrics=metrics)
+
+
+PHI_ARCH = "phi3.5-moe-42b"
+PHI_LAYERS = 4  # of 32: phase 19 cuts depth, never width
+PHI_N_PARAMS = {4: 5_463_904_256, 2: 2_863_288_320}  # eval_shape, by depth
+PHI_SPREAD_TOKENS = 256  # phi_spread's prompt
+
+
+def phi_model(layers=PHI_LAYERS, dev="cuda", **overrides):
+    """phi3.5-moe-42b at full width (d_model 4,096, 32 heads over 8 KV
+    heads of 128, 16 experts of 6,400 at top 2, vocab 32,064) cut to
+    ``layers`` layers, in f32, weights from a torch.Generator seeded 0 on
+    ``dev`` at the init's std (0.02): unlike qwen3-0.6b's (``qwen_model``)
+    they need no scaling, as ``phi_spread`` shows (PERF.md section 4).
+    ``overrides`` replace config fields (the capacity factor)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import build_params
+
+    cfg = get_config(PHI_ARCH).replace(
+        n_layers=layers, param_dtype="float32", compute_dtype="float32",
+        **overrides)
+    return cfg, build_params(cfg, seed=0, device=dev)
+
+
+@contextlib.contextmanager
+def router_gaps(log):
+    """Inside the block every ``moe.router`` call also appends the (B, S)
+    top-K boundary gap of its f32 scores (the K-th largest score minus
+    the next) to ``log``: how near each token's expert choice is to a
+    flip."""
+    import torch
+
+    from repro_torch.models import moe
+
+    orig = moe.router
+
+    def recorded(x, w_router, *, top_k=2, score="softmax"):
+        logits = x.float() @ w_router.float()
+        s = (torch.softmax(logits, -1) if score == "softmax"
+             else torch.sigmoid(logits))
+        top = s.topk(top_k + 1, dim=-1).values
+        log.append(top[..., top_k - 1] - top[..., top_k])
+        return orig(x, w_router, top_k=top_k, score=score)
+
+    moe.router = recorded
+    try:
+        yield log
+    finally:
+        moe.router = orig
+
+
+@contextlib.contextmanager
+def counting_drops(cfg):
+    """Count the routed expert choices and the dropped ones of every
+    ``moe_mlp`` call of ``cfg`` inside the block: yields a dict whose
+    ``"choices"`` and ``"dropped"`` are filled in when the block ends.
+    Each ``moe.expert_positions`` call (which only ``moe_mlp`` makes on a
+    model's routes) appends two device counts, its choices and those at a
+    position past ``moe.group_capacity``; the block's end reads them with
+    one host sync."""
+    import torch
+
+    from repro_torch.models import moe
+
+    orig, log = moe.expert_positions, []
+    counts = {"choices": 0, "dropped": 0}
+
+    def counted(idx, n_experts):
+        pos = orig(idx, n_experts)
+        log.append((pos.numel(),
+                    (pos >= moe.group_capacity(idx.shape[1], cfg)).sum()))
+        return pos
+
+    moe.expert_positions = counted
+    try:
+        yield counts
+    finally:
+        moe.expert_positions = orig
+        if log:
+            counts["choices"] = sum(n for n, _ in log)
+            counts["dropped"] = int(torch.stack([d for _, d in log]).sum())
+
+
+def phi_spread(cfg, params, dev="cuda", n=PHI_SPREAD_TOKENS):
+    """Whether seeded weights make a usable phi: one full forward over a
+    seeded prompt of ``n`` tokens.  Returns the median and least top-2
+    logit gap over its positions, the router's median and least top-K
+    boundary gap over every layer and position, and the distinct argmax
+    tokens.  On the CPU at full width cut to 1 layer:
+    ``python -c "import chip_smoke; chip_smoke.phi_spread_cpu()"``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data import lm_batch
+    from repro_torch.models import transformer
+
+    x = torch.from_numpy(lm_batch(cfg.vocab_size, 1, n, seed=1900)).to(dev)
+    log = []
+    with router_gaps(log), torch.no_grad():
+        logits, aux = transformer.forward(params, {"tokens": x}, cfg)
+    top = logits[0].float().topk(2, dim=-1).values
+    gaps = (top[:, 0] - top[:, 1]).cpu().numpy()
+    rg = torch.cat([g.reshape(-1) for g in log]).cpu().numpy()
+    return dict(top2_gap_median=float(np.median(gaps)),
+                top2_gap_min=float(gaps.min()),
+                router_gap_median=float(np.median(rg)),
+                router_gap_min=float(rg.min()),
+                distinct_argmax=int(np.unique(
+                    logits[0].argmax(-1).cpu().numpy()).size),
+                logit_absmax=float(logits.abs().max()),
+                moe_aux=float(aux["moe_aux"]), positions=n)
+
+
+def phi_spread_cpu(layers=1):
+    """``phi_spread`` on the CPU at full width cut to ``layers`` layers
+    (1: ~6.3 GB of f32 weights)."""
+    import torch
+
+    torch.manual_seed(0)
+    cfg, params = phi_model(layers, dev="cpu")
+    out = phi_spread(cfg, params, dev="cpu")
+    print(f"phi3.5-moe-42b at full width, {layers} layer(s), f32 on the "
+          f"CPU, the init's std: {out}", flush=True)
+    return out
+
+
+PHI_CAPACITY, PHI_MAX_LEN, PHI_K, PHI_BUCKET, PHI_NEW = 8, 512, 8, 16, 64
+PHI_PROMPTS = (64, 96, 448, 200, 333, 128, 400, 270)  # phase 19a
+PHI_PAGES = 32  # phase 19a-b's arena: half the dense pool's 64 pages of 64
+PHI_NO_DROP = 8.0  # capacity factor E / K: a group's capacity is its length
+PHI_OWN = (64, 96, 300, 448)  # phase 19b: uids 0..3's prompts
+PHI_SHARED = 256  # phase 19b: uids 4..7 open with the same 256 tokens (4
+PHI_TAILS = (10, 25, 40, 55)  # pages of 64), then tails within a page
+PHI_D, PHI_SPEC_K = 4, 2  # phase 19b's draft depth, blocks a dispatch
+PHI_DRAFT_NOISE = 1e-3  # phase 19b's nudged draft: noise / leaf std
+PHI_PLAIN_REQS = 2  # phase 19b holds its first 2 against the plain route
+PHI_GROW_PRE, PHI_GROW_OP, PHI_GROW_SEQ = 20, 5, 32  # phase 19c
+PHI_TRAIN_LAYERS, PHI_TRAIN_S, PHI_TRAIN_STEPS = 2, 256, 2  # phase 19d
+# an expert choice whose top-K boundary gap in the router's f32 scores is
+# below this may flip between two summation orders (phase 19's near ties)
+ROUTER_NEAR_TIE = 1e-5
+# the six attention kernels and the sandwich phase 19 runs
+PHI_KERNELS = ("flash_attention", "slot_decode_attention",
+               "paged_slot_decode_attention", "chunk_verify_attention",
+               "paged_chunk_verify_attention", "decode_attention",
+               "tr_sandwich")
+
+
+def phi_requests(vocab, shared):
+    """Phase 19's 8 requests, PHI_NEW new tokens each.  19a (``shared``
+    False): prompts of PHI_PROMPTS tokens of their own; 19b: uids 0..3
+    prompts of PHI_OWN tokens of their own, uids 4..7 the same PHI_SHARED
+    tokens and then PHI_TAILS of their own.  Every sequence stays within
+    one dispatch group (prompt + new <= 512)."""
+    import numpy as np
+
+    from repro_torch.data import lm_batch
+    from repro_torch.serve import Request
+
+    def own(uid, n):
+        return lm_batch(vocab, 1, n, seed=1900 + uid)[0]
+
+    if not shared:
+        prompts = [own(uid, n) for uid, n in enumerate(PHI_PROMPTS)]
+    else:
+        head = lm_batch(vocab, 1, PHI_SHARED, seed=1950)[0]
+        prompts = [own(uid, n) for uid, n in enumerate(PHI_OWN)] + [
+            np.concatenate([head, own(10 + i, n)])
+            for i, n in enumerate(PHI_TAILS)]
+    return [Request(uid=uid, prompt=p, max_new_tokens=PHI_NEW)
+            for uid, p in enumerate(prompts)]
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """Inside the block the transformer's dense-pool kernel entry points
+    (flash prefill, slot decode) run their plain versions on any device:
+    a route that launches no kernel of the port."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    saved = ops.flash_attention, ops.slot_decode_attention
+
+    def slot(q, k, v, kv_len, *, done=None):
+        del done  # the transformer folds done rows into kv_len
+        return ref.slot_decode_attention_ref(
+            q, k, v, torch.as_tensor(kv_len, dtype=torch.int32,
+                                     device=q.device).expand(q.shape[0]))
+
+    ops.flash_attention = ref.flash_attention_ref
+    ops.slot_decode_attention = slot
+    try:
+        yield
+    finally:
+        ops.flash_attention, ops.slot_decode_attention = saved
+
+
+def phi_plain_route(cfg, params, prompt, n):
+    """Greedy tokens of the plain route (``plain_greedy``: a full forward a
+    token, no kernel), each step's top-2 logit gap, and, for each step,
+    the least router top-K boundary gap over every layer and every
+    position up to the one that predicts it (one more full forward over
+    the sequence, its routing recorded).  At a capacity factor of E / K a
+    full forward drops nothing, so each position routes as it did when
+    its token was new."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import transformer
+
+    toks, gaps = plain_greedy(cfg, params, prompt, n)
+    seq = torch.from_numpy(np.concatenate([prompt, toks[:-1]]).astype(
+        np.int32)).to(next(_leaves(params)).device)[None]
+    log = []
+    with router_gaps(log), torch.no_grad():
+        transformer.forward(params, {"tokens": seq}, cfg)
+    per_pos = torch.stack([g[0] for g in log]).amin(0)
+    upto = torch.cummin(per_pos, 0).values[len(prompt) - 1:]
+    return toks, gaps, upto.cpu().numpy()
+
+
+def phi_route_replay(cfg, params, prompt, n, forced=None):
+    """One request through the dense pool's route at a capacity factor
+    that drops, with plain attention (no kernel): its prompt zero-padded
+    to its bucket and prefilled as one row (``prefill_last``; the row is
+    one dispatch group, its pads included), then one ``decode_step_slots``
+    a token (a group a token), fed its own greedy tokens or ``forced``
+    ones.  Returns (tokens, each step's top-2 logit gap, the least router
+    boundary gap up to each step (the prefill group's, then each decode
+    token's), each step's top logit)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import transformer
+
+    dev = next(_leaves(params)).device
+    plen = len(prompt)
+    toks = np.zeros((1, -(-plen // PHI_BUCKET) * PHI_BUCKET), np.int32)
+    toks[0, :plen] = prompt
+    cache = transformer.init_cache(cfg, 1, PHI_MAX_LEN, device=dev)
+    log, out, gaps, rgaps, tops = [], [], [], [], []
+    with plain_attention(), router_gaps(log), torch.no_grad():
+        logits, cache = transformer.prefill_last(
+            params, torch.from_numpy(toks).to(dev),
+            torch.tensor([plen], dtype=torch.int32, device=dev), cfg, cache)
+        least = float("inf")
+        for i in range(n):
+            least = min([least] + [float(g.min()) for g in log])
+            log.clear()
+            step = logits[0].float()
+            top = step.topk(2).values
+            tok = step.argmax().to(torch.int32)
+            if forced is not None:
+                tok = torch.tensor(int(forced[i]), dtype=torch.int32,
+                                   device=dev)
+            out.append(int(tok))
+            gaps.append(float(top[0] - top[1]))
+            rgaps.append(least)
+            tops.append(float(top[0]))
+            if i + 1 < n:
+                logits, cache = transformer.decode_step_slots(
+                    params, tok.view(1),
+                    torch.tensor([plen + i], dtype=torch.int32, device=dev),
+                    cache, cfg)
+    return (np.asarray(out, np.int32), np.asarray(gaps), np.asarray(rgaps),
+            np.asarray(tops))
+
+
+def bf16_ulp(x):
+    """The spacing of bfloat16 values (8 significant bits) at ``x``."""
+    import numpy as np
+
+    return 2.0 ** (np.floor(np.log2(np.abs(x))) - 7)
+
+
+def phi_bf16_reference(cfg16, params16, prompt, tokens):
+    """What bf16 runs that part are held to: the bf16 dense run's
+    ``tokens`` replayed through the same route with plain attention.  A
+    parting at step t is a bf16 near tie only where that replay shows, at
+    or before t, a top-2 logit gap of at most two bf16 ulps of its top
+    logit (the logits are bf16 values, so the gap is 0, 1 or 2 ulps: a
+    change of summation order flips such a pair), or up to t a router
+    boundary gap below ROUTER_NEAR_TIE.  Returns (tokens, each step's
+    logit gap in ulps of its top logit, router gaps, ``check_phi_tokens``'
+    limits: 2.5 ulps, between 2 and 3)."""
+    _, gaps, rgaps, tops = phi_route_replay(cfg16, params16, prompt,
+                                            len(tokens), tokens)
+    return tokens, gaps / bf16_ulp(tops), rgaps, dict(tie=2.5)
+
+
+def check_phi_tokens(what, uid, got, want, gaps, rgaps, tie=NEAR_TIE,
+                     router_tie=ROUTER_NEAR_TIE):
+    """``got`` must equal the reference route's ``want``, except from a
+    step t where the reference shows, at or before t, a top-2 logit gap
+    below ``tie``, or up to t a router top-K boundary gap below
+    ``router_tie`` (``rgaps[t]``).  Returns the excused near tie (uid,
+    step, least logit gap, router gap) or None."""
+    import numpy as np
+
+    diff = np.nonzero(np.asarray(got) != np.asarray(want))[0]
+    if diff.size == 0:
+        return None
+    t = int(diff[0])
+    lg, rg = float(np.min(gaps[:t + 1])), float(rgaps[t])
+    if lg >= tie and rg >= router_tie:
+        raise AssertionError(
+            f"uid {uid}: {what} diverge at step {t}, where the reference's "
+            f"least top-2 logit gap is {lg:.3g} (>= {tie:.3g}) and its "
+            f"least router boundary gap {rg:.3g} (>= {router_tie:.3g})")
+    print(f"near tie: uid {uid} {what} diverge at step {t} (top-2 logit gap "
+          f"{lg:.3g} < {tie:.3g} or router boundary gap {rg:.3g} < "
+          f"{router_tie:.3g})", flush=True)
+    return (uid, t, lg, rg)
+
+
+def predict_phi_schedule(cfg, reqs, **engine_kw):
+    """The paged engine's schedule does not depend on the weights (no eos,
+    fixed budgets): run it on the CPU with a phi of width 8 and one layer
+    (the same vocabulary, experts and paging geometry) and count the
+    prefix hits and misses, the admissions refused for want of pages, the
+    prefill groups, the macro-steps, the hit tails' decode steps and the
+    pages high-water."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.launch.serve import build_params
+    from repro_torch.serve import ContinuousBatchingEngine
+
+    tiny = cfg.replace(n_layers=1, d_model=8, n_heads=2, n_kv_heads=1,
+                       head_dim=8, d_ff=8, expert_d_ff=8)
+    eng = ContinuousBatchingEngine(tiny, build_params(tiny, seed=0,
+                                                      device="cpu"),
+                                   **engine_kw)
+    waits = []
+    alloc = eng._alloc_request
+
+    def counted(req):
+        info = alloc(req)
+        waits.append(info is None)
+        return info
+    eng._alloc_request = counted
+    with torch.no_grad():
+        eng.run([dataclasses.replace(r) for r in reqs])
+    return _phi_schedule(eng, sum(waits))
+
+
+def _phi_schedule(eng, refused):
+    return dict(hits=eng.n_prefix_hits, misses=eng.n_prefix_misses,
+                refused=refused, n_prefills=eng.n_prefills,
+                n_decode_dispatches=eng.n_decode_dispatches,
+                tail_steps=eng.n_prefix_tail_steps,
+                pages_highwater=eng.pages_highwater)
+
+
+def _phi_launches(eng, L, kern):
+    """The launches a phi engine run must make: per prefill group one
+    flash a layer (two groups a speculative admission: target and draft);
+    per decode step (and hit-tail step) one slot decode a layer on its
+    pool; per speculative block d slot decodes and two chunk verifies (the
+    target's verify, the draft's catch-up) a layer."""
+    paged = eng.pool_kind == "paged"
+    want = {name: 0 for name in kern}
+    steps = eng.k * eng.n_decode_dispatches
+    slot = ("paged_slot_decode_attention" if paged
+            else "slot_decode_attention")
+    if eng.speculative is not None:
+        verify = ("paged_chunk_verify_attention" if paged
+                  else "chunk_verify_attention")
+        want.update({"flash_attention": 2 * L * spec_groups(eng),
+                     slot: L * eng.speculative.d * steps,
+                     verify: 2 * L * steps})
+    else:
+        want.update({"flash_attention": L * eng.n_prefills,
+                     slot: L * (steps + eng.n_prefix_tail_steps)})
+    return want
+
+
+def run_phi(kernel_rows, smi, cfg=None, dev="cuda"):
+    """Phase 19: phi3.5-moe-42b at full width cut to PHI_LAYERS layers, in
+    f32 (``cfg`` and ``dev`` replace it for a rehearsal at a small size on
+    the CPU).  (a) At the published capacity factor (1.25; choices drop)
+    on PHI_PROMPTS: the dense pool and a PHI_PAGES-page pool, in f32 and
+    in bf16 (weights cast from the f32 ones); paged == dense in each
+    dtype (a disagreement is decided by the same route replayed with
+    plain attention, near ties reported; in bf16 a logit gap of at most
+    two bf16 ulps, ``phi_bf16_reference``).  (b) At capacity factor
+    E / K (nothing can drop): the dense pool, the paged pool with 4
+    requests sharing a 256-token prefix (its schedule as a CPU run
+    predicts it), a copy nudged by PHI_DRAFT_NOISE of each leaf's std
+    drafting (d 4, K 2) on both pools, and ``generate`` at B 1 for the first PHI_PLAIN_REQS
+    requests: every run == the dense run, and the first PHI_PLAIN_REQS
+    == the plain route, up to reported near ties (a top-2 logit gap below
+    NEAR_TIE or a router boundary gap below ROUTER_NEAR_TIE).  Exact
+    launches throughout, acceptance strictly inside (0, 1), 0 pages in
+    use.  (c) phi3.5-moe-42b-smoke grown into a 4 x 128 MoE (exact
+    sandwich launches, the expert slots included).  (d) phi3.5-moe-42b cut
+    to PHI_TRAIN_LAYERS layers trained PHI_TRAIN_STEPS AdamW steps."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import transformer
+    from repro_torch.serve import ContinuousBatchingEngine, SpeculativeConfig
+    from repro_torch.utils.pytree import tree_map, tree_param_count
+
+    t_phase = time.perf_counter()
+    full = cfg is None
+    kern = ops.kernels()
+    on_card = dev == "cuda"
+    t0 = time.perf_counter()
+    if full:
+        cfg, params = phi_model(PHI_LAYERS, dev)
+    else:
+        from repro_torch.launch.serve import build_params
+        params = build_params(cfg, seed=0, device=dev)
+    _sync()
+    init_s = time.perf_counter() - t0
+    n_params = tree_param_count(params)
+    if full and n_params != PHI_N_PARAMS[PHI_LAYERS]:
+        raise AssertionError(f"phi3.5-moe-42b at {PHI_LAYERS} layers has "
+                             f"{n_params} params, not "
+                             f"{PHI_N_PARAMS[PHI_LAYERS]}")
+    L = cfg.n_layers
+    reqs_a = phi_requests(cfg.vocab_size, shared=False)
+    reqs_b = phi_requests(cfg.vocab_size, shared=True)
+    pool_kw = dict(capacity=PHI_CAPACITY, max_len=PHI_MAX_LEN, k=PHI_K,
+                   prefill_bucket=PHI_BUCKET)
+    cfg_nd = cfg.replace(capacity_factor=PHI_NO_DROP)
+    t0 = time.perf_counter()
+    predicted = predict_phi_schedule(cfg_nd, reqs_b, pool="paged",
+                                     pages=PHI_PAGES, **pool_kw)
+    predict_s = time.perf_counter() - t0
+    spread = phi_spread(cfg, params, dev)
+    print(f"phi3.5-moe-42b: {L} x {cfg.d_model}, {cfg.n_heads} heads over "
+          f"{cfg.n_kv_heads} KV heads of {cfg.head_dim}, {cfg.n_experts} "
+          f"experts of {cfg.expert_d_ff} at top {cfg.top_k}: {n_params} "
+          f"params (f32, drawn in {init_s:.1f} s); spread {spread}; phase "
+          f"19b's paged schedule as a CPU run predicts it ({predict_s:.1f} "
+          f"s): {predicted} ({smi})", flush=True)
+    if predicted["hits"] < 1:
+        raise AssertionError(f"the schedule predicts no prefix hit: "
+                             f"{predicted}")
+    report = dict(n_params=n_params, init_seconds=init_s, spread=spread,
+                  predicted=predicted, nvidia_smi=smi)
+    p19 = {name: 0 for name in PHI_KERNELS}
+
+    def serve(label, make_engine, reqs):
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() if on_card else 0
+        eng = make_engine()
+        _launch_counts(kern, zero=True)
+        with torch.no_grad(), counting_drops(eng.cfg) as drops:
+            out, dt, tps, waits = timed_run(eng, reqs)
+        launches = _launch_counts(kern, zero=True)
+        want = (_phi_launches(eng, eng.cfg.n_layers, kern) if on_card
+                else {name: 0 for name in kern})
+        if launches != want or eng.n_spec_fallbacks:
+            raise AssertionError(f"phi {label} launched {launches}, expected "
+                                 f"{want} ({eng.n_spec_fallbacks} "
+                                 "fallbacks)")
+        for name in p19:
+            p19[name] += launches[name]
+        if eng.pool_kind == "paged" and eng.pages_in_use:
+            raise AssertionError(f"phi {label}: {eng.pages_in_use} pages "
+                                 "left in use")
+        peak = (torch.cuda.max_memory_allocated() - held) if on_card else 0
+        n_tok = sum(len(v) for v in out.values())
+        rec = dict(tok_per_s=tps, seconds=dt, tokens=n_tok,
+                   schedule=_phi_schedule(eng, waits),
+                   acceptance=eng.acceptance_rate,
+                   proposed=eng.n_spec_proposed,
+                   accepted=eng.n_spec_accepted,
+                   drops=drops, pages_budget=eng.pages_budget,
+                   pool_bytes=_pool_bytes(eng.pool)
+                   + (_pool_bytes(eng.pool_d) if eng.pool_d else 0),
+                   peak_above_held_gib=peak / 2**30,
+                   held_gib=held / 2**30,
+                   host_syncs_per_token=eng.n_host_syncs / n_tok,
+                   launches={n: v for n, v in launches.items() if v})
+        print(f"phi {label}: {n_tok} tokens in {dt:.3f} s: {tps:.1f} tok/s; "
+              f"acceptance {eng.acceptance_rate:.4f} ({eng.n_spec_accepted}/"
+              f"{eng.n_spec_proposed}); dropped {drops['dropped']} of "
+              f"{drops['choices']} expert choices; schedule "
+              f"{rec['schedule']}; pages budget {eng.pages_budget}; pools "
+              f"{rec['pool_bytes'] / 2**30:.3f} GiB, peak "
+              f"{peak / 2**30:.2f} GiB above the {held / 2**30:.2f} GiB "
+              f"held; launches {rec['launches']} ({smi})", flush=True)
+        return out, rec, eng
+
+    def check_runs(label, runs, reqs, ref):
+        """Every run's tokens well formed and equal to ``runs["dense"]``;
+        a disagreement is decided by ``ref(req)`` (tokens, logit gaps,
+        router gaps, and ``check_phi_tokens``' limits), which every run
+        must then equal up to near ties.  Every request is decided before
+        the disagreements that are no near tie are raised together."""
+        ties = {w: [] for w in runs}
+        decided, faults = [], []
+        for r in reqs:
+            got = {what: run[r.uid] for what, run in runs.items()}
+            for what, toks in got.items():
+                if toks.shape != (PHI_NEW,) or toks.min() < 0 or \
+                        toks.max() >= cfg.vocab_size:
+                    raise AssertionError(f"uid {r.uid}: bad phi {label} "
+                                         f"{what} output")
+            if all((t == got["dense"]).all() for t in got.values()):
+                continue
+            decided.append(r.uid)
+            want, gaps, rgaps, limits = ref(r)
+            for what, toks in got.items():
+                try:
+                    tie = check_phi_tokens(f"phi {label} {what}", r.uid,
+                                           toks, want, gaps, rgaps, **limits)
+                except AssertionError as e:
+                    print(e, flush=True)
+                    faults.append(str(e))
+                    continue
+                if tie is not None:
+                    ties[what].append(tie)
+        if faults:
+            raise AssertionError(f"phi {label}: {len(faults)} disagreements "
+                                 f"are no near tie: {faults}")
+        return ties, decided
+
+    # (a) the published capacity factor: choices drop
+    runs_a = {}
+    for dname in ("float32", "bfloat16"):
+        dt_ = getattr(torch, dname)
+        c = cfg if dname == "float32" else cfg.replace(
+            param_dtype=dname, compute_dtype=dname)
+        p = params if dname == "float32" else tree_map(
+            lambda t: t.to(dt_), params)
+        outs = {}
+        for pool in ("dense", "paged"):
+            label = f"{dname} {pool}"
+            outs[pool], report[f"a {label}"], eng = serve(
+                label, lambda: ContinuousBatchingEngine(
+                    c, p, pool=pool,
+                    pages=PHI_PAGES if pool == "paged" else None, **pool_kw),
+                reqs_a)
+            if on_card and label == "float32 dense":
+                # where a decode step's time goes: 8 live rows at 300
+                pos = torch.full((PHI_CAPACITY,), 300, dtype=torch.int32,
+                                 device=dev)
+                with torch.no_grad():
+                    _, report["decode_profile"] = profile_step(
+                        "phi3.5-moe-42b slot decode step (B 8, f32)",
+                        lambda: transformer.decode_step_slots(
+                            params, pos, pos, eng.pool, cfg))
+            del eng
+            if report[f"a {label}"]["drops"]["dropped"] < 1:
+                raise AssertionError(f"phi {label}: no expert choice "
+                                     "dropped at the published capacity "
+                                     "factor")
+        if dname == "float32":
+            def ref(r):
+                return phi_route_replay(c, p, r.prompt,
+                                        PHI_NEW)[:3] + ({},)
+        else:
+            def ref(r):
+                return phi_bf16_reference(c, p, r.prompt,
+                                          outs["dense"][r.uid])
+        ties, replayed = check_runs(f"{dname} cf {cfg.capacity_factor}",
+                                    outs, reqs_a, ref)
+        report[f"a {dname} near ties"] = ties
+        print(f"phi {dname} at capacity factor {cfg.capacity_factor}: paged "
+              f"== dense for {len(reqs_a)}/{len(reqs_a)} requests but near "
+              f"ties {ties} (replayed {replayed})", flush=True)
+        runs_a[dname] = outs
+        del p
+    del runs_a
+
+    # (b) capacity factor E / K: nothing can drop
+    runs_b = {}
+    for label, make in (
+            ("dense", lambda: ContinuousBatchingEngine(cfg_nd, params,
+                                                       **pool_kw)),
+            ("paged", lambda: ContinuousBatchingEngine(
+                cfg_nd, params, pool="paged", pages=PHI_PAGES, **pool_kw))):
+        runs_b[label], report[f"b {label}"], eng = serve(
+            f"cf {PHI_NO_DROP:g} {label}", make, reqs_b)
+        del eng
+    if report["b paged"]["schedule"] != predicted:
+        raise AssertionError(f"phi paged schedule "
+                             f"{report['b paged']['schedule']} differs from "
+                             f"the CPU prediction {predicted}")
+    draft = nudged_copy(params, PHI_DRAFT_NOISE, seed=19)
+    for pool in ("dense", "paged"):
+        label = f"{pool} speculative"
+        runs_b[label], report[f"b {label}"], eng = serve(
+            f"cf {PHI_NO_DROP:g} {label}", lambda: ContinuousBatchingEngine(
+                cfg_nd, params, capacity=PHI_CAPACITY, max_len=PHI_MAX_LEN,
+                k=PHI_SPEC_K, prefill_bucket=PHI_BUCKET, pool=pool,
+                speculative=SpeculativeConfig(cfg_nd, draft, d=PHI_D)),
+            reqs_b)
+        del eng
+        acc = report[f"b {label}"]["acceptance"]
+        if not 0.0 < acc < 1.0:
+            raise AssertionError(f"phi {label}: acceptance {acc} not inside "
+                                 "(0, 1)")
+    del draft
+    for label, rec in report.items():
+        if label.startswith("b ") and rec["drops"]["dropped"]:
+            raise AssertionError(f"phi {label} dropped {rec['drops']} at "
+                                 f"capacity factor {PHI_NO_DROP}")
+    # generate at B 1 (flash prefill, decode_attention) on the first 2
+    gen = {}
+    gc.collect()
+    for r in reqs_b[:PHI_PLAIN_REQS]:
+        _launch_counts(kern, zero=True)
+        with torch.no_grad():
+            gen[r.uid] = generate(cfg_nd, params, torch.from_numpy(
+                r.prompt)[None].to(dev), max_new_tokens=PHI_NEW,
+                max_len=PHI_MAX_LEN)[0].cpu().numpy()
+        got = _launch_counts(kern, zero=True)
+        want = {name: 0 for name in kern}
+        if on_card:
+            want.update(flash_attention=L, decode_attention=L * (PHI_NEW - 1))
+        if got != want:
+            raise AssertionError(f"uid {r.uid}: generate launched {got}, "
+                                 f"expected {want}")
+        for name in p19:
+            p19[name] += got[name]
+    # the plain route alone decides (no kernel of the port)
+    t0 = time.perf_counter()
+    plain = {r.uid: phi_plain_route(cfg_nd, params, r.prompt, PHI_NEW)
+             for r in reqs_b[:PHI_PLAIN_REQS]}
+    plain_s = time.perf_counter() - t0
+    if _launch_counts(kern) != {name: 0 for name in kern}:
+        raise AssertionError("the plain route launched a kernel")
+    ties_b, _ = check_runs(
+        f"cf {PHI_NO_DROP:g}", runs_b, reqs_b,
+        lambda r: (plain.get(r.uid) or phi_plain_route(
+            cfg_nd, params, r.prompt, PHI_NEW)) + ({},))
+    ties_b["dense vs plain"], ties_b["generate vs plain"] = [], []
+    for r in reqs_b[:PHI_PLAIN_REQS]:
+        for what, toks in (("dense", runs_b["dense"][r.uid]),
+                           ("generate", gen[r.uid])):
+            tie = check_phi_tokens(f"phi {what} and the plain route", r.uid,
+                                   toks, *plain[r.uid])
+            if tie is not None:
+                ties_b[f"{what} vs plain"].append(tie)
+    report["b near ties"] = ties_b
+    report["plain_route_seconds"] = plain_s
+    print(f"phi at capacity factor {PHI_NO_DROP:g}: the {len(runs_b)} engine "
+          f"runs equal for {len(reqs_b)}/{len(reqs_b)} requests, the dense "
+          f"run and generate (B 1) == the plain route ({plain_s:.1f} s) for "
+          f"uids {sorted(plain)}, but near ties {ties_b}; plain route's "
+          f"least router boundary gap "
+          f"{ {u: float(v[2].min()) for u, v in plain.items()} }", flush=True)
+    del runs_b, plain, gen
+
+    # (c) growth into a wider MoE, then (d) training at full width
+    cfg_s = get_config("phi3.5-moe-42b-smoke")
+    report["grow"] = run_small_growth(
+        kernel_rows, "phi", cfg_s,
+        cfg_s.replace(name="phi-smoke-big", n_layers=4, d_model=128,
+                      n_heads=8, n_kv_heads=2, d_ff=256, expert_d_ff=256),
+        "launches_p19", PHI_GROW_PRE, PHI_GROW_OP, PHI_GROW_SEQ, dev)
+    p19["tr_sandwich"] += kernel_rows["tr_sandwich"]["launches_p19"]
+    del params
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    report["train"] = run_phi_train(
+        cfg.replace(n_layers=PHI_TRAIN_LAYERS), kern, dev, full)
+    for name, n in p19.items():
+        kernel_rows[name]["launches_p19"] = n
+    report["launches_p19"] = p19
+    report["seconds"] = time.perf_counter() - t_phase
+    print(f"phi phase: {report['seconds']:.1f} s; launches {p19} ({smi})",
+          flush=True)
+    return report
+
+
+def phi_train_flops(cfg, S):
+    """Operations of one training step (forward and backward, 3x the
+    forward's products) of a phi at B 1 x S: the q/k/v/o, router and head
+    products, the attention scores and values, and the experts' three
+    products over every capacity slot (E x C rows a layer, the capacity
+    layout's real work, C = max(int(S * K / E * cf), 1))."""
+    D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    E, F = cfg.n_experts, cfg.expert_d_ff
+    C = max(int(S * cfg.top_k / E * cfg.capacity_factor), 1)
+    dense = D * (2 * H * hd + 2 * KV * hd) + D * E
+    per_layer = 2 * S * dense + 4 * S * S * H * hd + 2 * E * C * 3 * D * F
+    return 3 * (cfg.n_layers * per_layer + 2 * S * D * cfg.vocab_size)
+
+
+def run_phi_train(cfg, kern, dev="cuda", full=True):
+    """Phase 19d: ``cfg`` (phi3.5-moe-42b cut to PHI_TRAIN_LAYERS layers,
+    f32, weights drawn afresh) trained PHI_TRAIN_STEPS AdamW steps at B 1
+    x S PHI_TRAIN_S at the published capacity factor, params and moments
+    updated in place (no kernel launches): loss and moe_aux, ms/step
+    against the f32 bound (``phi_train_flops``; bytes: AdamW's nine f32
+    accesses a param), peak memory."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data import lm_batch
+    from repro_torch.launch.serve import build_params
+    from repro_torch.optim import OptimizerConfig, make_optimizer
+    from repro_torch.train.steps import make_train_step
+    from repro_torch.utils.pytree import tree_param_count
+
+    on_card = dev == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    params = build_params(cfg, seed=0, device=dev)
+    n_params = tree_param_count(params)
+    if full and n_params != PHI_N_PARAMS[PHI_TRAIN_LAYERS]:
+        raise AssertionError(f"phi at {PHI_TRAIN_LAYERS} layers has "
+                             f"{n_params} params")
+    batch = {"tokens": torch.from_numpy(lm_batch(
+        cfg.vocab_size, 1, PHI_TRAIN_S, seed=19)).to(dev)}
+    opt = OptimizerConfig(lr=1e-4)
+    init_fn, _ = make_optimizer(opt)
+    state = init_fn(params)
+    step = make_train_step(cfg, opt)
+    _launch_counts(kern, zero=True)
+    ms, metrics = [], []
+    for i in range(PHI_TRAIN_STEPS):
+        _sync()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch, i + 1)
+        m = {k: float(v) for k, v in m.items()}  # reads back: synchronises
+        _sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append(m)
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    launches = _launch_counts(kern, zero=True)
+    if launches != {name: 0 for name in kern}:
+        raise AssertionError(f"phi training launched {launches}")
+    if not all(np.isfinite(m["loss"]) and m["moe_aux"] > 0
+               for m in metrics) or not all(
+            bool(torch.isfinite(t).all()) for t in _leaves(params)):
+        raise AssertionError(f"phi training went wrong: {metrics}")
+    flops = phi_train_flops(cfg, PHI_TRAIN_S)
+    b_ms, b_by = bound_ms(9 * 4 * n_params, flops, "float32")
+    print(f"phi3.5-moe-42b training ({cfg.n_layers} layers): B 1 x S "
+          f"{PHI_TRAIN_S}, capacity factor {cfg.capacity_factor}, AdamW f32, "
+          f"{n_params} params: ms/step {[round(x, 1) for x in ms]} against "
+          f"the bound {b_ms:.1f} ms ({b_by}; {flops:.4g} FLOPs at 67 TFLOP/s "
+          f"f32, {9 * 4 * n_params / 1e9:.1f} GB at 3.35 TB/s); peak memory "
+          f"{peak / 2**30:.2f} GiB; loss "
+          f"{[round(m['loss'], 5) for m in metrics]}, moe_aux (weighted) "
+          f"{[round(m['moe_aux'], 6) for m in metrics]}; no kernel launched",
+          flush=True)
+    del state, params
+    return dict(ms_per_step=ms, bound_ms=b_ms, bound_by=b_by, flops=flops,
+                n_params=n_params, peak_gib=peak / 2**30, metrics=metrics)
 
 
 def _leaves(tree):
@@ -6305,13 +7169,22 @@ def main(argv=None):
     t0 = time.perf_counter()
     xl = run_xlstm(rows, smi[0] if smi else "nvidia-smi: no output")
     print(f"phase 18 took {time.perf_counter() - t0:.1f} s", flush=True)
+    gc.collect()  # phase 18's models go before phi3.5-moe-42b
+    torch.cuda.empty_cache()
+
+    phase("phi3.5-moe-42b (MoE): dense, paged and speculative serving at two "
+          "capacity factors, f32 and bf16, growth into an MoE, training at "
+          "full width")
+    t0 = time.perf_counter()
+    phi = run_phi(rows, smi[0] if smi else "nvidia-smi: no output")
+    print(f"phase 19 took {time.perf_counter() - t0:.1f} s", flush=True)
 
     # the contract's keys, then the tensor-core rows' 3xTF32 and bf16 ones
     kernels = [{key: r[key] for key in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
         "bound_rate", "bound_simt_ms", "bf16_ms", "bf16_library_ms",
-        "bf16_bound_ms") if key in r}
+        "bf16_bound_ms", "launches_p19") if key in r}
         for r in rows.values()]
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
@@ -6323,7 +7196,8 @@ def main(argv=None):
              "griffin_speculative": griffin_spec, "faults": faults,
              "qwen": qwen, "deit": deit, "sampled": sampled,
              "upgrade": upgrade, "griffin_growth": griffin_growth,
-             "window": window, "xlstm": xl, "build_seconds": secs},
+             "window": window, "xlstm": xl, "phi": phi,
+             "build_seconds": secs},
             indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """Architecture configs beyond the paper's own models (the port's copy of
 ``repro.configs.archs``), added slice by slice.
 
-So far the RoPE dense decoders -- stablelm-3b [hf, unverified],
+So far the MoE decoder phi3.5-moe-42b [hf], the RoPE dense decoders --
+stablelm-3b [hf, unverified],
 qwen1.5-0.5b [hf], qwen3-0.6b [hf], yi-9b [arXiv:2403.04652] and yi-9b's
 Mango source ``yi-9b-half`` -- and the griffin family: recurrentgemma-2b
 [arXiv:2402.19427], and the xlstm family: xlstm-1.3b
@@ -14,6 +15,27 @@ from __future__ import annotations
 from repro_torch.configs.base import ModelConfig, register_named
 
 _SCALE = dict(param_dtype="bfloat16", compute_dtype="bfloat16")
+
+
+@register_named("phi3.5-moe-42b")
+def phi35_moe():
+    return ModelConfig(
+        name="phi3.5-moe-42b", family="transformer",
+        n_layers=32, d_model=4096, n_heads=32, n_kv_heads=8, head_dim=128,
+        d_ff=6400, vocab_size=32064,
+        moe=True, n_experts=16, top_k=2, expert_d_ff=6400,
+        router_score="softmax", capacity_factor=1.25,
+        act="swiglu", norm="rms", rope="standard", rope_theta=10000.0,
+        max_seq_len=131072, **_SCALE)
+
+
+@register_named("phi3.5-moe-42b-smoke")
+def phi35_moe_smoke():
+    return phi35_moe().replace(
+        name="phi3.5-moe-42b-smoke", n_layers=2, d_model=64, n_heads=4,
+        n_kv_heads=1, head_dim=16, d_ff=128, expert_d_ff=128, n_experts=4,
+        vocab_size=128, max_seq_len=256, param_dtype="float32",
+        compute_dtype="float32", attn_chunk=16)
 
 
 @register_named("stablelm-3b")

@@ -331,7 +331,8 @@ def _head(params, x, cfg):
 # ----------------------------------------------------------------- forward
 def forward(params, batch, cfg):
     """Full forward (no cache). batch: {"tokens": (B, S)[, "positions"]}.
-    Returns (logits (B, S, V), {"moe_aux": 0.0})."""
+    Returns (logits (B, S, V), {"moe_aux": 0.0}): griffin's blocks route
+    nothing, whatever ``cfg.moe`` says (as in the reference)."""
     x = _embed(params, batch["tokens"], cfg)
     B, S = x.shape[:2]
     positions = batch.get("positions")

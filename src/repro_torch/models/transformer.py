@@ -1,13 +1,23 @@
-"""Transformer family, ported for dense decoder LMs.
+"""Transformer family: dense decoder LMs and MoE decoders.
 
-Covers the paper's GPT/BERT/DeiT configs and the RoPE decoders (qwen1.5,
-qwen3, stablelm, yi): LayerNorm or RMSNorm, GELU or gated MLPs, learned
-absolute positions or standard (optionally partial) RoPE, qkv bias and
-per-head q/k norms, MHA or GQA attention, separate or tied LM head, and
-a causal sliding window.  Params are nested dicts stacked over a leading
-layer axis, as in the reference package.  Configs with MLA, MoE,
-multimodal RoPE or an MTP head raise ``NotImplementedError`` (ROADMAP.md
-lists the slices that bring them).
+Covers the paper's GPT/BERT/DeiT configs, the RoPE decoders (qwen1.5,
+qwen3, stablelm, yi) and the MoE decoders (phi3.5-moe): LayerNorm or
+RMSNorm, GELU or gated MLPs, learned absolute positions or standard
+(optionally partial) RoPE, qkv bias and per-head q/k norms, MHA or GQA
+attention, separate or tied LM head, and a causal sliding window.  Params
+are nested dicts stacked over a leading layer axis, as in the reference
+package.  Configs with MLA, multimodal RoPE or an MTP head raise
+``NotImplementedError`` (ROADMAP.md lists the slices that bring them).
+
+An MoE config splits the stack into two block groups, as the reference
+does: ``cfg.moe_layer_start`` dense blocks in ``params["dense_blocks"]``
+(cache group ``"dense"``), then the rest in ``params["moe_blocks"]``
+(cache group ``"moe"``), whose MLP is ``moe.moe_mlp``.  Every route walks
+the groups in that order (``_groups``); ``forward`` returns the sum of the
+MoE layers' auxiliary losses as ``aux["moe_aux"]``.  Routing capacity
+counts per dispatch group, so a token's route depends on the batch shape
+it is computed in (a bucket prefill's pads take part), exactly as in the
+reference.
 
 A windowed config (``cfg.window``) attends ``(qpos - window, qpos]``.
 Its forward and prefill take the plain windowed attention (no flash
@@ -57,6 +67,7 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import ffn as ffn_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import rope as rope_lib
 from repro_torch.models.common import (
     apply_norm,
@@ -74,13 +85,14 @@ from repro_torch.models.common import (
 
 
 def _unported(cfg):
-    """The reason this config is outside the ported slice, or None."""
+    """The reason this config is outside the ported slice (with the
+    ROADMAP.md queue 1 item that brings it), or None."""
     if cfg.family != "transformer":
         return f"family {cfg.family!r}"
-    for flag, what in ((cfg.mla, "MLA attention"), (cfg.moe, "MoE layers"),
-                       (cfg.mtp, "the MTP head"),
+    for flag, what in ((cfg.mla, "MLA attention (item 5)"),
+                       (cfg.mtp, "the MTP head (item 5)"),
                        (cfg.rope not in ("none", "standard"),
-                        f"RoPE ({cfg.rope})")):
+                        f"RoPE ({cfg.rope}; item 7)")):
         if flag:
             return what
     return None
@@ -91,7 +103,20 @@ def _require_ported(cfg):
     if why is not None:
         raise NotImplementedError(
             f"{cfg.name}: {why} is not ported to repro_torch yet (see "
-            "ROADMAP.md, queue 1, for the slice that brings it)")
+            "ROADMAP.md, queue 1)")
+
+
+def _groups(cfg):
+    """The block groups in the reference's order: (params key, cache key,
+    is-MoE, layer count) of the dense blocks, then of the MoE blocks; a
+    group with no layers is absent."""
+    n_dense = cfg.n_dense_layers
+    out = []
+    if n_dense:
+        out.append(("dense_blocks", "dense", False, n_dense))
+    if cfg.n_layers - n_dense:
+        out.append(("moe_blocks", "moe", True, cfg.n_layers - n_dense))
+    return out
 
 
 # =============================================================== param init
@@ -135,15 +160,19 @@ def init(gen: torch.Generator, cfg, device=None) -> dict:
         params["embed"] = w(cfg.vocab_size, D)
     if cfg.learned_pos:
         params["pos_embed"] = w(cfg.learned_pos, D)
-    L = cfg.n_layers
-    params["dense_blocks"] = {
-        "ln1": init_norm(cfg.norm, D, L, dtype, device),
-        "ln2": init_norm(cfg.norm, D, L, dtype, device),
-        "attn": _attn_init(gen, cfg, L, dtype, std, device),
-        "mlp": ffn_lib.init_mlp(gen, D, cfg.d_ff, layers=L, act=cfg.act,
-                                bias=cfg.mlp_bias, dtype=dtype, std=std,
-                                device=device),
-    }
+    for key, _, moe, n in _groups(cfg):
+        grp = {"ln1": init_norm(cfg.norm, D, n, dtype, device),
+               "ln2": init_norm(cfg.norm, D, n, dtype, device),
+               "attn": _attn_init(gen, cfg, n, dtype, std, device)}
+        if moe:
+            grp["moe"] = moe_lib.init_moe(gen, cfg, layers=n, dtype=dtype,
+                                          std=std, device=device)
+        else:
+            grp["mlp"] = ffn_lib.init_mlp(gen, D, cfg.d_ff, layers=n,
+                                          act=cfg.act, bias=cfg.mlp_bias,
+                                          dtype=dtype, std=std,
+                                          device=device)
+        params[key] = grp
     params["final_norm"] = init_norm(cfg.norm, D, None, dtype, device)
     if cfg.head == "lm" and not cfg.tie_embeddings:
         params["head"] = w(D, cfg.vocab_size)
@@ -406,41 +435,52 @@ def _ring_window_attend(q, ck, cv, kpos_abs, q_offset, cfg):
     return out.reshape(B, S, H, hd)
 
 
-def _block(x, bp, cfg, **attn_kw):
+def _block(x, bp, cfg, *, moe, **attn_kw):
+    """One block; returns (x, its MoE aux (0.0 for a dense block), the
+    second output of ``_attn_forward``)."""
     h, cache = _attn_forward(apply_norm(x, bp["ln1"], cfg.norm), bp["attn"],
                              cfg, **attn_kw)
     x = x + h
-    x = x + ffn_lib.mlp(apply_norm(x, bp["ln2"], cfg.norm), bp["mlp"],
-                        cfg.act)
-    return x, cache
+    hin = apply_norm(x, bp["ln2"], cfg.norm)
+    if moe:
+        h, aux = moe_lib.moe_mlp(hin, bp["moe"], cfg)
+    else:
+        h, aux = ffn_lib.mlp(hin, bp["mlp"], cfg.act), 0.0
+    return x + h, aux, cache
 
 
 def _layer_stack(x, params, cfg, positions, cache=None, **attn_kw):
-    """The block stack as a Python loop over the stacked layer axis; layer
-    ``i`` reads and writes ``cache[...][i]`` views in place.  ``positions``
-    (B, S) are the tokens' absolute positions, which RoPE configs rotate
-    by (one table for every layer; ignored without RoPE).  Returns the
-    residual stream before the final norm and each layer's second output
-    of ``_attn_forward`` (its cache, or its pending chunk K/V)."""
+    """The block groups (``_groups``), each a Python loop over its stacked
+    layer axis; layer ``i`` of a group reads and writes ``cache[group
+    key][...][i]`` views in place.  ``positions`` (B, S) are the tokens'
+    absolute positions, which RoPE configs rotate by (one table for every
+    layer; ignored without RoPE).  Returns the residual stream before the
+    final norm, ``{cache key: [each layer's second output of
+    _attn_forward]}`` (its cache, or its pending chunk K/V) and the sum of
+    the MoE layers' aux losses (0.0 without MoE layers)."""
     rope = None
     if cfg.rope == "standard":
         rope = rope_lib.rope_tables(positions, cfg.head_dim,
                                     theta=cfg.rope_theta,
                                     fraction=cfg.rope_fraction,
                                     dtype=x.dtype)
-    group = params["dense_blocks"]
-    per_layer = []
-    for i in range(cfg.n_layers):
-        layer_cache = None if cache is None else {
-            name: leaf[i] for name, leaf in cache["dense"].items()}
-        x, second = _block(x, take_layer(group, i), cfg, rope=rope,
-                           cache=layer_cache, **attn_kw)
-        per_layer.append(second)
-    return x, per_layer
+    per_group, aux_total = {}, 0.0
+    for key, ckey, moe, n in _groups(cfg):
+        group = params[key]
+        per_layer = per_group[ckey] = []
+        for i in range(n):
+            layer_cache = None if cache is None else {
+                name: leaf[i] for name, leaf in cache[ckey].items()}
+            x, aux, second = _block(x, take_layer(group, i), cfg, moe=moe,
+                                    rope=rope, cache=layer_cache, **attn_kw)
+            aux_total = aux_total + aux
+            per_layer.append(second)
+    return x, per_group, aux_total
 
 
 def _run_layers(x, params, cfg, positions, cache=None, **attn_kw):
-    x, _ = _layer_stack(x, params, cfg, positions, cache=cache, **attn_kw)
+    x, _, _ = _layer_stack(x, params, cfg, positions, cache=cache,
+                           **attn_kw)
     return apply_norm(x, params["final_norm"], cfg.norm)
 
 
@@ -483,11 +523,14 @@ def embed_inputs(params, batch, cfg):
 def forward(params, batch, cfg):
     """Full forward, plain attention throughout.
     batch: {"tokens": (B,S)} or {"inputs": (B,S,Din)}.
-    Returns (logits, aux) with aux = {"moe_aux": 0.0}."""
+    Returns (logits, aux) with aux = {"moe_aux": the MoE layers' summed
+    aux loss} (0.0 when the config has no MoE layers)."""
     _require_ported(cfg)
     x = embed_inputs(params, batch, cfg)
-    x = _run_layers(x, params, cfg, _positions_from_batch(batch, x, cfg))
-    return _head(params, x, cfg), {"moe_aux": 0.0}
+    x, _, aux = _layer_stack(x, params, cfg,
+                             _positions_from_batch(batch, x, cfg))
+    x = apply_norm(x, params["final_norm"], cfg.norm)
+    return _head(params, x, cfg), {"moe_aux": aux}
 
 
 def _head(params, x, cfg):
@@ -502,18 +545,22 @@ def _head(params, x, cfg):
 
 # ============================================================== serve (KV)
 def init_cache(cfg, batch_size, max_len, dtype=None, device="cpu"):
-    """{"dense": {"k", "v": (L, B, pad_cache_len(n), KV, hd)}} zeros, n =
-    max_len, or min(max_len, window) with a window.  The cache axis keeps
-    the reference pool's padding: a full layout masks the padded tail by
-    each row's valid length, a ring takes the padded length as its
-    modulus."""
+    """{group: {"k", "v": (L_g, B, pad_cache_len(n), KV, hd)}} zeros for
+    each block group (``"dense"`` and/or ``"moe"``), n = max_len, or
+    min(max_len, window) with a window.  The cache axis keeps the
+    reference pool's padding: a full layout masks the padded tail by each
+    row's valid length, a ring takes the padded length as its modulus."""
     _require_ported(cfg)
     dtype = dtype or getattr(torch, cfg.compute_dtype)
     n = min(max_len, cfg.window) if cfg.window else max_len
-    shape = (cfg.n_layers, batch_size, pad_cache_len(n), cfg.n_kv_heads,
-             cfg.head_dim)
-    return {"dense": {"k": torch.zeros(shape, dtype=dtype, device=device),
-                      "v": torch.zeros(shape, dtype=dtype, device=device)}}
+    cache = {}
+    for _, ckey, _, layers in _groups(cfg):
+        shape = (layers, batch_size, pad_cache_len(n), cfg.n_kv_heads,
+                 cfg.head_dim)
+        cache[ckey] = {
+            "k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    return cache
 
 
 def _forward_cached(params, batch, cfg, cache, q_offset, at=None,
@@ -614,8 +661,8 @@ def verify_step_slots(params, tokens, positions, cache, cfg, done=None,
 
     Returns (logits (B, S, V), pending): ``logits[:, j]`` is the
     distribution after each row consumed its chunk prefix ``[:j + 1]``.
-    The slot cache is READ-ONLY here; ``pending`` = {"dense": {"k", "v":
-    (L, B, S, KV, hd)}} carries the chunk's per-layer K/V so that
+    The slot cache is READ-ONLY here; ``pending`` = {group: {"k", "v":
+    (L_g, B, S, KV, hd)}} carries the chunk's per-layer K/V so that
     ``commit_slots`` writes exactly the accepted prefix afterwards
     (rollback is "never wrote it").  ``done`` rows attend nothing and
     return garbage logits the caller must mask.  ``logits=False`` skips
@@ -630,10 +677,11 @@ def verify_step_slots(params, tokens, positions, cache, cfg, done=None,
         S, dtype=positions.dtype, device=positions.device)[None]
     x = embed_inputs(params, {"tokens": tokens, "positions": pos2d}, cfg)
     # RoPE turns at the unclamped positions, overshoot included
-    x, per_layer = _layer_stack(x, params, cfg, pos2d, cache=cache,
-                                chunk_offsets=positions, slot_done=done)
-    pending = {"dense": {name: torch.stack([pl[name] for pl in per_layer])
-                         for name in ("k", "v")}}
+    x, per_group, _ = _layer_stack(x, params, cfg, pos2d, cache=cache,
+                                   chunk_offsets=positions, slot_done=done)
+    pending = {ckey: {name: torch.stack([pl[name] for pl in per_layer])
+                      for name in ("k", "v")}
+               for ckey, per_layer in per_group.items()}
     if not logits:
         return None, pending
     return _head(params, apply_norm(x, params["final_norm"], cfg.norm),
@@ -666,24 +714,31 @@ def commit_slots(params, tokens, positions, n_feed, cache, pending, cfg,
     if done is not None:
         n_feed = torch.where(done, 0, n_feed)
     n_feed = n_feed.long()
-    group = cache["dense"]
-    if "bt" in group:
-        _commit_paged(group, pending["dense"], positions, n_feed,
-                      cfg.window)
-        return cache
+    for ckey, group in cache.items():
+        if "bt" in group:
+            _commit_paged(group, pending[ckey], positions, n_feed,
+                          cfg.window)
+        else:
+            _commit_dense(group, pending[ckey], positions, n_feed,
+                          cfg.window)
+    return cache
+
+
+def _commit_dense(group, pending, positions, n_feed, window):
+    """``commit_slots`` for a dense group {"k"/"v": (L, B, Sc, KV, hd)};
+    pending leaves are (L, B, S, KV, hd)."""
     for name, cl in group.items():
-        pl = pending["dense"][name]  # (L, B, S, KV, hd)
+        pl = pending[name]
         B, Sc = cl.shape[1], cl.shape[2]
         S = pl.shape[2]
         steps = torch.arange(S, device=cl.device)[None]
         src = torch.minimum(steps, (n_feed - 1).clamp(min=0)[:, None])
         idx = positions.long()[:, None] + src
-        idx = idx % Sc if _is_ring(Sc, cfg.window) else idx.clamp(max=Sc - 1)
+        idx = idx % Sc if _is_ring(Sc, window) else idx.clamp(max=Sc - 1)
         rows = torch.arange(B, device=cl.device)[:, None]
         new = torch.where((n_feed > 0)[None, :, None, None, None],
                           pl[:, rows, src].to(cl.dtype), cl[:, rows, idx])
         cl[:, rows, idx] = new
-    return cache
 
 
 def _commit_paged(group, pending, positions, n_feed, window):
@@ -729,10 +784,11 @@ def serve_supported(cfg):
 
 def paged_groups(cfg):
     """Slot-state protocol: the cache groups that page under a paged pool,
-    ``{key: (kind, leaf names)}``.  The transformer's K/V group pages on
-    its sequence axis; the port has no MoE or MLA groups yet."""
+    ``{key: (kind, leaf names)}``.  Every block group's K/V ("dense",
+    "moe") pages on its sequence axis; the groups share one block table
+    layout."""
     _require_ported(cfg)
-    return {"dense": ("seq", ("k", "v"))}
+    return {ckey: ("seq", ("k", "v")) for _, ckey, _, _ in _groups(cfg)}
 
 
 def slot_cache_layout(cfg):
@@ -752,17 +808,17 @@ def snapshot_slots(cache, positions, n):
     past each row's committed length.  A speculative draft takes one
     before it proposes in place and ``restore_slots`` puts it back, so its
     catch-up verify reads the committed ring (the reference proposes on a
-    copy)."""
-    grp = cache["dense"]
-    if "bt" in grp:
-        return paged_spec_ring_sites(grp, positions, n)
-    return spec_ring_sites(grp, positions, n)
+    copy).  One snapshot per cache group: {group key: sites}."""
+    return {ckey: (paged_spec_ring_sites if "bt" in grp
+                   else spec_ring_sites)(grp, positions, n)
+            for ckey, grp in cache.items()}
 
 
 def restore_slots(cache, snap, positions, n):
     """Put the ring sites of ``snapshot_slots`` back in place (every one
-    of the ``n`` steps rejected).  Returns the cache."""
-    grp = cache["dense"]
-    restore = paged_spec_ring_restore if "bt" in grp else spec_ring_restore
-    restore(snap, grp, positions, torch.zeros_like(positions), n)
+    of the ``n`` steps rejected), group by group.  Returns the cache."""
+    for ckey, grp in cache.items():
+        restore = (paged_spec_ring_restore if "bt" in grp
+                   else spec_ring_restore)
+        restore(snap[ckey], grp, positions, torch.zeros_like(positions), n)
     return cache

@@ -539,7 +539,8 @@ def _head(params, x, cfg):
 
 def forward(params, batch, cfg):
     """Full forward (no cache). batch: {"tokens": (B, S)}.  Returns
-    (logits (B, S, V), {"moe_aux": 0.0})."""
+    (logits (B, S, V), {"moe_aux": 0.0}): xlstm's blocks route nothing,
+    whatever ``cfg.moe`` says (as in the reference)."""
     x = _run_blocks(params, _embed(params, batch["tokens"], cfg), cfg)
     return _head(params, x, cfg), {"moe_aux": 0.0}
 

@@ -1,7 +1,8 @@
-"""Losses: next-token cross entropy with z-loss, and classification.
+"""Losses: next-token cross entropy with z-loss and the MoE auxiliary
+term, and classification.
 
-The MoE auxiliary and MTP terms of the reference package are not here:
-configs with MoE layers or an MTP head are not ported (ROADMAP.md).
+The MTP term of the reference package is not here: configs with an MTP
+head are not ported (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -20,8 +21,10 @@ def _ce(logits, targets, z_loss=0.0):
 
 
 def lm_loss(logits, aux, batch, cfg, z_loss=1e-4):
-    """Causal LM loss.  Encoder configs (non-causal LM heads) predict the
-    *current* position of a masked stream instead of shifting."""
+    """Causal LM loss (+ the MoE aux term, ``aux["moe_aux"]`` times
+    ``cfg.aux_loss_weight``, when ``cfg.moe``).  Encoder configs
+    (non-causal LM heads) predict the *current* position of a masked
+    stream instead of shifting."""
     tokens = batch["tokens"]
     if cfg.causal:
         loss = _ce(logits[:, :-1], tokens[:, 1:], z_loss).mean()
@@ -30,7 +33,13 @@ def lm_loss(logits, aux, batch, cfg, z_loss=1e-4):
         per = _ce(logits, tokens, z_loss)
         loss = (per * mask).sum() / torch.clamp(mask.sum(), min=1) \
             if mask is not None else per.mean()
-    return loss, {"ce": loss, "loss": loss}
+    metrics = {"ce": loss}
+    if aux.get("moe_aux") is not None and cfg.moe:
+        moe_aux = aux["moe_aux"] * cfg.aux_loss_weight
+        loss = loss + moe_aux
+        metrics["moe_aux"] = moe_aux
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 def cls_loss(logits, aux, batch, cfg, z_loss=0.0):

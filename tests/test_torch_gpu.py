@@ -11,7 +11,9 @@ Without a card every test skips (decided in the ``cuda_device`` fixture,
 never at import or collection).
 """
 import dataclasses
+import importlib.util
 import warnings
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -58,6 +60,19 @@ from repro_torch.serve import (
     SpeculativeConfig,
 )
 from repro_torch.serve import sampling
+
+
+def _chip_smoke_counting_drops():
+    """``chip_smoke.counting_drops``: the repo root's script, loaded by
+    path (the root is not on the import path of every test run)."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.counting_drops
+
+
+counting_drops = _chip_smoke_counting_drops()
 
 F32_ATOL = 2e-5  # f32: kernel and plain version sum in different orders
 # bf16 outputs carry 8 mantissa bits: one rounding step is ~4e-3 at |out|
@@ -2422,3 +2437,123 @@ def test_cuda_xlstm_graphed_slstm_loop_equals_the_eager_loop(cuda_device,
     for a, b in zip(tree_leaves(ca), tree_leaves(cb)):
         assert torch.equal(a, b)
     assert xlstm._SLSTM_GRAPHS
+
+
+# ---------------------------------------------------------------- MoE
+def _moe_inputs(dev, S, **kw):
+    """A routed-experts layer of phi3.5-moe-42b-smoke's widths (d 64, 4
+    experts of 128 at top 2) and (2, S, 64) inputs, drawn on the CPU and
+    copied to ``dev``."""
+    from repro_torch.models import moe
+
+    cfg = get_config("phi3.5-moe-42b-smoke").replace(**kw)
+    gen = torch.Generator().manual_seed(S)
+    p = moe.init_moe(gen, cfg, layers=None, std=0.2)
+    x = torch.randn(2, S, cfg.d_model, generator=gen)
+    return cfg, p, x
+
+
+@pytest.mark.parametrize("S,kw", [
+    (1, {}), (40, dict(capacity_factor=0.75)),
+    (40, dict(capacity_factor=0.75, moe_dispatch_dtype="bfloat16")),
+    (40, dict(capacity_factor=0.75, n_shared_experts=1,
+              router_score="sigmoid")),
+    (1024, dict(capacity_factor=0.5))])
+def test_cuda_moe_mlp_matches_the_cpu(cuda_device, S, kw):
+    """``moe_mlp`` on the card against the same call on the CPU: the same
+    expert choices, drops (some, below capacity factor 1) and aux, and
+    outputs within 1e-5 (f32: the batched expert products sum in another
+    order)."""
+    from repro_torch.models import moe
+
+    cfg, p, x = _moe_inputs(cuda_device, S, **kw)
+    with torch.no_grad(), counting_drops(cfg) as want_drops:
+        want, want_aux = moe.moe_mlp(x, p, cfg)
+    pd = {k: v.to(cuda_device) for k, v in p.items()}
+    with torch.no_grad(), counting_drops(cfg) as drops:
+        got, aux = moe.moe_mlp(x.to(cuda_device), pd, cfg)
+    _, idx, _ = moe.router(x, p["w_router"], top_k=cfg.top_k,
+                           score=cfg.router_score)
+    _, idx_d, _ = moe.router(x.to(cuda_device), pd["w_router"],
+                             top_k=cfg.top_k, score=cfg.router_score)
+    assert torch.equal(idx_d.cpu(), idx)
+    assert drops == want_drops and (drops["dropped"] > 0) == (S > 1)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(aux.cpu(), want_aux, atol=1e-6, rtol=1e-6)
+
+
+def _phi_reqs(cfg):
+    return [Request(uid=i, prompt=lm_batch(cfg.vocab_size, 1, p,
+                                           seed=120 + i)[0],
+                    max_new_tokens=g)
+            for i, (p, g) in enumerate([(16, 12), (33, 7), (9, 20),
+                                        (20, 5)])]
+
+
+def _moe_launches(eng, kern):
+    """One flash a layer per prefill group (target and draft in a
+    speculative admission), one slot decode a layer per decode step, and
+    per speculative block d slot decodes and two chunk verifies a
+    layer."""
+    L = eng.cfg.n_layers
+    paged = eng.pool_kind == "paged"
+    slot = ("paged_slot_decode_attention" if paged
+            else "slot_decode_attention")
+    steps = eng.k * eng.n_decode_dispatches
+    want = {name: 0 for name in kern}
+    if eng.speculative is None:
+        want.update({slot: L * (steps + eng.n_prefix_tail_steps),
+                     "flash_attention": L * eng.n_prefills})
+    else:
+        verify = ("paged_chunk_verify_attention" if paged
+                  else "chunk_verify_attention")
+        want.update({slot: L * eng.speculative.d * steps,
+                     verify: 2 * L * steps,
+                     "flash_attention": L * eng.n_prefills})
+    return want
+
+
+def test_cuda_moe_engine_routes_agree_with_exact_launches(cuda_device):
+    """phi3.5-moe-42b-smoke on the card.  At capacity factor 8.0 (= E / K,
+    nothing drops) the dense pool, a paged pool and the model drafting
+    for itself (d 3) on both pools give ``generate``'s tokens; at the
+    published 1.25 (prefills drop choices) the paged pool gives the dense
+    pool's.  Every run launches its kernels exactly."""
+    cfg8 = get_config("phi3.5-moe-42b-smoke").replace(capacity_factor=8.0)
+    params = transformer.init(torch.Generator(device=cuda_device).manual_seed(
+        0), cfg8)
+    reqs = _phi_reqs(cfg8)
+    kern = ops.kernels()
+
+    def run(cfg, pool, spec=False):
+        kw = dict(capacity=2, max_len=64, k=2 if spec else 4, pool=pool,
+                  prefill_bucket=8)
+        if spec:
+            kw["speculative"] = SpeculativeConfig(cfg, params, d=3)
+        elif pool == "paged":
+            kw["pages"] = 10
+        eng = ContinuousBatchingEngine(cfg, params, **kw)
+        for fn in kern.values():
+            fn.launches = 0
+        with counting_drops(cfg) as drops:
+            got = eng.run([dataclasses.replace(r) for r in reqs])
+        torch.cuda.synchronize()
+        assert {n: fn.launches for n, fn in kern.items()} == \
+            _moe_launches(eng, kern)
+        assert eng.pages_in_use in (None, 0)
+        return got, drops
+
+    gen = {r.uid: generate(cfg8, params, torch.from_numpy(r.prompt)[None].to(
+        cuda_device), max_new_tokens=r.max_new_tokens, max_len=64)[0]
+        .cpu().numpy() for r in reqs}
+    for pool in ("dense", "paged"):
+        for spec in (False, True):
+            got, drops = run(cfg8, pool, spec)
+            assert drops["dropped"] == 0
+            for r in reqs:
+                np.testing.assert_array_equal(got[r.uid], gen[r.uid])
+    cfg = cfg8.replace(capacity_factor=1.25)
+    (dense, drops), (paged, _) = run(cfg, "dense"), run(cfg, "paged")
+    assert drops["dropped"] > 0
+    for r in reqs:
+        np.testing.assert_array_equal(paged[r.uid], dense[r.uid])

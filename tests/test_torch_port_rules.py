@@ -56,6 +56,7 @@ def test_port_tree_is_what_the_rule_walks():
                    "kernels/build.py", "models/attention.py",
                    "models/transformer.py", "models/griffin.py",
                    "models/rope.py", "models/common.py", "models/xlstm.py",
+                   "models/moe.py",
                    "configs/archs.py",
                    "launch/serve.py", "launch/train.py",
                    "checkpoint/manager.py", "data/synthetic.py",

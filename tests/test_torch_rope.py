@@ -136,9 +136,20 @@ def test_rope_configs_equal_the_reference_and_serve():
     (dict(window=8), "sliding-window"),
     (dict(mtp=True), "MTP")])
 def test_unported_variants_still_refused(kw, what):
-    """M-RoPE, MoE, MLA and the MTP head are refused; a sliding window on
-    qwen3 is ported (its ring cache has JAX's shape and it serves)."""
+    """M-RoPE, MLA and the MTP head are refused; a sliding window and MoE
+    layers on qwen3 are ported (the ring cache, or the "moe" cache group,
+    has JAX's shape, and it serves)."""
     cfg = get_config("qwen3-0.6b-smoke").replace(**kw)
+    if "moe" in kw:
+        jcfg = jax_get_config("qwen3-0.6b-smoke").replace(**kw)
+        want = jax_family(jcfg).init_cache(jcfg, 1, 40)
+        got = transformer.init_cache(cfg, 1, 40)
+        assert set(got) == set(want) == {"moe"}
+        for name in ("k", "v"):
+            assert got["moe"][name].shape == want["moe"][name].shape
+        ok, why = serve_supported(cfg)
+        assert ok and "full KV cache" in why
+        return
     if "window" in kw:
         jcfg = jax_get_config("qwen3-0.6b-smoke").replace(**kw)
         want = jax_family(jcfg).init_cache(jcfg, 1, 40)

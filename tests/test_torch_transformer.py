@@ -126,10 +126,23 @@ def test_port_init_matches_reference_layout():
     (dict(window=8), "sliding-window"),
 ])
 def test_unported_configs_raise_naming_roadmap(kw, what):
-    """MLA, MoE and multimodal RoPE raise, naming ROADMAP.md; a sliding
-    window is ported: its slot cache is JAX's ring of
-    pad_cache_len(min(max_len, window)) slots and it serves."""
+    """MLA and multimodal RoPE raise, naming ROADMAP.md; a sliding window
+    is ported: its slot cache is JAX's ring of pad_cache_len(min(max_len,
+    window)) slots and it serves; MoE is ported: its cache is JAX's one
+    "moe" group and it serves."""
     cfg = ModelConfig(name="x", rope="none", learned_pos=16).replace(**kw)
+    if "moe" in kw:
+        jcfg = jax_get_config("gpt-micro").replace(
+            name="x", rope="none", learned_pos=16, **kw)
+        want = jax_family(jcfg).init_cache(jcfg, 2, 20)
+        got = transformer.init_cache(port_config(jcfg), 2, 20)
+        assert set(got) == set(want) == {"moe"}
+        for name in ("k", "v"):
+            assert got["moe"][name].shape == want["moe"][name].shape
+        ok, why = serve_supported(cfg)
+        assert ok and "full KV cache" in why
+        assert transformer.slot_cache_layout(cfg) == "full"
+        return
     if "window" in kw:
         jcfg = jax_get_config("gpt-micro").replace(
             name="x", rope="none", learned_pos=16, **kw)
