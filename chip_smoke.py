@@ -11,7 +11,9 @@ recurrentgemma-2b trained at full width; qwen3-0.6b with a sliding window
 served from ring caches on every route; xlstm-1.3b served dense, paged and
 speculative, grown into and trained at full width; phi3.5-moe-42b (mixture
 of experts) at full width, cut in depth, served at two capacity factors,
-grown into and trained.
+grown into and trained; deepseek-v3-671b (multi-head latent attention, MoE
+and the MTP head) at full width, cut in depth, served from latent caches
+on both pools and speculatively, grown into and trained.
 
     python3 chip_smoke.py [--out report.json]
 
@@ -117,7 +119,7 @@ printed as it goes; a failed phase raises, so the exit code is not 0:
                 high-water as a CPU run of the same schedule (1-layer
                 model) predicted, no page left in use;
  10b. griffin speculation -- phase 9's model drafting for itself (d 4, K
-                2) on its first 8 requests: the model itself on the dense
+                2) on its first 4 requests: the model itself on the dense
                 pool (acceptance exactly 1.0), then a copy nudged by
                 seeded noise (1e-3 of each leaf's std; acceptance strictly
                 inside (0, 1)) on phase 10's 160-page pool.  Tokens ==
@@ -174,7 +176,7 @@ printed as it goes; a failed phase raises, so the exit code is not 0:
                 ``filtered_probs`` within 1e-6; the sampled dense engine
                 beside the greedy one (tok/s of both; host syncs, prefill
                 groups, macro-steps and every kernel's launches equal);
-                tokens of the first 8 == a sequential sampled replay
+                tokens of the first 4 == a sequential sampled replay
                 (``fam.prefill`` and ``decode_step`` along the same (seed,
                 uid) chain) up to reported near ties of the perturbed
                 scores, and not all
@@ -190,8 +192,9 @@ printed as it goes; a failed phase raises, so the exit code is not 0:
                 drafting after the swap (d 4): first growing on a
                 background thread while the engine serves waves of the
                 requests, then synchronously with the swap at dispatch 2,
-                then synchronously on a 48-page paged pool.  Every request
-                against the plain routes: served before the swap ==
+                then synchronously on a 48-page paged pool.  Every resumed
+                request, and those of the first 8 prompts, against the
+                plain routes: served before the swap ==
                 gpt-small's, resumed == gpt-small's committed prefix then
                 the grown gpt-base's on prompt ++ committed, queued at the
                 swap == the grown gpt-base's (near ties reported); exact
@@ -276,7 +279,7 @@ printed as it goes; a failed phase raises, so the exit code is not 0:
                 refused admissions, prefills, macro-steps and the pages
                 high-water as a CPU run of the schedule predicts, 0 pages
                 in use; (d) a copy nudged by 1e-3 of each leaf's std
-                drafting (d 3, K 2, capacity 4) for the 4 shortest prompts
+                drafting (d 3, K 2, capacity 4) for the 2 shortest prompts
                 on the dense pool and a 4-page pool: tokens == (a)'s,
                 acceptance strictly inside (0, 1), peak memory; (e)
                 xlstm-1.3b-smoke pretrained and grown into an 8 x 128
@@ -321,6 +324,40 @@ printed as it goes; a failed phase raises, so the exit code is not 0:
                 margin); (d) phi3.5-moe-42b cut to 2 layers trained 2
                 AdamW steps at B 1 x S 256: loss, moe_aux, ms/step
                 against the bound, peak memory.
+ 20. deepseek -- deepseek-v3-671b at full width (d_model 7,168, 128
+                heads, MLA with q_lora_rank 1,536, kv_lora_rank 512,
+                qk_nope_dim 128, qk_rope_dim 64, v_head_dim 128; 256
+                experts of 2,048 at top 8, sigmoid scoring, 1 shared
+                expert; a dense d_ff of 18,432; vocab 129,280; the MTP
+                head; f32, seeded weights at the init's std) cut to 2 of 61
+                layers, one dense and one MoE (14,630,392,832 params), its
+                spread checked first (``phi_spread``); MLA runs no kernel of
+                the port, so every attention kernel launches 0 times in
+                (a)-(b).  (a) 8 requests of 64..448 prompt tokens and 32
+                new, capacity 8, max_len 512, K 8, buckets of 16, at the
+                published capacity factor 1.25 (prefills drop choices,
+                counted): the dense latent pool and a 32-page one, f32
+                (paged == dense exactly) and, after (b), bf16 (weights cast
+                leaf by leaf; a parting excused only by phase 19's bf16
+                rule); latent pool bytes a token a layer against the
+                expanded K/V's.  (b) capacity factor 32 = E / K (nothing
+                drops): 4 requests of 96 and 40 prompt tokens (the last 3
+                open on the first's first 32) and 24 new, capacity 4,
+                max_len 128 (pages of 8): the dense pool, a 24-page pool
+                (hits, misses, refusals, prefills, macro-steps, tail steps
+                and the pages high-water as a CPU run of the schedule
+                predicts), the target's dense layer drafting (its own
+                tensors, no copy; d 4, K 2) on both pools (acceptance
+                strictly inside (0, 1)), ``generate`` at B 1 and the plain
+                route on the first 2: every run == the dense run up to
+                reported near ties.  (c) deepseek-v3-671b-smoke grown into
+                4 x 128 by rank-1 Mango after 5 operator steps (the
+                sandwich on the MLA matrices and expert slots exactly as a
+                CPU run counts; the plain route's params; the margin).  (d)
+                deepseek-v3-671b cut to its dense layer with the MTP head
+                (3,123,106,816 params) trained 2 AdamW steps at B 1 x S
+                256: loss, ce and mtp, ms/step against the bytes and f32
+                FLOP bounds, peak memory.
 
 Phase 3 also holds the scan's backward kernel against autograd through the
 scan's plain version (recurrentgemma-2b's training shape, f32 and bf16,
@@ -336,7 +373,8 @@ Each traced run prints the device time of each of the port's kernels.
 Each path's launch counters are set to 0 just before it runs and read just
 after; a kernel of the path that was never launched fails the run.  The
 line before the last is the kernels JSON (``launches_p19``: phase 19's
-launches of each kernel it runs); the last line is
+launches of each kernel it runs; ``launches_p20``: phase 20's, the
+sandwich's, as MLA launches no attention kernel); the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
 beside this file, it exits non-zero and prints no result.
 """
@@ -3252,6 +3290,10 @@ GRIFFIN_DRAFT_NOISE = 1e-3  # phase 10b's nudged draft: noise / leaf std
 # the paged pool (cut from each draft on both pools to make room for
 # phase 16)
 GRIFFIN_SPEC_RUNS = (("self", ("dense",)), ("nudged", ("paged",)))
+# phase 10b serves phase 9's first 4 requests (cut from 8 to make room
+# for phase 20): a ring filled at admission (2,558 tokens), one that wraps
+# in decode (2,024) and two short ones (495, 454)
+GRIFFIN_SPEC_REQS = 4
 
 
 def nudged_copy(params, scale, seed):
@@ -3275,7 +3317,8 @@ def nudged_copy(params, scale, seed):
 
 def run_griffin_spec(model, paged_report):
     """Phase 10b: griffin speculation.  recurrentgemma-2b drafting for
-    itself (d 4, K 2) on phase 9's first 8 requests: the model itself on
+    itself (d 4, K 2) on phase 9's first GRIFFIN_SPEC_REQS requests: the
+    model itself on
     the dense pool (every proposal accepted), then a copy nudged by seeded
     noise on phase 10's 160-page pool (acceptance strictly inside (0,
     1)).  Tokens == phase 9's plain route up to reported near
@@ -3291,7 +3334,7 @@ def run_griffin_spec(model, paged_report):
     from repro_torch.serve import ContinuousBatchingEngine, SpeculativeConfig
 
     cfg, params, reqs, _, _ = model
-    reqs = reqs[:GRIFFIN_PAGED_REQS]
+    reqs = reqs[:GRIFFIN_SPEC_REQS]
     pat = griffin.block_pattern(cfg)
     n_rec, n_attn = pat.count("rec"), pat.count("attn")
     d, k = GRIFFIN_SPEC_D, GRIFFIN_SPEC_K
@@ -3384,9 +3427,9 @@ QWEN_GEN8_CHECKED = 2
 # plain route, and paged == dense for all 16 (16, then 8, then 4, cut to
 # make room for phases 16, 17 and 18)
 QWEN_PLAIN_REQS = 2
-# phase 11's traced engine run serves its first 4 requests (one wave of 8
-# until PR 28, cut to make room for phase 18)
-QWEN_TRACED_REQS = 4
+# phase 11's traced engine run serves its first 2 requests (cut from one
+# wave of 8, then 4, to make room for phases 18 and 20)
+QWEN_TRACED_REQS = 2
 QWEN_MIN_DISTINCT = 512  # of the dense engine's 1024 tokens (see qwen_model)
 F32_LOGIT_RTOL = 1e-3  # f32 kernel route vs f32 full forward, of max |logit|
 
@@ -4091,10 +4134,10 @@ def run_deit(kernel_rows, device="cuda"):
 
 SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.95, seed=5)  # phase 13
 SAMPLED_SPEC_REQS = 8  # phase 13's self-draft runs serve the first 8
-# phase 13 replays its first 8 requests' chains sequentially (all 16 until
-# PR 28, cut to make room for phase 18); the paged pool's tokens equal the
-# dense pool's exactly past them
-SAMPLED_REPLAY_REQS = 8
+# phase 13 replays its first 4 requests' chains sequentially (cut from
+# 16, then 8, to make room for phases 18 and 20); the paged pool's tokens
+# equal the dense pool's exactly past them
+SAMPLED_REPLAY_REQS = 4
 
 
 def check_sampling_on_card(sp, vocab):
@@ -4324,6 +4367,10 @@ UPGRADE_K, UPGRADE_D = 8, 4  # phase 14: macro-step, post-swap draft depth
 # model grows, at most this many; a growth that outlives them swaps at the
 # boundary after the last one
 UPGRADE_WAVES = 10
+# phase 14 holds the requests served wholly before or wholly after a swap
+# to the plain routes where their prompt is one of the wave's first 8 (cut
+# from all 16 to make room for phase 20); every resumed request is held
+UPGRADE_PLAIN_PROMPTS = 8
 # phase 14's prefill buckets: the swap's prewarm admits every (group size,
 # bucket) shape, 4 x 8 = 32 at buckets of 64 (4 x 32 = 128 at buckets of
 # 16 took 29.8-41.0 s of prewarm in the background run alone on an H100)
@@ -4438,14 +4485,16 @@ def run_upgrade(small):
         return mgr.start(background=background)
 
     def check(label, eng, mgr, watch, out, waves):
-        """Every request of every wave against the plain routes: served
+        """Every resumed request, and every request of the wave's first
+        UPGRADE_PLAIN_PROMPTS prompts, against the plain routes: served
         before the swap == gpt-small's, resumed == gpt-small's committed
         prefix then the grown gpt-base's on prompt ++ committed, admitted
         after the swap == the grown gpt-base's."""
         resumed = {r.uid: r for r in mgr.resumed_requests}
         before = watch.at["after"]["finished"] - set(resumed)
         key = weights_key(mgr)
-        ties, kinds = [], {"before": 0, "resumed": 0, "after": 0}
+        ties, kinds = [], {"before": 0, "resumed": 0, "after": 0,
+                           "unchecked": 0}
         for uid, toks in out.items():
             i = uid % 16
             if toks.shape != (64,):
@@ -4462,6 +4511,8 @@ def run_upgrade(small):
                                            toks[nc:], *post)
                 ties += [t for t in (tie, tie2) if t is not None]
                 kinds["resumed"] += 1
+            elif i >= UPGRADE_PLAIN_PROMPTS:
+                kinds["unchecked"] += 1
             elif uid in before:
                 tie = check_against_plain(f"{label} pre-swap", uid, toks,
                                           *plain_small(i))
@@ -5660,6 +5711,7 @@ XL_PAGES = 6  # phase 18c's arena: a page a request, fewer than the slots
 XL_GENERATE_REQS = 4  # phase 18a holds its first 4 against the sequential
 XL_SPEC_D, XL_SPEC_K, XL_SPEC_CAP = 3, 2, 4  # phase 18d
 XL_SPEC_PAGES = 4  # phase 18d's paged pool, shared by target and draft
+XL_SPEC_REQS = 2  # phase 18d serves the 2 shortest prompts (cut from 4)
 XL_DRAFT_NOISE = 1e-3  # phase 18d's nudged draft: noise / leaf std
 XL_GROW_PRE, XL_GROW_OP = 20, 5  # phase 18e: pretraining, operator steps
 XL_GROW_SEQ = 32  # phase 18e's batches: 8 x 32 tokens (two chunks of 16)
@@ -6018,8 +6070,8 @@ def run_xlstm(kernel_rows, smi, cfg=None, dev="cuda"):
 
     # (d) a nudged copy drafting, dense and paged
     draft = nudged_copy(params, XL_DRAFT_NOISE, seed=18)
-    # the 4 shortest prompts: every prefill runs twice here (target, draft)
-    spec_reqs = sorted(reqs, key=lambda r: len(r.prompt))[:XL_SPEC_CAP]
+    # the shortest prompts: every prefill runs twice here (target, draft)
+    spec_reqs = sorted(reqs, key=lambda r: len(r.prompt))[:XL_SPEC_REQS]
     out_d = {}
     with torch.no_grad():
         for pool in ("dense", "paged"):
@@ -6333,12 +6385,13 @@ def counting_drops(cfg):
 
 
 def phi_spread(cfg, params, dev="cuda", n=PHI_SPREAD_TOKENS):
-    """Whether seeded weights make a usable phi: one full forward over a
-    seeded prompt of ``n`` tokens.  Returns the median and least top-2
-    logit gap over its positions, the router's median and least top-K
-    boundary gap over every layer and position, and the distinct argmax
-    tokens.  On the CPU at full width cut to 1 layer:
-    ``python -c "import chip_smoke; chip_smoke.phi_spread_cpu()"``."""
+    """Whether seeded weights make a usable model (phases 19 and 20): one
+    full forward over a seeded prompt of ``n`` tokens.  Returns the median
+    and least top-2 logit gap over its positions, the router's median and
+    least top-K boundary gap over every MoE layer and position (None
+    without one), and the distinct argmax tokens.  On the CPU at full
+    width cut to 1 layer: ``python -c "import chip_smoke;
+    chip_smoke.phi_spread_cpu()"`` (``ds_spread_cpu`` for deepseek)."""
     import numpy as np
     import torch
 
@@ -6351,11 +6404,12 @@ def phi_spread(cfg, params, dev="cuda", n=PHI_SPREAD_TOKENS):
         logits, aux = transformer.forward(params, {"tokens": x}, cfg)
     top = logits[0].float().topk(2, dim=-1).values
     gaps = (top[:, 0] - top[:, 1]).cpu().numpy()
-    rg = torch.cat([g.reshape(-1) for g in log]).cpu().numpy()
+    rg = torch.cat([g.reshape(-1) for g in log]).cpu().numpy() if log \
+        else None
     return dict(top2_gap_median=float(np.median(gaps)),
                 top2_gap_min=float(gaps.min()),
-                router_gap_median=float(np.median(rg)),
-                router_gap_min=float(rg.min()),
+                router_gap_median=None if rg is None else float(np.median(rg)),
+                router_gap_min=None if rg is None else float(rg.min()),
                 distinct_argmax=int(np.unique(
                     logits[0].argmax(-1).cpu().numpy()).size),
                 logit_absmax=float(logits.abs().max()),
@@ -6628,6 +6682,96 @@ def _phi_launches(eng, L, kern):
     return want
 
 
+def moe_serve(name, label, make_engine, reqs, kern, want_launches, totals,
+              smi, on_card):
+    """Phases 19 and 20: serve ``reqs`` on a fresh ``make_engine()``
+    (timed, drops counted), with exactly ``want_launches(eng)`` kernel
+    launches (added to ``totals``), no speculative fallback and no page
+    left in use.  Returns (outputs, record, engine): tok/s, the schedule,
+    acceptance, dropped choices, pool bytes, peak memory above what was
+    held before, host syncs a token, launches."""
+    import torch
+
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() if on_card else 0
+    eng = make_engine()
+    _launch_counts(kern, zero=True)
+    with torch.no_grad(), counting_drops(eng.cfg) as drops:
+        out, dt, tps, waits = timed_run(eng, reqs)
+    launches = _launch_counts(kern, zero=True)
+    want = want_launches(eng)
+    if launches != want or eng.n_spec_fallbacks:
+        raise AssertionError(f"{name} {label} launched {launches}, expected "
+                             f"{want} ({eng.n_spec_fallbacks} fallbacks)")
+    for k in totals:
+        totals[k] += launches[k]
+    if eng.pool_kind == "paged" and eng.pages_in_use:
+        raise AssertionError(f"{name} {label}: {eng.pages_in_use} pages "
+                             "left in use")
+    peak = (torch.cuda.max_memory_allocated() - held) if on_card else 0
+    n_tok = sum(len(v) for v in out.values())
+    rec = dict(tok_per_s=tps, seconds=dt, tokens=n_tok,
+               schedule=_phi_schedule(eng, waits),
+               acceptance=eng.acceptance_rate,
+               proposed=eng.n_spec_proposed,
+               accepted=eng.n_spec_accepted,
+               drops=drops, pages_budget=eng.pages_budget,
+               pool_bytes=_pool_bytes(eng.pool)
+               + (_pool_bytes(eng.pool_d) if eng.pool_d else 0),
+               peak_above_held_gib=peak / 2**30,
+               held_gib=held / 2**30,
+               host_syncs_per_token=eng.n_host_syncs / n_tok,
+               launches={n: v for n, v in launches.items() if v})
+    print(f"{name} {label}: {n_tok} tokens in {dt:.3f} s: {tps:.1f} tok/s; "
+          f"acceptance {eng.acceptance_rate:.4f} ({eng.n_spec_accepted}/"
+          f"{eng.n_spec_proposed}); dropped {drops['dropped']} of "
+          f"{drops['choices']} expert choices; schedule "
+          f"{rec['schedule']}; pages budget {eng.pages_budget}; pools "
+          f"{rec['pool_bytes'] / 2**30:.4f} GiB, peak "
+          f"{peak / 2**30:.2f} GiB above the {held / 2**30:.2f} GiB "
+          f"held; launches {rec['launches']} ({smi})", flush=True)
+    return out, rec, eng
+
+
+def moe_check_runs(label, runs, reqs, ref, n_new, vocab):
+    """Every run's tokens well formed (``n_new`` ids below ``vocab``) and
+    equal to ``runs["dense"]``; a disagreement is decided by ``ref(req)``
+    (tokens, logit gaps, router gaps, and ``check_phi_tokens``' limits),
+    which every run must then equal up to near ties.  Every request is
+    decided before the disagreements that are no near tie are raised
+    together.  Returns ({run: [near ties]}, the uids decided)."""
+    ties = {w: [] for w in runs}
+    decided, faults = [], []
+    for r in reqs:
+        got = {what: run[r.uid] for what, run in runs.items()}
+        for what, toks in got.items():
+            if toks.shape != (n_new,) or toks.min() < 0 or \
+                    toks.max() >= vocab:
+                raise AssertionError(f"uid {r.uid}: bad {label} {what} "
+                                     "output")
+        if all((t == got["dense"]).all() for t in got.values()):
+            continue
+        decided.append(r.uid)
+        want, gaps, rgaps, limits = ref(r)
+        for what, toks in got.items():
+            try:
+                tie = check_phi_tokens(f"{label} {what}", r.uid, toks, want,
+                                       gaps, rgaps, **limits)
+            except AssertionError as e:
+                print(e, flush=True)
+                faults.append(str(e))
+                continue
+            if tie is not None:
+                ties[what].append(tie)
+    if faults:
+        raise AssertionError(f"{label}: {len(faults)} disagreements are no "
+                             f"near tie: {faults}")
+    return ties, decided
+
+
 def run_phi(kernel_rows, smi, cfg=None, dev="cuda"):
     """Phase 19: phi3.5-moe-42b at full width cut to PHI_LAYERS layers, in
     f32 (``cfg`` and ``dev`` replace it for a rehearsal at a small size on
@@ -6698,85 +6842,17 @@ def run_phi(kernel_rows, smi, cfg=None, dev="cuda"):
                   predicted=predicted, nvidia_smi=smi)
     p19 = {name: 0 for name in PHI_KERNELS}
 
-    def serve(label, make_engine, reqs):
-        gc.collect()
-        if on_card:
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-        held = torch.cuda.memory_allocated() if on_card else 0
-        eng = make_engine()
-        _launch_counts(kern, zero=True)
-        with torch.no_grad(), counting_drops(eng.cfg) as drops:
-            out, dt, tps, waits = timed_run(eng, reqs)
-        launches = _launch_counts(kern, zero=True)
-        want = (_phi_launches(eng, eng.cfg.n_layers, kern) if on_card
+    def want_launches(eng):
+        return (_phi_launches(eng, eng.cfg.n_layers, kern) if on_card
                 else {name: 0 for name in kern})
-        if launches != want or eng.n_spec_fallbacks:
-            raise AssertionError(f"phi {label} launched {launches}, expected "
-                                 f"{want} ({eng.n_spec_fallbacks} "
-                                 "fallbacks)")
-        for name in p19:
-            p19[name] += launches[name]
-        if eng.pool_kind == "paged" and eng.pages_in_use:
-            raise AssertionError(f"phi {label}: {eng.pages_in_use} pages "
-                                 "left in use")
-        peak = (torch.cuda.max_memory_allocated() - held) if on_card else 0
-        n_tok = sum(len(v) for v in out.values())
-        rec = dict(tok_per_s=tps, seconds=dt, tokens=n_tok,
-                   schedule=_phi_schedule(eng, waits),
-                   acceptance=eng.acceptance_rate,
-                   proposed=eng.n_spec_proposed,
-                   accepted=eng.n_spec_accepted,
-                   drops=drops, pages_budget=eng.pages_budget,
-                   pool_bytes=_pool_bytes(eng.pool)
-                   + (_pool_bytes(eng.pool_d) if eng.pool_d else 0),
-                   peak_above_held_gib=peak / 2**30,
-                   held_gib=held / 2**30,
-                   host_syncs_per_token=eng.n_host_syncs / n_tok,
-                   launches={n: v for n, v in launches.items() if v})
-        print(f"phi {label}: {n_tok} tokens in {dt:.3f} s: {tps:.1f} tok/s; "
-              f"acceptance {eng.acceptance_rate:.4f} ({eng.n_spec_accepted}/"
-              f"{eng.n_spec_proposed}); dropped {drops['dropped']} of "
-              f"{drops['choices']} expert choices; schedule "
-              f"{rec['schedule']}; pages budget {eng.pages_budget}; pools "
-              f"{rec['pool_bytes'] / 2**30:.3f} GiB, peak "
-              f"{peak / 2**30:.2f} GiB above the {held / 2**30:.2f} GiB "
-              f"held; launches {rec['launches']} ({smi})", flush=True)
-        return out, rec, eng
+
+    def serve(label, make_engine, reqs):
+        return moe_serve("phi", label, make_engine, reqs, kern,
+                         want_launches, p19, smi, on_card)
 
     def check_runs(label, runs, reqs, ref):
-        """Every run's tokens well formed and equal to ``runs["dense"]``;
-        a disagreement is decided by ``ref(req)`` (tokens, logit gaps,
-        router gaps, and ``check_phi_tokens``' limits), which every run
-        must then equal up to near ties.  Every request is decided before
-        the disagreements that are no near tie are raised together."""
-        ties = {w: [] for w in runs}
-        decided, faults = [], []
-        for r in reqs:
-            got = {what: run[r.uid] for what, run in runs.items()}
-            for what, toks in got.items():
-                if toks.shape != (PHI_NEW,) or toks.min() < 0 or \
-                        toks.max() >= cfg.vocab_size:
-                    raise AssertionError(f"uid {r.uid}: bad phi {label} "
-                                         f"{what} output")
-            if all((t == got["dense"]).all() for t in got.values()):
-                continue
-            decided.append(r.uid)
-            want, gaps, rgaps, limits = ref(r)
-            for what, toks in got.items():
-                try:
-                    tie = check_phi_tokens(f"phi {label} {what}", r.uid,
-                                           toks, want, gaps, rgaps, **limits)
-                except AssertionError as e:
-                    print(e, flush=True)
-                    faults.append(str(e))
-                    continue
-                if tie is not None:
-                    ties[what].append(tie)
-        if faults:
-            raise AssertionError(f"phi {label}: {len(faults)} disagreements "
-                                 f"are no near tie: {faults}")
-        return ties, decided
+        return moe_check_runs(f"phi {label}", runs, reqs, ref, PHI_NEW,
+                              cfg.vocab_size)
 
     # (a) the published capacity factor: choices drop
     runs_a = {}
@@ -7007,6 +7083,445 @@ def run_phi_train(cfg, kern, dev="cuda", full=True):
                 n_params=n_params, peak_gib=peak / 2**30, metrics=metrics)
 
 
+DS_ARCH = "deepseek-v3-671b"
+DS_LAYERS = 2  # of 61, one dense and one MoE (moe_layer_start 1, the
+# smoke's split): phase 20 cuts depth, never width
+DS_N_PARAMS = {2: 14_630_392_832, 1: 3_123_106_816}  # eval_shape, by depth
+# phase 20a: the published capacity factor (1.25) in phase 19a's geometry,
+# which ``phi_route_replay`` replays for the bf16 rule
+DS_CAPACITY, DS_MAX_LEN, DS_K, DS_BUCKET = (PHI_CAPACITY, PHI_MAX_LEN, PHI_K,
+                                            PHI_BUCKET)
+DS_NEW = 32
+DS_PROMPTS = (64, 96, 448, 200, 333, 128, 400, 270)
+DS_PAGES = 32  # half the dense pool's 64 pages of 64
+# phase 20b: capacity factor E / K = 32, where nothing drops; the capacity
+# layout then holds 256 x sg slots a group of sg tokens, so short prompts
+# and few rows (a prefill holds at most 256 x 96 slots a row)
+DS_NO_DROP = 32.0
+DS_B_CAPACITY, DS_B_MAX_LEN, DS_B_NEW = 4, 128, 24  # page 8 at max_len 128
+# uids 1..3 open on uid 0's first 32 tokens (4 pages of 8) with tails
+# inside their fifth page: a hit needs every full page before a prompt's
+# last token resident
+DS_B_PROMPTS = (96, 40, 40, 40)
+DS_SHARED = 32
+DS_B_PAGES = 24  # 3/8 of the dense pool's 64 pages of 8: uids 2 and 3
+# wait for pages, then hit the registered opening
+DS_D, DS_SPEC_K = 4, 2  # phase 20b's draft depth, blocks a dispatch
+DS_PLAIN_REQS = 2  # phase 20b holds its first 2 against the plain route
+DS_GROW_PRE, DS_GROW_OP, DS_GROW_SEQ = 20, 5, 32  # phase 20c
+DS_TRAIN_S, DS_TRAIN_STEPS = 256, 2  # phase 20d, at 1 dense layer + MTP
+
+
+def ds_model(layers=DS_LAYERS, dev="cuda", **overrides):
+    """deepseek-v3-671b at full width (d_model 7,168, 128 heads, MLA with
+    q_lora_rank 1,536 and kv_lora_rank 512, 256 experts of 2,048 at top 8
+    with sigmoid scoring and one shared expert, a dense d_ff of 18,432,
+    vocab 129,280, the MTP head) cut to ``layers`` layers, the first
+    dense (``moe_layer_start`` 1), in f32, weights from a torch.Generator
+    seeded 0 on ``dev`` at the init's std (0.02).  ``overrides`` replace
+    config fields (the capacity factor)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import build_params
+
+    cfg = get_config(DS_ARCH).replace(
+        n_layers=layers, moe_layer_start=1, param_dtype="float32",
+        compute_dtype="float32", **overrides)
+    return cfg, build_params(cfg, seed=0, device=dev)
+
+
+def ds_spread_cpu(layers=1):
+    """``phi_spread`` of deepseek-v3-671b on the CPU at full width cut to
+    ``layers`` layers (1: the dense layer and the MTP head, ~12.5 GB of
+    f32 weights)."""
+    import torch
+
+    torch.manual_seed(0)
+    cfg, params = ds_model(layers, dev="cpu")
+    out = phi_spread(cfg, params, dev="cpu")
+    print(f"deepseek-v3-671b at full width, {layers} layer(s), f32 on the "
+          f"CPU, the init's std: {out}", flush=True)
+    return out
+
+
+def ds_requests(vocab, shared):
+    """Phase 20's requests.  20a (``shared`` False): 8 prompts of
+    DS_PROMPTS tokens, DS_NEW new each.  20b: 4 prompts of DS_B_PROMPTS
+    tokens, DS_B_NEW new each, uids 1..3 opening on uid 0's first
+    DS_SHARED tokens."""
+    import numpy as np
+
+    from repro_torch.data import lm_batch
+    from repro_torch.serve import Request
+
+    def own(uid, n):
+        return lm_batch(vocab, 1, n, seed=2000 + uid)[0]
+
+    if not shared:
+        return [Request(uid=uid, prompt=own(uid, n), max_new_tokens=DS_NEW)
+                for uid, n in enumerate(DS_PROMPTS)]
+    first = own(0, DS_B_PROMPTS[0])
+    prompts = [first] + [np.concatenate([first[:DS_SHARED],
+                                         own(uid, n - DS_SHARED)])
+                         for uid, n in enumerate(DS_B_PROMPTS) if uid]
+    return [Request(uid=uid, prompt=p, max_new_tokens=DS_B_NEW)
+            for uid, p in enumerate(prompts)]
+
+
+def ds_draft(cfg, params):
+    """Phase 20b's draft: the target without its MoE layer -- the config
+    cut to its dense layer, no MTP head -- over the target's own embed,
+    dense block, final norm and head tensors (no copy)."""
+    cfg_d = cfg.replace(n_layers=1, moe_layer_start=1, mtp=False)
+    return cfg_d, {k: params[k] for k in ("embed", "dense_blocks",
+                                          "final_norm", "head")}
+
+
+def _cast_in_place(tree, dtype):
+    """Every floating leaf of ``tree`` cast to ``dtype`` one leaf at a
+    time, each old leaf freed before the next is cast (two full copies of
+    a 58.5 GB model do not fit the card)."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _cast_in_place(v, dtype)
+        elif v.is_floating_point():
+            tree[k] = None
+            tree[k] = v.to(dtype)
+            del v
+    return tree
+
+
+def run_ds(kernel_rows, smi, cfg=None, dev="cuda"):
+    """Phase 20: deepseek-v3-671b at full width cut to DS_LAYERS layers
+    (one dense, one MoE; 14,630,392,832 params), f32 (``cfg`` and ``dev``
+    replace it for a rehearsal at a small size on the CPU).  MLA runs no
+    kernel of the port: every attention kernel must launch 0 times in
+    20a-b.  (a) The published capacity factor (1.25; prefills drop
+    choices) on DS_PROMPTS: the dense pool and a DS_PAGES-page pool, in
+    f32 (paged == dense exactly: the same plain code over the same
+    latents) and, after (b), in bf16 (weights cast leaf by leaf; a parting
+    excused only by phase 19's bf16 rule).  (b) Capacity factor E / K (32,
+    nothing drops) on 4 requests sharing a 32-token opening: the dense
+    pool, the paged pool (its schedule as a CPU run predicts it),
+    speculation at d 4, K 2 with the target's dense layer drafting on both
+    pools (acceptance strictly inside (0, 1)), ``generate`` at B 1 and the
+    plain route on the first DS_PLAIN_REQS: every run == the dense run up
+    to reported near ties.  (c) deepseek-v3-671b-smoke grown into 4 x 128
+    by rank-1 Mango (exact sandwich launches).  (d) deepseek-v3-671b cut
+    to its dense layer and the MTP head trained DS_TRAIN_STEPS AdamW steps
+    at B 1 x S DS_TRAIN_S."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import build_params, generate
+    from repro_torch.models import transformer
+    from repro_torch.serve import ContinuousBatchingEngine, SpeculativeConfig
+    from repro_torch.utils.pytree import tree_param_count
+
+    t_phase = time.perf_counter()
+    full = cfg is None
+    kern = ops.kernels()
+    on_card = dev == "cuda"
+    zeros = {name: 0 for name in kern}
+    t0 = time.perf_counter()
+    if full:
+        cfg, params = ds_model(DS_LAYERS, dev)
+    else:
+        params = build_params(cfg, seed=0, device=dev)
+    _sync()
+    init_s = time.perf_counter() - t0
+    n_params = tree_param_count(params)
+    if full and n_params != DS_N_PARAMS[DS_LAYERS]:
+        raise AssertionError(f"deepseek-v3-671b at {DS_LAYERS} layers has "
+                             f"{n_params} params, not "
+                             f"{DS_N_PARAMS[DS_LAYERS]}")
+    reqs_a = ds_requests(cfg.vocab_size, shared=False)
+    reqs_b = ds_requests(cfg.vocab_size, shared=True)
+    kw_a = dict(capacity=DS_CAPACITY, max_len=DS_MAX_LEN, k=DS_K,
+                prefill_bucket=DS_BUCKET)
+    kw_b = dict(capacity=DS_B_CAPACITY, max_len=DS_B_MAX_LEN, k=DS_K,
+                prefill_bucket=DS_BUCKET)
+    cfg_nd = cfg.replace(capacity_factor=DS_NO_DROP)
+    t0 = time.perf_counter()
+    predicted = predict_phi_schedule(cfg_nd, reqs_b, pool="paged",
+                                     pages=DS_B_PAGES, **kw_b)
+    predict_s = time.perf_counter() - t0
+    spread = phi_spread(cfg, params, dev)
+    # a latent token a layer against the K/V MLA would expand to
+    latent_b = (cfg.kv_lora_rank + cfg.qk_rope_dim) * 4
+    expanded_b = cfg.n_heads * (cfg.qk_nope_dim + cfg.qk_rope_dim
+                                + cfg.v_head_dim) * 4
+    print(f"deepseek-v3-671b: {cfg.n_layers} x {cfg.d_model} (dense "
+          f"layers {cfg.n_dense_layers}), {cfg.n_heads} heads, MLA "
+          f"q_lora {cfg.q_lora_rank} kv_lora {cfg.kv_lora_rank} nope "
+          f"{cfg.qk_nope_dim} rope {cfg.qk_rope_dim} v {cfg.v_head_dim}, "
+          f"{cfg.n_experts} experts of {cfg.expert_d_ff} at top "
+          f"{cfg.top_k} ({cfg.router_score}, {cfg.n_shared_experts} "
+          f"shared), MTP head: {n_params} params (f32, drawn in "
+          f"{init_s:.1f} s); spread {spread}; a latent token a layer "
+          f"{latent_b} B against {expanded_b} B expanded "
+          f"({expanded_b / latent_b:.1f}x); phase 20b's paged schedule as "
+          f"a CPU run predicts it ({predict_s:.1f} s): {predicted} ({smi})",
+          flush=True)
+    if predicted["hits"] < 1:
+        raise AssertionError(f"the schedule predicts no prefix hit: "
+                             f"{predicted}")
+    report = dict(n_params=n_params, init_seconds=init_s, spread=spread,
+                  predicted=predicted, nvidia_smi=smi,
+                  latent_bytes_per_token_layer=latent_b,
+                  expanded_bytes_per_token_layer=expanded_b)
+    p20 = {"tr_sandwich": 0}
+
+    def serve(label, make_engine, reqs):
+        out, rec, eng = moe_serve("deepseek", label, make_engine, reqs,
+                                  kern, lambda _: zeros, p20, smi, on_card)
+        # bytes a cached token takes a layer: the latent leaves' widths
+        grp = next(iter(eng.pool.values()))
+        rec["pool_bytes_per_token_layer"] = sum(
+            t.shape[-1] * t.element_size() for k, t in grp.items()
+            if k != "bt")
+        if eng.cache_layout != "full-mla" or set(grp) - {"ckv", "kr", "bt"}:
+            raise AssertionError(f"deepseek {label}: layout "
+                                 f"{eng.cache_layout}, pool leaves "
+                                 f"{sorted(grp)}")
+        return out, rec, eng
+
+    def check_runs(label, runs, reqs, ref, n_new):
+        return moe_check_runs(f"deepseek {label}", runs, reqs, ref, n_new,
+                              cfg.vocab_size)
+
+    def pools(c, p, label, reqs, kw, pages):
+        outs = {}
+        for pool in ("dense", "paged"):
+            outs[pool], report[f"{label} {pool}"], eng = serve(
+                f"{label} {pool}", lambda: ContinuousBatchingEngine(
+                    c, p, pool=pool, pages=pages if pool == "paged"
+                    else None, **kw), reqs)
+            if on_card and label == "a float32" and pool == "dense":
+                # where a decode step's time goes: 8 live rows at 300
+                pos = torch.full((DS_CAPACITY,), 300, dtype=torch.int32,
+                                 device=dev)
+                with torch.no_grad():
+                    _, report["decode_profile"] = profile_step(
+                        "deepseek-v3-671b slot decode step (B 8, f32)",
+                        lambda: transformer.decode_step_slots(
+                            p, pos, pos, eng.pool, c))
+            del eng
+        return outs
+
+    # (a) the published capacity factor, f32: choices drop; the two pools
+    # run the same plain code over the same latents, so exactly equal
+    outs = pools(cfg, params, "a float32", reqs_a, kw_a, DS_PAGES)
+    for pool in ("dense", "paged"):
+        if report[f"a float32 {pool}"]["drops"]["dropped"] < 1:
+            raise AssertionError(f"deepseek f32 {pool}: no expert choice "
+                                 "dropped at the published capacity factor")
+    def no_parting(r):
+        raise AssertionError(f"deepseek uid {r.uid}: f32 paged != dense")
+
+    check_runs("a float32", outs, reqs_a, no_parting, DS_NEW)
+    print(f"deepseek f32 at capacity factor {cfg.capacity_factor}: paged "
+          f"== dense for {len(reqs_a)}/{len(reqs_a)} requests", flush=True)
+    del outs
+
+    # (b) capacity factor E / K: nothing can drop
+    runs_b = {}
+    for pool in ("dense", "paged"):
+        runs_b[pool], report[f"b {pool}"], eng = serve(
+            f"cf {DS_NO_DROP:g} {pool}", lambda: ContinuousBatchingEngine(
+                cfg_nd, params, pool=pool,
+                pages=DS_B_PAGES if pool == "paged" else None, **kw_b),
+            reqs_b)
+        del eng
+    if report["b paged"]["schedule"] != predicted:
+        raise AssertionError(f"deepseek paged schedule "
+                             f"{report['b paged']['schedule']} differs from "
+                             f"the CPU prediction {predicted}")
+    cfg_d, params_d = ds_draft(cfg_nd, params)
+    for pool in ("dense", "paged"):
+        label = f"{pool} speculative"
+        runs_b[label], report[f"b {label}"], eng = serve(
+            f"cf {DS_NO_DROP:g} {label}", lambda: ContinuousBatchingEngine(
+                cfg_nd, params, capacity=DS_B_CAPACITY, max_len=DS_B_MAX_LEN,
+                k=DS_SPEC_K, prefill_bucket=DS_BUCKET, pool=pool,
+                speculative=SpeculativeConfig(cfg_d, params_d, d=DS_D)),
+            reqs_b)
+        del eng
+        acc = report[f"b {label}"]["acceptance"]
+        if not 0.0 < acc < 1.0:
+            raise AssertionError(f"deepseek {label}: acceptance {acc} not "
+                                 "inside (0, 1)")
+    del params_d
+    for label, rec in report.items():
+        if label.startswith("b ") and rec["drops"]["dropped"]:
+            raise AssertionError(f"deepseek {label} dropped {rec['drops']} "
+                                 f"at capacity factor {DS_NO_DROP:g}")
+    # generate at B 1 (MLA: the expanded prefill, absorbed decode steps;
+    # no kernel) on the first DS_PLAIN_REQS
+    gen = {}
+    for r in reqs_b[:DS_PLAIN_REQS]:
+        _launch_counts(kern, zero=True)
+        with torch.no_grad():
+            gen[r.uid] = generate(cfg_nd, params, torch.from_numpy(
+                r.prompt)[None].to(dev), max_new_tokens=DS_B_NEW,
+                max_len=DS_B_MAX_LEN)[0].cpu().numpy()
+        if _launch_counts(kern, zero=True) != zeros:
+            raise AssertionError(f"uid {r.uid}: deepseek generate launched "
+                                 "a kernel")
+    t0 = time.perf_counter()
+    plain = {r.uid: phi_plain_route(cfg_nd, params, r.prompt, DS_B_NEW)
+             for r in reqs_b[:DS_PLAIN_REQS]}
+    plain_s = time.perf_counter() - t0
+    if _launch_counts(kern) != zeros:
+        raise AssertionError("the plain route launched a kernel")
+    ties_b, _ = check_runs(
+        f"cf {DS_NO_DROP:g}", runs_b, reqs_b,
+        lambda r: (plain.get(r.uid) or phi_plain_route(
+            cfg_nd, params, r.prompt, DS_B_NEW)) + ({},), DS_B_NEW)
+    ties_b["dense vs plain"], ties_b["generate vs plain"] = [], []
+    for r in reqs_b[:DS_PLAIN_REQS]:
+        for what, toks in (("dense", runs_b["dense"][r.uid]),
+                           ("generate", gen[r.uid])):
+            tie = check_phi_tokens(f"deepseek {what} and the plain route",
+                                   r.uid, toks, *plain[r.uid])
+            if tie is not None:
+                ties_b[f"{what} vs plain"].append(tie)
+    report["b near ties"] = ties_b
+    report["plain_route_seconds"] = plain_s
+    print(f"deepseek at capacity factor {DS_NO_DROP:g}: the {len(runs_b)} "
+          f"engine runs equal for {len(reqs_b)}/{len(reqs_b)} requests, the "
+          f"dense run and generate (B 1) == the plain route ({plain_s:.1f} "
+          f"s) for uids {sorted(plain)}, but near ties {ties_b}; plain "
+          f"route's least router boundary gap "
+          f"{ {u: float(v[2].min()) for u, v in plain.items()} }", flush=True)
+    del runs_b, plain, gen
+
+    # (a) in the published bf16: the f32 weights cast leaf by leaf
+    cfg16 = cfg.replace(param_dtype="bfloat16", compute_dtype="bfloat16")
+    params = _cast_in_place(params, torch.bfloat16)
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    outs = pools(cfg16, params, "a bfloat16", reqs_a, kw_a, DS_PAGES)
+    ties_a, replayed = check_runs(
+        "a bfloat16", outs, reqs_a,
+        lambda r: phi_bf16_reference(cfg16, params, r.prompt,
+                                     outs["dense"][r.uid]), DS_NEW)
+    report["a bfloat16 near ties"] = ties_a
+    print(f"deepseek bf16 at capacity factor {cfg.capacity_factor}: paged "
+          f"== dense for {len(reqs_a)}/{len(reqs_a)} requests but near ties "
+          f"{ties_a} (replayed {replayed})", flush=True)
+    del outs, params
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (c) growth into a wider deepseek, then (d) training at full width
+    cfg_s = get_config("deepseek-v3-671b-smoke")
+    report["grow"] = run_small_growth(
+        kernel_rows, "deepseek", cfg_s,
+        cfg_s.replace(name="ds-smoke-big", n_layers=4, d_model=128,
+                      n_heads=8, n_kv_heads=8, d_ff=256),
+        "launches_p20", DS_GROW_PRE, DS_GROW_OP, DS_GROW_SEQ, dev)
+    p20["tr_sandwich"] += kernel_rows["tr_sandwich"]["launches_p20"]
+    report["train"] = run_ds_train(
+        None if full else cfg.replace(n_layers=1), kern, dev)
+    report["launches_p20"] = p20
+    report["seconds"] = time.perf_counter() - t_phase
+    print(f"deepseek phase: {report['seconds']:.1f} s; launches {p20} "
+          f"({smi})", flush=True)
+    return report
+
+
+def ds_train_flops(cfg, S):
+    """Operations of one training step (forward and backward, 3x the
+    forward's) of deepseek at B 1 x S: every matrix param once a token
+    (the embedding is a gather; the MTP block and head run over S - 1
+    positions, counted as S), plus each MLA layer's scores and values
+    over all S x S pairs (the main stack's and the MTP block's)."""
+    from repro_torch.models import transformer
+    from repro_torch.utils.pytree import tree_flatten_with_paths
+
+    shapes = transformer.param_shapes(cfg)
+    mat = sum(int(s.numel()) for p, s in tree_flatten_with_paths(shapes)
+              if len(s) >= 2 and p != "embed")
+    H = cfg.n_heads
+    attn = 2 * S * S * H * (cfg.qk_nope_dim + cfg.qk_rope_dim
+                            + cfg.v_head_dim)
+    n_attn = cfg.n_layers + (1 if cfg.mtp else 0)
+    return 3 * (2 * S * mat + n_attn * attn)
+
+
+def run_ds_train(cfg, kern, dev="cuda"):
+    """Phase 20d: deepseek-v3-671b cut to its dense layer with the MTP
+    head (3,123,106,816 params; ``cfg`` replaces it for a rehearsal),
+    f32, weights drawn afresh, trained DS_TRAIN_STEPS AdamW steps at B 1
+    x S DS_TRAIN_S, params and moments updated in place (no kernel
+    launches): the loss with its ce and mtp terms, ms/step against the
+    bytes bound (AdamW's nine f32 accesses a param) and the f32 FLOP bound
+    (``ds_train_flops``), peak memory."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data import lm_batch
+    from repro_torch.optim import OptimizerConfig, make_optimizer
+    from repro_torch.train.steps import make_train_step
+    from repro_torch.utils.pytree import tree_param_count
+
+    on_card = dev == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    if cfg is None:
+        cfg, params = ds_model(1, dev)
+    else:
+        from repro_torch.launch.serve import build_params
+        params = build_params(cfg, seed=0, device=dev)
+    n_params = tree_param_count(params)
+    if cfg.d_model == 7168 and n_params != DS_N_PARAMS[1]:
+        raise AssertionError(f"deepseek at 1 layer has {n_params} params")
+    batch = {"tokens": torch.from_numpy(lm_batch(
+        cfg.vocab_size, 1, DS_TRAIN_S, seed=20)).to(dev)}
+    opt = OptimizerConfig(lr=1e-4)
+    init_fn, _ = make_optimizer(opt)
+    state = init_fn(params)
+    step = make_train_step(cfg, opt)
+    _launch_counts(kern, zero=True)
+    ms, metrics = [], []
+    for i in range(DS_TRAIN_STEPS):
+        _sync()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch, i + 1)
+        m = {k: float(v) for k, v in m.items()}  # reads back: synchronises
+        _sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append(m)
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    launches = _launch_counts(kern, zero=True)
+    if launches != {name: 0 for name in kern}:
+        raise AssertionError(f"deepseek training launched {launches}")
+    if not all(np.isfinite(m["loss"]) and np.isfinite(m["mtp"])
+               for m in metrics) or not all(
+            bool(torch.isfinite(t).all()) for t in _leaves(params)):
+        raise AssertionError(f"deepseek training went wrong: {metrics}")
+    flops = ds_train_flops(cfg, DS_TRAIN_S)
+    by_bytes = bound_ms(9 * 4 * n_params, 0, "float32")[0]
+    by_ops = bound_ms(0, flops, "float32")[0]
+    print(f"deepseek-v3-671b training (1 dense layer + the MTP head): B 1 x "
+          f"S {DS_TRAIN_S}, AdamW f32, {n_params} params: ms/step "
+          f"{[round(x, 1) for x in ms]} against the bytes bound "
+          f"{by_bytes:.1f} ms ({9 * 4 * n_params / 1e9:.1f} GB at 3.35 TB/s) "
+          f"and the f32 FLOP bound {by_ops:.1f} ms ({flops:.4g} FLOPs at 67 "
+          f"TFLOP/s); peak memory {peak / 2**30:.2f} GiB; loss "
+          f"{[round(m['loss'], 5) for m in metrics]}, ce "
+          f"{[round(m['ce'], 5) for m in metrics]}, mtp "
+          f"{[round(m['mtp'], 5) for m in metrics]}; no kernel launched",
+          flush=True)
+    del state, params
+    return dict(ms_per_step=ms, bytes_bound_ms=by_bytes, flop_bound_ms=by_ops,
+                flops=flops, n_params=n_params, peak_gib=peak / 2**30,
+                metrics=metrics)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -7178,13 +7693,22 @@ def main(argv=None):
     t0 = time.perf_counter()
     phi = run_phi(rows, smi[0] if smi else "nvidia-smi: no output")
     print(f"phase 19 took {time.perf_counter() - t0:.1f} s", flush=True)
+    gc.collect()  # phase 19's models go before deepseek-v3-671b
+    torch.cuda.empty_cache()
+
+    phase("deepseek-v3-671b (MLA, MoE, MTP): latent caches dense and paged "
+          "at two capacity factors, f32 and bf16, speculation, growth, "
+          "training at full width")
+    t0 = time.perf_counter()
+    ds = run_ds(rows, smi[0] if smi else "nvidia-smi: no output")
+    print(f"phase 20 took {time.perf_counter() - t0:.1f} s", flush=True)
 
     # the contract's keys, then the tensor-core rows' 3xTF32 and bf16 ones
     kernels = [{key: r[key] for key in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
         "bound_rate", "bound_simt_ms", "bf16_ms", "bf16_library_ms",
-        "bf16_bound_ms", "launches_p19") if key in r}
+        "bf16_bound_ms", "launches_p19", "launches_p20") if key in r}
         for r in rows.values()]
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
@@ -7196,7 +7720,7 @@ def main(argv=None):
              "griffin_speculative": griffin_spec, "faults": faults,
              "qwen": qwen, "deit": deit, "sampled": sampled,
              "upgrade": upgrade, "griffin_growth": griffin_growth,
-             "window": window, "xlstm": xl, "phi": phi,
+             "window": window, "xlstm": xl, "phi": phi, "deepseek": ds,
              "build_seconds": secs},
             indent=1))
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,8 @@
 """Architecture configs beyond the paper's own models (the port's copy of
 ``repro.configs.archs``), added slice by slice.
 
-So far the MoE decoder phi3.5-moe-42b [hf], the RoPE dense decoders --
+So far the MoE decoders phi3.5-moe-42b [hf] and deepseek-v3-671b
+[arXiv:2412.19437] (MLA, MoE and the MTP head), the RoPE dense decoders --
 stablelm-3b [hf, unverified],
 qwen1.5-0.5b [hf], qwen3-0.6b [hf], yi-9b [arXiv:2403.04652] and yi-9b's
 Mango source ``yi-9b-half`` -- and the griffin family: recurrentgemma-2b
@@ -35,6 +36,32 @@ def phi35_moe_smoke():
         name="phi3.5-moe-42b-smoke", n_layers=2, d_model=64, n_heads=4,
         n_kv_heads=1, head_dim=16, d_ff=128, expert_d_ff=128, n_experts=4,
         vocab_size=128, max_seq_len=256, param_dtype="float32",
+        compute_dtype="float32", attn_chunk=16)
+
+
+@register_named("deepseek-v3-671b")
+def deepseek_v3():
+    return ModelConfig(
+        name="deepseek-v3-671b", family="transformer",
+        n_layers=61, d_model=7168, n_heads=128, n_kv_heads=128,
+        head_dim=128, d_ff=18432, vocab_size=129280,
+        mla=True, q_lora_rank=1536, kv_lora_rank=512, qk_nope_dim=128,
+        qk_rope_dim=64, v_head_dim=128,
+        moe=True, moe_layer_start=3, n_experts=256, top_k=8,
+        n_shared_experts=1, expert_d_ff=2048, router_score="sigmoid",
+        capacity_factor=1.25, aux_loss_weight=1e-4,
+        mtp=True, act="swiglu", norm="rms", rope_theta=10000.0,
+        max_seq_len=131072, **_SCALE)
+
+
+@register_named("deepseek-v3-671b-smoke")
+def deepseek_v3_smoke():
+    return deepseek_v3().replace(
+        name="deepseek-v3-671b-smoke", n_layers=3, d_model=64, n_heads=4,
+        n_kv_heads=4, head_dim=16, d_ff=128, vocab_size=128,
+        moe_layer_start=1, n_experts=4, top_k=2, expert_d_ff=64,
+        q_lora_rank=32, kv_lora_rank=16, qk_nope_dim=16, qk_rope_dim=8,
+        v_head_dim=16, max_seq_len=256, param_dtype="float32",
         compute_dtype="float32", attn_chunk=16)
 
 

@@ -197,6 +197,19 @@ def paged_chunk_verify_attention(q, ck, cv, bt, k, v, offsets, *, ring,
                         window=window)
 
 
+def paged_latent_gather(arena, bt):
+    """Dense (B, nblk * page, r) view of a paged MLA latent arena (n_pages,
+    page, r) through (B, nblk) block tables; sentinel entries clamp to the
+    last page, whose bytes every reader masks by ``kv_len`` or the verify
+    band.  Not a kernel, on either device: the absorbed MLA decode takes
+    the latents as ordinary matmul operands, so paging them needs only
+    this layout gather (the reference's entry is no Pallas kernel
+    either); ``ref.paged_latent_gather_ref`` is its independent twin."""
+    n_pages = arena.shape[0]
+    g = arena[bt.long().clamp(max=n_pages - 1)]
+    return g.reshape((bt.shape[0], -1) + tuple(arena.shape[2:]))
+
+
 def _sandwich_on_device(x, a_i, a_o):
     if x.device.type == "cpu":
         return ref.tr_sandwich_ref(x, a_i, a_o)

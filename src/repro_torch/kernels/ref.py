@@ -154,6 +154,13 @@ def _paged_gather_ref(arena, bt):
     return g.reshape((bt.shape[0], -1) + tuple(arena.shape[2:]))
 
 
+def paged_latent_gather_ref(arena, bt):
+    """Dense view of a paged MLA latent arena: (n_pages, page, r) + (B,
+    nblk) -> (B, nblk * page, r); the bytes behind a clamped sentinel are
+    masked by ``kv_len`` downstream."""
+    return _paged_gather_ref(arena, bt)
+
+
 def paged_slot_decode_attention_ref(q, k, v, bt, kv_len):
     """q: (B, H, hd); k, v: (n_pages, page, KV, hd) arenas; bt: (B, nblk)
     block tables; kv_len: (B,) -> (B, H, hd): the dense version over the

@@ -25,8 +25,8 @@ keep (griffin's recurrence and rings, xlstm's recurrence, a windowed
 transformer's ring) adds
   snapshot_slots(cache, positions, n) / restore_slots(cache, snap,
                                                      positions, n)
-so a speculative draft whose ``slot_cache_layout`` is not "full" can
-propose in place.  The transformer, griffin and xlstm families are
+so a speculative draft whose ``slot_cache_layout`` is not "full" (or
+"full-mla", MLA's latent cache) can propose in place.  The transformer, griffin and xlstm families are
 ported so far.
 """
 from __future__ import annotations

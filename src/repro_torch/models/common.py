@@ -19,7 +19,9 @@ def trunc_normal(gen: torch.Generator, shape, std=0.02, dtype=torch.float32,
     ``device`` (default: the generator's; on ``meta`` nothing is drawn)."""
     t = torch.empty(shape, dtype=torch.float32, device=device or gen.device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (std * t).to(dtype)
+    # in place: a leaf never needs two f32 copies at once (deepseek-v3's
+    # expert leaves are 15 GB each at full width)
+    return t.mul_(std).to(dtype)
 
 
 def meta_shapes(init, cfg) -> dict:

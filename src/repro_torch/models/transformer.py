@@ -1,13 +1,32 @@
-"""Transformer family: dense decoder LMs and MoE decoders.
+"""Transformer family: dense decoder LMs, MoE decoders and DeepSeek's
+latent attention.
 
 Covers the paper's GPT/BERT/DeiT configs, the RoPE decoders (qwen1.5,
-qwen3, stablelm, yi) and the MoE decoders (phi3.5-moe): LayerNorm or
-RMSNorm, GELU or gated MLPs, learned absolute positions or standard
-(optionally partial) RoPE, qkv bias and per-head q/k norms, MHA or GQA
-attention, separate or tied LM head, and a causal sliding window.  Params
-are nested dicts stacked over a leading layer axis, as in the reference
-package.  Configs with MLA, multimodal RoPE or an MTP head raise
-``NotImplementedError`` (ROADMAP.md lists the slices that bring them).
+qwen3, stablelm, yi), the MoE decoders (phi3.5-moe) and deepseek-v3 (MLA,
+MoE and the MTP head): LayerNorm or RMSNorm, GELU or gated MLPs, learned
+absolute positions or standard (optionally partial) RoPE, qkv bias and
+per-head q/k norms, MHA or GQA attention, separate or tied LM head, and a
+causal sliding window.  Params are nested dicts stacked over a leading
+layer axis, as in the reference package.  Configs with multimodal RoPE
+raise ``NotImplementedError`` (ROADMAP.md lists the slice that brings
+it).
+
+Multi-head latent attention (``cfg.mla``, arXiv:2412.19437) caches two
+latents a token instead of K/V: ``"ckv"`` (kv_lora_rank wide) and
+``"kr"`` (the shared RoPE key, qk_rope_dim wide), in every cache group
+and on both pools.  Its RoPE turns only the qk_rope_dim parts of q and k,
+fully, whatever ``cfg.rope`` says.  The uncached forward and the cached
+prefill expand K/V through ``w_uk``/``w_uv`` and attend in (qk_nope_dim +
+qk_rope_dim, v_head_dim) dims; decode (scalar and slot, dense and paged)
+and the speculative verify fold ``w_uk`` into q and attend in the latent
+space (``_mla_absorbed_decode``, ``_mla_chunk_verify``).  Both are plain
+PyTorch products, as in the reference (which has no Pallas kernel for
+MLA): no attention kernel is reached on an MLA config.  A paged latent
+group reads its pages through ``ops.paged_latent_gather``.  The MTP head
+(``cfg.mtp``) adds ``params["mtp"]``, one dense block over the final
+hidden state and the next token's embedding; ``forward`` returns its
+logits as ``aux["mtp_logits"]`` (the loss's MTP term) and serving never
+reads it.
 
 An MoE config splits the stack into two block groups, as the reference
 does: ``cfg.moe_layer_start`` dense blocks in ``params["dense_blocks"]``
@@ -89,16 +108,15 @@ def _unported(cfg):
     ROADMAP.md queue 1 item that brings it), or None."""
     if cfg.family != "transformer":
         return f"family {cfg.family!r}"
-    for flag, what in ((cfg.mla, "MLA attention (item 5)"),
-                       (cfg.mtp, "the MTP head (item 5)"),
-                       (cfg.rope not in ("none", "standard"),
-                        f"RoPE ({cfg.rope}; item 7)")):
-        if flag:
-            return what
+    if cfg.rope not in ("none", "standard"):
+        return f"RoPE ({cfg.rope}; item 7)"
     return None
 
 
 def _require_ported(cfg):
+    """Raise for a config outside the ported slice: multimodal RoPE (the
+    only transformer variant left; MLA, MoE and the MTP head are
+    ported)."""
     why = _unported(cfg)
     if why is not None:
         raise NotImplementedError(
@@ -127,6 +145,18 @@ def _attn_init(gen, cfg, layers, dtype, std, device):
     def w(*shape):
         return trunc_normal(gen, shape, std, dtype, device)
 
+    if cfg.mla:
+        dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+        qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+        return {"w_dq": w(layers, D, qr),
+                "q_norm": torch.ones((layers, qr), **zeros),
+                "w_uq": w(layers, qr, H * (dn + dr)),
+                "w_dkv": w(layers, D, kvr),
+                "kv_norm": torch.ones((layers, kvr), **zeros),
+                "w_kr": w(layers, D, dr),
+                "w_uk": w(layers, kvr, H * dn),
+                "w_uv": w(layers, kvr, H * dv),
+                "wo": w(layers, H * dv, D)}
     p = {"wq": w(layers, D, H * hd), "wk": w(layers, D, KV * hd),
          "wv": w(layers, D, KV * hd), "wo": w(layers, H * hd, D)}
     if cfg.qkv_bias:
@@ -161,25 +191,37 @@ def init(gen: torch.Generator, cfg, device=None) -> dict:
     if cfg.learned_pos:
         params["pos_embed"] = w(cfg.learned_pos, D)
     for key, _, moe, n in _groups(cfg):
-        grp = {"ln1": init_norm(cfg.norm, D, n, dtype, device),
-               "ln2": init_norm(cfg.norm, D, n, dtype, device),
-               "attn": _attn_init(gen, cfg, n, dtype, std, device)}
-        if moe:
-            grp["moe"] = moe_lib.init_moe(gen, cfg, layers=n, dtype=dtype,
-                                          std=std, device=device)
-        else:
-            grp["mlp"] = ffn_lib.init_mlp(gen, D, cfg.d_ff, layers=n,
-                                          act=cfg.act, bias=cfg.mlp_bias,
-                                          dtype=dtype, std=std,
-                                          device=device)
-        params[key] = grp
+        params[key] = _block_group_init(gen, cfg, n, moe, dtype, std, device)
     params["final_norm"] = init_norm(cfg.norm, D, None, dtype, device)
     if cfg.head == "lm" and not cfg.tie_embeddings:
         params["head"] = w(D, cfg.vocab_size)
     elif cfg.head == "cls":
         params["cls_token"] = w(D)
         params["head"] = w(D, cfg.n_classes)
+    if cfg.mtp:
+        params["mtp"] = {
+            "proj": w(2 * D, D),
+            "norm_h": init_norm(cfg.norm, D, None, dtype, device),
+            "norm_e": init_norm(cfg.norm, D, None, dtype, device),
+            "block": _block_group_init(gen, cfg, 1, False, dtype, std,
+                                       device)}
     return params
+
+
+def _block_group_init(gen, cfg, n, moe, dtype, std, device):
+    """One stacked group of ``n`` blocks, their MLP dense or MoE."""
+    D = cfg.d_model
+    grp = {"ln1": init_norm(cfg.norm, D, n, dtype, device),
+           "ln2": init_norm(cfg.norm, D, n, dtype, device),
+           "attn": _attn_init(gen, cfg, n, dtype, std, device)}
+    if moe:
+        grp["moe"] = moe_lib.init_moe(gen, cfg, layers=n, dtype=dtype,
+                                      std=std, device=device)
+    else:
+        grp["mlp"] = ffn_lib.init_mlp(gen, D, cfg.d_ff, layers=n,
+                                      act=cfg.act, bias=cfg.mlp_bias,
+                                      dtype=dtype, std=std, device=device)
+    return grp
 
 
 def param_shapes(cfg) -> dict:
@@ -209,10 +251,30 @@ def _is_ring(cache_len, window):
 def _cache_seq_len(cache):
     """Logical sequence length of a slot cache group: the cache axis of the
     dense layout, ``nblk * page`` through the block table of a paged group
-    (whose arenas carry no per-slot sequence axis)."""
+    (whose arenas carry no per-slot sequence axis).  K/V leaves are (...,
+    S, KV, hd), MLA's latents (..., S, r)."""
+    n = cache["ckv"].shape[-2] if "ckv" in cache else cache["k"].shape[-3]
     if "bt" in cache:
-        return cache["bt"].shape[-1] * cache["k"].shape[-3]
-    return cache["k"].shape[-3]
+        return cache["bt"].shape[-1] * n
+    return n
+
+
+def _paged_write_site(cache, arena, slot_positions, slot_done):
+    """(page id, offset) of each row's slot-decode write into a paged
+    group's ``arena`` (n_pages + 1, page, ...): page ``bt[b, pos // page]``
+    at ``pos % page``, or the scratch page ``n_pages`` for a write that
+    must be dropped -- a ``done`` row (whose table may be all-sentinel
+    after eviction), a position past the row's pages (its table entry is
+    the sentinel) or at or past ``nblk * page``."""
+    bt = cache["bt"]
+    n_pages, page = arena.shape[0] - 1, arena.shape[1]
+    nblk = bt.shape[1]
+    blk = slot_positions // page
+    pid = bt.gather(1, blk.clamp(max=nblk - 1)[:, None])[:, 0].long()
+    drop = slot_positions >= _cache_seq_len(cache)
+    if slot_done is not None:
+        drop = drop | slot_done
+    return torch.where(drop, n_pages, pid), slot_positions % page
 
 
 def _paged_slot_forward(q, cache, k, v, slot_positions, slot_kv_len,
@@ -221,27 +283,17 @@ def _paged_slot_forward(q, cache, k, v, slot_positions, slot_kv_len,
     ``attention.paged_ring_slot_update_attend``).
 
     cache: {"k"/"v": (n_pages + 1, page, KV, hd), "bt": (B, nblk)}.  The
-    write of row b resolves through its table: page ``bt[b, pos // page]``
-    at offset ``pos % page``.  A write that must be dropped -- a ``done``
-    row (whose table may be all-sentinel after eviction), a position past
-    the row's pages (its table entry is the sentinel) or at or past
-    ``nblk * page`` -- goes to the scratch page ``n_pages``, which no read
-    sees (``serve/paged.py``).  Reads go to the paged slot kernel over the
-    real pages only.  Returns (B, 1, H, hd).
+    write of row b resolves through its table (``_paged_write_site``); a
+    write that must be dropped goes to the scratch page ``n_pages``,
+    which no read sees (``serve/paged.py``).  Reads go to the paged slot
+    kernel over the real pages only.  Returns (B, 1, H, hd).
     """
     if _is_ring(_cache_seq_len(cache), window):
         return attn_lib.paged_ring_slot_update_attend(
             q, cache, k, v, slot_positions, window=window, done=slot_done)
     ck, cv, bt = cache["k"], cache["v"], cache["bt"]
-    n_pages, page = ck.shape[0] - 1, ck.shape[1]
-    nblk = bt.shape[1]
-    blk = slot_positions // page
-    pid = bt.gather(1, blk.clamp(max=nblk - 1)[:, None])[:, 0].long()
-    drop = slot_positions >= _cache_seq_len(cache)
-    if slot_done is not None:
-        drop = drop | slot_done
-    pid = torch.where(drop, n_pages, pid)
-    off = slot_positions % page
+    n_pages = ck.shape[0] - 1
+    pid, off = _paged_write_site(cache, ck, slot_positions, slot_done)
     ck[pid, off] = k[:, 0].to(ck.dtype)
     cv[pid, off] = v[:, 0].to(cv.dtype)
     out = ops.paged_slot_decode_attention(
@@ -289,6 +341,12 @@ def _attn_forward(x, p, cfg, *, rope=None, cache=None, q_offset=0,
     length (a full cache hides the pad tail behind each row's length and
     ignores it).
     """
+    if cfg.mla:
+        # latent attention reaches no K/V branch (nor any kernel)
+        return _mla_forward(x, p, cfg, rope=rope, cache=cache,
+                            q_offset=q_offset, slot_positions=slot_positions,
+                            slot_kv_len=slot_kv_len,
+                            chunk_offsets=chunk_offsets, slot_done=slot_done)
     B, S, D = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     cdt = x.dtype
@@ -400,6 +458,157 @@ def _attn_forward(x, p, cfg, *, rope=None, cache=None, q_offset=0,
     return _attn_out(out, p, cfg, cdt), cache
 
 
+def _mla_forward(x, p, cfg, *, rope, cache=None, q_offset=0,
+                 slot_positions=None, slot_kv_len=None, chunk_offsets=None,
+                 slot_done=None):
+    """DeepSeek-V3 multi-head latent attention: ``_attn_forward``'s routes
+    over a latent cache group {"ckv": (B, Sc, kv_lora_rank), "kr": (B, Sc,
+    qk_rope_dim)} (or their paged arenas and ``"bt"``).  ``rope`` is the
+    (cos, sin) table at qk_rope_dim.  Returns (out, cache) -- on the verify
+    route (out, the chunk's raw latents ``{"ckv", "kr"}``, the pending
+    entry ``commit_slots`` writes)."""
+    B, S, _ = x.shape
+    cdt = x.dtype
+    H, dn, dr = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    cq = rms_norm(x @ p["w_dq"].to(cdt), p["q_norm"])
+    q = (cq @ p["w_uq"].to(cdt)).reshape(B, S, H, dn + dr)
+    q_nope = q[..., :dn]
+    q_rope = rope_lib.rotate(q[..., dn:], rope)
+    ckv = x @ p["w_dkv"].to(cdt)
+    kr = rope_lib.rotate((x @ p["w_kr"].to(cdt))[:, :, None], rope)[:, :, 0]
+    wo = p["wo"].to(cdt)
+
+    if chunk_offsets is not None:
+        # verify in the latent space over [cached latents ‖ the chunk's],
+        # the cache read-only
+        view = _mla_paged_gather(cache) if "bt" in cache else (
+            cache["ckv"], cache["kr"])
+        out = _mla_chunk_verify(q_nope, q_rope, view, ckv, kr, p, cfg,
+                                chunk_offsets, slot_done)
+        return out @ wo, {"ckv": ckv, "kr": kr}
+    if slot_positions is not None:
+        cc, cr = cache["ckv"], cache["kr"]
+        if "bt" in cache:
+            # the write through the block table (dropped writes to the
+            # scratch page), then the absorbed attention over the
+            # gathered view of the real pages
+            pid, off = _paged_write_site(cache, cc, slot_positions,
+                                         slot_done)
+            cc[pid, off] = ckv[:, 0].to(cc.dtype)
+            cr[pid, off] = kr[:, 0].to(cr.dtype)
+            cc, cr = _mla_paged_gather(cache)
+        else:
+            # per-row scatter (a position past the cache clamps onto its
+            # last slot, as the K/V route's does)
+            rows = torch.arange(B, device=x.device)
+            wpos = slot_positions.clamp(max=_cache_seq_len(cache) - 1)
+            cc[rows, wpos] = ckv[:, 0].to(cc.dtype)
+            cr[rows, wpos] = kr[:, 0].to(cr.dtype)
+        out = _mla_absorbed_decode(q_nope, q_rope, cc.to(cdt), cr.to(cdt),
+                                   p, cfg, kv_len=slot_kv_len)
+        return out @ wo, cache
+    kv_len = None
+    if cache is not None:
+        cc, cr = cache["ckv"], cache["kr"]
+        cc[:, q_offset:q_offset + S] = ckv.to(cc.dtype)
+        cr[:, q_offset:q_offset + S] = kr.to(cr.dtype)
+        if S == 1:
+            # absorbed decode: w_uk folded into q, attention in the
+            # kv_lora space, w_uv after it
+            out = _mla_absorbed_decode(q_nope, q_rope, cc.to(cdt),
+                                       cr.to(cdt), p, cfg,
+                                       kv_len=q_offset + 1)
+            return out @ wo, cache
+        ckv, kr = cc.to(cdt), cr.to(cdt)
+        kv_len = q_offset + S
+    # expanded K/V (the uncached forward, the cached prefill over the
+    # cache up to q_offset + S)
+    ckv_n = rms_norm(ckv, p["kv_norm"])
+    k_nope = (ckv_n @ p["w_uk"].to(cdt)).reshape(B, -1, H, dn)
+    v = (ckv_n @ p["w_uv"].to(cdt)).reshape(B, -1, H, cfg.v_head_dim)
+    qf = torch.cat([q_nope, q_rope], -1)
+    kf = torch.cat([k_nope, kr[:, :, None].expand(-1, -1, H, dr)], -1)
+    out = attn_lib.attention(qf, kf, v, causal=cfg.causal, q_offset=q_offset,
+                             kv_len=kv_len, scale=(dn + dr) ** -0.5,
+                             chunk_q=cfg.attn_chunk)
+    return out.reshape(B, S, -1) @ wo, cache
+
+
+def _mla_paged_gather(cache):
+    """Dense (B, nblk * page, r) views of a paged latent group's real
+    pages (the scratch page stays unread), through
+    ``ops.paged_latent_gather``."""
+    n_pages = cache["ckv"].shape[0] - 1
+    return (ops.paged_latent_gather(cache["ckv"][:n_pages], cache["bt"]),
+            ops.paged_latent_gather(cache["kr"][:n_pages], cache["bt"]))
+
+
+def _mla_latent_attend(q_nope, q_rope, ckv, kr, p, cfg, mask):
+    """Attention in the latent space: (B, S, H, dn/dr) queries over (B,
+    Sk, r) latents under ``mask`` (B or 1, S, Sk); ``w_uk`` folds into q,
+    ``w_uv`` follows the softmax.  Scores in f32.  Returns (B, S, H, dv)."""
+    B, S, H, dn = q_nope.shape
+    R, dv = cfg.kv_lora_rank, cfg.v_head_dim
+    ckv_n = rms_norm(ckv, p["kv_norm"])
+    w_uk = p["w_uk"].to(q_nope.dtype).reshape(R, H, dn)
+    q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope, w_uk)
+    logits = torch.einsum("bqhr,bsr->bhqs", q_lat.float(), ckv_n.float())
+    logits = logits + torch.einsum("bqhd,bsd->bhqs", q_rope.float(),
+                                   kr.float())
+    logits = logits * (dn + cfg.qk_rope_dim) ** -0.5
+    logits = torch.where(mask[:, None], logits, attn_lib.NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(ckv.dtype)
+    o_lat = torch.einsum("bhqs,bsr->bqhr", probs, ckv_n)
+    w_uv = p["w_uv"].to(ckv.dtype).reshape(R, H, dv)
+    return torch.einsum("bqhr,rhv->bqhv", o_lat, w_uv)
+
+
+def _mla_absorbed_decode(q_nope, q_rope, ckv, kr, p, cfg, *, kv_len):
+    """One-token MLA attention in the latent space.  q_nope: (B, 1, H,
+    dn); q_rope: (B, 1, H, dr); ckv: (B, Sc, r); kr: (B, Sc, dr); kv_len:
+    an int (every row) or (B,) per-row lengths, whose rows of length 0
+    (idle or finished slots) return exact zeros.  Returns (B, 1, H*dv)."""
+    B = q_nope.shape[0]
+    kpos = torch.arange(ckv.shape[1], device=ckv.device)
+    per_row = torch.is_tensor(kv_len)
+    if per_row:
+        mask = (kpos[None] < kv_len[:, None])[:, None]  # (B, 1, Sc)
+    else:
+        mask = (kpos < kv_len)[None, None]
+    out = _mla_latent_attend(q_nope, q_rope, ckv, kr, p, cfg, mask)
+    if per_row:
+        out = torch.where((kv_len > 0)[:, None, None, None], out, 0.0)
+    return out.reshape(B, 1, -1)
+
+
+def _mla_chunk_verify(q_nope, q_rope, cache, ckv, kr, p, cfg, offsets,
+                      done):
+    """Speculative-verify MLA attention: S chunk queries a row over
+    [cached latents ‖ the chunk's raw latents], the cache read-only.
+    ``cache`` = (ckv (B, Sc, r), kr (B, Sc, dr)); ckv/kr: the chunk's (B,
+    S, ·); query j of row b sits at ``offsets[b] + j`` and reads cached
+    positions below ``offsets[b]`` and chunk keys up to itself.  ``done``
+    rows return exact zeros.  Returns (B, S, H*dv)."""
+    B, S = q_nope.shape[:2]
+    cc, cr = cache
+    Sc = cc.shape[1]
+    ckv_all = torch.cat([cc.to(ckv.dtype), ckv], 1)
+    kr_all = torch.cat([cr.to(kr.dtype), kr], 1)
+    offsets = offsets.long()
+    kpos_c = torch.arange(Sc, device=ckv.device)[None].expand(B, Sc)
+    kpos_c = torch.where(kpos_c < offsets[:, None], kpos_c, -1)
+    steps = torch.arange(S, device=ckv.device)[None]
+    kpos = torch.cat([kpos_c, offsets[:, None] + steps], 1)  # (B, Sc + S)
+    qpos = offsets[:, None] + steps  # (B, S)
+    mask = (kpos[:, None, :] >= 0) & (kpos[:, None, :] <= qpos[:, :, None])
+    if done is not None:
+        mask = mask & ~done[:, None, None]
+    out = _mla_latent_attend(q_nope, q_rope, ckv_all, kr_all, p, cfg, mask)
+    if done is not None:
+        out = torch.where(done[:, None, None, None], 0.0, out)
+    return out.reshape(B, S, -1)
+
+
 def _attn_out(out, p, cfg, cdt):
     B, S = out.shape[:2]
     y = out.reshape(B, S, -1) @ p["wo"].to(cdt)
@@ -449,32 +658,50 @@ def _block(x, bp, cfg, *, moe, **attn_kw):
     return x + h, aux, cache
 
 
-def _layer_stack(x, params, cfg, positions, cache=None, **attn_kw):
-    """The block groups (``_groups``), each a Python loop over its stacked
-    layer axis; layer ``i`` of a group reads and writes ``cache[group
-    key][...][i]`` views in place.  ``positions`` (B, S) are the tokens'
-    absolute positions, which RoPE configs rotate by (one table for every
-    layer; ignored without RoPE).  Returns the residual stream before the
-    final norm, ``{cache key: [each layer's second output of
-    _attn_forward]}`` (its cache, or its pending chunk K/V) and the sum of
-    the MoE layers' aux losses (0.0 without MoE layers)."""
-    rope = None
+def _rope(cfg, positions, dtype):
+    """The (cos, sin) table every layer turns q and k by at ``positions``
+    (B, S): MLA's at qk_rope_dim, fully; standard RoPE's at head_dim and
+    ``cfg.rope_fraction``; None without RoPE."""
+    if cfg.mla:
+        return rope_lib.rope_tables(positions, cfg.qk_rope_dim,
+                                    theta=cfg.rope_theta, dtype=dtype)
     if cfg.rope == "standard":
-        rope = rope_lib.rope_tables(positions, cfg.head_dim,
+        return rope_lib.rope_tables(positions, cfg.head_dim,
                                     theta=cfg.rope_theta,
-                                    fraction=cfg.rope_fraction,
-                                    dtype=x.dtype)
+                                    fraction=cfg.rope_fraction, dtype=dtype)
+    return None
+
+
+def _run_group(x, group, n, cfg, *, moe, rope, cache=None, **attn_kw):
+    """A Python loop over a stacked group's ``n`` layers; layer ``i``
+    reads and writes ``cache[...][i]`` views in place.  Returns (x, [each
+    layer's second output of _attn_forward], the group's MoE aux sum)."""
+    per_layer, aux_total = [], 0.0
+    for i in range(n):
+        layer_cache = None if cache is None else {
+            name: leaf[i] for name, leaf in cache.items()}
+        x, aux, second = _block(x, take_layer(group, i), cfg, moe=moe,
+                                rope=rope, cache=layer_cache, **attn_kw)
+        aux_total = aux_total + aux
+        per_layer.append(second)
+    return x, per_layer, aux_total
+
+
+def _layer_stack(x, params, cfg, positions, cache=None, **attn_kw):
+    """The block groups (``_groups``), each through ``_run_group``.
+    ``positions`` (B, S) are the tokens' absolute positions, which RoPE
+    and MLA configs rotate by (one table for every layer; ignored without
+    RoPE).  Returns the residual stream before the final norm, ``{cache
+    key: [each layer's second output of _attn_forward]}`` (its cache, or
+    its pending chunk K/V or latents) and the sum of the MoE layers' aux
+    losses (0.0 without MoE layers)."""
+    rope = _rope(cfg, positions, x.dtype)
     per_group, aux_total = {}, 0.0
     for key, ckey, moe, n in _groups(cfg):
-        group = params[key]
-        per_layer = per_group[ckey] = []
-        for i in range(n):
-            layer_cache = None if cache is None else {
-                name: leaf[i] for name, leaf in cache[ckey].items()}
-            x, aux, second = _block(x, take_layer(group, i), cfg, moe=moe,
-                                    rope=rope, cache=layer_cache, **attn_kw)
-            aux_total = aux_total + aux
-            per_layer.append(second)
+        x, per_group[ckey], aux = _run_group(
+            x, params[key], n, cfg, moe=moe, rope=rope,
+            cache=None if cache is None else cache[ckey], **attn_kw)
+        aux_total = aux_total + aux
     return x, per_group, aux_total
 
 
@@ -487,8 +714,8 @@ def _run_layers(x, params, cfg, positions, cache=None, **attn_kw):
 def _positions_from_batch(batch, x, cfg, q_offset=0):
     """(B, S) absolute positions of the embedded batch ``x``:
     ``batch["positions"]`` where given, else ``q_offset + arange(S)`` on
-    every row.  None without RoPE (nothing reads them)."""
-    if cfg.rope != "standard":
+    every row.  None without RoPE or MLA (nothing reads them)."""
+    if cfg.rope != "standard" and not cfg.mla:
         return None
     pos = batch.get("positions")
     if pos is not None:
@@ -524,13 +751,36 @@ def forward(params, batch, cfg):
     """Full forward, plain attention throughout.
     batch: {"tokens": (B,S)} or {"inputs": (B,S,Din)}.
     Returns (logits, aux) with aux = {"moe_aux": the MoE layers' summed
-    aux loss} (0.0 when the config has no MoE layers)."""
+    aux loss} (0.0 when the config has no MoE layers), plus
+    ``"mtp_logits"`` (B, S - 1, V) where the config has an MTP head."""
     _require_ported(cfg)
     x = embed_inputs(params, batch, cfg)
-    x, _, aux = _layer_stack(x, params, cfg,
-                             _positions_from_batch(batch, x, cfg))
+    positions = _positions_from_batch(batch, x, cfg)
+    x, _, moe_aux = _layer_stack(x, params, cfg, positions)
     x = apply_norm(x, params["final_norm"], cfg.norm)
-    return _head(params, x, cfg), {"moe_aux": aux}
+    aux = {"moe_aux": moe_aux}
+    if cfg.mtp and "mtp" in params and not cfg.continuous_inputs:
+        aux["mtp_logits"] = _mtp_forward(params, x, batch, positions, cfg)
+    return _head(params, x, cfg), aux
+
+
+def _mtp_forward(params, h, batch, positions, cfg):
+    """DeepSeek-V3's depth-1 multi-token prediction head: position t's
+    final hidden state (normed) beside token t + 1's embedding (normed),
+    projected to d_model, through one dense block at positions[:, :-1],
+    then the LM head (no final norm).  Its logits at t predict token t +
+    2: (B, S - 1, V)."""
+    mp = params["mtp"]
+    cdt = h.dtype
+    emb = params["embed"].to(cdt)[batch["tokens"].long()]
+    hh = apply_norm(h[:, :-1], mp["norm_h"], cfg.norm)
+    ee = apply_norm(emb[:, 1:], mp["norm_e"], cfg.norm)
+    z = torch.cat([hh, ee], -1) @ mp["proj"].to(cdt)
+    pos = None if positions is None else positions[:, :-1]
+    z, _, _ = _run_group(z, mp["block"], 1, cfg, moe=False,
+                         rope=_rope(cfg, pos, cdt) if pos is not None
+                         else None)
+    return _head(params, z, cfg)
 
 
 def _head(params, x, cfg):
@@ -549,12 +799,23 @@ def init_cache(cfg, batch_size, max_len, dtype=None, device="cpu"):
     each block group (``"dense"`` and/or ``"moe"``), n = max_len, or
     min(max_len, window) with a window.  The cache axis keeps the
     reference pool's padding: a full layout masks the padded tail by each
-    row's valid length, a ring takes the padded length as its modulus."""
+    row's valid length, a ring takes the padded length as its modulus.
+    MLA's groups hold the latents instead, {"ckv": (L_g, B, flen,
+    kv_lora_rank), "kr": (L_g, B, flen, qk_rope_dim)}, flen =
+    pad_cache_len(max_len) (no ring layout)."""
     _require_ported(cfg)
     dtype = dtype or getattr(torch, cfg.compute_dtype)
     n = min(max_len, cfg.window) if cfg.window else max_len
     cache = {}
     for _, ckey, _, layers in _groups(cfg):
+        if cfg.mla:
+            lead = (layers, batch_size, pad_cache_len(max_len))
+            cache[ckey] = {
+                "ckv": torch.zeros((*lead, cfg.kv_lora_rank), dtype=dtype,
+                                   device=device),
+                "kr": torch.zeros((*lead, cfg.qk_rope_dim), dtype=dtype,
+                                  device=device)}
+            continue
         shape = (layers, batch_size, pad_cache_len(n), cfg.n_kv_heads,
                  cfg.head_dim)
         cache[ckey] = {
@@ -662,8 +923,9 @@ def verify_step_slots(params, tokens, positions, cache, cfg, done=None,
     Returns (logits (B, S, V), pending): ``logits[:, j]`` is the
     distribution after each row consumed its chunk prefix ``[:j + 1]``.
     The slot cache is READ-ONLY here; ``pending`` = {group: {"k", "v":
-    (L_g, B, S, KV, hd)}} carries the chunk's per-layer K/V so that
-    ``commit_slots`` writes exactly the accepted prefix afterwards
+    (L_g, B, S, KV, hd)}} (MLA: {"ckv", "kr": (L_g, B, S, r)}) carries
+    the chunk's per-layer K/V or latents so that ``commit_slots`` writes
+    exactly the accepted prefix afterwards
     (rollback is "never wrote it").  ``done`` rows attend nothing and
     return garbage logits the caller must mask.  ``logits=False`` skips
     the final norm and the head and returns (None, pending): a draft's
@@ -680,7 +942,7 @@ def verify_step_slots(params, tokens, positions, cache, cfg, done=None,
     x, per_group, _ = _layer_stack(x, params, cfg, pos2d, cache=cache,
                                    chunk_offsets=positions, slot_done=done)
     pending = {ckey: {name: torch.stack([pl[name] for pl in per_layer])
-                      for name in ("k", "v")}
+                      for name in per_layer[0]}
                for ckey, per_layer in per_group.items()}
     if not logits:
         return None, pending
@@ -725,8 +987,8 @@ def commit_slots(params, tokens, positions, n_feed, cache, pending, cfg,
 
 
 def _commit_dense(group, pending, positions, n_feed, window):
-    """``commit_slots`` for a dense group {"k"/"v": (L, B, Sc, KV, hd)};
-    pending leaves are (L, B, S, KV, hd)."""
+    """``commit_slots`` for a dense group of (L, B, Sc, ...) leaves ("k"/
+    "v", or MLA's "ckv"/"kr"); pending leaves are (L, B, S, ...)."""
     for name, cl in group.items():
         pl = pending[name]
         B, Sc = cl.shape[1], cl.shape[2]
@@ -736,22 +998,24 @@ def _commit_dense(group, pending, positions, n_feed, window):
         idx = positions.long()[:, None] + src
         idx = idx % Sc if _is_ring(Sc, window) else idx.clamp(max=Sc - 1)
         rows = torch.arange(B, device=cl.device)[:, None]
-        new = torch.where((n_feed > 0)[None, :, None, None, None],
-                          pl[:, rows, src].to(cl.dtype), cl[:, rows, idx])
+        keep = (n_feed > 0).view(1, B, *([1] * (cl.dim() - 2)))
+        new = torch.where(keep, pl[:, rows, src].to(cl.dtype),
+                          cl[:, rows, idx])
         cl[:, rows, idx] = new
 
 
 def _commit_paged(group, pending, positions, n_feed, window):
     """``commit_slots`` for a paged group {arenas (L, n_pages + 1, page,
-    KV, hd), "bt": (L, B, nblk)}; pending leaves are (L, B, S, KV, hd) and
-    never carry a table.  Entry j of row b, at position pos = positions[b]
-    + j, goes to slot s = pos (a ring: pos % (nblk * page)) on page
-    ``bt[b, s // page]``, or to the scratch page when it is not committed
-    (or lies past the table)."""
+    ...), "bt": (L, B, nblk)}: K/V arenas, or MLA's latent ones; pending
+    leaves are (L, B, S, ...) and never carry a table.  Entry j of row b,
+    at position pos = positions[b] + j, goes to slot s = pos (a ring: pos
+    % (nblk * page)) on page ``bt[b, s // page]``, or to the scratch page
+    when it is not committed (or lies past the table)."""
     bt = group["bt"][0]  # layers share one table
-    n_pages, page = group["k"].shape[1] - 1, group["k"].shape[2]
+    leaves = [name for name in group if name != "bt"]
+    n_pages, page = group[leaves[0]].shape[1] - 1, group[leaves[0]].shape[2]
     nblk = bt.shape[1]
-    S = pending["k"].shape[2]
+    S = pending[leaves[0]].shape[2]
     steps = torch.arange(S, device=bt.device)[None]
     pos = positions.long()[:, None] + steps  # (B, S)
     if _is_ring(nblk * page, window):
@@ -761,7 +1025,7 @@ def _commit_paged(group, pending, positions, n_feed, window):
     keep = (steps < n_feed[:, None]) & (blk < nblk)
     pid = torch.where(keep, pid, n_pages)
     off = pos % page
-    for name in ("k", "v"):
+    for name in leaves:
         arena = group[name]
         arena[:, pid, off] = pending[name].to(arena.dtype)
 
@@ -777,6 +1041,10 @@ def serve_supported(cfg):
     if why is not None:
         return False, (f"{why} is not ported to repro_torch yet (see "
                        "ROADMAP.md)")
+    if cfg.mla and cfg.window:
+        return False, "MLA latent caches have no ring-buffer window layout"
+    if cfg.mla:
+        return True, "full MLA latent cache (O(max_len) per slot)"
     if cfg.window:
         return True, "ring-buffer window KV cache (O(window) per slot)"
     return True, "full KV cache (O(max_len) per slot)"
@@ -784,17 +1052,21 @@ def serve_supported(cfg):
 
 def paged_groups(cfg):
     """Slot-state protocol: the cache groups that page under a paged pool,
-    ``{key: (kind, leaf names)}``.  Every block group's K/V ("dense",
-    "moe") pages on its sequence axis; the groups share one block table
-    layout."""
+    ``{key: (kind, leaf names)}``.  Every block group ("dense", "moe")
+    pages on its sequence axis: its K/V, or MLA's latents ("ckv", "kr");
+    the groups share one block table layout."""
     _require_ported(cfg)
-    return {ckey: ("seq", ("k", "v")) for _, ckey, _, _ in _groups(cfg)}
+    leaves = ("ckv", "kr") if cfg.mla else ("k", "v")
+    return {ckey: ("seq", leaves) for _, ckey, _, _ in _groups(cfg)}
 
 
 def slot_cache_layout(cfg):
-    """Slot-pool layout tag for telemetry."""
+    """Slot-pool layout tag for telemetry: "full", "ring" (a window), or
+    "full-mla" (MLA's latent cache)."""
     if not serve_supported(cfg)[0]:
         return "unsupported"
+    if cfg.mla:
+        return "full-mla"
     return "ring" if cfg.window else "full"
 
 

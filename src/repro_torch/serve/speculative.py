@@ -164,8 +164,9 @@ def make_speculative_loop(cfg_t, cfg_d, d: int, k: int, sampling=None):
     fam_t, fam_d = get_family(cfg_t), get_family(cfg_d)
     # families whose proposals overwrite committed state (griffin's
     # recurrence and rings, xlstm's recurrence, a windowed transformer's
-    # ring); a full-KV draft keeps nothing
-    snapshot = (None if fam_d.slot_cache_layout(cfg_d) == "full"
+    # ring); a full-KV or full latent (MLA) draft keeps nothing
+    snapshot = (None if fam_d.slot_cache_layout(cfg_d) in ("full",
+                                                          "full-mla")
                 else getattr(fam_d, "snapshot_slots", None))
     greedy = sampling_lib.is_greedy(sampling)
     S = d + 1

@@ -1,9 +1,5 @@
-"""Losses: next-token cross entropy with z-loss and the MoE auxiliary
-term, and classification.
-
-The MTP term of the reference package is not here: configs with an MTP
-head are not ported (ROADMAP.md).
-"""
+"""Losses: next-token cross entropy with z-loss, the MoE auxiliary term
+and the MTP term, and classification."""
 from __future__ import annotations
 
 import torch
@@ -22,7 +18,9 @@ def _ce(logits, targets, z_loss=0.0):
 
 def lm_loss(logits, aux, batch, cfg, z_loss=1e-4):
     """Causal LM loss (+ the MoE aux term, ``aux["moe_aux"]`` times
-    ``cfg.aux_loss_weight``, when ``cfg.moe``).  Encoder configs
+    ``cfg.aux_loss_weight``, when ``cfg.moe``; + ``cfg.mtp_weight`` times
+    the MTP head's cross entropy against the token two ahead, metric
+    ``"mtp"``, when ``aux`` has ``"mtp_logits"``).  Encoder configs
     (non-causal LM heads) predict the *current* position of a masked
     stream instead of shifting."""
     tokens = batch["tokens"]
@@ -35,9 +33,17 @@ def lm_loss(logits, aux, batch, cfg, z_loss=1e-4):
             if mask is not None else per.mean()
     metrics = {"ce": loss}
     if aux.get("moe_aux") is not None and cfg.moe:
-        moe_aux = aux["moe_aux"] * cfg.aux_loss_weight
+        # a tensor even where no MoE layer made one (an MoE config cut to
+        # its dense layers sums to 0.0), as the reference's f32 scalar is
+        moe_aux = torch.as_tensor(aux["moe_aux"] * cfg.aux_loss_weight,
+                                  dtype=torch.float32, device=loss.device)
         loss = loss + moe_aux
         metrics["moe_aux"] = moe_aux
+    if "mtp_logits" in aux:
+        # depth-1 MTP predicts token t + 2 from position t
+        mtp = _ce(aux["mtp_logits"][:, :-1], tokens[:, 2:], z_loss).mean()
+        loss = loss + cfg.mtp_weight * mtp
+        metrics["mtp"] = mtp
     metrics["loss"] = loss
     return loss, metrics
 

@@ -2557,3 +2557,119 @@ def test_cuda_moe_engine_routes_agree_with_exact_launches(cuda_device):
     assert drops["dropped"] > 0
     for r in reqs:
         np.testing.assert_array_equal(paged[r.uid], dense[r.uid])
+
+
+# ---------------------------------------------------------------- MLA
+def _mla_attn(dev, full, B, S, Sc):
+    """An MLA attention layer's latent-space inputs: deepseek-v3-671b-
+    smoke's widths, or the full model's (128 heads, kv_lora_rank 512,
+    qk_nope_dim 128, qk_rope_dim 64, v_head_dim 128); drawn on the CPU,
+    returned there and copied to ``dev``."""
+    cfg = get_config("deepseek-v3-671b" if full else
+                     "deepseek-v3-671b-smoke").replace(
+        param_dtype="float32", compute_dtype="float32")
+    H, R = cfg.n_heads, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    g = torch.Generator().manual_seed(Sc + S)
+    cpu = {"p": {"kv_norm": 1 + 0.1 * torch.randn(R, generator=g),
+                 "w_uk": 0.05 * torch.randn(R, H * dn, generator=g),
+                 "w_uv": 0.05 * torch.randn(R, H * dv, generator=g)},
+           "q_nope": torch.randn(B, S, H, dn, generator=g),
+           "q_rope": torch.randn(B, S, H, dr, generator=g),
+           "ckv": torch.randn(B, Sc, R, generator=g),
+           "kr": torch.randn(B, Sc, dr, generator=g),
+           "ckv_chunk": torch.randn(B, S, R, generator=g),
+           "kr_chunk": torch.randn(B, S, dr, generator=g)}
+
+    def to(t):
+        return {k: to(v) for k, v in t.items()} if isinstance(t, dict) \
+            else t.to(dev)
+
+    return cfg, cpu, to(cpu)
+
+
+@pytest.mark.parametrize("full", [False, True])
+def test_cuda_mla_absorbed_decode_and_verify_match_the_cpu(cuda_device,
+                                                           full):
+    """MLA's latent-space attention on the card against the same call on
+    the CPU, within 1e-5 in f32: the absorbed decode at per-row kv_len
+    (a row of length 0 gives exact zeros) and the chunk verify of S 5 at
+    per-row offsets over [cache ‖ chunk] (a done row gives exact
+    zeros)."""
+    B, Sc = 4, 96
+    cfg, c, d = _mla_attn(cuda_device, full, B, 1, Sc)
+    kv_len = torch.tensor([96, 0, 37, 1], dtype=torch.int32)
+    want = transformer._mla_absorbed_decode(
+        c["q_nope"], c["q_rope"], c["ckv"], c["kr"], c["p"], cfg,
+        kv_len=kv_len)
+    got = transformer._mla_absorbed_decode(
+        d["q_nope"], d["q_rope"], d["ckv"], d["kr"], d["p"], cfg,
+        kv_len=kv_len.to(cuda_device))
+    torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-5)
+    assert (got[1] == 0).all()
+    cfg, c, d = _mla_attn(cuda_device, full, B, 5, Sc)
+    offsets = torch.tensor([0, 40, 91, 12], dtype=torch.int32)
+    done = torch.tensor([False, False, False, True])
+    want = transformer._mla_chunk_verify(
+        c["q_nope"], c["q_rope"], (c["ckv"], c["kr"]), c["ckv_chunk"],
+        c["kr_chunk"], c["p"], cfg, offsets, done)
+    got = transformer._mla_chunk_verify(
+        d["q_nope"], d["q_rope"], (d["ckv"], d["kr"]), d["ckv_chunk"],
+        d["kr_chunk"], d["p"], cfg, offsets.to(cuda_device),
+        done.to(cuda_device))
+    torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-5)
+    assert (got[3] == 0).all()
+
+
+def test_cuda_mla_engine_routes_agree_without_attention_kernels(
+        cuda_device):
+    """deepseek-v3-671b-smoke on the card.  At capacity factor 2.0 (= E /
+    K, nothing drops) the dense latent pool, a paged latent pool and the
+    model drafting for itself (d 3) on both pools give ``generate``'s
+    tokens; at the published 1.25 (prefills drop choices) the paged pool
+    gives the dense pool's.  MLA attends in plain products: no kernel of
+    the port launches in any run."""
+    cfg2 = get_config("deepseek-v3-671b-smoke").replace(capacity_factor=2.0)
+    params = transformer.init(torch.Generator(device=cuda_device).manual_seed(
+        0), cfg2)
+    reqs = _phi_reqs(cfg2)
+    kern = ops.kernels()
+
+    def run(cfg, pool, spec=False):
+        kw = dict(capacity=2, max_len=64, k=2 if spec else 4, pool=pool,
+                  prefill_bucket=8)
+        if spec:
+            kw["speculative"] = SpeculativeConfig(cfg, params, d=3)
+        elif pool == "paged":
+            kw["pages"] = 10
+        eng = ContinuousBatchingEngine(cfg, params, **kw)
+        assert eng.cache_layout == "full-mla"
+        for fn in kern.values():
+            fn.launches = 0
+        with counting_drops(cfg) as drops:
+            got = eng.run([dataclasses.replace(r) for r in reqs])
+        torch.cuda.synchronize()
+        assert {n: fn.launches for n, fn in kern.items()} == {
+            n: 0 for n in kern}
+        assert eng.pages_in_use in (None, 0)
+        if spec:
+            assert eng.acceptance_rate == 1.0
+        return got, drops
+
+    for fn in kern.values():
+        fn.launches = 0
+    gen = {r.uid: generate(cfg2, params, torch.from_numpy(r.prompt)[None].to(
+        cuda_device), max_new_tokens=r.max_new_tokens, max_len=64)[0]
+        .cpu().numpy() for r in reqs}
+    assert {n: fn.launches for n, fn in kern.items()} == {n: 0 for n in kern}
+    for pool in ("dense", "paged"):
+        for spec in (False, True):
+            got, drops = run(cfg2, pool, spec)
+            assert drops["dropped"] == 0
+            for r in reqs:
+                np.testing.assert_array_equal(got[r.uid], gen[r.uid])
+    cfg = cfg2.replace(capacity_factor=1.25)
+    (dense, drops), (paged, _) = run(cfg, "dense"), run(cfg, "paged")
+    assert drops["dropped"] > 0
+    for r in reqs:
+        np.testing.assert_array_equal(paged[r.uid], dense[r.uid])

@@ -55,7 +55,6 @@ from repro.serve import snapshot_engine as jax_snapshot_engine
 from repro.train.loss import lm_loss as jax_lm_loss
 from repro.train.steps import make_train_step as jax_make_train_step
 from repro_torch.configs import get_config
-from repro_torch.configs.base import ModelConfig
 from repro_torch.convert import from_jax, to_numpy
 from repro_torch.core import grow
 from repro_torch.launch import serve as launch_serve
@@ -696,13 +695,29 @@ def test_train_launcher_matches_jax(monkeypatch):
 
 
 def test_unported_moe_variants_still_refused():
-    """MoE is ported; MLA and the MTP head beside it are not (deepseek)."""
-    cfg = ModelConfig(name="x", moe=True, n_experts=4, top_k=2,
-                      expert_d_ff=16)
+    """MoE is ported, and MLA and the MTP head beside it (deepseek): the
+    latent cache groups and the "mtp" params have JAX's shapes and the
+    config serves; mrope beside MoE is still refused."""
+    jcfg = JaxConfig(name="x", moe=True, n_experts=4, top_k=2,
+                     expert_d_ff=16, moe_layer_start=1)
+    cfg = port_config(jcfg)
     assert serve_supported(cfg)[0]
-    for kw, what in ((dict(mla=True), "MLA"), (dict(mtp=True), "MTP")):
-        with pytest.raises(NotImplementedError, match=what):
-            transformer.init_cache(cfg.replace(**kw), 1, 8)
+    mla = dict(mla=True, kv_lora_rank=8, q_lora_rank=8, qk_nope_dim=8,
+               qk_rope_dim=8, v_head_dim=8)
+    for kw in (mla, dict(mtp=True), dict(mla, mtp=True)):
+        jc, c = jcfg.replace(**kw), cfg.replace(**kw)
+        want = _np(jax_family(jc).init_cache(jc, 1, 8))
+        _assert_tree_close(transformer.init_cache(c, 1, 8), want, atol=0)
+        wshapes = {p: tuple(s.shape) for p, s in tree_flatten_with_paths(
+            jax.eval_shape(lambda: jax_family(jc).init(
+                jax.random.PRNGKey(0), jc)))}
+        gshapes = {p: tuple(s) for p, s in tree_flatten_with_paths(
+            transformer.param_shapes(c))}
+        assert gshapes == wshapes
+        assert serve_supported(c) == jax_family(jc).serve_supported(jc)
+        assert serve_supported(c)[0]
+    with pytest.raises(NotImplementedError, match="mrope"):
+        transformer.init_cache(cfg.replace(rope="mrope"), 1, 8)
 
 
 # ------------------------------------------------------------------- bf16

@@ -134,12 +134,34 @@ def test_rope_configs_equal_the_reference_and_serve():
     (dict(mla=True, kv_lora_rank=8, q_lora_rank=8, qk_nope_dim=8,
           qk_rope_dim=8, v_head_dim=8), "MLA"),
     (dict(window=8), "sliding-window"),
-    (dict(mtp=True), "MTP")])
+    (dict(mtp=True), "MTP"),
+    (dict(mla=True, kv_lora_rank=8, q_lora_rank=8, qk_nope_dim=8,
+          qk_rope_dim=8, v_head_dim=8, window=8), "MLA window")])
 def test_unported_variants_still_refused(kw, what):
-    """M-RoPE, MLA and the MTP head are refused; a sliding window and MoE
-    layers on qwen3 are ported (the ring cache, or the "moe" cache group,
-    has JAX's shape, and it serves)."""
+    """M-RoPE is refused; a sliding window, MoE layers, MLA and the MTP
+    head on qwen3 are ported (the ring cache, the "moe" cache group, or
+    the "ckv"/"kr" latents have JAX's shapes; the "mtp" head has JAX's
+    param shapes; each serves), but MLA with a window is refused, as JAX
+    refuses it."""
     cfg = get_config("qwen3-0.6b-smoke").replace(**kw)
+    if "mla" in kw or "mtp" in kw:
+        jcfg = jax_get_config("qwen3-0.6b-smoke").replace(**kw)
+        want = jax_family(jcfg).init_cache(jcfg, 1, 40)
+        got = transformer.init_cache(cfg, 1, 40)
+        assert set(got["dense"]) == set(want["dense"])
+        for name in want["dense"]:
+            assert got["dense"][name].shape == want["dense"][name].shape
+        if "mtp" in kw:
+            jmtp = jax.eval_shape(lambda: jax_family(jcfg).init(
+                jax.random.PRNGKey(0), jcfg))["mtp"]
+            got_mtp = transformer.param_shapes(cfg)["mtp"]
+            assert jax.tree.map(lambda s: tuple(s.shape), jmtp) == \
+                jax.tree.map(tuple, got_mtp, is_leaf=lambda x: isinstance(
+                    x, torch.Size))
+        assert serve_supported(cfg) == jax_family(jcfg).serve_supported(
+            jcfg)
+        assert serve_supported(cfg)[0] == ("window" not in kw)
+        return
     if "moe" in kw:
         jcfg = jax_get_config("qwen3-0.6b-smoke").replace(**kw)
         want = jax_family(jcfg).init_cache(jcfg, 1, 40)

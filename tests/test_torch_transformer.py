@@ -124,13 +124,36 @@ def test_port_init_matches_reference_layout():
           qk_rope_dim=8, v_head_dim=8), "MLA"),
     (dict(moe=True, n_experts=4, top_k=2), "MoE"),
     (dict(window=8), "sliding-window"),
+    (dict(mla=True, kv_lora_rank=8, q_lora_rank=8, qk_nope_dim=8,
+          qk_rope_dim=8, v_head_dim=8, window=8), "MLA window"),
 ])
 def test_unported_configs_raise_naming_roadmap(kw, what):
-    """MLA and multimodal RoPE raise, naming ROADMAP.md; a sliding window
-    is ported: its slot cache is JAX's ring of pad_cache_len(min(max_len,
+    """Multimodal RoPE raises, naming ROADMAP.md; a sliding window is
+    ported: its slot cache is JAX's ring of pad_cache_len(min(max_len,
     window)) slots and it serves; MoE is ported: its cache is JAX's one
-    "moe" group and it serves."""
+    "moe" group and it serves; MLA is ported: its cache is JAX's "ckv"/
+    "kr" latents and it serves, but not with a window, which JAX refuses
+    too."""
     cfg = ModelConfig(name="x", rope="none", learned_pos=16).replace(**kw)
+    if "mla" in kw:
+        jcfg = jax_get_config("gpt-micro").replace(
+            name="x", rope="none", learned_pos=16, **kw)
+        want = jax_family(jcfg).init_cache(jcfg, 2, 20)
+        got = transformer.init_cache(port_config(jcfg), 2, 20)
+        assert set(got) == set(want) == {"dense"}
+        assert set(got["dense"]) == set(want["dense"]) == {"ckv", "kr"}
+        for name in ("ckv", "kr"):
+            assert got["dense"][name].shape == want["dense"][name].shape
+        assert serve_supported(cfg) == jax_family(jcfg).serve_supported(
+            jcfg)
+        ok, why = serve_supported(cfg)
+        if "window" in kw:
+            assert not ok and "no ring-buffer window layout" in why
+            assert transformer.slot_cache_layout(cfg) == "unsupported"
+        else:
+            assert ok and "full MLA latent cache" in why
+            assert transformer.slot_cache_layout(cfg) == "full-mla"
+        return
     if "moe" in kw:
         jcfg = jax_get_config("gpt-micro").replace(
             name="x", rope="none", learned_pos=16, **kw)

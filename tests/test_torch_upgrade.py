@@ -13,7 +13,9 @@ Then draft-after-swap, a submit held across the swap, the prewarm's
 (group, bucket) set against JAX's, the eager named errors (JAX's text),
 a failed growth, the manager's own growth against JAX's, the launcher's
 upgrade refusals in JAX's words, and the launcher swapping a griffin pair
-grown by the port as JAX's swaps it.
+grown by the port as JAX's swaps it.  The two MoE families
+(phi3.5-moe-42b-smoke's K/V groups, deepseek-v3-671b-smoke's latent
+ones) swap into their wider MoEs on both pools as JAX's engine does.
 """
 import sys
 
@@ -49,8 +51,9 @@ MAX_LEN = 32
 def _pair(src, tgt):
     """(JAX cfgs, JAX params, port cfgs, port params) of a source and its
     grown target (JAX's Mango at noise 0), weights converted leaf for
-    leaf."""
-    jsrc, jtgt = jax_get_config(src), jax_get_config(tgt)
+    leaf.  ``src`` and ``tgt`` are config names or JAX configs."""
+    jsrc, jtgt = (jax_get_config(c) if isinstance(c, str) else c
+                  for c in (src, tgt))
     jp = jax_family(jsrc).init(jax.random.PRNGKey(0), jsrc)
     jg = jax_grow_from_source(jsrc, jtgt, params_src=jp, noise=0.0,
                               log_fn=lambda *a, **k: None)
@@ -195,6 +198,37 @@ def test_hot_swap_griffin_matches_jax(griffin_pair):
     _assert_split(port_pair, mgr, got,
                   _requests(Request, port_pair[0].vocab_size, specs,
                             seed0=80))
+
+
+# the two MoE families' smoke configs and the wider MoE each grows into
+MOE_PAIRS = {
+    "phi3.5-moe-42b-smoke": dict(name="phi-smoke-big", n_layers=4,
+                                 d_model=128, n_heads=8, n_kv_heads=2,
+                                 d_ff=256, expert_d_ff=256),
+    "deepseek-v3-671b-smoke": dict(name="ds-smoke-big", n_layers=4,
+                                   d_model=128, n_heads=8, n_kv_heads=8,
+                                   d_ff=256)}
+
+
+@pytest.mark.parametrize("src", sorted(MOE_PAIRS))
+@pytest.mark.parametrize("pool", ["dense", "paged"])
+def test_hot_swap_moe_matches_jax(src, pool):
+    """An MoE smoke grown into its wider MoE (phi's K/V cache groups,
+    deepseek's latent ones) swapped in at dispatch 2 at the published
+    capacity factor 1.25, the source drafting afterwards: resumes, tokens
+    and counters equal JAX's engine doing the same swap (routing depends
+    on the batch shape, so the port is held to JAX's same route, not to
+    ``generate``)."""
+    jsrc = jax_get_config(src)
+    jax_pair, port_pair = _pair(jsrc, jsrc.replace(**MOE_PAIRS[src]))
+    specs = [(5, 10), (9, 10), (7, 10)]
+    eng, mgr, _ = _against_jax(jax_pair, port_pair, specs, pool=pool,
+                               seed0=90)
+    assert eng.speculative is not None and not mgr.spec_reason
+    assert eng.lifetime_totals()["n_spec_proposed"] > 0
+    assert set(eng.pool) == ({"dense", "moe"} if jsrc.mla else {"moe"})
+    if pool == "paged":
+        assert eng.pages_in_use == 0
 
 
 def test_draft_after_swap_speculation(gpt_pair):
