@@ -780,7 +780,7 @@ def run_kernels():
             source="src/repro_torch/kernels/csrc/tr_sandwich.cu",
             replaces="src/repro/kernels/tr_sandwich.py:41", **row)
     rows["decode_attention"] = run_decode_cases(gen)
-    rows["chunk_verify_attention"] = run_chunk_cases(gen)
+    rows.update(run_chunk_cases(gen))
     rows.update(run_paged_cases(gen))
     rows.update(run_griffin_cases(gen))
     rows.update(run_scan_bwd_cases(gen))
@@ -935,10 +935,75 @@ def run_decode_cases(gen):
     return row
 
 
+def nan_outside_bands(k, v, offs, cap, window, bt=None):
+    """Copies of a ring cache's k, v -- page arenas (n_pages, page, KV, hd)
+    read through the block tables ``bt`` (on the host), or a dense (B, cap,
+    KV, hd) cache -- with NaN in every row that no row's band [max(off -
+    cap, off - window + 1, 0), off) reads (sentinel entries clamp to the
+    last page), and the count of such rows.  The ring verify stages some
+    of them (a tile's positions below its band's first): they must add
+    nothing."""
+    import torch
+
+    n_pages, page = k.shape[:2]
+    keep = torch.zeros(k.shape[:2], dtype=torch.bool)
+    for b, o in enumerate(offs):
+        lo = max(o - cap, o - window + 1 if window else 0, 0)
+        slots = torch.arange(lo, max(lo, o)) % cap
+        if bt is None:
+            keep[b, slots] = True
+        else:
+            pages = bt[b, slots // page].long().clamp(0, n_pages - 1)
+            keep[pages, slots % page] = True
+    keep = keep.to(k.device)
+    kn, vn = k.clone(), v.clone()
+    kn[~keep] = float("nan")
+    vn[~keep] = float("nan")
+    return kn, vn, int((~keep).sum())
+
+
+def ring_split_ms(name, call, q, KV, cap):
+    """{pieces: (ms, clusters the card holds at once)} of the ring verify's
+    ``call`` with each band cut into 1, 2, 3 and 4 pieces (the plan cuts
+    as many as keep every band's cluster resident)."""
+    from repro_torch.kernels import decode_attention as kda
+
+    plan = kda.ring_verify_splits
+    hd = q.shape[-1]
+    out = {}
+    for n in (1, 2, 3, 4):
+        def forced(bands, span, n_sm, per_sm, clusters, n=n):
+            chunk = -(-(-(-span // n)) // kda.PAGED_TILE) * kda.PAGED_TILE
+            return chunk, -(-span // chunk)
+        kda.ring_verify_splits = forced
+        out[n] = (time_ms(call, 40), kda._ring_clusters(
+            name.split("[")[0], q.device, q.dtype, hd, n))
+    kda.ring_verify_splits = plan
+    print(f"{name}: ms (clusters resident) by pieces a band "
+          f"{ {n: (round(ms, 4), c) for n, (ms, c) in out.items()} }; "
+          f"{q.shape[0] * KV} bands", flush=True)
+    return out
+
+
+def check_nan_outside_bands(name, label, got, fn, n_nan):
+    """The ring verify's output with NaN planted outside every band
+    (``fn()``) equals its output without, bit for bit, and is finite."""
+    import torch
+
+    with_nan = fn()
+    torch.cuda.synchronize()
+    if not (torch.equal(with_nan, got) and bool(torch.isfinite(with_nan).all())):
+        raise AssertionError(f"{name} [{label}]: NaN in {n_nan} cache rows "
+                             "outside every band reached the output")
+    return n_nan
+
+
 def chunk_cases():
     """(label, L, B, S, H, KV, Sc, hd, dtype, ring, window, offsets): the
     speculative path's two shapes first -- gpt-base's verify and gpt-small's
     catch-up, d 4 at capacity 8 over max_len 1024, one done row -- then
+    phase 17's verify in the ring layout (the ``[ring]`` row: qwen3-0.6b's
+    16 heads over 8 KV heads of 128, a ring of 1,088, window 1,025), then
     ring, window, GQA and bfloat16 cases (cache lengths that divide
     nothing, wrapped ring offsets, S*G = 128 across 16 query tiles), and
     gpt-base's verify at d 16 (S 17: tiles mixing cache and chunk rows)."""
@@ -953,6 +1018,10 @@ def chunk_cases():
          None, spread),
         ("gpt-base verify bf16", 2, 8, 5, 12, 12, 1024, 64, bf16, False,
          None, spread),
+        ("qwen3-0.6b window ring f32", 4, 8, 5, 16, 8, 1088, 128, f32, True,
+         1025, WIN_RING_OFFSETS),
+        ("qwen3-0.6b window ring bf16", 4, 8, 5, 16, 8, 1088, 128, bf16,
+         True, 1025, WIN_RING_OFFSETS),
         ("ring window GQA f32", 2, 6, 5, 8, 2, 300, 128, f32, True, 128,
          [-1, 0, 1, 150, 300, 1234]),
         ("ring GQA bf16", 2, 6, 5, 16, 4, 300, 64, bf16, True, None,
@@ -969,14 +1038,16 @@ def run_chunk_cases(gen):
     version (f32 within 1e-5 of the largest entry, bfloat16 within
     5e-3 + 1e-2 relative) and timed beside its bound, the plain version
     and masked SDPA over K/V concatenated ahead of the timing.  The first
-    case (gpt-base's verify) is the kernels-line row."""
+    full-layout case (gpt-base's verify) is the kernels-line row
+    ``chunk_verify_attention``, the first ring-layout case (phase 17's
+    shape) ``chunk_verify_attention[ring]``."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import decode_attention, ref
 
     cv_fn = decode_attention.chunk_verify_attention
-    cases = []
+    rows = {}
     for (label, L, B, S, H, KV, Sc, hd, dt, ring, window,
          offs) in chunk_cases():
         def rnd(*s):
@@ -1002,6 +1073,14 @@ def run_chunk_cases(gen):
         if not bool((got[off < 0] == 0).all()):
             raise AssertionError(f"chunk_verify_attention [{label}]: done "
                                  "rows are not exact zeros")
+        nan_rows = None
+        if ring:
+            kn, vn, nan_rows = nan_outside_bands(ckp[0], cvp[0], offs, Sc,
+                                                 window)
+            check_nan_outside_bands(
+                "chunk_verify_attention", label, got,
+                lambda: cv_fn(q, kn, vn, kc, vc, off, **kw), nan_rows)
+            del kn, vn
         # the bound: each row's attended cache positions and its S chunk
         # keys once, q and out, the offsets
         n_keys = 0
@@ -1054,21 +1133,28 @@ def run_chunk_cases(gen):
         # rows a tile, tiles, then the band's pieces: (positions, a
         # cluster of)
         case["splits"] = decode_attention._verify_plan(
-            q, KV, Sc, window, "chunk_verify_attention")
-        cases.append(case)
+            q, KV, Sc, window, "chunk_verify_attention", ring)
+        case["nan_rows_outside_bands"] = nan_rows
+        name = "chunk_verify_attention" + ("[ring]" if ring else "")
+        if name not in rows:
+            rows[name] = dict(
+                name=name, route="cuda",
+                source="src/repro_torch/kernels/csrc/chunk_verify_attention.cu",
+                replaces="src/repro/kernels/decode_attention.py:595",
+                cases=[], **{key: case[key] for key in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "shape")})
+        rows[name]["cases"].append(case)
+        nan = ("" if nan_rows is None else
+               f", TMA boxes {decode_attention.ring_verify_box(Sc, hd, item)}"
+               f", NaN in {nan_rows} rows outside the bands added nothing")
         print(f"chunk_verify_attention [{label}] {case['shape']}: max abs "
-              f"err {err:.3g}, pieces {case['splits']}; kernel "
+              f"err {err:.3g}{nan}, pieces {case['splits']}; kernel "
               f"{case['ms']:.4f} ms, plain "
               f"{case['plain_ms']:.4f} ms, library {case['library_ms']:.4f} "
               f"ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
         del k_all, v_all, ckp, cvp
-    main = cases[0]
-    return dict(name="chunk_verify_attention", route="cuda",
-                source="src/repro_torch/kernels/csrc/chunk_verify_attention.cu",
-                replaces="src/repro/kernels/decode_attention.py:595",
-                cases=cases, **{key: main[key] for key in (
-                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms", "shape")})
+    return rows
 
 
 # phase 17's verify: B 8, S 5 (d 4), qwen3-0.6b's 16 heads over 8 KV heads
@@ -1080,9 +1166,11 @@ WIN_RING_OFFSETS = [1105, 1180, 1290, 1305, 1320, 1335, 1450, 1600]
 def paged_cases(gen):
     """Phase 3's paged cases: (kernel, label, L, B, S, H, KV, hd, n_pages,
     page, nblk, dtype, lens, window), gpt-base's shapes first, then the
-    verify's ring layout ("ring"): phase 17's shape in f32 and bf16, hd 64
-    and an in-bucket hd 80 with done rows and offsets that wrap the ring
-    up to eight times.  Tables are a seeded permutation of the arena's
+    full layout at the ring's shape and band length (the yardstick), then
+    the verify's ring layout ("ring"): phase 17's shape in f32 and bf16,
+    hd 64 and an in-bucket hd 80 with done rows and offsets that wrap the
+    ring up to eight times, and pages of 24 (a ring of 264, not a multiple
+    of 32: every tile copied a row at a time).  Tables are a seeded permutation of the arena's
     pages (not contiguous), and blocks inside a row's attended range hold
     the sentinel (a draft past its budget reads through it)."""
     import torch
@@ -1106,6 +1194,12 @@ def paged_cases(gen):
          16, bf16, spread, None),
         ("chunk", "gpt-base verify S 17 paged f32", 2, 8, 17, 12, 12, 64, 128,
          64, 16, f32, spread, None),
+        # the yardstick: the full layout at the ring's shape and band length
+        # (1,024 cache positions and 5 chunk keys a row, TMA boxes)
+        ("chunk", "yardstick full layout at the ring's shape f32", 4, 8, 5,
+         16, 8, 128, 136, 64, 17, f32, [1024] * 8, None),
+        ("chunk", "yardstick full layout at the ring's shape bf16", 4, 8, 5,
+         16, 8, 128, 136, 64, 17, bf16, [1024] * 8, None),
         ("ring", "qwen3-0.6b window ring f32", 4, 8, 5, 16, 8, 128, 136, 64,
          17, f32, WIN_RING_OFFSETS, 1025),
         ("ring", "qwen3-0.6b window ring bf16", 4, 8, 5, 16, 8, 128, 136, 64,
@@ -1118,6 +1212,9 @@ def paged_cases(gen):
          wrap, None),
         ("ring", "ring hd 80 G 4 wrap bf16", 1, 8, 9, 16, 4, 80, 37, 32, 8,
          bf16, wrap, None),
+        # pages of 24: a ring of 264 (not a multiple of 32)
+        ("ring", "ring page 24 cap 264 f32", 1, 8, 5, 8, 2, 64, 90, 24, 11,
+         f32, [-1, 0, 100, 263, 264, 700, 1024, 1999], 100),
     ]
 
 
@@ -1210,6 +1307,14 @@ def run_paged_cases(gen):
         if not bool((got[done_rows] == 0).all()):
             raise AssertionError(f"{name} [{label}]: rows with kv_len 0 / "
                                  "offset -1 are not exact zeros")
+        nan_rows = None
+        if kind == "ring":
+            kn, vn, nan_rows = nan_outside_bands(ka[0], va[0], lens, cap,
+                                                 window, bt.cpu())
+            check_nan_outside_bands(
+                name, label, got,
+                lambda: fn(q, kn, vn, bt, kc, vc, ln, **kw), nan_rows)
+            del kn, vn
         b_ms, b_by = bound_ms(
             n_keys * KV * hd * 2 * item + qkv + 4 * B * nblk + 4 * B,
             4 * n_keys * H * hd * (1 if kind == "slot" else S), dname)
@@ -1248,8 +1353,20 @@ def run_paged_cases(gen):
         case["splits"] = (
             decode_attention._paged_splits(name, q, KV, cap)
             if kind == "slot" else
-            decode_attention._verify_plan(q, KV, cap, window))
+            decode_attention._verify_plan(q, KV, cap, window,
+                                          ring=kind == "ring"))
+        case["nan_rows_outside_bands"] = nan_rows
         split = f", pieces {case['splits']}"
+        if kind == "ring":
+            case["tma_boxes"] = decode_attention.ring_verify_box(page, hd,
+                                                                 item)
+            split += f", TMA boxes {case['tma_boxes']}"
+        if kind == "ring" and name not in rows:  # phase 17's shape
+            case["split_ms"] = ring_split_ms(
+                name, lambda: kern(next(layers) % L), q, KV, cap)
+        if nan_rows is not None:
+            split += (f", NaN in {nan_rows} rows outside the bands added "
+                      "nothing")
         print(f"{name} [{label}] {case['shape']}: max abs err {err:.3g}"
               f"{split}; kernel {case['ms']:.4f} ms, plain "
               f"{case['plain_ms']:.4f} ms, library {case['library_ms']:.4f} "
@@ -5656,9 +5773,10 @@ def run_window(kernel_rows, smi):
               f"{held / 2**20:.1f} MiB held; {eng.n_decode_dispatches} "
               f"dispatches, {eng.n_prefills} prefills; launches "
               f"{runs[label]['launches']} ({smi})", flush=True)
-        if label == "paged speculative":
-            kernel_rows["paged_chunk_verify_attention[ring]"]["launches"] = \
-                launches["paged_chunk_verify_attention"]
+        if spec:  # every verify of phase 17 is in the ring layout
+            name = ("paged_chunk_verify_attention" if pool == "paged"
+                    else "chunk_verify_attention")
+            kernel_rows[f"{name}[ring]"]["launches"] = launches[name]
         del eng
     del draft
 

@@ -31,17 +31,24 @@
 // pieces merged in the launch (one launch, no workspace), cut over its own
 // length on the device; a producer warp staging K/V with bulk copies on
 // mbarriers, or one TMA box a cache tile in the full layout without a
-// window.  The ring layout walks its band [max(lo, off - Sc), off) by
-// position, slot p % Sc, so no negative number is divided (the
-// reference's `(off - 1) // Sc` floors; C's `/` truncates).
-#include "paged_decode.cuh"
+// window.  The ring layout runs in ring_verify.cuh's body, as the paged
+// verify's does, over the same dense row address: its band [max(lo, off -
+// Sc), off) walked by position, slot p % Sc, so no negative number is
+// divided (the reference's `(off - 1) // Sc` floors; C's `/` truncates),
+// in tiles aligned to 32 positions (one TMA box each where Sc % 32 == 0,
+// row copies for a cache like 300), products on the tensor cores (3xTF32
+// in float32).  At phase 17's shape (Sc 1,088) it takes 0.0348 ms (f32)
+// and 0.0206 ms (bf16); the shared body took 0.0955 and 0.0955
+// (chip_smoke.py phase 3, PR 31).
+#include "ring_verify.cuh"
 
 // q (B,S,H,hd), ck/cv (B,Sc,KV,hd), k/v (B,S,KV,hd), offsets (B,) int32,
 // o (B,S,H,hd); all contiguous on the device.  dtype: 0 = float32,
 // 1 = bfloat16; ring: 0 full layout, 1 ring buffer; window: 0 = none.  The
 // S * G query rows of a (b, kv head) come in tiles of `rows` (1..16); each
 // band is cut into nsplit (1..16) pieces of at most chunk positions, chunk
-// * nsplit >= min(window - 1, Sc) + S.  One launch; returns
+// * nsplit >= min(window - 1, Sc) + S (+ 31 in the ring layout, chunk a
+// multiple of 32).  One launch; returns
 // cudaGetLastError() after it (0 on success); no synchronisation.
 extern "C" int chunk_verify_attention_fwd(
     const void* q, const void* ck, const void* cv, const void* k,
@@ -69,7 +76,7 @@ extern "C" int chunk_verify_attention_fwd(
   c.chunk = chunk;
   c.nsplit = nsplit;
   c.scale = scale;
-  return pdec::run<pdec::VERIFY, true>(c, H, dtype, hd, stream);
+  return pdec::run_verify<true>(c, H, dtype, hd, stream);
 }
 
 // The blocks of the (dtype, hd, rows) instance an SM holds at once, in
@@ -78,4 +85,17 @@ extern "C" int chunk_verify_attention_fwd(
 extern "C" int chunk_verify_attention_blocks_per_sm(int dtype, int hd,
                                                     int rows, int* out) {
   return pdec::blocks_per_sm<pdec::VERIFY, true>(dtype, hd, rows, out);
+}
+
+// The same for the ring layout's instance (ring_verify.cuh).
+extern "C" int chunk_verify_attention_ring_blocks_per_sm(
+    int dtype, int hd, int rows, int* out) {
+  return pdec::ring_blocks_per_sm<true>(dtype, hd, rows, out);
+}
+
+// Clusters of nsplit blocks of the ring layout's instance the card holds at
+// once, in *out; returns a CUDA error code (0 on success).
+extern "C" int chunk_verify_attention_ring_clusters(int dtype, int hd, int nsplit,
+                                                    int* out) {
+  return pdec::ring_clusters<true>(dtype, hd, nsplit, out);
 }

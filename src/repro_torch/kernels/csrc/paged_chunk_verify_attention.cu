@@ -28,7 +28,7 @@
 // attended cache positions (full: min(off_b, cap) less the window's cut;
 // ring: at most min(cap, window - 1) below off_b) and its S chunk keys
 // once, times KV * hd * 2 * itemsize bytes, plus q, out and the table,
-// far below the ridge point.
+// far below the ridge point (10 query rows: ~5 FLOPs a byte in float32).
 //
 // Design: the verify band of the decode body, paged_decode.cuh (shared
 // with the paged slot and the ring kernels).  A verify reads the same band
@@ -48,19 +48,29 @@
 // each when pages hold whole tiles.  Each row masks at the window's low
 // edge and in the chunk tile only; masked keys weigh exactly 0.  What is
 // left is the launch, the cluster barriers and the merge, and float32 FMAs
-// over the block's rows (zero rows included).  The ring layout is a
-// run-time flag of the same instances, as in the dense verify: its band
-// [max(lo, off - cap), off) is walked by position, slot p % cap (so no
-// negative number is divided), through the table; its tiles need not
-// start on multiples of 32, so it takes the bulk copies, not the TMA box.
-#include "paged_decode.cuh"
+// over the block's rows (zero rows included).
+//
+// The ring layout (ring = 1) runs in its own body, ring_verify.cuh: its
+// band [max(lo, off - cap), off) walked by position (slot p % cap, so no
+// negative number is divided) in tiles aligned to 32 positions, one TMA
+// box a whole cache tile where pages hold whole tiles (pages of 64 at
+// qwen3-0.6b's window), row copies elsewhere, staged rows outside the band
+// masked by selection and zeroed before P @ V, both products on the
+// tensor cores (mma.sync; 3xTF32 in float32, so float32 no longer matches
+// the plain version to summation order alone: the split adds ~2^-20 a
+// product), two groups of four consumer warps on alternate tiles of a
+// 200 KB stage ring, one block an SM.  At phase 17's shape it takes 0.0347
+// ms (f32) and 0.0228 ms (bf16) where the shared body took 0.0970 and
+// 0.1016 (chip_smoke.py phase 3, PR 31; the design is in that header).
+#include "ring_verify.cuh"
 
 // q (B,S,H,hd), ck/cv (n_pages,page,KV,hd) arenas, bt (B,nblk) int32, k/v
 // (B,S,KV,hd), offsets (B,) int32, o (B,S,H,hd); all contiguous on the
 // device.  dtype: 0 = float32, 1 = bfloat16; ring: 0 full layout, 1 ring
 // buffer; window: 0 = none.  The S * G query rows of a (b, kv head) come
 // in tiles of `rows` (1..16); each band is cut into nsplit (1..16) pieces
-// of chunk positions, chunk * nsplit >= min(window - 1, nblk * page) + S.
+// of chunk positions, chunk * nsplit >= min(window - 1, nblk * page) + S
+// (+ 31 in the ring layout, chunk a multiple of 32).
 // One launch; returns cudaGetLastError() after it (0 on success); no
 // synchronisation.
 extern "C" int paged_chunk_verify_attention_fwd(
@@ -91,7 +101,7 @@ extern "C" int paged_chunk_verify_attention_fwd(
   c.chunk = chunk;
   c.nsplit = nsplit;
   c.scale = scale;
-  return pdec::run<pdec::VERIFY, false>(c, H, dtype, hd, stream);
+  return pdec::run_verify<false>(c, H, dtype, hd, stream);
 }
 
 // The blocks of the (dtype, hd, rows) instance an SM holds at once, in
@@ -101,4 +111,17 @@ extern "C" int paged_chunk_verify_attention_blocks_per_sm(int dtype, int hd,
                                                           int rows,
                                                           int* out) {
   return pdec::blocks_per_sm<pdec::VERIFY, false>(dtype, hd, rows, out);
+}
+
+// The same for the ring layout's instance (ring_verify.cuh).
+extern "C" int paged_chunk_verify_attention_ring_blocks_per_sm(
+    int dtype, int hd, int rows, int* out) {
+  return pdec::ring_blocks_per_sm<false>(dtype, hd, rows, out);
+}
+
+// Clusters of nsplit blocks of the ring layout's instance the card holds at
+// once, in *out; returns a CUDA error code (0 on success).
+extern "C" int paged_chunk_verify_attention_ring_clusters(int dtype, int hd, int nsplit,
+                                                          int* out) {
+  return pdec::ring_clusters<false>(dtype, hd, nsplit, out);
 }

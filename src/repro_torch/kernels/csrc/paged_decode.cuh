@@ -26,15 +26,17 @@
 //   VERIFY (rowarg = offset):    the cache, then the chunk's own S keys
 //                                kc/vc (B, S, KV, hd) at positions off ..
 //                                off + S - 1.  The cache is [lo, min(off,
-//                                cap)) in the full layout (slot p), [max(lo,
-//                                off - cap), off) in the ring layout (slot p
-//                                % cap, walked by position as RING is), lo =
-//                                max(0, off - window + 1) with a window.  The
-//                                S * G query rows (i, g), i at position off +
-//                                i, come in tiles of at most 16 (grid z).  Row
+//                                cap)) (the full layout: slot p), lo = max(0,
+//                                off - window + 1) with a window.  The S * G
+//                                query rows (i, g), i at position off + i,
+//                                come in tiles of at most 16 (grid z).  Row
 //                                i sees a key at kpos iff kpos <= off + i
 //                                and, with a window, kpos > off + i - window:
-//                                masked keys weigh exactly 0.
+//                                masked keys weigh exactly 0.  A verify's
+//                                ring layout runs in a body of its own,
+//                                ring_verify.cuh (aligned tiles, TMA boxes,
+//                                tensor-core products), with this header's
+//                                row address, split and checks.
 // An empty band (kv_len <= 0, pos < 0, off < 0: an idle or finished slot)
 // writes exact zeros; the pools are never written.  float32 and bfloat16;
 // the ring takes hd up to 256 and G = H / KV in 1..16, the slot hd up to
@@ -212,9 +214,8 @@ __device__ __forceinline__ void consumer_sync() {
 // GC: the block's query rows at compile time (1, 2, 4, 8, 10 or 16); a
 // block of fewer rows runs with the q rows past them zero and their outputs
 // dropped.  A verify's chunk has `slen` keys and its query rows come in
-// tiles of `rows` (slen and rows are 1 and G outside a verify); `ring`
-// picks its cache's ring layout.  (sb, skv, ss): the elements between
-// pages, kv heads and page rows of k and v.
+// tiles of `rows` (slen and rows are 1 and G outside a verify).  (sb, skv,
+// ss): the elements between pages, kv heads and page rows of k and v.
 template <typename T, int HD, int GC, int KIND, bool DENSE>
 __global__ void __launch_bounds__(NT)
 paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -226,7 +227,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     int hd, int vec, int n_pages, int page, int nblk,
                     long long sb,
                     long long skv, long long ss, int KV, int G, int slen,
-                    int rows, int window, int ring, int chunk, int devcut,
+                    int rows, int window, int chunk, int devcut,
                     float scale) {
   using Gm = Geo<T, HD, KIND>;
   constexpr bool VER = KIND == VERIFY;
@@ -282,12 +283,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     n = 0;
     if (pos0 >= 0) {
       lo = window > 0 ? max(0, pos0 - window + 1) : 0;
-      if (ring) {  // the ring holds [pos0 - cap, pos0)
-        lo = max(lo, pos0 - cap);
-        ce = pos0;
-      } else {
-        ce = max(lo, min(pos0, cap));
-      }
+      ce = max(lo, min(pos0, cap));
       n = ce - lo + slen;
     }
   } else {
@@ -680,8 +676,9 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // block tables (null with a dense pool, which is n_pages = B pages of page
 // = cap rows, nblk 1); (sb, skv, ss): k's and v's element strides of a
 // page, a kv head and a page row (own_strides: an arena's or a pool's);
-// S and rows are 1 and G outside a verify; ring: a verify's ring layout;
-// devcut: each band cuts its own length (set for every verify).
+// S and rows are 1 and G outside a verify; ring: a verify's ring layout
+// (ring_verify.cuh's body); devcut: each band cuts its own length (set for
+// every verify).
 struct Call {
   const void *q, *k, *v, *kc, *vc;
   const int *bt, *rowarg;
@@ -749,7 +746,7 @@ int launch(const Call& c, cudaStream_t st, int* resident) {
   // tile; else row copies (also where the encoder refuses the strides)
   CUtensorMap kmap{}, vmap{};
   int tma = 0;
-  if (KIND != RING && (KIND == SLOT || (c.window == 0 && !c.ring)) &&
+  if (KIND != RING && (KIND == SLOT || c.window == 0) &&
       vec && c.hd == HD && c.ss != HD && c.page % TR == 0 &&
       c.chunk % TR == 0) {
     const unsigned long long dims[4] = {
@@ -767,7 +764,7 @@ int launch(const Call& c, cudaStream_t st, int* resident) {
       static_cast<const T*>(c.vc), c.bt, c.rowarg, static_cast<T*>(c.o),
       kmap, vmap, tma, c.hd, vec, c.n_pages, c.page, c.nblk, c.sb, c.skv,
       c.ss, c.KV,
-      c.G, c.S, c.rows, c.window, c.ring, c.chunk, c.devcut, c.scale);
+      c.G, c.S, c.rows, c.window, c.chunk, c.devcut, c.scale);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -809,13 +806,13 @@ int launch_t(const Call& c, int dtype, int hd, cudaStream_t st,
   return (int)cudaErrorInvalidValue;
 }
 
-// Checks shared by every entry, then the launch.  H: query heads; c.G,
-// and outside a verify c.S and c.rows, are set here; a verify cuts its
-// bands on the device.  The pieces must cover the longest band a row can
-// have: cap (slot), min(window, cap) (ring), the cache part plus the chunk
-// (verify, either layout).
-template <int KIND, bool DENSE>
-int run(Call c, int H, int dtype, int hd, void* stream) {
+// Checks shared by every entry.  H: query heads; c.G, and outside a verify
+// c.S and c.rows, are set here; a verify cuts its bands on the device.
+// The pieces must cover the longest band a row can have: cap (slot),
+// min(window, cap) (ring), the cache part plus the chunk (verify; 31 more
+// in the ring layout, whose tiles start on multiples of 32).
+template <int KIND>
+int check(Call& c, int H, int hd) {
   if (c.B < 0 || c.KV < 1 || H % c.KV || H / c.KV < 1 ||
       H / c.KV > ROWS_MAX || c.n_pages < 1 || c.page < 1 || c.nblk < 1 ||
       c.chunk < 1 || c.nsplit < 1 || c.nsplit > CLUSTER_MAX ||
@@ -836,13 +833,23 @@ int run(Call c, int H, int dtype, int hd, void* stream) {
   const long long cap = (long long)c.nblk * c.page;
   long long span = cap;
   if (KIND == RING && c.window < cap) span = c.window;
-  if (KIND == VERIFY)
-    span = (c.window > 0 && c.window - 1 < cap ? c.window - 1 : cap) + c.S;
+  if (KIND == VERIFY)  // the ring's band is walked from a multiple of 32
+    span = (c.window > 0 && c.window - 1 < cap ? c.window - 1 : cap) + c.S +
+           (c.ring ? 31 : 0);
   const long long tiles = ((long long)c.S * c.G + c.rows - 1) / c.rows;
   if (cap > (1 << 30) || (long long)c.chunk * c.nsplit < span ||
+      (KIND == VERIFY && c.ring && c.chunk % 32) ||
       (long long)c.B * tiles > GRID_Z_MAX)
     return (int)cudaErrorInvalidValue;
-  if (c.B == 0) return 0;
+  return 0;
+}
+
+// A launch of this body (a verify in its full layout; ring_verify.cuh takes
+// the ring layout).
+template <int KIND, bool DENSE>
+int run(Call c, int H, int dtype, int hd, void* stream) {
+  const int e = check<KIND>(c, H, hd);
+  if (e || c.B == 0) return e;
   return launch_t<KIND, DENSE>(c, dtype, hd, static_cast<cudaStream_t>(stream),
                                nullptr);
 }

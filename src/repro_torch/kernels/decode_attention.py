@@ -11,7 +11,10 @@ arena of one page a row, and ``csrc/paged_slot_decode_attention.cu``,
 per-row block tables).  The body cuts each (row, kv head) band into a
 thread-block cluster of pieces merged in the launch; the host picks the
 cut (``paged_decode_splits``) and, for a verify, the tiles of its S * G
-query rows (``verify_tiles``).
+query rows (``verify_tiles``).  The two verifies' ring layout runs in a
+body of its own, ``csrc/ring_verify.cuh`` (tiles aligned to 32 positions,
+one TMA box a whole cache tile where ``ring_verify_box`` holds, tensor-core
+products), planned by the same functions.
 
 Each checks what its kernel takes, allocates the output, launches on the
 current stream and counts launches in ``<wrapper>.launches``.  ``ops``
@@ -234,7 +237,7 @@ def chunk_verify_attention(q, ck, cv, k, v, offsets, *, ring, window=None):
     B, S, H, hd = q.shape
     Sc, KV = ck.shape[1], ck.shape[2]
     rows, _, chunk, nsplit = _verify_plan(q, KV, Sc, window,
-                                          "chunk_verify_attention")
+                                          "chunk_verify_attention", ring)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         rc = _chunk_entry()(
@@ -324,19 +327,38 @@ def _check_chunk_length(what, B, S, G):
                          f"CUDA's grid z limit of {GRID_Z_MAX}")
 
 
-def verify_span(S, cap, window):
+def verify_span(S, cap, window, ring=False):
     """The longest band of a verify over a cache of ``cap`` positions: the
     attended cache (at most ``window - 1`` positions below the chunk) and
-    the chunk's own S keys."""
-    return min(cap, window - 1 if window else cap) + S
+    the chunk's own S keys; in the ring layout up to PAGED_TILE - 1 more,
+    the positions below the band's first that its first tile (aligned to
+    PAGED_TILE) also stages."""
+    return (min(cap, window - 1 if window else cap) + S
+            + (PAGED_TILE - 1 if ring else 0))
+
+
+def ring_verify_box(page, hd, itemsize):
+    """Whether the ring layout's verify stages each whole cache tile of
+    PAGED_TILE positions (aligned to PAGED_TILE) by one TMA box for K and
+    one for V, as ``csrc/ring_verify.cuh`` decides for 16-byte aligned
+    bases: rows that fill their head-dim bucket (hd 64 or 128) in
+    16-byte multiples, and pages of whole tiles.  Then cap = nblk * page is
+    a multiple of PAGED_TILE too, so position p and its slot p % cap agree
+    mod PAGED_TILE and an aligned tile is PAGED_TILE consecutive slots of
+    one page.  Otherwise (cap % 32 != 0 among them) every tile takes one
+    copy a band row."""
+    return (page % PAGED_TILE == 0 and hd in (64, 128)
+            and hd * itemsize % 16 == 0)
 
 
 @functools.lru_cache(maxsize=None)
-def _paged_per_sm(name, device, dtype, hd, rows):
+def _paged_per_sm(name, device, dtype, hd, rows, ring=False):
     """Blocks an SM holds at once (CUDA's occupancy for its threads and
     shared memory) of library ``name``'s instance for ``rows`` query rows
-    a block (the group's G outside a verify)."""
-    fn = getattr(build.load(name), f"{name}_blocks_per_sm")
+    a block (the group's G outside a verify); ``ring``: a verify's
+    ring-layout instance (``csrc/ring_verify.cuh``)."""
+    fn = getattr(build.load(name),
+                 f"{name}_{'ring_' if ring else ''}blocks_per_sm")
     fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     n = ctypes.c_int(0)
@@ -358,13 +380,50 @@ def _paged_splits(name, q, KV, span, rows=None, tiles=1):
         _paged_per_sm(name, q.device, q.dtype, hd, rows or H // KV))
 
 
-def _verify_plan(q, KV, cap, window, name="paged_chunk_verify_attention"):
+@functools.lru_cache(maxsize=None)
+def _ring_clusters(name, device, dtype, hd, nsplit):
+    """Thread-block clusters of ``nsplit`` blocks of library ``name``'s
+    ring-layout verify instance that the card holds at once."""
+    fn = getattr(build.load(name), f"{name}_ring_clusters")
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = fn(DTYPES[dtype], hd, nsplit, ctypes.addressof(n))
+    if rc != 0 or n.value < 1:
+        raise RuntimeError(f"{name}: cluster occupancy query failed (CUDA "
+                           f"error {rc}, {n.value} clusters)")
+    return n.value
+
+
+def ring_verify_splits(bands, span, n_sm, per_sm, clusters):
+    """(chunk, nsplit) of the ring layout's verify: ``bands`` bands of up
+    to ``span`` positions cut as ``paged_decode_splits`` cuts them, then
+    into fewer pieces while ``clusters(nsplit)`` -- the clusters of nsplit
+    blocks the card holds at once -- is fewer than the bands, so that no
+    band's cluster waits for a second wave behind the others."""
+    chunk, nsplit = paged_decode_splits(bands, 1, span, n_sm, per_sm)
+    while nsplit > 1 and clusters(nsplit) < bands:
+        chunk = -(-max(1, span) // (nsplit - 1))
+        chunk = -(-chunk // PAGED_TILE) * PAGED_TILE
+        nsplit = -(-max(1, span) // chunk)
+    return chunk, nsplit
+
+
+def _verify_plan(q, KV, cap, window, name="paged_chunk_verify_attention",
+                 ring=False):
     """(rows, tiles, chunk, nsplit) of library ``name``'s verify on q
-    (B, S, H, hd) over a cache of ``cap`` positions a row."""
-    S, H = q.shape[1:3]
+    (B, S, H, hd) over a cache of ``cap`` positions a row, in the ring
+    layout with ``ring``."""
+    S, H, hd = q.shape[1:]
     rows, tiles = verify_tiles(S, H // KV)
-    return (rows, tiles, *_paged_splits(
-        name, q, KV, verify_span(S, cap, window), rows, tiles))
+    span = verify_span(S, cap, window, ring)
+    if not ring:
+        return rows, tiles, *_paged_splits(name, q, KV, span, rows, tiles)
+    return rows, tiles, *ring_verify_splits(
+        q.shape[0] * tiles * KV, span, _sm_count(q.device),
+        _paged_per_sm(name, q.device, q.dtype, hd, rows, ring=True),
+        lambda n: _ring_clusters(name, q.device, q.dtype, hd, n))
 
 
 def _paged_slot_entry():
@@ -455,7 +514,8 @@ def paged_chunk_verify_attention(q, ck, cv, bt, k, v, offsets, *, ring,
         raise ValueError(f"{what}: window must be >= 1 (got {window})")
     n_pages, page = ck.shape[:2]
     nblk = bt.shape[1]
-    rows, _, chunk, nsplit = _verify_plan(q, KV, nblk * page, window)
+    rows, _, chunk, nsplit = _verify_plan(q, KV, nblk * page, window,
+                                          ring=ring)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         rc = _paged_chunk_entry()(

@@ -62,17 +62,19 @@ from repro_torch.serve import (
 from repro_torch.serve import sampling
 
 
-def _chip_smoke_counting_drops():
-    """``chip_smoke.counting_drops``: the repo root's script, loaded by
-    path (the root is not on the import path of every test run)."""
+def _chip_smoke():
+    """The repo root's ``chip_smoke.py``, loaded by path (the root is not
+    on the import path of every test run)."""
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.counting_drops
+    return mod
 
 
-counting_drops = _chip_smoke_counting_drops()
+_smoke = _chip_smoke()
+counting_drops = _smoke.counting_drops
+nan_outside_bands = _smoke.nan_outside_bands
 
 F32_ATOL = 2e-5  # f32: kernel and plain version sum in different orders
 # bf16 outputs carry 8 mantissa bits: one rounding step is ~4e-3 at |out|
@@ -467,21 +469,41 @@ def _chunk_case(dev, dtype, B, S, H, KV, Sc, hd, offsets):
                                          device=dev)
 
 
-CHUNK_GRID = [(ring, window, G, dtype) for ring in (False, True)
-              for window in (None, 8) for G in (1, 2, 4)
-              for dtype in (torch.float32, torch.bfloat16)]
+# (Sc, hd, S) of the ring layout's cases: caches that are not a multiple
+# of 32 (row copies) and ones that are (TMA boxes at hd 64 and 128), head
+# dims of both buckets and one inside the 128 bucket, chunks of 5 and 17
+RING_SHAPES = [(100, 64, 5), (300, 80, 17), (320, 128, 5), (320, 64, 17)]
+CHUNK_GRID = ([(False, window, G, dtype, (100, 64, 5))
+               for window in (None, 8) for G in (1, 2, 4)
+               for dtype in (torch.float32, torch.bfloat16)]
+              + [(True, window, G, dtype, shape)
+                 for window in (None, 8, 400) for G in (1, 2, 4)
+                 for dtype in (torch.float32, torch.bfloat16)
+                 for shape in RING_SHAPES])
 
 
-@pytest.mark.parametrize("ring,window,G,dtype", CHUNK_GRID)
+def _ring_offsets(cap, window):
+    """Offsets of a ring verify's edge rows: done (-1), 0 and 5 (bands
+    shorter than a tile), then 32 offsets several laps in whose bands start
+    at every residue mod 32 (the first tile's rows below the band)."""
+    reach = min(cap, window - 1 if window else cap)
+    base = 7 * cap + reach
+    return [-1, 0, 5] + [base + r for r in range(32)]
+
+
+@pytest.mark.parametrize("ring,window,G,dtype,shape", CHUNK_GRID)
 def test_cuda_chunk_verify_matches_plain(cuda_device, ring, window, G,
-                                         dtype):
-    """Offsets -1, 0, 1, mid, Sc and (ring) wrapped ones, over a cache
-    length that divides nothing (100)."""
-    Sc = 100
-    offsets = ([-1, 0, 1, 37, Sc, Sc + 5, 3 * Sc + 41] if ring
+                                         dtype, shape):
+    """Full layout: offsets -1, 0, 1, mid, Sc over a cache length that
+    divides nothing (100).  Ring layout: windows below and above the
+    cache, band starts at every residue mod 32, S * G past 16 (two or more
+    query tiles), Sc of 100 and 300 (row copies) and 320 (boxes); done
+    rows exact zeros."""
+    Sc, hd, S = shape
+    offsets = (_ring_offsets(Sc, window) if ring
                else [-1, 0, 1, 37, Sc, Sc - 1, 63])
-    q, ck, cv, k, v, off = _chunk_case(cuda_device, dtype, 7, 5, 2 * G, 2,
-                                       Sc, 64, offsets)
+    q, ck, cv, k, v, off = _chunk_case(cuda_device, dtype, len(offsets), S,
+                                       2 * G, 2, Sc, hd, offsets)
     n0 = cuda_chunk.launches
     got = ops.chunk_verify_attention(q, ck, cv, k, v, off, ring=ring,
                                      window=window)
@@ -746,27 +768,36 @@ def test_cuda_paged_chunk_verify_matches_plain(cuda_device, window, G,
     assert (got[0] == 0).all()
 
 
-PAGED_RING_GRID = [(window, G, hd, dtype) for window in (None, 20)
-                   for G in (1, 2, 4, 8) for hd in (64, 80, 128)
-                   for dtype in (torch.float32, torch.bfloat16)]
+# (page, nblk) of the paged ring cases: rings of 48 and 80 (pages of 8
+# and 16: row copies), 128 and 192 (pages of 32 and 64: TMA boxes)
+RING_PAGES = [(8, 6), (16, 5), (32, 4), (64, 3)]
+PAGED_RING_GRID = [(window, G, hd, dtype, pages)
+                   for window in (None, 20, 1000) for G in (1, 2, 4, 8)
+                   for hd in (64, 80, 128)
+                   for dtype in (torch.float32, torch.bfloat16)
+                   for pages in RING_PAGES]
 
 
-@pytest.mark.parametrize("window,G,hd,dtype", PAGED_RING_GRID)
+@pytest.mark.parametrize("window,G,hd,dtype,pages", PAGED_RING_GRID)
 def test_cuda_paged_chunk_verify_ring_matches_plain(cuda_device, window, G,
-                                                    hd, dtype):
-    """The ring layout over pages of 8 (a ring of 48): offsets -1 (and a
-    done row), 0, inside the first lap, at the wrap and up to four laps
-    in, through tables with sentinel entries; head dims of both buckets
-    and one inside the 128 bucket.  Done rows are exact zeros."""
-    n_pages, page, nblk, KV = 17, 8, 6, 2
-    B, S = 8, 5
+                                                    hd, dtype, pages):
+    """The ring layout over pages of 8, 16, 32 and 64: offsets -1 (and a
+    done row), 0 and 5, then bands several laps in that start at every
+    residue mod 32, through tables with sentinel entries; windows below
+    and above the ring; head dims of both buckets and one inside the 128
+    bucket; S 5, or 17 at G 4 and 8 (S * G past 16: several query tiles).
+    Done rows are exact zeros."""
+    page, nblk = pages
+    KV, S = 2, 17 if G >= 4 else 5
+    offsets = _ring_offsets(nblk * page, window)
+    B = len(offsets)
+    n_pages = B * nblk // 3
     ck, cv, bt = _paged_case(cuda_device, dtype, B, KV, hd, n_pages, page,
-                             nblk, seed=G + hd)
+                             nblk, seed=G + hd + page)
     q = _cuda_rand(cuda_device, dtype, B, S, G * KV, hd)
     k = _cuda_rand(cuda_device, dtype, B, S, KV, hd)
     v = _cuda_rand(cuda_device, dtype, B, S + 1, KV, hd)[:, :S].contiguous()
-    off = torch.tensor([-1, 0, 21, 47, 48, 100, 150, 199], dtype=torch.int32,
-                       device=cuda_device)
+    off = torch.tensor(offsets, dtype=torch.int32, device=cuda_device)
     done = torch.zeros(B, dtype=torch.bool, device=cuda_device)
     done[5] = True
     n0 = cuda_paged_chunk.launches
@@ -780,6 +811,51 @@ def test_cuda_paged_chunk_verify_ring_matches_plain(cuda_device, window, G,
         window=window)
     torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
     assert (got[0] == 0).all() and (got[5] == 0).all()
+
+
+@pytest.mark.parametrize("kind", ["paged", "dense"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cap,hd,window", [(1088, 128, 1025), (256, 64, None),
+                                          (264, 80, 100)])
+def test_cuda_ring_verify_nan_outside_every_band_adds_nothing(
+        cuda_device, kind, dtype, cap, hd, window):
+    """Cache rows no row's band reads hold NaN (the fault layer plants it
+    so): the ring verify stages some of them (the rows of a band's first
+    tile below its start, boxes of whole pages), and its output equals its
+    own output without the NaN, bit for bit, and is finite.  Phase 17's
+    ring (boxes), a ring of 256 at hd 64 (boxes) and one of 264 at hd 80
+    (row copies); pages of 64, 64 and 24 on the paged pool."""
+    B, S, KV = 8, 5, 8
+    offsets = [-1, 0, 40, cap - 3, cap + 31, 3 * cap + 17, 5 * cap + 1,
+               9 * cap + 40]
+    q = _cuda_rand(cuda_device, dtype, B, S, 2 * KV, hd)
+    k = _cuda_rand(cuda_device, dtype, B, S, KV, hd)
+    v = _cuda_rand(cuda_device, dtype, B, S + 1, KV, hd)[:, :S].contiguous()
+    off = torch.tensor(offsets, dtype=torch.int32, device=cuda_device)
+    if kind == "paged":
+        page = 24 if cap % 32 else 64
+        nblk = cap // page
+        ck, cv, bt = _paged_case(cuda_device, dtype, B, KV, hd, B * nblk,
+                                 page, nblk, seed=cap)
+        kn, vn, n_nan = nan_outside_bands(ck, cv, offsets, cap, window,
+                                          bt.cpu())
+
+        def run(a, b):
+            return cuda_paged_chunk(q, a, b, bt, k, v, off, ring=True,
+                                    window=window)
+    else:
+        ck = _cuda_rand(cuda_device, dtype, B, cap, KV, hd)
+        cv = _cuda_rand(cuda_device, dtype, B, cap + 1, KV, hd)[
+            :, :cap].contiguous()
+        kn, vn, n_nan = nan_outside_bands(ck, cv, offsets, cap, window)
+
+        def run(a, b):
+            return cuda_chunk(q, a, b, k, v, off, ring=True, window=window)
+    assert n_nan > 0
+    clean, poisoned = run(ck, cv), run(kn, vn)
+    torch.cuda.synchronize()
+    assert torch.isfinite(poisoned).all()
+    assert torch.equal(poisoned, clean)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
