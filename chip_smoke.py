@@ -13,7 +13,10 @@ speculative, grown into and trained at full width; phi3.5-moe-42b (mixture
 of experts) at full width, cut in depth, served at two capacity factors,
 grown into and trained; deepseek-v3-671b (multi-head latent attention, MoE
 and the MTP head) at full width, cut in depth, served from latent caches
-on both pools and speculatively, grown into and trained.
+on both pools and speculatively, grown into and trained; qwen2-vl-72b
+(multimodal RoPE) at full width, cut in depth, on every serving route;
+hubert-xlarge (an encoder over continuous frames) trained at full width
+and depth and grown into.
 
     python3 chip_smoke.py [--out report.json]
 
@@ -76,8 +79,8 @@ printed as it goes; a failed phase raises, so the exit code is not 0:
   7. paged   -- phase 4's gpt-base from a paged pool of 48 pages (3/8 of
                 the dense pool's 128), capacity 8, max_len 1024 (page 64),
                 K 8: 16 requests of 64 new tokens, 12 opening with one
-                256-token prefix, beside the dense pool (dense, paged,
-                paged, dense): tokens == the dense engine, and the first
+                256-token prefix, beside the dense pool (dense, then
+                paged): tokens == the dense engine, and the first
                 4 requests' == the plain route (near ties reported),
                 prefix hits, admissions that
                 waited for pages, exact launches of the paged slot kernel
@@ -279,7 +282,7 @@ printed as it goes; a failed phase raises, so the exit code is not 0:
                 refused admissions, prefills, macro-steps and the pages
                 high-water as a CPU run of the schedule predicts, 0 pages
                 in use; (d) a copy nudged by 1e-3 of each leaf's std
-                drafting (d 3, K 2, capacity 4) for the 2 shortest prompts
+                drafting (d 3, K 2, capacity 4) for the shortest prompt
                 on the dense pool and a 4-page pool: tokens == (a)'s,
                 acceptance strictly inside (0, 1), peak memory; (e)
                 xlstm-1.3b-smoke pretrained and grown into an 8 x 128
@@ -358,6 +361,47 @@ printed as it goes; a failed phase raises, so the exit code is not 0:
                 (3,123,106,816 params) trained 2 AdamW steps at B 1 x S
                 256: loss, ce and mtp, ms/step against the bytes and f32
                 FLOP bounds, peak memory.
+ 21. qwen2-vl -- qwen2-vl-72b at full width (d_model 8,192, 64 heads over
+                8 KV heads of 128, d_ff 29,568, vocab 152,064, qkv bias,
+                M-RoPE sections (16, 24, 24) at theta 1e6; f32, seeded
+                weights at the init's std) cut to 2 of 80 layers
+                (4,246,794,240 params), its spread checked first
+                (``phi_spread``); one M-RoPE rotation at three distinct
+                position streams on the card against the CPU (serving
+                builds three equal streams, 1-D RoPE exactly); each
+                attention kernel against its plain version at this
+                phase's shapes (G 8; f32 and bf16); then phase 19b's
+                geometry (8 requests of 64..448 prompt tokens, the last 4
+                opening on one 256-token prefix, 64 new, capacity 8,
+                max_len 512, K 8): the dense pool, a 32-page pool (hits,
+                misses, refusals, prefills, macro-steps, tail steps and
+                the pages high-water as a CPU run of the schedule
+                predicts), a copy nudged by 1e-3 of each leaf's std
+                drafting (d 4, K 2) on both pools (acceptance strictly
+                inside (0, 1)), ``generate`` at B 1 and the plain route on
+                the first 2: every run == the dense run, and the first 2
+                == the plain route, near ties reported; at least 64
+                distinct tokens of the dense run's 512; exact launches of
+                the six attention kernels; then the dense pool in bf16
+                (weights cast leaf by leaf after the draft is gone), its
+                first 2 requests == the same route replayed with plain
+                attention in bf16 but at a gap of at most two bf16 ulps.
+                Tok/s, acceptance, pool bytes and peak memory beside the
+                card's name and power limit.
+ 22. hubert  -- hubert-xlarge at full width and depth (48 x 1,280, 16
+                heads of 80, frames 1,280 wide, 504 units, non-causal,
+                learned positions; 988,193,280 params, f32, seeded
+                weights): (a) 3 in-place AdamW steps at B 2 x S 512 on the
+                train launcher's frames batches (no kernel launches: the
+                uncached non-causal forward takes plain attention):
+                finite losses, ms/step against the f32 FLOP bound, peak
+                memory; (b) grown into from its half (24 x 640, 8 heads of
+                80, d_ff 2,560), pretrained 40 steps, by rank-1 Mango
+                after 5 operator steps at lr 1e-4 on B 2 x S 256 frames:
+                the sandwich launched exactly as a CPU run counts, the
+                plain route's params within 1e-5 of a leaf's largest
+                entry, and a positive held-out margin scratch - grown
+                after equal steps (the scratch model trained 5 steps).
 
 Phase 3 also holds the scan's backward kernel against autograd through the
 scan's plain version (recurrentgemma-2b's training shape, f32 and bf16,
@@ -374,7 +418,9 @@ Each path's launch counters are set to 0 just before it runs and read just
 after; a kernel of the path that was never launched fails the run.  The
 line before the last is the kernels JSON (``launches_p19``: phase 19's
 launches of each kernel it runs; ``launches_p20``: phase 20's, the
-sandwich's, as MLA launches no attention kernel); the last line is
+sandwich's, as MLA launches no attention kernel; ``launches_p21``: phase
+21's, of the six attention kernels; ``launches_p22``: phase 22's, the
+sandwich's); the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
 beside this file, it exits non-zero and prints no result.
 """
@@ -2441,8 +2487,9 @@ def spec_groups(eng):
 def run_speculative(kernel_rows, small, big):
     """Phase 6: the grown gpt-base (phase 5's ``big``) served by the
     speculative engine with the pretrained gpt-small (``small``) drafting,
-    beside the plain engine on the same requests (plain, speculative,
-    speculative, plain); then gpt-base drafting for itself."""
+    beside the plain engine on the same requests (plain, then
+    speculative: one run each, the second pair cut to make room for
+    phases 21-22); then gpt-base drafting for itself."""
     import dataclasses
 
     import numpy as np
@@ -2482,8 +2529,6 @@ def run_speculative(kernel_rows, small, big):
     out, dt, tps_spec, _ = timed_run(eng, reqs)
     launches = {name: fn.launches for name, fn in kern.items()}
     peak = torch.cuda.max_memory_allocated()
-    _, _, tps_spec_b, _ = timed_run(engine(cfg_s, small), reqs)
-    _, _, tps_plain_b, _ = timed_run(engine(), reqs)
     n_tok = sum(len(v) for v in out.values())
     blocks = SPEC_K * eng.n_decode_dispatches
     groups = spec_groups(eng)
@@ -2502,8 +2547,7 @@ def run_speculative(kernel_rows, small, big):
         "chunk_verify_attention"]
     decode_tokens = n_tok - len(reqs)  # the first token comes from prefill
     report = dict(
-        tok_per_s=tps_spec, tok_per_s_second_run=tps_spec_b,
-        plain_engine_tok_per_s=[tps_plain_a, tps_plain_b], seconds=dt,
+        tok_per_s=tps_spec, plain_engine_tok_per_s=tps_plain_a, seconds=dt,
         tokens=n_tok, acceptance_rate=eng.acceptance_rate,
         n_spec_proposed=eng.n_spec_proposed,
         n_spec_accepted=eng.n_spec_accepted,
@@ -2511,8 +2555,8 @@ def run_speculative(kernel_rows, small, big):
         host_syncs_per_token=eng.n_host_syncs / n_tok,
         peak_mib=peak / 2**20, launches=launches)
     print(f"speculative: {len(out)} requests / {n_tok} tokens in {dt:.3f} s: "
-          f"{tps_spec:.1f} tok/s (second run {tps_spec_b:.1f}); plain engine "
-          f"(K 8) {tps_plain_a:.1f} and {tps_plain_b:.1f} tok/s; acceptance "
+          f"{tps_spec:.1f} tok/s; plain engine (K 8) {tps_plain_a:.1f} "
+          f"tok/s; acceptance "
           f"{eng.acceptance_rate:.4f} ({eng.n_spec_accepted}/"
           f"{eng.n_spec_proposed}), {report['tokens_per_target_verify']:.2f} "
           f"tokens per target verify ({blocks} verifies of 8 slots), "
@@ -2641,7 +2685,7 @@ def check_same_tokens(what, uid, got, want, gaps):
 def run_paged_serve(kernel_rows):
     """Phase 7: phase 4's gpt-base served from a paged pool of
     PAGED_PAGES pages (prefix sharing, page backpressure) beside the dense
-    pool on the same requests (dense, paged, paged, dense)."""
+    pool on the same requests (dense, then paged)."""
     import torch
 
     from repro_torch.configs import get_config
@@ -2674,8 +2718,6 @@ def run_paged_serve(kernel_rows):
     out, dt, tps_paged, waits = timed_run(eng, reqs)
     launches = {name: fn.launches for name, fn in kern.items()}
     peak = torch.cuda.max_memory_allocated()
-    _, _, tps_paged_b, _ = timed_run(engine("paged"), reqs)
-    _, _, tps_dense_b, _ = timed_run(engine("dense"), reqs)
     n_tok = sum(len(v) for v in out.values())
     steps = eng.k * eng.n_decode_dispatches + eng.n_prefix_tail_steps
     want = {name: 0 for name in kern}
@@ -2693,8 +2735,7 @@ def run_paged_serve(kernel_rows):
         "paged_slot_decode_attention"]
     dense_eng = engine("dense")
     report = dict(
-        tok_per_s=[tps_paged, tps_paged_b],
-        dense_tok_per_s=[tps_dense_a, tps_dense_b], seconds=dt,
+        tok_per_s=tps_paged, dense_tok_per_s=tps_dense_a, seconds=dt,
         tokens=n_tok, pages_budget=eng.pages_budget,
         pages_highwater=eng.pages_highwater,
         n_prefix_hits=eng.n_prefix_hits, n_prefix_misses=eng.n_prefix_misses,
@@ -2712,8 +2753,8 @@ def run_paged_serve(kernel_rows):
         held_before_mib=held / 2**20, launches=launches)
     del dense_eng
     print(f"paged: {len(out)} requests / {n_tok} tokens in {dt:.3f} s: "
-          f"{tps_paged:.1f} tok/s (second run {tps_paged_b:.1f}); dense "
-          f"pool {tps_dense_a:.1f} and {tps_dense_b:.1f} tok/s; prefix hits "
+          f"{tps_paged:.1f} tok/s; dense pool {tps_dense_a:.1f} tok/s; "
+          f"prefix hits "
           f"{eng.n_prefix_hits}, misses {eng.n_prefix_misses}, stalls "
           f"{eng.n_prefix_stalls} (hit rate {eng.prefix_hit_rate:.3f}); "
           f"admissions refused for pages {waits}; pages {eng.pages_budget} "
@@ -2777,8 +2818,8 @@ def run_paged_serve(kernel_rows):
 
 def run_paged_speculative(kernel_rows, small, big, reqs, plain):
     """Phase 8: phase 6's pair and requests, both pools on ONE arena of
-    SPEC_PAGES pages, beside the dense speculative engine (dense, paged,
-    paged, dense); tokens against phase 6's plain route."""
+    SPEC_PAGES pages, beside the dense speculative engine (dense, then
+    paged); tokens against phase 6's plain route."""
     import torch
 
     from repro_torch.configs import get_config
@@ -2815,8 +2856,6 @@ def run_paged_speculative(kernel_rows, small, big, reqs, plain):
     out, dt, tps_paged, _ = timed_run(eng, reqs)
     launches = {name: fn.launches for name, fn in kern.items()}
     peak = torch.cuda.max_memory_allocated()
-    _, _, tps_paged_b, _ = timed_run(engine("paged"), reqs)
-    _, _, tps_dense_b, _ = timed_run(engine("dense"), reqs)
     n_tok = sum(len(v) for v in out.values())
     blocks = SPEC_K * eng.n_decode_dispatches
     groups = spec_groups(eng)
@@ -2844,8 +2883,7 @@ def run_paged_speculative(kernel_rows, small, big, reqs, plain):
         if tie is not None:
             ties.append(tie)
     report = dict(
-        tok_per_s=[tps_paged, tps_paged_b],
-        dense_spec_tok_per_s=[tps_dense_a, tps_dense_b], seconds=dt,
+        tok_per_s=tps_paged, dense_spec_tok_per_s=tps_dense_a, seconds=dt,
         tokens=n_tok, acceptance_rate=eng.acceptance_rate,
         n_spec_proposed=eng.n_spec_proposed,
         n_spec_accepted=eng.n_spec_accepted,
@@ -2855,8 +2893,8 @@ def run_paged_speculative(kernel_rows, small, big, reqs, plain):
         peak_mib=peak / 2**20, dense_peak_mib=peak_dense / 2**20,
         held_before_mib=held / 2**20, launches=launches, near_ties=ties)
     print(f"paged speculative: {len(out)} requests / {n_tok} tokens in "
-          f"{dt:.3f} s: {tps_paged:.1f} tok/s (second run {tps_paged_b:.1f});"
-          f" dense speculative {tps_dense_a:.1f} and {tps_dense_b:.1f} tok/s;"
+          f"{dt:.3f} s: {tps_paged:.1f} tok/s; dense speculative "
+          f"{tps_dense_a:.1f} tok/s;"
           f" acceptance {eng.acceptance_rate:.4f} ({eng.n_spec_accepted}/"
           f"{eng.n_spec_proposed}; dense {dense_acceptance:.4f}); "
           f"pages {eng.pages_budget} budget (target and draft), "
@@ -3285,8 +3323,8 @@ def predict_griffin_schedule(reqs, pages):
 
 def run_griffin_paged(kernel_rows, model):
     """Phase 10: phase 9's model and its first GRIFFIN_PAGED_REQS requests
-    from a paged pool of GRIFFIN_PAGES pages beside the dense pool (dense, paged, paged,
-    dense); the refused admissions predicted first by a CPU run of the
+    from a paged pool of GRIFFIN_PAGES pages beside the dense pool (dense,
+    then paged); the refused admissions predicted first by a CPU run of the
     same schedule."""
     import torch
 
@@ -3323,8 +3361,6 @@ def run_griffin_paged(kernel_rows, model):
     out, dt, tps_paged, waits = timed_run(eng, reqs)
     launches = {name: fn.launches for name, fn in kern.items()}
     peak = torch.cuda.max_memory_allocated()
-    _, _, tps_paged_b, _ = timed_run(engine("paged"), reqs)
-    _, _, tps_dense_b, _ = timed_run(engine("dense"), reqs)
     n_tok = sum(len(v) for v in out.values())
     steps = eng.k * eng.n_decode_dispatches
     want = {name: 0 for name in kern}
@@ -3348,8 +3384,7 @@ def run_griffin_paged(kernel_rows, model):
         "paged_ring_decode_attention"]
     dense_eng = engine("dense")
     report = dict(
-        tok_per_s=[tps_paged, tps_paged_b],
-        dense_tok_per_s=[tps_dense_a, tps_dense_b], seconds=dt,
+        tok_per_s=tps_paged, dense_tok_per_s=tps_dense_a, seconds=dt,
         tokens=n_tok, pages_budget=eng.pages_budget,
         pages_highwater=eng.pages_highwater,
         n_pages_allocated=eng.n_pages_allocated,
@@ -3381,9 +3416,8 @@ def run_griffin_paged(kernel_rows, model):
                      else "dense vs phase 9"].append(tie)
     report["near_ties"] = ties
     print(f"griffin paged: {len(out)} requests / {n_tok} tokens in "
-          f"{dt:.3f} s: {tps_paged:.1f} tok/s (second run "
-          f"{tps_paged_b:.1f}); dense pool {tps_dense_a:.1f} and "
-          f"{tps_dense_b:.1f} tok/s; admissions refused for pages {waits} "
+          f"{dt:.3f} s: {tps_paged:.1f} tok/s; dense pool "
+          f"{tps_dense_a:.1f} tok/s; admissions refused for pages {waits} "
           f"(predicted {predicted['refused']}); pages {eng.pages_budget} "
           f"budget, {eng.pages_highwater} high-water, "
           f"{eng.n_pages_allocated} allocated, {eng.pages_in_use} in use at "
@@ -5829,7 +5863,8 @@ XL_PAGES = 6  # phase 18c's arena: a page a request, fewer than the slots
 XL_GENERATE_REQS = 4  # phase 18a holds its first 4 against the sequential
 XL_SPEC_D, XL_SPEC_K, XL_SPEC_CAP = 3, 2, 4  # phase 18d
 XL_SPEC_PAGES = 4  # phase 18d's paged pool, shared by target and draft
-XL_SPEC_REQS = 2  # phase 18d serves the 2 shortest prompts (cut from 4)
+XL_SPEC_REQS = 1  # phase 18d serves the shortest prompt (cut from 4 to 2,
+# then to 1 to make room for phases 21-22)
 XL_DRAFT_NOISE = 1e-3  # phase 18d's nudged draft: noise / leaf std
 XL_GROW_PRE, XL_GROW_OP = 20, 5  # phase 18e: pretraining, operator steps
 XL_GROW_SEQ = 32  # phase 18e's batches: 8 x 32 tokens (two chunks of 16)
@@ -6251,22 +6286,26 @@ def _count_sandwich_calls(fn):
 
 
 def run_small_growth(kernel_rows, label, cfg_s, cfg_t, row_key, n_pre, n_op,
-                     seq, dev="cuda"):
-    """Phases 18e and 19c: ``cfg_s`` pretrained ``n_pre`` steps at B 8 x
-    ``seq`` (no kernel launches), grown into ``cfg_t`` by rank-1 Mango
-    after ``n_op`` operator steps.  The sandwich must launch exactly as
-    often as a CPU run of one growth counts its calls, times the growths
-    (one an operator step, one more for ``grow_params``); the grown params
-    equal the plain version's route (the sandwich swapped for its plain
-    version) within 1e-5 of each leaf's largest entry; the held-out margin
-    scratch - grown is printed.  The sandwich's launches go to
+                     seq, dev="cuda", batch=8, op_lr=2e-3, scratch_steps=0,
+                     scratch_lr=3e-3):
+    """Phases 18e, 19c, 20c and 22b: ``cfg_s`` pretrained ``n_pre`` steps
+    at B ``batch`` x ``seq`` on the train launcher's batches (token
+    chains; frames for hubert; no kernel launches), grown into ``cfg_t``
+    by rank-1 Mango after ``n_op`` operator steps.  The sandwich must
+    launch exactly as often as a CPU run of one growth counts its calls,
+    times the growths (one an operator step, one more for
+    ``grow_params``) at lr ``op_lr``; the grown params equal the plain
+    version's route (the sandwich swapped for its plain version) within
+    1e-5 of each leaf's largest entry; the held-out margin scratch - grown
+    is printed, the scratch model trained ``scratch_steps`` AdamW steps at
+    lr ``scratch_lr`` first.  The sandwich's launches go to
     ``kernel_rows["tr_sandwich"][row_key]``."""
     import numpy as np
     import torch
 
     from repro_torch.core import grow as growlib
-    from repro_torch.data import lm_data_iter
     from repro_torch.kernels import ops, ref
+    from repro_torch.launch.train import data_for
     from repro_torch.models import get_family
     from repro_torch.optim import OptimizerConfig, make_optimizer
     from repro_torch.train.loss import loss_for
@@ -6294,7 +6333,7 @@ def run_small_growth(kernel_rows, label, cfg_s, cfg_t, row_key, n_pre, n_op,
     opt = OptimizerConfig(lr=3e-3)
     init_fn, _ = make_optimizer(opt)
     state, step = init_fn(small), make_train_step(cfg_s, opt)
-    data = lm_data_iter(cfg_s.vocab_size, 8, seq, seed=0)
+    data = data_for(cfg_s, batch, seq, seed=0)
     pre = []
     for i in range(n_pre):
         small, state, m = step(small, state, on(next(data)), i + 1)
@@ -6312,9 +6351,8 @@ def run_small_growth(kernel_rows, label, cfg_s, cfg_t, row_key, n_pre, n_op,
     t0 = time.perf_counter()
     gop, op = growlib.build("mango", cfg_s, cfg_t, rank=1, device=dev)
     op, op_losses = growlib.train_operator(
-        gop, op, small, op_loss, lm_data_iter(cfg_t.vocab_size, 8, seq,
-                                              seed=3),
-        steps=n_op, lr=2e-3)
+        gop, op, small, op_loss, data_for(cfg_t, batch, seq, seed=3),
+        steps=n_op, lr=op_lr)
     with torch.no_grad():
         big = growlib.grow_params(gop, op, small)
     _sync()
@@ -6344,8 +6382,19 @@ def run_small_growth(kernel_rows, label, cfg_s, cfg_t, row_key, n_pre, n_op,
         raise AssertionError(f"grown {label} params disagree with the plain "
                              f"route: {rel:.3g} of a leaf's largest entry")
     scratch = fam_t.init(torch.Generator(device=dev).manual_seed(99), cfg_t)
+    if scratch_steps:
+        opt = OptimizerConfig(lr=scratch_lr)
+        init_fn, _ = make_optimizer(opt)
+        state, step = init_fn(scratch), make_train_step(cfg_t, opt)
+        data = data_for(cfg_t, batch, seq, seed=3)
+        for i in range(scratch_steps):
+            scratch, state, _ = step(scratch, state, on(next(data)), i + 1)
+        del state
+        if _launch_counts(kern, zero=True) != {name: 0 for name in kern}:
+            raise AssertionError(f"{label} scratch training launched a "
+                                 "kernel")
     ev = make_eval_step(cfg_t)
-    held = on(next(lm_data_iter(cfg_t.vocab_size, 8, seq, seed=50)))
+    held = on(next(data_for(cfg_t, batch, seq, seed=50)))
     l_grown = float(ev(big, held)["loss"])
     l_scratch = float(ev(scratch, held)["loss"])
     if not (np.isfinite(l_grown) and np.isfinite(l_scratch)):
@@ -6359,13 +6408,15 @@ def run_small_growth(kernel_rows, label, cfg_s, cfg_t, row_key, n_pre, n_op,
           f"CPU counts, x {n_op + 1}); grown vs the plain route {rel:.3g} "
           f"of a "
           f"leaf's largest entry (limit 1e-5); held-out loss grown "
-          f"{l_grown:.4f} vs scratch {l_scratch:.4f} (margin "
-          f"{l_scratch - l_grown:.4f})", flush=True)
+          f"{l_grown:.4f} vs scratch {l_scratch:.4f} after "
+          f"{scratch_steps} steps (margin {l_scratch - l_grown:.4f})",
+          flush=True)
     return dict(pretrain_losses=pre, pretrain_seconds=pre_s,
                 operator_losses=op_losses, operator_seconds=op_s,
                 sandwiches_per_growth=per_growth, launches=launches,
                 plain_rel_err=rel, grown_loss=l_grown,
-                scratch_loss=l_scratch, margin=l_scratch - l_grown)
+                scratch_loss=l_scratch, scratch_steps=scratch_steps,
+                margin=l_scratch - l_grown)
 
 
 def run_xlstm_train(cfg, params, kern, dev="cuda"):
@@ -6626,13 +6677,16 @@ def phi_plain_route(cfg, params, prompt, n):
     position up to the one that predicts it (one more full forward over
     the sequence, its routing recorded).  At a capacity factor of E / K a
     full forward drops nothing, so each position routes as it did when
-    its token was new."""
+    its token was new.  A model without MoE layers has no router: its
+    router gaps are infinite."""
     import numpy as np
     import torch
 
     from repro_torch.models import transformer
 
     toks, gaps = plain_greedy(cfg, params, prompt, n)
+    if not cfg.moe:
+        return toks, gaps, np.full(n, np.inf)
     seq = torch.from_numpy(np.concatenate([prompt, toks[:-1]]).astype(
         np.int32)).to(next(_leaves(params)).device)[None]
     log = []
@@ -6752,7 +6806,8 @@ def predict_phi_schedule(cfg, reqs, **engine_kw):
     from repro_torch.serve import ContinuousBatchingEngine
 
     tiny = cfg.replace(n_layers=1, d_model=8, n_heads=2, n_kv_heads=1,
-                       head_dim=8, d_ff=8, expert_d_ff=8)
+                       head_dim=8, d_ff=8, expert_d_ff=8,
+                       mrope_sections=(2, 1, 1))
     eng = ContinuousBatchingEngine(tiny, build_params(tiny, seed=0,
                                                       device="cpu"),
                                    **engine_kw)
@@ -7640,6 +7695,485 @@ def run_ds_train(cfg, kern, dev="cuda"):
                 metrics=metrics)
 
 
+QV_ARCH = "qwen2-vl-72b"
+QV_LAYERS = 2  # of 80: phase 21 cuts depth, never width
+QV_N_PARAMS = 4_246_794_240  # eval_shape at 2 layers (877,684,736 a layer)
+# phase 21 serves phase 19's geometry: PHI_CAPACITY, PHI_MAX_LEN, PHI_K,
+# PHI_BUCKET, PHI_NEW, and ``phi_requests(vocab, shared=True)``
+QV_PAGES = 32  # half the dense pool's 64 pages of 64
+QV_D, QV_SPEC_K = 4, 2  # the nudged draft's depth, blocks a dispatch
+QV_DRAFT_NOISE = 1e-3  # noise / leaf std
+QV_PLAIN_REQS = 2  # held against the plain route (and ``generate``)
+QV_MIN_DISTINCT = 64  # distinct tokens of the dense run's 512, at least
+QV_KERNELS = ("flash_attention", "slot_decode_attention",
+              "paged_slot_decode_attention", "chunk_verify_attention",
+              "paged_chunk_verify_attention", "decode_attention")
+
+
+def qv_model(layers=QV_LAYERS, dev="cuda"):
+    """qwen2-vl-72b at full width (d_model 8,192, 64 heads over 8 KV heads
+    of 128, d_ff 29,568, vocab 152,064, qkv bias, M-RoPE sections (16, 24,
+    24) at theta 1e6) cut to ``layers`` layers, in f32, weights from a
+    torch.Generator seeded 0 on ``dev`` at the init's std (0.02; not
+    scaled: ``phi_spread`` reports the spread this gives)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import build_params
+
+    cfg = get_config(QV_ARCH).replace(
+        n_layers=layers, param_dtype="float32", compute_dtype="float32")
+    return cfg, build_params(cfg, seed=0, device=dev)
+
+
+def mrope_grid_positions(B, S, grid=(16, 16)):
+    """(3, B, S) Qwen2-VL positions with three distinct streams: row b
+    opens with 8 + b text tokens (t = h = w = i), then an image of
+    ``grid`` (gh, gw) patches (t stands at the span's start while h and w
+    walk the grid), then text again from the span's largest position +
+    1."""
+    import numpy as np
+
+    gh, gw = grid
+    pos = np.zeros((3, B, S), np.int64)
+    for b in range(B):
+        start, n = 8 + b, gh * gw
+        pos[:, b, :start] = np.arange(start)
+        rows, cols = np.divmod(np.arange(n), gw)
+        pos[0, b, start:start + n] = start
+        pos[1, b, start:start + n] = start + rows
+        pos[2, b, start:start + n] = start + cols
+        pos[:, b, start + n:] = start + max(gh, gw) + np.arange(
+            S - start - n)
+    return pos
+
+
+def check_mrope_on_card(cfg, dev):
+    """One M-RoPE rotation at three distinct position streams (a
+    (2, 448, 64, 128) q, as an admission row of phase 21 gives it) on the
+    card against the same on the CPU, f32: within TOL's f32 limits; and
+    it differs from 1-D RoPE there.  Returns the max abs error."""
+    import torch
+
+    from repro_torch.models import rope
+
+    gen = torch.Generator().manual_seed(21)
+    x = torch.randn(2, 448, cfg.n_heads, cfg.head_dim, generator=gen)
+    pos3 = torch.from_numpy(mrope_grid_positions(2, 448))
+    kw = dict(theta=cfg.rope_theta, sections=cfg.mrope_sections)
+    want = rope.apply_mrope(x, pos3, **kw)
+    got = rope.apply_mrope(x.to(dev), pos3.to(dev), **kw)
+    err = check_close("M-RoPE on the card vs the CPU", got.cpu(), want,
+                      "float32")
+    if float((want - rope.apply_rope(x, pos3[1], theta=cfg.rope_theta))
+             .abs().max()) < 0.1:
+        raise AssertionError("the M-RoPE check's streams do not tell it "
+                             "from 1-D RoPE")
+    return err
+
+
+def qv_kernel_checks(cfg, dev):
+    """Each attention kernel phase 21 runs, against its plain version at
+    the shapes its routes give it (64 query heads over 8 KV heads of 128:
+    G 8), f32 and bf16: flash over a 448-token admission row; the dense
+    slot and ``decode_attention`` (the pool's transposed view) over a
+    capacity-8 pool of 512 with a done row; the dense verify at S 5 (d 4 +
+    1: 40 query rows a KV head, in tiles); the paged slot and the paged
+    verify over 32 pages of 64 through permuted block tables with
+    sentinels.  Returns {kernel: max abs err over both dtypes}."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    B, Sc, S, page, n_pages = PHI_CAPACITY, PHI_MAX_LEN, QV_D + 1, 64, 32
+    gen = torch.Generator(device=dev).manual_seed(21)
+    errs = {name: 0.0 for name in QV_KERNELS}
+    kv_len = torch.tensor([0, 64, 96, 448, 200, 333, 128, 511],
+                          dtype=torch.int32, device=dev)
+    offs = torch.tensor([-1, 64, 96, 448, 200, 333, 128, 500],
+                        dtype=torch.int32, device=dev)
+    nblk = Sc // page
+    perm = torch.randperm(n_pages, generator=gen, device=dev).to(torch.int32)
+    bt = torch.full((B, nblk), n_pages, dtype=torch.int32, device=dev)
+    for b in range(B):  # 4 pages a row; the rest of the table sentinels
+        bt[b, :4] = perm[(4 * b) % n_pages:(4 * b) % n_pages + 4]
+    kv_paged = torch.clamp(kv_len, max=4 * page)
+    offs_paged = torch.clamp(offs, max=4 * page - S)
+    for dname in ("float32", "bfloat16"):
+        dt = getattr(torch, dname)
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device=dev).to(dt)
+
+        q, k, v = rnd(1, H, 448, hd), rnd(1, KV, 448, hd), rnd(1, KV, 448, hd)
+        cases = [("flash_attention", ops.flash_attention(q, k, v),
+                  ref.flash_attention_ref(q, k, v))]
+        pool_k, pool_v, qd = rnd(B, Sc, KV, hd), rnd(B, Sc, KV, hd), rnd(
+            B, H, hd)
+        cases.append(("slot_decode_attention",
+                      ops.slot_decode_attention(qd, pool_k, pool_v, kv_len),
+                      ref.slot_decode_attention_ref(qd, pool_k, pool_v,
+                                                    kv_len)))
+        kt, vt = pool_k.transpose(1, 2), pool_v.transpose(1, 2)
+        cases.append(("decode_attention",
+                      ops.decode_attention(qd, kt, vt, kv_len),
+                      ref.decode_attention_ref(qd, kt, vt, kv_len)))
+        qc, kc, vc = rnd(B, S, H, hd), rnd(B, S, KV, hd), rnd(B, S, KV, hd)
+        cases.append(("chunk_verify_attention",
+                      ops.chunk_verify_attention(qc, pool_k, pool_v, kc, vc,
+                                                 offs, ring=False),
+                      ref.chunk_verify_attention_ref(
+                          qc, pool_k, pool_v, kc, vc, offs, ring=False)))
+        ak, av = rnd(n_pages + 1, page, KV, hd), rnd(n_pages + 1, page, KV,
+                                                      hd)
+        cases.append(("paged_slot_decode_attention",
+                      ops.paged_slot_decode_attention(qd, ak, av, bt,
+                                                      kv_paged),
+                      ref.paged_slot_decode_attention_ref(qd, ak, av, bt,
+                                                          kv_paged)))
+        cases.append(("paged_chunk_verify_attention",
+                      ops.paged_chunk_verify_attention(
+                          qc, ak, av, bt, kc, vc, offs_paged, ring=False),
+                      ref.paged_chunk_verify_attention_ref(
+                          qc, ak, av, bt, kc, vc, offs_paged, ring=False)))
+        _sync()
+        for name, got, want in cases:
+            errs[name] = max(errs[name], check_close(
+                f"{name} at phase 21's shape ({dname})", got, want, dname))
+    return errs
+
+
+def run_qwen2vl(kernel_rows, smi, cfg=None, dev="cuda"):
+    """Phase 21: qwen2-vl-72b at full width cut to QV_LAYERS layers, in
+    f32 (``cfg`` and ``dev`` replace it for a rehearsal at a small size on
+    the CPU), on phase 19's geometry (8 requests of 64..448 prompt tokens,
+    the last 4 opening on one 256-token prefix; 64 new each, capacity 8,
+    max_len 512, K 8, buckets of 16).  Serving builds three equal M-RoPE
+    streams (1-D RoPE exactly, as in the reference), so one rotation at
+    three distinct streams is checked on the card against the CPU, and
+    each attention kernel against its plain version at this phase's
+    shapes (G 8).  Then: the dense pool, a QV_PAGES-page pool with prefix
+    hits (its schedule as a CPU run predicts it), a copy nudged by
+    QV_DRAFT_NOISE of each leaf's std drafting (d 4, K 2) on both pools
+    (acceptance strictly inside (0, 1)), ``generate`` at B 1 and the plain
+    route on the first QV_PLAIN_REQS: every run == the dense run, and the
+    first QV_PLAIN_REQS == the plain route, up to reported near ties;
+    exact launches, 0 pages in use.  Then the dense pool in bf16 (weights
+    cast leaf by leaf after the draft is gone), its first QV_PLAIN_REQS
+    held to the same route replayed with plain attention in bf16 (a
+    parting excused at a gap of at most two bf16 ulps)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import build_params, generate
+    from repro_torch.serve import ContinuousBatchingEngine, SpeculativeConfig
+    from repro_torch.utils.pytree import tree_param_count
+
+    t_phase = time.perf_counter()
+    full = cfg is None
+    kern = ops.kernels()
+    on_card = dev == "cuda"
+    t0 = time.perf_counter()
+    if full:
+        cfg, params = qv_model(QV_LAYERS, dev)
+    else:
+        params = build_params(cfg, seed=0, device=dev)
+    _sync()
+    init_s = time.perf_counter() - t0
+    n_params = tree_param_count(params)
+    if full and n_params != QV_N_PARAMS:
+        raise AssertionError(f"qwen2-vl-72b at {QV_LAYERS} layers has "
+                             f"{n_params} params, not {QV_N_PARAMS}")
+    L = cfg.n_layers
+    reqs = phi_requests(cfg.vocab_size, shared=True)
+    pool_kw = dict(capacity=PHI_CAPACITY, max_len=PHI_MAX_LEN, k=PHI_K,
+                   prefill_bucket=PHI_BUCKET)
+    t0 = time.perf_counter()
+    predicted = predict_phi_schedule(cfg, reqs, pool="paged", pages=QV_PAGES,
+                                     **pool_kw)
+    predict_s = time.perf_counter() - t0
+    spread = phi_spread(cfg, params, dev)
+    report = dict(n_params=n_params, init_seconds=init_s, spread=spread,
+                  predicted=predicted, nvidia_smi=smi)
+    if on_card:
+        report["mrope_err"] = check_mrope_on_card(cfg, dev)
+        report["kernel_errs"] = qv_kernel_checks(cfg, dev)
+    print(f"qwen2-vl-72b: {L} x {cfg.d_model}, {cfg.n_heads} heads over "
+          f"{cfg.n_kv_heads} KV heads of {cfg.head_dim}, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab_size}, M-RoPE sections {cfg.mrope_sections}: "
+          f"{n_params} params (f32, drawn in {init_s:.1f} s); spread "
+          f"{spread}; M-RoPE at three distinct streams, card vs CPU "
+          f"{report.get('mrope_err')}; kernels vs plain at this phase's "
+          f"shapes {report.get('kernel_errs')}; the paged schedule as a CPU "
+          f"run predicts it ({predict_s:.1f} s): {predicted} ({smi})",
+          flush=True)
+    if predicted["hits"] < 1:
+        raise AssertionError(f"the schedule predicts no prefix hit: "
+                             f"{predicted}")
+    p21 = {name: 0 for name in QV_KERNELS}
+
+    def want_launches(eng):
+        return (_phi_launches(eng, eng.cfg.n_layers, kern) if on_card
+                else {name: 0 for name in kern})
+
+    def serve(label, make_engine):
+        return moe_serve("qwen2-vl", label, make_engine, reqs, kern,
+                         want_launches, p21, smi, on_card)
+
+    runs = {}
+    for pool in ("dense", "paged"):
+        runs[pool], report[pool], eng = serve(
+            f"f32 {pool}", lambda: ContinuousBatchingEngine(
+                cfg, params, pool=pool,
+                pages=QV_PAGES if pool == "paged" else None, **pool_kw))
+        del eng
+    if report["paged"]["schedule"] != predicted:
+        raise AssertionError(f"qwen2-vl paged schedule "
+                             f"{report['paged']['schedule']} differs from "
+                             f"the CPU prediction {predicted}")
+    draft = nudged_copy(params, QV_DRAFT_NOISE, seed=21)
+    for pool in ("dense", "paged"):
+        label = f"{pool} speculative"
+        runs[label], report[label], eng = serve(
+            f"f32 {label}", lambda: ContinuousBatchingEngine(
+                cfg, params, capacity=PHI_CAPACITY, max_len=PHI_MAX_LEN,
+                k=QV_SPEC_K, prefill_bucket=PHI_BUCKET, pool=pool,
+                speculative=SpeculativeConfig(cfg, draft, d=QV_D)))
+        del eng
+        acc = report[label]["acceptance"]
+        if not 0.0 < acc < 1.0:
+            raise AssertionError(f"qwen2-vl {label}: acceptance {acc} not "
+                                 "inside (0, 1)")
+    del draft
+    # generate at B 1 (flash prefill, decode_attention) on the first few
+    gen = {}
+    for r in reqs[:QV_PLAIN_REQS]:
+        _launch_counts(kern, zero=True)
+        with torch.no_grad():
+            gen[r.uid] = generate(cfg, params, torch.from_numpy(
+                r.prompt)[None].to(dev), max_new_tokens=PHI_NEW,
+                max_len=PHI_MAX_LEN)[0].cpu().numpy()
+        got = _launch_counts(kern, zero=True)
+        want = {name: 0 for name in kern}
+        if on_card:
+            want.update(flash_attention=L, decode_attention=L * (PHI_NEW - 1))
+        if got != want:
+            raise AssertionError(f"uid {r.uid}: generate launched {got}, "
+                                 f"expected {want}")
+        for name in p21:
+            p21[name] += got[name]
+    t0 = time.perf_counter()
+    plain = {r.uid: phi_plain_route(cfg, params, r.prompt, PHI_NEW)
+             for r in reqs[:QV_PLAIN_REQS]}
+    plain_s = time.perf_counter() - t0
+    if _launch_counts(kern) != {name: 0 for name in kern}:
+        raise AssertionError("the plain route launched a kernel")
+    ties, _ = moe_check_runs(
+        "qwen2-vl f32", runs, reqs,
+        lambda r: (plain.get(r.uid) or phi_plain_route(
+            cfg, params, r.prompt, PHI_NEW)) + ({},), PHI_NEW, cfg.vocab_size)
+    ties["dense vs plain"], ties["generate vs plain"] = [], []
+    for r in reqs[:QV_PLAIN_REQS]:
+        for what, toks in (("dense", runs["dense"][r.uid]),
+                           ("generate", gen[r.uid])):
+            tie = check_phi_tokens(f"qwen2-vl {what} and the plain route",
+                                   r.uid, toks, *plain[r.uid])
+            if tie is not None:
+                ties[f"{what} vs plain"].append(tie)
+    distinct = int(np.unique(np.concatenate(list(runs["dense"].values())))
+                   .size)
+    report.update(near_ties=ties, plain_route_seconds=plain_s,
+                  distinct_tokens=distinct)
+    print(f"qwen2-vl f32: the {len(runs)} engine runs equal for "
+          f"{len(reqs)}/{len(reqs)} requests, the dense run and generate (B "
+          f"1) == the plain route ({plain_s:.1f} s) for uids "
+          f"{sorted(plain)}, but near ties {ties}; {distinct} distinct "
+          f"tokens of the dense run's {len(reqs) * PHI_NEW}", flush=True)
+    if full and distinct < QV_MIN_DISTINCT:
+        raise AssertionError(f"qwen2-vl's dense run gave only {distinct} "
+                             "distinct tokens: its greedy output repeats")
+    del runs, plain, gen
+
+    # the published bf16: the f32 weights cast leaf by leaf
+    cfg16 = cfg.replace(param_dtype="bfloat16", compute_dtype="bfloat16")
+    params = _cast_in_place(params, torch.bfloat16)
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    out16, report["bf16 dense"], eng = serve(
+        "bf16 dense", lambda: ContinuousBatchingEngine(cfg16, params,
+                                                       **pool_kw))
+    del eng
+    ties16 = []
+    for r in reqs[:QV_PLAIN_REQS]:
+        toks, gaps, rgaps, tops = phi_route_replay(cfg16, params, r.prompt,
+                                                   PHI_NEW)
+        tie = check_phi_tokens("qwen2-vl bf16 dense and its plain replay",
+                               r.uid, out16[r.uid], toks,
+                               gaps / bf16_ulp(tops), rgaps, tie=2.5)
+        if tie is not None:
+            ties16.append(tie)
+    report["bf16 near ties"] = ties16
+    if _launch_counts(kern) != {name: 0 for name in kern}:
+        raise AssertionError("the bf16 plain replay launched a kernel")
+    del params, out16
+    for name, n in p21.items():
+        kernel_rows[name]["launches_p21"] = n
+    report["launches_p21"] = p21
+    report["seconds"] = time.perf_counter() - t_phase
+    print(f"qwen2-vl bf16 dense == its plain replay for uids "
+          f"{[r.uid for r in reqs[:QV_PLAIN_REQS]]} but near ties (uid, "
+          f"step, gap in ulps) {ties16}; qwen2-vl phase: "
+          f"{report['seconds']:.1f} s; launches {p21} ({smi})", flush=True)
+    return report
+
+
+HU_ARCH = "hubert-xlarge"
+HU_N_PARAMS = 988_193_280  # eval_shape: 48 x 1280, head dim 80
+HU_TRAIN_B, HU_TRAIN_S, HU_TRAIN_STEPS = 2, 512, 3  # phase 22a
+HU_LR = 1e-4  # phase 22a's AdamW, and 22b's scratch model's
+# phase 22b: the source, hubert-xlarge at half depth and width (24 x 640,
+# 8 heads of 80, d_ff 2,560; the frames stay 1,280 wide), pretrained
+# HU_GROW_PRE steps at lr 3e-3, HU_GROW_OP operator steps into
+# hubert-xlarge at HU_OP_LR, the scratch model trained HU_GROW_OP steps at
+# HU_LR; B 2 x S 256 frames
+HU_GROW_PRE, HU_GROW_OP, HU_GROW_B, HU_GROW_S = 40, 5, 2, 256
+# the smaller phases' operator lr (2e-3 at width 64) scaled by 64 / 1,280:
+# a step moves every entry of A_I and A_O by about lr, and each grown
+# weight sums ~D of them, so 2e-3 at width 1,280 diverged (3.75 -> 21.3
+# in 5 steps; PERF.md section 6)
+HU_OP_LR = 1e-4
+
+
+def hubert_half(cfg):
+    """Phase 22b's Mango source: ``cfg`` (hubert-xlarge) at half depth
+    and width, the paper's L/2, D/2 setting."""
+    return cfg.replace(name="hubert-xlarge-half", n_layers=cfg.n_layers // 2,
+                       d_model=cfg.d_model // 2, n_heads=cfg.n_heads // 2,
+                       n_kv_heads=cfg.n_kv_heads // 2, d_ff=cfg.d_ff // 2)
+
+
+def hubert_train_flops(cfg, B, S):
+    """Operations of one training step (forward and backward, 3x the
+    forward's) of the encoder at B x S frames: every matrix param once a
+    frame (``pos_embed`` is a gather), plus the non-causal scores and
+    values over all S x S pairs of every layer."""
+    from repro_torch.models import transformer
+    from repro_torch.utils.pytree import tree_flatten_with_paths
+
+    mat = sum(int(s.numel()) for p, s in tree_flatten_with_paths(
+        transformer.param_shapes(cfg)) if len(s) >= 2 and p != "pos_embed")
+    attn = 4 * S * S * cfg.n_heads * cfg.head_dim
+    return 3 * B * (2 * S * mat + cfg.n_layers * attn)
+
+
+def run_hubert(kernel_rows, smi, cfg=None, dev="cuda"):
+    """Phase 22: hubert-xlarge (an encoder over continuous frames, 48 x
+    1,280, head dim 80; ``cfg`` and ``dev`` replace it for a rehearsal).
+    (a) Full width and depth, f32, trained HU_TRAIN_STEPS AdamW steps at
+    B HU_TRAIN_B x S HU_TRAIN_S on the train launcher's frames batches
+    (``launch.train.data_for``), params and moments updated in place: the
+    uncached non-causal forward takes plain attention, so no kernel
+    launches; finite losses, ms/step against the f32 FLOP bound, peak
+    memory.  (b) Grown into from its half-depth, half-width twin
+    (``hubert_half``) by rank-1 Mango (``run_small_growth`` on frames:
+    exact sandwich launches, the plain route's params within 1e-5 of a
+    leaf's largest entry, the held-out margin scratch - grown after equal
+    steps -- HU_GROW_OP operator steps, HU_GROW_OP scratch steps -- which
+    must be positive)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import build_params
+    from repro_torch.launch.train import data_for
+    from repro_torch.optim import OptimizerConfig, make_optimizer
+    from repro_torch.train.steps import make_train_step
+    from repro_torch.utils.pytree import tree_param_count
+
+    t_phase = time.perf_counter()
+    full = cfg is None
+    if full:
+        cfg = get_config(HU_ARCH).replace(param_dtype="float32",
+                                          compute_dtype="float32")
+    kern = ops.kernels()
+    on_card = dev == "cuda"
+    B, S = (HU_TRAIN_B, HU_TRAIN_S) if full else (2, 32)
+    if on_card:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = build_params(cfg, seed=0, device=dev)
+    _sync()
+    init_s = time.perf_counter() - t0
+    n_params = tree_param_count(params)
+    if full and n_params != HU_N_PARAMS:
+        raise AssertionError(f"hubert-xlarge has {n_params} params, not "
+                             f"{HU_N_PARAMS}")
+    data = data_for(cfg, B, S, seed=22)
+    opt = OptimizerConfig(lr=HU_LR)
+    init_fn, _ = make_optimizer(opt)
+    state = init_fn(params)
+    step = make_train_step(cfg, opt)
+    _launch_counts(kern, zero=True)
+    ms, metrics = [], []
+    for i in range(HU_TRAIN_STEPS):
+        batch = {k: torch.as_tensor(v).to(dev) for k, v in next(data).items()}
+        if batch["inputs"].shape != (B, S, cfg.continuous_inputs):
+            raise AssertionError(f"frames of {tuple(batch['inputs'].shape)}")
+        _sync()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch, i + 1)
+        m = {k: float(v) for k, v in m.items()}  # reads back: synchronises
+        _sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append(m)
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    launches = _launch_counts(kern, zero=True)
+    if launches != {name: 0 for name in kern}:
+        raise AssertionError(f"hubert training launched {launches}")
+    if not all(np.isfinite(m["loss"]) for m in metrics) or not all(
+            bool(torch.isfinite(t).all()) for t in _leaves(params)):
+        raise AssertionError(f"hubert training went wrong: {metrics}")
+    flops = hubert_train_flops(cfg, B, S)
+    b_ms, b_by = bound_ms(9 * 4 * n_params, flops, "float32")
+    report = dict(n_params=n_params, init_seconds=init_s, nvidia_smi=smi,
+                  train=dict(ms_per_step=ms, bound_ms=b_ms, bound_by=b_by,
+                             flops=flops, peak_gib=peak / 2**30,
+                             metrics=metrics, batch=B, seq=S))
+    print(f"hubert-xlarge training: {cfg.n_layers} x {cfg.d_model}, "
+          f"{cfg.n_heads} heads of {cfg.head_dim}, {n_params} params (f32, "
+          f"drawn in {init_s:.1f} s); frames B {B} x S {S} x "
+          f"{cfg.continuous_inputs} from the train launcher, AdamW f32: "
+          f"ms/step {[round(x, 1) for x in ms]} against the bound "
+          f"{b_ms:.1f} ms ({b_by}; {flops:.4g} FLOPs at 67 TFLOP/s f32, "
+          f"{9 * 4 * n_params / 1e9:.1f} GB at 3.35 TB/s); peak memory "
+          f"{peak / 2**30:.2f} GiB; losses "
+          f"{[round(m['loss'], 5) for m in metrics]}; no kernel launched "
+          f"({smi})", flush=True)
+    del state, params
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    report["grow"] = run_small_growth(
+        kernel_rows, "hubert", hubert_half(cfg), cfg, "launches_p22",
+        HU_GROW_PRE, HU_GROW_OP, HU_GROW_S if full else 16, dev,
+        batch=HU_GROW_B, op_lr=HU_OP_LR, scratch_steps=HU_GROW_OP,
+        scratch_lr=HU_LR)
+    if not report["grow"]["margin"] > 0:
+        raise AssertionError(f"grown hubert-xlarge is no better than "
+                             f"scratch after {HU_GROW_OP} steps: margin "
+                             f"{report['grow']['margin']}")
+    report["launches_p22"] = {"tr_sandwich": kernel_rows["tr_sandwich"][
+        "launches_p22"]}
+    report["seconds"] = time.perf_counter() - t_phase
+    print(f"hubert phase: {report['seconds']:.1f} s; launches "
+          f"{report['launches_p22']} ({smi})", flush=True)
+    return report
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -7820,13 +8354,30 @@ def main(argv=None):
     t0 = time.perf_counter()
     ds = run_ds(rows, smi[0] if smi else "nvidia-smi: no output")
     print(f"phase 20 took {time.perf_counter() - t0:.1f} s", flush=True)
+    gc.collect()  # phase 20's models go before qwen2-vl-72b
+    torch.cuda.empty_cache()
+
+    phase("qwen2-vl-72b (M-RoPE): dense and paged, speculative on both "
+          "pools, generate, bf16")
+    t0 = time.perf_counter()
+    qv = run_qwen2vl(rows, smi[0] if smi else "nvidia-smi: no output")
+    print(f"phase 21 took {time.perf_counter() - t0:.1f} s", flush=True)
+    gc.collect()  # phase 21's models go before hubert-xlarge
+    torch.cuda.empty_cache()
+
+    phase("hubert-xlarge (continuous inputs): trained at full width and "
+          "depth, grown into from its half")
+    t0 = time.perf_counter()
+    hubert = run_hubert(rows, smi[0] if smi else "nvidia-smi: no output")
+    print(f"phase 22 took {time.perf_counter() - t0:.1f} s", flush=True)
 
     # the contract's keys, then the tensor-core rows' 3xTF32 and bf16 ones
     kernels = [{key: r[key] for key in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
         "bound_rate", "bound_simt_ms", "bf16_ms", "bf16_library_ms",
-        "bf16_bound_ms", "launches_p19", "launches_p20") if key in r}
+        "bf16_bound_ms", "launches_p19", "launches_p20", "launches_p21",
+        "launches_p22") if key in r}
         for r in rows.values()]
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
@@ -7839,7 +8390,7 @@ def main(argv=None):
              "qwen": qwen, "deit": deit, "sampled": sampled,
              "upgrade": upgrade, "griffin_growth": griffin_growth,
              "window": window, "xlstm": xl, "phi": phi, "deepseek": ds,
-             "build_seconds": secs},
+             "qwen2_vl": qv, "hubert": hubert, "build_seconds": secs},
             indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,14 +1,16 @@
-"""Architecture configs beyond the paper's own models (the port's copy of
-``repro.configs.archs``), added slice by slice.
+"""The ten reference architectures (the port's copy of
+``repro.configs.archs``), each at its published widths with a reduced
+``-smoke`` twin, plus yi-9b's Mango source ``yi-9b-half`` and the
+CPU-sized ``griffin-micro`` pair.
 
-So far the MoE decoders phi3.5-moe-42b [hf] and deepseek-v3-671b
-[arXiv:2412.19437] (MLA, MoE and the MTP head), the RoPE dense decoders --
-stablelm-3b [hf, unverified],
-qwen1.5-0.5b [hf], qwen3-0.6b [hf], yi-9b [arXiv:2403.04652] and yi-9b's
-Mango source ``yi-9b-half`` -- and the griffin family: recurrentgemma-2b
-[arXiv:2402.19427], and the xlstm family: xlstm-1.3b
-[arXiv:2405.04517], each at its published widths with a reduced
-``-smoke`` twin, plus the CPU-sized ``griffin-micro`` pair.  The
+The MoE decoders phi3.5-moe-42b [hf] and deepseek-v3-671b
+[arXiv:2412.19437] (MLA, MoE and the MTP head); the RoPE dense decoders
+stablelm-3b [hf, unverified], qwen1.5-0.5b [hf], qwen3-0.6b [hf] and
+yi-9b [arXiv:2403.04652]; qwen2-vl-72b [arXiv:2409.12191] (multimodal
+RoPE; the vision frontend is a stub in the reference too); the griffin
+family's recurrentgemma-2b [arXiv:2402.19427]; the xlstm family's
+xlstm-1.3b [arXiv:2405.04517, unverified]; and the hubert-xlarge encoder
+[arXiv:2106.07447, unverified] (continuous inputs, non-causal).  The
 reference's TPU-only ``remat`` knob is left out, as in ``configs/base.py``.
 """
 from __future__ import annotations
@@ -189,6 +191,25 @@ def griffin_micro_big():
         head_dim=32, d_ff=384, lru_width=128)
 
 
+@register_named("qwen2-vl-72b")
+def qwen2_vl_72b():
+    return ModelConfig(
+        name="qwen2-vl-72b", family="transformer",
+        n_layers=80, d_model=8192, n_heads=64, n_kv_heads=8, head_dim=128,
+        d_ff=29568, vocab_size=152064, qkv_bias=True,
+        act="swiglu", norm="rms", rope="mrope", mrope_sections=(16, 24, 24),
+        rope_theta=1000000.0, max_seq_len=32768, **_SCALE)
+
+
+@register_named("qwen2-vl-72b-smoke")
+def qwen2_vl_72b_smoke():
+    return qwen2_vl_72b().replace(
+        name="qwen2-vl-72b-smoke", n_layers=2, d_model=64, n_heads=4,
+        n_kv_heads=2, head_dim=16, d_ff=160, vocab_size=256,
+        mrope_sections=(2, 3, 3), max_seq_len=256, param_dtype="float32",
+        compute_dtype="float32", attn_chunk=16)
+
+
 @register_named("xlstm-1.3b")
 def xlstm_13b():
     return ModelConfig(
@@ -204,3 +225,29 @@ def xlstm_13b_smoke():
         name="xlstm-1.3b-smoke", n_layers=4, d_model=64, n_heads=4,
         d_ff=0, vocab_size=256, slstm_every=4, max_seq_len=256,
         param_dtype="float32", compute_dtype="float32", attn_chunk=16)
+
+
+@register_named("hubert-xlarge")
+def hubert_xlarge():
+    return ModelConfig(
+        name="hubert-xlarge", family="transformer",
+        n_layers=48, d_model=1280, n_heads=16, n_kv_heads=16, head_dim=80,
+        d_ff=5120, vocab_size=504, causal=False, continuous_inputs=1280,
+        rope="none", learned_pos=32768, act="gelu", norm="ln",
+        max_seq_len=32768, **_SCALE)
+
+
+@register_named("hubert-xlarge-smoke")
+def hubert_xlarge_smoke():
+    return hubert_xlarge().replace(
+        name="hubert-xlarge-smoke", n_layers=2, d_model=64, n_heads=4,
+        n_kv_heads=4, head_dim=16, d_ff=160, vocab_size=32,
+        continuous_inputs=64, learned_pos=256, max_seq_len=256,
+        param_dtype="float32", compute_dtype="float32", attn_chunk=16)
+
+
+ARCH_IDS = [
+    "phi3.5-moe-42b", "deepseek-v3-671b", "stablelm-3b", "qwen1.5-0.5b",
+    "qwen3-0.6b", "yi-9b", "recurrentgemma-2b", "qwen2-vl-72b",
+    "xlstm-1.3b", "hubert-xlarge",
+]

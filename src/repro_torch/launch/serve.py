@@ -220,7 +220,8 @@ def require_servable(cfg):
         f"error: --engine continuous cannot serve {cfg.name!r}: {why}\n"
         "The slot-decode protocol serves causal decoder configs of every "
         "family in the zoo:\n"
-        "  transformer — full KV and ring-buffer window caches;\n"
+        "  transformer — full KV, MLA latent, and ring-buffer window "
+        "caches;\n"
         "  griffin     — rglru/conv recurrent state + local-attention "
         "rings;\n"
         "  xlstm       — mLSTM/sLSTM recurrent state.\n"

@@ -33,7 +33,7 @@ import torch
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config
-from repro_torch.data import lm_data_iter, vision_batch
+from repro_torch.data import frames_batch, lm_data_iter, vision_batch
 from repro_torch.models import get_family
 from repro_torch.optim import (
     OptimizerConfig,
@@ -46,7 +46,10 @@ from repro_torch.utils.device import resolve_device
 
 def data_for(cfg, batch, seq, seed=0, start_step=0):
     """Synthetic batches (numpy) from ``start_step`` on: vision batches for
-    a ``cls`` head, token chains for an LM."""
+    a ``cls`` head, frames and their unit labels for an LM head over
+    continuous inputs (hubert), token chains for a token LM.  The
+    reference hands a continuous-input LM token chains, which its forward
+    cannot embed (``KeyError: 'inputs'``)."""
     if cfg.head == "cls":
         def it():
             step = start_step
@@ -59,6 +62,14 @@ def data_for(cfg, batch, seq, seed=0, start_step=0):
                 yield b
                 step += 1
         return it()
+    if cfg.continuous_inputs:
+        def frames():
+            step = start_step
+            while True:
+                yield frames_batch(cfg.continuous_inputs, cfg.vocab_size,
+                                   batch, seq, seed=seed, step=step)
+                step += 1
+        return frames()
     return lm_data_iter(cfg.vocab_size, batch, seq, seed=seed,
                         start_step=start_step)
 

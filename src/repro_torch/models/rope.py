@@ -1,8 +1,11 @@
-"""Rotary position embeddings, standard and partial-fraction.
+"""Rotary position embeddings: standard, partial-fraction, and M-RoPE.
 
 The transformer family's ``rope="standard"`` configs (qwen, stablelm,
-yi) and griffin's local attention rotate q and k with it.  Multimodal
-RoPE (``"mrope"``, qwen2-vl) is not ported yet (ROADMAP.md).
+yi) and griffin's local attention rotate q and k with ``rope_tables``;
+``rope="mrope"`` (qwen2-vl) with ``mrope_tables``.  M-RoPE (Qwen2-VL,
+arXiv:2409.12191) splits the head's half-dim frequencies into (temporal,
+height, width) sections, each turned by its own position stream.  With
+three equal streams it is 1-D RoPE exactly.
 """
 from __future__ import annotations
 
@@ -33,6 +36,22 @@ def rope_tables(positions, hd, *, theta=10000.0, fraction=1.0,
             torch.sin(ang)[:, :, None, :].to(dtype))
 
 
+def mrope_tables(positions3, hd, *, theta=10000.0, sections=(16, 24, 24),
+                 dtype=torch.float32):
+    """The rotation of ``apply_mrope`` for (3, B, S) ``positions3`` (the
+    t, h and w streams) over heads of width ``hd``: (cos, sin) of shape
+    (B, S, 1, hd/2) in ``dtype``, as ``rope_tables`` gives.  ``sections``
+    are half-dim section sizes (sum == hd // 2): section i takes its
+    angles from stream i."""
+    assert sum(sections) == hd // 2, (sections, hd)
+    freqs = rope_freqs(hd, theta, device=positions3.device)  # (hd/2,)
+    ang_all = positions3.float()[..., None] * freqs  # (3, B, S, hd/2)
+    ang = torch.cat([part[i] for i, part in enumerate(
+        ang_all.split(list(sections), dim=-1))], dim=-1)  # (B, S, hd/2)
+    return (torch.cos(ang)[:, :, None, :].to(dtype),
+            torch.sin(ang)[:, :, None, :].to(dtype))
+
+
 def rotate(x, tables):
     """x: (B, S, H, hd) rotated by ``rope_tables``' (cos, sin): the first
     ``rot`` dims turn, the rest pass through."""
@@ -51,3 +70,10 @@ def apply_rope(x, positions, *, theta=10000.0, fraction=1.0):
     """
     return rotate(x, rope_tables(positions, x.shape[-1], theta=theta,
                                  fraction=fraction, dtype=x.dtype))
+
+
+def apply_mrope(x, positions3, *, theta=10000.0, sections=(16, 24, 24)):
+    """x: (B, S, H, hd); positions3: (3, B, S) int -- the (t, h, w)
+    position streams, Qwen2-VL's layout."""
+    return rotate(x, mrope_tables(positions3, x.shape[-1], theta=theta,
+                                  sections=sections, dtype=x.dtype))

@@ -2,14 +2,13 @@
 latent attention.
 
 Covers the paper's GPT/BERT/DeiT configs, the RoPE decoders (qwen1.5,
-qwen3, stablelm, yi), the MoE decoders (phi3.5-moe) and deepseek-v3 (MLA,
-MoE and the MTP head): LayerNorm or RMSNorm, GELU or gated MLPs, learned
-absolute positions or standard (optionally partial) RoPE, qkv bias and
-per-head q/k norms, MHA or GQA attention, separate or tied LM head, and a
-causal sliding window.  Params are nested dicts stacked over a leading
-layer axis, as in the reference package.  Configs with multimodal RoPE
-raise ``NotImplementedError`` (ROADMAP.md lists the slice that brings
-it).
+qwen3, stablelm, yi), qwen2-vl (multimodal RoPE), the hubert encoder
+(continuous inputs, non-causal), the MoE decoders (phi3.5-moe) and
+deepseek-v3 (MLA, MoE and the MTP head): LayerNorm or RMSNorm, GELU or
+gated MLPs, learned absolute positions, standard (optionally partial) RoPE
+or M-RoPE, qkv bias and per-head q/k norms, MHA or GQA attention,
+separate or tied LM head, and a causal sliding window.  Params are nested
+dicts stacked over a leading layer axis, as in the reference package.
 
 Multi-head latent attention (``cfg.mla``, arXiv:2412.19437) caches two
 latents a token instead of K/V: ``"ckv"`` (kv_lora_rank wide) and
@@ -56,7 +55,11 @@ RoPE rotates q and k after the q/k norms and before any cache write, at
 each token's absolute position: ``q_offset + arange(S)`` on the scalar
 routes (or ``batch["positions"]``), each slot's own, unclamped position on
 the slot routes, and ``positions[b] + arange(S)`` in speculative verify.
-One (cos, sin) table per forward serves every layer.
+One (cos, sin) table per forward serves every layer.  M-RoPE takes (3, B,
+S) positions, one stream each for t, h and w; a route that builds (B, S)
+positions (every serving route) turns them into three equal streams, as
+the reference does (``_rope``), and a given ``batch["positions"]`` of
+three rows reaches no learned-position lookup.
 
 Four call sites reach the hand-written kernels through ``kernels.ops``,
 which picks kernel or plain version by the tensor's device:
@@ -101,27 +104,6 @@ from repro_torch.models.common import (
     take_layer,
     trunc_normal,
 )
-
-
-def _unported(cfg):
-    """The reason this config is outside the ported slice (with the
-    ROADMAP.md queue 1 item that brings it), or None."""
-    if cfg.family != "transformer":
-        return f"family {cfg.family!r}"
-    if cfg.rope not in ("none", "standard"):
-        return f"RoPE ({cfg.rope}; item 7)"
-    return None
-
-
-def _require_ported(cfg):
-    """Raise for a config outside the ported slice: multimodal RoPE (the
-    only transformer variant left; MLA, MoE and the MTP head are
-    ported)."""
-    why = _unported(cfg)
-    if why is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: {why} is not ported to repro_torch yet (see "
-            "ROADMAP.md, queue 1)")
 
 
 def _groups(cfg):
@@ -174,7 +156,6 @@ def _attn_init(gen, cfg, layers, dtype, std, device):
 def init(gen: torch.Generator, cfg, device=None) -> dict:
     """Random params drawn from ``gen``, on ``device`` (default: the
     generator's device)."""
-    _require_ported(cfg)
     device = device or gen.device
     dtype = getattr(torch, cfg.param_dtype)
     std = 0.02
@@ -661,7 +642,9 @@ def _block(x, bp, cfg, *, moe, **attn_kw):
 def _rope(cfg, positions, dtype):
     """The (cos, sin) table every layer turns q and k by at ``positions``
     (B, S): MLA's at qk_rope_dim, fully; standard RoPE's at head_dim and
-    ``cfg.rope_fraction``; None without RoPE."""
+    ``cfg.rope_fraction``; M-RoPE's at head_dim over (3, B, S) positions
+    (the t, h and w streams; (B, S) ones become three equal streams, as
+    the reference's serving routes build them); None without RoPE."""
     if cfg.mla:
         return rope_lib.rope_tables(positions, cfg.qk_rope_dim,
                                     theta=cfg.rope_theta, dtype=dtype)
@@ -669,6 +652,12 @@ def _rope(cfg, positions, dtype):
         return rope_lib.rope_tables(positions, cfg.head_dim,
                                     theta=cfg.rope_theta,
                                     fraction=cfg.rope_fraction, dtype=dtype)
+    if cfg.rope == "mrope":
+        if positions.dim() == 2:
+            positions = positions[None].expand(3, *positions.shape)
+        return rope_lib.mrope_tables(positions, cfg.head_dim,
+                                     theta=cfg.rope_theta,
+                                     sections=cfg.mrope_sections, dtype=dtype)
     return None
 
 
@@ -689,12 +678,12 @@ def _run_group(x, group, n, cfg, *, moe, rope, cache=None, **attn_kw):
 
 def _layer_stack(x, params, cfg, positions, cache=None, **attn_kw):
     """The block groups (``_groups``), each through ``_run_group``.
-    ``positions`` (B, S) are the tokens' absolute positions, which RoPE
-    and MLA configs rotate by (one table for every layer; ignored without
-    RoPE).  Returns the residual stream before the final norm, ``{cache
-    key: [each layer's second output of _attn_forward]}`` (its cache, or
-    its pending chunk K/V or latents) and the sum of the MoE layers' aux
-    losses (0.0 without MoE layers)."""
+    ``positions`` (B, S) (or M-RoPE's (3, B, S)) are the tokens' absolute
+    positions, which RoPE and MLA configs rotate by (one table for every
+    layer; ignored without RoPE).  Returns the residual stream before the
+    final norm, ``{cache key: [each layer's second output of
+    _attn_forward]}`` (its cache, or its pending chunk K/V or latents) and
+    the sum of the MoE layers' aux losses (0.0 without MoE layers)."""
     rope = _rope(cfg, positions, x.dtype)
     per_group, aux_total = {}, 0.0
     for key, ckey, moe, n in _groups(cfg):
@@ -712,10 +701,12 @@ def _run_layers(x, params, cfg, positions, cache=None, **attn_kw):
 
 
 def _positions_from_batch(batch, x, cfg, q_offset=0):
-    """(B, S) absolute positions of the embedded batch ``x``:
-    ``batch["positions"]`` where given, else ``q_offset + arange(S)`` on
-    every row.  None without RoPE or MLA (nothing reads them)."""
-    if cfg.rope != "standard" and not cfg.mla:
+    """Absolute positions of the embedded batch ``x``:
+    ``batch["positions"]`` as given ((B, S), or M-RoPE's (3, B, S)), else
+    ``q_offset + arange(S)`` on every row, (B, S) (``_rope`` makes three
+    equal M-RoPE streams of it).  None without RoPE or MLA (nothing reads
+    them)."""
+    if cfg.rope not in ("standard", "mrope") and not cfg.mla:
         return None
     pos = batch.get("positions")
     if pos is not None:
@@ -753,7 +744,6 @@ def forward(params, batch, cfg):
     Returns (logits, aux) with aux = {"moe_aux": the MoE layers' summed
     aux loss} (0.0 when the config has no MoE layers), plus
     ``"mtp_logits"`` (B, S - 1, V) where the config has an MTP head."""
-    _require_ported(cfg)
     x = embed_inputs(params, batch, cfg)
     positions = _positions_from_batch(batch, x, cfg)
     x, _, moe_aux = _layer_stack(x, params, cfg, positions)
@@ -767,7 +757,7 @@ def forward(params, batch, cfg):
 def _mtp_forward(params, h, batch, positions, cfg):
     """DeepSeek-V3's depth-1 multi-token prediction head: position t's
     final hidden state (normed) beside token t + 1's embedding (normed),
-    projected to d_model, through one dense block at positions[:, :-1],
+    projected to d_model, through one dense block at positions[..., :-1],
     then the LM head (no final norm).  Its logits at t predict token t +
     2: (B, S - 1, V)."""
     mp = params["mtp"]
@@ -776,7 +766,7 @@ def _mtp_forward(params, h, batch, positions, cfg):
     hh = apply_norm(h[:, :-1], mp["norm_h"], cfg.norm)
     ee = apply_norm(emb[:, 1:], mp["norm_e"], cfg.norm)
     z = torch.cat([hh, ee], -1) @ mp["proj"].to(cdt)
-    pos = None if positions is None else positions[:, :-1]
+    pos = None if positions is None else positions[..., :-1]
     z, _, _ = _run_group(z, mp["block"], 1, cfg, moe=False,
                          rope=_rope(cfg, pos, cdt) if pos is not None
                          else None)
@@ -803,7 +793,6 @@ def init_cache(cfg, batch_size, max_len, dtype=None, device="cpu"):
     MLA's groups hold the latents instead, {"ckv": (L_g, B, flen,
     kv_lora_rank), "kr": (L_g, B, flen, qk_rope_dim)}, flen =
     pad_cache_len(max_len) (no ring layout)."""
-    _require_ported(cfg)
     dtype = dtype or getattr(torch, cfg.compute_dtype)
     n = min(max_len, cfg.window) if cfg.window else max_len
     cache = {}
@@ -828,7 +817,6 @@ def _forward_cached(params, batch, cfg, cache, q_offset, at=None,
                     **attn_kw):
     """Cached forward from ``q_offset``.  ``at`` (B,) picks one position
     per row whose logits are returned as (B, V); None returns (B, S, V)."""
-    _require_ported(cfg)
     x = embed_inputs(params, batch, cfg)
     x = _run_layers(x, params, cfg,
                     _positions_from_batch(batch, x, cfg, q_offset),
@@ -890,7 +878,6 @@ def decode_step_slots(params, tokens, positions, cache, cfg, done=None):
     -- finished/idle rows attend with kv_len == 0 (exact-zero attention).
     Returns (logits (B, V), cache) with the cache updated in place.
     """
-    _require_ported(cfg)
     batch = {"tokens": tokens[:, None], "positions": positions[:, None]}
     # RoPE turns at the unclamped position; only the cache write clamps
     x = _run_layers(embed_inputs(params, batch, cfg), params, cfg,
@@ -906,7 +893,6 @@ def prefill_cache(params, tokens, cfg, cache, plens=None):
     head): a speculative draft's admission, whose logits nobody reads.
     ``plens`` fills a ring cache per row (a full cache hides each row's
     pad tail behind its length).  Returns the cache, updated in place."""
-    _require_ported(cfg)
     batch = {"tokens": tokens}
     x = embed_inputs(params, batch, cfg)
     _layer_stack(x, params, cfg, _positions_from_batch(batch, x, cfg),
@@ -931,7 +917,6 @@ def verify_step_slots(params, tokens, positions, cache, cfg, done=None,
     the final norm and the head and returns (None, pending): a draft's
     catch-up needs only its pending K/V.
     """
-    _require_ported(cfg)
     B, S = tokens.shape
     # learned positions past the table clamp in ``embed_inputs``; such
     # overshot positions are never committed (budget-masked)
@@ -1037,10 +1022,6 @@ def serve_supported(cfg):
         return False, ("requires a causal token LM "
                        f"(causal={cfg.causal}, "
                        f"continuous_inputs={cfg.continuous_inputs})")
-    why = _unported(cfg)
-    if why is not None:
-        return False, (f"{why} is not ported to repro_torch yet (see "
-                       "ROADMAP.md)")
     if cfg.mla and cfg.window:
         return False, "MLA latent caches have no ring-buffer window layout"
     if cfg.mla:
@@ -1055,7 +1036,6 @@ def paged_groups(cfg):
     ``{key: (kind, leaf names)}``.  Every block group ("dense", "moe")
     pages on its sequence axis: its K/V, or MLA's latents ("ckv", "kr");
     the groups share one block table layout."""
-    _require_ported(cfg)
     leaves = ("ckv", "kr") if cfg.mla else ("k", "v")
     return {ckey: ("seq", leaves) for _, ckey, _, _ in _groups(cfg)}
 

@@ -65,6 +65,28 @@ def jax_params(jcfg, seed=0, randomize=False):
     return p
 
 
+def redrawn_params(jcfg, seed=0):
+    """JAX-initialised params redrawn from seeded numpy: the embedding
+    and an untied head at std 0.02, every other matrix and bias at std
+    0.2, norm scales at 1 +- 0.1 (at JAX's init greedy decoding repeats
+    the last token, which would hide a fault in the positions; a small
+    head keeps f32 logits below 1, where 2e-5 is summation-order noise);
+    returns (numpy tree for JAX, tensors for the port)."""
+    init = jax.jit(lambda key: jax_family(jcfg).init(key, jcfg))
+    p = jax.tree.map(np.asarray, init(jax.random.PRNGKey(seed)))
+    rng = np.random.default_rng(seed)
+
+    def redraw(path, a):
+        name = jax.tree_util.keystr(path)
+        if "scale" in name or name.endswith("_norm']"):
+            return (1.0 + 0.1 * rng.standard_normal(a.shape)).astype(a.dtype)
+        std = 0.02 if "embed" in name or "'head'" in name else 0.2
+        return (std * rng.standard_normal(a.shape)).astype(a.dtype)
+
+    p = jax.tree_util.tree_map_with_path(redraw, p)
+    return p, from_jax(p)
+
+
 def both_params(jcfg, **kw):
     """(numpy params for JAX, the same as CPU tensors for the port)."""
     p = jax_params(jcfg, **kw)

@@ -521,6 +521,8 @@ def test_cuda_chunk_verify_matches_plain(cuda_device, ring, window, G,
     (8, 5, 12, 12, 1024, 64, torch.bfloat16),
     (3, 16, 16, 2, 300, 128, torch.float32),   # S*G = 128: 16 query tiles
     (2, 1, 8, 8, 64, 128, torch.bfloat16),     # S = 1
+    (8, 5, 64, 8, 512, 128, torch.float32),    # qwen2-vl-72b verify: G 8
+    (8, 5, 64, 8, 512, 128, torch.bfloat16),
 ])
 def test_cuda_chunk_verify_main_shapes_match_plain(cuda_device, B, S, H, KV,
                                                    Sc, hd, dtype):
@@ -1796,7 +1798,13 @@ def _qwen3_hd128(dev):
     """qwen3-0.6b-smoke at head_dim 128 (its own 32 is no kernel
     variant): q/k norms, GQA 4/2, RoPE theta 1e6; weights redrawn
     (embedding std 0.02, matrices 0.2) so greedy tokens vary."""
-    cfg = get_config("qwen3-0.6b-smoke").replace(head_dim=128)
+    return _redrawn(dev, get_config("qwen3-0.6b-smoke").replace(
+        head_dim=128))
+
+
+def _redrawn(dev, cfg):
+    """``cfg``'s params on ``dev`` with the embedding at std 0.02 and every
+    other matrix and bias at 0.2 (norm scales kept)."""
     gen = torch.Generator(device=dev).manual_seed(0)
     params = transformer.init(gen, cfg)
 
@@ -1838,7 +1846,10 @@ def test_cuda_rope_engine_matches_generate_with_exact_launches(cuda_device,
     for itself: tokens equal ``generate``, which launches decode_attention
     once per layer and decode step; the engine launches its pool's slot
     kernel once per layer and decode step and never decode_attention."""
-    cfg, params = _qwen3_hd128(cuda_device)
+    _rope_engine_case(cuda_device, pool, *_qwen3_hd128(cuda_device))
+
+
+def _rope_engine_case(cuda_device, pool, cfg, params):
     reqs = [Request(uid=i, prompt=lm_batch(cfg.vocab_size, 1, p,
                                            seed=90 + i)[0], max_new_tokens=g)
             for i, (p, g) in enumerate([(16, 12), (33, 7), (9, 20),
@@ -2749,3 +2760,34 @@ def test_cuda_mla_engine_routes_agree_without_attention_kernels(
     assert drops["dropped"] > 0
     for r in reqs:
         np.testing.assert_array_equal(paged[r.uid], dense[r.uid])
+
+
+# -------------------------------------------------------------- qwen2-vl
+def test_cuda_mrope_matches_the_cpu(cuda_device):
+    """One M-RoPE rotation at three distinct position streams (an image
+    span's grid) on the card equals the CPU's, at qwen2-vl-72b's heads
+    (chip_smoke.py phase 21's check)."""
+    err = _smoke.check_mrope_on_card(get_config("qwen2-vl-72b"),
+                                     cuda_device)
+    assert err <= 2e-5
+
+
+def test_cuda_qwen2vl_kernel_shapes_match_plain(cuda_device):
+    """Every attention kernel at qwen2-vl-72b's shapes (64 query heads
+    over 8 KV heads of 128; phase 21's flash row, dense and paged slot,
+    ``decode_attention``, dense and paged verify at B 8, S 5), f32 and
+    bf16, against its plain version (chip_smoke.py phase 21's check)."""
+    errs = _smoke.qv_kernel_checks(get_config("qwen2-vl-72b"), cuda_device)
+    assert set(errs) == set(_smoke.QV_KERNELS)
+
+
+@pytest.mark.parametrize("pool", ["dense", "paged"])
+def test_cuda_mrope_engine_matches_generate_with_exact_launches(cuda_device,
+                                                                pool):
+    """qwen2-vl-72b-smoke at head_dim 128 (M-RoPE sections (16, 24, 24),
+    qkv bias, GQA 4/2) through the engine and drafting for itself, as the
+    RoPE engine test runs qwen3: tokens equal ``generate``, launches
+    exact."""
+    cfg = get_config("qwen2-vl-72b-smoke").replace(
+        head_dim=128, mrope_sections=(16, 24, 24))
+    _rope_engine_case(cuda_device, pool, *_redrawn(cuda_device, cfg))

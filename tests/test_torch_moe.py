@@ -695,16 +695,17 @@ def test_train_launcher_matches_jax(monkeypatch):
 
 
 def test_unported_moe_variants_still_refused():
-    """MoE is ported, and MLA and the MTP head beside it (deepseek): the
-    latent cache groups and the "mtp" params have JAX's shapes and the
-    config serves; mrope beside MoE is still refused."""
+    """MoE is ported, and MLA, the MTP head and M-RoPE beside it: the
+    latent cache groups, the "mtp" params and M-RoPE's K/V groups and
+    params have JAX's shapes and the config serves as JAX's does."""
     jcfg = JaxConfig(name="x", moe=True, n_experts=4, top_k=2,
                      expert_d_ff=16, moe_layer_start=1)
     cfg = port_config(jcfg)
     assert serve_supported(cfg)[0]
     mla = dict(mla=True, kv_lora_rank=8, q_lora_rank=8, qk_nope_dim=8,
                qk_rope_dim=8, v_head_dim=8)
-    for kw in (mla, dict(mtp=True), dict(mla, mtp=True)):
+    for kw in (mla, dict(mtp=True), dict(mla, mtp=True),
+               dict(rope="mrope", mrope_sections=(2, 3, 3))):
         jc, c = jcfg.replace(**kw), cfg.replace(**kw)
         want = _np(jax_family(jc).init_cache(jc, 1, 8))
         _assert_tree_close(transformer.init_cache(c, 1, 8), want, atol=0)
@@ -716,8 +717,6 @@ def test_unported_moe_variants_still_refused():
         assert gshapes == wshapes
         assert serve_supported(c) == jax_family(jc).serve_supported(jc)
         assert serve_supported(c)[0]
-    with pytest.raises(NotImplementedError, match="mrope"):
-        transformer.init_cache(cfg.replace(rope="mrope"), 1, 8)
 
 
 # ------------------------------------------------------------------- bf16

@@ -4,8 +4,9 @@
 ``decode_attention`` against JAX's oracle and its Pallas kernel in
 interpret mode; the four RoPE smoke configs (qwen1.5: qkv bias; qwen3:
 q/k norms and GQA; stablelm: partial rotary 0.25 and LayerNorm; yi: theta
-5e6) through forward, prefill + scalar decode, slot decode with done
-rows, verify + commit, and paged decode and verify, on converted weights
+5e6) and qwen2-vl-72b-smoke (M-RoPE over three equal streams) through
+forward, prefill + scalar decode, slot decode with done rows, verify +
+commit, and paged decode and verify, on converted weights
 (f32 logits within ``F32_ATOL``: the frameworks sum in different orders);
 the dense-pool step builders; and the engine on qwen3-0.6b-smoke, dense
 and paged under page pressure with prefix hits at K 8 and 16, and
@@ -19,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import F32_ATOL, port_config
+from _torch_port import F32_ATOL, port_config, redrawn_params
 from repro.configs.base import ModelConfig as JaxConfig
 from repro.configs.base import get_config as jax_get_config
 from repro.data.synthetic import lm_batch
@@ -47,32 +48,13 @@ from repro_torch.train import steps
 
 ROPE_SMOKE = ("qwen1.5-0.5b-smoke", "qwen3-0.6b-smoke", "stablelm-3b-smoke",
               "yi-9b-smoke")
+# the model routes also run qwen2-vl (M-RoPE), whose routes build three
+# equal position streams (tests/test_torch_qwen2vl.py feeds distinct ones)
+ROUTE_SMOKE = ROPE_SMOKE + ("qwen2-vl-72b-smoke",)
 ROPE_ARCHS = ("stablelm-3b", "qwen1.5-0.5b", "qwen3-0.6b", "yi-9b",
               "yi-9b-half") + ROPE_SMOKE
 MAX_LEN = 64  # pad_cache_len(64) = 64: page 8, 8 blocks a slot
 BF16_TOL = dict(atol=5e-3, rtol=1e-2)  # one bf16 rounding of the output
-
-
-def _params(jcfg, seed=0):
-    """JAX-initialised params redrawn from seeded numpy: the embedding
-    and an untied head at std 0.02, every other matrix and bias at std
-    0.2, norm scales at 1 +- 0.1 (at JAX's init greedy decoding repeats
-    the last token, which would hide a fault in the positions; a small
-    head keeps f32 logits below 1, where 2e-5 is summation-order noise);
-    returns (numpy tree for JAX, tensors for the port)."""
-    init = jax.jit(lambda key: jax_family(jcfg).init(key, jcfg))
-    p = jax.tree.map(np.asarray, init(jax.random.PRNGKey(seed)))
-    rng = np.random.default_rng(seed)
-
-    def redraw(path, a):
-        name = jax.tree_util.keystr(path)
-        if "scale" in name or name.endswith("_norm']"):
-            return (1.0 + 0.1 * rng.standard_normal(a.shape)).astype(a.dtype)
-        std = 0.02 if "embed" in name or "'head'" in name else 0.2
-        return (std * rng.standard_normal(a.shape)).astype(a.dtype)
-
-    p = jax.tree_util.tree_map_with_path(redraw, p)
-    return p, from_jax(p)
 
 
 _MODELS = {}
@@ -81,7 +63,7 @@ _MODELS = {}
 def _model(name):
     if name not in _MODELS:
         jcfg = jax_get_config(name)
-        _MODELS[name] = (jcfg, port_config(jcfg), *_params(jcfg))
+        _MODELS[name] = (jcfg, port_config(jcfg), *redrawn_params(jcfg))
     return _MODELS[name]
 
 
@@ -138,12 +120,28 @@ def test_rope_configs_equal_the_reference_and_serve():
     (dict(mla=True, kv_lora_rank=8, q_lora_rank=8, qk_nope_dim=8,
           qk_rope_dim=8, v_head_dim=8, window=8), "MLA window")])
 def test_unported_variants_still_refused(kw, what):
-    """M-RoPE is refused; a sliding window, MoE layers, MLA and the MTP
-    head on qwen3 are ported (the ring cache, the "moe" cache group, or
-    the "ckv"/"kr" latents have JAX's shapes; the "mtp" head has JAX's
-    param shapes; each serves), but MLA with a window is refused, as JAX
-    refuses it."""
+    """M-RoPE, a sliding window, MoE layers, MLA and the MTP head on qwen3
+    are ported (M-RoPE's K/V cache and params, the ring cache, the "moe"
+    cache group, or the "ckv"/"kr" latents have JAX's shapes; the "mtp"
+    head has JAX's param shapes; each serves as JAX's does), but MLA with
+    a window is refused, as JAX refuses it."""
     cfg = get_config("qwen3-0.6b-smoke").replace(**kw)
+    if "rope" in kw:
+        jcfg = jax_get_config("qwen3-0.6b-smoke").replace(**kw)
+        want = jax_family(jcfg).init_cache(jcfg, 1, 40)
+        got = transformer.init_cache(cfg, 1, 40)
+        assert set(got) == set(want) == {"dense"}
+        for name in ("k", "v"):
+            assert got["dense"][name].shape == want["dense"][name].shape
+        wshapes = jax.tree.map(lambda s: tuple(s.shape), jax.eval_shape(
+            lambda: jax_family(jcfg).init(jax.random.PRNGKey(0), jcfg)))
+        assert jax.tree.map(tuple, transformer.param_shapes(cfg),
+                            is_leaf=lambda x: isinstance(
+                                x, torch.Size)) == wshapes
+        assert serve_supported(cfg) == jax_family(jcfg).serve_supported(
+            jcfg)
+        assert serve_supported(cfg)[0]
+        return
     if "mla" in kw or "mtp" in kw:
         jcfg = jax_get_config("qwen3-0.6b-smoke").replace(**kw)
         want = jax_family(jcfg).init_cache(jcfg, 1, 40)
@@ -181,8 +179,7 @@ def test_unported_variants_still_refused(kw, what):
         ok, why = serve_supported(cfg)
         assert ok and "ring-buffer window" in why
         return
-    with pytest.raises(NotImplementedError, match=what):
-        transformer.init_cache(cfg, 1, 8)
+    raise AssertionError(f"no case checks {what}")
     ok, why = serve_supported(cfg)
     assert not ok and what in why
 
@@ -326,7 +323,7 @@ def test_scalar_decode_step_routes_through_decode_attention(monkeypatch):
 
 
 # ---------------------------------------------------------------- models
-@pytest.mark.parametrize("name", ROPE_SMOKE)
+@pytest.mark.parametrize("name", ROUTE_SMOKE)
 def test_forward_matches_jax(name):
     jcfg, cfg, jp, tp = _model(name)
     toks = lm_batch(jcfg.vocab_size, 2, 40, seed=9)
@@ -338,7 +335,7 @@ def test_forward_matches_jax(name):
     _close(got, want)
 
 
-@pytest.mark.parametrize("name", ROPE_SMOKE)
+@pytest.mark.parametrize("name", ROUTE_SMOKE)
 def test_prefill_and_decode_steps_match_jax(name):
     """``prefill`` then scalar ``decode_step`` (the decode_attention
     route): logits at each step and the rotated cache within tolerance."""
@@ -375,7 +372,7 @@ def _admitted(jcfg, cfg, jp, plens, S, seed):
     return toks, jl, jax.tree.map(np.asarray, jc)
 
 
-@pytest.mark.parametrize("name", ROPE_SMOKE)
+@pytest.mark.parametrize("name", ROUTE_SMOKE)
 def test_slot_decode_with_done_rows_matches_jax(name):
     """Per-row positions after a padded admission prefill, a done row:
     logits of live rows and the cache within tolerance of JAX's slot
@@ -413,7 +410,7 @@ def test_slot_decode_with_done_rows_matches_jax(name):
                    np.asarray(jc["dense"][name_])[:, b, :pos[b]])
 
 
-@pytest.mark.parametrize("name", ROPE_SMOKE)
+@pytest.mark.parametrize("name", ROUTE_SMOKE)
 def test_verify_and_commit_match_jax(name):
     """A verify chunk per row at its own offset (one overshooting the
     cache: its proposals rotate past ``max_len``), a done row: logits of
@@ -463,7 +460,7 @@ def _with_scratch(a):
     return torch.cat([t, torch.full_like(t[:, :1], 7.5)], 1)
 
 
-@pytest.mark.parametrize("name", ROPE_SMOKE)
+@pytest.mark.parametrize("name", ROUTE_SMOKE)
 def test_paged_decode_and_verify_match_jax(name):
     """The admitted rows scattered over a permuted 20-page arena (a short
     row's table ends in sentinels): slot decode with a done row, then a
@@ -677,7 +674,7 @@ def test_generate_matches_jax_on_a_partial_rotary_gqa_config():
                      rope="standard", rope_fraction=0.5, rope_theta=1e6,
                      act="swiglu", norm="rms", max_seq_len=128)
     cfg = port_config(jcfg)
-    jp, tp = _params(jcfg, seed=4)
+    jp, tp = redrawn_params(jcfg, seed=4)
     prompts = lm_batch(jcfg.vocab_size, 3, 17, seed=21)
     want = jax_generate(jcfg, jp, jnp.asarray(prompts), max_new_tokens=12)
     got = generate(cfg, tp, torch.from_numpy(prompts), max_new_tokens=12)

@@ -128,13 +128,32 @@ def test_port_init_matches_reference_layout():
           qk_rope_dim=8, v_head_dim=8, window=8), "MLA window"),
 ])
 def test_unported_configs_raise_naming_roadmap(kw, what):
-    """Multimodal RoPE raises, naming ROADMAP.md; a sliding window is
-    ported: its slot cache is JAX's ring of pad_cache_len(min(max_len,
-    window)) slots and it serves; MoE is ported: its cache is JAX's one
-    "moe" group and it serves; MLA is ported: its cache is JAX's "ckv"/
-    "kr" latents and it serves, but not with a window, which JAX refuses
-    too."""
+    """Every variant is ported now.  Multimodal RoPE: its cache and param
+    shapes are JAX's and it serves as JAX's does; a sliding window: its
+    slot cache is JAX's ring of pad_cache_len(min(max_len, window)) slots
+    and it serves; MoE: its cache is JAX's one "moe" group and it serves;
+    MLA: its cache is JAX's "ckv"/"kr" latents and it serves, but not
+    with a window, which JAX refuses too."""
     cfg = ModelConfig(name="x", rope="none", learned_pos=16).replace(**kw)
+    if "rope" in kw:
+        jcfg = jax_get_config("gpt-micro").replace(
+            **dict(dict(name="x", learned_pos=16), **kw))
+        want = jax_family(jcfg).init_cache(jcfg, 2, 20)
+        got = transformer.init_cache(port_config(jcfg), 2, 20)
+        assert set(got) == set(want) == {"dense"}
+        for name in ("k", "v"):
+            assert got["dense"][name].shape == want["dense"][name].shape
+        wshapes = jax.tree.map(lambda s: tuple(s.shape), jax.eval_shape(
+            lambda: jax_family(jcfg).init(jax.random.PRNGKey(0), jcfg)))
+        gshapes = jax.tree.map(tuple, transformer.param_shapes(
+            port_config(jcfg)), is_leaf=lambda x: isinstance(x, torch.Size))
+        assert gshapes == wshapes
+        assert serve_supported(cfg) == jax_family(jcfg).serve_supported(
+            jcfg)
+        ok, why = serve_supported(cfg)
+        assert ok and "full KV cache" in why
+        assert transformer.slot_cache_layout(cfg) == "full"
+        return
     if "mla" in kw:
         jcfg = jax_get_config("gpt-micro").replace(
             name="x", rope="none", learned_pos=16, **kw)
@@ -177,8 +196,4 @@ def test_unported_configs_raise_naming_roadmap(kw, what):
         assert ok and "ring-buffer window" in why
         assert transformer.slot_cache_layout(cfg) == "ring"
         return
-    with pytest.raises(NotImplementedError, match=what) as e:
-        transformer.init_cache(cfg, 1, 8)
-    assert "ROADMAP" in str(e.value)
-    ok, why = serve_supported(cfg)
-    assert not ok and what in why
+    raise AssertionError(f"no case checks {what}")
